@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # Llama-3-8B shapes, full width and depth
+    python3 chip_smoke.py            # Llama-3-8B shapes
 
 Phases (any failure raises and the script exits nonzero; nothing is caught):
 
@@ -19,6 +19,17 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    kernel's device time (``torch.profiler``) beside its plain version's,
    its bound and (for RMSNorm) ``torch.nn.functional.rms_norm`` as the
    library yardstick.
+   Flash-attention kernels (forward, dQ, dK/dV) through op ``attention``'s
+   autograd function against plain attention under autograd in fp32 on the
+   same bf16 inputs (output, and the grads of sum(o * dO) for a random dO)
+   at Llama-3-8B attention shapes
+   (32 heads, 8 kv heads, hd 128, bf16): S = 4096 causal, S = 1000, Sq 512
+   against Skv 4096 at q_offset 3584, window 1024, non-causal, and MHA
+   (32/32). Each output held with ``row_err`` to its limit in
+   ``FLASH_TOL``; one swapped 64-row K tile must fail the check. Prints
+   each kernel's device time beside its bound, its plain version's and
+   ``F.scaled_dot_product_attention``'s (the library yardstick, timed here
+   and used nowhere in the port).
 4. Main path: ``build_engine_v2`` with ``LlamaConfig.llama3_8b()`` (bf16
    weights from a seed, 512 x 128-token KV blocks, 64 slots) and
    ``generate`` on 8 prompts of mixed lengths (one of length 1, one > 128),
@@ -29,9 +40,23 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
 5. Whole path against the plain path: the same width at 2 layers, one
    prompt's prefill and 4 decode steps on the card (kernels) and on the CPU
    (plain versions), logits compared within a bf16 tolerance.
+6. Training main path: ``initialize(model=llama.model_spec(Llama-3-8B at
+   4 layers))`` with bf16, AdamW (lr 3e-4, weight decay 0.1), clipping 1.0,
+   ZeRO 0, batch 2 as 2 micro-batches of one 4096-token sequence; 6
+   ``train_batch`` steps on one fixed batch. Launch counters are zeroed
+   just before and read just after: per step 8 launches of each flash
+   kernel (4 layers x 2 micro-batches) and 18 of RMSNorm (9 per forward);
+   the loss must be finite and fall. Prints step ms, tokens/s, model
+   TFLOP/s and its share of 989, peak memory and the device-idle share of
+   one profiled step.
+7. Whole training path against the plain path: the same width at 1 layer,
+   S = 256, one step's loss and every leaf's gradient on the card (kernels,
+   bf16) and on the CPU (plain versions, fp32) from the same fp32 masters,
+   within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_RTOL``; a planted fault
+   (dV of one kv head zeroed) must fail the check.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-launches on the main path, times, bound, max error); the last line is
+launches on the main paths, times, bound, max error); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 ``--details PATH`` also writes every measurement as JSON to PATH.
 """
@@ -61,6 +86,24 @@ RMS_TOL = 0.05         # bf16: one rounding step (<= 0.031) of |y| < 8, row RMS 
 DECODE_TOL = 0.06      # sound kernels read <= 0.03 (the plain version rounds p
                        # to bf16); one wrong 128-position block reads >= 0.5
 WHOLE_PATH_TOL = 0.1   # logits after 2 bf16 layers + lm-head, row RMS ~1
+# flash kernels (bf16) against plain attention in fp32 on the same inputs:
+# row err / row RMS, each row's RMS floored at FLASH_FLOOR times the
+# output's. dQ rows are floored at the output's RMS: the flash backward
+# takes delta = rowsum(dO * O) from the bf16 O (as the TPU kernel does), and
+# a query that sees few keys, whose dQ is small, keeps that rounding whole
+# (up to 0.34 of its own RMS). From the CPU simulation in
+# tests/test_torch_flash_attention.py
+# (test_flash_row_limits_separate_sound_from_faulty, which prints them):
+# sound o/dk/dv <= 0.021 and dq <= 0.063; one swapped 64-row K tile >= 2.6.
+FLASH_TOL = {"o": 0.05, "dq": 0.15, "dk": 0.05, "dv": 0.05}
+FLASH_FLOOR = {"o": 0.01, "dq": 1.0, "dk": 0.01, "dv": 0.01}
+# whole training step, card (bf16, kernels) against CPU (fp32, plain), from
+# the CPU simulation in tests/test_torch_train_llama.py
+# (test_train_limits_separate_sound_from_faulty): loss <= 1e-4 relative,
+# leaf grads <= 0.0133 relative Frobenius, a zeroed dV head ~0.7 on wv.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_RTOL = 0.05     # per leaf, ||card - cpu||_F / ||cpu||_F
+TRAIN_STEPS = 6
 SEED = 0                       # weights, prompts and kernel inputs
 MAX_NEW_TOKENS = 32
 
@@ -133,20 +176,23 @@ def measure(fn, iters: int) -> dict:
             "kernels_per_call": n_kernels / iters}
 
 
-def row_err(got, ref) -> tuple:
+def row_err(got, ref, floor: float = 0.0) -> tuple:
     """(max |got - ref|, max over rows of max |got - ref| / RMS(ref row)),
-    a row being the last dimension."""
+    a row being the last dimension; ``floor`` > 0 floors each row's RMS at
+    that share of the whole output's RMS."""
     diff = (got.float() - ref.float()).abs()
     rms = ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    if floor:
+        rms = rms.clamp_min(floor * float(ref.float().pow(2).mean().sqrt()))
     return float(diff.max()), float((diff.amax(-1) / rms).max())
 
 
-def check_close(what: str, got, ref, tol: float) -> tuple:
-    """``row_err(got, ref)``; raises unless every row's error is within
-    ``tol`` of its RMS and ``got`` is finite."""
+def check_close(what: str, got, ref, tol: float, floor: float = 0.0) -> tuple:
+    """``row_err(got, ref, floor)``; raises unless every row's error is
+    within ``tol`` of its RMS and ``got`` is finite."""
     import torch
 
-    err, rel = row_err(got, ref)
+    err, rel = row_err(got, ref, floor)
     ok = rel <= tol and bool(torch.isfinite(got.float()).all())
     log(f"  {what}: max_abs_err={err:.3e}, max row err/RMS={rel:.4f} (tol {tol:g}) "
         f"{'ok' if ok else 'FAIL'}")
@@ -429,6 +475,321 @@ def phase_whole_path(seed: int, card: str):
 
 
 # --------------------------------------------------------------------------- #
+FLASH_CASES = [   # name, Sq, Skv, kv heads, causal, q_offset, window
+    ("causal S=4096", 4096, 4096, 8, True, 0, None),
+    ("tail S=1000", 1000, 1000, 8, True, 0, None),
+    ("Sq=512 Skv=4096 q_offset=3584", 512, 4096, 8, True, 3584, None),
+    ("window 1024 S=4096", 4096, 4096, 8, True, 0, 1024),
+    ("non-causal S=4096", 4096, 4096, 8, False, 0, None),
+    ("MHA 32/32 S=4096", 4096, 4096, 32, True, 0, None),
+]
+H, HD = 32, 128
+
+
+def flash_work(sq, skv, hkv, causal, q_offset, window, b=1) -> dict:
+    """Visible (q, k) pairs of the case and, per kernel, the operations its
+    products need (2 * hd per pair and product: forward QK^T and PV; dQ
+    three products; dK/dV four) and the bytes it must move (each input
+    read once, each output written once; bf16 tensors, fp32 lse/delta)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.flash_attention import _visible
+
+    pairs = int(_visible(sq, skv, causal, q_offset, window, "cpu").sum()) * b * H
+    q_bytes = b * sq * H * HD * 2
+    kv_bytes = b * skv * hkv * HD * 2
+    row_bytes = b * H * sq * 4
+    return {"pairs": pairs,
+            "fwd": {"flops": 4 * HD * pairs, "bytes": 2 * q_bytes + 2 * kv_bytes + row_bytes},
+            "dq": {"flops": 6 * HD * pairs, "bytes": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes},
+            "dkv": {"flops": 8 * HD * pairs,
+                    "bytes": 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes}}
+
+
+def phase_flash(seed: int, card: str):
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import attention_torch
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_torch,
+        flash_fwd_cuda, flash_fwd_torch)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False     # the fp32 reference in full fp32
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    out = {"cases": {}, "tol": FLASH_TOL, "floor": FLASH_FLOOR}
+    main = None
+    for name, sq, skv, hkv, causal, q_offset, window in FLASH_CASES:
+        kw = dict(causal=causal, q_offset=q_offset, window=window)
+        q, k, v = (torch.randn(1, n, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
+                   for n, hh in ((sq, H), (skv, hkv), (skv, hkv)))
+        do = torch.randn(1, sq, H, HD, generator=gen, device=dev).to(torch.bfloat16)
+        res = {}
+        for label, fn, dtype in (("kernel", flash_attention, torch.bfloat16),
+                                 ("plain", attention_torch, torch.float32)):
+            leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, **kw)
+            (o.float() * do.float()).sum().backward()
+            res[label] = [o.detach()] + [t.grad for t in leaves]
+            del o, leaves
+        torch.cuda.synchronize()
+        errs = {}
+        for key, got, ref in zip(("o", "dq", "dk", "dv"), res["kernel"], res["plain"]):
+            errs[key] = check_close(f"flash {name} {key}", got, ref, FLASH_TOL[key],
+                                    floor=FLASH_FLOOR[key])
+        out["cases"][name] = {"max_abs_err": {k: e for k, (e, _) in errs.items()},
+                              "row_err_over_rms": {k: r for k, (_, r) in errs.items()}}
+        if name == FLASH_CASES[0][0]:
+            main = (q, k, v, do, kw, res["plain"][0])
+        del res
+        torch.cuda.empty_cache()
+
+    # planted fault: one 64-row K tile swapped with another on the S = 4096
+    # case must fail the forward check against the sound plain output
+    q, k, v, do, kw, o_ref = main
+    bad = k.clone()
+    bad[:, 1024:1088], bad[:, 2048:2112] = k[:, 2048:2112], k[:, 1024:1088]
+    o_bad, _ = flash_fwd_cuda(q, bad, v, **kw)
+    fault_err, fault_rel = row_err(o_bad, o_ref, floor=FLASH_FLOOR["o"])
+    log(f"  flash planted fault (K rows 1024:1088 <-> 2048:2112): max_abs_err={fault_err:.3e}, "
+        f"row err/RMS={fault_rel:.4f} (must exceed tol {FLASH_TOL['o']:g})")
+    if fault_rel <= FLASH_TOL["o"]:
+        raise AssertionError("flash tolerance passes a swapped K tile; it is too loose")
+    out["planted_fault"] = {"max_abs_err": fault_err, "row_err_over_rms": fault_rel}
+    del bad, o_bad, o_ref
+
+    # times at the main path's shape (S = 4096 causal, 32/8 heads, hd 128)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, -1)
+    work = flash_work(4096, 4096, 8, True, 0, None)
+    t = {"fwd": measure(lambda: flash_fwd_cuda(q, k, v, **kw), 10),
+         "dq": measure(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw), 10),
+         "dkv": measure(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw), 10)}
+    plain = {"fwd": measure(lambda: flash_fwd_torch(q, k, v, **kw), 3),
+             "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, **kw), 3)}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:     # the yardstick's own GQA option (PyTorch >= 2.5); else widened K/V
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        gqa = {"enable_gqa": True}
+    except TypeError:
+        gqa = {}
+        kt, vt = (x.repeat_interleave(H // 8, dim=1) for x in (kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, is_causal=True, **gqa).backward(dot)
+
+    lib_fwd = measure(sdpa, 10)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
+    rows = {}
+    for key, plain_key, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
+                                ("dkv", "bwd", lib_bwd)):
+        w = work[key]
+        rows[key] = {"ms": t[key]["ms"], "host_ms": t[key]["host_ms"],
+                     "plain_ms": plain[plain_key]["ms"], "library_ms": lib,
+                     "bound_ms": max(w["bytes"] / HBM_BYTES_PER_S, w["flops"] / BF16_FLOPS) * 1e3,
+                     "flops": w["flops"], "bytes": w["bytes"]}
+        r = rows[key]
+        log(f"  flash {key} S=4096 causal: device kernel {r['ms']*1e3:.1f} us "
+            f"({r['flops'] / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), bound {r['bound_ms']*1e3:.1f} us "
+            f"(operations), plain {r['plain_ms']*1e3:.1f} us, SDPA {lib*1e3:.1f} us [{card}]")
+    log("  (plain and SDPA backward times cover dQ, dK and dV together)")
+    out["timing"] = rows
+    out["pairs"] = work["pairs"]
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_config(seed: int, gas: int, bf16: bool) -> dict:
+    return {"train_batch_size": gas, "gradient_accumulation_steps": gas,
+            "bf16": {"enabled": bf16},
+            "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "zero_optimization": {"stage": 0},
+            "seed": seed, "steps_per_print": 0}
+
+
+def train_flops(cfg, seq: int, sequences: int) -> float:
+    """Model FLOPs of one training step: 6 per matmul parameter per token,
+    and 3x the forward attention products (QK^T, PV) over causal pairs."""
+    h, i, v, hd = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_size
+    per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + 3 * h * i
+    matmul_params = cfg.num_layers * per_layer + v * h
+    attn = 3 * 4 * hd * cfg.num_heads * seq * (seq + 1) // 2 * cfg.num_layers
+    return 6.0 * matmul_params * seq * sequences + attn * sequences
+
+
+# kernel-name substrings that sort a profiled training step's device time
+PROFILE_GROUPS = [
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("rms_norm", ("rms_norm_kernel",)),
+    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
+    ("softmax_ce", ("softmax", "SoftMax", "nll_loss", "cross_entropy")),
+    ("reduce", ("reduce_kernel",)),
+    ("copy_cast", ("copy_kernel", "direct_copy")),
+    ("elementwise", ("elementwise_kernel",)),
+]
+
+
+def phase_train(seed: int, card: str):
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=4)
+    seq, gas = 4096, 2
+    t0 = time.perf_counter()
+    eng, *_ = dst.initialize(model=llama.model_spec(cfg), config=_train_config(seed, gas, True))
+    n_params = sum(p.numel() for p in eng.state.params.values())
+    log(f"  engine: {cfg.num_layers} layers at Llama-3-8B width, {n_params/1e9:.3f} B params "
+        f"(fp32 masters + AdamW), set-up {time.perf_counter()-t0:.1f} s")
+    rs = np.random.RandomState(seed)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (gas, seq + 1)).astype(np.int32)}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda, rms_norm_cuda)
+    for c in counters:
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out.loss))
+    launches = {"flash_fwd": flash_fwd_cuda.launches, "flash_bwd_dq": flash_bwd_dq_cuda.launches,
+                "flash_bwd_dkv": flash_bwd_dkv_cuda.launches, "rms_norm": rms_norm_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = cfg.num_layers * gas
+    want = {"flash_fwd": per_step * TRAIN_STEPS, "flash_bwd_dq": per_step * TRAIN_STEPS,
+            "flash_bwd_dkv": per_step * TRAIN_STEPS,
+            "rms_norm": (2 * cfg.num_layers + 1) * gas * TRAIN_STEPS}
+    log(f"  losses {['%.4f' % l for l in losses]}; launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches} != expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss not finite and falling: {losses}")
+    steady = step_s[1:]
+    step_ms = sum(steady) / len(steady) * 1e3
+    flops = train_flops(cfg, seq, gas)
+    res = {"losses": losses, "step_s": step_s, "step_ms": step_ms,
+           "tokens_per_s": gas * seq / (step_ms / 1e3), "model_flops_per_step": flops,
+           "model_tflops": flops / (step_ms / 1e3) / 1e12, "peak_mem_bytes": peak,
+           "launches": launches, "num_layers": cfg.num_layers, "seq": seq, "gas": gas}
+    res["mfu"] = res["model_tflops"] * 1e12 / BF16_FLOPS
+    log(f"  step {step_ms:.1f} ms (steps 2-{TRAIN_STEPS}; first {step_s[0]*1e3:.1f} ms), "
+        f"{res['tokens_per_s']:.0f} tokens/s, model {res['model_tflops']:.1f} TFLOP/s "
+        f"= {res['mfu']:.1%} of 989, peak mem {peak/2**30:.2f} GiB [{card}]")
+
+    wall, busy, n_k, top = profile_window(lambda: eng.train_batch(batch))
+    groups = {}
+    for k, ms, c in top:
+        g = next((g for g, keys in PROFILE_GROUPS if any(x in k for x in keys)), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    res["profile"] = {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "idle_share": 1 - busy / wall,
+                      "kernels": n_k, "by_group_ms": groups,
+                      "top": [(k, ms, c) for k, ms, c in top[:15]]}
+    log(f"  profiled step: wall {wall*1e3:.1f} ms, device busy {busy*1e3:.1f} ms "
+        f"(idle {1 - busy / wall:.1%}), {n_k} kernels [{card}]")
+    log("  device ms by group: " + ", ".join(
+        f"{g} {ms:.1f}" for g, ms in sorted(groups.items(), key=lambda t: -t[1])))
+    for k, ms, c in top[:10]:
+        log(f"    {ms:8.3f} ms  x{c:<5d} {k[:90]}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_whole(seed: int, card: str):
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    masters = llama.init(cfg, gen)          # fp32, on the card
+    rs = np.random.RandomState(seed + 2)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, 257)).astype(np.int32)}
+
+    def step(device, bf16):
+        params = {k: v.to(device) for k, v in masters.items()}
+        eng, *_ = dst.initialize(
+            model=dst.ModelSpec(params=params, loss_fn=lambda p, b: llama.loss_fn(
+                cfg, p, b, compute_dtype=torch.bfloat16 if bf16 else torch.float32)),
+            config=_train_config(seed, 1, bf16), device=device)
+        loss = float(eng.forward(batch))
+        grads = {k: p.grad.float().cpu() for k, p in eng.state.params.items()}
+        del eng, params
+        return loss, grads
+
+    t0 = time.perf_counter()
+    loss_gpu, g_gpu = step("cuda", True)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = step("cpu", False)
+    cpu_s = time.perf_counter() - t0
+
+    def compare(grads):
+        return {k: float((grads[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp_min(1e-30))
+                for k in g_cpu}
+
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    rel = compare(g_gpu)
+    worst = max(rel, key=rel.get)
+    ok = loss_rel <= TRAIN_LOSS_RTOL and rel[worst] <= TRAIN_GRAD_RTOL and \
+        all(np.isfinite(list(rel.values())))
+    log(f"  1-layer 8B-width step, card (bf16, kernels) vs CPU (fp32, plain): loss "
+        f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+        f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {TRAIN_GRAD_RTOL:g}) "
+        f"{'ok' if ok else 'FAIL'}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
+    for k in sorted(rel):
+        log(f"    {k:24s} {rel[k]:.4f}")
+    if not ok:
+        raise AssertionError("training step on the card disagrees with the plain path")
+
+    # planted fault: dV of kv head 0 zeroed in the dK/dV kernel's output
+    sound = fa.flash_bwd_dkv_cuda
+
+    def faulty(*a, **kw):
+        dk, dv = sound(*a, **kw)
+        dv[:, :, 0] = 0
+        return dk, dv
+
+    faulty.launches = 0     # the sound wrapper counts on the module's name
+    fa.flash_bwd_dkv_cuda = faulty
+    try:
+        _, g_bad = step("cuda", True)
+    finally:
+        fa.flash_bwd_dkv_cuda = sound
+    rel_bad = compare(g_bad)
+    worst_bad = max(rel_bad, key=rel_bad.get)
+    log(f"  planted fault (dV of kv head 0 zeroed): worst leaf {worst_bad} "
+        f"{rel_bad[worst_bad]:.4f} (must exceed tol {TRAIN_GRAD_RTOL:g})")
+    if rel_bad[worst_bad] <= TRAIN_GRAD_RTOL:
+        raise AssertionError("the training-path check passes a zeroed dV head; too loose")
+    del masters
+    torch.cuda.empty_cache()
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
+            "grad_rel": rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": TRAIN_GRAD_RTOL,
+            "planted_fault": {"leaf": worst_bad, "grad_rel": rel_bad[worst_bad]},
+            "card_s": gpu_s, "cpu_s": cpu_s}
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--details", metavar="PATH",
@@ -465,6 +826,7 @@ def main() -> int:
 
     log("== phase 3: kernels against their plain versions")
     kern, decode_case = phase_kernels(SEED, card)
+    kern["flash"] = phase_flash(SEED, card)
 
     log("== phase 4: main path (Llama-3-8B shapes through generate)")
     main_res = phase_main_path(SEED, MAX_NEW_TOKENS, card)
@@ -487,12 +849,23 @@ def main() -> int:
     log("== phase 5: whole path on the card against the plain path on the CPU")
     whole = phase_whole_path(SEED, card)
 
+    log("== phase 6: training main path (Llama-3-8B width, 4 layers, through train_batch)")
+    train = phase_train(SEED, card)
+
+    log("== phase 7: whole training step on the card against the plain path on the CPU")
+    train_whole = phase_train_whole(SEED, card)
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
+    rms_launches = {"serving": main_res["launches"]["rms_norm"],
+                    "training": train["launches"]["rms_norm"]}
+    flash = kern["flash"]
+    flash_err = {k: max(c["max_abs_err"][k] for c in flash["cases"].values())
+                 for k in ("o", "dq", "dk", "dv")}
     kernels = [
         {"name": "rms_norm", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/csrc/rms_norm.cu",
          "replaces": "deepspeed_tpu/ops/pallas/norms.py:27",
-         "launches": main_res["launches"]["rms_norm"],
+         "launches": sum(rms_launches.values()), "launches_by_path": rms_launches,
          "max_abs_err": kern["rms_norm"]["max_abs_err"],
          "ms": rms["ms"], "plain_ms": rms["plain_ms"], "bound_ms": rms["bound_ms"],
          "bound_by": "bytes", "library_ms": rms["library_ms"]},
@@ -505,9 +878,24 @@ def main() -> int:
          "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
     ]
+    for key, name, line, err in (
+            ("fwd", "flash_fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:284",
+             flash_err["o"]),
+            ("dq", "flash_bwd_dq", "deepspeed_tpu/ops/pallas/flash_attention.py:448",
+             flash_err["dq"]),
+            ("dkv", "flash_bwd_dkv", "deepspeed_tpu/ops/pallas/flash_attention.py:523",
+             max(flash_err["dk"], flash_err["dv"]))):
+        r = flash["timing"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/ops/csrc/"
+                      + ("flash_fwd.cu" if key == "fwd" else "flash_bwd.cu"),
+            "replaces": line, "launches": train["launches"][name], "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations", "library_ms": r["library_ms"]})
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,
-              "main_path": main_res, "whole_path": whole,
-              "total_s": time.perf_counter() - t_all}
+              "main_path": main_res, "whole_path": whole, "train": train,
+              "train_whole_path": train_whole, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -6,12 +6,22 @@ The JAX package beside it is the reference; this package mirrors its layout
 the TPU is a hand-written CUDA kernel here (``ops/csrc/``), built at first
 use; the plain PyTorch version beside each serves CPU tensors.
 
-Ported so far: paged serving of the Llama family through the v2
-continuous-batching engine (:func:`build_engine_v2`), with the RMSNorm and
-paged-decode kernels. Entry points run on the GPU unless the caller passes
-``device="cpu"``.
+Ported so far:
+
+- paged serving of the Llama family through the v2 continuous-batching
+  engine (:func:`build_engine_v2`), with the RMSNorm and paged-decode
+  kernels;
+- single-process training of the Llama family through :func:`initialize`
+  → ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
+  clipping, lr schedules), with the RMSNorm kernel and the flash-attention
+  forward, dQ and dK/dV kernels.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from .inference import InferenceConfig, build_engine_v2  # noqa: F401
+from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401
+from .runtime.engine import (DeepSpeedTPUEngine, ModelSpec,  # noqa: F401
+                             StepOutput, initialize)

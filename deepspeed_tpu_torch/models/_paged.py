@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from ..ops.attention import attention
+from ..ops.attention import attention_torch
 from ..ops.registry import get_op
 from ..utils.device import resolve_device
 
@@ -103,5 +103,5 @@ def paged_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kv_pos <= q_abs
         if window is not None:
             mask = mask & (q_abs - kv_pos < window)
-        out = attention(q, kg, vg, causal=False, mask=mask)
+        out = attention_torch(q, kg, vg, causal=False, mask=mask)
     return out, k_cache, v_cache

@@ -1,11 +1,12 @@
-"""JAX parameter tree → the port's ``state_dict``.
+"""JAX parameter tree ↔ the port's ``state_dict``.
 
 The JAX ``llama.init`` (``deepspeed_tpu/models/llama.py:121-155``) builds a
 nested tree with the layer leaves stacked along a leading ``L`` dim and every
 matrix kept as ``x @ W`` (``[in, out]``). The port's :class:`~.llama.Llama`
 unstacks the layers (``layers.<i>.<name>``) and keeps matrices in
 ``nn.Linear`` layout ``[out, in]``. :func:`from_jax_params` maps one to the
-other, given the tree as numpy arrays (``jax.tree.map(np.asarray, params)``):
+other, given the tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
+and :func:`to_jax_params` maps back (numpy leaves, bf16 widened to fp32):
 
 =================  ==================  ===========================
 JAX leaf           JAX shape           port entry
@@ -70,4 +71,37 @@ def from_jax_params(cfg: LlamaConfig,
     for name, (shape, _) in want.items():
         if tuple(out[name].shape) != shape:
             raise ValueError(f"{name}: shape {tuple(out[name].shape)} != {shape}")
+    return out
+
+
+def to_jax_params(cfg: LlamaConfig,
+                  state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` (or a flat param dict) → the JAX ``llama``
+    tree with numpy leaves: layer leaves stacked along a leading ``L`` dim,
+    matrices back in ``x @ W`` layout. The inverse of
+    :func:`from_jax_params`; bf16 leaves come back as fp32 (numpy has no
+    bf16), which is exact."""
+    want = param_shapes(cfg)
+    if set(state) != set(want):
+        raise ValueError(f"state does not match the config: missing "
+                         f"{sorted(set(want) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(want))}")
+
+    def np_leaf(name: str, t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        t = t.t() if name.rsplit(".", 1)[-1] in TRANSPOSED else t
+        return t.contiguous().numpy()
+
+    out: Dict[str, Any] = {}
+    per_layer: Dict[str, list] = {}
+    for name in want:
+        if name.startswith("layers."):
+            _, l, leaf = name.split(".", 2)
+            per_layer.setdefault(leaf, [None] * cfg.num_layers)[int(l)] = \
+                np_leaf(name, state[name])
+        else:
+            out[name] = np_leaf(name, state[name])
+    out["layers"] = {leaf: np.stack(ls) for leaf, ls in per_layer.items()}
     return out

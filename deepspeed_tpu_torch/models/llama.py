@@ -1,15 +1,21 @@
-"""Llama-family model over the paged KV cache — counterpart of
-``deepspeed_tpu/models/llama.py`` (``LlamaConfig`` :49, ``init`` :121,
-``init_paged_cache`` :550, ``apply_paged`` :590).
+"""Llama-family model — counterpart of ``deepspeed_tpu/models/llama.py``
+(``LlamaConfig`` :49, ``init`` :121, ``apply`` :381, ``loss_fn`` :727,
+``model_spec`` :627, ``init_paged_cache`` :550, ``apply_paged`` :590).
 
-The JAX package keeps the model as a pure function over a stacked param
-pytree; here it is an ``nn.Module`` (:class:`Llama`) whose ``forward`` is
-``apply_paged``. Parameter names follow the JAX tree with the leading layer
-dim unstacked (``layers.<i>.wq`` for ``layers/wq[i]``); every matrix is kept
-in ``nn.Linear`` layout ``[out, in]`` (the JAX ``x @ W`` matrices transposed,
-see ``models/convert.py``). Norm, rotary and attention go through the
-port's ops: RMSNorm and single-token paged attention reach their CUDA
-kernels on CUDA tensors, the projections, MLP and lm-head stay
+Two entry points over one set of parameters:
+
+- training: :func:`apply` / :func:`loss_fn`, pure functions over a flat
+  param dict (the JAX ``apply`` over its pytree), wrapped for the engine by
+  :func:`model_spec`. Attention is op ``attention``: the flash kernels
+  (``ops/csrc/flash_*.cu``) on CUDA tensors, plain attention on CPU tensors.
+- serving: the ``nn.Module`` :class:`Llama`, whose ``forward`` is
+  ``apply_paged`` over the paged KV cache.
+
+Parameter names follow the JAX tree with the leading layer dim unstacked
+(``layers.<i>.wq`` for ``layers/wq[i]``); every matrix is kept in
+``nn.Linear`` layout ``[out, in]`` (the JAX ``x @ W`` matrices transposed,
+see ``models/convert.py``). RMSNorm reaches its CUDA kernel on CUDA tensors
+(with a plain backward), the projections, MLP and lm-head stay
 ``torch.matmul`` as the JAX package leaves them to XLA.
 
 Supports GQA, RoPE, SwiGLU, RMSNorm, optional tied embeddings, QKV biases
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
@@ -157,8 +164,9 @@ def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
 
 
 def _param(shape) -> nn.Parameter:
-    # uninitialised: weights arrive through load_state_dict (or init())
-    return nn.Parameter(torch.empty(shape), requires_grad=False)
+    # uninitialised: weights arrive through load_state_dict (or init());
+    # serving runs under no_grad (apply_paged) on a module it froze itself
+    return nn.Parameter(torch.empty(shape))
 
 
 class LlamaBlock(nn.Module):
@@ -261,6 +269,87 @@ class Llama(nn.Module):
         head = self.embed if cfg.tie_embeddings else self.lm_head
         logits = F.linear(x, head)
         return logits.float(), join_kv(k_pools, v_pools)
+
+
+# --------------------------------------------------------------------------- #
+# full-sequence training forward (JAX ``apply`` / ``loss_fn``)
+# --------------------------------------------------------------------------- #
+def _block(cfg: LlamaConfig, x: torch.Tensor, p: Dict[str, torch.Tensor],
+           prefix: str, cos: torch.Tensor, sin: torch.Tensor,
+           positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """One transformer block (JAX ``_block`` with ``_qkv_proj``); x
+    [batch, seq, hidden] in the compute dtype."""
+    b, s, _ = x.shape
+    nh, nkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_size, cfg.rms_norm_eps
+    w = lambda name: p.get(prefix + name)  # noqa: E731
+    y = rms_norm(x, w("attn_norm"), eps)
+    q = F.linear(y, w("wq"), w("bq")).view(b, s, nh, hd)
+    k = F.linear(y, w("wk"), w("bk")).view(b, s, nkv, hd)
+    v = F.linear(y, w("wv"), w("bv")).view(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w("q_norm"), eps)
+        k = rms_norm(k, w("k_norm"), eps)
+    q = apply_rotary(q, cos, sin, positions)
+    k = apply_rotary(k, cos, sin, positions)
+    attn = attention(q, k, v, causal=True)
+    x = x + F.linear(attn.reshape(b, s, nh * hd), w("wo"))
+    y = rms_norm(x, w("mlp_norm"), eps)
+    mlp = F.silu(F.linear(y, w("w_gate"))) * F.linear(y, w("w_up"))
+    return x + F.linear(mlp, w("w_down"))
+
+
+def apply(cfg: LlamaConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
+          positions: Optional[torch.Tensor] = None,
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Causal forward over the whole sequence → logits [batch, seq, vocab]
+    fp32. ``params`` is a flat dict (:func:`param_shapes` names), cast to
+    ``compute_dtype`` here as the JAX ``apply`` casts its layers, so grads
+    of fp32 params flow back through the cast."""
+    cast = lambda t: t.to(compute_dtype)  # noqa: E731
+    p = {k: cast(v) for k, v in params.items() if k != "embed"}
+    x = embedding_lookup(params["embed"], tokens, compute_dtype)
+    cos, sin = rope_frequencies(cfg.head_size, cfg.max_seq_len, cfg.rope_theta,
+                                device=x.device)
+    for l in range(cfg.num_layers):
+        x = _block(cfg, x, p, f"layers.{l}.", cos, sin, positions)
+    x = rms_norm(x, p["final_norm"], cfg.rms_norm_eps)
+    head = cast(params["embed"]) if cfg.tie_embeddings else p["lm_head"]
+    return F.linear(x, head).float()
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in fp32, mean over valid tokens. batch:
+    ``{"tokens": [b, s+1]}`` or ``{"tokens": [b, s], "labels": [b, s]}``
+    with -100 = ignore."""
+    tokens = batch["tokens"]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    logits = apply(cfg, params, inputs, compute_dtype=compute_dtype)
+    labels = labels.long()
+    valid = labels != -100
+    token_loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1), ignore_index=-100,
+                                 reduction="sum")
+    ntokens = valid.sum()
+    loss = token_loss / torch.clamp(ntokens, min=1)
+    return loss, {"loss": loss.detach(), "ntokens": ntokens}
+
+
+def model_spec(cfg: LlamaConfig, compute_dtype=torch.bfloat16):
+    """The engine-facing ModelSpec for this config (JAX ``model_spec``);
+    ``init_fn`` draws the weights from a ``torch.Generator``."""
+    from ..runtime.engine import ModelSpec
+
+    return ModelSpec(
+        name="llama",
+        init_fn=lambda gen: init(cfg, gen),
+        loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
+                                              compute_dtype=compute_dtype),
+    )
 
 
 def build(cfg: LlamaConfig) -> Llama:

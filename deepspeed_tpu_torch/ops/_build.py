@@ -6,7 +6,8 @@ with a plain C interface, and loaded through ``ctypes``. Nothing is built
 when this module is imported: :func:`load` builds at first use.
 
 The library lands in ``build/deepspeed_tpu_torch/<key>/`` under the repo
-root, where ``<key>`` hashes the sources and the flags, so a source edit
+root, where ``<key>`` hashes the sources, the ``*.cuh`` headers they
+include and the flags, so a source edit
 rebuilds and an unchanged tree reuses the previous build. Only the sources
 in this package go into it.
 """
@@ -38,6 +39,13 @@ SIGNATURES = {
     # B, nh, nkv, hd, bs, num_blocks, max_blocks, scale, stream
     "dstt_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+    # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
+    # scale, dtype, stream
+    "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dq, (B .. window as above), scale, dtype, stream
+    "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, stream
+    "dstt_flash_bwd_dkv": [_VP] * 8 + [_I] * 9 + [_F, _I, _VP],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -49,7 +57,7 @@ def sources() -> List[Path]:
 
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

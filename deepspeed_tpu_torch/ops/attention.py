@@ -1,11 +1,19 @@
 """Attention — counterpart of ``deepspeed_tpu/ops/attention.py``
-(``attention_xla`` :141, ``repeat_kv`` / ``widen_kv`` :59-72).
+(``attention_xla`` :141, ``repeat_kv`` / ``widen_kv`` :59-72, op
+``attention`` :182).
 
-Plain masked GQA softmax attention: the JAX package hands every masked call
-(the paged prefill path) to XLA, so the port computes it in PyTorch, with the
-scores and softmax in fp32. All shapes are [batch, seq, heads, head_dim];
-K/V may have fewer heads and are widened to the query head count (query
-head ``h`` reads kv head ``h // g``).
+:func:`attention_torch` is the plain masked GQA softmax attention, with the
+scores and softmax in fp32, differentiable through plain autograd. All
+shapes are [batch, seq, heads, head_dim]; K/V may have fewer heads and are
+widened to the query head count (query head ``h`` reads kv head ``h // g``).
+
+Op ``attention`` (:data:`attention`) has two implementations, chosen by the
+device of ``q`` (``ops/registry.py``): CPU tensors get
+:func:`attention_torch`; CUDA tensors get the flash kernels
+(``ops/flash_attention.py``, an autograd function over
+``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``). Masked calls — the paged
+prefill — call :func:`attention_torch` directly: the JAX package hands every
+masked call to XLA, never to its kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .registry import op, register
 
 NEG_INF = -1e30
 
@@ -42,10 +52,11 @@ def _causal_window_mask(q_len: int, kv_len: int, q_offset: int,
     return m
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, scale: Optional[float] = None,
-              mask: Optional[torch.Tensor] = None, q_offset: int = 0,
-              window: Optional[int] = None) -> torch.Tensor:
+@register("attention", backend="torch")
+def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    mask: Optional[torch.Tensor] = None, q_offset: int = 0,
+                    window: Optional[int] = None) -> torch.Tensor:
     """mask: optional [batch, 1|heads, q_len, kv_len] boolean (True =
     attend) or additive mask. ``q_offset``: absolute position of q[0] within
     the kv sequence. ``window``: sliding-window length (requires causal)."""
@@ -70,3 +81,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("...hqk,...khd->...qhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+attention = op("attention")

@@ -1,0 +1,222 @@
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+//
+// Layout at the C interface is the JAX package's: q/o/dq [B, Sq, H, D],
+// k/v/dk/dv [B, Skv, Hkv, D] (narrow K/V: query head h reads kv head
+// h / (H / Hkv)), lse/delta [B * H, Sq] fp32. Every kernel indexes those
+// tensors with their strides, so nothing is transposed or widened.
+//
+// Products run per warp on 16-row tiles held in shared memory. bf16 tiles go
+// through the tensor cores with mma.sync.m16n8k16 (fp32 accumulation),
+// fragments loaded with ldmatrix (.trans for the transposed operands); fp32
+// tiles take a plain FMA loop that fills the same accumulator layout, so the
+// softmax and epilogue code is one for both types. Accumulator layout (the
+// mma C fragment): lane = 4 * gr + tq holds rows gr and gr + 8 of the warp's
+// 16 rows, columns 8 * nt + 2 * tq and + 1 of each 8-column tile nt.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace dstt_flash {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;   // lse of a row that sees no key, as in the JAX package
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;     // backward only
+  const float* lse;     // backward input
+  const float* delta;   // backward input: rowsum(dO * O)
+  void* o;              // forward output
+  float* lse_out;       // forward output
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, H, Hkv, Sq, Skv;
+  int q_offset;         // absolute position of q row 0 in the kv sequence (causal only)
+  int causal;
+  int window;           // > 0: causal sliding window length; 0: none
+  float scale;
+};
+
+// The one visibility rule of all three kernels (the TPU's _block_mask).
+__device__ __forceinline__ bool visible(const Args& a, int qrow, int kvrow) {
+  if (qrow >= a.Sq || kvrow >= a.Skv) return false;
+  if (!a.causal) return true;
+  const int qpos = qrow + a.q_offset;
+  if (kvrow > qpos) return false;
+  return a.window <= 0 || qpos - kvrow < a.window;
+}
+
+template <typename T> struct Pad { static constexpr int value = 16 / sizeof(T); };
+
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+
+// rows [row0, row0 + rows) of a [*, D] matrix with row stride gstride
+// (elements) into shared memory with row stride D + Pad; rows at or past
+// n_valid read as zero. 16-byte vectors, neighbouring threads on neighbouring
+// addresses.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* sm, const T* g, int row0, int n_valid, int rows,
+                                          size_t gstride) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int LD = D + Pad<T>::value;
+  constexpr int VPR = D / VEC;
+  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
+    const int r = i / VPR, c = (i % VPR) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_valid)
+      val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * gstride + c);
+    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory into mma fragments; lane l gives
+// the address of one row of matrix l / 8 (16-byte aligned). .trans delivers
+// each matrix transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// acc[NT][4] += A[16 x K] * B[K x 8 NT]. A is row-major at a (row stride
+// lda). B's element (k, n) is b[n * ldb + k] (B_KN false: rows of B^T, as K
+// is stored for Q K^T) or b[k * ldb + n] (B_KN true, as V is stored for P V).
+// Fragments come from ldmatrix: one x4 load gives A's 16 x 16 tile, another
+// the two 8-column B tiles nt and nt + 1 (transposed for B_KN). Row strides
+// of 16-byte multiples keep every row address aligned and the eight rows of
+// a matrix on distinct banks.
+template <int NT, int K, bool B_KN>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb) {
+  static_assert(NT % 2 == 0, "B tiles are loaded in pairs");
+  const int lane = threadIdx.x & 31;
+  const int arow = lane & 15, acol = (lane >> 4) * 8;     // A: matrices (rows, k half)
+  const int brow = lane & 7, bk = ((lane >> 3) & 1) * 8;  // B: row within 8, k half
+  const int bn = (lane >> 4) * 8;                         // B: tile nt or nt + 1
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 16) {
+    uint32_t af[4];
+    ldsm_x4(af, a + arow * lda + kk + acol);
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t bf[4];
+      if constexpr (!B_KN)
+        ldsm_x4(bf, b + (nt * 8 + bn + brow) * ldb + kk + bk);
+      else
+        ldsm_x4_trans(bf, b + (kk + bk + brow) * ldb + nt * 8 + bn);
+      mma_bf16(acc[nt], af[0], af[1], af[2], af[3], bf[0], bf[1]);
+      mma_bf16(acc[nt + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
+    }
+  }
+}
+
+template <int NT, int K, bool B_KN>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const float* a, int lda,
+                                         const float* b, int ldb) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float a0 = a[gr * lda + k], a1 = a[(gr + 8) * lda + k];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n = nt * 8 + 2 * tq;
+      float b0, b1;
+      if constexpr (!B_KN) {
+        b0 = b[n * ldb + k];
+        b1 = b[(n + 1) * ldb + k];
+      } else {
+        b0 = b[k * ldb + n];
+        b1 = b[k * ldb + n + 1];
+      }
+      acc[nt][0] = fmaf(a0, b0, acc[nt][0]);
+      acc[nt][1] = fmaf(a0, b1, acc[nt][1]);
+      acc[nt][2] = fmaf(a1, b0, acc[nt][2]);
+      acc[nt][3] = fmaf(a1, b1, acc[nt][3]);
+    }
+  }
+}
+
+// A warp's accumulator tile, rounded to T, into shared memory (row-major).
+template <typename T, int NT>
+__device__ __forceinline__ void store_tile(T* sm, int ld, const float (&v)[NT][4]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = nt * 8 + 2 * tq;
+    sm[gr * ld + c] = from_f<T>(v[nt][0]);
+    sm[gr * ld + c + 1] = from_f<T>(v[nt][1]);
+    sm[(gr + 8) * ld + c] = from_f<T>(v[nt][2]);
+    sm[(gr + 8) * ld + c + 1] = from_f<T>(v[nt][3]);
+  }
+}
+
+// A warp's [16 x 8 NT] accumulator, times `mul` per row half, to rows
+// row_lo and row_lo + 8 of a global [*, 8 NT] matrix with row stride gstride;
+// rows at or past n_valid are not written.
+template <typename T, int NT>
+__device__ __forceinline__ void store_rows(T* g, size_t gstride, int row_lo, int n_valid,
+                                           const float (&v)[NT][4], float mul0, float mul1) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_lo + 8 * half;
+    if (row >= n_valid) continue;
+    const float mul = half ? mul1 : mul0;
+    T* gr = g + (size_t)row * gstride;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + 2 * tq;
+      gr[c] = from_f<T>(v[nt][2 * half] * mul);
+      gr[c + 1] = from_f<T>(v[nt][2 * half + 1] * mul);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Sets the dynamic shared-memory size a launch needs (above 48 KB this must
+// be allowed per kernel first) and reports a refusal.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace dstt_flash

@@ -12,6 +12,18 @@ outputs of order 1). Paged decode: each output row's largest error within
 sqrt(e/n), so an absolute limit would pass a wrong block on a long row;
 sound bf16 rows read <= 3% (the plain version rounds the probabilities to
 bf16), one wrong 128-position block >= 50%.
+
+Flash attention (forward, dQ, dK/dV) against its plain pieces
+(``flash_fwd_torch``/``flash_bwd_torch``, which round p, ds and the outputs
+at the kernels' points): each output row's largest error within a share of
+that row's RMS (floored at 1% of the output's), 0.05 in bf16 (summation
+order moves a value across a rounding step at most) and 1e-4 in fp32 (FMA
+against cuBLAS fp32 sums). Through op ``attention`` against plain attention
+in fp32 under autograd, the limits of ``chip_smoke.py``'s ``FLASH_TOL``
+(0.05, dQ 0.15 with its rows floored at the output's RMS), from the CPU
+simulation in ``tests/test_torch_flash_attention.py``. RMSNorm
+backward: the autograd function's grads against the plain version's, 1e-2
+in bf16 (one rounding step), 1e-5 in fp32.
 """
 
 import numpy as np
@@ -19,7 +31,12 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops import get_op
-from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_cuda, rms_norm_torch
+from deepspeed_tpu_torch.ops.attention import attention, attention_torch
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_torch,
+    flash_fwd_cuda, flash_fwd_torch)
+from deepspeed_tpu_torch.ops.norms import (
+    rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_cuda, paged_decode_attention_torch)
 
@@ -128,3 +145,179 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.ones(4, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="bf16 or f32"):
         rms_norm_cuda(x, torch.ones(64, device=cuda_device, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_backward(cuda_device, dtype):
+    """The kernel's output carries gradients; they are the plain backward's."""
+    rs = np.random.RandomState(7)
+    x0 = torch.from_numpy(rs.randn(3, 5, 256).astype(np.float32) * 2).to(cuda_device, dtype)
+    w0 = torch.from_numpy(1 + 0.1 * rs.randn(256).astype(np.float32)).to(cuda_device, dtype)
+    dy = torch.from_numpy(rs.randn(3, 5, 256).astype(np.float32)).to(cuda_device, dtype)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    before = rms_norm_cuda.launches
+    y = rms_norm(x, w, 1e-5)
+    assert y.requires_grad and rms_norm_cuda.launches == before + 1
+    y.backward(dy)
+    dx_ref, dw_ref = rms_norm_bwd(x0, w0, dy, 1e-5)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(x.grad.float(), dx_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(w.grad.float(), dw_ref.float(), rtol=tol, atol=tol * 10)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    rms_norm_torch(xr, wr, 1e-5).backward(dy)
+    torch.testing.assert_close(x.grad.float(), xr.grad.float(), rtol=tol, atol=tol)
+
+
+FLASH_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+
+
+def assert_flash_close(got, ref, tol, floor=0.01):
+    """``assert_rows_close`` with each row's RMS floored at ``floor`` times
+    the whole output's: a row whose exact value is 0 (dQ of a query that
+    sees one key, where ds = p (dp - delta) cancels) holds only rounding
+    noise on both sides."""
+    assert torch.isfinite(got.float()).all()
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    rms = ref.float().pow(2).mean(-1).sqrt()
+    rms = rms.clamp_min(floor * float(ref.float().pow(2).mean().sqrt()))
+    worst = float((diff / rms).max())
+    assert worst <= tol, f"row err / row RMS {worst:.4f} > {tol}"
+# (B, Sq, Skv, H, Hkv, D, causal, q_offset, window)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0, None),      # GQA g = 2, whole tiles
+    (1, 100, 100, 8, 1, 128, True, 0, None),     # tail rows, g = 8
+    (1, 37, 200, 4, 4, 64, True, 163, None),     # q_offset, kv longer than q
+    (1, 256, 256, 8, 2, 128, True, 0, 50),       # sliding window
+    (2, 70, 130, 2, 2, 64, False, 0, None),      # non-causal, tails on both sides
+    (1, 64, 300, 4, 2, 128, True, 100, None),    # kv rows no query sees: dk = dv = 0
+    (1, 192, 192, 4, 1, 64, True, 0, 3),         # narrow window: three keys a row
+]
+
+
+def flash_inputs(case, dtype, device, seed=0):
+    B, sq, skv, h, hkv, d = case[:6]
+    rs = np.random.RandomState(seed)
+    t = [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, dtype)
+         for shape in ((B, sq, h, d), (B, skv, hkv, d), (B, skv, hkv, d), (B, sq, h, d))]
+    return t   # q, k, v, dO
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, case, dtype):
+    q, k, v, do = flash_inputs(case, dtype, cuda_device)
+    kw = dict(causal=case[6], q_offset=case[7], window=case[8])
+    counts = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+            flash_bwd_dkv_cuda.launches) == tuple(c + 1 for c in counts)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert_flash_close(got, ref, FLASH_TOL[dtype])
+
+
+# the Llama-3-8B attention shapes chip_smoke.py checks (32 q heads, hd 128)
+LLAMA_CASES = [   # Sq, Skv, kv heads, causal, q_offset, window
+    (4096, 4096, 8, True, 0, None),
+    (1000, 1000, 8, True, 0, None),
+    (512, 4096, 8, True, 3584, None),
+    (4096, 4096, 8, True, 0, 1024),
+    (4096, 4096, 8, False, 0, None),
+    (4096, 4096, 32, True, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", LLAMA_CASES)
+def test_flash_kernels_match_plain_at_llama_shapes(cuda_device, case):
+    sq, skv, hkv, causal, q_offset, window = case
+    q, k, v, do = flash_inputs((1, sq, skv, 32, hkv, 128), torch.bfloat16, cuda_device,
+                               seed=sq + hkv)
+    kw = dict(causal=causal, q_offset=q_offset, window=window)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    assert_flash_close(o, flash_fwd_torch(q, k, v, **kw)[0], FLASH_TOL[torch.bfloat16])
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    got = (flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),
+           *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
+    for g, ref in zip(got, flash_bwd_torch(q, k, v, o, lse, do, **kw)):
+        assert_flash_close(g, ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_op_autograd_matches_plain_attention(cuda_device):
+    """Op ``attention`` on CUDA tensors is the flash autograd function; its
+    output and grads are plain attention's under autograd (fp32 on the same
+    bf16 inputs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = (2, 96, 96, 8, 2, 128, True, 0, None)
+    q0, k0, v0, do = flash_inputs(case, torch.bfloat16, cuda_device, seed=3)
+    assert get_op("attention", cuda_device) is flash_attention
+    grads = []
+    for fn, dtype in ((attention, torch.bfloat16), (attention_torch, torch.float32)):
+        q, k, v = (t.detach().to(dtype).requires_grad_() for t in (q0, k0, v0))
+        o = fn(q, k, v, causal=True)
+        (o.float() * do.float()).sum().backward()
+        grads.append((o.detach(), q.grad, k.grad, v.grad))
+    for (tol, floor), got, ref in zip(((0.05, 0.01), (0.15, 1.0), (0.05, 0.01), (0.05, 0.01)),
+                                      *grads):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert_flash_close(got, ref, tol, floor)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_rows_that_see_no_key(cuda_device, dtype):
+    """q rows at positions 60..123 over 70 keys with a window of 8: rows
+    past position 76 see no key and get o = 0, lse = -1e30 and no grads,
+    as the TPU kernel's ``_finish`` writes; the others match the plain
+    pieces."""
+    q, k, v, do = flash_inputs((1, 64, 70, 4, 2, 64), dtype, cuda_device, seed=9)
+    kw = dict(causal=True, q_offset=60, window=8)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+    empty = torch.arange(64, device=cuda_device) + 60 > 69 + 7
+    assert not o[:, empty].any() and bool((lse.view(4, 64)[:, empty] == -1e30).all())
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(4, 64)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    assert not dq[:, empty].any()
+    for got, ref in zip((dq, dk, dv), flash_bwd_torch(q, k, v, o, lse, do, **kw)):
+        assert_flash_close(got, ref, FLASH_TOL[dtype])
+
+
+def test_flash_check_fails_a_swapped_k_tile(cuda_device):
+    case = (1, 256, 256, 4, 2, 128, True, 0, None)
+    q, k, v, _ = flash_inputs(case, torch.bfloat16, cuda_device, seed=5)
+    bad = k.clone()
+    bad[:, 64:128], bad[:, 128:192] = k[:, 128:192], k[:, 64:128]
+    o, _ = flash_fwd_cuda(q, bad, v)
+    o_ref, _ = flash_fwd_torch(q, k, v)
+    with pytest.raises(AssertionError, match="row err"):
+        assert_flash_close(o, o_ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, _ = flash_inputs((1, 8, 8, 2, 2, 64, True, 0, None), torch.bfloat16,
+                              cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                       v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_fwd_cuda(q, k.float(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_fwd_cuda(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention(q, k, v, mask=torch.ones(1, 1, 8, 8, dtype=torch.bool,
+                                                 device=cuda_device))

@@ -10,7 +10,12 @@ Tolerances: fp32 1e-5 (same arithmetic, only the order of the row sum
 differs); bf16 1e-2 absolute and relative, one bf16 rounding step (2^-8
 relative) of outputs of order 1, since both sides round the same fp32 value
 and a different summation order can move it across a rounding boundary.
+The backward (``rms_norm_bwd``, and the autograd function over it) is held
+against ``jax.grad`` of ``rms_norm_pallas`` at 1e-4, as
+``tests/test_pallas_kernels.py`` holds the Pallas VJP against XLA's.
 """
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +25,8 @@ import torch
 from deepspeed_tpu.ops.norms import rms_norm_xla
 from deepspeed_tpu.ops.pallas.norms import rms_norm_pallas
 from deepspeed_tpu_torch.ops import get_op
-from deepspeed_tpu_torch.ops.norms import rms_norm, rms_norm_cuda, rms_norm_torch
+from deepspeed_tpu_torch.ops.norms import (
+    RMSNormFunction, rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 
 D = 256
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -69,3 +75,31 @@ def test_rms_norm_cuda_wrapper_refuses_cpu_tensors():
     x_t, w_t, _, _ = _inputs(2, "bfloat16")
     with pytest.raises(ValueError, match="CUDA"):
         rms_norm_cuda(x_t, w_t)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (2, 3, 256)])
+def test_rms_norm_backward_matches_jax_vjp(shape):
+    rs = np.random.RandomState(11)
+    x = rs.randn(*shape).astype(np.float32)
+    w = (1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    dy = rs.randn(*shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, w: rms_norm_pallas(x, w, 1e-5), jnp.asarray(x), jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(dy))
+    dx, dw = rms_norm_bwd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(dy), 1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_j), rtol=1e-4, atol=1e-4)
+    # the autograd function (plain forward on CPU tensors) carries the same grads
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    RMSNormFunction.apply(xt, wt, 1e-5).backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j), rtol=1e-4, atol=1e-4)
+
+
+def test_rms_norm_backward_dtypes():
+    """dx comes back in x's dtype, dw in the weight's, as ``_rms_vjp_bwd``
+    casts them."""
+    x = torch.randn(4, 64, dtype=torch.bfloat16)
+    w = torch.ones(64, dtype=torch.bfloat16)
+    dx, dw = rms_norm_bwd(x, w, torch.randn(4, 64, dtype=torch.bfloat16))
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
+    assert dx.shape == x.shape and dw.shape == w.shape
