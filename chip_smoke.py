@@ -30,6 +30,15 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    each kernel's device time beside its bound, its plain version's and
    ``F.scaled_dot_product_attention``'s (the library yardstick, timed here
    and used nowhere in the port).
+   The int8 mode of paged decode (group 128 and group
+   32, i.e. 1 and 4 scales per vector, windows none / 1 / 100 / 4096 /
+   tensor) and the spec-verify kernel (t = 5 rows; bf16, int8 group 128 and
+   group 32; windows none / 1 / 100 / tensor) against their plain versions
+   at the same 8B shapes (int8 pools from the port's own quantizer,
+   contexts where ctx + t - 1 crosses a block edge, ctx 0 on the trash
+   block, the table's end), within ``ROWS_TOL``; the wrong block's scales
+   (int8) or one wrong table entry (bf16) on the longest row must fail.
+   Prints their device times beside their plain versions' and bytes bound.
 4. Main path: ``build_engine_v2`` with ``LlamaConfig.llama3_8b()`` (bf16
    weights from a seed, 512 x 128-token KV blocks, 64 slots) and
    ``generate`` on 8 prompts of mixed lengths (one of length 1, one > 128),
@@ -37,10 +46,23 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    just after: RMSNorm must have launched 65 times per forward and paged
    decode 32 times per decode step. Prints TTFT, decode tokens/s and peak
    memory beside the card's name and power limit.
-5. Whole path against the plain path: the same width at 2 layers, one
+5. Speculative serving: Llama-3-8B (full width and depth, bf16 weights from
+   the seed, 512 x 128-token blocks, 64 slots) through ``generate`` on 8
+   prompts that repeat their own opening span, 32 greedy tokens each, in
+   three engines in turn: (a) ``speculative {enabled, fused_verify,
+   max_draft_tokens 4}`` on bf16 pools; (b) the same with ``kv_quant
+   {enabled, group_size 128}``; (c) ``kv_quant`` alone. Counters zeroed
+   before and read after each: RMSNorm 65 per forward, spec verify 32 per
+   fused verify step (at least one), paged decode (bf16 or int8, by pool)
+   32 per plain decode step. Prints tokens per step, acceptance rate,
+   verify- and decode-step ms, TTFT, pool bytes, peak memory and a profile
+   of 6 steps.
+6. Whole path against the plain path: the same width at 2 layers, one
    prompt's prefill and 4 decode steps on the card (kernels) and on the CPU
-   (plain versions), logits compared within a bf16 tolerance.
-6. Training main path: ``initialize(model=llama.model_spec(Llama-3-8B at
+   (plain versions), logits compared within a bf16 tolerance; then on int8
+   pools one prompt's prefill, one fused verify step with a fixed draft of
+   4 tokens and 2 decode steps, compared the same way.
+7. Training main path: ``initialize(model=llama.model_spec(Llama-3-8B at
    4 layers))`` with bf16, AdamW (lr 3e-4, weight decay 0.1), clipping 1.0,
    ZeRO 0, batch 2 as 2 micro-batches of one 4096-token sequence; 6
    ``train_batch`` steps on one fixed batch. Launch counters are zeroed
@@ -49,7 +71,7 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    the loss must be finite and fall. Prints step ms, tokens/s, model
    TFLOP/s and its share of 989, peak memory and the device-idle share of
    one profiled step.
-7. Whole training path against the plain path: the same width at 1 layer,
+8. Whole training path against the plain path: the same width at 1 layer,
    S = 256, one step's loss and every leaf's gradient on the card (kernels,
    bf16) and on the CPU (plain versions, fp32) from the same fp32 masters,
    within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_RTOL``; a planted fault
@@ -106,6 +128,14 @@ TRAIN_GRAD_RTOL = 0.05     # per leaf, ||card - cpu||_F / ||cpu||_F
 TRAIN_STEPS = 6
 SEED = 0                       # weights, prompts and kernel inputs
 MAX_NEW_TOKENS = 32
+# the int8 paged decode and the spec-verify kernel (bf16 and int8 pools)
+# against their plain versions: row err / row RMS as DECODE_TOL. The kernels
+# dequantize in fp32; the plain versions fold one scale per vector into the
+# scores in fp32 and otherwise dequantize into bf16, one rounding step of
+# each K/V element (sound rows read <= 0.03 in tests/test_torch_cuda_kernels.py
+# on the card; one wrong block, or one block's wrong scales, >= 0.5)
+ROWS_TOL = 0.06
+SPEC_K = 4                     # max_draft_tokens of the spec-serving engines
 
 
 def log(msg: str) -> None:
@@ -409,6 +439,392 @@ def phase_main_path(seed: int, max_new_tokens: int, card: str):
     del eng, params
     torch.cuda.empty_cache()
     return res
+
+
+# --------------------------------------------------------------------------- #
+ROWS_SHAPE = {"B": 64, "nh": 32, "nkv": 8, "hd": 128, "bs": 128, "nblocks": 512,
+              "max_blocks": 64}
+
+
+def rows_work(ctx_np, t: int, ng: int, window=None) -> dict:
+    """Bytes and operations of one paged-attention call over t rows per
+    sequence (t = 1: decode): the K and V rows of every position some row
+    can see, read once (int8 codes and their ng fp32 scales, or bf16), q and
+    out once, the tables and context lengths; 4 operations per (query row,
+    visible position, dim)."""
+    S = ROWS_SHAPE
+    cap = S["max_blocks"] * S["bs"]
+    ctx = ctx_np.astype(np.int64)
+    hi = np.minimum(ctx + t, cap)
+    lo = np.maximum(ctx - window + 1, 0) if window else np.zeros_like(ctx)
+    live = int(np.maximum(hi - lo, 0).sum())
+    per_pos = S["nkv"] * (2 * S["hd"] * (1 if ng else 2) + 2 * ng * 4)
+    byt = live * per_pos + 2 * len(ctx) * t * S["nh"] * S["hd"] * 2 \
+        + len(ctx) * (S["max_blocks"] + 1) * 4
+    seen = 0
+    for ti in range(t):
+        top = np.minimum(ctx + ti + 1, cap)
+        low = np.maximum(ctx + ti - window + 1, 0) if window else 0
+        seen += int(np.maximum(top - low, 0).sum())
+    flops = seen * S["nh"] * S["hd"] * 4
+    return {"bytes": byt, "flops": flops, "live_tokens": live,
+            "bound_ms": max(byt / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3}
+
+
+def phase_rows_kernels(seed: int, card: str):
+    """The int8 mode of paged decode and the spec-verify kernel (bf16 and
+    int8 pools) against their plain versions at the Llama-3-8B serving
+    shapes, a planted fault for each, and their times."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_int8_cuda, paged_decode_attention_torch,
+        paged_spec_verify_attention_cuda, paged_spec_verify_attention_torch)
+    from deepspeed_tpu_torch.ops.quantization import kv_quantize_int8
+
+    S = ROWS_SHAPE
+    B, nh, nkv, hd, bs = S["B"], S["nh"], S["nkv"], S["hd"], S["bs"]
+    nblocks, max_blocks, t = S["nblocks"], S["max_blocks"], SPEC_K + 1
+    cap = max_blocks * bs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    kf = torch.randn(nblocks, nkv, bs, hd, generator=gen, device=dev)
+    vf = torch.randn(nblocks, nkv, bs, hd, generator=gen, device=dev)
+    pools = {0: (kf.to(torch.bfloat16), vf.to(torch.bfloat16), {})}
+    for ng in (1, 4):          # group 128 (one scale per vector) and group 32
+        kc, ks = kv_quantize_int8(kf, hd // ng)
+        vc, vs = kv_quantize_int8(vf, hd // ng)
+        pools[ng] = (kc, vc, {"k_scale": ks, "v_scale": vs})
+    del kf, vf
+    q1 = torch.randn(B, nh, hd, generator=gen, device=dev).to(torch.bfloat16)
+    qt = torch.randn(B, t, nh, hd, generator=gen, device=dev).to(torch.bfloat16)
+    rs = np.random.RandomState(seed + 5)
+    tables_np = rs.randint(1, nblocks, (B, max_blocks)).astype(np.int32)
+    # decode: block edges and the table's end; verify: ctx + t - 1 crossing
+    # a block edge, and the newest row at the table's last position
+    dec_edge = [0, bs - 1, bs, bs + 1, 2 * bs - 1, 2 * bs, cap - 1, cap - 2]
+    ver_edge = [0, bs - t, bs - t + 1, bs - 2, bs - 1, bs, 2 * bs - 3, cap - t]
+    ctx_dec = np.concatenate([dec_edge, rs.randint(0, cap, B - len(dec_edge))])
+    ctx_ver = np.concatenate([ver_edge, rs.randint(0, cap - t + 1, B - len(ver_edge))])
+    ctx_dec, ctx_ver = ctx_dec.astype(np.int32), ctx_ver.astype(np.int32)
+    tables_np[0] = 0                          # ctx 0: an inactive slot on the trash block
+    tables = torch.from_numpy(tables_np).to(dev)
+    cd, cv = torch.from_numpy(ctx_dec).to(dev), torch.from_numpy(ctx_ver).to(dev)
+    windows = (None, 1, 100, torch.tensor(1000, dtype=torch.int32, device=dev))
+    wname = lambda w: f"tensor({int(w)})" if isinstance(w, torch.Tensor) else w  # noqa: E731
+    out = {"tol": ROWS_TOL}
+
+    errs = []
+    for ng in (1, 4):
+        kc, vc, sc = pools[ng]
+        for window in windows + (4096,):
+            got = paged_decode_attention_int8_cuda(q1, kc, vc, tables, cd, window=window, **sc)
+            torch.cuda.synchronize()
+            ref = paged_decode_attention_torch(q1, kc, vc, tables, cd, window=window, **sc)
+            errs.append(check_close(f"paged_decode int8 ng={ng} B={B} window={wname(window)}",
+                                    got, ref, ROWS_TOL))
+    out["decode_int8"] = {"max_abs_err": max(e for e, _ in errs),
+                          "max_row_err_over_rms": max(r for _, r in errs)}
+    errs = []
+    for ng in (0, 1, 4):
+        kp, vp, sc = pools[ng]
+        for window in windows:
+            got = paged_spec_verify_attention_cuda(qt, kp, vp, tables, cv, window=window, **sc)
+            torch.cuda.synchronize()
+            ref = paged_spec_verify_attention_torch(qt, kp, vp, tables, cv, window=window, **sc)
+            errs.append(check_close(f"paged_spec_verify {'int8 ng=%d' % ng if ng else 'bf16'} "
+                                    f"B={B} t={t} window={wname(window)}", got, ref, ROWS_TOL))
+    out["verify"] = {"max_abs_err": max(e for e, _ in errs),
+                     "max_row_err_over_rms": max(r for _, r in errs)}
+
+    # planted faults on the longest row, against the sound reference: the
+    # wrong block's scale rows (int8) or one wrong table entry (bf16)
+    def bad_scales(sc, blk):
+        bad = {k: v.clone() for k, v in sc.items()}
+        for k in bad:
+            bad[k][blk] = sc[k][blk % (nblocks - 1) + 1]
+        return bad
+
+    faults = {}
+    j = max_blocks // 2
+    kc, vc, sc = pools[1]
+    row = int(np.argmax(ctx_dec))
+    got = paged_decode_attention_int8_cuda(q1, kc, vc, tables, cd,
+                                           **bad_scales(sc, int(tables_np[row, j])))
+    ref = paged_decode_attention_torch(q1, kc, vc, tables, cd, **sc)
+    faults["decode_int8"] = row_err(got[row], ref[row])
+    row = int(np.argmax(ctx_ver))
+    got = paged_spec_verify_attention_cuda(qt, kc, vc, tables, cv,
+                                           **bad_scales(sc, int(tables_np[row, j])))
+    ref = paged_spec_verify_attention_torch(qt, kc, vc, tables, cv, **sc)
+    faults["verify_int8"] = row_err(got[row], ref[row])
+    kp, vp, _ = pools[0]
+    bad_np = tables_np.copy()
+    bad_np[row, j] = bad_np[row, j] % (nblocks - 1) + 1
+    got = paged_spec_verify_attention_cuda(qt, kp, vp, torch.from_numpy(bad_np).to(dev), cv)
+    ref = paged_spec_verify_attention_torch(qt, kp, vp, tables, cv)
+    faults["verify_bf16"] = row_err(got[row], ref[row])
+    for name, (err, rel) in faults.items():
+        what = "one wrong table entry" if name.endswith("bf16") else "one block's scales wrong"
+        log(f"  {name} planted fault ({what}, longest row): max_abs_err={err:.3e}, "
+            f"row err/RMS={rel:.4f} (must exceed tol {ROWS_TOL:g})")
+        if rel <= ROWS_TOL:
+            raise AssertionError(f"{name} tolerance passes a planted fault; it is too loose")
+    out["planted_faults"] = {k: {"max_abs_err": e, "row_err_over_rms": r}
+                             for k, (e, r) in faults.items()}
+
+    def time_case(kind, ng, ctx_np, tables_np, label):
+        c = torch.from_numpy(ctx_np.astype(np.int32)).to(dev)
+        tb = torch.from_numpy(tables_np).to(dev)
+        kp, vp, sc = pools[ng]
+        if kind == "decode":
+            kern = lambda: paged_decode_attention_int8_cuda(q1, kp, vp, tb, c, **sc)  # noqa: E731
+            plain = lambda: paged_decode_attention_torch(q1, kp, vp, tb, c, **sc)  # noqa: E731
+        else:
+            kern = lambda: paged_spec_verify_attention_cuda(qt, kp, vp, tb, c, **sc)  # noqa: E731
+            plain = lambda: paged_spec_verify_attention_torch(qt, kp, vp, tb, c, **sc)  # noqa: E731
+        w = rows_work(ctx_np, 1 if kind == "decode" else t, ng)
+        kt, pt = measure(kern, 100), measure(plain, 5)
+        r = {"ms": kt["ms"], "plain_ms": pt["ms"], "host_ms": kt["host_ms"],
+             "plain_host_ms": pt["host_ms"], **w}
+        log(f"  {label}: device kernel {r['ms']*1e3:.1f} us, plain {r['plain_ms']*1e3:.1f} us, "
+            f"bound {r['bound_ms']*1e3:.1f} us ({r['live_tokens']} live positions, "
+            f"{r['bytes'] / (r['ms'] * 1e-3) / 1e9:.0f} GB/s); host loop: kernel "
+            f"{r['host_ms']*1e3:.1f} us [{card}]")
+        return r
+
+    out["timing"] = {
+        "decode_int8_random_ctx": time_case("decode", 1, ctx_dec, tables_np,
+                                            "paged_decode int8 ng=1 random ctx 0..8191"),
+        "verify_bf16_random_ctx": time_case("verify", 0, ctx_ver, tables_np,
+                                            "paged_spec_verify bf16 t=5 random ctx"),
+        "verify_int8_random_ctx": time_case("verify", 1, ctx_ver, tables_np,
+                                            "paged_spec_verify int8 ng=1 t=5 random ctx"),
+    }
+    log("  paged_decode int8 / paged_spec_verify: no single PyTorch call computes these "
+        "functions (block-table gather, in-register dequant, per-row masked GQA softmax), "
+        "so they have no library time")
+    return out, time_case
+
+
+def spec_prompts(seed: int, vocab: int):
+    """Eight prompts of 24..500 tokens, each its own opening span repeated
+    three times, so the drafter finds an earlier occurrence of the trailing
+    n-gram once the model repeats itself."""
+    rs = np.random.RandomState(seed + 7)
+    lengths = [24, 64, 100, 129, 150, 200, 300, 500]
+    prompts = []
+    for n in lengths:
+        span = rs.randint(0, vocab, n // 3 + 1)
+        prompts.append(np.concatenate([span, span, span])[:n].astype(np.int32))
+    return prompts, lengths
+
+
+def phase_spec_serving(seed: int, max_new_tokens: int, card: str):
+    """Llama-3-8B (full width and depth) through ``generate`` with
+    speculative decoding and fused verification on bf16 pools, the same on
+    int8 pools, and int8 pools alone (whose every step is an int8 decode);
+    launch counts held to the engine's own step counts."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
+        paged_spec_verify_attention_cuda)
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    prompts, lengths = spec_prompts(seed, cfg.vocab_size)
+    counters = {"rms_norm": rms_norm_cuda,
+                "paged_decode_attention": paged_decode_attention_cuda,
+                "paged_decode_attention_int8": paged_decode_attention_int8_cuda,
+                "paged_spec_verify_attention": paged_spec_verify_attention_cuda}
+    res = {"prompt_lengths": lengths, "max_new_tokens": max_new_tokens,
+           "num_layers": cfg.num_layers, "max_draft_tokens": SPEC_K}
+    spec = {"speculative": {"enabled": True, "fused_verify": True,
+                            "max_draft_tokens": SPEC_K}}
+    int8 = {"kv_quant": {"enabled": True, "group_size": 128}}
+    for name, extra in (("spec_bf16", spec), ("spec_int8", {**spec, **int8}),
+                        ("int8", int8)):
+        t0 = time.perf_counter()
+        eng = build_engine_v2(llama, cfg, params, config=dict({
+            "dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": 64, "max_ragged_batch_size": 64,
+                       "memory_config_blocks": 512, "block_size": 128}}, **extra))
+        torch.cuda.synchronize()
+        pool_bytes = sum(x.numel() * x.element_size() for x in eng.cache.values())
+        log(f"  {name}: pools {sorted(eng.cache)} {pool_bytes/1e9:.3f} GB, "
+            f"set-up {time.perf_counter()-t0:.1f} s")
+        eng.generate([prompts[0], prompts[4]], max_new_tokens=4)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng.forward_log.clear()
+        stats0 = dict(eng.spec_stats)
+        for c in counters.values():
+            c.launches = 0
+        t_start = time.monotonic()
+        outs = eng.generate(prompts, max_new_tokens=max_new_tokens)
+        t_end = time.monotonic()
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        stats = {k: v - stats0[k] for k, v in eng.spec_stats.items()}
+        for o in outs:
+            assert len(o) == max_new_tokens and all(0 <= x < cfg.vocab_size for x in o), o
+        kinds = {k: [e for e in eng.forward_log if e[0] == k]
+                 for k in ("prefill", "decode", "verify")}
+        n_fwd = sum(len(v) for v in kinds.values())
+        quant, spec_on = "kv_quant" in extra, "speculative" in extra
+        decode_key = "paged_decode_attention_int8" if quant else "paged_decode_attention"
+        other_key = "paged_decode_attention" if quant else "paged_decode_attention_int8"
+        want = {"rms_norm": (2 * cfg.num_layers + 1) * n_fwd,
+                decode_key: cfg.num_layers * len(kinds["decode"]), other_key: 0,
+                "paged_spec_verify_attention": cfg.num_layers * len(kinds["verify"])}
+        log(f"  {name}: forwards {len(kinds['prefill'])} prefill + {len(kinds['verify'])} "
+            f"verify + {len(kinds['decode'])} decode; launches {launches}, expected {want}; "
+            f"spec stats {stats}")
+        if spec_on:
+            # every verify step is a fused one, and the launches match the
+            # engine's own step counts
+            ok = stats["fused_verify_steps"] >= 1 \
+                and len(kinds["verify"]) == stats["fused_verify_steps"] \
+                and len(kinds["decode"]) == stats["decode_steps"]
+        else:
+            ok = len(kinds["decode"]) >= 1 and not kinds["verify"]
+        if launches != want or not ok:
+            raise AssertionError(f"{name}: kernel launch counts {launches} != expected {want} "
+                                 f"or step counts disagree (spec stats {stats})")
+        first = kinds["prefill"][0]
+        step_ms = {k: (sum(e[1] for e in kinds[k]) / len(kinds[k]) * 1e3 if kinds[k] else None)
+                   for k in ("verify", "decode")}
+        r = {"ttft_ms": (first[3] - t_start) * 1e3, "prefill_ms": first[1] * 1e3,
+             "verify_step_ms": step_ms["verify"], "decode_step_ms": step_ms["decode"],
+             "tokens_per_step": (stats["emitted_tokens"] / stats["step_seqs"]
+                                 if spec_on else 1.0),
+             "acceptance_rate": (stats["accepted_tokens"] / max(stats["drafted_tokens"], 1)
+                                 if spec_on else None),
+             "spec_stats": stats, "launches": launches, "pool_bytes": pool_bytes,
+             "peak_mem_bytes": peak, "e2e_s": t_end - t_start,
+             "generated_tokens_per_s": len(prompts) * max_new_tokens / (t_end - t_start)}
+        fmt = lambda v, f: "n/a" if v is None else f % v  # noqa: E731
+        log(f"  {name}: TTFT {r['ttft_ms']:.1f} ms, {r['tokens_per_step']:.3f} tokens per "
+            f"sequence-step, acceptance {fmt(r['acceptance_rate'], '%.3f')} "
+            f"({stats['accepted_tokens']}/{stats['drafted_tokens']}), verify step "
+            f"{fmt(r['verify_step_ms'], '%.2f ms')} ({len(kinds['verify'])}), decode step "
+            f"{fmt(r['decode_step_ms'], '%.2f ms')} ({len(kinds['decode'])}), "
+            f"{r['generated_tokens_per_s']:.1f} generated tok/s, pool {pool_bytes/1e9:.3f} GB, "
+            f"peak mem {peak/2**30:.2f} GiB [{card}]")
+
+        # where the time goes: the burst's prefill and 6 steps under the
+        # profiler (device-busy vs wall time), after the counted run
+        uids = list(range(1000, 1000 + len(prompts)))
+        eng.put_many(list(zip(uids, prompts)))
+        wall, busy, n_k, top = profile_window(lambda: [eng.step() for _ in range(6)])
+        r["profile_steps"] = {"wall_ms_per_step": wall * 1e3 / 6,
+                              "busy_ms_per_step": busy * 1e3 / 6,
+                              "idle_share": 1 - busy / wall, "kernels_per_step": n_k / 6,
+                              "top": [(k, ms / 6, c // 6) for k, ms, c in top[:10]]}
+        p = r["profile_steps"]
+        log(f"  {name} profile of 6 steps: wall {p['wall_ms_per_step']:.2f} ms, device busy "
+            f"{p['busy_ms_per_step']:.2f} ms (idle {p['idle_share']:.1%}), "
+            f"{p['kernels_per_step']:.0f} kernels per step [{card}]")
+        for k, ms, c in p["top"][:6]:
+            log(f"    {ms:8.3f} ms  x{c:<4d} {k[:90]}")
+        for u in uids:
+            eng.finish(u)
+        res[name] = r
+        del eng
+        torch.cuda.empty_cache()
+    res["pool_ratio_int8_to_bf16"] = res["spec_int8"]["pool_bytes"] / res["spec_bf16"]["pool_bytes"]
+    log(f"  int8 pools {res['pool_ratio_int8_to_bf16']:.4f} x the bf16 pools' bytes")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_whole_path_spec(seed: int, card: str):
+    """2 layers at Llama-3-8B width on int8 pools: one prompt's prefill, one
+    fused verify step with a fixed draft and 2 decode steps, on the card
+    (kernels) and on the CPU (plain versions), logits compared."""
+    import torch
+
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.models._paged import fused_verify_scope
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_int8_cuda, paged_spec_verify_attention_cuda)
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    params = llama.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    rs = np.random.RandomState(seed + 4)
+    prompt = rs.randint(0, cfg.vocab_size, 125).astype(np.int32)
+    pad_t, bs, nblocks = 128, 128, 8
+    tokens = np.zeros((1, pad_t), np.int32)
+    tokens[0, :len(prompt)] = prompt
+    valid = np.arange(pad_t)[None, :] < len(prompt)
+    # the verify rows at 125..129 cross the edge of the first block
+    tables = np.array([[3, 5] + [0] * (cfg.max_seq_len // bs - 2)], np.int32)
+    draft = prompt[10:10 + SPEC_K]
+
+    def run(device, params, feed):
+        with torch.device("meta"):
+            model = llama.build(cfg)
+        model.load_state_dict({k: v.to(device) for k, v in params.items()},
+                              strict=True, assign=True)
+        cache = llama.init_paged_cache(cfg, nblocks, bs, torch.bfloat16, device,
+                                       kv_quant_group=128)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        logits, cache = llama.apply_paged(cfg, model, t(tokens), cache, t(tables),
+                                          t(np.zeros(1, np.int32)), valid=t(valid))
+        outs = [logits[0, len(prompt) - 1:len(prompt)].float().cpu()]
+        first = int(outs[0][0].argmax()) if feed is None else feed[0]
+        with fused_verify_scope():
+            logits, cache = llama.apply_paged(
+                cfg, model, t(np.array([[first, *draft]], np.int32)), cache, t(tables),
+                t(np.array([len(prompt)], np.int32)))
+        outs.append(logits[0].float().cpu())
+        nxt = int(outs[-1][-1].argmax()) if feed is None else feed[1]
+        fed = [first, nxt]
+        for s in range(2):
+            ctx = np.array([len(prompt) + SPEC_K + 1 + s], np.int32)
+            logits, cache = llama.apply_paged(cfg, model, t(np.array([[nxt]], np.int32)),
+                                              cache, t(tables), t(ctx))
+            outs.append(logits[0].float().cpu())
+            nxt = int(outs[-1][0].argmax()) if feed is None else feed[2 + s]
+            fed.append(nxt)
+        return torch.cat(outs), fed
+
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        paged_decode_attention_int8_cuda.launches = 0
+        paged_spec_verify_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        gpu_logits, fed = run(torch.device("cuda"), params, None)
+        gpu_s = time.perf_counter() - t0
+        launches = (paged_spec_verify_attention_cuda.launches,
+                    paged_decode_attention_int8_cuda.launches)
+        if launches != (cfg.num_layers, 2 * cfg.num_layers):
+            raise AssertionError(f"whole path launched (verify, int8 decode) {launches}")
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cpu_logits, _ = run(torch.device("cpu"), cpu_params, fed)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev
+    assert gpu_logits.shape == (1 + SPEC_K + 1 + 2, cfg.vocab_size)
+    assert torch.isfinite(gpu_logits).all() and torch.isfinite(cpu_logits).all()
+    err, rel = check_close("2-layer 8B-width logits on int8 pools, card vs CPU "
+                           f"(prefill + fused verify of {SPEC_K} drafts + 2 decode)",
+                           gpu_logits, cpu_logits, WHOLE_PATH_TOL)
+    agree = float((gpu_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean())
+    log(f"  greedy agreement {agree:.2f}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
+    return {"max_abs_err": err, "max_row_err_over_rms": rel, "tol": WHOLE_PATH_TOL,
+            "argmax_agreement": agree}
 
 
 # --------------------------------------------------------------------------- #
@@ -789,6 +1205,23 @@ def phase_train_whole(seed: int, card: str):
             "card_s": gpu_s, "cpu_s": cpu_s}
 
 
+def main_step_inputs(prompt_lengths, generated: int, extra: int = 1):
+    """(context lengths, block tables) of a serving step over 64 slots: the
+    first len(prompt_lengths) slots hold prompt_len + generated cached
+    tokens in fresh blocks covering ``extra`` more positions; the rest are
+    inactive (ctx 0 on the trash block)."""
+    B, max_blocks, bs = ROWS_SHAPE["B"], ROWS_SHAPE["max_blocks"], ROWS_SHAPE["bs"]
+    ctx_np = np.zeros(B, np.int32)
+    tables_np = np.zeros((B, max_blocks), np.int32)
+    next_blk = 1
+    for i, n in enumerate(prompt_lengths):
+        ctx_np[i] = n + generated
+        need = (int(ctx_np[i]) + extra + bs - 1) // bs
+        tables_np[i, :need] = np.arange(next_blk, next_blk + need)
+        next_blk += need
+    return ctx_np, tables_np
+
+
 # --------------------------------------------------------------------------- #
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -827,6 +1260,7 @@ def main() -> int:
     log("== phase 3: kernels against their plain versions")
     kern, decode_case = phase_kernels(SEED, card)
     kern["flash"] = phase_flash(SEED, card)
+    kern["rows"], rows_case = phase_rows_kernels(SEED, card)
 
     log("== phase 4: main path (Llama-3-8B shapes through generate)")
     main_res = phase_main_path(SEED, MAX_NEW_TOKENS, card)
@@ -834,25 +1268,35 @@ def main() -> int:
     # the paged-decode inputs of the main path's last decode step: the 8
     # prompts' slots at prompt_len + max_new_tokens - 2 cached tokens, the
     # other 56 slots inactive (ctx 0 on the trash block)
-    B, max_blocks, bs = 64, 64, 128
-    ctx_np = np.zeros(B, np.int32)
-    tables_np = np.zeros((B, max_blocks), np.int32)
-    next_blk = 1
-    for i, n in enumerate(main_res["prompt_lengths"]):
-        ctx_np[i] = n + main_res["max_new_tokens"] - 2
-        need = (int(ctx_np[i]) + 1 + bs - 1) // bs
-        tables_np[i, :need] = np.arange(next_blk, next_blk + need)
-        next_blk += need
-    main_case = decode_case(ctx_np, tables_np, "main-path last step")
+    main_case = decode_case(*main_step_inputs(main_res["prompt_lengths"],
+                                              main_res["max_new_tokens"] - 2),
+                            "main-path last step")
     kern["paged_decode"]["cases"]["main_path"] = main_case
 
-    log("== phase 5: whole path on the card against the plain path on the CPU")
-    whole = phase_whole_path(SEED, card)
+    log("== phase 5: speculative serving (Llama-3-8B through generate; fused verify on "
+        "bf16 and int8 pools, and int8 pools alone)")
+    spec = phase_spec_serving(SEED, MAX_NEW_TOKENS, card)
+    # the new kernels' inputs late in that run: the 8 slots at
+    # prompt_len + max_new_tokens - t (verify, t = k + 1 rows) or - 2
+    # (int8 decode) cached tokens, the other 56 inactive
+    ver_ctx, ver_tables = main_step_inputs(spec["prompt_lengths"],
+                                           MAX_NEW_TOKENS - SPEC_K - 1, extra=SPEC_K + 1)
+    dec_ctx, dec_tables = main_step_inputs(spec["prompt_lengths"], MAX_NEW_TOKENS - 2)
+    kern["rows"]["timing"]["verify_bf16_main_path"] = rows_case(
+        "verify", 0, ver_ctx, ver_tables, "paged_spec_verify bf16 main-path step")
+    kern["rows"]["timing"]["verify_int8_main_path"] = rows_case(
+        "verify", 1, ver_ctx, ver_tables, "paged_spec_verify int8 main-path step")
+    kern["rows"]["timing"]["decode_int8_main_path"] = rows_case(
+        "decode", 1, dec_ctx, dec_tables, "paged_decode int8 main-path step")
 
-    log("== phase 6: training main path (Llama-3-8B width, 4 layers, through train_batch)")
+    log("== phase 6: whole path on the card against the plain path on the CPU")
+    whole = phase_whole_path(SEED, card)
+    whole_spec = phase_whole_path_spec(SEED, card)
+
+    log("== phase 7: training main path (Llama-3-8B width, 4 layers, through train_batch)")
     train = phase_train(SEED, card)
 
-    log("== phase 7: whole training step on the card against the plain path on the CPU")
+    log("== phase 8: whole training step on the card against the plain path on the CPU")
     train_whole = phase_train_whole(SEED, card)
 
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
@@ -893,8 +1337,34 @@ def main() -> int:
             "replaces": line, "launches": train["launches"][name], "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations", "library_ms": r["library_ms"]})
+    rows_t = kern["rows"]["timing"]
+    dec8, ver8, ver16 = (rows_t["decode_int8_main_path"], rows_t["verify_int8_main_path"],
+                         rows_t["verify_bf16_main_path"])
+    int8_launches = {p: spec[p]["launches"]["paged_decode_attention_int8"]
+                     for p in ("spec_int8", "int8")}
+    ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
+                    for p in ("spec_bf16", "spec_int8")}
+    kernels += [
+        {"name": "paged_decode_attention_int8", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/csrc/paged_decode.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:74",
+         "launches": sum(int8_launches.values()), "launches_by_path": int8_launches,
+         "max_abs_err": kern["rows"]["decode_int8"]["max_abs_err"],
+         "ms": dec8["ms"], "plain_ms": dec8["plain_ms"], "bound_ms": dec8["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "paged_spec_verify_attention", "route": "cuda",
+         "source": "deepspeed_tpu_torch/ops/csrc/paged_verify.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:315",
+         "launches": sum(ver_launches.values()), "launches_by_path": ver_launches,
+         "max_abs_err": kern["rows"]["verify"]["max_abs_err"],
+         "ms": ver8["ms"], "plain_ms": ver8["plain_ms"], "bound_ms": ver8["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "bf16": {"ms": ver16["ms"], "plain_ms": ver16["plain_ms"],
+                  "bound_ms": ver16["bound_ms"]}},
+    ]
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,
-              "main_path": main_res, "whole_path": whole, "train": train,
+              "main_path": main_res, "spec_serving": spec, "whole_path": whole,
+              "whole_path_spec": whole_spec, "train": train,
               "train_whole_path": train_whole, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

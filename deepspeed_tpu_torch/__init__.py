@@ -10,7 +10,8 @@ Ported so far:
 
 - paged serving of the Llama family through the v2 continuous-batching
   engine (:func:`build_engine_v2`), with the RMSNorm and paged-decode
-  kernels;
+  kernels; speculative decoding with fused verification (the spec-verify
+  kernel) and the int8 KV cache (the paged-decode kernel's int8 mode);
 - single-process training of the Llama family through :func:`initialize`
   → ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
   clipping, lr schedules), with the RMSNorm kernel and the flash-attention
@@ -19,7 +20,7 @@ Ported so far:
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from .inference import InferenceConfig, build_engine_v2  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401

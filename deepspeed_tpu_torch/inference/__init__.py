@@ -5,4 +5,6 @@ from .engine import InferenceEngine, ModelFamily  # noqa: F401
 from .engine_v2 import InferenceEngineV2, build_engine_v2  # noqa: F401
 from .ragged import (BlockedAllocator, PrefixBlockIndex,  # noqa: F401
                      SequenceDescriptor, StateManager, UnknownSequenceError)
-from .sampling import SamplingParams, filter_logits, sample  # noqa: F401
+from .engine_v2 import prompt_lookup_draft  # noqa: F401
+from .sampling import (SamplingParams, filter_logits,  # noqa: F401
+                       filter_logits_batch, sample, sp_arrays)

@@ -4,8 +4,7 @@ imports nothing of the JAX package.
 
 Features that the port has not brought over yet raise
 ``NotImplementedError`` when enabled (:func:`check_ported`) rather than being
-ignored: ``kv_quant``, ``prefix_cache``, ``speculative``,
-``split_prefill_chunk > 0``, ``quant``, ``tensor_parallel.tp_size > 1``,
+ignored: ``prefix_cache``, ``split_prefill_chunk > 0``, ``quant``, ``tensor_parallel.tp_size > 1``,
 ``trace``, ``compile_monitor`` and ``enable_cuda_graph``.
 """
 
@@ -44,7 +43,9 @@ class PrefixCacheConfig:
 
 @dataclass
 class SpeculativeConfig:
-    """Speculative decoding for the v2 paged engine (not ported)."""
+    """Speculative decoding for the v2 paged engine (prompt-lookup drafts,
+    one batched verify forward; ``fused_verify`` runs its attention through
+    the paged spec-verify kernel)."""
 
     enabled: bool = False
     max_draft_tokens: int = 4
@@ -64,7 +65,9 @@ class QuantConfig:
 
 @dataclass
 class KVQuantConfig:
-    """Quantized (int8) KV cache for the v2 paged engine (not ported)."""
+    """Quantized (int8) KV cache for the v2 paged engine: int8 code pools
+    with fp32 scales per position, kv head and group of ``group_size``
+    lanes (clamped to the head size)."""
 
     enabled: bool = False
     dtype: str = "int8"
@@ -137,9 +140,7 @@ class InferenceConfig:
     def unported_features(self) -> List[str]:
         """Enabled features the port does not implement yet."""
         on = {
-            "kv_quant": self.kv_quant.enabled,
             "prefix_cache": self.prefix_cache.enabled,
-            "speculative": self.speculative.enabled,
             "split_prefill_chunk": self.split_prefill_chunk > 0,
             "quant": self.quant.enabled,
             "tensor_parallel.tp_size": self.tensor_parallel.tp_size > 1,

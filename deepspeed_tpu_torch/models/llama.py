@@ -35,7 +35,8 @@ from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
-from ._paged import init_paged_pools, join_kv, paged_attention_step, split_kv
+from ._paged import (init_paged_pools, join_kv, layer_kv, paged_attention_step,
+                     split_kv)
 
 
 @dataclass(frozen=True)
@@ -156,11 +157,15 @@ def init(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32,
 
 
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                     dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+                     dtype=torch.bfloat16, device="cuda",
+                     kv_quant_group: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """``{"k", "v"}`` pools ``[L, num_blocks, nkv, block_size, hd]`` on
-    ``device`` (the GPU unless the caller passes ``device="cpu"``)."""
+    ``device`` (the GPU unless the caller passes ``device="cpu"``); with
+    ``kv_quant_group``, int8 code pools and their fp32 ``k_scale`` /
+    ``v_scale`` pools (``models/_paged.py`` ``init_paged_pools``)."""
     return init_paged_pools(cfg.num_layers, num_blocks, cfg.num_kv_heads,
-                            block_size, cfg.head_size, dtype, device)
+                            block_size, cfg.head_size, dtype, device,
+                            kv_quant_group=kv_quant_group)
 
 
 def _param(shape) -> nn.Parameter:
@@ -194,8 +199,8 @@ class LlamaBlock(nn.Module):
             self.q_norm = _param((hd,))
             self.k_norm = _param((hd,))
 
-    def forward(self, x: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, block_tables: torch.Tensor,
+    def forward(self, x: torch.Tensor, k_cache, v_cache,
+                block_tables: torch.Tensor,
                 context_lens: torch.Tensor, valid: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
@@ -251,7 +256,8 @@ class Llama(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B, t]; context_lens [B] tokens already cached per sequence;
         block_tables [B, max_blocks] int32 into the shared pool; valid [B, t]
-        marks real (non-pad) tokens. Returns (logits [B, t, vocab] fp32,
+        marks real (non-pad) tokens; ``cache`` holds plain pools or int8
+        pools with their scale pools. Returns (logits [B, t, vocab] fp32,
         cache), the cache updated in place."""
         cfg = self.cfg
         b, t = tokens.shape
@@ -263,8 +269,8 @@ class Llama(nn.Module):
             torch.arange(t, device=x.device)[None, :]
         k_pools, v_pools = split_kv(cache)
         for l, layer in enumerate(self.layers):
-            x = layer(x, k_pools[l], v_pools[l], block_tables, context_lens,
-                      valid, cos, sin, positions)
+            x = layer(x, layer_kv(k_pools, l), layer_kv(v_pools, l), block_tables,
+                      context_lens, valid, cos, sin, positions)
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         head = self.embed if cfg.tie_embeddings else self.lm_head
         logits = F.linear(x, head)

@@ -39,6 +39,13 @@ SIGNATURES = {
     # B, nh, nkv, hd, bs, num_blocks, max_blocks, scale, stream
     "dstt_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
                           _I, _I, _I, _I, _I, _I, _I, _F, _VP],
+    # q, k_pool, v_pool, k_scale, v_scale, tables, ctx, window_ptr, window,
+    # out, B, nh, nkv, hd, bs, num_blocks, max_blocks, ng, scale, stream
+    "dstt_paged_decode_int8": [_VP] * 8 + [_I, _VP] + [_I] * 8 + [_F, _VP],
+    # q, k_pool, v_pool, k_scale, v_scale, tables, ctx, window_ptr, window,
+    # out, B, t, nh, nkv, hd, bs, num_blocks, max_blocks, ng, quant, scale,
+    # stream
+    "dstt_paged_verify": [_VP] * 8 + [_I, _VP] + [_I] * 10 + [_F, _VP],
     # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
     # scale, dtype, stream
     "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I, _VP],

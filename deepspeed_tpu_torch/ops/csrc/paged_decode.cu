@@ -7,6 +7,11 @@
 // its K/V, read straight out of the shared block pools through the block
 // table, with an fp32 online softmax.
 //
+// The int8 mode (`quant=True`: int8 code pools with fp32 scale rows,
+// dequantized in registers) is `dstt_paged_decode_int8` at the end of this
+// file: the t = 1 instantiation of the kernel in paged_rows.cuh, which
+// paged_verify.cu shares. The bf16 kernel below is separate and unchanged by it.
+//
 //   q            [B, nh, hd]                 bf16
 //   k/v pool     [num_blocks, nkv, bs, hd]   bf16 (block 0 = trash block)
 //   block_tables [B, max_blocks]             int32
@@ -40,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_rows.cuh"
 
 namespace {
 
@@ -270,4 +277,21 @@ extern "C" int dstt_paged_decode(const void* q, const void* k_pool, const void* 
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// int8 pools: codes [num_blocks, nkv, bs, hd] int8, scales [num_blocks, nkv,
+// bs, ng] fp32; q and out bf16 [B, nh, hd].
+extern "C" int dstt_paged_decode_int8(const void* q, const void* k_pool, const void* v_pool,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* tables, const void* ctx,
+                                      const void* window_ptr, int window_static, void* out,
+                                      int B, int nh, int nkv, int hd, int bs, int num_blocks,
+                                      int max_blocks, int ng, float scale, void* stream) {
+  dstt_rows::Args a{static_cast<const __nv_bfloat16*>(q), k_pool, v_pool,
+                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                    static_cast<const int*>(tables), static_cast<const int*>(ctx),
+                    static_cast<const int*>(window_ptr), window_static,
+                    static_cast<__nv_bfloat16*>(out),
+                    B, /*t=*/1, nh, nkv, bs, num_blocks, max_blocks, ng, scale};
+  return (int)dstt_rows::launch<true>(a, hd, static_cast<cudaStream_t>(stream));
 }

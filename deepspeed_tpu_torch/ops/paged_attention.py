@@ -1,28 +1,40 @@
-"""Paged (blocked-KV) decode attention — counterpart of
-``deepspeed_tpu/ops/pallas/paged_attention.py`` (bf16 mode).
+"""Paged (blocked-KV) attention — counterpart of
+``deepspeed_tpu/ops/pallas/paged_attention.py``: one-token decode (op
+``paged_decode_attention``) and fused speculative verification (op
+``paged_spec_verify_attention``), each over bf16 pools or over int8 code
+pools with fp32 per-position scales (``inference.kv_quant``).
 
-Two implementations of op ``paged_decode_attention``, chosen by the input's
-device (``ops/registry.py``):
+Each op has two implementations, chosen by the input's device
+(``ops/registry.py``):
 
-- :func:`paged_decode_attention_torch`, the plain version, with the
-  semantics of ``paged_decode_attention_xla`` (``paged_attention.py:239``):
-  gather the pool rows the block table references into a dense view, mask
-  positions past ``ctx`` (and at or before ``ctx - window``), softmax in
-  fp32. It serves CPU tensors and is the oracle the kernel is held against.
-- :func:`paged_decode_attention_cuda`, the wrapper of the hand-written
-  kernel ``ops/csrc/paged_decode.cu``, which replaces the TPU kernel
-  ``_decode_kernel`` (``paged_attention.py:74``): one block per (kv head,
-  sequence), walking only the live positions through the block table with
-  an fp32 online softmax; its header note gives the bound.
-  ``paged_decode_attention_cuda.launches`` counts its kernel launches.
+- the plain versions, with the semantics of the JAX ``_xla`` references:
+  :func:`paged_decode_attention_torch` (``paged_decode_attention_xla``
+  :239: gather the pool rows the block table references into a dense view,
+  mask positions past ``ctx`` and at or before ``ctx - window``, softmax in
+  fp32; in int8 mode scores and probabilities carry the scales at one group
+  per vector, the gathered view is dequantized otherwise) and
+  :func:`paged_spec_verify_attention_torch`
+  (``paged_spec_verify_attention_xla`` :479: the same expressions as the
+  multi-token prefill read in ``models/_paged.py``). They serve CPU tensors
+  and are the oracles the kernels are held against.
+- the wrappers of the hand-written kernels: :func:`paged_decode_attention_cuda`
+  (bf16 pools: ``ops/csrc/paged_decode.cu``, replacing ``_decode_kernel``
+  :74), :func:`paged_decode_attention_int8_cuda` (int8 pools: the int8 mode of
+  ``paged_decode.cu``, replacing the same kernel's ``quant=True`` mode) and
+  :func:`paged_spec_verify_attention_cuda` (``ops/csrc/paged_verify.cu``,
+  both modes, replacing ``_spec_verify_kernel`` :315). Each counts its
+  kernel launches in ``.launches``.
 
 Layout (as in the JAX package):
-  q            [B, nh, hd]
-  k/v pool     [num_blocks, nkv, bs, hd]   (block 0 = trash block)
+  q            [B, nh, hd] (decode) or [B, t, nh, hd] (verify: row ti sits at
+               position ctx + ti)
+  k/v pool     [num_blocks, nkv, bs, hd]   (block 0 = trash block), bf16 or
+               int8 codes
+  k/v scale    [num_blocks, nkv, bs, ng]   fp32, int8 mode only (both or
+               neither)
   block_tables [B, max_blocks] int32
-  context_lens [B] int32 — tokens ALREADY cached; the current token's K/V is
-               written to the pool before the call, so ctx + 1 positions
-               are attended.
+  context_lens [B] int32 — tokens ALREADY cached; the current tokens' K/V
+               are written to the pool before the call.
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ from typing import Optional, Union
 import torch
 
 from . import _build
+from .attention import attention_torch
+from .quantization import kv_dequantize_int8
 from .registry import register
 
 NEG_INF = -1e30
@@ -55,41 +69,95 @@ def _check_window(window: Window) -> Window:
     return window
 
 
+def _check_scales(k_scale, v_scale) -> bool:
+    """True in int8 mode; one scale pool without the other is refused, as
+    the JAX kernel asserts (``paged_attention.py:167``)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    return k_scale is not None
+
+
+def _window_value(window: Window, device):
+    """The window as the plain versions compare with it."""
+    if isinstance(window, torch.Tensor):
+        return window.to(device).long().clamp(min=1)
+    return window
+
+
+def _gathered(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Dense [B, S, nkv, *] view of the pool rows the tables reference."""
+    B, max_blocks = tables.shape
+    g = pool[tables].transpose(2, 3)           # [B, mb, bs, nkv, *]
+    return g.reshape((B, max_blocks * g.shape[2]) + tuple(g.shape[3:]))
+
+
 @register("paged_decode_attention", backend="torch")
 def paged_decode_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  context_lens: torch.Tensor, *,
                                  scale: Optional[float] = None,
-                                 window: Window = None) -> torch.Tensor:
+                                 window: Window = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Dense-gather reference with the kernel's semantics. Returns
     [B, nh, hd] in q's dtype."""
+    quant = _check_scales(k_scale, v_scale)
     B, nh, hd = q.shape
     num_blocks, nkv, bs, _ = k_pool.shape
     max_blocks = block_tables.shape[1]
     S = max_blocks * bs
     g = nh // nkv
-    scale = hd ** -0.5 if scale is None else scale
     window = _check_window(window)
     tables = block_tables.long().clamp(0, num_blocks - 1)
+    kv_pos = torch.arange(S, device=q.device)[None, :]
+    cl = context_lens.long()[:, None]
+    mask = kv_pos <= cl                                   # [B, S]
+    if window is not None:
+        mask = mask & (kv_pos > cl - _window_value(window, q.device))
+    if quant and k_scale.shape[-1] > 1:
+        # per-group scales: dequantize the gathered view, then attend
+        kg = kv_dequantize_int8(_gathered(k_pool, tables),
+                                _gathered(k_scale, tables), q.dtype)
+        vg = kv_dequantize_int8(_gathered(v_pool, tables),
+                                _gathered(v_scale, tables), q.dtype)
+        return attention_torch(q[:, None], kg, vg, causal=False,
+                               mask=mask[:, None, None, :], scale=scale)[:, 0]
+    scale = hd ** -0.5 if scale is None else scale
     # [B, mb, nkv, bs, hd] -> [B, nkv, S, hd]
     kg = k_pool[tables].permute(0, 2, 1, 3, 4).reshape(B, nkv, S, hd)
     vg = v_pool[tables].permute(0, 2, 1, 3, 4).reshape(B, nkv, S, hd)
     # query head h = kv * g + gi attends kv head h // g
     qg = q.reshape(B, nkv, g, hd).float()
     s = torch.einsum("bngh,bnsh->bngs", qg, kg.float()) * scale
-    kv_pos = torch.arange(S, device=q.device)[None, :]
-    cl = context_lens.long()[:, None]
-    mask = kv_pos <= cl
-    if window is not None:
-        w = window.to(q.device).long().clamp(min=1) \
-            if isinstance(window, torch.Tensor) else window
-        mask = mask & (kv_pos > cl - w)
+    if quant:
+        # one scale per (position, kv head): folded into score space, and
+        # the V scale into the probabilities, as the JAX reference does
+        ks = k_scale[tables].permute(0, 2, 1, 3, 4).reshape(B, nkv, S)
+        vs = v_scale[tables].permute(0, 2, 1, 3, 4).reshape(B, nkv, S)
+        s = s * ks[:, :, None, :]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bngs,bnsh->bngh", p.to(v_pool.dtype).float(),
-                       vg.float())
+    if quant:
+        p = p * vs[:, :, None, :]
+        out = torch.einsum("bngs,bnsh->bngh", p, vg.float())
+    else:
+        out = torch.einsum("bngs,bnsh->bngh", p.to(v_pool.dtype).float(),
+                           vg.float())
     return out.reshape(B, nh, hd).to(q.dtype)
+
+
+def _window_args(window: Window, dev):
+    """(pointer to a 0-d int32 device tensor or None, static window or 0,
+    the tensor behind the pointer, to be held through the launch)."""
+    window = _check_window(window)
+    if isinstance(window, torch.Tensor):
+        if window.device != dev:
+            raise ValueError(f"window tensor on {window.device}, q on {dev}")
+        window = window.to(torch.int32).reshape(())
+        return window.data_ptr(), 0, window
+    return None, (window or 0), None
 
 
 @register("paged_decode_attention", backend="cuda")
@@ -98,8 +166,17 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 context_lens: torch.Tensor, *,
                                 scale: Optional[float] = None,
-                                window: Window = None) -> torch.Tensor:
-    """Launch ``ops/csrc/paged_decode.cu``. Returns [B, nh, hd] bf16."""
+                                window: Window = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Launch ``ops/csrc/paged_decode.cu``. Returns [B, nh, hd] bf16. With
+    ``k_scale``/``v_scale`` (int8 pools) the int8 mode runs
+    (:func:`paged_decode_attention_int8_cuda`)."""
+    if _check_scales(k_scale, v_scale):
+        return paged_decode_attention_int8_cuda(
+            q, k_pool, v_pool, block_tables, context_lens, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda needs CUDA tensors, got {dev}")
@@ -133,15 +210,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     q = q.contiguous()
     tables = block_tables.contiguous()
     ctx = context_lens.contiguous()
-    window = _check_window(window)
-    window_ptr, window_static = None, 0
-    if isinstance(window, torch.Tensor):
-        if window.device != dev:
-            raise ValueError(f"window tensor on {window.device}, q on {dev}")
-        window = window.to(torch.int32).reshape(())
-        window_ptr = window.data_ptr()
-    elif window is not None:
-        window_static = window
+    window_ptr, window_static, _window = _window_args(window, dev)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -158,3 +227,193 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention_cuda.launches = 0
+
+# ``paged_rows.cuh``'s shared-memory budget: a block holds one K and one V
+# tile of 128 positions (int8 mode: and their scale rows) and fp32 q, acc
+# and p for its g * t rows
+_SMEM_LIMIT = 232448
+
+
+def _rows_smem(hd: int, quant: bool, rows: int, ng: int) -> int:
+    esz = 1 if quant else 2
+    return (128 * (hd * esz + 16) + 128 * hd * esz
+            + (2 * 128 * ng * 4 if quant else 0)
+            + rows * hd * 8 + rows * 128 * 4 + rows * 12)
+
+
+def _check_rows_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
+                     k_scale, v_scale, t: int):
+    """Device, dtype and shape checks of the paged_rows kernels' wrappers
+    (``q`` is [B, t, nh, hd]); returns ``ng`` (0 for bf16 pools)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for arg, x in (("k_pool", k_pool), ("v_pool", v_pool), ("block_tables", block_tables),
+                   ("context_lens", context_lens), ("k_scale", k_scale),
+                   ("v_scale", v_scale)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{arg} on {x.device}, q on {dev}")
+    quant = k_scale is not None
+    want = torch.int8 if quant else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_pool.dtype != want or v_pool.dtype != want:
+        raise ValueError(f"{name} takes bf16 q and {'int8' if quant else 'bf16'} "
+                         f"pools, got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("block_tables and context_lens must be int32")
+    B, _, nh, hd = q.shape
+    num_blocks, nkv, bs, hd_k = k_pool.shape
+    if v_pool.shape != k_pool.shape or hd_k != hd:
+        raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
+                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or context_lens.shape != (B,):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"context_lens {tuple(context_lens.shape)} do not "
+                         f"match batch {B}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous")
+    ng = 0
+    if quant:
+        ng = k_scale.shape[-1]
+        sshape = (num_blocks, nkv, bs, ng)
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32 \
+                or k_scale.shape != sshape or v_scale.shape != sshape:
+            raise ValueError(f"scales must be fp32 {sshape}, got {k_scale.dtype} "
+                             f"{tuple(k_scale.shape)} / {v_scale.dtype} "
+                             f"{tuple(v_scale.shape)}")
+        if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
+            raise ValueError("scales must be contiguous")
+        if hd % (16 * ng):
+            raise ValueError(f"{ng} scale groups of a {hd}-lane row: the kernel "
+                             "needs groups of a multiple of 16 lanes")
+    rows = (nh // nkv) * t if nkv and nh % nkv == 0 else 0
+    if not rows or hd not in (64, 128, 256) \
+            or _rows_smem(hd, quant, rows, ng) > _SMEM_LIMIT:
+        raise ValueError(f"unsupported shape: nh={nh}, nkv={nkv}, t={t}, hd={hd} "
+                         f"(needs nh % nkv == 0, hd in 64/128/256 and the "
+                         f"{rows} rows of a kv head within shared memory)")
+    return ng
+
+
+def _launch_rows(entry: str, q4, k_pool, v_pool, block_tables, context_lens,
+                 k_scale, v_scale, window, scale, ng: int) -> torch.Tensor:
+    """Launch a ``paged_rows.cuh`` kernel over q4 [B, t, nh, hd]."""
+    dev = q4.device
+    q4 = q4.contiguous()
+    tables = block_tables.contiguous()
+    ctx = context_lens.contiguous()
+    window_ptr, window_static, _window = _window_args(window, dev)
+    out = torch.empty_like(q4)
+    B, t, nh, hd = q4.shape
+    if B == 0:
+        return out
+    num_blocks, nkv, bs, _ = k_pool.shape
+    scale = hd ** -0.5 if scale is None else scale
+    ks_ptr = k_scale.data_ptr() if k_scale is not None else None
+    vs_ptr = v_scale.data_ptr() if v_scale is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load()
+    if entry == "decode_int8":
+        err = lib.dstt_paged_decode_int8(
+            q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
+            tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static,
+            out.data_ptr(), B, nh, nkv, hd, bs, num_blocks, tables.shape[1], ng,
+            float(scale), stream)
+    else:
+        err = lib.dstt_paged_verify(
+            q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
+            tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static,
+            out.data_ptr(), B, t, nh, nkv, hd, bs, num_blocks, tables.shape[1],
+            max(ng, 1), int(ng > 0), float(scale), stream)
+    _build.check(err, f"paged attention kernel ({entry})")
+    return out
+
+
+def paged_decode_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     context_lens: torch.Tensor, *,
+                                     k_scale: torch.Tensor, v_scale: torch.Tensor,
+                                     scale: Optional[float] = None,
+                                     window: Window = None) -> torch.Tensor:
+    """Launch the int8 mode of ``ops/csrc/paged_decode.cu`` (int8 code
+    pools, fp32 scales dequantized in registers). Returns [B, nh, hd] bf16."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("k_scale and v_scale must be given together")
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, nh, hd], got {tuple(q.shape)}")
+    q4 = q[:, None]
+    ng = _check_rows_args("paged_decode_attention_int8_cuda", q4, k_pool, v_pool,
+                          block_tables, context_lens, k_scale, v_scale, 1)
+    out = _launch_rows("decode_int8", q4, k_pool, v_pool, block_tables,
+                       context_lens, k_scale, v_scale, window, scale, ng)
+    if q.shape[0]:
+        paged_decode_attention_int8_cuda.launches += 1
+    return out[:, 0]
+
+
+paged_decode_attention_int8_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# fused speculative verification (inference.speculative.fused_verify)
+# --------------------------------------------------------------------------- #
+@register("paged_spec_verify_attention", backend="torch")
+def paged_spec_verify_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      block_tables: torch.Tensor,
+                                      context_lens: torch.Tensor, *,
+                                      scale: Optional[float] = None,
+                                      window: Window = None,
+                                      k_scale: Optional[torch.Tensor] = None,
+                                      v_scale: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """q [B, t, nh, hd], row ti at position ``context_lens + ti`` (its K/V
+    already in the pool) → [B, t, nh, hd] in q's dtype. The same expressions
+    as the multi-token prefill read of ``models/_paged.py``, so a fused
+    verify step on the CPU computes what the unfused one does."""
+    quant = _check_scales(k_scale, v_scale)
+    B, t, nh, hd = q.shape
+    num_blocks, _, bs, _ = k_pool.shape
+    S = block_tables.shape[1] * bs
+    window = _check_window(window)
+    tables = block_tables.long().clamp(0, num_blocks - 1)
+    kg = _gathered(k_pool, tables)
+    vg = _gathered(v_pool, tables)
+    if quant:
+        kg = kv_dequantize_int8(kg, _gathered(k_scale, tables), q.dtype)
+        vg = kv_dequantize_int8(vg, _gathered(v_scale, tables), q.dtype)
+    positions = context_lens.long()[:, None] + torch.arange(t, device=q.device)[None, :]
+    kv_pos = torch.arange(S, device=q.device)[None, None, None, :]
+    q_abs = positions[:, None, :, None]
+    mask = kv_pos <= q_abs
+    if window is not None:
+        mask = mask & (q_abs - kv_pos < _window_value(window, q.device))
+    return attention_torch(q, kg, vg, causal=False, mask=mask, scale=scale)
+
+
+@register("paged_spec_verify_attention", backend="cuda")
+def paged_spec_verify_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     context_lens: torch.Tensor, *,
+                                     scale: Optional[float] = None,
+                                     window: Window = None,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    """Launch ``ops/csrc/paged_verify.cu`` (bf16 pools, or int8 pools with
+    ``k_scale``/``v_scale``). Returns [B, t, nh, hd] bf16."""
+    _check_scales(k_scale, v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, t, nh, hd], got {tuple(q.shape)}")
+    ng = _check_rows_args("paged_spec_verify_attention_cuda", q, k_pool, v_pool,
+                          block_tables, context_lens, k_scale, v_scale, q.shape[1])
+    out = _launch_rows("verify", q, k_pool, v_pool, block_tables, context_lens,
+                       k_scale, v_scale, window, scale, ng)
+    if q.shape[0]:
+        paged_spec_verify_attention_cuda.launches += 1
+    return out
+
+
+paged_spec_verify_attention_cuda.launches = 0

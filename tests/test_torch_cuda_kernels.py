@@ -11,7 +11,10 @@ outputs of order 1). Paged decode: each output row's largest error within
 6% of that row's RMS. A row over n positions has an RMS of about
 sqrt(e/n), so an absolute limit would pass a wrong block on a long row;
 sound bf16 rows read <= 3% (the plain version rounds the probabilities to
-bf16), one wrong 128-position block >= 50%.
+bf16), one wrong 128-position block >= 50%. The int8 mode of paged decode
+and the spec-verify kernel (bf16 and int8) are held to the same 6%: the
+kernels dequantize in fp32, the plain versions at one group per vector in
+fp32 and otherwise into bf16 (one rounding step of each K/V element).
 
 Flash attention (forward, dQ, dK/dV) against its plain pieces
 (``flash_fwd_torch``/``flash_bwd_torch``, which round p, ds and the outputs
@@ -38,7 +41,9 @@ from deepspeed_tpu_torch.ops.flash_attention import (
 from deepspeed_tpu_torch.ops.norms import (
     rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
-    paged_decode_attention_cuda, paged_decode_attention_torch)
+    paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
+    paged_decode_attention_torch, paged_spec_verify_attention_cuda,
+    paged_spec_verify_attention_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -321,3 +326,169 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="mask"):
         flash_attention(q, k, v, mask=torch.ones(1, 1, 8, 8, dtype=torch.bool,
                                                  device=cuda_device))
+
+
+# --------------------------------------------------------------------------- #
+# int8 paged decode and the spec-verify kernel (ops/csrc/paged_rows.cuh)
+# --------------------------------------------------------------------------- #
+def _pools(rs, nblocks, nkv, bs, hd, device, ng=0):
+    """bf16 pools (ng = 0) or int8 code pools with fp32 scale pools, as
+    (k, v, k_scale, v_scale); scales in [0.005, 0.025) keep the scores of
+    order 1."""
+    shape = (nblocks, nkv, bs, hd)
+    if not ng:
+        k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device, torch.bfloat16)
+                for _ in range(2))
+        return k, v, None, None
+    k, v = (torch.from_numpy(rs.randint(-127, 128, shape).astype(np.int8)).to(device)
+            for _ in range(2))
+    ks, vs = (torch.from_numpy((0.005 + 0.02 * rs.rand(nblocks, nkv, bs, ng))
+                               .astype(np.float32)).to(device) for _ in range(2))
+    return k, v, ks, vs
+
+
+def _rows_case(device, B, t, nh, nkv, hd, bs, nblocks, mb, ng, seed, ctx=None):
+    rs = np.random.RandomState(seed)
+    kp, vp, ks, vs = _pools(rs, nblocks, nkv, bs, hd, device, ng)
+    if ctx is None:
+        cap = mb * bs
+        edge = [0, bs - 1, bs - t, bs - t + 1, bs, 2 * bs - 1, cap - t]
+        ctx = np.array([c for c in edge if 0 <= c <= cap - t][:B], np.int32)
+        ctx = np.concatenate([ctx, rs.randint(0, cap - t + 1, B - len(ctx))]).astype(np.int32)
+    tables = rs.randint(1, nblocks, (B, mb)).astype(np.int32)
+    tables[ctx == 0] = 0            # an inactive slot: trash block only
+    q = torch.from_numpy(rs.randn(B, t, nh, hd).astype(np.float32)).to(device, torch.bfloat16)
+    return (q, kp, vp, torch.from_numpy(tables).to(device),
+            torch.from_numpy(ctx).to(device)), {"k_scale": ks, "v_scale": vs}
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("ng", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 1, 5, "tensor"])
+@pytest.mark.parametrize("hd,bs", [(64, 8), (128, 16)])
+def test_paged_decode_int8_kernel_matches_plain(cuda_device, g, ng, window, hd, bs):
+    args, sc = _rows_case(cuda_device, 7, 1, 8, 8 // g, hd, bs, 24, 5, ng, seed=g + ng + hd)
+    q = args[0][:, 0]
+    if window == "tensor":
+        window = torch.tensor(9, dtype=torch.int32, device=cuda_device)
+    before = (paged_decode_attention_int8_cuda.launches, paged_decode_attention_cuda.launches)
+    got = get_op("paged_decode_attention", cuda_device)(q, *args[1:], window=window, **sc)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention_int8_cuda.launches,
+            paged_decode_attention_cuda.launches) == (before[0] + 1, before[1])
+    ref = paged_decode_attention_torch(q, *args[1:], window=window, **sc)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_rows_close(got, ref)
+
+
+@pytest.mark.parametrize("g,t", [(1, 1), (1, 9), (2, 5), (4, 5), (8, 2), (8, 9), (4, 3)])
+@pytest.mark.parametrize("ng", [0, 1, 2, 4])
+@pytest.mark.parametrize("window", [None, 1, 7, "tensor"])
+@pytest.mark.parametrize("hd,bs", [(64, 8), (128, 16)])
+def test_paged_verify_kernel_matches_plain(cuda_device, g, t, ng, window, hd, bs):
+    """Rows g-major, t-minor; contexts where ctx + t - 1 crosses a block
+    edge, a ctx 0 slot on the trash block, the table's last position."""
+    args, sc = _rows_case(cuda_device, 8, t, 8, 8 // g, hd, bs, 24, 5, ng, seed=g * t + ng + hd)
+    if window == "tensor":
+        window = torch.tensor(11, dtype=torch.int32, device=cuda_device)
+    before = paged_spec_verify_attention_cuda.launches
+    got = get_op("paged_spec_verify_attention", cuda_device)(*args, window=window, **sc)
+    torch.cuda.synchronize()
+    assert paged_spec_verify_attention_cuda.launches == before + 1
+    ref = paged_spec_verify_attention_torch(*args, window=window, **sc)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert_rows_close(got, ref)
+
+
+def test_paged_verify_t1_is_decode(cuda_device):
+    """At t = 1 the verify kernel computes the decode kernel's function."""
+    for ng in (0, 1):
+        args, sc = _rows_case(cuda_device, 6, 1, 32, 8, 128, 16, 30, 6, ng, seed=ng)
+        got = paged_spec_verify_attention_cuda(*args, **sc)[:, 0]
+        ref = paged_decode_attention_torch(args[0][:, 0], *args[1:], **sc)
+        assert_rows_close(got, ref)
+
+
+def test_paged_rows_kernels_take_an_empty_batch(cuda_device):
+    args, sc = _rows_case(cuda_device, 4, 5, 8, 2, 64, 8, 12, 4, 1, seed=1)
+    empty = [a[:0] for a in (args[0], args[3], args[4])]
+    before = (paged_spec_verify_attention_cuda.launches, paged_decode_attention_int8_cuda.launches)
+    out = paged_spec_verify_attention_cuda(empty[0], args[1], args[2], empty[1], empty[2], **sc)
+    assert out.shape == (0, 5, 8, 64)
+    out = paged_decode_attention_int8_cuda(empty[0][:, 0], args[1], args[2], empty[1], empty[2],
+                                           **sc)
+    assert out.shape == (0, 8, 64)
+    assert (paged_spec_verify_attention_cuda.launches,
+            paged_decode_attention_int8_cuda.launches) == before
+
+
+@pytest.mark.parametrize("ng", [0, 1, 4])
+@pytest.mark.parametrize("window", [None, 1000])
+def test_paged_rows_kernels_at_llama_shapes(cuda_device, ng, window):
+    """The chip smoke's shapes: 64 slots, 32/8 heads, hd 128, 512 blocks of
+    128, contexts up to the table's end; int8 decode (t = 1) and verify
+    (t = 5). One wrong block's scales (or table entry) on the longest row
+    must fail the same check."""
+    for t in (1, 5):
+        if t == 1 and not ng:
+            continue                  # the bf16 decode kernel has its own tests above
+        args, sc = _rows_case(cuda_device, 64, t, 32, 8, 128, 128, 512, 64, ng, seed=t + ng)
+        q, kp, vp, tables, ctx = args
+        if t == 1:
+            got = paged_decode_attention_cuda(q[:, 0], kp, vp, tables, ctx, window=window, **sc)
+            ref = paged_decode_attention_torch(q[:, 0], kp, vp, tables, ctx, window=window, **sc)
+        else:
+            got = paged_spec_verify_attention_cuda(*args, window=window, **sc)
+            ref = paged_spec_verify_attention_torch(*args, window=window, **sc)
+        assert_rows_close(got, ref)
+        row = int(ctx.argmax())
+        blk = int(tables[row, 32])
+        if ng:
+            bad = {k: v.clone() for k, v in sc.items()}
+            for k in bad:
+                bad[k][blk] = sc[k][blk % 511 + 1]
+            kw = bad
+            bad_args = args
+        else:
+            bad_tables = tables.clone()
+            bad_tables[row, 32] = blk % 511 + 1
+            kw, bad_args = sc, (q, kp, vp, bad_tables, ctx)
+        if t == 1:
+            got = paged_decode_attention_cuda(q[:, 0], *bad_args[1:], **kw)
+            ref = paged_decode_attention_torch(q[:, 0], kp, vp, tables, ctx, **sc)
+        else:
+            got = paged_spec_verify_attention_cuda(*bad_args, **kw)
+            ref = paged_spec_verify_attention_torch(*args, **sc)
+        with pytest.raises(AssertionError, match="row err"):
+            assert_rows_close(got[row:row + 1], ref[row:row + 1])
+
+
+def test_paged_rows_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    args, sc = _rows_case(cuda_device, 3, 5, 8, 2, 64, 8, 12, 4, 1, seed=2)
+    q, kp, vp, tables, ctx = args
+    with pytest.raises(ValueError, match="together"):
+        paged_spec_verify_attention_cuda(*args, k_scale=sc["k_scale"])
+    with pytest.raises(ValueError, match="together"):
+        paged_decode_attention_cuda(q[:, 0], kp, vp, tables, ctx, v_scale=sc["v_scale"])
+    with pytest.raises(ValueError, match="int8"):            # int8 pools need scales
+        paged_spec_verify_attention_cuda(*args)
+    with pytest.raises(ValueError, match="fp32"):
+        paged_spec_verify_attention_cuda(*args, k_scale=sc["k_scale"].half(),
+                                         v_scale=sc["v_scale"].half())
+    with pytest.raises(ValueError, match="int32"):
+        paged_spec_verify_attention_cuda(q, kp, vp, tables.long(), ctx, **sc)
+    with pytest.raises(ValueError, match="bf16"):
+        paged_spec_verify_attention_cuda(q.float(), kp, vp, tables, ctx, **sc)
+    with pytest.raises(ValueError, match=r"\[B, t, nh, hd\]"):
+        paged_spec_verify_attention_cuda(q[:, 0], kp, vp, tables, ctx, **sc)
+    with pytest.raises(ValueError, match="16 lanes"):        # groups of 8 lanes
+        ks8 = torch.ones(*kp.shape[:3], 8, device=cuda_device)
+        paged_spec_verify_attention_cuda(*args, k_scale=ks8, v_scale=ks8)
+    with pytest.raises(ValueError, match=">= 1"):
+        paged_spec_verify_attention_cuda(*args, window=0, **sc)
+    with pytest.raises(ValueError, match="shared memory"):   # 256 rows of hd 256
+        q256 = torch.zeros(1, 16, 16, 256, device=cuda_device, dtype=torch.bfloat16)
+        kp256 = torch.zeros(4, 1, 8, 256, device=cuda_device, dtype=torch.bfloat16)
+        paged_spec_verify_attention_cuda(q256, kp256, kp256, tables[:1], ctx[:1])
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_spec_verify_attention_cuda(*(a.cpu() for a in args))

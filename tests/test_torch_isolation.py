@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor
 ``deepspeed_tpu``, runs on the GPU unless the CPU is asked for, and refuses
-features it has not ported instead of ignoring them."""
+features it has not ported instead of ignoring them (``kv_quant`` and
+``speculative`` are ported and build)."""
 
 import ast
 import os
@@ -86,6 +87,10 @@ def test_pools_default_to_the_gpu():
         llama.init_paged_cache(cfg, 4, 8)
     cache = llama.init_paged_cache(cfg, 4, 8, device="cpu")
     assert {t.device.type for t in cache.values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_paged_cache(cfg, 4, 8, kv_quant_group=8)
+    cache = llama.init_paged_cache(cfg, 4, 8, device="cpu", kv_quant_group=8)
+    assert {t.device.type for t in cache.values()} == {"cpu"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
@@ -100,9 +105,7 @@ def test_card_path_refuses_dtypes_without_a_kernel(dtype, monkeypatch):
 
 
 UNPORTED = {
-    "kv_quant": {"kv_quant": {"enabled": True}},
     "prefix_cache": {"prefix_cache": {"enabled": True}},
-    "speculative": {"speculative": {"enabled": True}},
     "split_prefill_chunk": {"split_prefill_chunk": 32},
     "quant": {"quant": {"enabled": True}},
     "tensor_parallel.tp_size": {"tensor_parallel": 2},
@@ -119,3 +122,14 @@ def test_unported_feature_raises(feature):
     assert InferenceConfig.from_dict(conf).unported_features() == [feature]
     with pytest.raises(NotImplementedError, match=feature):
         build_engine_v2(llama, cfg, params, config=conf, device="cpu")
+
+
+def test_ported_serving_features_build():
+    """``kv_quant`` and ``speculative`` (with ``fused_verify``) are ported:
+    enabling them builds an engine instead of raising."""
+    cfg, params = _tiny_params()
+    conf = {"dtype": "float32", "kv_quant": {"enabled": True},
+            "speculative": {"enabled": True, "fused_verify": True}}
+    assert InferenceConfig.from_dict(conf).unported_features() == []
+    eng = build_engine_v2(llama, cfg, params, config=conf, device="cpu")
+    assert eng.cache["k"].dtype == torch.int8 and eng._spec_fused
