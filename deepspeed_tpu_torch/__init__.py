@@ -15,12 +15,16 @@ Ported so far:
 - single-process training of the Llama family through :func:`initialize`
   → ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
   clipping, lr schedules), with the RMSNorm kernel and the flash-attention
-  forward, dQ and dK/dV kernels.
+  forward, dQ and dK/dV kernels;
+- the GPT-2/OPT family (``models/gpt.py``) through both entry points, with
+  the LayerNorm kernel;
+- the inference module system (``inference/modules.py``), whose weight-only
+  int8 linear runs the int8 quantize and dequantize kernels.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from .inference import InferenceConfig, build_engine_v2  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401

@@ -545,8 +545,8 @@ class InferenceEngineV2(InferenceEngine):
 def build_engine_v2(model, model_cfg, params: Mapping[str, Any], config=None,
                     device="cuda", **kwargs) -> InferenceEngineV2:
     """Counterpart of the JAX ``build_engine_v2``: ``model`` is the family's
-    module (``deepspeed_tpu_torch.models.llama``), ``params`` its
-    ``state_dict`` (``llama.init`` or ``models.convert.from_jax_params``).
+    module (``deepspeed_tpu_torch.models.llama`` or ``.gpt``), ``params`` its
+    ``state_dict`` (the family's ``init`` or ``models.convert.from_jax_params``).
     Runs on the GPU unless ``device="cpu"`` is asked for."""
     if isinstance(config, dict) or config is None:
         config = InferenceConfig.from_dict({**(config or {}), **kwargs})

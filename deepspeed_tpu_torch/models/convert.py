@@ -1,12 +1,15 @@
 """JAX parameter tree ↔ the port's ``state_dict``.
 
-The JAX ``llama.init`` (``deepspeed_tpu/models/llama.py:121-155``) builds a
-nested tree with the layer leaves stacked along a leading ``L`` dim and every
-matrix kept as ``x @ W`` (``[in, out]``). The port's :class:`~.llama.Llama`
-unstacks the layers (``layers.<i>.<name>``) and keeps matrices in
-``nn.Linear`` layout ``[out, in]``. :func:`from_jax_params` maps one to the
-other, given the tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
-and :func:`to_jax_params` maps back (numpy leaves, bf16 widened to fp32):
+The JAX ``llama.init`` (``deepspeed_tpu/models/llama.py:121-155``) and
+``gpt.init`` (``deepspeed_tpu/models/gpt.py:88-119``) build a nested tree
+with the layer leaves stacked along a leading ``L`` dim and every matrix kept
+as ``x @ W`` (``[in, out]``). The port's modules (:class:`~.llama.Llama`,
+:class:`~.gpt.GPT`) unstack the layers (``layers.<i>.<name>``) and keep
+matrices in ``nn.Linear`` layout ``[out, in]``. :func:`from_jax_params` maps
+one to the other, given the tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``), and :func:`to_jax_params` maps back
+(numpy leaves, bf16 widened to fp32). The family is the config's type
+(``LlamaConfig`` or ``GPTConfig``). Llama:
 
 =================  ==================  ===========================
 JAX leaf           JAX shape           port entry
@@ -21,6 +24,11 @@ layers/*_norm, b*  [L, n]              layers.<i>.<name>, as is
 final_norm         [h]                 final_norm, as is
 lm_head            [h, v]              lm_head, transposed
 =================  ==================  ===========================
+
+GPT-2/OPT: ``layers/wqkv`` ``[L, h, 3h]`` (q | k | v along the output dim),
+``wo``, ``w_up``, ``w_down`` and ``lm_head`` (untied only) are transposed;
+``embed``, ``pos_embed``, the LayerNorm scales and biases and ``bqkv`` /
+``bo`` / ``b_up`` / ``b_down`` go across as they are.
 """
 
 from __future__ import annotations
@@ -30,11 +38,20 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .llama import LlamaConfig, param_shapes
+from . import gpt, llama
 
-# matrices the JAX tree keeps as ``x @ W`` and the port as ``nn.Linear``
-TRANSPOSED = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                        "lm_head"})
+# matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
+# (both families' names: no other leaf of either shares one)
+TRANSPOSED = frozenset({"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
+                        "w_down", "lm_head"})
+
+
+def _param_shapes(cfg: Any):
+    """The config's family's ``param_shapes(cfg)``."""
+    for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig)):
+        if isinstance(cfg, cfg_type):
+            return family.param_shapes(cfg)
+    raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
 
 
 def _to_torch(a: Any) -> torch.Tensor:
@@ -44,10 +61,12 @@ def _to_torch(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a))    # a copy: JAX buffers are read-only
 
 
-def from_jax_params(cfg: LlamaConfig,
+def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama`` params (numpy leaves) → the port's ``state_dict``.
-    Raises if the tree does not hold exactly the config's parameters."""
+    """JAX ``llama`` or ``gpt`` params (numpy leaves) → the port's
+    ``state_dict``. Raises if the tree does not hold exactly the config's
+    parameters."""
+    want = _param_shapes(cfg)
     out: Dict[str, torch.Tensor] = {}
     layers = params_np["layers"]
     for name, leaf in params_np.items():
@@ -63,7 +82,6 @@ def from_jax_params(cfg: LlamaConfig,
         for l in range(cfg.num_layers):
             t = stacked[l]
             out[f"layers.{l}.{name}"] = (t.t() if name in TRANSPOSED else t).contiguous()
-    want = param_shapes(cfg)
     if set(out) != set(want):
         raise ValueError(f"param tree does not match the config: missing "
                          f"{sorted(set(want) - set(out))}, unexpected "
@@ -74,14 +92,14 @@ def from_jax_params(cfg: LlamaConfig,
     return out
 
 
-def to_jax_params(cfg: LlamaConfig,
+def to_jax_params(cfg: Any,
                   state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's ``state_dict`` (or a flat param dict) → the JAX ``llama``
+    """The port's ``state_dict`` (or a flat param dict) → the JAX family's
     tree with numpy leaves: layer leaves stacked along a leading ``L`` dim,
     matrices back in ``x @ W`` layout. The inverse of
     :func:`from_jax_params`; bf16 leaves come back as fp32 (numpy has no
     bf16), which is exact."""
-    want = param_shapes(cfg)
+    want = _param_shapes(cfg)
     if set(state) != set(want):
         raise ValueError(f"state does not match the config: missing "
                          f"{sorted(set(want) - set(state))}, unexpected "

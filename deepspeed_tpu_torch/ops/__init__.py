@@ -1,5 +1,7 @@
 """Ops of the PyTorch/CUDA port. Importing this package registers every op's
 implementations; no kernel is built until one is launched."""
 
-from . import attention, flash_attention, norms, paged_attention  # noqa: F401 (registers)
+from . import attention, flash_attention, paged_attention  # noqa: F401 (registers)
+from .norms import layer_norm, rms_norm  # noqa: F401
+from .quantization import dequantize_int8, quantize_int8  # noqa: F401
 from .registry import get_op, op, register  # noqa: F401

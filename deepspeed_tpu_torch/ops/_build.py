@@ -35,6 +35,12 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, w, y, n_rows, d, eps, dtype (0 bf16, 1 f32), stream
     "dstt_rms_norm": [_VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # x, w, b (may be null), y, n_rows, d, eps, dtype, stream
+    "dstt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # x, q, scales, n_groups, group_size, dtype of x, stream
+    "dstt_quantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # q, scales, out, n_groups, group_size, dtype of out, stream
+    "dstt_dequantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # q, k_pool, v_pool, tables, ctx, window_ptr, window, out,
     # B, nh, nkv, hd, bs, num_blocks, max_blocks, scale, stream
     "dstt_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,

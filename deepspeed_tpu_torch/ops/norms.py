@@ -1,27 +1,32 @@
-"""RMSNorm — counterpart of ``deepspeed_tpu/ops/norms.py`` (``rms_norm_xla``)
-and ``deepspeed_tpu/ops/pallas/norms.py`` (``_rms_kernel``).
+"""RMSNorm and LayerNorm — counterpart of ``deepspeed_tpu/ops/norms.py``
+(``rms_norm_xla``, ``layer_norm_xla``) and ``deepspeed_tpu/ops/pallas/norms.py``
+(``_rms_kernel``, ``_ln_kernel``).
 
-Two implementations of op ``rms_norm``, chosen by the input's device
-(``ops/registry.py``):
+Each op (``rms_norm``, ``layer_norm``) has two implementations, chosen by
+the input's device (``ops/registry.py``):
 
-- :func:`rms_norm_torch`, the plain version: fp32 accumulation, cast back to
-  the input dtype. It serves CPU tensors and is the oracle the kernel is held
-  against on the card.
-- :func:`rms_norm_cuda`, the differentiable op over the hand-written kernel
-  ``ops/csrc/rms_norm.cu`` (one block per row, 16-byte loads, fp32
-  warp-shuffle reduction). It replaces the TPU kernel
-  ``deepspeed_tpu/ops/pallas/norms.py:27``; its header note gives the bound.
-  ``rms_norm_cuda.launches`` counts its kernel launches.
+- the plain version (:func:`rms_norm_torch`, :func:`layer_norm_torch`): fp32
+  accumulation, cast back to the input dtype. It serves CPU tensors and is
+  the oracle the kernel is held against on the card.
+- the differentiable op over the hand-written kernel (:func:`rms_norm_cuda`
+  over ``ops/csrc/rms_norm.cu``, :func:`layer_norm_cuda` over
+  ``ops/csrc/layer_norm.cu``): one block per row, 16-byte loads, fp32
+  warp-shuffle reductions. They replace the TPU kernels
+  ``deepspeed_tpu/ops/pallas/norms.py:27`` and ``:87``; each source's header
+  note gives the bound. ``rms_norm_cuda.launches`` and
+  ``layer_norm_cuda.launches`` count the kernel launches.
 
-As in the JAX package (``_rms`` custom VJP, ``norms.py:51-73``) the forward
-is the kernel and the backward is plain tensor code: :func:`rms_norm_bwd`
-mirrors ``_rms_vjp_bwd`` line by line. :class:`RMSNormFunction` joins the
-two, so the kernel's output carries gradients.
+As in the JAX package (``_rms`` / ``_ln`` custom VJPs, ``norms.py:51-73``,
+``:115-145``) the forward is the kernel and the backward is plain tensor
+code: :func:`rms_norm_bwd` and :func:`layer_norm_bwd` mirror
+``_rms_vjp_bwd`` and ``_ln_vjp_bwd`` line by line. :class:`RMSNormFunction`
+and :class:`LayerNormFunction` join the two, so the kernels' outputs carry
+gradients.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -114,3 +119,108 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 rms_norm_cuda.launches = 0
 
 rms_norm = op("rms_norm")
+
+
+# --------------------------------------------------------------------------- #
+# layer_norm
+# --------------------------------------------------------------------------- #
+@register("layer_norm", backend="torch")
+def layer_norm_torch(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """The variance comes from the centred values, as in ``_ln_kernel``."""
+    dtype = x.dtype
+    xf = x.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(xc * xc, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                   eps: float = 1e-5, bias_dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw, db)`` of y = layer_norm(x, weight, bias): ``_ln_vjp_bwd``
+    in fp32, dx cast to x's dtype, dw and db summed over rows and cast to
+    the weight's and the bias's dtype (the weight's when there is no bias)."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    dyf = dy.reshape(-1, d).float()
+    wf = weight.float()
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    r = torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
+    xhat = xc * r
+    wdy = dyf * wf
+    dx = r * (wdy - torch.mean(wdy, dim=-1, keepdim=True)
+              - xhat * torch.mean(wdy * xhat, dim=-1, keepdim=True))
+    dw = torch.sum(dyf * xhat, dim=0)
+    db = torch.sum(dyf, dim=0)
+    return (dx.to(x.dtype).view(x.shape), dw.to(weight.dtype),
+            db.to(bias_dtype or weight.dtype))
+
+
+def _launch_layer_norm(x: torch.Tensor, weight: torch.Tensor,
+                       bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """One launch of ``ops/csrc/layer_norm.cu`` (forward, no autograd)."""
+    d = x.shape[-1]
+    x2 = x.contiguous().view(-1, d)
+    w = weight.contiguous()
+    b = None if bias is None else bias.contiguous()
+    y = torch.empty_like(x2)
+    for t in (x2, w, b, y):
+        if t is not None and t.numel() and t.data_ptr() % 16:
+            raise ValueError("layer_norm_cuda needs 16-byte aligned tensors")
+    lib = _build.load()
+    err = lib.dstt_layer_norm(x2.data_ptr(), w.data_ptr(),
+                              None if b is None else b.data_ptr(), y.data_ptr(),
+                              x2.shape[0], d, float(eps), _DTYPE_CODE[x.dtype],
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "layer_norm kernel")
+    if x2.shape[0]:
+        layer_norm_cuda.launches += 1
+    return y.view(x.shape)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """Forward: the kernel on CUDA tensors (the plain version on CPU
+    tensors); backward: :func:`layer_norm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        with torch.no_grad():
+            if x.device.type == "cuda":
+                return _launch_layer_norm(x, weight, bias, eps)
+            return layer_norm_torch(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(x, weight, dy, ctx.eps, ctx.bias_dtype)
+        return dx, dw, (db if ctx.bias_dtype is not None else None), None
+
+
+@register("layer_norm", backend="cuda")
+def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
+                    bias: Optional[torch.Tensor], eps: float = 1e-5) -> torch.Tensor:
+    """Op ``layer_norm`` on CUDA tensors: :class:`LayerNormFunction` (the
+    kernel forward, differentiable). ``bias`` may be None."""
+    for name, t in [("weight", weight)] + ([] if bias is None else [("bias", bias)]):
+        if x.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"layer_norm_cuda needs x and {name} on one CUDA "
+                             f"device, got {x.device} and {t.device}")
+        if x.dtype not in _DTYPE_CODE or t.dtype != x.dtype:
+            raise ValueError(f"layer_norm_cuda takes bf16 or f32 x with a {name} "
+                             f"of the same dtype, got {x.dtype} and {t.dtype}")
+        if t.shape != (x.shape[-1],):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != ({x.shape[-1]},)")
+    return LayerNormFunction.apply(x, weight, bias, eps)
+
+
+layer_norm_cuda.launches = 0
+
+layer_norm = op("layer_norm")

@@ -26,7 +26,11 @@ in fp32 under autograd, the limits of ``chip_smoke.py``'s ``FLASH_TOL``
 (0.05, dQ 0.15 with its rows floored at the output's RMS), from the CPU
 simulation in ``tests/test_torch_flash_attention.py``. RMSNorm
 backward: the autograd function's grads against the plain version's, 1e-2
-in bf16 (one rounding step), 1e-5 in fp32.
+in bf16 (one rounding step), 1e-5 in fp32. LayerNorm forward and backward:
+the same limits as RMSNorm. int8 quantize and dequantize: codes, scales and
+values EQUAL to the plain versions' (IEEE division, round half to even, one
+fp32 product), so no tolerance. The OPT-1.3B shapes of the paged and flash
+kernels (MHA: g = 1, 32 kv heads, hd 64, S 2048) at the limits above.
 """
 
 import numpy as np
@@ -39,11 +43,15 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_torch,
     flash_fwd_cuda, flash_fwd_torch)
 from deepspeed_tpu_torch.ops.norms import (
+    layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_torch,
     rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
     paged_decode_attention_torch, paged_spec_verify_attention_cuda,
     paged_spec_verify_attention_torch)
+from deepspeed_tpu_torch.ops.quantization import (
+    dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
+    quantize_int8_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -492,3 +500,218 @@ def test_paged_rows_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         paged_spec_verify_attention_cuda(q256, kp256, kp256, tables[:1], ctx[:1])
     with pytest.raises(ValueError, match="CUDA"):
         paged_spec_verify_attention_cuda(*(a.cpu() for a in args))
+
+
+# --------------------------------------------------------------------------- #
+# LayerNorm (ops/csrc/layer_norm.cu)
+# --------------------------------------------------------------------------- #
+def _ln_inputs(rows, d, dtype, device, mean=0.0):
+    rs = np.random.RandomState(rows + d)
+    x = torch.from_numpy(rs.randn(rows, d).astype(np.float32) * 3 + mean).to(device, dtype)
+    w = torch.from_numpy(1 + 0.1 * rs.randn(d).astype(np.float32)).to(device, dtype)
+    b = torch.from_numpy(0.2 * rs.randn(d).astype(np.float32)).to(device, dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("rows", [0, 1, 7, 4096])
+@pytest.mark.parametrize("d", [64, 768, 2048, 4096, 100, 20000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_layer_norm_kernel_matches_plain(cuda_device, rows, d, dtype, with_bias):
+    """Vector path (d 64 .. 4096), scalar path (d 100) and rows too wide for
+    the register cache (d 20000); zero rows launch nothing."""
+    if rows == 4096 and d == 20000:
+        rows = 64
+    x, w, b = _ln_inputs(rows, d, dtype, cuda_device)
+    b = b if with_bias else None
+    before = layer_norm_cuda.launches
+    got = layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert layer_norm_cuda.launches == before + (rows > 0)
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), layer_norm_torch(x, w, b, 1e-5).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_layer_norm_kernel_large_mean(cuda_device):
+    """Rows of mean 100: the centred variance keeps the digits that
+    E[x^2] - mean^2 would cancel (fp32 in, 1e-4)."""
+    x, w, b = _ln_inputs(33, 2048, torch.float32, cuda_device, mean=100.0)
+    got = layer_norm_cuda(x, w, b, 1e-5)
+    ref = layer_norm_torch(x.double(), w.double(), b.double(), 1e-5)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-4)
+
+
+def test_layer_norm_kernel_leading_dims_and_views(cuda_device):
+    x, w, b = _ln_inputs(24, 768, torch.bfloat16, cuda_device)
+    got = layer_norm(x.view(2, 3, 4, 768), w, b, 1e-5)
+    assert got.shape == (2, 3, 4, 768)
+    torch.testing.assert_close(got.view(24, 768).float(),
+                               layer_norm_torch(x, w, b, 1e-5).float(), rtol=1e-2, atol=1e-2)
+    wide = torch.cat([x, x], dim=-1)[:, :768]          # a non-contiguous view
+    torch.testing.assert_close(layer_norm(wide, w, b, 1e-5).float(),
+                               layer_norm_torch(x, w, b, 1e-5).float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_layer_norm_kernel_backward(cuda_device, dtype, with_bias):
+    x, w, b = _ln_inputs(33, 768, dtype, cuda_device)
+    dy = torch.randn(33, 768, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(1)).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in ((x, w, b) if with_bias else (x, w))]
+    layer_norm(leaves[0], leaves[1], leaves[2] if with_bias else None, 1e-5).backward(dy)
+    want = layer_norm_bwd(x, w, dy, 1e-5)
+    tol = RMS_TOL[dtype] if dtype == torch.float32 else 2e-2
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == leaf.shape
+        torch.testing.assert_close(leaf.grad.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, w, b = _ln_inputs(4, 768, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="same dtype"):
+        layer_norm_cuda(x, w.float(), b)
+    with pytest.raises(ValueError, match="same dtype"):
+        layer_norm_cuda(x, w, b.float())
+    with pytest.raises(ValueError, match="same dtype"):
+        layer_norm_cuda(x.half(), w.half(), b.half())
+    with pytest.raises(ValueError, match="shape"):
+        layer_norm_cuda(x, w[:100], b)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_cuda(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="aligned"):
+        layer_norm_cuda(x, torch.cat([w, w])[1:769], b)
+
+
+# --------------------------------------------------------------------------- #
+# int8 quantize / dequantize (ops/csrc/quantize.cu)
+# --------------------------------------------------------------------------- #
+def _quant_input(shape, dtype, device, group_size, seed=0):
+    """Rows of three magnitudes; row 0 all zero; the last group holds 127
+    and exact .5 values over zeros, so its scale is 1 and they are ties."""
+    rs = np.random.RandomState(seed)
+    row_scale = rs.choice([1e-3, 1.0, 50.0], size=(shape[0],) + (1,) * (len(shape) - 1))
+    x = (rs.randn(*shape) * row_scale).astype(np.float32)
+    x[0] = 0                                        # all-zero groups
+    flat = x.reshape(-1)
+    flat[-group_size:] = 0
+    flat[-8:] = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5]   # ties where amax = 127
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.parametrize("group_size", [16, 64, 128, 2048, 24, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_equals_plain(cuda_device, group_size, dtype):
+    """Codes and scales equal the plain version's bit for bit: vector path
+    (16 .. 2048), scalar path (24 is a multiple of the fp32 vector only, 100
+    of neither)."""
+    rows = 48
+    x = _quant_input((rows, group_size * 6), dtype, cuda_device, group_size, seed=group_size)
+    before = quantize_int8_cuda.launches
+    q, s = get_op("quantize_int8", cuda_device)(x, group_size)
+    torch.cuda.synchronize()
+    assert quantize_int8_cuda.launches == before + 1
+    q_ref, s_ref = quantize_int8_torch(x, group_size)
+    assert q.dtype == torch.int8 and q.shape == x.shape and s.shape == (rows * 6,)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(q, q_ref)
+    assert float(s[0]) == 1.0 and not q[0].any()
+    assert q.view(-1)[-8:].tolist() == [127, 0, 2, 2, 0, -2, -2, 4]
+
+
+@pytest.mark.parametrize("group_size", [16, 64, 128, 2048, 24, 100])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_dequantize_kernel_equals_plain(cuda_device, group_size, out):
+    rs = np.random.RandomState(group_size)
+    q = torch.from_numpy(rs.randint(-127, 128, (40, group_size * 5)).astype(np.int8)).to(cuda_device)
+    s = torch.from_numpy((rs.rand(200) * 0.05).astype(np.float32)).to(cuda_device)
+    before = dequantize_int8_cuda.launches
+    got = get_op("dequantize_int8", cuda_device)(q, s, group_size, out)
+    torch.cuda.synchronize()
+    assert dequantize_int8_cuda.launches == before + 1
+    assert got.dtype == out and got.shape == q.shape
+    assert torch.equal(got, dequantize_int8_torch(q, s, group_size, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_at_opt_shapes(cuda_device, dtype):
+    """OPT-1.3B's w_up [2048, 8192] at groups 2048 and 128, and any shape
+    (3-d, empty): equality throughout, and the round trip within half a
+    code step."""
+    x = _quant_input((2048, 8192), dtype, cuda_device, 2048, seed=3)
+    for gs in (2048, 128):
+        q, s = quantize_int8_cuda(x, gs)
+        q_ref, s_ref = quantize_int8_torch(x, gs)
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+        for out in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize_int8_cuda(q, s, gs, out),
+                               dequantize_int8_torch(q, s, gs, out))
+        back = dequantize_int8_cuda(q, s, gs)
+        step = s.repeat_interleave(gs).view(x.shape)
+        assert float(((back - x.float()).abs() / step).max()) <= 0.5 + 1e-4
+    x3 = x[:6].reshape(3, 2, 8192)
+    q, s = quantize_int8_cuda(x3, 512)
+    assert q.shape == x3.shape and torch.equal(q, quantize_int8_torch(x3, 512)[0])
+    before = (quantize_int8_cuda.launches, dequantize_int8_cuda.launches)
+    q0, s0 = quantize_int8_cuda(x[:0], 128)
+    assert q0.shape == (0, 8192) and s0.shape == (0,)
+    assert dequantize_int8_cuda(q0, s0, 128).shape == (0, 8192)
+    # an empty input launches nothing
+    assert (quantize_int8_cuda.launches, dequantize_int8_cuda.launches) == before
+
+
+def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(4, 256, device=cuda_device)
+    q, s = quantize_int8_cuda(x, 128)
+    with pytest.raises(ValueError, match="does not divide"):
+        quantize_int8_cuda(x, 100)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        quantize_int8_cuda(x.half(), 128)
+    with pytest.raises(ValueError, match="aligned"):
+        quantize_int8_cuda(torch.zeros(1025, device=cuda_device)[1:], 128)
+    with pytest.raises(ValueError, match="int8 codes"):
+        dequantize_int8_cuda(x, s, 128)
+    with pytest.raises(ValueError, match="int8 codes"):
+        dequantize_int8_cuda(q, s.double(), 128)
+    with pytest.raises(ValueError, match="scales shape"):
+        dequantize_int8_cuda(q, s[:4], 128)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        dequantize_int8_cuda(q, s, 128, torch.float16)
+    with pytest.raises(ValueError, match="CUDA"):
+        dequantize_int8_cuda(q, s.cpu(), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_int8_cuda(x.cpu(), 128)
+
+
+# --------------------------------------------------------------------------- #
+# the OPT-1.3B shapes of the paged and flash kernels (MHA: g = 1, hd 64)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("ng", [0, 1, 4])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_kernels_at_opt_shapes(cuda_device, ng, t):
+    """64 slots, 32 heads = 32 kv heads of 64, 512 blocks of 128, tables of
+    16 blocks (2048 positions): bf16 decode, int8 decode and verify."""
+    args, sc = _rows_case(cuda_device, 64, t, 32, 32, 64, 128, 512, 16, ng, seed=t + ng)
+    q, kp, vp, tables, ctx = args
+    if t == 1:
+        got = get_op("paged_decode_attention", cuda_device)(q[:, 0], kp, vp, tables, ctx, **sc)
+        ref = paged_decode_attention_torch(q[:, 0], kp, vp, tables, ctx, **sc)
+    else:
+        got = paged_spec_verify_attention_cuda(*args, **sc)
+        ref = paged_spec_verify_attention_torch(*args, **sc)
+    torch.cuda.synchronize()
+    assert_rows_close(got, ref)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_flash_kernels_match_plain_at_opt_shapes(cuda_device, b):
+    q, k, v, do = flash_inputs((b, 2048, 2048, 32, 32, 64), torch.bfloat16, cuda_device, seed=b)
+    o, lse = flash_fwd_cuda(q, k, v, causal=True)
+    assert_flash_close(o, flash_fwd_torch(q, k, v, causal=True)[0], FLASH_TOL[torch.bfloat16])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * 32, 2048)
+    got = (flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=True),
+           *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True))
+    for g, ref in zip(got, flash_bwd_torch(q, k, v, o, lse, do, causal=True)):
+        assert_flash_close(g, ref, FLASH_TOL[torch.bfloat16])

@@ -1,0 +1,455 @@
+"""GPT-2/OPT family: the PyTorch port against the JAX package.
+
+Weights are made by the JAX ``gpt.init`` (LayerNorm scales and every bias
+perturbed, so their effect and their grads are exercised), turned to numpy
+and moved with ``from_jax_params``; tokens come from numpy. Everything runs
+in fp32 on the CPU, where the port's ops take their plain versions.
+
+- ``apply`` logits (1e-5) and ``loss_fn`` with every leaf's grad (loss 1e-5
+  relative, grads 1e-4) for pre-LN relu, pre-LN gelu, post-LN and an untied
+  head: the same arithmetic in another summation order.
+- ``apply_paged`` (a padded prefill and two decode steps) at 1e-5, pools
+  included.
+- Greedy token streams through ``build_engine_v2`` IDENTICAL to the JAX
+  engine's, plain and with speculative decoding + fused verify + int8 KV.
+- A 10-step ``train_batch`` trajectory against ``deepspeed_tpu.initialize``
+  on one device (loss, grad norm 1e-5; final params 2e-4 absolute).
+- ``convert`` round trip and its refusals; ``num_params`` equal.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+import deepspeed_tpu_torch
+from deepspeed_tpu.comm import mesh as mesh_lib
+from deepspeed_tpu.inference.config import InferenceConfig as JConfig
+from deepspeed_tpu.inference.engine import ModelFamily as JFamily
+from deepspeed_tpu.inference.engine_v2 import InferenceEngineV2 as JEngine
+from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.runtime.engine import ModelSpec as JaxModelSpec
+from deepspeed_tpu_torch.inference import build_engine_v2
+from deepspeed_tpu_torch.models import gpt as tgpt
+from deepspeed_tpu_torch.models import llama as tllama
+from deepspeed_tpu_torch.models.convert import from_jax_params, to_jax_params
+
+VARIANTS = {
+    "pre_ln_relu": {"activation": "relu"},
+    "pre_ln_gelu": {"activation": "gelu"},
+    "post_ln": {"post_ln": True},
+    "untied": {"tie_embeddings": False, "activation": "relu"},
+}
+
+
+def _configs(**kw):
+    return jgpt.GPTConfig.tiny(**kw), tgpt.GPTConfig.tiny(**kw)
+
+
+def _jax_params(cfg_j, seed=0, perturb=True):
+    """numpy tree of ``gpt.init``; with ``perturb`` the LayerNorm scales and
+    biases and the linear biases move off their 1 / 0 init."""
+    params = jax.tree.map(np.asarray, jgpt.init(cfg_j, jax.random.PRNGKey(seed)))
+    if perturb:
+        rs = np.random.RandomState(seed)
+        bump = lambda p: (p + 0.1 * rs.randn(*p.shape)).astype(np.float32)  # noqa: E731
+        for name in ("ln1_scale", "ln1_bias", "bqkv", "bo", "ln2_scale", "ln2_bias",
+                     "b_up", "b_down"):
+            params["layers"][name] = bump(params["layers"][name])
+        for name in ("final_ln_scale", "final_ln_bias"):
+            params[name] = bump(params[name])
+    return params
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+# --------------------------------------------------------------------------- #
+# training forward
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_apply_logits_match_jax(variant):
+    cfg_j, cfg_t = _configs(**VARIANTS[variant])
+    params = _jax_params(cfg_j)
+    tokens = np.random.RandomState(1).randint(0, cfg_t.vocab_size, (2, 24)).astype(np.int32)
+    want = jax.jit(lambda p, t: jgpt.apply(cfg_j, p, t, compute_dtype=jnp.float32))(
+        params, jnp.asarray(tokens))
+    got = tgpt.apply(cfg_t, from_jax_params(cfg_t, params), torch.from_numpy(tokens),
+                     compute_dtype=torch.float32)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # explicit positions: the lookup follows them (here shifted by 3)
+    pos = np.arange(24)[None, :] + 3
+    want = jgpt.apply(cfg_j, params, jnp.asarray(tokens), positions=jnp.asarray(pos),
+                      compute_dtype=jnp.float32)
+    got = tgpt.apply(cfg_t, from_jax_params(cfg_t, params), torch.from_numpy(tokens),
+                     positions=torch.from_numpy(pos), compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_loss_and_every_leaf_grad_match_jax(variant):
+    cfg_j, cfg_t = _configs(**VARIANTS[variant])
+    params_j = _jax_params(cfg_j)
+    tokens = np.random.RandomState(2).randint(0, cfg_t.vocab_size, (2, 33)).astype(np.int32)
+    (loss_j, _), grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jgpt.loss_fn(cfg_j, p, {"tokens": jnp.asarray(tokens)},
+                               compute_dtype=jnp.float32), has_aux=True))(params_j)
+    params_t = {k: v.requires_grad_() for k, v in from_jax_params(cfg_t, params_j).items()}
+    loss_t, aux_t = tgpt.loss_fn(cfg_t, params_t, {"tokens": torch.from_numpy(tokens)},
+                                 compute_dtype=torch.float32)
+    loss_t.backward()
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-5)
+    assert float(aux_t["loss"]) == float(loss_t.detach())
+    got = _leaves(to_jax_params(cfg_t, {k: v.grad for k, v in params_t.items()}))
+    want = _leaves(grads_j)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_bf16_compute_casts_every_leaf():
+    """In bf16 every leaf, LayerNorm scales and biases included, is cast
+    before use (``_cast_layers``): logits within one bf16 step of JAX's."""
+    cfg_j, cfg_t = _configs(activation="relu")
+    params = _jax_params(cfg_j)
+    tokens = np.random.RandomState(3).randint(0, cfg_t.vocab_size, (2, 16)).astype(np.int32)
+    want = jgpt.apply(cfg_j, params, jnp.asarray(tokens), compute_dtype=jnp.bfloat16)
+    got = tgpt.apply(cfg_t, from_jax_params(cfg_t, params), torch.from_numpy(tokens),
+                     compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-2, atol=5e-2)
+
+
+# --------------------------------------------------------------------------- #
+# paged forward
+# --------------------------------------------------------------------------- #
+NUM_BLOCKS, BS, MAX_BLOCKS = 12, 8, 4
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_apply_paged_matches_jax(variant):
+    cfg_j, cfg_t = _configs(max_seq_len=MAX_BLOCKS * BS, **VARIANTS[variant])
+    params = _jax_params(cfg_j)
+    model = tgpt.build(cfg_t)
+    model.load_state_dict(from_jax_params(cfg_t, params), strict=True, assign=True)
+
+    rs = np.random.RandomState(1)
+    lengths = np.array([11, 3, 0, 0], np.int32)   # two prompts, two dummy rows
+    pad_t = 16
+    tokens = np.zeros((4, pad_t), np.int32)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rs.randint(0, cfg_t.vocab_size, n)
+    tables = np.zeros((4, MAX_BLOCKS), np.int32)
+    tables[0, :3] = [5, 2, 9]
+    tables[1, :2] = [7, 1]
+    valid = np.arange(pad_t)[None, :] < lengths[:, None]
+    jcache = jgpt.init_paged_cache(cfg_j, NUM_BLOCKS, BS, dtype=jnp.float32)
+    tcache = tgpt.init_paged_cache(cfg_t, NUM_BLOCKS, BS, dtype=torch.float32, device="cpu")
+    steps = [(tokens, np.zeros(4, np.int32), valid)]
+    ctx = lengths.copy()
+    for _ in range(2):
+        tok = rs.randint(0, cfg_t.vocab_size, (4, 1)).astype(np.int32)
+        steps.append((tok, ctx.copy(), (lengths > 0)[:, None]))
+        ctx = ctx + (lengths > 0)
+    japply = jax.jit(lambda p, tok, cache, tab, c, v: jgpt.apply_paged(
+        cfg_j, p, tok, cache, tab, c, valid=v, compute_dtype=jnp.float32))
+    live = lengths > 0
+    for tok, c, v in steps:
+        jl, jcache = japply(params, jnp.asarray(tok), jcache, jnp.asarray(tables),
+                            jnp.asarray(c), jnp.asarray(v))
+        tl, tcache = tgpt.apply_paged(cfg_t, model, torch.from_numpy(tok), tcache,
+                                      torch.from_numpy(tables), torch.from_numpy(c),
+                                      valid=torch.from_numpy(v))
+        assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
+        # dummy rows compute on the trash block in both packages
+        np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                                   rtol=1e-5, atol=1e-5)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tcache[k].numpy()[:, 1:], np.asarray(jcache[k])[:, 1:],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_position_lookup_is_clamped_but_cache_positions_are_not():
+    """Past ``max_seq_len`` the learned-position lookup stays on the last
+    row while the cache scatter uses the true position (a table wider than
+    the model's positions)."""
+    cfg_j, cfg_t = _configs(max_seq_len=16)
+    params = _jax_params(cfg_j)
+    model = tgpt.build(cfg_t)
+    model.load_state_dict(from_jax_params(cfg_t, params), strict=True, assign=True)
+    tokens = np.random.RandomState(4).randint(0, cfg_t.vocab_size, (1, 24)).astype(np.int32)
+    tables = np.array([[3, 1, 2, 0]], np.int32)
+    zero = np.zeros(1, np.int32)
+    jl, jcache = jgpt.apply_paged(cfg_j, params, jnp.asarray(tokens),
+                                  jgpt.init_paged_cache(cfg_j, 6, BS, dtype=jnp.float32),
+                                  jnp.asarray(tables), jnp.asarray(zero),
+                                  compute_dtype=jnp.float32)
+    tl, tcache = tgpt.apply_paged(cfg_t, model, torch.from_numpy(tokens),
+                                  tgpt.init_paged_cache(cfg_t, 6, BS, torch.float32, "cpu"),
+                                  torch.from_numpy(tables), torch.from_numpy(zero))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+    assert float(tcache["k"][:, 2].abs().sum()) > 0       # positions 16..23 landed
+    np.testing.assert_allclose(tcache["k"].numpy()[:, 1:], np.asarray(jcache["k"])[:, 1:],
+                               rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# serving engine
+# --------------------------------------------------------------------------- #
+RAGGED = {"max_tracked_sequences": 3, "max_ragged_batch_size": 3,
+          "memory_config_blocks": 40, "block_size": 8}
+ENGINES = {
+    "plain": {},
+    "spec_fused_int8": {"speculative": {"enabled": True, "fused_verify": True,
+                                        "max_draft_tokens": 4},
+                        "kv_quant": {"enabled": True, "group_size": 8}},
+}
+
+
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_greedy_streams_identical_to_jax(engine, activation):
+    cfg_j, cfg_t = _configs(max_seq_len=96, activation=activation)
+    params = _jax_params(cfg_j)
+    conf = dict({"dtype": "float32", "prefill_bucket": 16, "ragged": RAGGED},
+                **ENGINES[engine])
+    rng = np.random.default_rng(1)
+    pat = rng.integers(0, cfg_t.vocab_size, 6).tolist()
+    prompts = [(pat * 6)[:30], rng.integers(0, cfg_t.vocab_size, 13).tolist(),
+               rng.integers(0, cfg_t.vocab_size, 1).tolist(), (pat * 3)[:11],
+               rng.integers(0, cfg_t.vocab_size, 6).tolist()]
+    mesh_lib.set_mesh(None)
+    jeng = JEngine(JFamily.from_module(jgpt, cfg_j), params, JConfig.from_dict(conf),
+                   init_paged_cache=partial(jgpt.init_paged_cache, dtype=jnp.float32),
+                   apply_paged=partial(jgpt.apply_paged, compute_dtype=jnp.float32))
+    want = jeng.generate(prompts, max_new_tokens=8)
+    eng = build_engine_v2(tgpt, cfg_t, from_jax_params(cfg_t, params), config=conf,
+                          device="cpu")
+    got = eng.generate(prompts, max_new_tokens=8)
+    assert got == [list(map(int, w)) for w in want]
+    if engine != "plain":
+        assert eng.cache["k"].dtype == torch.int8
+        assert eng.spec_stats == {k: int(v) for k, v in jeng.spec_stats.items()}
+        assert eng.spec_stats["fused_verify_steps"] >= 1
+    eng.state.debug_check()
+    assert eng.state.allocator.free_blocks == RAGGED["memory_config_blocks"] - 1
+
+
+# --------------------------------------------------------------------------- #
+# training engine
+# --------------------------------------------------------------------------- #
+CONFIG = {
+    "train_batch_size": 4, "gradient_accumulation_steps": 2,
+    "gradient_clipping": 0.5,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-3, "weight_decay": 0.1}},
+    "scheduler": {"type": "WarmupLR",
+                  "params": {"warmup_min_lr": 1e-4, "warmup_max_lr": 3e-3,
+                             "warmup_num_steps": 4, "warmup_type": "linear"}},
+    "steps_per_print": 0,
+}
+
+
+@pytest.mark.parametrize("activation,perturb", [("gelu", True), ("relu", False)])
+def test_engine_ten_steps_match_jax_engine(activation, perturb):
+    """gelu from perturbed weights; relu from the weights as initialised: from
+    the perturbed ones a pre-activation within rounding of 0 takes the other
+    side of ReLU's kink in the two packages at step 7 (grad norm 1.6e-4
+    apart, then drifting), which says nothing about either."""
+    cfg_j, cfg_t = _configs(activation=activation)
+    params_j = _jax_params(cfg_j, perturb=perturb)
+    eng_j, *_ = deepspeed_tpu.initialize(
+        model=JaxModelSpec(params=jax.tree.map(jnp.asarray, params_j),
+                           loss_fn=lambda p, b: jgpt.loss_fn(
+                               cfg_j, p, b, compute_dtype=jnp.float32)),
+        config=CONFIG, devices=jax.devices()[:1])
+    eng_t, *_ = deepspeed_tpu_torch.initialize(
+        model=deepspeed_tpu_torch.ModelSpec(
+            params=from_jax_params(cfg_t, params_j),
+            loss_fn=lambda p, b: tgpt.loss_fn(cfg_t, p, b, compute_dtype=torch.float32)),
+        config=CONFIG, device="cpu")
+    rs = np.random.RandomState(0)
+    for step in range(10):
+        batch = {"tokens": rs.randint(0, cfg_t.vocab_size, (4, 17)).astype(np.int32)}
+        out_j, out_t = eng_j.train_batch(batch), eng_t.train_batch(batch)
+        np.testing.assert_allclose(float(out_t.loss), float(out_j.loss), rtol=1e-5,
+                                   err_msg=f"step {step}")
+        np.testing.assert_allclose(float(out_t.grad_norm), float(out_j.grad_norm),
+                                   rtol=1e-5, err_msg=f"step {step}")
+        np.testing.assert_allclose(out_t.lr, float(out_j.lr), rtol=1e-6)
+    assert eng_t.state.step == int(eng_j.state.step) == 10
+    got = _leaves(to_jax_params(cfg_t, {k: v.detach() for k, v in eng_t.state.params.items()}))
+    want = _leaves(eng_j.state.params)
+    # the K bias has a gradient of exactly zero in exact arithmetic (a shift
+    # of every key moves each query's scores by one constant, which softmax
+    # drops), so its computed gradient is rounding noise that Adam normalises
+    # into steps of lr size in either package: leave that slice out
+    h = cfg_t.hidden_size
+    bias = "['layers']['bqkv']"
+    for side in (got, want):
+        side[bias] = np.delete(side[bias], np.s_[h:2 * h], axis=-1)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=0, atol=2e-4, err_msg=name)
+
+
+def test_model_spec_trains_from_a_generator():
+    """``initialize(model=gpt.model_spec(cfg))`` draws the weights itself and
+    the loss falls on a fixed batch."""
+    cfg = tgpt.GPTConfig.tiny(activation="relu")
+    eng, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt.model_spec(cfg, compute_dtype=torch.float32),
+        config=dict(CONFIG, seed=3), device="cpu")
+    assert set(eng.state.params) == set(tgpt.param_shapes(cfg))
+    batch = {"tokens": np.random.RandomState(5).randint(0, 256, (4, 17)).astype(np.int32)}
+    losses = [float(eng.train_batch(batch).loss) for _ in range(6)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# --------------------------------------------------------------------------- #
+# configs, init, convert
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("name", ["tiny", "gpt2_small", "opt_1_3b"])
+def test_configs_and_num_params_equal(name):
+    cfg_j, cfg_t = getattr(jgpt.GPTConfig, name)(), getattr(tgpt.GPTConfig, name)()
+    for field in ("vocab_size", "hidden_size", "intermediate_size", "num_layers",
+                  "num_heads", "max_seq_len", "layer_norm_eps", "tie_embeddings",
+                  "post_ln", "activation", "head_size", "num_params"):
+        assert getattr(cfg_t, field) == getattr(cfg_j, field), field
+    shapes = tgpt.param_shapes(cfg_t)
+    assert sum(int(np.prod(s)) for s, _ in shapes.values()) == cfg_t.num_params
+
+
+def test_untied_num_params_and_bad_activation():
+    cfg_j, cfg_t = _configs(tie_embeddings=False)
+    assert cfg_t.num_params == cfg_j.num_params
+    assert "lm_head" in tgpt.param_shapes(cfg_t)
+    assert "lm_head" not in tgpt.param_shapes(tgpt.GPTConfig.tiny())
+    with pytest.raises(ValueError, match="activation"):
+        tgpt.GPTConfig.tiny(activation="swish")
+
+
+def test_init_from_generator_is_seeded_and_scaled():
+    cfg = tgpt.GPTConfig.tiny()
+    a = tgpt.init(cfg, torch.Generator().manual_seed(3))
+    b = tgpt.init(cfg, torch.Generator().manual_seed(3))
+    assert set(a) == set(tgpt.param_shapes(cfg))
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+    assert abs(float(a["layers.0.w_down"].std()) - cfg.intermediate_size ** -0.5) < 0.01
+    assert abs(float(a["pos_embed"].std()) - cfg.hidden_size ** -0.5) < 0.01
+    assert bool((a["layers.1.ln2_scale"] == 1).all()) and not a["layers.1.b_up"].any()
+    assert bool((a["final_ln_scale"] == 1).all()) and not a["final_ln_bias"].any()
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_convert_layout_round_trip_and_refusals(tied):
+    cfg_j, cfg_t = _configs(tie_embeddings=tied)
+    params = _jax_params(cfg_j, seed=2)
+    sd = from_jax_params(cfg_t, params)
+    assert set(sd) == set(tgpt.param_shapes(cfg_t))
+    h = cfg_t.hidden_size
+    np.testing.assert_array_equal(sd["layers.1.wqkv"].numpy(), params["layers"]["wqkv"][1].T)
+    # q | k | v along the output dim: rows [h, 2h) of the Linear weight are K
+    np.testing.assert_array_equal(sd["layers.0.wqkv"].numpy()[h:2 * h],
+                                  params["layers"]["wqkv"][0][:, h:2 * h].T)
+    np.testing.assert_array_equal(sd["layers.1.w_down"].numpy(), params["layers"]["w_down"][1].T)
+    for name in ("embed", "pos_embed", "final_ln_bias"):
+        np.testing.assert_array_equal(sd[name].numpy(), params[name])
+    np.testing.assert_array_equal(sd["layers.1.bqkv"].numpy(), params["layers"]["bqkv"][1])
+    if not tied:
+        np.testing.assert_array_equal(sd["lm_head"].numpy(), params["lm_head"].T)
+    a, b = _leaves(params), _leaves(to_jax_params(cfg_t, sd))
+    assert set(a) == set(b)
+    for name in a:
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    # refusals: a missing leaf, a leaf of the other head setting, another
+    # family's config, another depth
+    bad = dict(params, layers=dict(params["layers"]))
+    del bad["layers"]["b_up"]
+    with pytest.raises(ValueError, match="b_up"):
+        from_jax_params(cfg_t, bad)
+    with pytest.raises(ValueError, match="lm_head"):
+        from_jax_params(tgpt.GPTConfig.tiny(tie_embeddings=not tied), params)
+    with pytest.raises(ValueError, match="does not match"):
+        from_jax_params(tllama.LlamaConfig.tiny(), params)
+    with pytest.raises(ValueError, match="stacks 2 layers"):
+        from_jax_params(tgpt.GPTConfig.tiny(num_layers=3, tie_embeddings=tied), params)
+    with pytest.raises(TypeError, match="family"):
+        from_jax_params(cfg_j, params)
+    with pytest.raises(ValueError, match="does not match"):
+        to_jax_params(cfg_t, {k: v for k, v in sd.items() if k != "pos_embed"})
+
+
+# chip_smoke.py's limits for one training step on the card (bf16, kernels)
+# against the CPU (fp32, plain): TRAIN_LOSS_RTOL and TRAIN_GRAD_RTOL
+CHIP_LOSS_RTOL, CHIP_GRAD_RTOL = 2e-3, 0.05
+
+
+def test_train_limits_separate_sound_from_faulty(monkeypatch):
+    """The simulation behind those limits for this family, on the CPU at a
+    reduced width (1 layer, hidden 512, 8 heads of 64, vocab 8192, S 256): one
+    step's loss and every leaf's grad in bf16 against fp32 from the same fp32
+    masters. With gelu every leaf stays under a third of the limit; with
+    LayerNorm's db zeroed the bias leaves read exactly 1. With relu the
+    leaves below the MLP's activation read several times the gelu figure:
+    bf16 rounding moves a pre-activation within ~0.01 of 0 across ReLU's
+    kink, and each such element (about one in 200) carries a full-size
+    gradient error; that is why the smoke runs this check with gelu."""
+    from deepspeed_tpu_torch.ops import norms
+
+    batch = {"tokens": np.random.RandomState(0).randint(0, 8192, (1, 257)).astype(np.int32)}
+
+    def step(activation, bf16):
+        cfg = tgpt.GPTConfig(vocab_size=8192, hidden_size=512, intermediate_size=2048,
+                             num_layers=1, num_heads=8, max_seq_len=512,
+                             activation=activation)
+        masters = tgpt.init(cfg, torch.Generator().manual_seed(0))
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=deepspeed_tpu_torch.ModelSpec(
+                params=masters, loss_fn=lambda p, b: tgpt.loss_fn(
+                    cfg, p, b, compute_dtype=torch.bfloat16 if bf16 else torch.float32)),
+            config={"train_batch_size": 1, "bf16": {"enabled": bf16}, "steps_per_print": 0},
+            device="cpu")
+        loss = float(eng.forward(batch))
+        return loss, {k: p.grad.float() for k, p in eng.state.params.items()}
+
+    def rel(g, ref):
+        return {k: float((g[k] - ref[k]).norm() / ref[k].norm()) for k in ref}
+
+    loss32, g32 = step("gelu", False)
+    loss16, g16 = step("gelu", True)
+    sound = rel(g16, g32)
+    assert abs(loss16 - loss32) / loss32 < CHIP_LOSS_RTOL / 10
+    assert max(sound.values()) < CHIP_GRAD_RTOL / 3, sound
+    _, r32 = step("relu", False)
+    _, r16 = step("relu", True)
+    kink = rel(r16, r32)
+    print(f"gelu worst {max(sound.values()):.4f}; relu w_up {kink['layers.0.w_up']:.4f}, "
+          f"w_down {kink['layers.0.w_down']:.4f}")
+    assert kink["layers.0.w_up"] > 2 * sound["layers.0.w_up"]
+    assert kink["layers.0.w_down"] < CHIP_GRAD_RTOL / 3      # above the activation: sound
+
+    sound_bwd = norms.layer_norm_bwd
+
+    def faulty(*a, **kw):
+        dx, dw, db = sound_bwd(*a, **kw)
+        return dx, dw, db.zero_()
+
+    # LayerNorm through its autograd function (the plain forward on CPU
+    # tensors), so the fault can be planted in its backward
+    monkeypatch.setattr(tgpt, "layer_norm", norms.LayerNormFunction.apply)
+    _, g_fn = step("gelu", True)
+    assert max(rel(g_fn, g32).values()) < CHIP_GRAD_RTOL / 3
+    monkeypatch.setattr(norms, "layer_norm_bwd", faulty)
+    _, g_bad = step("gelu", True)
+    bad = rel(g_bad, g32)
+    for leaf in ("layers.0.ln1_bias", "layers.0.ln2_bias", "final_ln_bias"):
+        assert bad[leaf] == 1.0

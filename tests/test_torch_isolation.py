@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.inference import InferenceConfig, build_engine_v2
-from deepspeed_tpu_torch.models import llama
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch.inference import modules
+from deepspeed_tpu_torch.models import gpt, llama
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "deepspeed_tpu_torch"
@@ -91,6 +93,48 @@ def test_pools_default_to_the_gpu():
         llama.init_paged_cache(cfg, 4, 8, kv_quant_group=8)
     cache = llama.init_paged_cache(cfg, 4, 8, device="cpu", kv_quant_group=8)
     assert {t.device.type for t in cache.values()} == {"cpu"}
+
+
+def test_gpt_entry_points_default_to_the_gpu():
+    """The GPT family's engine, pools and trainer run on the card unless the
+    CPU is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    cfg = gpt.GPTConfig.tiny()
+    params = gpt.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine_v2(gpt, cfg, params, config={"dtype": "float32"})
+    eng = build_engine_v2(gpt, cfg, params, config={"dtype": "float32"}, device="cpu")
+    assert eng.model.pos_embed.device.type == "cpu"
+    for kw in ({}, {"kv_quant_group": 8}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gpt.init_paged_cache(cfg, 4, 8, **kw)
+        cache = gpt.init_paged_cache(cfg, 4, 8, device="cpu", **kw)
+        assert {t.device.type for t in cache.values()} == {"cpu"}
+    conf = {"train_batch_size": 1, "steps_per_print": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=gpt.model_spec(cfg), config=conf)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=gpt.model_spec(cfg), config=conf,
+                                             device="cpu")
+    assert {p.device.type for p in eng.state.params.values()} == {"cpu"}
+
+
+def test_gpt_card_path_refuses_dtypes_without_a_kernel(monkeypatch):
+    cfg = gpt.GPTConfig.tiny()
+    params = gpt.init(cfg, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        build_engine_v2(gpt, cfg, params, config={"dtype": "float32"}, device="cuda")
+
+
+def test_new_modules_are_covered_by_the_import_checks():
+    mods = _port_modules()
+    for name in ("deepspeed_tpu_torch.models.gpt", "deepspeed_tpu_torch.inference.modules"):
+        assert name in mods
+    # the module system resolves on CPU tensors without building anything
+    norm = modules.registry.instantiate("norm", modules.NormConfig(kind="layer"))
+    assert norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8)).abs().max() == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])
