@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # Llama-3-8B and OPT-1.3B shapes
+    python3 chip_smoke.py            # Llama-3-8B, OPT-1.3B, BLOOM-7b1, MSA shapes
 
 Phases (any failure raises and the script exits nonzero; nothing is caught):
 
@@ -39,9 +39,10 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    block, the table's end), within ``ROWS_TOL``; the wrong block's scales
    (int8) or one wrong table entry (bf16) on the longest row must fail.
    Prints their device times beside their plain versions' and bytes bound.
-   LayerNorm at N in {1, 7, 64, 2048, 8192} rows of d = 2048 and 64 rows of
-   d = 768, bf16 and fp32, with and without bias, within ``RMS_TOL`` (fp32:
-   1e-4) of each row's RMS; a left-out bias must fail. int8 quantize of
+   LayerNorm at N in {1, 7, 64, 2048, 8192} rows of d = 2048, 4096 rows of
+   d = 4096 (one BLOOM-7b1 micro-batch) and 64 rows of d = 768, bf16 and
+   fp32, with and without bias, within ``RMS_TOL`` (fp32: 1e-4) of each
+   row's RMS; a left-out bias must fail (d 4096 bf16 and d 768 fp32). int8 quantize of
    OPT-1.3B's ``w_up`` [2048, 8192] in bf16 and fp32 at groups 2048 and 128
    (one all-zero row, one group of exact .5 ties) and dequantize to fp32
    and bf16: codes, scales and values EQUAL to the plain versions' bit for
@@ -49,6 +50,19 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    the plain versions', the bytes bound and ``F.layer_norm``. The reused
    paged and flash kernels once more at OPT-1.3B's shapes (MHA, 32 kv
    heads, hd 64, tables of 16 blocks; S = 2048).
+   The flash kernels' bias mode against its plain pieces (same bf16
+   inputs): at BLOOM-7b1's attention (2 x 2048 tokens, 32/32 heads, hd 128,
+   causal, ALiBi [32, 1, S] read with stride 0; fault: ALiBi shifted by one
+   key) and at AlphaFold MSA row attention (512 rows x 256 residues, 8
+   heads of 32, non-causal, summed fp32 mask + pair bias with one residue
+   masked everywhere and one row wholly masked, which must average v
+   uniformly; dbias checked; fault: the bias read transposed). The
+   block-sparse kernels against their dense plain pieces at Llama-3-8B
+   width (S 4096, block 128: bigbird causal, fixed non-causal, sliding
+   window), at blocks 16, 32 and 64, and with an empty kv column (exact zero
+   dK/dV); fault: one list entry swapped. Times beside the bound, the plain
+   pieces and SDPA (float ``attn_mask``; for the sparse kernels the
+   dense-masked SDPA at S 16384).
 4. Main path: ``build_engine_v2`` with ``LlamaConfig.llama3_8b()`` (bf16
    weights from a seed, 512 x 128-token KV blocks, 64 slots) and
    ``generate`` on 8 prompts of mixed lengths (one of length 1, one > 128),
@@ -112,6 +126,25 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    [64, 2048] bf16 activations within ``MODULE_QUANT_TOL`` (shifted scales
    must fail), the ``norm`` slot with ``kind="layer"``; quantize,
    dequantize and LayerNorm launches equal to the calls made.
+
+13. BLOOM-7b1 width training at 4 layers (depth cut from 30; 1.833 B
+   parameters): bf16, AdamW (lr 3e-4, weight decay 0.1), clipping 1.0,
+   ZeRO 0, 2 micro-batches of 2 sequences of 2048 tokens, 6
+   ``train_batch`` steps on one fixed batch; per step 8 launches of each
+   bias-mode flash kernel (ALiBi), 0 of the no-bias ones, 20 of LayerNorm,
+   0 of RMSNorm; the loss must be finite and fall. Prints what phase 7
+   prints.
+14. BLOOM-7b1 width at 1 layer, S = 256: phase 8's check, with ``bk``
+   (zero gradient in exact arithmetic) held against ``bq``'s reference norm
+   and ``final_ln_bias`` (a nearly cancelling gradient) at its own limit
+   (``TRAIN_GRAD_AGAINST_BLOOM``, ``TRAIN_LEAF_TOL_BLOOM``); ALiBi zeroed,
+   and LayerNorm's db zeroed, on the card side must each fail it.
+15. The attention entry points under autograd: ``msa_row_attention`` at the
+   AlphaFold shapes above (pair-bias grad included) against its einsum
+   path in fp32, and ``blocksparse_attention`` at S 16384 (bigbird causal,
+   block 128, 32/8 heads, hd 128) against the dense-masked SDPA, within
+   ``ENTRY_RTOL`` (relative Frobenius), its grads against the plain pieces
+   (query-row chunks) at ``FLASH_TOL``; launches equal the calls made.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -189,6 +222,27 @@ SPEC_K = 4                     # max_draft_tokens of the spec-serving engines
 # (test_quant_linear_limit_separates_sound_from_faulty): sound <= 0.047 after
 # one linear and after both; w_down's scales shifted by one group 0.89.
 MODULE_QUANT_TOL = 0.1
+# BLOOM's whole training step, card against CPU: two leaves carry no signal
+# a relative limit on their own norm can read (CPU simulation in
+# tests/test_torch_bloom.py: test_train_limits_separate_sound_from_faulty at
+# vocab 8192, test_train_limits_hold_at_bloom_vocab at 250880).
+# - bk's exact gradient is zero (softmax drops a shift shared by every key),
+#   so its reference is fp32 rounding (RMS 1e-7 of bq's) and its card reading
+#   bf16 rounding of the dS row sums: it is held against bq's reference norm,
+#   the gradient made from the same dS (sound 1.3e-3 of it). The rule applies
+#   only while the reference stays below GRAD_ZERO_SHARE of that norm.
+# - final_ln_bias's gradient nearly cancels at random init (the tied head
+#   makes each token predict itself): bf16 rounding reads 0.03-0.08 of it
+#   (0.08 at S 512), so it is held at its own limit; its zeroed db reads 1.0.
+TRAIN_GRAD_AGAINST_BLOOM = {"layers.0.bk": "layers.0.bq"}
+TRAIN_LEAF_TOL_BLOOM = {"final_ln_bias": 0.15}
+GRAD_ZERO_SHARE = 1e-4
+BLOOM_MICRO = 2                # 2048-token sequences per BLOOM-7b1 micro-batch
+# the attention entry points (phase 15) against a reference on the same
+# inputs, relative Frobenius: bf16 kernels against the fp32 einsum path, or
+# against the dense-masked SDPA (CPU simulation of the former at 16 MSA
+# rows: output 0.0038, pair-bias grad 0.0032)
+ENTRY_RTOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -1139,6 +1193,7 @@ PROFILE_GROUPS = [
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("sparse", ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")),
     ("rms_norm", ("rms_norm_kernel",)),
     ("layer_norm", ("layer_norm_vec_kernel", "layer_norm_scalar_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -1150,17 +1205,21 @@ PROFILE_GROUPS = [
 
 
 def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
-                seq: int = 4096, gas: int = 2, micro: int = 1, norm: str = "rms_norm"):
+                seq: int = 4096, gas: int = 2, micro: int = 1, norm: str = "rms_norm",
+                bias_mode: bool = False, norms_per_layer_extra: int = 1):
     """``initialize(model=family.model_spec(cfg))`` and TRAIN_STEPS steps of
     ``train_batch`` on one fixed batch of ``gas`` micro-batches of ``micro``
     sequences; by default Llama-3-8B width at 4 layers. ``norm`` names the
-    family's norm op."""
+    family's norm op, launched 2 per layer plus ``norms_per_layer_extra`` per
+    forward; ``bias_mode``: attention runs the flash kernels' bias mode
+    (ALiBi), and the no-bias flash kernels must not launch."""
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+        flash_bwd_dkv_bias_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_bias_cuda, flash_bwd_dq_cuda,
+        flash_fwd_bias_cuda, flash_fwd_cuda)
     from deepspeed_tpu_torch.ops.norms import layer_norm_cuda, rms_norm_cuda
 
     family = family or llama
@@ -1179,8 +1238,11 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     torch.cuda.reset_peak_memory_stats()
     norms = {"rms_norm": rms_norm_cuda, "layer_norm": layer_norm_cuda}
     other_norm = "layer_norm" if norm == "rms_norm" else "rms_norm"
-    counters = (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda, *norms.values())
-    for c in counters:
+    flash = {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
+             "flash_bwd_dkv": flash_bwd_dkv_cuda, "flash_fwd_bias": flash_fwd_bias_cuda,
+             "flash_bwd_dq_bias": flash_bwd_dq_bias_cuda,
+             "flash_bwd_dkv_bias": flash_bwd_dkv_bias_cuda}
+    for c in (*flash.values(), *norms.values()):
         c.launches = 0
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
@@ -1189,14 +1251,14 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out.loss))
-    launches = {"flash_fwd": flash_fwd_cuda.launches, "flash_bwd_dq": flash_bwd_dq_cuda.launches,
-                "flash_bwd_dkv": flash_bwd_dkv_cuda.launches,
+    launches = {**{k: c.launches for k, c in flash.items()},
                 **{k: c.launches for k, c in norms.items()}}
     peak = torch.cuda.max_memory_allocated()
     per_step = cfg.num_layers * gas
-    want = {"flash_fwd": per_step * TRAIN_STEPS, "flash_bwd_dq": per_step * TRAIN_STEPS,
-            "flash_bwd_dkv": per_step * TRAIN_STEPS,
-            norm: (2 * cfg.num_layers + 1) * gas * TRAIN_STEPS, other_norm: 0}
+    want = {k: (per_step * TRAIN_STEPS if k.endswith("_bias") == bias_mode else 0)
+            for k in flash}
+    want.update({norm: (2 * cfg.num_layers + norms_per_layer_extra) * gas * TRAIN_STEPS,
+                 other_norm: 0})
     log(f"  losses {['%.4f' % l for l in losses]}; launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"kernel launch counts {launches} != expected {want}")
@@ -1272,12 +1334,30 @@ def fault_zero_ln_db():
         norms.layer_norm_bwd = sound
 
 
+@contextlib.contextmanager
+def fault_zero_alibi():
+    """BLOOM's ALiBi bias zeroed (on the card side only: the fault is on
+    while the card's step runs)."""
+    from deepspeed_tpu_torch.models import bloom
+
+    sound = bloom._alibi_bias
+    bloom._alibi_bias = lambda *a, **kw: sound(*a, **kw).zero_()
+    try:
+        yield "ALiBi zeroed"
+    finally:
+        bloom._alibi_bias = sound
+
+
 def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-width",
-                      fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL):
+                      fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL,
+                      against: dict = None, leaf_tol: dict = None):
     """1 layer at full width (Llama-3-8B by default), S = 256: one step's
     loss and every leaf's gradient, card (kernels, bf16) against CPU (plain,
-    fp32), each leaf within ``grad_tol``; the planted ``fault`` must fail
-    the same check."""
+    fp32), each leaf's error over its reference norm within ``grad_tol``
+    (``leaf_tol`` names leaves held at limits of their own; ``against`` maps
+    a leaf whose reference gradient is zero in exact arithmetic to the leaf
+    whose reference norm it is measured against); each planted ``fault``
+    (one context manager, or a tuple of them) must fail the same check."""
     import torch
 
     import deepspeed_tpu_torch as dst
@@ -1308,38 +1388,57 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     loss_cpu, g_cpu = step("cpu", False)
     cpu_s = time.perf_counter() - t0
 
+    against, leaf_tol = against or {}, leaf_tol or {}
+    tol = {k: leaf_tol.get(k, grad_tol) for k in g_cpu}
+    for k, other in against.items():
+        share = float(g_cpu[k].norm()) / float(g_cpu[other].norm())
+        log(f"  {k}'s reference gradient: {share:.2e} of {other}'s norm (a zero gradient "
+            f"reads below {GRAD_ZERO_SHARE:g})")
+        if not share < GRAD_ZERO_SHARE:
+            raise AssertionError(f"{k}'s reference gradient is not zero; hold it against "
+                                 "its own norm")
+
     def compare(grads):
-        return {k: float((grads[k] - g_cpu[k]).norm() / g_cpu[k].norm().clamp_min(1e-30))
-                for k in g_cpu}
+        return {k: float((grads[k] - g_cpu[k]).norm()) /
+                max(float(g_cpu[against.get(k, k)].norm()), 1e-30) for k in g_cpu}
+
+    def worst_of(rel):
+        return max(rel, key=lambda k: rel[k] / tol[k])
 
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     rel = compare(g_gpu)
-    worst = max(rel, key=rel.get)
-    ok = loss_rel <= TRAIN_LOSS_RTOL and rel[worst] <= grad_tol and \
+    worst = worst_of(rel)
+    ok = loss_rel <= TRAIN_LOSS_RTOL and rel[worst] <= tol[worst] and \
         all(np.isfinite(list(rel.values())))
     log(f"  1-layer {label} step, card (bf16, kernels) vs CPU (fp32, plain): loss "
         f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_RTOL:g}); "
-        f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {grad_tol:g}) "
+        f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {tol[worst]:g}) "
         f"{'ok' if ok else 'FAIL'}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
     for k in sorted(rel):
-        log(f"    {k:24s} {rel[k]:.4f}")
+        note = (f"  (of {against[k]}'s norm)" if k in against else "") + \
+            (f"  (tol {tol[k]:g})" if tol[k] != grad_tol else "")
+        log(f"    {k:24s} {rel[k]:.4f}{note}")
     if not ok:
         raise AssertionError("training step on the card disagrees with the plain path")
 
-    with fault() as what:
-        _, g_bad = step("cuda", True)
-    rel_bad = compare(g_bad)
-    worst_bad = max(rel_bad, key=rel_bad.get)
-    log(f"  planted fault ({what}): worst leaf {worst_bad} "
-        f"{rel_bad[worst_bad]:.4f} (must exceed tol {grad_tol:g})")
-    if rel_bad[worst_bad] <= grad_tol:
-        raise AssertionError(f"the training-path check passes a planted fault ({what}); "
-                             "too loose")
+    faults = []
+    for fault_cm in (fault if isinstance(fault, tuple) else (fault,)):
+        with fault_cm() as what:
+            _, g_bad = step("cuda", True)
+        rel_bad = compare(g_bad)
+        worst_bad = worst_of(rel_bad)
+        log(f"  planted fault ({what}): worst leaf {worst_bad} "
+            f"{rel_bad[worst_bad]:.4f} (must exceed tol {tol[worst_bad]:g})")
+        if rel_bad[worst_bad] <= tol[worst_bad]:
+            raise AssertionError(f"the training-path check passes a planted fault ({what}); "
+                                 "too loose")
+        faults.append({"what": what, "leaf": worst_bad, "grad_rel": rel_bad[worst_bad]})
     del masters
     torch.cuda.empty_cache()
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
             "grad_rel": rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": grad_tol,
-            "planted_fault": {"leaf": worst_bad, "grad_rel": rel_bad[worst_bad]},
+            "leaf_tol": leaf_tol, "against": against,
+            "planted_fault": faults[0], "planted_faults": faults,
             "card_s": gpu_s, "cpu_s": cpu_s}
 
 
@@ -1401,8 +1500,10 @@ def phase_ln_quant_kernels(seed: int, card: str):
 
     # ---- LayerNorm -------------------------------------------------------
     eps = 1e-5
-    errs, rows = [], {}
-    for d, ns in ((2048, (1, 7, 64, 2048, 8192)), (768, (64,))):
+    errs, rows, faults = [], {}, {}
+    # OPT-1.3B (d 2048), one BLOOM-7b1 micro-batch (2 x 2048 tokens of d 4096)
+    # and GPT-2 (768)
+    for d, ns in ((2048, (1, 7, 64, 2048, 8192)), (4096, (4096,)), (768, (64,))):
         for dtype in (torch.bfloat16, torch.float32):
             w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
             b = (0.2 * torch.randn(d, generator=gen, device=dev)).to(dtype)
@@ -1415,6 +1516,9 @@ def phase_ln_quant_kernels(seed: int, card: str):
                             f"{'bias' if bias is not None else 'no bias'}")
                     errs.append(check_close(name, y, layer_norm_torch(x, w, bias, eps),
                                             RMS_TOL if dtype == torch.bfloat16 else 1e-4))
+                if d == 4096 and dtype == torch.bfloat16:
+                    faults[d] = row_err(layer_norm_cuda(x, w, None, eps),
+                                        layer_norm_torch(x, w, b, eps))
                 if d != 2048 or dtype != torch.bfloat16 or n not in (64, 8192):
                     continue
                 # times at the serving step's rows (64 slots) and a training
@@ -1434,17 +1538,18 @@ def phase_ln_quant_kernels(seed: int, card: str):
                     f"{r['plain_ms']*1e3:.2f} us ({r['plain_kernels']} kernels), F.layer_norm "
                     f"{r['library_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.3f} us (bytes); "
                     f"host loop {r['host_ms']*1e3:.2f} us [{card}]")
-    # planted fault: the bias left out must fail the check it passed above
-    fault_err, fault_rel = row_err(layer_norm_cuda(x, w, None, eps),
-                                   layer_norm_torch(x, w, b, eps))
-    log(f"  layer_norm planted fault (bias left out): max_abs_err={fault_err:.3e}, "
-        f"row err/RMS={fault_rel:.4f} (must exceed tol {RMS_TOL:g})")
-    if fault_rel <= RMS_TOL:
-        raise AssertionError("layer_norm tolerance passes a missing bias; it is too loose")
+    # planted fault: the bias left out must fail the check it passed above,
+    # at the last shape (d 768 fp32) and at BLOOM-7b1's (d 4096 bf16)
+    faults[d] = row_err(layer_norm_cuda(x, w, None, eps), layer_norm_torch(x, w, b, eps))
+    for d, (fault_err, fault_rel) in sorted(faults.items()):
+        log(f"  layer_norm planted fault (bias left out, d={d}): max_abs_err={fault_err:.3e}, "
+            f"row err/RMS={fault_rel:.4f} (must exceed tol {RMS_TOL:g})")
+        if fault_rel <= RMS_TOL:
+            raise AssertionError("layer_norm tolerance passes a missing bias; it is too loose")
     out["layer_norm"] = {"max_abs_err": max(e for e, _ in errs),
                          "max_row_err_over_rms": max(r for _, r in errs), "tol": RMS_TOL,
-                         "planted_fault": {"max_abs_err": fault_err,
-                                           "row_err_over_rms": fault_rel},
+                         "planted_fault": {f"d={d}": {"max_abs_err": e, "row_err_over_rms": r}
+                                           for d, (e, r) in faults.items()},
                          "rows": rows}
 
     # ---- quantize / dequantize -------------------------------------------
@@ -1651,6 +1756,569 @@ def phase_modules(seed: int, card: str):
             "planted_fault": fault_rel, "quant_linear_ms": t_q["ms"], "dense_linear_ms": t_d["ms"]}
 
 
+# --------------------------------------------------------------------------- #
+BLOOM_B, BLOOM_S, BLOOM_H = 2, 2048, 32          # one BLOOM-7b1 micro-batch, hd 128
+MSA_ROWS, MSA_RES, MSA_H, MSA_HD = 512, 256, 8, 32   # AlphaFold MSA row attention
+SPARSE_S, SPARSE_S_LONG, SPARSE_BS = 4096, 16384, 128
+SPARSE_Q_CHUNK = 1024          # query rows a plain piece holds at S 16384
+SPARSE_LAYOUTS = {   # name: (builder of the [nb, nb] layout, causal)
+    "bigbird causal": (lambda nb: _sparse().bigbird_layout(nb, 3, 1, 2, seed=SEED, causal=True),
+                       True),
+    "fixed non-causal": (lambda nb: _sparse().fixed_layout(nb, 4, 4, causal=False), False),
+    "sliding window": (lambda nb: _sparse().sliding_window_layout(nb, 4, causal=True), True),
+}
+
+
+def _sparse():
+    from deepspeed_tpu_torch.ops import sparse_attention
+
+    return sparse_attention
+
+
+def attn_bound_ms(pairs: int, hd: int, products: int, nbytes: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of attention work over ``pairs``
+    visible (q, k) pairs: 2 * hd operations per pair and product, against
+    ``nbytes`` moved once."""
+    t_ops = 2 * hd * products * pairs / BF16_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bias_work(b, h, sq, skv, hd, pairs, bias_bytes, dbias_bytes=0) -> dict:
+    """Per bias-mode kernel: (bound ms, bound_by) from its visible pairs and
+    the bytes it must move (bf16 q/k/v/o/dO/grads, fp32 lse/delta, the bias
+    read once as stored, dbias written once)."""
+    q_bytes, kv_bytes, row_bytes = b * sq * h * hd * 2, b * skv * h * hd * 2, b * h * sq * 4
+    return {"fwd": attn_bound_ms(pairs, hd, 2, 2 * q_bytes + 2 * kv_bytes + row_bytes
+                                 + bias_bytes),
+            "dq": attn_bound_ms(pairs, hd, 3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
+                                + bias_bytes + dbias_bytes),
+            "dkv": attn_bound_ms(pairs, hd, 4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+                                 + bias_bytes)}
+
+
+def _bias_pieces(q, k, v, do, bias, kw, need_dbias):
+    """The three bias-mode kernels, as the autograd function runs them."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bias_cuda, flash_bwd_dq_bias_cuda, flash_fwd_bias_cuda)
+
+    o, lse = flash_fwd_bias_cuda(q, k, v, bias, **kw)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    dq, dbias = flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, bias, need_dbias=need_dbias,
+                                       **kw)
+    dk, dv = flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, bias, **kw)
+    torch.cuda.synchronize()
+    return (o, lse, delta), {"o": o, "dq": dq, "dk": dk, "dv": dv, "dbias": dbias}
+
+
+def _check_pieces(label, got, ref, keys) -> dict:
+    errs = {}
+    for key in keys:
+        tol, floor = (FLASH_TOL["dq"], FLASH_FLOOR["dq"]) if key == "dbias" else \
+            (FLASH_TOL[key], FLASH_FLOOR[key])
+        errs[key] = check_close(f"{label} {key}", got[key], ref[key], tol, floor=floor)
+    return errs
+
+
+def _fault_must_fail(what: str, got, ref, key: str):
+    tol, floor = FLASH_TOL[key], FLASH_FLOOR[key]
+    err, rel = row_err(got, ref, floor=floor)
+    log(f"  planted fault ({what}): {key} max_abs_err={err:.3e}, row err/RMS={rel:.4f} "
+        f"(must exceed tol {tol:g})")
+    if not rel > tol:
+        raise AssertionError(f"the check passes a planted fault ({what}); too loose")
+    return {"what": what, "row_err_over_rms": rel}
+
+
+def phase_bias_kernels(seed: int, card: str):
+    """The flash kernels' bias mode against its plain pieces on the card
+    (same bf16 inputs, same o and lse into the backward), at BLOOM-7b1's
+    attention (ALiBi [32, 1, S] read with stride 0, causal) and at AlphaFold
+    MSA row attention (summed fp32 mask + pair bias, non-causal, one residue
+    masked in every row and one MSA row wholly masked; dbias checked). Each
+    with a planted fault that must fail; times beside the bound, the plain
+    pieces and SDPA with a float ``attn_mask``."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.bloom import _alibi_bias
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bias_cuda, flash_bwd_dq_bias_cuda, flash_bwd_torch, flash_fwd_bias_cuda,
+        flash_fwd_torch)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # ---- BLOOM-7b1: ALiBi, causal, MHA 32/32, hd 128 ----------------------
+    b, s, h, hd = BLOOM_B, BLOOM_S, BLOOM_H, HD
+    q, k, v, do = (randn(b, s, h, hd) for _ in range(4))
+    alibi = _alibi_bias(h, s, dev)                       # [32, 1, S] fp32
+    kw = dict(causal=True)
+    (o, lse, delta), got = _bias_pieces(q, k, v, do, alibi, kw, False)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, bias=alibi, **kw)
+    ref = dict(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, bias=alibi, **kw)))
+    ref["o"] = o_ref
+    lse_err = float((lse - lse_ref).abs().max())
+    log(f"  flash bias BLOOM lse: max_abs_err={lse_err:.3e}")
+    errs = _check_pieces("flash bias BLOOM-7b1 (ALiBi, S=2048, causal)", got, ref,
+                         ("o", "dq", "dk", "dv"))
+    del ref
+    # shifted by one key with wrap-around (a plain shift adds one constant
+    # per row, which softmax drops): key 0 gets the last key's bias
+    shifted = alibi.roll(1, -1)
+    o_bad, _ = flash_fwd_bias_cuda(q, k, v, shifted, **kw)
+    fault = _fault_must_fail("ALiBi shifted by one key", o_bad, o_ref, "o")
+    del o_bad, o_ref, shifted
+    pairs = b * h * s * (s + 1) // 2
+    work = bias_work(b, h, s, s, hd, pairs, alibi.numel() * 4)
+    t = {"fwd": measure(lambda: flash_fwd_bias_cuda(q, k, v, alibi, **kw), 10),
+         "dq": measure(lambda: flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, alibi, **kw), 10),
+         "dkv": measure(lambda: flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, alibi, **kw),
+                        10)}
+    plain = {"fwd": measure(lambda: flash_fwd_torch(q, k, v, bias=alibi, **kw), 3)["ms"],
+             "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, bias=alibi, **kw),
+                            3)["ms"]}
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    fmask = (alibi[None] + torch.zeros(1, h, s, s, device=dev)).masked_fill(
+        ~causal, float("-inf")).to(torch.bfloat16)       # [1, 32, S, S]: ALiBi + causal
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=fmask).backward(dot)
+
+    lib_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask),
+                      10)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
+    rows = {}
+    for key, pk, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
+                         ("dkv", "bwd", lib_bwd)):
+        bound, by = work[key]
+        rows[key] = {"ms": t[key]["ms"], "host_ms": t[key]["host_ms"], "plain_ms": plain[pk],
+                     "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        log(f"  flash {key} bias BLOOM-7b1 [{b}x{s}, 32 heads]: device {rows[key]['ms']*1e3:.1f} us, "
+            f"bound {bound*1e3:.1f} us ({by}), plain {plain[pk]*1e3:.1f} us, "
+            f"SDPA float mask {lib*1e3:.1f} us [{card}]")
+    log("  (plain and SDPA backward times cover dQ, dK and dV together)")
+    out["bloom"] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
+                    "row_err_over_rms": {k_: r for k_, (_, r) in errs.items()},
+                    "lse_max_abs_err": lse_err, "planted_fault": fault, "timing": rows,
+                    "pairs": pairs}
+    del q, k, v, do, o, lse, delta, got, qt, kt, vt, dot, fmask, causal
+    torch.cuda.empty_cache()
+
+    # ---- AlphaFold MSA row attention: summed fp32 biases, dbias ----------
+    n, r, h, hd = MSA_ROWS, MSA_RES, MSA_H, MSA_HD
+    q, k, v, do = (randn(n, r, h, hd) for _ in range(4))
+    valid = torch.ones(n, r, device=dev, dtype=torch.bool)
+    valid[:, 7] = False                                  # one residue masked in every row
+    valid[3] = False                                     # MSA row 3 wholly masked
+    mask_bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]          # [n, 1, 1, r]
+    pair = torch.randn(1, h, r, r, generator=gen, device=dev)
+    bias = mask_bias + pair                              # [n, h, r, r] fp32, 1.07 GB
+    kw = dict(causal=False)
+    (o, lse, delta), got = _bias_pieces(q, k, v, do, bias, kw, True)
+    o_ref, _ = flash_fwd_torch(q, k, v, bias=bias, **kw)
+    ref = dict(zip(("dq", "dk", "dv", "dbias"),
+                   flash_bwd_torch(q, k, v, o, lse, do, bias=bias, need_dbias=True, **kw)))
+    ref["o"] = o_ref
+    uniform = float((o[3].float() - v[3].float().mean(0)).abs().max())
+    log(f"  evoformer wholly masked MSA row: max |o - mean(v)| = {uniform:.3e}")
+    if uniform > 0.05:
+        raise AssertionError("a wholly masked MSA row is not v's uniform average")
+    errs = _check_pieces("flash bias MSA row (512 x 256, 8 x 32, mask + pair)", got, ref,
+                         ("o", "dq", "dk", "dv", "dbias"))
+    del ref
+    o_bad, _ = flash_fwd_bias_cuda(q, k, v, bias.transpose(-1, -2), **kw)
+    fault = _fault_must_fail("pair + mask bias read transposed", o_bad, o_ref, "o")
+    del o_bad, o_ref
+    pairs = n * h * r * r
+    work = bias_work(n, h, r, r, hd, pairs, bias.numel() * 4, bias.numel() * 4)
+    t = {"fwd": measure(lambda: flash_fwd_bias_cuda(q, k, v, bias, **kw), 10),
+         "dq": measure(lambda: flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, bias,
+                                                      need_dbias=True, **kw), 10),
+         "dkv": measure(lambda: flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, bias, **kw),
+                        10)}
+    plain = {"fwd": measure(lambda: flash_fwd_torch(q, k, v, bias=bias, **kw), 3)["ms"],
+             "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, bias=bias,
+                                                    need_dbias=True, **kw), 3)["ms"]}
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    fmask = bias.to(torch.bfloat16)
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=fmask).backward(dot)
+
+    lib_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask),
+                      10)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
+    rows = {}
+    for key, pk, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
+                         ("dkv", "bwd", lib_bwd)):
+        bound, by = work[key]
+        rows[key] = {"ms": t[key]["ms"], "host_ms": t[key]["host_ms"], "plain_ms": plain[pk],
+                     "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        log(f"  flash {key} bias MSA row [512 x 256, 8 x 32]: device {rows[key]['ms']*1e3:.1f} us, "
+            f"bound {bound*1e3:.1f} us ({by}), plain {plain[pk]*1e3:.1f} us, "
+            f"SDPA float mask {lib*1e3:.1f} us [{card}]")
+    out["evoformer"] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
+                        "row_err_over_rms": {k_: r_ for k_, (_, r_) in errs.items()},
+                        "uniform_row_err": uniform, "planted_fault": fault, "timing": rows,
+                        "pairs": pairs}
+    del q, k, v, do, o, lse, delta, got, bias, qt, kt, vt, dot, fmask
+    torch.cuda.empty_cache()
+    return out
+
+
+def sparse_pairs(layout, bs: int, causal: bool) -> int:
+    """Visible (q, k) token pairs of one (batch, head) under a layout."""
+    lay = np.asarray(layout, bool)
+    nb = lay.shape[0]
+    if not causal:
+        return int(lay.sum()) * bs * bs
+    lay = lay & np.tril(np.ones((nb, nb), bool))
+    diag = int(np.trace(lay))
+    return (int(lay.sum()) - diag) * bs * bs + diag * bs * (bs + 1) // 2
+
+
+def sparse_work(layout, bs, causal, b, s, h, hkv, hd) -> dict:
+    pairs = sparse_pairs(layout, bs, causal) * b * h
+    q_bytes, kv_bytes, row_bytes = b * s * h * hd * 2, b * s * hkv * hd * 2, b * h * s * 4
+    return {"pairs": pairs,
+            "fwd": attn_bound_ms(pairs, hd, 2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+            "dq": attn_bound_ms(pairs, hd, 3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+            "dkv": attn_bound_ms(pairs, hd, 4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes)}
+
+
+def _sparse_pieces(q, k, v, do, layout, bs, causal):
+    import torch
+
+    sa = _sparse()
+    o, lse = sa.sparse_fwd_cuda(q, k, v, layout, bs, causal=causal)
+    b, s, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    dq = sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, layout, bs, causal=causal)
+    dk, dv = sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, layout, bs, causal=causal)
+    torch.cuda.synchronize()
+    return (o, lse, delta), {"o": o, "dq": dq, "dk": dk, "dv": dv}
+
+
+def phase_sparse_kernels(seed: int, card: str):
+    """The block-sparse kernels against their dense plain pieces on the card
+    at Llama-3-8B attention width (batch 1, 32/8 heads, hd 128, bf16,
+    S 4096, block 128): bigbird causal, fixed non-causal, sliding window;
+    one small case at each of blocks 16, 32 and 64, and a layout with an
+    empty kv column (exact zero dK/dV). A layout with one list entry
+    swapped must fail. At S 16384 (bigbird causal, phase 15's shape) the
+    same check against the plain pieces run over query-row chunks, and the
+    global column's transposed list cut in half must fail dK; times there
+    beside the bound and the dense-masked SDPA; the plain pieces' at
+    S 4096."""
+    import torch
+    import torch.nn.functional as F
+
+    sa = _sparse()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    out = {"cases": {}}
+
+    def qkv(s, h, hkv, hd, b=1):
+        return [torch.randn(b, s, hh, hd, generator=gen, device=dev).to(torch.bfloat16)
+                for hh in (h, hkv, hkv, h)]
+
+    def case(label, layout, bs, causal, tensors, q_chunk=None):
+        q, k, v, do = tensors
+        (o, lse, _), got = _sparse_pieces(q, k, v, do, layout, bs, causal)
+        o_ref, _ = sa.sparse_fwd_torch(q, k, v, layout, bs, causal=causal, q_chunk=q_chunk)
+        ref = dict(zip(("dq", "dk", "dv"),
+                       sa.sparse_bwd_torch(q, k, v, o, lse, do, layout, bs, causal=causal,
+                                           q_chunk=q_chunk)))
+        ref["o"] = o_ref
+        errs = _check_pieces(f"sparse {label}", got, ref, ("o", "dq", "dk", "dv"))
+        out["cases"][label] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
+                               "row_err_over_rms": {k_: r for k_, (_, r) in errs.items()}}
+        return got, o_ref
+
+    s, bs = SPARSE_S, SPARSE_BS
+    nb = s // bs
+    main = None
+    for name, (builder, causal) in SPARSE_LAYOUTS.items():
+        tensors = qkv(s, H, 8, HD)
+        lay = builder(nb)
+        got, o_ref = case(f"{name} S={s} block {bs}", lay, bs, causal, tensors)
+        if main is None:
+            main = (tensors, lay, causal, o_ref)
+        del got
+        torch.cuda.empty_cache()
+    for small_bs, hd, h, hkv in ((16, 32, 4, 2), (32, 64, 8, 2), (64, 128, 8, 8)):
+        nb_s = 12
+        lay = sa.bigbird_layout(nb_s, 3, 1, 2, seed=seed, causal=True)
+        case(f"bigbird causal block {small_bs} hd {hd}", lay, small_bs, True,
+             qkv(nb_s * small_bs, h, hkv, hd, b=2))
+    lay = np.eye(8, dtype=bool)
+    lay[:, 0] = True
+    lay[1, 1] = False                                    # nobody attends to kv block 1
+    got, _ = case("empty kv column block 128", lay, bs, False, qkv(8 * bs, H, 8, HD))
+    if got["dk"][:, bs:2 * bs].any() or got["dv"][:, bs:2 * bs].any():
+        raise AssertionError("an unattended kv block got nonzero dK/dV")
+    log("  empty kv column: dK/dV exactly zero")
+
+    # planted fault: one list entry of the bigbird layout swapped
+    (q, k, v, do), lay, causal, o_ref = main
+    bad = lay.copy()
+    row = nb - 1
+    act = np.nonzero(bad[row, :row])[0]
+    off = next(j for j in range(row) if not bad[row, j])
+    bad[row, act[-1]], bad[row, off] = False, True
+    o_bad, _ = sa.sparse_fwd_cuda(q, k, v, bad, bs, causal=causal)
+    out["planted_fault"] = _fault_must_fail(
+        f"row {row}'s list entry {act[-1]} -> {off}", o_bad, o_ref, "o")
+    plain = {"fwd": measure(lambda: sa.sparse_fwd_torch(q, k, v, lay, bs, causal=causal),
+                            3)["ms"]}
+    o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
+    plain["bwd"] = measure(lambda: sa.sparse_bwd_torch(q, k, v, o, lse, do, lay, bs,
+                                                       causal=causal), 3)["ms"]
+    del q, k, v, do, o, lse, o_bad, o_ref, main
+    torch.cuda.empty_cache()
+
+    # S 16384, bigbird causal, block 128 (phase 15's shape): held against the
+    # plain pieces SPARSE_Q_CHUNK query rows at a time (their dense fp32
+    # scores whole would take 32 GiB), the global kv column's transposed list
+    # cut at half its length must fail dK; then timed
+    s = SPARSE_S_LONG
+    nb = s // bs
+    builder, causal = SPARSE_LAYOUTS["bigbird causal"]
+    lay = builder(nb)
+    q, k, v, do = tensors = qkv(s, H, 8, HD)
+    got, _ = case(f"bigbird causal S={s} block {bs}", lay, bs, causal, tensors,
+                  q_chunk=SPARSE_Q_CHUNK)
+    o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
+    bad = lay.copy()
+    bad[nb // 2:, 0] = False
+    dk_bad, _ = sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, bad, bs, causal=causal)
+    out["planted_fault_long"] = _fault_must_fail(
+        f"S={s}: kv block 0's transposed list cut at {nb // 2} of {nb} entries",
+        dk_bad[:, :bs], got["dk"][:, :bs], "dk")
+    del got, dk_bad
+    torch.cuda.empty_cache()
+    work = sparse_work(lay, bs, causal, 1, s, H, 8, HD)
+    t = {"fwd": measure(lambda: sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal), 10),
+         "dq": measure(lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs,
+                                                     causal=causal), 10),
+         "dkv": measure(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, bs,
+                                                       causal=causal), 10)}
+    mask = sa.token_mask(lay, bs, causal, dev)
+    # K/V widened for the yardstick: with a mask, SDPA's GQA option can
+    # fall back to its math path, which would hold the dense scores
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kt, vt = (x.repeat_interleave(H // 8, dim=1) for x in (kt, vt))
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(dot)
+
+    lib_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                      5)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 5)["ms"] - lib_fwd
+    density = work["pairs"] / (H * s * (s + 1) / 2)
+    rows = {}
+    for key, pk, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
+                         ("dkv", "bwd", lib_bwd)):
+        bound, by = work[key]
+        rows[key] = {"ms": t[key]["ms"], "host_ms": t[key]["host_ms"], "plain_ms": plain[pk],
+                     "plain_at": f"S {SPARSE_S}", "library_ms": lib, "bound_ms": bound,
+                     "bound_by": by}
+        log(f"  sparse {key} bigbird causal S={s} block {bs}: device {rows[key]['ms']*1e3:.1f} us, "
+            f"bound {bound*1e3:.1f} us ({by}), plain (S {SPARSE_S}) {plain[pk]*1e3:.1f} us, "
+            f"dense-masked SDPA {lib*1e3:.1f} us [{card}]")
+    log(f"  ({density:.2%} of the causal pairs active; plain and SDPA backward times cover "
+        f"dQ, dK and dV together)")
+    out["timing"] = rows
+    out["pairs"], out["density_of_causal"] = work["pairs"], density
+    del q, k, v, do, o, lse, delta, mask, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def check_fro(what: str, got, ref, tol: float = ENTRY_RTOL) -> float:
+    """||got - ref||_F / ||ref||_F within ``tol``, ``got`` finite."""
+    import torch
+
+    rel = float((got.float() - ref.float()).norm() / ref.float().norm().clamp_min(1e-30))
+    ok = rel <= tol and bool(torch.isfinite(got.float()).all())
+    log(f"  {what}: rel Frobenius {rel:.4f} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: disagrees with its reference (rel Frobenius {rel})")
+    return rel
+
+
+def phase_entry_points(seed: int, card: str):
+    """The two attention entry points under autograd on the card:
+    ``msa_row_attention`` at AlphaFold shapes (512 MSA rows x 256
+    residues, c 256 = 8 heads of 32, bf16, one residue masked in every row,
+    pair bias with grad) and ``blocksparse_attention`` at S 16384 (bigbird
+    causal, block 128, 32/8 heads, hd 128, bf16). Launch counters are
+    zeroed before each and must equal the calls made; outputs and grads
+    finite and the outputs against a reference (the einsum path in fp32;
+    the dense-masked SDPA), the block-sparse grads against the plain pieces
+    (row limits of the flash checks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.evoformer_attn import msa_row_attention
+
+    sa = _sparse()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    out = {}
+
+    # ---- msa_row_attention ----------------------------------------------
+    n, r, h, c = MSA_ROWS, MSA_RES, MSA_H, MSA_H * MSA_HD
+    msa = torch.randn(1, n, r, c, generator=gen, device=dev).to(torch.bfloat16)
+    ws = [(torch.randn(c, c, generator=gen, device=dev) * c ** -0.5).to(torch.bfloat16)
+          for _ in range(4)]
+    mask = torch.ones(1, n, r, device=dev)
+    mask[..., 7] = 0
+    pair0 = torch.randn(1, h, r, r, generator=gen, device=dev)
+    bias_fns = (fa.flash_fwd_bias_cuda, fa.flash_bwd_dq_bias_cuda, fa.flash_bwd_dkv_bias_cuda)
+    plain_fns = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    res = {}
+    for label, use_kernel, dtype in (("kernel", None, torch.bfloat16),
+                                     ("einsum", False, torch.float32)):
+        for f in bias_fns + plain_fns:
+            f.launches = 0
+        x = msa.detach().to(dtype).requires_grad_()
+        pair = pair0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = msa_row_attention(x, *(w.to(dtype) for w in ws), pair_bias=pair, mask=mask,
+                              num_heads=h, use_kernel=use_kernel)
+        y.float().pow(2).mean().backward()
+        torch.cuda.synchronize()
+        res[label] = (y.detach(), pair.grad, x.grad, time.perf_counter() - t0,
+                      [f.launches for f in bias_fns + plain_fns])
+        del x, pair, y
+    y, gpair, gx, wall, launches = res["kernel"]
+    want = [1, 1, 1, 0, 0, 0]
+    log(f"  msa_row_attention [1, {n}, {r}, {c}]: launches (bias fwd, dq, dkv; plain fwd, dq, "
+        f"dkv) {launches}, expected {want}; fwd+bwd {wall*1e3:.1f} ms by host clock [{card}]")
+    if launches != want:
+        raise AssertionError(f"msa_row_attention launches {launches} != calls made {want}")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in (y, gpair, gx)):
+        raise AssertionError("msa_row_attention: non-finite output or grads")
+    e_out = check_fro("msa_row_attention output vs einsum path (fp32)", y, res["einsum"][0])
+    e_pair = check_fro("msa_row_attention pair-bias grad vs einsum path (fp32)", gpair,
+                       res["einsum"][1])
+    out["msa_row"] = {"launches": dict(zip(("flash_fwd_bias", "flash_bwd_dq_bias",
+                                            "flash_bwd_dkv_bias"), launches[:3])),
+                      "rel_fro": {"out": e_out, "pair_grad": e_pair}, "host_ms": wall * 1e3}
+    del res, msa, ws, mask, pair0, y, gpair, gx
+    torch.cuda.empty_cache()
+
+    # ---- blocksparse_attention at S 16384 -------------------------------
+    s, bs = SPARSE_S_LONG, SPARSE_BS
+    builder, causal = SPARSE_LAYOUTS["bigbird causal"]
+    lay = builder(s // bs)
+    q, k, v = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_() for hh in (H, 8, 8))
+    do = torch.randn(1, s, H, HD, generator=gen, device=dev).to(torch.bfloat16)
+    fns = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+    for f in fns:
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = sa.blocksparse_attention(q, k, v, lay, bs, causal=causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [f.launches for f in fns]
+    log(f"  blocksparse_attention S={s} bigbird causal: launches (fwd, dq, dkv) {launches}, "
+        f"expected [1, 1, 1]; fwd+bwd {wall*1e3:.1f} ms by host clock [{card}]")
+    if launches != [1, 1, 1]:
+        raise AssertionError(f"blocksparse_attention launches {launches} != calls made")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in (o, q.grad, k.grad, v.grad)):
+        raise AssertionError("blocksparse_attention: non-finite output or grads")
+    mask = sa.token_mask(lay, bs, causal, dev)
+    with torch.no_grad():
+        ref = F.scaled_dot_product_attention(
+            q.transpose(1, 2), *(x.repeat_interleave(H // 8, dim=2).transpose(1, 2)
+                                 for x in (k, v)), attn_mask=mask).transpose(1, 2)
+    e_out = check_fro("blocksparse_attention output vs dense-masked SDPA", o.detach(), ref)
+    del ref, mask
+    torch.cuda.empty_cache()
+    # the grads against the plain pieces, SPARSE_Q_CHUNK query rows at a time
+    with torch.no_grad():
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        o_ref, lse_ref = sa.sparse_fwd_torch(qd, kd, vd, lay, bs, causal=causal,
+                                             q_chunk=SPARSE_Q_CHUNK)
+        ref = dict(zip(("dq", "dk", "dv"), sa.sparse_bwd_torch(
+            qd, kd, vd, o_ref, lse_ref, do, lay, bs, causal=causal, q_chunk=SPARSE_Q_CHUNK)))
+    errs = _check_pieces(f"blocksparse_attention S={s} grads vs plain pieces",
+                         {"dq": q.grad, "dk": k.grad, "dv": v.grad}, ref, ("dq", "dk", "dv"))
+    out["blocksparse"] = {"launches": dict(zip(("sparse_fwd", "sparse_bwd_dq",
+                                                "sparse_bwd_dkv"), launches)),
+                          "rel_fro": e_out, "host_ms": wall * 1e3,
+                          "grad_row_err_over_rms": {k_: r for k_, (_, r) in errs.items()}}
+    del q, k, v, do, o, ref, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
+    """The ``kernels`` line's entries of the flash kernels' bias mode (times
+    at BLOOM-7b1's attention; the MSA row case beside them) and of the
+    three block-sparse kernels (times at S 16384)."""
+    kernels = []
+    fb, sp = kern["flash_bias"], kern["sparse"]
+    for key, name, line in (("fwd", "flash_fwd_bias", "flash_attention.py:284"),
+                            ("dq", "flash_bwd_dq_bias", "flash_attention.py:448"),
+                            ("dkv", "flash_bwd_dkv_bias", "flash_attention.py:523")):
+        r = fb["bloom"]["timing"][key]
+        parts = {"fwd": ("o",), "dq": ("dq", "dbias"), "dkv": ("dk", "dv")}[key]
+        errs = [c["max_abs_err"][x] for c in (fb["bloom"], fb["evoformer"])
+                for x in parts if x in c["max_abs_err"]]
+        by_path = {"bloom training": bloom_train["launches"][name],
+                   "msa_row_attention": entry["msa_row"]["launches"][name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/ops/csrc/"
+                      + ("flash_fwd.cu" if key == "fwd" else "flash_bwd.cu"),
+            "replaces": "deepspeed_tpu/ops/pallas/" + line + " (has_bias, _flash_b :787)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(errs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "evoformer": {k_: fb["evoformer"]["timing"][key][k_]
+                          for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+    for key, name, line in (("fwd", "sparse_fwd", ":39"), ("dq", "sparse_bwd_dq", ":87"),
+                            ("dkv", "sparse_bwd_dkv", ":126")):
+        r = sp["timing"][key]
+        keys = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/ops/csrc/sparse_attention.cu",
+            "replaces": "deepspeed_tpu/ops/pallas/sparse_attention.py" + line,
+            "launches": entry["blocksparse"]["launches"][name],
+            "launches_by_path": {"blocksparse_attention": entry["blocksparse"]["launches"][name]},
+            "max_abs_err": max(c["max_abs_err"][x] for c in sp["cases"].values() for x in keys),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_at": r["plain_at"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return kernels
+
+
 def main_step_inputs(prompt_lengths, generated: int, extra: int = 1):
     """(context lengths, block tables) of a serving step over 64 slots: the
     first len(prompt_lengths) slots hold prompt_len + generated cached
@@ -1709,6 +2377,8 @@ def main() -> int:
     kern["rows"], rows_case = phase_rows_kernels(SEED, card)
     kern.update(phase_ln_quant_kernels(SEED, card))
     kern["opt_shapes"] = phase_opt_shapes(SEED, card)
+    kern["flash_bias"] = phase_bias_kernels(SEED, card)
+    kern["sparse"] = phase_sparse_kernels(SEED, card)
 
     log("== phase 4: main path (Llama-3-8B shapes through generate)")
     main_res = phase_main_path(SEED, MAX_NEW_TOKENS, card)
@@ -1776,6 +2446,27 @@ def main() -> int:
 
     log("== phase 12: inference module system (weight-only int8 linear, LayerNorm slot)")
     mods = phase_modules(SEED, card)
+
+    from deepspeed_tpu_torch.models import bloom
+
+    bloom_cfg = dataclasses.replace(bloom.BloomConfig.bloom_7b1(), num_layers=4)
+    log("== phase 13: BLOOM-7b1 width training (4 layers through train_batch, ALiBi through "
+        "the flash kernels' bias mode)")
+    bloom_train = phase_train(SEED, card, family=bloom, cfg=bloom_cfg, label="BLOOM-7b1",
+                              seq=BLOOM_S, gas=2, micro=BLOOM_MICRO, norm="layer_norm",
+                              bias_mode=True, norms_per_layer_extra=2)
+
+    log("== phase 14: BLOOM-7b1 width, whole training step on the card against the plain "
+        "path on the CPU")
+    bloom_whole = phase_train_whole(SEED, card, family=bloom, cfg=bloom.BloomConfig.bloom_7b1(),
+                                    label="BLOOM-7b1-width",
+                                    fault=(fault_zero_alibi, fault_zero_ln_db),
+                                    against=TRAIN_GRAD_AGAINST_BLOOM,
+                                    leaf_tol=TRAIN_LEAF_TOL_BLOOM)
+
+    log("== phase 15: attention entry points under autograd (msa_row_attention, "
+        "blocksparse_attention)")
+    entry = phase_entry_points(SEED, card)
 
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     rms_launches = {"serving": main_res["launches"]["rms_norm"],
@@ -1881,7 +2572,10 @@ def main() -> int:
          "bound_ms": qt["dequantize_g128_bfloat16"]["bound_ms"], "bound_by": "bytes",
          "library_ms": qt["dequantize_g128_bfloat16"]["library_ms"]},
     ]
+    kernels += bias_sparse_entries(kern, bloom_train, entry)
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,
+              "bloom_train": bloom_train, "bloom_train_whole_path": bloom_whole,
+              "entry_points": entry,
               "opt_serving": opt_serve, "opt_train": opt_train, "opt_whole_path": opt_whole,
               "opt_train_whole_path": opt_train_whole, "modules": mods,
               "main_path": main_res, "spec_serving": spec, "whole_path": whole,

@@ -19,12 +19,22 @@ Ported so far:
 - the GPT-2/OPT family (``models/gpt.py``) through both entry points, with
   the LayerNorm kernel;
 - the inference module system (``inference/modules.py``), whose weight-only
-  int8 linear runs the int8 quantize and dequantize kernels.
+  int8 linear runs the int8 quantize and dequantize kernels;
+- the BLOOM family (``models/bloom.py``) through :func:`initialize`, its
+  ALiBi bias on the flash kernels' bias mode;
+- evoformer attention (``ops/evoformer_attn.py``: ``evoformer_attention``,
+  ``msa_row_attention``, ``msa_column_attention``) over the bias mode, and
+  block-sparse attention (``ops/sparse_attention.py``:
+  ``blocksparse_attention`` and its layouts) over the block-sparse forward,
+  dQ and dK/dV kernels.
+
+Every function of the JAX package that reaches ``pl.pallas_call`` has its
+CUDA counterpart: fourteen kernel entries in eight sources.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from .inference import InferenceConfig, build_engine_v2  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401

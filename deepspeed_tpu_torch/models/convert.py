@@ -1,7 +1,8 @@
 """JAX parameter tree ↔ the port's ``state_dict``.
 
-The JAX ``llama.init`` (``deepspeed_tpu/models/llama.py:121-155``) and
-``gpt.init`` (``deepspeed_tpu/models/gpt.py:88-119``) build a nested tree
+The JAX ``llama.init`` (``deepspeed_tpu/models/llama.py:121-155``),
+``gpt.init`` (``deepspeed_tpu/models/gpt.py:88-119``) and ``bloom.init``
+(``deepspeed_tpu/models/bloom.py:85-114``) build a nested tree
 with the layer leaves stacked along a leading ``L`` dim and every matrix kept
 as ``x @ W`` (``[in, out]``). The port's modules (:class:`~.llama.Llama`,
 :class:`~.gpt.GPT`) unstack the layers (``layers.<i>.<name>``) and keep
@@ -9,7 +10,7 @@ matrices in ``nn.Linear`` layout ``[out, in]``. :func:`from_jax_params` maps
 one to the other, given the tree as numpy arrays
 (``jax.tree.map(np.asarray, params)``), and :func:`to_jax_params` maps back
 (numpy leaves, bf16 widened to fp32). The family is the config's type
-(``LlamaConfig`` or ``GPTConfig``). Llama:
+(``LlamaConfig``, ``GPTConfig`` or ``BloomConfig``). Llama:
 
 =================  ==================  ===========================
 JAX leaf           JAX shape           port entry
@@ -29,6 +30,11 @@ GPT-2/OPT: ``layers/wqkv`` ``[L, h, 3h]`` (q | k | v along the output dim),
 ``wo``, ``w_up``, ``w_down`` and ``lm_head`` (untied only) are transposed;
 ``embed``, ``pos_embed``, the LayerNorm scales and biases and ``bqkv`` /
 ``bo`` / ``b_up`` / ``b_down`` go across as they are.
+
+BLOOM: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_up`` and ``w_down`` are
+transposed; ``embed`` (also the tied head), ``embed_ln_*``, ``final_ln_*``,
+the LayerNorm scales and biases and ``bq`` / ``bk`` / ``bv`` / ``bo`` /
+``b_up`` / ``b_down`` go across as they are.
 """
 
 from __future__ import annotations
@@ -38,17 +44,18 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from . import gpt, llama
+from . import bloom, gpt, llama
 
 # matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
-# (both families' names: no other leaf of either shares one)
+# (every family's names: no other leaf of any shares one)
 TRANSPOSED = frozenset({"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
                         "w_down", "lm_head"})
 
 
 def _param_shapes(cfg: Any):
     """The config's family's ``param_shapes(cfg)``."""
-    for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig)):
+    for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig),
+                             (bloom, bloom.BloomConfig)):
         if isinstance(cfg, cfg_type):
             return family.param_shapes(cfg)
     raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
@@ -63,7 +70,7 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama`` or ``gpt`` params (numpy leaves) → the port's
+    """JAX ``llama``, ``gpt`` or ``bloom`` params (numpy leaves) → the port's
     ``state_dict``. Raises if the tree does not hold exactly the config's
     parameters."""
     want = _param_shapes(cfg)

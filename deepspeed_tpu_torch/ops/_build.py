@@ -30,7 +30,9 @@ LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# a flash kernel's bias: pointer (null: none), strides (b, h, q, kv), is-fp32
+_BIAS = [_VP, _LL, _LL, _LL, _LL, _I]
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     # x, w, y, n_rows, d, eps, dtype (0 bf16, 1 f32), stream
@@ -53,12 +55,22 @@ SIGNATURES = {
     # stream
     "dstt_paged_verify": [_VP] * 8 + [_I, _VP] + [_I] * 10 + [_F, _VP],
     # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
+    # scale, dtype, bias, stream
+    "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
+    # q, k, v, dout, lse, delta, dq, (B .. window as above), scale, dtype,
+    # bias, dbias, stream
+    "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I] + _BIAS + [_VP, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, bias, stream
+    "dstt_flash_bwd_dkv": [_VP] * 8 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
+    # q, k, v, o, lse, idx, cnt, max_a, B, H, Hkv, S, D, block, causal,
     # scale, dtype, stream
-    "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I, _VP],
-    # q, k, v, dout, lse, delta, dq, (B .. window as above), scale, dtype, stream
-    "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I, _VP],
-    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, stream
-    "dstt_flash_bwd_dkv": [_VP] * 8 + [_I] * 9 + [_F, _I, _VP],
+    "dstt_sparse_fwd": [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dq, idx, cnt, (max_a .. causal), scale,
+    # dtype, stream
+    "dstt_sparse_bwd_dq": [_VP] * 9 + [_I] * 8 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, idx_t, cnt_t, (max_t .. causal),
+    # scale, dtype, stream
+    "dstt_sparse_bwd_dkv": [_VP] * 10 + [_I] * 8 + [_F, _I, _VP],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

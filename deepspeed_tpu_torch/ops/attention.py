@@ -11,9 +11,10 @@ Op ``attention`` (:data:`attention`) has two implementations, chosen by the
 device of ``q`` (``ops/registry.py``): CPU tensors get
 :func:`attention_torch`; CUDA tensors get the flash kernels
 (``ops/flash_attention.py``, an autograd function over
-``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``). Masked calls — the paged
-prefill — call :func:`attention_torch` directly: the JAX package hands every
-masked call to XLA, never to its kernel.
+``ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``; with an additive ``bias``,
+their bias mode). Masked calls — the paged prefill — go to
+:func:`attention_torch`: the JAX package hands every masked call to XLA,
+never to its kernel.
 """
 
 from __future__ import annotations
@@ -55,11 +56,15 @@ def _causal_window_mask(q_len: int, kv_len: int, q_offset: int,
 @register("attention", backend="torch")
 def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    mask: Optional[torch.Tensor] = None, q_offset: int = 0,
+                    mask: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None, q_offset: int = 0,
                     window: Optional[int] = None) -> torch.Tensor:
     """mask: optional [batch, 1|heads, q_len, kv_len] boolean (True =
-    attend) or additive mask. ``q_offset``: absolute position of q[0] within
-    the kv sequence. ``window``: sliding-window length (requires causal)."""
+    attend) or additive mask. bias: optional additive logits term of the
+    same broadcast shape (differentiable), added in fp32 after the causal
+    mask and before ``mask``, as ``attention_xla`` adds it. ``q_offset``:
+    absolute position of q[0] within the kv sequence. ``window``:
+    sliding-window length (requires causal)."""
     q_len, num_heads = q.shape[-3], q.shape[-2]
     kv_len = k.shape[-3]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
@@ -73,6 +78,8 @@ def attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits.masked_fill_(
             ~_causal_window_mask(q_len, kv_len, q_offset, window, q.device),
             NEG_INF)
+    if bias is not None:
+        logits = logits + bias.float()
     if mask is not None:
         if mask.dtype == torch.bool:
             logits.masked_fill_(~mask, NEG_INF)

@@ -7,7 +7,12 @@
 // dp = dO v^T, ds = p * (dp - delta) * scale rounded to the inputs' dtype,
 // with delta = rowsum(dO * O) computed by the caller (XLA code in JAX, torch
 // code here); dq = ds k, dv = p^T dO (p rounded to dO's dtype), dk = ds^T q.
-// Accumulation in fp32, one cast at the end.
+// Accumulation in fp32, one cast at the end. Bias mode (`has_bias`): the
+// bias joins the recomputed logits as in the forward (:481-482, :557-558),
+// in natural units, and the dQ kernel, given a dbias pointer, writes
+// dL/dlogits = p * (dp - delta) unscaled in fp32 (:492-494): every position
+// of its q rows, zero where nothing is visible and over the kv tiles its
+// causal band skips (:507-512).
 //
 // Bound on an H100 SXM: operations. At Llama-3-8B causal shapes (S = 4096,
 // 32 heads, hd 128) dQ does three S^2/2-sized products (~206 GFLOP, ~208 us
@@ -39,8 +44,8 @@ constexpr size_t dq_smem() {
                       (size_t)kWarps * 16 * (DQ_BKV + Pad<T>::value));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
+template <typename T, int D, bool BIAS>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a, const Bias bb) {
   constexpr int LD = D + Pad<T>::value, LDS = DQ_BKV + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -66,7 +71,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + 8 * i;
-    lse2[i] = row < a.Sq ? a.lse[(size_t)bh * a.Sq + row] * kLog2e : 0.f;
+    // base-2 units without a bias, natural units with one (see the forward)
+    lse2[i] = row < a.Sq ? a.lse[(size_t)bh * a.Sq + row] * (BIAS ? 1.f : kLog2e) : 0.f;
     dlt[i] = row < a.Sq ? a.delta[(size_t)bh * a.Sq + row] : 0.f;
   }
   int kv_lo = 0, kv_hi = a.Skv;
@@ -79,7 +85,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
-  for (int j0 = (kv_lo / DQ_BKV) * DQ_BKV; j0 < kv_hi; j0 += DQ_BKV) {
+  const int j_lo = (kv_lo / DQ_BKV) * DQ_BKV;
+  for (int j0 = j_lo; j0 < kv_hi; j0 += DQ_BKV) {
     __syncthreads();
     load_rows<T, D>(sK, k, j0, a.Skv, DQ_BKV, kstride);
     load_rows<T, D>(sV, v, j0, a.Skv, DQ_BKV, kstride);
@@ -97,8 +104,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1, row = r0 + 8 * i, col = j0 + nt * 8 + 2 * tq + (e & 1);
-        const float p = visible(a, row, col) ? exp2f(s[nt][e] * sl2 - lse2[i]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dlt[i]) * a.scale;
+        if constexpr (BIAS) {
+          float p = 0.f;
+          if (visible(a, row, col))
+            p = exp2f((s[nt][e] * a.scale + bias_at(bb, b, h, row, col) - lse2[i]) * kLog2e);
+          const float ds = p * (dp[nt][e] - dlt[i]);   // dL/dlogits: the bias gradient
+          if (bb.dbias && row < a.Sq && col < a.Skv)
+            bb.dbias[((size_t)bh * a.Sq + row) * a.Skv + col] = ds;
+          s[nt][e] = ds * a.scale;
+        } else {
+          const float p = visible(a, row, col) ? exp2f(s[nt][e] * sl2 - lse2[i]) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - dlt[i]) * a.scale;
+        }
       }
     store_tile<T, DQ_BKV / 8>(sS, LDS, s);   // ds rounded to k's dtype, as on the TPU
     __syncwarp();
@@ -106,6 +123,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     __syncwarp();
   }
   store_rows<T, D / 8>(static_cast<T*>(a.dq) + qbase, qstride, r0, a.Sq, dq, 1.f, 1.f);
+  if constexpr (BIAS) {
+    if (bb.dbias) {   // the kv tiles outside the causal/window band: zeros
+      const int tiles = kv_hi > j_lo ? (kv_hi - j_lo + DQ_BKV - 1) / DQ_BKV : 0;
+      const int j_hi = min(j_lo + tiles * DQ_BKV, a.Skv);
+      for (int r = 0; r < DQ_BQ && q0 + r < a.Sq; ++r) {
+        float* row = bb.dbias + ((size_t)bh * a.Sq + q0 + r) * a.Skv;
+        for (int c = threadIdx.x; c < j_lo; c += kThreads) row[c] = 0.f;
+        for (int c = j_hi + threadIdx.x; c < a.Skv; c += kThreads) row[c] = 0.f;
+      }
+    }
+  }
 }
 
 // --------------------------------------------------------------- dK/dV --
@@ -118,8 +146,8 @@ constexpr size_t dkv_smem() {
          sizeof(float) * 2 * KV_BQ;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
+template <typename T, int D, bool BIAS>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a, const Bias bb) {
   constexpr int LD = D + Pad<T>::value, LDT = KV_BQ + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -165,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
       load_rows<T, D>(sdO, dout, i0, a.Sq, KV_BQ, qstride);
       if (threadIdx.x < KV_BQ) {
         const int row = i0 + threadIdx.x;
-        sLse[threadIdx.x] = row < a.Sq ? lse[row] * kLog2e : 0.f;
+        sLse[threadIdx.x] = row < a.Sq ? lse[row] * (BIAS ? 1.f : kLog2e) : 0.f;
         sDelta[threadIdx.x] = row < a.Sq ? delta[row] : 0.f;
       }
       __syncthreads();
@@ -182,7 +210,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = nt * 8 + 2 * tq + (e & 1), kvrow = kr0 + 8 * (e >> 1);
-          const float p = visible(a, i0 + c, kvrow) ? exp2f(st[nt][e] * sl2 - sLse[c]) : 0.f;
+          float p;
+          if constexpr (BIAS) {
+            p = 0.f;
+            if (visible(a, i0 + c, kvrow))
+              p = exp2f((st[nt][e] * a.scale + bias_at(bb, b, hq, i0 + c, kvrow) - sLse[c]) *
+                        kLog2e);
+          } else {
+            p = visible(a, i0 + c, kvrow) ? exp2f(st[nt][e] * sl2 - sLse[c]) : 0.f;
+          }
           st[nt][e] = p;
           dpt[nt][e] = p * (dpt[nt][e] - sDelta[c]) * a.scale;
         }
@@ -198,24 +234,45 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Args a) {
   store_rows<T, D / 8>(static_cast<T*>(a.dv) + kbase, kstride, kr0, a.Skv, dv, 1.f, 1.f);
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+template <typename T, int D, bool BIAS>
+cudaError_t launch_dq(const Args& a, const Bias& bb, cudaStream_t stream) {
   const size_t smem = dq_smem<T, D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D, BIAS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + DQ_BQ - 1) / DQ_BQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_dq_kernel<T, D, BIAS><<<grid, kThreads, smem, stream>>>(a, bb);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+template <typename T, int D, bool BIAS>
+cudaError_t launch_dkv(const Args& a, const Bias& bb, cudaStream_t stream) {
   const size_t smem = dkv_smem<T, D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D, BIAS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Skv + KV_BKV - 1) / KV_BKV, a.B * a.Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_dkv_kernel<T, D, BIAS><<<grid, kThreads, smem, stream>>>(a, bb);
   return cudaGetLastError();
+}
+
+// dispatch over (dtype, D, bias) to launch_dq or launch_dkv
+template <bool DQ, typename T, bool BIAS>
+cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+  if (D == 128) return DQ ? launch_dq<T, 128, BIAS>(a, bb, s) : launch_dkv<T, 128, BIAS>(a, bb, s);
+  if (D == 64) return DQ ? launch_dq<T, 64, BIAS>(a, bb, s) : launch_dkv<T, 64, BIAS>(a, bb, s);
+  if (D == 32) return DQ ? launch_dq<T, 32, BIAS>(a, bb, s) : launch_dkv<T, 32, BIAS>(a, bb, s);
+  return cudaErrorInvalidValue;
+}
+
+template <bool DQ>
+cudaError_t launch_any(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
+  const bool bias = bb.ptr != nullptr;
+  if (dtype == 0)
+    return bias ? launch_d<DQ, __nv_bfloat16, true>(a, bb, D, s)
+                : launch_d<DQ, __nv_bfloat16, false>(a, bb, D, s);
+  if (dtype == 1)
+    return bias ? launch_d<DQ, float, true>(a, bb, D, s)
+                : launch_d<DQ, float, false>(a, bb, D, s);
+  return cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -233,38 +290,36 @@ bool bad_shape(int H, int Hkv, int Skv) { return H <= 0 || Hkv <= 0 || H % Hkv !
 }  // namespace
 
 // dq [B, Sq, H, D] from q, k, v, dout, lse [B * H, Sq], delta [B * H, Sq].
+// bias as in dstt_flash_fwd; dbias (bias mode only, may be null): fp32
+// [B, H, Sq, Skv], every element written.
 extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dq, int B, int H,
                                  int Hkv, int Sq, int Skv, int D, int q_offset, int causal,
-                                 int window, float scale, int dtype, void* stream) {
+                                 int window, float scale, int dtype, const void* bias,
+                                 long long sb, long long sh, long long sq, long long sk,
+                                 int bias_f32, float* dbias, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (bad_shape(H, Hkv, Skv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(H, Hkv, Skv) || (dbias && !bias)) return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
                      scale);
   a.dq = dq;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return (int)launch_dq<__nv_bfloat16, 128>(a, s);
-  if (dtype == 0 && D == 64) return (int)launch_dq<__nv_bfloat16, 64>(a, s);
-  if (dtype == 1 && D == 128) return (int)launch_dq<float, 128>(a, s);
-  if (dtype == 1 && D == 64) return (int)launch_dq<float, 64>(a, s);
-  return (int)cudaErrorInvalidValue;
+  const Bias bb{bias, sb, sh, sq, sk, bias_f32, dbias};
+  return (int)launch_any<true>(a, bb, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv [B, Skv, Hkv, D] (narrow) from the same inputs.
 extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const float* lse, const float* delta, void* dk, void* dv, int B,
                                   int H, int Hkv, int Sq, int Skv, int D, int q_offset,
-                                  int causal, int window, float scale, int dtype, void* stream) {
+                                  int causal, int window, float scale, int dtype,
+                                  const void* bias, long long sb, long long sh, long long sq,
+                                  long long sk, int bias_f32, void* stream) {
   if (B == 0 || Skv == 0) return 0;
   if (bad_shape(H, Hkv, Skv)) return (int)cudaErrorInvalidValue;
   Args a = make_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
                      scale);
   a.dk = dk;
   a.dv = dv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return (int)launch_dkv<__nv_bfloat16, 128>(a, s);
-  if (dtype == 0 && D == 64) return (int)launch_dkv<__nv_bfloat16, 64>(a, s);
-  if (dtype == 1 && D == 128) return (int)launch_dkv<float, 128>(a, s);
-  if (dtype == 1 && D == 64) return (int)launch_dkv<float, 64>(a, s);
-  return (int)cudaErrorInvalidValue;
+  const Bias bb{bias, sb, sh, sq, sk, bias_f32, nullptr};
+  return (int)launch_any<false>(a, bb, D, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// and the block-sparse kernels (sparse_attention.cu).
 //
 // Layout at the C interface is the JAX package's: q/o/dq [B, Sq, H, D],
 // k/v/dk/dv [B, Skv, Hkv, D] (narrow K/V: query head h reads kv head
@@ -12,6 +13,17 @@
 // softmax and epilogue code is one for both types. Accumulator layout (the
 // mma C fragment): lane = 4 * gr + tq holds rows gr and gr + 8 of the warp's
 // 16 rows, columns 8 * nt + 2 * tq and + 1 of each 8-column tile nt.
+//
+// Bias mode (the TPU's `has_bias`): an additive logits bias, bf16 or fp32,
+// read in place through four element strides (batch, query head, q row, kv
+// row), any of which may be 0, so a broadcast bias ([H, 1, Skv] ALiBi, an
+// MSA pair bias shared by every row) is never copied to [B, H, Sq, Skv].
+// With a bias the kernels keep the softmax in natural units (x = scale *
+// q.k + bias, p = 2^((x - m) log2 e)): a row whose every key carries a
+// -1e30 mask bias then has m = -1e30 and p = 1 on each key, a uniform
+// average as in the JAX package, and the backward's x - lse is exactly 0
+// there; base-2 units would turn those 1e30-sized values into an
+// exponent of a rounding error.
 
 #pragma once
 
@@ -46,6 +58,25 @@ struct Args {
   float scale;
 };
 
+// The bias mode's inputs, a kernel parameter of their own: with these fields
+// inside Args, nvcc compiled the no-bias kernels' unchanged text into other
+// code (the dQ kernel 44% slower on an H100, scripts/flash_ab_timing.py).
+struct Bias {
+  const void* ptr;      // additive logits bias, bf16 or fp32; null: no bias
+  long long sb, sh, sq, sk;   // its element strides (batch, query head, q row, kv row)
+  int f32;              // 1: fp32 bias; 0: bf16
+  float* dbias;         // dQ kernel: fp32 [B, H, Sq, Skv] dL/dlogits, or null
+};
+
+// The bias at (batch b, query head h, q row, kv row); only visible
+// positions are read.
+__device__ __forceinline__ float bias_at(const Bias& bb, int b, int h, int qrow, int kvrow) {
+  const long long i = (long long)b * bb.sb + (long long)h * bb.sh + (long long)qrow * bb.sq +
+                      (long long)kvrow * bb.sk;
+  return bb.f32 ? __ldg(static_cast<const float*>(bb.ptr) + i)
+                : __bfloat162float(static_cast<const __nv_bfloat16*>(bb.ptr)[i]);
+}
+
 // The one visibility rule of all three kernels (the TPU's _block_mask).
 __device__ __forceinline__ bool visible(const Args& a, int qrow, int kvrow) {
   if (qrow >= a.Sq || kvrow >= a.Skv) return false;
@@ -66,22 +97,29 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 // rows [row0, row0 + rows) of a [*, D] matrix with row stride gstride
-// (elements) into shared memory with row stride D + Pad; rows at or past
-// n_valid read as zero. 16-byte vectors, neighbouring threads on neighbouring
-// addresses.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(T* sm, const T* g, int row0, int n_valid, int rows,
-                                          size_t gstride) {
+// (elements) into shared memory with row stride D + Pad, by a block of NTH
+// threads; rows at or past n_valid read as zero. 16-byte vectors,
+// neighbouring threads on neighbouring addresses.
+template <typename T, int D, int NTH>
+__device__ __forceinline__ void load_rows_n(T* sm, const T* g, int row0, int n_valid, int rows,
+                                            size_t gstride) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = D + Pad<T>::value;
   constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < rows * VPR; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * VPR; i += NTH) {
     const int r = i / VPR, c = (i % VPR) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_valid)
       val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * gstride + c);
     *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
   }
+}
+
+// load_rows_n for the flash kernels' blocks of kThreads threads.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* sm, const T* g, int row0, int n_valid, int rows,
+                                          size_t gstride) {
+  load_rows_n<T, D, kThreads>(sm, g, row0, n_valid, rows, gstride);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,

@@ -6,7 +6,10 @@
 // running max, sum and accumulator in fp32 and p rounded to v's dtype before
 // the P V product; lse = m + log(l) per row. Masks: causal with q_offset, a
 // static causal window, kv length. A row that sees no key gets o = 0 and
-// lse = -1e30 + log 1, as `_finish` does with l_safe.
+// lse = -1e30 + log 1, as `_finish` does with l_safe. Bias mode (`_flash_b`
+// :787, `has_bias`): an additive bf16/fp32 logits bias added after the
+// scale and before the masks (:315-316), read in place through its strides
+// (flash_common.cuh), the softmax then kept in natural units.
 //
 // Bound on an H100 SXM: operations. A causal pass at Llama-3-8B shapes
 // (B = 1, S = 4096, 32 heads, hd 128) is 2 * S^2 * hd * 32 ~ 137 GFLOP of
@@ -21,7 +24,10 @@
 // Narrow GQA K/V are read in place (query head h reads kv head h / g).
 // Products: mma.sync bf16 tensor-core tiles, fragments through ldmatrix
 // (fp32 inputs: FMA). Not yet: wgmma, TMA, cp.async pipelining, warp
-// specialisation.
+// specialisation. The bias costs one strided (cached) load per visible
+// score; at BLOOM-7b1's S = 2048 the bias mode's forward is ~34 GFLOP per
+// 32 heads (~35 us at 989 TFLOP/s) and a summed evoformer bias of 1.07 GB
+// makes it bytes-bound (~320 us to read at 3.35 TB/s).
 
 #include "flash_common.cuh"
 
@@ -37,8 +43,10 @@ constexpr size_t fwd_smem() {
                       (size_t)kWarps * 16 * (BKV + Pad<T>::value));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
+template <typename T, int D, bool BIAS>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a, const Bias bb) {
+  // no bias: scores in base-2 units (exp(x) = 2^(x log2 e)); bias: natural
+  constexpr float kUnit = BIAS ? kLog2e : 1.f;
   constexpr int LD = D + Pad<T>::value, LDP = BKV + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -85,7 +93,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = r0 + 8 * (e >> 1), col = j0 + nt * 8 + 2 * tq + (e & 1);
-        const float x = visible(a, row, col) ? s[nt][e] * sl2 : -INFINITY;
+        float x = -INFINITY;
+        if (visible(a, row, col)) {
+          if constexpr (BIAS)
+            x = s[nt][e] * a.scale + bias_at(bb, b, h, row, col);
+          else
+            x = s[nt][e] * sl2;
+        }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -93,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float mn = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = mn == -INFINITY ? 1.f : exp2f(m[i] - mn);
+      alpha[i] = mn == -INFINITY ? 1.f : exp2f((m[i] - mn) * kUnit);
       m[i] = mn;
     }
 #pragma unroll
@@ -101,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float mi = m[e >> 1];
-        const float p = mi == -INFINITY ? 0.f : exp2f(s[nt][e] - mi);
+        const float p = mi == -INFINITY ? 0.f : exp2f((s[nt][e] - mi) * kUnit);
         s[nt][e] = p;
         ls[e >> 1] += p;
       }
@@ -128,39 +142,55 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
     const int row = r0 + 8 * i;
     if (tq == 0 && row < a.Sq)
       a.lse_out[(size_t)bh * a.Sq + row] =
-          (m[i] == -INFINITY ? kNegInf : m[i] * kLn2) + logf(l_safe);
+          (m[i] == -INFINITY ? kNegInf : (BIAS ? m[i] : m[i] * kLn2)) + logf(l_safe);
   }
   T* o = static_cast<T*>(a.o) + ((size_t)b * a.Sq * a.H + h) * D;
   store_rows<T, D / 8>(o, qstride, r0, a.Sq, acc, inv[0], inv[1]);
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <typename T, int D, bool BIAS>
+cudaError_t launch(const Args& a, const Bias& bb, cudaStream_t stream) {
   const size_t smem = fwd_smem<T, D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, D, BIAS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<T, D, BIAS><<<grid, kThreads, smem, stream>>>(a, bb);
   return cudaGetLastError();
+}
+
+template <typename T, bool BIAS>
+cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+  if (D == 128) return launch<T, 128, BIAS>(a, bb, s);
+  if (D == 64) return launch<T, 64, BIAS>(a, bb, s);
+  if (D == 32) return launch<T, 32, BIAS>(a, bb, s);
+  return cudaErrorInvalidValue;
+}
+
+template <bool BIAS>
+cudaError_t launch_t(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_d<__nv_bfloat16, BIAS>(a, bb, D, s);
+  if (dtype == 1) return launch_d<float, BIAS>(a, bb, D, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] -> o [B, Sq, H, D], lse [B * H, Sq] fp32.
-// dtype: 0 bf16, 1 fp32. D: 64 or 128. window <= 0: none.
+// dtype: 0 bf16, 1 fp32. D: 32, 64 or 128. window <= 0: none. bias: null
+// (none) or a bf16 (bias_f32 0) / fp32 (1) bias read at b * sb + h * sh +
+// q * sq + kv * sk elements.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Hkv, int Sq, int Skv, int D, int q_offset,
-                              int causal, int window, float scale, int dtype, void* stream) {
+                              int causal, int window, float scale, int dtype, const void* bias,
+                              long long sb, long long sh, long long sq, long long sk,
+                              int bias_f32, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0) return (int)cudaErrorInvalidValue;
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.lse_out = lse;
   a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Skv = Skv;
   a.q_offset = q_offset; a.causal = causal; a.window = window; a.scale = scale;
+  const Bias bb{bias, sb, sh, sq, sk, bias_f32, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return (int)launch<__nv_bfloat16, 128>(a, s);
-  if (dtype == 0 && D == 64) return (int)launch<__nv_bfloat16, 64>(a, s);
-  if (dtype == 1 && D == 128) return (int)launch<float, 128>(a, s);
-  if (dtype == 1 && D == 64) return (int)launch<float, 64>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)(bias ? launch_t<true>(a, bb, D, dtype, s) : launch_t<false>(a, bb, D, dtype, s));
 }

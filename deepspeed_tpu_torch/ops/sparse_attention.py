@@ -1,0 +1,407 @@
+"""Block-sparse attention — counterpart of ``deepspeed_tpu/ops/sparse_attention.py``
+(layout builders :26-67, ``blocksparse_attention`` :81, ``_kernel_vjp`` :111)
+and ``deepspeed_tpu/ops/pallas/sparse_attention.py`` (``compact_layout`` :170,
+``compact_layout_t`` :193, the three kernels :39-167).
+
+A layout is a static ``[S/bs, S/bs]`` bool matrix over q blocks (rows) and
+kv blocks (columns); tokens attend iff their blocks are connected and, when
+``causal``, the key is not after the query. The three layout builders
+(``fixed``, ``sliding_window``, ``bigbird``) are the JAX package's, byte
+for byte (bigbird draws from ``np.random.RandomState(seed)``).
+
+Three hand-written kernels (``ops/csrc/sparse_attention.cu``) replace the
+three TPU kernels; their wrappers take CUDA tensors only and count their
+launches: :func:`sparse_fwd_cuda` ``-> (o, lse)`` and :func:`sparse_bwd_dq_cuda`
+walk each q block's compacted list of active kv blocks
+(:func:`compact_layout`), :func:`sparse_bwd_dkv_cuda` each kv block's
+transposed list (:func:`compact_layout_t`) and writes NARROW dK/dV under
+GQA (the query group summed in the kernel). The plain versions
+:func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
+functions densely over the token mask, serve CPU tensors, and are what the
+kernels are held against on the card. The compacted lists are cached per
+``(layout bytes, causal)`` and uploaded to each device once.
+
+:func:`blocksparse_attention` is the entry point: by default the kernel
+path (:class:`BlockSparseAttention`, which needs CUDA tensors; the JAX
+package's default on its accelerator), or with ``use_kernel=False`` the
+dense-masked plain attention under autograd (the JAX package's XLA path).
+Layout ``[B, S, H, D]`` for q, ``[B, S, Hkv, D]`` for k/v.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .attention import attention_torch
+from .flash_attention import _DTYPE_CODE, HEAD_DIMS, _bwd_plain_f32, _fwd_plain
+
+BLOCK_SIZES = (16, 32, 64, 128)
+
+
+# --------------------------------------------------------------------------- #
+# layouts
+# --------------------------------------------------------------------------- #
+def sliding_window_layout(num_blocks: int, window_blocks: int = 3,
+                          causal: bool = True) -> np.ndarray:
+    lay = np.zeros((num_blocks, num_blocks), bool)
+    for i in range(num_blocks):
+        lo = max(0, i - window_blocks + 1)
+        hi = i + 1 if causal else min(num_blocks, i + window_blocks)
+        lay[i, lo:hi] = True
+    return lay
+
+
+def fixed_layout(num_blocks: int, local_blocks: int = 4, stride: int = 4,
+                 causal: bool = True) -> np.ndarray:
+    """Reference 'fixed' sparsity: local chunks + every stride-th block."""
+    lay = np.zeros((num_blocks, num_blocks), bool)
+    for i in range(num_blocks):
+        chunk = i // local_blocks
+        lay[i, chunk * local_blocks:(chunk + 1) * local_blocks] = True
+        lay[i, ::stride] = True
+    if causal:
+        lay &= np.tril(np.ones((num_blocks, num_blocks), bool))
+    else:
+        lay |= lay.T
+    return lay
+
+
+def bigbird_layout(num_blocks: int, window_blocks: int = 3,
+                   global_blocks: int = 1, random_blocks: int = 2,
+                   seed: int = 0, causal: bool = False) -> np.ndarray:
+    lay = sliding_window_layout(num_blocks, window_blocks, causal=causal)
+    lay[:, :global_blocks] = True
+    lay[:global_blocks, :] = True
+    rs = np.random.RandomState(seed)
+    for i in range(num_blocks):
+        lay[i, rs.choice(num_blocks, size=min(random_blocks, num_blocks),
+                         replace=False)] = True
+    if causal:
+        lay &= np.tril(np.ones((num_blocks, num_blocks), bool))
+    return lay
+
+
+def compact_layout(layout: np.ndarray, causal: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """[nb, nb] bool → (indices [nb, max_active] int32, counts [nb] int32).
+    Every q row must keep ≥1 active block (an empty row has no well-defined
+    softmax); padded slots repeat the row's last block."""
+    lay = np.asarray(layout, bool).copy()
+    nb = lay.shape[0]
+    if causal:
+        lay &= np.tril(np.ones((nb, nb), bool))
+    counts = lay.sum(axis=1)
+    if (counts == 0).any():
+        bad = np.nonzero(counts == 0)[0]
+        raise ValueError(
+            f"layout rows {bad.tolist()} attend to no kv block"
+            f"{' after causal masking' if causal else ''} — softmax over an "
+            f"empty row is undefined; give every q block at least one target")
+    max_a = int(counts.max())
+    idx = np.zeros((nb, max_a), np.int32)
+    for i in range(nb):
+        act = np.nonzero(lay[i])[0]
+        idx[i, :len(act)] = act
+        idx[i, len(act):] = act[-1]
+    return idx, counts.astype(np.int32)
+
+
+def compact_layout_t(layout: np.ndarray, causal: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """The transposed compaction for dK/dV: row j lists the q blocks that
+    attend to kv block j. An empty column is legal (its kv block gets zero
+    grads); padded slots repeat the last entry, or 0 for an empty column."""
+    lay = np.asarray(layout, bool).copy()
+    nb = lay.shape[0]
+    if causal:
+        lay &= np.tril(np.ones((nb, nb), bool))
+    counts = lay.sum(axis=0)
+    max_a = max(1, int(counts.max()))
+    idx = np.zeros((nb, max_a), np.int32)
+    for j in range(nb):
+        act = np.nonzero(lay[:, j])[0]
+        if len(act):
+            idx[j, :len(act)] = act
+            idx[j, len(act):] = act[-1]
+    return idx, counts.astype(np.int32)
+
+
+def _check_layout(layout: np.ndarray, s: int, block_size: int) -> np.ndarray:
+    if s % block_size:
+        raise ValueError(f"seq {s} not divisible by block {block_size}")
+    nb = s // block_size
+    lay = np.asarray(layout, bool)
+    if lay.shape != (nb, nb):
+        raise ValueError(f"layout {lay.shape} != ({nb},{nb})")
+    return lay
+
+
+@functools.lru_cache(maxsize=64)
+def _compacted(layout_bytes: bytes, nb: int, causal: bool) -> Tuple[np.ndarray, ...]:
+    lay = np.frombuffer(layout_bytes, bool).reshape(nb, nb)
+    return compact_layout(lay, causal) + compact_layout_t(lay, causal)
+
+
+def _host_lists(layout: np.ndarray, causal: bool) -> Tuple[np.ndarray, ...]:
+    """``(idx, cnt, idx_t, cnt_t)`` numpy, compacted once per ``(layout
+    bytes, causal)``; raises :func:`compact_layout`'s ``ValueError`` on a q
+    row with no kv block."""
+    lay = np.ascontiguousarray(layout, bool)
+    return _compacted(lay.tobytes(), lay.shape[0], bool(causal))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_lists(layout_bytes: bytes, nb: int, causal: bool, device: str):
+    return tuple(torch.from_numpy(a).to(device) for a in _compacted(layout_bytes, nb, causal))
+
+
+def layout_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor, ...]:
+    """``(idx, cnt, idx_t, cnt_t)`` int32 tensors on ``device``: compacted
+    once per ``(layout bytes, causal)`` and uploaded once per device (the
+    JAX ``_kernel_vjp``'s cache)."""
+    lay = np.ascontiguousarray(layout, bool)
+    return _device_lists(lay.tobytes(), lay.shape[0], bool(causal), str(torch.device(device)))
+
+
+def token_mask(layout: np.ndarray, block_size: int, causal: bool, device) -> torch.Tensor:
+    """[S, S] bool: the layout's blocks at token level, causal if asked."""
+    lay = torch.as_tensor(np.asarray(layout, bool), device=device)
+    m = lay.repeat_interleave(block_size, 0).repeat_interleave(block_size, 1)
+    if causal:
+        m = m & torch.ones_like(m).tril()
+    return m
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+def _chunks(s: int, q_chunk: Optional[int]):
+    step = s if q_chunk is None else int(q_chunk)
+    return [(r0, min(s, r0 + step)) for r0 in range(0, s, step)]
+
+
+def sparse_fwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     layout: np.ndarray, block_size: int, *, causal: bool = True,
+                     scale: Optional[float] = None, q_chunk: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse [B * H, S] fp32)`` as the kernel computes them, dense over
+    the token mask: fp32 scores, p rounded to v's dtype for P V. With
+    ``q_chunk``, ``q_chunk`` query rows at a time (the same rows, with the
+    dense scores held for one chunk only)."""
+    lay = _check_layout(layout, q.shape[1], block_size)
+    _host_lists(lay, causal)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    vis = token_mask(lay, block_size, causal, q.device)
+    b, s, h, _ = q.shape
+    parts = [_fwd_plain(q[:, r0:r1], k, v, vis[r0:r1], scale)
+             for r0, r1 in _chunks(s, q_chunk)]
+    o = torch.cat([p[0] for p in parts], 1)
+    lse = torch.cat([p[1].reshape(b, h, -1) for p in parts], 2).reshape(b * h, s)
+    return o, lse
+
+
+def sparse_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     layout: np.ndarray, block_size: int, *, causal: bool = True,
+                     scale: Optional[float] = None, q_chunk: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` as the kernels compute them (p from lse, delta =
+    rowsum(dO * O), ds rounded to the inputs' dtype), dK/dV narrow. With
+    ``q_chunk``, ``q_chunk`` query rows at a time, dK/dV summed over the
+    chunks in fp32."""
+    lay = _check_layout(layout, q.shape[1], block_size)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    vis = token_mask(lay, block_size, causal, q.device)
+    b, s, h, _ = q.shape
+    lse = lse.reshape(b, h, s)
+    dq, dk, dv = [], 0.0, 0.0
+    for r0, r1 in _chunks(s, q_chunk):
+        dq_c, dk_c, dv_c, _ = _bwd_plain_f32(
+            q[:, r0:r1], k, v, o[:, r0:r1], lse[:, :, r0:r1].reshape(b * h, r1 - r0),
+            do[:, r0:r1], vis[r0:r1], scale)
+        dq.append(dq_c.to(q.dtype))
+        dk, dv = dk + dk_c, dv + dv_c
+    return torch.cat(dq, 1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers (CUDA tensors only)
+# --------------------------------------------------------------------------- #
+def _kernel_args(name: str, q, k, v, layout, block_size, causal, scale, *rest):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes bf16 or fp32 inputs, got {q.dtype}")
+    for t in (k, v, *rest):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name}: tensors must share q's device and dtype, got "
+                             f"{t.device} {t.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not [B, S, H, D] / [B, S, Hkv, D]")
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    if k.shape[:2] != (b, s) or k.shape[3] != d or d not in HEAD_DIMS or h % hkv:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)} (head dim in {HEAD_DIMS}, H % Hkv == 0, "
+                         f"one sequence length)")
+    if block_size not in BLOCK_SIZES:
+        raise ValueError(f"{name}: block size {block_size} not in {BLOCK_SIZES}")
+    lay = _check_layout(layout, s, block_size)
+    for t in (q, k, v, *rest):
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned tensors")
+    lists = layout_lists(lay, causal, dev)
+    return (b, s, h, d, hkv), lists, (
+        b, h, hkv, s, d, int(block_size), int(bool(causal)),
+        float(d ** -0.5 if scale is None else scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+
+
+def sparse_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    layout: np.ndarray, block_size: int, *, causal: bool = True,
+                    scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward of ``ops/csrc/sparse_attention.cu``: ``(o, lse)``."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
+        "sparse_fwd_cuda", q, k, v, layout, block_size, causal, scale)
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    err = _build.load().dstt_sparse_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        idx.data_ptr(), cnt.data_ptr(), idx.shape[1], *common)
+    _build.check(err, "sparse_fwd kernel")
+    sparse_fwd_cuda.launches += 1
+    return o, lse
+
+
+def _stats(lse, delta, b, h, s):
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b * h, s):
+            raise ValueError(f"{name} must be fp32 [{b * h}, {s}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return lse.contiguous(), delta.contiguous()
+
+
+def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                       layout: np.ndarray, block_size: int, *, causal: bool = True,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the dQ kernel of ``ops/csrc/sparse_attention.cu``."""
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
+        "sparse_bwd_dq_cuda", q, k, v, layout, block_size, causal, scale, do)
+    lse, delta = _stats(lse, delta, b, h, s)
+    dq = torch.empty_like(q)
+    err = _build.load().dstt_sparse_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), idx.data_ptr(), cnt.data_ptr(), idx.shape[1],
+        *common)
+    _build.check(err, "sparse_bwd_dq kernel")
+    sparse_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def sparse_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                        layout: np.ndarray, block_size: int, *, causal: bool = True,
+                        scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel of ``ops/csrc/sparse_attention.cu``: narrow
+    ``(dk, dv)`` shaped like k and v."""
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    (b, s, h, _, _), (_, _, idx_t, cnt_t), common = _kernel_args(
+        "sparse_bwd_dkv_cuda", q, k, v, layout, block_size, causal, scale, do)
+    lse, delta = _stats(lse, delta, b, h, s)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load().dstt_sparse_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), idx_t.data_ptr(),
+        cnt_t.data_ptr(), idx_t.shape[1], *common)
+    _build.check(err, "sparse_bwd_dkv kernel")
+    sparse_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+sparse_fwd_cuda.launches = 0
+sparse_bwd_dq_cuda.launches = 0
+sparse_bwd_dkv_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# raw pieces, autograd function, entry point
+# --------------------------------------------------------------------------- #
+def sparse_attention_fwd(q, k, v, layout, block_size, *, causal=True, scale=None):
+    """``(o, lse)``: the forward kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    fn = sparse_fwd_cuda if q.device.type == "cuda" else sparse_fwd_torch
+    return fn(q, k, v, layout, block_size, causal=causal, scale=scale)
+
+
+def sparse_attention_bwd(q, k, v, o, lse, do, layout, block_size, *, causal=True,
+                         scale=None):
+    """``(dq, dk, dv)``, dK/dV narrow: the dQ and dK/dV kernels on CUDA
+    tensors (delta = rowsum(dO * O) in torch, as JAX computes it in XLA),
+    the plain version on CPU tensors."""
+    kw = dict(causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        return sparse_bwd_torch(q, k, v, o, lse, do, layout, block_size, **kw)
+    b, s, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    dq = sparse_bwd_dq_cuda(q, k, v, do, lse, delta, layout, block_size, **kw)
+    return (dq, *sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, layout, block_size, **kw))
+
+
+class BlockSparseAttention(torch.autograd.Function):
+    """Differentiable block-sparse attention (the JAX ``_kernel_vjp``
+    closure): forward saves ``(q, k, v, o, lse)`` with K/V narrow, backward
+    walks the same compacted lists; dK/dV come back narrow."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, block_size, causal, scale):
+        o, lse = sparse_attention_fwd(q, k, v, layout, block_size, causal=causal,
+                                      scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (layout, block_size, causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        layout, block_size, causal, scale = ctx.args
+        dq, dk, dv = sparse_attention_bwd(q, k, v, o, lse, do.contiguous(), layout,
+                                          block_size, causal=causal, scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def _dense_masked(q, k, v, layout, block_size, causal, scale):
+    mask = token_mask(layout, block_size, causal, q.device)
+    return attention_torch(q, k, v, causal=False, mask=mask[None, None], scale=scale)
+
+
+def blocksparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          layout: np.ndarray, block_size: int, causal: bool = True,
+                          scale: Optional[float] = None,
+                          use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """q/k/v ``[batch, seq, heads, head_dim]`` (K/V may have fewer heads);
+    layout ``[q_blocks, kv_blocks]`` (static). Tokens attend iff their
+    blocks are connected AND (optionally) causally ordered.
+
+    The kernel path is the default (``use_kernel`` None or True): the three
+    CUDA kernels skip inactive blocks in both directions, so compute and
+    memory scale with the layout's density; it needs CUDA tensors and raises
+    ``RuntimeError`` on others. ``use_kernel=False`` is the dense-masked
+    plain attention (the JAX package's XLA path), on any device."""
+    lay = _check_layout(layout, q.shape[1], block_size)
+    # every q row must keep >= 1 active block (empty-row softmax is undefined)
+    _host_lists(lay, causal)
+    if use_kernel is False:
+        return _dense_masked(q, k, v, lay, block_size, causal, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError("blocksparse_attention's kernel path runs on a CUDA GPU and "
+                           f"got {q.device} tensors; pass use_kernel=False for the "
+                           "dense-masked plain attention")
+    return BlockSparseAttention.apply(q, k, v, lay, block_size, causal, scale)

@@ -31,6 +31,15 @@ the same limits as RMSNorm. int8 quantize and dequantize: codes, scales and
 values EQUAL to the plain versions' (IEEE division, round half to even, one
 fp32 product), so no tolerance. The OPT-1.3B shapes of the paged and flash
 kernels (MHA: g = 1, 32 kv heads, hd 64, S 2048) at the limits above.
+
+The flash kernels' bias mode (forward, dQ with and without dbias, dK/dV)
+against the plain pieces with the same bias, at the flash limits above
+(dbias as a share of its row's RMS too); biases read with stride 0
+(ALiBi's [H, 1, S], a pair bias shared over the batch) and in full, bf16
+and fp32, hd 32/64/128. The block-sparse kernels (forward, dQ, dK/dV)
+against their dense plain versions at the same limits, over blocks
+16-128, sliding-window / fixed / bigbird layouts, causal and not, GQA and
+a kv block nobody attends to (exactly zero dK/dV).
 """
 
 import numpy as np
@@ -39,8 +48,10 @@ import torch
 
 from deepspeed_tpu_torch.ops import get_op
 from deepspeed_tpu_torch.ops.attention import attention, attention_torch
+from deepspeed_tpu_torch.ops.evoformer_attn import evoformer_attention
 from deepspeed_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_torch,
+    FlashAttentionBias, flash_attention, flash_bwd_dkv_bias_cuda, flash_bwd_dkv_cuda,
+    flash_bwd_dq_bias_cuda, flash_bwd_dq_cuda, flash_bwd_torch, flash_fwd_bias_cuda,
     flash_fwd_cuda, flash_fwd_torch)
 from deepspeed_tpu_torch.ops.norms import (
     layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_torch,
@@ -52,6 +63,10 @@ from deepspeed_tpu_torch.ops.paged_attention import (
 from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
     quantize_int8_torch)
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    bigbird_layout, blocksparse_attention, fixed_layout,
+    sliding_window_layout, sparse_bwd_dkv_cuda, sparse_bwd_dq_cuda, sparse_bwd_torch,
+    sparse_fwd_cuda, sparse_fwd_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -322,18 +337,34 @@ def test_flash_check_fails_a_swapped_k_tile(cuda_device):
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, k, v, _ = flash_inputs((1, 8, 8, 2, 2, 64, True, 0, None), torch.bfloat16,
                               cuda_device)
+    q96, k96, v96, _ = flash_inputs((1, 8, 8, 2, 2, 96), torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
-        flash_fwd_cuda(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                       v[..., :32].contiguous())
+        flash_fwd_cuda(q96, k96, v96)
     with pytest.raises(ValueError, match="dtypes"):
         flash_fwd_cuda(q, k.float(), v)
     with pytest.raises(ValueError, match="window"):
         flash_fwd_cuda(q, k, v, causal=False, window=4)
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q.cpu(), k.cpu(), v.cpu())
-    with pytest.raises(ValueError, match="mask"):
-        flash_attention(q, k, v, mask=torch.ones(1, 1, 8, 8, dtype=torch.bool,
-                                                 device=cuda_device))
+    # a mask goes to plain attention, as the JAX package hands it to XLA
+    before = flash_fwd_cuda.launches
+    mask = torch.ones(1, 1, 8, 8, dtype=torch.bool, device=cuda_device)
+    out = flash_attention(q, k, v, mask=mask)
+    assert flash_fwd_cuda.launches == before
+    assert_flash_close(out, attention_torch(q, k, v, mask=mask), 1e-6)
+    # the bias mode takes no window: the op runs window + bias in plain
+    # attention, the raw bias wrappers refuse it
+    bias = torch.randn(2, 1, 8, device=cuda_device)
+    lse = torch.zeros(2, 8, device=cuda_device)
+    for call in (lambda: flash_fwd_bias_cuda(q, k, v, bias, window=4),
+                 lambda: flash_bwd_dq_bias_cuda(q, k, v, q, lse, lse, bias, window=4),
+                 lambda: flash_bwd_dkv_bias_cuda(q, k, v, q, lse, lse, bias, window=4)):
+        with pytest.raises(ValueError, match="takes no window"):
+            call()
+    before = flash_fwd_bias_cuda.launches
+    out = flash_attention(q, k, v, bias=bias, window=4)
+    assert flash_fwd_bias_cuda.launches == before
+    assert_flash_close(out, attention_torch(q, k, v, bias=bias, window=4), 1e-6)
 
 
 # --------------------------------------------------------------------------- #
@@ -715,3 +746,269 @@ def test_flash_kernels_match_plain_at_opt_shapes(cuda_device, b):
            *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=True))
     for g, ref in zip(got, flash_bwd_torch(q, k, v, o, lse, do, causal=True)):
         assert_flash_close(g, ref, FLASH_TOL[torch.bfloat16])
+
+
+
+# --------------------------------------------------------------------------- #
+# the flash kernels' bias mode (ALiBi, evoformer)
+# --------------------------------------------------------------------------- #
+def _bias(kind, b, h, sq, skv, dtype, device, seed=0):
+    """A bias of the given broadcast kind, as stored (it is expanded to
+    [B, H, Sq, Skv] by strides only)."""
+    g = torch.Generator().manual_seed(seed)
+    shape = {"alibi": (h, 1, skv), "pair": (1, h, sq, skv), "full": (b, h, sq, skv),
+             "row": (b, 1, 1, skv)}[kind]
+    return (torch.randn(shape, generator=g) * 2).to(device, dtype)
+
+
+def _bias_pieces(q, k, v, do, bias, kw, need_dbias):
+    o, lse = flash_fwd_bias_cuda(q, k, v, bias, **kw)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    dq, dbias = flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, bias,
+                                       need_dbias=need_dbias, **kw)
+    dk, dv = flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, bias, **kw)
+    torch.cuda.synchronize()
+    return o, lse, dq, dk, dv, dbias
+
+
+# (B, Sq, Skv, H, Hkv, D, causal, bias kind)
+BIAS_CASES = [
+    (2, 128, 128, 4, 4, 128, True, "alibi"),     # BLOOM: [H, 1, S], strides (0, S, 0, 1)
+    (1, 100, 100, 8, 2, 64, True, "full"),       # tails, GQA
+    (3, 64, 64, 4, 4, 32, False, "pair"),        # evoformer: pair bias shared by the batch
+    (2, 70, 130, 2, 1, 32, False, "row"),        # mask-like [B, 1, 1, Skv]
+    (1, 37, 200, 4, 4, 64, False, "full"),
+]
+
+
+@pytest.mark.parametrize("need_dbias", [True, False])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BIAS_CASES)
+def test_flash_bias_kernels_match_plain(cuda_device, case, dtype, bias_dtype, need_dbias):
+    B, sq, skv, h, hkv, d, causal, kind = case
+    q, k, v, do = flash_inputs(case, dtype, cuda_device, seed=11)
+    bias = _bias(kind, B, h, sq, skv, bias_dtype, cuda_device)
+    kw = dict(causal=causal)
+    counts = [f.launches for f in (flash_fwd_bias_cuda, flash_bwd_dq_bias_cuda,
+                                   flash_bwd_dkv_bias_cuda, flash_fwd_cuda)]
+    o, lse, dq, dk, dv, dbias = _bias_pieces(q, k, v, do, bias, kw, need_dbias)
+    assert [f.launches for f in (flash_fwd_bias_cuda, flash_bwd_dq_bias_cuda,
+                                 flash_bwd_dkv_bias_cuda, flash_fwd_cuda)] == \
+        [c + 1 for c in counts[:3]] + counts[3:]
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, bias=bias, **kw)
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, need_dbias=True, **kw)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert_flash_close(got, ref, FLASH_TOL[dtype])
+    if need_dbias:
+        assert dbias.shape == (B, h, sq, skv) and dbias.dtype == torch.float32
+        assert_flash_close(dbias, refs[3], FLASH_TOL[dtype])
+    else:
+        assert dbias is None
+
+
+def test_flash_bias_dbias_is_zero_above_the_diagonal(cuda_device):
+    """Causal: dbias is written as exact zeros where no key is visible,
+    including the kv tiles the dQ kernel's band skips (S 300: five 64-row
+    tiles)."""
+    q, k, v, do = flash_inputs((1, 300, 300, 2, 2, 64), torch.bfloat16, cuda_device, seed=2)
+    bias = _bias("full", 1, 2, 300, 300, torch.float32, cuda_device)
+    *_, dbias = _bias_pieces(q, k, v, do, bias, dict(causal=True), True)
+    above = torch.ones(300, 300, dtype=torch.bool, device=cuda_device).triu(1)
+    assert bool((dbias[:, :, above] == 0).all())
+    assert bool((dbias[:, :, ~above] != 0).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bias_fully_masked_row_averages_uniformly(cuda_device, dtype):
+    """A query row whose every key carries the -1e30 mask bias (evoformer's
+    wholly masked residue) averages v uniformly, as the JAX package's
+    kernel does (m stays -1e30, p = 1); the backward stays finite."""
+    q, k, v, do = flash_inputs((1, 64, 64, 4, 4, 32), dtype, cuda_device, seed=4)
+    bias = torch.zeros(1, 4, 64, 64, device=cuda_device)
+    bias[:, :, 5] = -1e30              # query row 5: every key masked
+    bias[:, :, :, 7] = -1e30           # key 7 masked for every row
+    o, lse, dq, dk, dv, dbias = _bias_pieces(q, k, v, do, bias, dict(causal=False), True)
+    uniform = v.float().mean(1)[0]     # [H, D]
+    torch.testing.assert_close(o[0, 5].float(), uniform, rtol=2e-2, atol=2e-2)
+    o_ref, _ = flash_fwd_torch(q, k, v, bias=bias, causal=False)
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    refs = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, causal=False, need_dbias=True)
+    for got, ref in zip((dq, dk, dv, dbias), refs):
+        assert torch.isfinite(got.float()).all()
+        assert_flash_close(got, ref, FLASH_TOL[dtype])
+
+
+def test_flash_bias_op_autograd_reduces_dbias(cuda_device):
+    """Op ``attention`` with a bias is :class:`FlashAttentionBias`: its
+    output and grads (the bias's reduced to its broadcast shape and dtype)
+    are plain attention's under autograd, in fp32, where both sides compute
+    the same function to FMA rounding (the bf16 kernels are held against
+    their plain pieces above); a bias that needs no grad gets no dbias
+    written."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, D = 2, 96, 4, 64
+    q0, k0, v0, do = flash_inputs((B, S, S, H, H, D), torch.float32, cuda_device, seed=6)
+    b0 = _bias("pair", B, H, S, S, torch.float32, cuda_device)
+    grads = []
+    for fn in (attention, attention_torch):
+        q, k, v = (t.detach().clone().requires_grad_() for t in (q0, k0, v0))
+        bias = b0.detach().clone().requires_grad_()
+        before = flash_fwd_bias_cuda.launches
+        o = fn(q, k, v, causal=True, bias=bias)
+        assert flash_fwd_bias_cuda.launches == before + (fn is attention)
+        (o * do).sum().backward()
+        grads.append((o.detach(), q.grad, k.grad, v.grad, bias.grad))
+    assert grads[0][4].shape == b0.shape and grads[0][4].dtype == torch.float32
+    # dQ and dbias rows floored at the output's RMS, as dQ's elsewhere: a
+    # query that sees one key has ds = p (dp - delta) = 0 exactly under
+    # autograd and rounding noise in the kernel
+    for floor, got, ref in zip((0.01, 1.0, 0.01, 0.01, 1.0), *grads):
+        assert_flash_close(got, ref, FLASH_TOL[torch.float32], floor)
+    alibi = _bias("alibi", B, H, S, S, torch.float32, cuda_device)
+    o = FlashAttentionBias.apply(*(t.detach().requires_grad_() for t in (q0, k0, v0)),
+                                 alibi, True, None, 0)
+    o.float().sum().backward()    # alibi needs no grad: the dQ kernel writes no dbias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_evoformer_kernel_path_matches_einsum(cuda_device, dtype):
+    """``evoformer_attention`` on the card (flash bias mode) against its
+    einsum path in fp32 on the same (rounded) inputs, the pair bias's grad
+    included, with one residue masked in every MSA row."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(1)
+    S, R, H, D = 3, 40, 4, 32
+    q0, k0, v0 = (torch.from_numpy(rs.randn(1, S, R, H, D).astype(np.float32)).to(
+        cuda_device, dtype) for _ in range(3))
+    mask = np.ones((1, S, 1, 1, R), np.float32)
+    mask[..., 3] = 0
+    mask_bias = torch.from_numpy(np.where(mask > 0, 0.0, -1e30).astype(np.float32)).to(cuda_device)
+    pair0 = torch.from_numpy(rs.randn(1, 1, H, R, R).astype(np.float32)).to(cuda_device)
+    res = []
+    for use_kernel, dt in ((True, dtype), (False, torch.float32)):
+        q, k, v = (t.to(dt) for t in (q0, k0, v0))
+        pair = pair0.clone().requires_grad_()
+        out = evoformer_attention(q, k, v, [mask_bias, pair], use_kernel=use_kernel)
+        (out.float() ** 2).sum().backward()
+        res.append((out.detach(), pair.grad))
+    assert res[0][0].dtype == dtype
+    bf16 = dtype == torch.bfloat16
+    assert_flash_close(res[0][0], res[1][0], 0.05 if bf16 else 1e-4)
+    assert_flash_close(res[0][1], res[1][1], 0.15 if bf16 else 1e-3, 1.0 if bf16 else 0.01)
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse kernels
+# --------------------------------------------------------------------------- #
+def _layout(kind, nb, causal):
+    if kind == "sliding":
+        return sliding_window_layout(nb, 2, causal=causal)
+    if kind == "fixed":
+        return fixed_layout(nb, 2, 3, causal=causal)
+    return bigbird_layout(nb, 2, 1, 1, seed=nb, causal=causal)
+
+
+def _sparse_check(q, k, v, do, layout, bs, causal, dtype):
+    kw = dict(causal=causal)
+    o, lse = sparse_fwd_cuda(q, k, v, layout, bs, **kw)
+    o_ref, lse_ref = sparse_fwd_torch(q, k, v, layout, bs, **kw)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    b, s, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    dq = sparse_bwd_dq_cuda(q, k, v, do, lse, delta, layout, bs, **kw)
+    dk, dv = sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, layout, bs, **kw)
+    torch.cuda.synchronize()
+    refs = sparse_bwd_torch(q, k, v, o, lse, do, layout, bs, **kw)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert_flash_close(got, ref, FLASH_TOL[dtype])
+    return dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["sliding", "fixed", "bigbird"])
+@pytest.mark.parametrize("bs,d,h,hkv", [(16, 32, 4, 2), (32, 64, 4, 4), (64, 128, 8, 2),
+                                        (128, 64, 2, 1), (128, 128, 4, 4)])
+def test_sparse_kernels_match_plain(cuda_device, bs, d, h, hkv, kind, causal, dtype):
+    nb = 6
+    q, k, v, do = flash_inputs((2, nb * bs, nb * bs, h, hkv, d), dtype, cuda_device,
+                               seed=bs + d)
+    counts = [f.launches for f in (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda)]
+    _sparse_check(q, k, v, do, _layout(kind, nb, causal), bs, causal, dtype)
+    assert [f.launches for f in (sparse_fwd_cuda, sparse_bwd_dq_cuda,
+                                 sparse_bwd_dkv_cuda)] == [c + 1 for c in counts]
+
+
+@pytest.mark.parametrize("bs", [16, 64, 128])
+def test_sparse_empty_kv_column_gets_zero_grads(cuda_device, bs):
+    """Row 1 attends only block 0, so no q block attends to kv block 1:
+    its dK/dV are written as exact zeros."""
+    nb = 5
+    layout = np.eye(nb, dtype=bool)
+    layout[:, 0] = True
+    layout[1, 1] = False
+    q, k, v, do = flash_inputs((1, nb * bs, nb * bs, 4, 2, 64), torch.bfloat16, cuda_device)
+    dk, dv = _sparse_check(q, k, v, do, layout, bs, False, torch.bfloat16)
+    assert not dk[:, bs:2 * bs].any() and not dv[:, bs:2 * bs].any()
+    assert dk.abs().sum() > 0
+
+
+def test_blocksparse_autograd_matches_dense_masked(cuda_device):
+    """``blocksparse_attention`` on the card (the kernels, bf16) against
+    its dense-masked path in fp32 under autograd, narrow GQA grads."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bs, nb = 64, 8
+    lay = bigbird_layout(nb, 3, 1, 2, seed=0, causal=True)
+    q0, k0, v0, do = flash_inputs((1, nb * bs, nb * bs, 8, 2, 128), torch.bfloat16,
+                                  cuda_device, seed=8)
+    grads = []
+    for use_kernel, dtype in ((None, torch.bfloat16), (False, torch.float32)):
+        q, k, v = (t.detach().to(dtype).requires_grad_() for t in (q0, k0, v0))
+        o = blocksparse_attention(q, k, v, lay, bs, causal=True, use_kernel=use_kernel)
+        (o.float() * do.float()).sum().backward()
+        grads.append((o.detach(), q.grad, k.grad, v.grad))
+    for (tol, floor), got, ref in zip(((0.05, 0.01), (0.15, 1.0), (0.05, 0.01), (0.05, 0.01)),
+                                      *grads):
+        assert got.shape == ref.shape
+        assert_flash_close(got, ref, tol, floor)
+
+
+def test_sparse_check_fails_a_swapped_list_entry(cuda_device):
+    bs, nb = 64, 6
+    lay = sliding_window_layout(nb, 2, causal=True)
+    q, k, v, _ = flash_inputs((1, nb * bs, nb * bs, 4, 4, 64), torch.bfloat16, cuda_device)
+    bad = lay.copy()
+    bad[4, 3], bad[4, 1] = False, True     # row 4 reads block 1 instead of block 3
+    o, _ = sparse_fwd_cuda(q, k, v, bad, bs)
+    o_ref, _ = sparse_fwd_torch(q, k, v, lay, bs)
+    with pytest.raises(AssertionError, match="row err"):
+        assert_flash_close(o, o_ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_bias_and_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q, k, v, do = flash_inputs((1, 96, 96, 2, 2, 96), torch.bfloat16, cuda_device)
+    lay = np.ones((2, 2), bool)
+    with pytest.raises(ValueError, match="head dim"):
+        sparse_fwd_cuda(q, k, v, lay, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_bias_cuda(q, k, v, torch.zeros(2, 1, 96, device=cuda_device))
+    q, k, v, do = flash_inputs((1, 96, 96, 2, 2, 64), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="block size 48"):
+        sparse_fwd_cuda(q, k, v, lay, 48)
+    with pytest.raises(ValueError, match="fp16|bf16 or fp32 bias"):
+        flash_fwd_bias_cuda(q, k, v, torch.zeros(2, 1, 96, device=cuda_device,
+                                                 dtype=torch.float16))
+    with pytest.raises(ValueError, match="broadcast"):
+        flash_fwd_bias_cuda(q, k, v, torch.zeros(3, 1, 96, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA"):
+        sparse_fwd_cuda(q.cpu(), k.cpu(), v.cpu(), lay, 48)
+    with pytest.raises(ValueError, match="attend to no kv block"):
+        blocksparse_attention(q, k, v, np.zeros((2, 2), bool), 48)

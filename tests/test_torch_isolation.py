@@ -130,7 +130,9 @@ def test_gpt_card_path_refuses_dtypes_without_a_kernel(monkeypatch):
 
 def test_new_modules_are_covered_by_the_import_checks():
     mods = _port_modules()
-    for name in ("deepspeed_tpu_torch.models.gpt", "deepspeed_tpu_torch.inference.modules"):
+    for name in ("deepspeed_tpu_torch.models.gpt", "deepspeed_tpu_torch.inference.modules",
+                 "deepspeed_tpu_torch.models.bloom", "deepspeed_tpu_torch.ops.evoformer_attn",
+                 "deepspeed_tpu_torch.ops.sparse_attention"):
         assert name in mods
     # the module system resolves on CPU tensors without building anything
     norm = modules.registry.instantiate("norm", modules.NormConfig(kind="layer"))
@@ -177,3 +179,31 @@ def test_ported_serving_features_build():
     assert InferenceConfig.from_dict(conf).unported_features() == []
     eng = build_engine_v2(llama, cfg, params, config=conf, device="cpu")
     assert eng.cache["k"].dtype == torch.int8 and eng._spec_fused
+
+
+def test_bloom_evoformer_and_blocksparse_default_to_the_gpu():
+    """BLOOM's trainer and the two attention entry points run on the card
+    unless the CPU is asked for (``device="cpu"``, ``use_kernel=False``),
+    and raise without one instead of falling back."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.models import bloom
+    from deepspeed_tpu_torch.ops import blocksparse_attention, evoformer_attention
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    cfg = bloom.BloomConfig.tiny()
+    conf = {"train_batch_size": 1, "steps_per_print": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=bloom.model_spec(cfg), config=conf)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=bloom.model_spec(cfg), config=conf,
+                                             device="cpu")
+    assert {p.device.type for p in eng.state.params.values()} == {"cpu"}
+    x = torch.zeros(1, 2, 16, 2, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evoformer_attention(x, x, x)
+    assert evoformer_attention(x, x, x, use_kernel=False).shape == x.shape
+    q, lay = torch.zeros(1, 32, 2, 32), np.ones((2, 2), bool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        blocksparse_attention(q, q, q, lay, 16)
+    assert blocksparse_attention(q, q, q, lay, 16, use_kernel=False).shape == q.shape
