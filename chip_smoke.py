@@ -26,10 +26,13 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    (32 heads, 8 kv heads, hd 128, bf16): S = 4096 causal, S = 1000, Sq 512
    against Skv 4096 at q_offset 3584, window 1024, non-causal, and MHA
    (32/32). Each output held with ``row_err`` to its limit in
-   ``FLASH_TOL``; one swapped 64-row K tile must fail the check. Prints
-   each kernel's device time beside its bound, its plain version's and
-   ``F.scaled_dot_product_attention``'s (the library yardstick, timed here
-   and used nowhere in the port).
+   ``FLASH_TOL``; one swapped 64-row K tile must fail the check, and so
+   must the bf16 forward's (``flash_fwd_sm90.cu``, TMA + wgmma) two planted
+   faults: a ring stage read one step late, the last kv tile of the causal
+   band dropped. Prints each kernel's device time beside its bound, its
+   plain version's and ``F.scaled_dot_product_attention``'s (the library
+   yardstick, timed here and used nowhere in the port); the forward also at
+   OPT-1.3B's training shape (4 x 2048 tokens, 32/32 heads, hd 64).
    The int8 mode of paged decode (group 128 and group
    32, i.e. 1 and 4 scales per vector, windows none / 1 / 100 / 4096 /
    tensor) and the spec-verify kernel (t = 5 rows; bf16, int8 group 128 and
@@ -1074,7 +1077,7 @@ def phase_flash(seed: int, card: str):
     from deepspeed_tpu_torch.ops.attention import attention_torch
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_torch,
-        flash_fwd_cuda, flash_fwd_torch)
+        flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # the fp32 reference in full fp32
@@ -1118,7 +1121,17 @@ def phase_flash(seed: int, card: str):
     if fault_rel <= FLASH_TOL["o"]:
         raise AssertionError("flash tolerance passes a swapped K tile; it is too loose")
     out["planted_fault"] = {"max_abs_err": fault_err, "row_err_over_rms": fault_rel}
-    del bad, o_bad, o_ref
+    del bad, o_bad
+    # the bf16 forward's own planted faults (flash_fwd_sm90.cu) must fail too
+    out["planted_faults_sm90"] = {}
+    for fault, what in ((1, "ring stage read one step late"),
+                        (2, "last kv tile of the causal band dropped")):
+        with sm90_planted_fault(fault):
+            o_bad, _ = flash_fwd_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+        out["planted_faults_sm90"][what] = _fault_must_fail(what, o_bad, o_ref, "o")
+        del o_bad
+    del o_ref
 
     # times at the main path's shape (S = 4096 causal, 32/8 heads, hd 128)
     o, lse = flash_fwd_cuda(q, k, v, **kw)
@@ -1164,7 +1177,42 @@ def phase_flash(seed: int, card: str):
     out["pairs"] = work["pairs"]
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
+    out["opt"] = flash_fwd_opt_shape(gen, card)
     return out
+
+
+def flash_fwd_opt_shape(gen, card: str) -> dict:
+    """The forward at OPT-1.3B's training shape (OPT_MICRO x 2048 tokens,
+    causal, 32/32 heads, hd 64): held to its plain version, then timed
+    beside its bound, the plain version and SDPA (the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd_cuda, flash_fwd_torch
+
+    b, s, hd = OPT_MICRO, 2048, 64
+    q, k, v = (torch.randn(b, s, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o, _ = flash_fwd_cuda(q, k, v, causal=True)
+    o_ref, _ = flash_fwd_torch(q, k, v, causal=True)
+    err = check_close(f"flash fwd OPT-1.3B [{b}x{s}, 32/32 heads, hd {hd}] o", o, o_ref,
+                      FLASH_TOL["o"], floor=FLASH_FLOOR["o"])
+    del o, o_ref
+    pairs = b * H * s * (s + 1) // 2
+    bound, by = attn_bound_ms(pairs, hd, 2, 4 * b * s * H * hd * 2 + b * H * s * 4)
+    t = measure(lambda: flash_fwd_cuda(q, k, v, causal=True), 10)
+    plain = measure(lambda: flash_fwd_torch(q, k, v, causal=True), 3)["ms"]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)["ms"]
+    log(f"  flash fwd OPT-1.3B [{b}x{s}, 32/32 heads, hd {hd}] causal: device kernel "
+        f"{t['ms']*1e3:.1f} us ({4 * hd * pairs / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s), "
+        f"bound {bound*1e3:.1f} us ({by}), plain {plain*1e3:.1f} us, SDPA {lib*1e3:.1f} us "
+        f"[{card}]")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"ms": t["ms"], "host_ms": t["host_ms"], "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": by, "pairs": pairs,
+            "max_abs_err": err[0], "row_err_over_rms": err[1]}
 
 
 def _train_config(seed: int, gas: int, bf16: bool, micro: int = 1) -> dict:
@@ -1190,7 +1238,7 @@ def train_flops(cfg, seq: int, sequences: int) -> float:
 
 # kernel-name substrings that sort a profiled training step's device time
 PROFILE_GROUPS = [
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("sparse", ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")),
@@ -2294,7 +2342,7 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "deepspeed_tpu_torch/ops/csrc/"
-                      + ("flash_fwd.cu" if key == "fwd" else "flash_bwd.cu"),
+                      + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd.cu"),
             "replaces": "deepspeed_tpu/ops/pallas/" + line + " (has_bias, _flash_b :787)",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(errs),
@@ -2505,7 +2553,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "deepspeed_tpu_torch/ops/csrc/"
-                      + ("flash_fwd.cu" if key == "fwd" else "flash_bwd.cu"),
+                      + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd.cu"),
             "replaces": line,
             "launches": train["launches"][name] + opt_train["launches"][name],
             "launches_by_path": {"llama training": train["launches"][name],
@@ -2513,6 +2561,9 @@ def main() -> int:
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "operations", "library_ms": r["library_ms"]})
+        if key == "fwd":   # the same kernel at OPT-1.3B's training shape
+            kernels[-1]["opt"] = {k_: flash["opt"][k_] for k_ in
+                                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     rows_t = kern["rows"]["timing"]
     dec8, ver8, ver16 = (rows_t["decode_int8_main_path"], rows_t["verify_int8_main_path"],
                          rows_t["verify_bf16_main_path"])

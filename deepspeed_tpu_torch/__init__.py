@@ -29,7 +29,9 @@ Ported so far:
   dQ and dK/dV kernels.
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
-CUDA counterpart: fourteen kernel entries in eight sources.
+CUDA counterpart: fourteen kernel entries in nine sources (the flash forward
+runs bf16 on TMA + ``wgmma``, ``ops/csrc/flash_fwd_sm90.cu``, and fp32 on
+``ops/csrc/flash_fwd.cu``).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

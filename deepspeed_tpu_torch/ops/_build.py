@@ -57,6 +57,8 @@ SIGNATURES = {
     # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
     # scale, dtype, bias, stream
     "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
+    # planted fault of the bf16 forward's next launches (tests): 0 none
+    "dstt_flash_fwd_sm90_plant": [_I],
     # q, k, v, dout, lse, delta, dq, (B .. window as above), scale, dtype,
     # bias, dbias, stream
     "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I] + _BIAS + [_VP, _VP],

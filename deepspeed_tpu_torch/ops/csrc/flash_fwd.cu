@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), fp32 inputs. bf16 goes to
+// flash_fwd_sm90.cu (TMA + wgmma); dstt_flash_fwd below routes by dtype.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (:284,
 // pallas_call at :426, driven by `_flash_fwd` :361; op `attention`). Same
@@ -22,9 +23,9 @@
 // the causal/window band needs (the TPU's _mask_split / _fold_maps become
 // loop bounds); tails of any length are masked by bounds rather than padded.
 // Narrow GQA K/V are read in place (query head h reads kv head h / g).
-// Products: mma.sync bf16 tensor-core tiles, fragments through ldmatrix
-// (fp32 inputs: FMA). Not yet: wgmma, TMA, cp.async pipelining, warp
-// specialisation. The bias costs one strided (cached) load per visible
+// Products: this kernel now serves fp32 only, with FMA products (wgmma on
+// fp32 inputs would be TF32 and change the numbers); no training path runs
+// fp32 attention. The bias costs one strided (cached) load per visible
 // score; at BLOOM-7b1's S = 2048 the bias mode's forward is ~34 GFLOP per
 // 32 heads (~35 us at 989 TFLOP/s) and a summed evoformer bias of 1.07 GB
 // makes it bytes-bound (~320 us to read at 3.35 TB/s).
@@ -166,19 +167,16 @@ cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-template <bool BIAS>
-cudaError_t launch_t(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
-  if (dtype == 0) return launch_d<__nv_bfloat16, BIAS>(a, bb, D, s);
-  if (dtype == 1) return launch_d<float, BIAS>(a, bb, D, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
+namespace dstt_flash {
+cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, cudaStream_t s);
+}
+
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] -> o [B, Sq, H, D], lse [B * H, Sq] fp32.
-// dtype: 0 bf16, 1 fp32. D: 32, 64 or 128. window <= 0: none. bias: null
-// (none) or a bf16 (bias_f32 0) / fp32 (1) bias read at b * sb + h * sh +
-// q * sq + kv * sk elements.
+// dtype: 0 bf16 (flash_fwd_sm90.cu), 1 fp32 (here). D: 32, 64 or 128.
+// window <= 0: none. bias: null (none) or a bf16 (bias_f32 0) / fp32 (1)
+// bias read at b * sb + h * sh + q * sq + kv * sk elements.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Hkv, int Sq, int Skv, int D, int q_offset,
                               int causal, int window, float scale, int dtype, const void* bias,
@@ -192,5 +190,7 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void*
   a.q_offset = q_offset; a.causal = causal; a.window = window; a.scale = scale;
   const Bias bb{bias, sb, sh, sq, sk, bias_f32, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bias ? launch_t<true>(a, bb, D, dtype, s) : launch_t<false>(a, bb, D, dtype, s));
+  if (dtype == 0) return (int)dstt_flash::flash_fwd_sm90(a, bb, D, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)(bias ? launch_d<float, true>(a, bb, D, s) : launch_d<float, false>(a, bb, D, s));
 }

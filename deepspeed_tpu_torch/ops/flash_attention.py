@@ -4,7 +4,12 @@
 
 Three hand-written kernels replace the three TPU kernels:
 
-- ``ops/csrc/flash_fwd.cu`` (``_fwd_kernel`` :284): ``(o, lse)``;
+- the forward (``_fwd_kernel`` :284): ``(o, lse)``; bf16 runs
+  ``ops/csrc/flash_fwd_sm90.cu`` (TMA loads, wgmma products), fp32
+  ``ops/csrc/flash_fwd.cu`` (FMA products), one entry point routing by
+  dtype. TMA reads q, k and v through tensor maps, whose base and strides
+  must be multiples of 16 bytes: :func:`tma_refusal` says why a tensor
+  cannot be read so, and the bf16 wrapper raises on it;
 - ``ops/csrc/flash_bwd.cu`` ``dq`` (``_bwd_dq_kernel`` :448);
 - ``ops/csrc/flash_bwd.cu`` ``dkv`` (``_bwd_dkv_kernel`` :523), which writes
   NARROW dK/dV under GQA (no widen-then-sum).
@@ -48,6 +53,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -200,6 +206,26 @@ def _kernel_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, sq, h, d, skv, hkv
 
 
+def tma_refusal(t: torch.Tensor) -> Optional[str]:
+    """Why the bf16 forward's TMA tensor maps cannot read ``t`` as a dense
+    ``[B, S, H, D]`` tensor, or None when they can: bf16, head dim in
+    ``HEAD_DIMS``, dense row-major strides (a slice of a fused qkv tensor is
+    not), a 16-byte aligned base pointer and every stride a multiple of 16
+    bytes."""
+    if t.dtype != torch.bfloat16:
+        return f"dtype {t.dtype}, not bf16"
+    if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS:
+        return f"shape {tuple(t.shape)} is not [B, S, H, D] with D in {HEAD_DIMS}"
+    if not t.is_contiguous():
+        return f"strides {t.stride()} are not those of a dense [B, S, H, D] tensor"
+    if t.data_ptr() % 16:
+        return f"base address {t.data_ptr():#x} is not a multiple of 16 bytes"
+    bad = [st * t.element_size() for st in t.stride()[:-1] if st * t.element_size() % 16]
+    if bad:
+        return f"strides of {bad} bytes are not multiples of 16"
+    return None
+
+
 _NO_BIAS = (None, 0, 0, 0, 0, 0)
 
 
@@ -244,6 +270,11 @@ def _stream(dev) -> int:
 def _fwd_launch(q, k, v, bias, name, causal, scale, q_offset, window):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d, skv, hkv = _kernel_shapes(name, q, k, v)
+    if q.dtype == torch.bfloat16:
+        for label, t in (("q", q), ("k", k), ("v", v)):
+            why = tma_refusal(t)
+            if why is not None:
+                raise ValueError(f"{name}: TMA cannot read {label}: {why}")
     ba = _bias_args(bias, name, b, h, sq, skv, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
@@ -259,7 +290,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, scale: Optional[float] = None,
                    q_offset: int = 0, window: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``ops/csrc/flash_fwd.cu``: ``(o, lse)``."""
+    """Launch the forward kernel (bf16: ``ops/csrc/flash_fwd_sm90.cu``,
+    fp32: ``ops/csrc/flash_fwd.cu``): ``(o, lse)``."""
     out = _fwd_launch(q, k, v, None, "flash_fwd_cuda", causal, scale, q_offset, window)
     flash_fwd_cuda.launches += 1
     return out
@@ -269,7 +301,7 @@ def flash_fwd_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor, *, causal: bool = True,
                         scale: Optional[float] = None, q_offset: int = 0,
                         window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``ops/csrc/flash_fwd.cu`` in its bias mode: ``(o, lse)``."""
+    """Launch the forward kernel in its bias mode: ``(o, lse)``."""
     _no_window("flash_fwd_bias_cuda", window)
     out = _fwd_launch(q, k, v, bias, "flash_fwd_bias_cuda", causal, scale, q_offset, window)
     flash_fwd_bias_cuda.launches += 1
@@ -374,6 +406,20 @@ def flash_bwd_dkv_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale, q_offset, window)
     flash_bwd_dkv_bias_cuda.launches += 1
     return out
+
+
+@contextlib.contextmanager
+def sm90_planted_fault(fault: int):
+    """For the tests that show a check can fail: the bf16 forward's launches
+    inside the block carry a planted fault (1: each kv tile after the first
+    is read from the ring stage one step late; 2: the last kv tile of the
+    causal band is dropped)."""
+    lib = _build.load()
+    lib.dstt_flash_fwd_sm90_plant(int(fault))
+    try:
+        yield
+    finally:
+        lib.dstt_flash_fwd_sm90_plant(0)
 
 
 for _fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_fwd_bias_cuda,

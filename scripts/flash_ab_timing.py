@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Device times of the flash-attention kernels of one checkout of the
 PyTorch port: the no-bias forward, dQ and dK/dV at Llama-3-8B's training
-shape (1 x 4096 tokens, causal, 32 query / 8 kv heads, hd 128, bf16) and,
-where the checkout has it, the bias mode at BLOOM-7b1's (2 x 2048 tokens,
-causal, 32 heads, hd 128, ALiBi [32, 1, S] fp32).
+shape (1 x 4096 tokens, causal, 32 query / 8 kv heads, hd 128, bf16) and
+OPT-1.3B's (4 x 2048 tokens, causal, 32 / 32 heads, hd 64) and, where the
+checkout has it, the bias mode at BLOOM-7b1's (2 x 2048 tokens, causal, 32
+heads, hd 128, ALiBi [32, 1, S] fp32) and at AlphaFold MSA row attention's
+(512 rows x 256 residues, non-causal, 8 heads of 32, a full fp32 bias
+[512, 8, 256, 256] of 1.07 GB).
 
     python3 scripts/flash_ab_timing.py --root PATH [--iters 20]
 
@@ -61,29 +64,33 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(b, s, h, hkv):
-        return [torch.randn(b, s, n, 128, generator=gen, device=dev).to(torch.bfloat16)
+    def inputs(b, s, h, hkv, d=128):
+        return [torch.randn(b, s, n, d, generator=gen, device=dev).to(torch.bfloat16)
                 for n in (h, hkv, hkv, h)]
 
-    def times(q, k, v, do, fwd, dq, dkv, *extra):
-        o, lse = fwd(q, k, v, *extra, causal=True)
+    def times(q, k, v, do, fwd, dq, dkv, *extra, causal=True):
+        kw = {"causal": causal}
+        o, lse = fwd(q, k, v, *extra, **kw)
         b, s, h, _ = q.shape
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
-        return {"fwd_ms": events_ms(lambda: fwd(q, k, v, *extra, causal=True), args.iters),
-                "dq_ms": events_ms(lambda: dq(q, k, v, do, lse, delta, *extra, causal=True),
+        return {"fwd_ms": events_ms(lambda: fwd(q, k, v, *extra, **kw), args.iters),
+                "dq_ms": events_ms(lambda: dq(q, k, v, do, lse, delta, *extra, **kw),
                                    args.iters),
-                "dkv_ms": events_ms(lambda: dkv(q, k, v, do, lse, delta, *extra, causal=True),
+                "dkv_ms": events_ms(lambda: dkv(q, k, v, do, lse, delta, *extra, **kw),
                                     args.iters)}
 
+    plain = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     out = {"root": str(root), "card": card,
-           "llama_no_bias": times(*inputs(1, 4096, 32, 8), fa.flash_fwd_cuda,
-                                  fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)}
+           "llama_no_bias": times(*inputs(1, 4096, 32, 8), *plain),
+           "opt_no_bias": times(*inputs(4, 2048, 32, 32, 64), *plain)}
     if hasattr(fa, "flash_fwd_bias_cuda"):
         from deepspeed_tpu_torch.models.bloom import _alibi_bias
 
-        out["bloom_bias"] = times(*inputs(2, 2048, 32, 32), fa.flash_fwd_bias_cuda,
-                                  lambda *a, **kw: fa.flash_bwd_dq_bias_cuda(*a, **kw)[0],
-                                  fa.flash_bwd_dkv_bias_cuda, _alibi_bias(32, 2048, dev))
+        bias = (fa.flash_fwd_bias_cuda, lambda *a, **kw: fa.flash_bwd_dq_bias_cuda(*a, **kw)[0],
+                fa.flash_bwd_dkv_bias_cuda)
+        out["bloom_bias"] = times(*inputs(2, 2048, 32, 32), *bias, _alibi_bias(32, 2048, dev))
+        msa = torch.randn(512, 8, 256, 256, generator=gen, device=dev)
+        out["msa_bias"] = times(*inputs(512, 256, 8, 8, 32), *bias, msa, causal=False)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -52,7 +52,7 @@ from deepspeed_tpu_torch.ops.evoformer_attn import evoformer_attention
 from deepspeed_tpu_torch.ops.flash_attention import (
     FlashAttentionBias, flash_attention, flash_bwd_dkv_bias_cuda, flash_bwd_dkv_cuda,
     flash_bwd_dq_bias_cuda, flash_bwd_dq_cuda, flash_bwd_torch, flash_fwd_bias_cuda,
-    flash_fwd_cuda, flash_fwd_torch)
+    flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault, tma_refusal)
 from deepspeed_tpu_torch.ops.norms import (
     layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_torch,
     rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
@@ -365,6 +365,159 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     out = flash_attention(q, k, v, bias=bias, window=4)
     assert flash_fwd_bias_cuda.launches == before
     assert_flash_close(out, attention_torch(q, k, v, bias=bias, window=4), 1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 forward on TMA + wgmma (ops/csrc/flash_fwd_sm90.cu)
+# --------------------------------------------------------------------------- #
+def _sm90_forward_close(device, case, seed, bias=None):
+    """Run the bf16 forward on ``case`` = (B, Sq, Skv, H, Hkv, D, causal,
+    q_offset, window) and hold o and lse to the plain version; returns
+    (o, lse, o_ref, lse_ref)."""
+    q, k, v, _ = flash_inputs(case, torch.bfloat16, device, seed=seed)
+    kw = dict(causal=case[6], q_offset=case[7], window=case[8])
+    if bias is None:
+        before = flash_fwd_cuda.launches
+        o, lse = flash_fwd_cuda(q, k, v, **kw)
+        assert flash_fwd_cuda.launches == before + 1
+    else:
+        before = flash_fwd_bias_cuda.launches
+        o, lse = flash_fwd_bias_cuda(q, k, v, bias, **kw)
+        assert flash_fwd_bias_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, bias=bias, **kw)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert_flash_close(o, o_ref, FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    return o, lse, o_ref, lse_ref
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 129, 200, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_forward_lengths(cuda_device, d, s, causal):
+    """Sq = Skv at lengths below, at and past one 128-row tile and a long
+    one: the tails are TMA's zero fill and the masked stores."""
+    _sm90_forward_close(cuda_device, (1, s, s, 4, 2, d, causal, 0, None), seed=s + d)
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 4096), (127, 200), (129, 4096), (200, 129), (1, 127)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_forward_unequal_lengths(cuda_device, sq, skv, d):
+    """Sq != Skv, non-causal (every pair visible) and causal as a continued
+    prefill (q row 0 at position Skv - Sq, where that is >= 0)."""
+    _sm90_forward_close(cuda_device, (2, sq, skv, 4, 4, d, False, 0, None), seed=sq + skv)
+    if skv >= sq:
+        _sm90_forward_close(cuda_device, (2, sq, skv, 4, 4, d, True, skv - sq, None),
+                            seed=sq * skv)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_forward_gqa(cuda_device, g, d):
+    """GQA read in place: query head h reads kv head h // g."""
+    _sm90_forward_close(cuda_device, (2, 300, 300, 8, 8 // g, d, True, 0, None), seed=g * d)
+
+
+@pytest.mark.parametrize("window", [1, 3, 100, 1024])
+@pytest.mark.parametrize("d", [32, 128])
+def test_sm90_forward_window(cuda_device, window, d):
+    """The causal window: kv tiles before the band are not loaded, tiles
+    across its edge are masked."""
+    _sm90_forward_close(cuda_device, (1, 2000, 2000, 4, 1, d, True, 0, window),
+                        seed=window + d)
+    _sm90_forward_close(cuda_device, (1, 333, 2000, 4, 1, d, True, 1667, window),
+                        seed=window * d)
+
+
+BIAS_FORMS = {   # name: bias shape from (B, H, Sq, Skv); broadcast dims get stride 0
+    "full": lambda b, h, sq, skv: (b, h, sq, skv),
+    "alibi": lambda b, h, sq, skv: (h, 1, skv),
+    "per row": lambda b, h, sq, skv: (1, h, sq, 1),
+    "pair": lambda b, h, sq, skv: (1, h, sq, skv),
+    "per batch": lambda b, h, sq, skv: (b, 1, 1, skv),
+}
+
+
+@pytest.mark.parametrize("form", sorted(BIAS_FORMS))
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal,skv", [(32, False, 256), (64, True, 129), (128, True, 300)])
+def test_sm90_forward_bias_strides(cuda_device, form, bias_dtype, d, causal, skv):
+    """The bias mode reads the bias in place through its four strides, any
+    of which may be 0, with odd kv lengths (no paired loads) and even ones."""
+    b, h, sq = 2, 4, 200
+    rs = np.random.RandomState(d + skv)
+    bias = torch.from_numpy(rs.randn(*BIAS_FORMS[form](b, h, sq, skv)).astype(np.float32))
+    _sm90_forward_close(cuda_device,
+                        (b, sq, skv, h, 2, d, causal, skv - sq if causal else 0, None),
+                        seed=d, bias=bias.to(cuda_device, bias_dtype))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_forward_rows_that_see_no_key(cuda_device, d):
+    """No bias: q rows past the window's reach see no key and get o = 0,
+    lse = -1e30 (the TPU kernel's ``_finish``)."""
+    o, lse, _, _ = _sm90_forward_close(cuda_device, (1, 200, 150, 4, 2, d, True, 100, 16),
+                                       seed=d)
+    empty = torch.arange(200, device=cuda_device) + 100 > 149 + 15
+    assert empty.any() and not o[:, empty].any()
+    assert bool((lse.view(4, 200)[:, empty] == -1e30).all())
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_sm90_forward_rows_whose_keys_all_carry_minus_1e30(cuda_device, d):
+    """Bias mode: a row whose every key carries a -1e30 bias averages v
+    uniformly, lse = -1e30 + log(Skv) (the rule of ROADMAP queue C)."""
+    b, h, sq, skv = 2, 4, 130, 260
+    bias = torch.zeros(b, 1, sq, skv, device=cuda_device)
+    bias[1, :, 7] = -1e30
+    q, k, v, _ = flash_inputs((b, sq, skv, h, h, d), torch.bfloat16, cuda_device, seed=d)
+    o, lse = flash_fwd_bias_cuda(q, k, v, bias, causal=False)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, bias=bias, causal=False)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref, FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(o[1, 7].float(), v[1].float().mean(0),
+                               rtol=0, atol=0.02)
+    rows = lse.view(b, h, sq)[1, :, 7]
+    torch.testing.assert_close(rows, torch.full_like(rows, -1e30 + float(np.log(skv))))
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fault,what", [(1, "ring stage read one step late"),
+                                        (2, "last kv tile of the causal band dropped")])
+def test_sm90_forward_check_fails_a_planted_fault(cuda_device, fault, what):
+    """The planted faults of ``sm90_planted_fault`` must fail the check the
+    sound kernel passes, at Llama-3-8B's attention shape cut to S 1024."""
+    case = (1, 1024, 1024, 32, 8, 128, True, 0, None)
+    q, k, v, _ = flash_inputs(case, torch.bfloat16, cuda_device, seed=fault)
+    o_ref, _ = flash_fwd_torch(q, k, v)
+    o, _ = flash_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_ref, FLASH_TOL[torch.bfloat16])
+    with sm90_planted_fault(fault):
+        o_bad, _ = flash_fwd_cuda(q, k, v)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError, match="row err"):
+        assert_flash_close(o_bad, o_ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_sm90_forward_refuses_what_tma_cannot_read(cuda_device):
+    """A bf16 q whose base is not 16-byte aligned raises before any launch
+    (the kernel is not swapped for another path); a slice of a fused qkv
+    tensor is made dense by the wrapper and runs."""
+    case = (1, 64, 64, 2, 2, 64)
+    q, k, v, _ = flash_inputs(case, torch.bfloat16, cuda_device)
+    buf = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.is_contiguous() and "16 bytes" in tma_refusal(q_odd)
+    before = flash_fwd_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_fwd_cuda(q_odd, k, v)
+    assert flash_fwd_cuda.launches == before
+    fused = torch.stack([q, q, q], dim=2)[:, :, 0]      # a slice of a fused qkv tensor
+    o, _ = flash_fwd_cuda(fused, k, v)                   # the wrapper makes it dense
+    assert_flash_close(o, flash_fwd_torch(q, k, v)[0], FLASH_TOL[torch.bfloat16])
 
 
 # --------------------------------------------------------------------------- #
