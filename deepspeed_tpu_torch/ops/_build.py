@@ -64,6 +64,13 @@ SIGNATURES = {
     "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I] + _BIAS + [_VP, _VP],
     # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, bias, stream
     "dstt_flash_bwd_dkv": [_VP] * 8 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
+    # bf16 without a bias (flash_bwd_sm90.cu): q, k, v, dout, lse, delta, dq,
+    # (B .. window), scale, stream
+    "dstt_flash_bwd_dq_sm90": [_VP] * 7 + [_I] * 9 + [_F, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, stream
+    "dstt_flash_bwd_dkv_sm90": [_VP] * 8 + [_I] * 9 + [_F, _VP],
+    # planted fault of both bf16 backward kernels' next launches (tests): 0 none
+    "dstt_flash_bwd_sm90_plant": [_I],
     # q, k, v, o, lse, idx, cnt, max_a, B, H, Hkv, S, D, block, causal,
     # scale, dtype, stream
     "dstt_sparse_fwd": [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],

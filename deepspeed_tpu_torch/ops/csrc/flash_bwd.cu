@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ and dK/dV.
+// Flash-attention backward, fp32 and the bias mode: dQ and dK/dV. bf16
+// without a bias runs flash_bwd_sm90.cu (TMA + wgmma); dstt_flash_bwd_dq /
+// dstt_flash_bwd_dkv below refuse it.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_bwd_dq_kernel`
 // (:448, pallas_call at :657) and `_bwd_dkv_kernel` (:523, pallas_call at
@@ -7,16 +9,17 @@
 // dp = dO v^T, ds = p * (dp - delta) * scale rounded to the inputs' dtype,
 // with delta = rowsum(dO * O) computed by the caller (XLA code in JAX, torch
 // code here); dq = ds k, dv = p^T dO (p rounded to dO's dtype), dk = ds^T q.
-// Accumulation in fp32, one cast at the end. Bias mode (`has_bias`): the
-// bias joins the recomputed logits as in the forward (:481-482, :557-558),
-// in natural units, and the dQ kernel, given a dbias pointer, writes
-// dL/dlogits = p * (dp - delta) unscaled in fp32 (:492-494): every position
-// of its q rows, zero where nothing is visible and over the kv tiles its
-// causal band skips (:507-512).
+// Accumulation in fp32, one cast at the end. Bias mode (`has_bias`, bf16 or
+// fp32): the bias joins the recomputed logits as in the forward (:481-482,
+// :557-558), in natural units, and the dQ kernel, given a dbias pointer,
+// writes dL/dlogits = p * (dp - delta) unscaled in fp32 (:492-494): every
+// position of its q rows, zero where nothing is visible and over the kv
+// tiles its causal band skips (:507-512).
 //
-// Bound on an H100 SXM: operations. At Llama-3-8B causal shapes (S = 4096,
-// 32 heads, hd 128) dQ does three S^2/2-sized products (~206 GFLOP, ~208 us
-// at 989 TFLOP/s) and dK/dV four (~275 GFLOP, ~278 us); bytes are ~100 MB.
+// Bound on an H100 SXM: operations. At BLOOM-7b1's bias-mode shape (2 x
+// 2048 causal, 32 heads, hd 128) dQ does three products over the visible
+// pairs (~103 GFLOP, ~104 us at 989 TFLOP/s) and dK/dV four (~139 us); at
+// the MSA row shape the fp32 bias and dbias bytes bound them instead.
 //
 // Design. dQ: one block of 4 warps per (batch * head, 64-row q tile), each
 // warp owning 16 q rows, looping over the kv tiles of its causal/window band;
@@ -266,26 +269,13 @@ cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
 template <bool DQ>
 cudaError_t launch_any(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
   const bool bias = bb.ptr != nullptr;
-  if (dtype == 0)
-    return bias ? launch_d<DQ, __nv_bfloat16, true>(a, bb, D, s)
-                : launch_d<DQ, __nv_bfloat16, false>(a, bb, D, s);
+  if (dtype == 0)   // bf16 without a bias: flash_bwd_sm90.cu
+    return bias ? launch_d<DQ, __nv_bfloat16, true>(a, bb, D, s) : cudaErrorInvalidValue;
   if (dtype == 1)
     return bias ? launch_d<DQ, float, true>(a, bb, D, s)
                 : launch_d<DQ, float, false>(a, bb, D, s);
   return cudaErrorInvalidValue;
 }
-
-Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, int B, int H, int Hkv, int Sq, int Skv, int q_offset,
-               int causal, int window, float scale) {
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Skv = Skv;
-  a.q_offset = q_offset; a.causal = causal; a.window = window; a.scale = scale;
-  return a;
-}
-
-bool bad_shape(int H, int Hkv, int Skv) { return H <= 0 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0; }
 
 }  // namespace
 
@@ -300,8 +290,8 @@ extern "C" int dstt_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                  int bias_f32, float* dbias, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (bad_shape(H, Hkv, Skv) || (dbias && !bias)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
-                     scale);
+  Args a = bwd_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
+                    scale);
   a.dq = dq;
   const Bias bb{bias, sb, sh, sq, sk, bias_f32, dbias};
   return (int)launch_any<true>(a, bb, D, dtype, static_cast<cudaStream_t>(stream));
@@ -316,8 +306,8 @@ extern "C" int dstt_flash_bwd_dkv(const void* q, const void* k, const void* v, c
                                   long long sk, int bias_f32, void* stream) {
   if (B == 0 || Skv == 0) return 0;
   if (bad_shape(H, Hkv, Skv)) return (int)cudaErrorInvalidValue;
-  Args a = make_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
-                     scale);
+  Args a = bwd_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
+                    scale);
   a.dk = dk;
   a.dv = dv;
   const Bias bb{bias, sb, sh, sq, sk, bias_f32, nullptr};

@@ -250,6 +250,23 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The backward kernels' inputs (flash_bwd.cu, flash_bwd_sm90.cu); the
+// outputs are set by each entry point.
+inline Args bwd_args(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, int B, int H, int Hkv, int Sq, int Skv,
+                     int q_offset, int causal, int window, float scale) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Skv = Skv;
+  a.q_offset = q_offset; a.causal = causal; a.window = window; a.scale = scale;
+  return a;
+}
+
+// Head counts and a kv length the backward kernels cannot take.
+inline bool bad_shape(int H, int Hkv, int Skv) {
+  return H <= 0 || Hkv <= 0 || H % Hkv != 0 || Skv <= 0;
+}
+
 // Sets the dynamic shared-memory size a launch needs (above 48 KB this must
 // be allowed per kernel first) and reports a refusal.
 template <typename K>

@@ -10,9 +10,12 @@ Three hand-written kernels replace the three TPU kernels:
   dtype. TMA reads q, k and v through tensor maps, whose base and strides
   must be multiples of 16 bytes: :func:`tma_refusal` says why a tensor
   cannot be read so, and the bf16 wrapper raises on it;
-- ``ops/csrc/flash_bwd.cu`` ``dq`` (``_bwd_dq_kernel`` :448);
-- ``ops/csrc/flash_bwd.cu`` ``dkv`` (``_bwd_dkv_kernel`` :523), which writes
-  NARROW dK/dV under GQA (no widen-then-sum).
+- ``dq`` (``_bwd_dq_kernel`` :448) and ``dkv`` (``_bwd_dkv_kernel`` :523),
+  which writes NARROW dK/dV under GQA (no widen-then-sum): bf16 without a
+  bias runs ``ops/csrc/flash_bwd_sm90.cu`` (TMA loads, wgmma products, the
+  forward's Hopper design), fp32 and the bias mode ``ops/csrc/flash_bwd.cu``
+  (``mma.sync`` / FMA products), as :func:`bwd_source` routes them; the
+  bf16 kernels' q, k, v and dO pass :func:`tma_check` first.
 
 Each has a bias mode (``has_bias``, driven by ``_flash_b`` :787): an
 additive bf16/fp32 logits bias broadcastable to ``[B, H, Sq, Skv]``, added
@@ -229,6 +232,32 @@ def tma_refusal(t: torch.Tensor) -> Optional[str]:
 _NO_BIAS = (None, 0, 0, 0, 0, 0)
 
 
+def tma_check(name: str, **tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` naming the first of ``tensors`` (label = tensor)
+    that TMA cannot read (:func:`tma_refusal`); a refused launch never takes
+    another kernel."""
+    for label, t in tensors.items():
+        why = tma_refusal(t)
+        if why is not None:
+            raise ValueError(f"{name}: TMA cannot read {label}: {why}")
+
+
+BWD_SM90, BWD_MMA = "flash_bwd_sm90.cu", "flash_bwd.cu"
+
+
+def bwd_source(dtype: torch.dtype, d: int, has_bias: bool) -> str:
+    """The source under ``ops/csrc/`` whose dQ and dK/dV kernels serve the
+    backward at this dtype, head dim and bias mode: bf16 without a bias
+    runs the Hopper kernels of ``flash_bwd_sm90.cu`` (TMA + wgmma), fp32
+    (whose wgmma would be TF32) and every bias-mode call the kernels of
+    ``flash_bwd.cu``. Raises on what neither takes."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"the flash backward takes bf16 or fp32, not {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash backward takes head dim in {HEAD_DIMS}, not {d}")
+    return BWD_SM90 if dtype == torch.bfloat16 and not has_bias else BWD_MMA
+
+
 def _bias_args(bias: Optional[torch.Tensor], name: str, b: int, h: int, sq: int,
                skv: int, dev) -> tuple:
     """``(pointer, sb, sh, sq, sk, is_fp32)`` of a bias broadcastable to
@@ -271,10 +300,7 @@ def _fwd_launch(q, k, v, bias, name, causal, scale, q_offset, window):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d, skv, hkv = _kernel_shapes(name, q, k, v)
     if q.dtype == torch.bfloat16:
-        for label, t in (("q", q), ("k", k), ("v", v)):
-            why = tma_refusal(t)
-            if why is not None:
-                raise ValueError(f"{name}: TMA cannot read {label}: {why}")
+        tma_check(name, q=q, k=k, v=v)
     ba = _bias_args(bias, name, b, h, sq, skv, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
@@ -324,6 +350,15 @@ def _bwd_inputs(name, q, k, v, do, lse, delta, bias):
     return q, k, v, do, lse, delta, shapes, _bias_args(bias, name, b, h, sq, skv, q.device)
 
 
+def _sm90(name, q, k, v, do, bias) -> bool:
+    """Whether the backward runs ``flash_bwd_sm90.cu``; if so, q, k, v and
+    dO must pass the TMA check."""
+    if bwd_source(q.dtype, q.shape[-1], bias is not None) != BWD_SM90:
+        return False
+    tma_check(name, q=q, k=k, v=v, dO=do)
+    return True
+
+
 def _dq_launch(q, k, v, do, lse, delta, bias, need_dbias, name, causal, scale,
                q_offset, window):
     q, k, v, do, lse, delta, (b, sq, h, d, skv, hkv), ba = _bwd_inputs(
@@ -331,12 +366,16 @@ def _dq_launch(q, k, v, do, lse, delta, bias, need_dbias, name, causal, scale,
     dq = torch.empty_like(q)
     dbias = (torch.empty(b, h, sq, skv, dtype=torch.float32, device=q.device)
              if need_dbias else None)
-    err = _build.load().dstt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        *_common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale,
-                 q.dtype, q.device), *ba,
-        None if dbias is None else dbias.data_ptr(), _stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr())
+    common = _common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale, q.dtype, q.device)
+    lib = _build.load()
+    if _sm90(name, q, k, v, do, bias):
+        err = lib.dstt_flash_bwd_dq_sm90(*ptrs, *common[:-1], _stream(q.device))
+    else:
+        err = lib.dstt_flash_bwd_dq(*ptrs, *common, *ba,
+                                    None if dbias is None else dbias.data_ptr(),
+                                    _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dq, dbias
 
@@ -346,7 +385,8 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, scale: Optional[float] = None,
                       q_offset: int = 0, window: Optional[int] = None
                       ) -> torch.Tensor:
-    """Launch the dQ kernel of ``ops/csrc/flash_bwd.cu``."""
+    """Launch the dQ kernel (bf16: ``ops/csrc/flash_bwd_sm90.cu``, fp32:
+    ``ops/csrc/flash_bwd.cu``; :func:`bwd_source`)."""
     dq, _ = _dq_launch(q, k, v, do, lse, delta, None, False, "flash_bwd_dq_cuda",
                        causal, scale, q_offset, window)
     flash_bwd_dq_cuda.launches += 1
@@ -372,11 +412,14 @@ def _dkv_launch(q, k, v, do, lse, delta, bias, name, causal, scale, q_offset, wi
     q, k, v, do, lse, delta, (b, sq, h, d, skv, hkv), ba = _bwd_inputs(
         name, q, k, v, do, lse, delta, bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.load().dstt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale,
-                 q.dtype, q.device), *ba, _stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    common = _common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale, q.dtype, q.device)
+    lib = _build.load()
+    if _sm90(name, q, k, v, do, bias):
+        err = lib.dstt_flash_bwd_dkv_sm90(*ptrs, *common[:-1], _stream(q.device))
+    else:
+        err = lib.dstt_flash_bwd_dkv(*ptrs, *common, *ba, _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dk, dv
 
@@ -386,8 +429,9 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True, scale: Optional[float] = None,
                        q_offset: int = 0, window: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel of ``ops/csrc/flash_bwd.cu``: narrow
-    ``(dk, dv)`` shaped like k and v."""
+    """Launch the dK/dV kernel (bf16: ``ops/csrc/flash_bwd_sm90.cu``, fp32:
+    ``ops/csrc/flash_bwd.cu``; :func:`bwd_source`): narrow ``(dk, dv)``
+    shaped like k and v."""
     out = _dkv_launch(q, k, v, do, lse, delta, None, "flash_bwd_dkv_cuda", causal,
                       scale, q_offset, window)
     flash_bwd_dkv_cuda.launches += 1
@@ -408,18 +452,23 @@ def flash_bwd_dkv_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+_PLANTS = {"fwd": "dstt_flash_fwd_sm90_plant", "bwd": "dstt_flash_bwd_sm90_plant"}
+
+
 @contextlib.contextmanager
-def sm90_planted_fault(fault: int):
-    """For the tests that show a check can fail: the bf16 forward's launches
-    inside the block carry a planted fault (1: each kv tile after the first
-    is read from the ring stage one step late; 2: the last kv tile of the
-    causal band is dropped)."""
-    lib = _build.load()
-    lib.dstt_flash_fwd_sm90_plant(int(fault))
+def sm90_planted_fault(fault: int, kernels: str = "fwd"):
+    """For the tests that show a check can fail: the launches inside the
+    block of the bf16 forward (``kernels="fwd"``) or of both bf16 backward
+    kernels (``"bwd"``) carry a planted fault. 1: each tile after an item's
+    first is read from the ring stage one step late; 2: the last tile of
+    each item's band (kv tiles in the forward and dQ, q tiles in dK/dV) is
+    dropped; 3 (dK/dV): the last query head of each GQA group is skipped."""
+    plant = getattr(_build.load(), _PLANTS[kernels])
+    plant(int(fault))
     try:
         yield
     finally:
-        lib.dstt_flash_fwd_sm90_plant(0)
+        plant(0)
 
 
 for _fn in (flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda, flash_fwd_bias_cuda,

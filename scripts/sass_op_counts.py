@@ -6,9 +6,10 @@
 Builds PATH's kernels if needed (``deepspeed_tpu_torch/ops/_build.py``,
 into PATH/build/), disassembles the library with ``cuobjdump -sass`` and
 prints, for each kernel whose mangled name matches ``--match`` (default:
-the flash backward kernels in bf16 at hd 128, no bias), its instruction
+the bf16 flash backward kernels at hd 128 without a bias, those of
+``flash_bwd_sm90.cu``), its instruction
 count and the counts of the opcodes that tell two builds apart (branches,
-constant loads, predicate ops, MUFU, HMMA, FFMA) as one JSON line. Two
+constant loads, predicate ops, MUFU, HMMA, HGMMA, FFMA) as one JSON line. Two
 checkouts whose kernels read the same here compiled to the same code
 shape; run it on both when a kernel's time moves without its source.
 Needs the CUDA toolkit (``cuobjdump``) and a GPU-capable ``nvcc``.
@@ -26,8 +27,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-DEFAULT_MATCH = r"flash_bwd_(dq|dkv)_kernelI13__nv_bfloat16Li128E(Lb0)?EE"
-SHOWN = ("BRA", "LDC", "PLOP3", "MUFU", "HMMA", "FFMA")
+DEFAULT_MATCH = r"flash_bwd_(dq|dkv)_sm90_kernelILi128E"
+SHOWN = ("BRA", "LDC", "PLOP3", "MUFU", "HMMA", "HGMMA", "FFMA")
 
 
 def main() -> int:
@@ -55,7 +56,8 @@ def main() -> int:
         ops = collections.Counter(
             m.group(1).split(".")[0]
             for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", func))
-        m = re.search(r"((?:flash|sparse)_[a-z_]+_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
+        # <dtype (the sm90 kernels: bf16 only), D, [block | bias]>
+        m = re.search(r"(?<=\d)((?:flash|sparse)_[a-z0-9_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E"
                       r"(?:Li(\d+)E|Lb([01]))?", name)
         key = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}, {m.group(3)}"
                f"{', ' + m.group(4) if m.group(4) else ''}"

@@ -40,13 +40,19 @@ and fp32, hd 32/64/128. The block-sparse kernels (forward, dQ, dK/dV)
 against their dense plain versions at the same limits, over blocks
 16-128, sliding-window / fixed / bigbird layouts, causal and not, GQA and
 a kv block nobody attends to (exactly zero dK/dV).
+
+The bf16 backward without a bias (``flash_bwd_sm90.cu``, TMA + wgmma): dQ,
+dK and dV against the plain pieces at the flash limits above over lengths
+1-4096 on both sides (tails of both tiles), q_offset, windows, GQA 1/4/8,
+hd 32/64/128, non-causal and rows that see no key; each of its three
+planted faults must fail them.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops import get_op
+from deepspeed_tpu_torch.ops import _build, get_op
 from deepspeed_tpu_torch.ops.attention import attention, attention_torch
 from deepspeed_tpu_torch.ops.evoformer_attn import evoformer_attention
 from deepspeed_tpu_torch.ops.flash_attention import (
@@ -518,6 +524,177 @@ def test_sm90_forward_refuses_what_tma_cannot_read(cuda_device):
     fused = torch.stack([q, q, q], dim=2)[:, :, 0]      # a slice of a fused qkv tensor
     o, _ = flash_fwd_cuda(fused, k, v)                   # the wrapper makes it dense
     assert_flash_close(o, flash_fwd_torch(q, k, v)[0], FLASH_TOL[torch.bfloat16])
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 backward on TMA + wgmma (ops/csrc/flash_bwd_sm90.cu)
+# --------------------------------------------------------------------------- #
+def _sm90_backward(q, k, v, do, kw):
+    """The forward, then dQ and dK/dV (one launch each) on its o and lse:
+    ``(o, lse, (dq, dk, dv))``."""
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    return o, lse, (dq, dk, dv)
+
+
+ONE_KEY_DS = 1e-4   # |dq|, |dk| where every query sees one key: exactly 0, ~1e-6 of rounding
+
+
+def _sm90_backward_close(device, case, seed, one_key=False):
+    """Hold the bf16 backward's dq, dk, dv on ``case`` = (B, Sq, Skv, H,
+    Hkv, D, causal, q_offset, window) to the plain pieces; returns
+    (grads, refs). ``one_key``: every query sees exactly one key, so ds =
+    p (dp - delta) is exactly 0 (p = 1, dp = delta), and so are dq = ds k
+    and dk = ds^T q: both sides hold only rounding noise of O(1) inputs,
+    held to ``ONE_KEY_DS`` instead, where a wrong value is O(1); dv = p^T dO
+    is held as always."""
+    q, k, v, do = flash_inputs(case, torch.bfloat16, device, seed=seed)
+    kw = dict(causal=case[6], q_offset=case[7], window=case[8])
+    o, lse, grads = _sm90_backward(q, k, v, do, kw)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    for i, (got, ref) in enumerate(zip(grads, refs)):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        if i < 2 and one_key:
+            assert float(ref.float().abs().max()) <= ONE_KEY_DS
+            assert float(got.float().abs().max()) <= ONE_KEY_DS
+        else:
+            assert_flash_close(got, ref, FLASH_TOL[torch.bfloat16])
+    return grads, refs
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 127, 129, 200, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_backward_lengths(cuda_device, d, s, causal):
+    """Sq = Skv below, at and past one tile (64 and 128 rows) and a long
+    one: the tails are TMA's zero fill, the element mask and the masked
+    stores. At S = 1 the one query sees one key."""
+    _sm90_backward_close(cuda_device, (1, s, s, 4, 2, d, causal, 0, None), seed=s + d,
+                         one_key=s == 1)
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 4096), (127, 200), (129, 4096), (200, 129), (1, 127)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_sm90_backward_unequal_lengths(cuda_device, sq, skv, d):
+    """Sq != Skv, non-causal, and causal as a continued prefill (q row 0 at
+    position Skv - Sq, where that is >= 0): kv rows before the first q
+    tile's band see every q row, later ones fewer."""
+    _sm90_backward_close(cuda_device, (2, sq, skv, 4, 4, d, False, 0, None), seed=sq + skv)
+    if skv >= sq:
+        _sm90_backward_close(cuda_device, (2, sq, skv, 4, 4, d, True, skv - sq, None),
+                             seed=sq * skv)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_backward_gqa(cuda_device, g, d):
+    """GQA read in place; dK/dV narrow, each kv head summing its g query
+    heads in registers."""
+    _sm90_backward_close(cuda_device, (2, 300, 300, 8, 8 // g, d, True, 0, None), seed=g * d)
+
+
+@pytest.mark.parametrize("window", [1, 3, 100, 1024])
+@pytest.mark.parametrize("d", [32, 128])
+def test_sm90_backward_window(cuda_device, window, d):
+    """The causal window: tiles outside the band are not loaded, tiles
+    across its edge are masked. A window of 1: each query sees itself."""
+    _sm90_backward_close(cuda_device, (1, 2000, 2000, 4, 1, d, True, 0, window),
+                         seed=window + d, one_key=window == 1)
+    _sm90_backward_close(cuda_device, (1, 333, 2000, 4, 1, d, True, 1667, window),
+                         seed=window * d, one_key=window == 1)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_backward_rows_that_see_no_key(cuda_device, d):
+    """q rows past the window's reach see no key (lse = -1e30): their dq is
+    exactly 0, and kv rows no query sees get dk = dv = 0."""
+    (dq, dk, dv), _ = _sm90_backward_close(cuda_device, (1, 200, 150, 4, 2, d, True, 100, 16),
+                                           seed=d)
+    empty = torch.arange(200, device=cuda_device) + 100 > 149 + 15
+    assert empty.any() and not dq[:, empty].any()
+    (dq, dk, dv), _ = _sm90_backward_close(cuda_device, (1, 64, 300, 4, 2, d, True, 100, None),
+                                           seed=d + 1)
+    unseen = torch.arange(300, device=cuda_device) > 63 + 100
+    assert not dk[:, unseen].any() and not dv[:, unseen].any()
+
+
+@pytest.mark.parametrize("fault,what,keys", [
+    (1, "ring stage read one step late", (0, 1)),
+    (2, "last tile of each band dropped", (0, 2)),
+    (3, "last query head of each GQA group skipped", (1, 2))])
+def test_sm90_backward_check_fails_a_planted_fault(cuda_device, fault, what, keys):
+    """The planted faults of ``sm90_planted_fault(.., "bwd")`` must fail the
+    check the sound kernels pass, at Llama-3-8B's attention shape cut to
+    S 1024 (dq, dk, dv: the grads each fault must break)."""
+    case = (1, 1024, 1024, 32, 8, 128, True, 0, None)
+    _, refs = _sm90_backward_close(cuda_device, case, seed=fault)
+    q, k, v, do = flash_inputs(case, torch.bfloat16, cuda_device, seed=fault)
+    with sm90_planted_fault(fault, "bwd"):
+        _, _, bad = _sm90_backward(q, k, v, do, dict(causal=True))
+    for i in keys:
+        with pytest.raises(AssertionError, match="row err"):
+            assert_flash_close(bad[i], refs[i], FLASH_TOL[torch.bfloat16])
+
+
+def test_sm90_backward_takes_no_query_rows(cuda_device):
+    """Sq = 0: dq is empty and dK/dV are zeros, as no query sees a key (a
+    tensor map cannot span 0 rows, so the dK/dV entry point clears them)."""
+    q, k, v, do = flash_inputs((1, 0, 70, 4, 2, 64), torch.bfloat16, cuda_device)
+    _, lse = flash_fwd_cuda(q, k, v, causal=False)
+    delta = torch.zeros(4, 0, device=cuda_device)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal=False)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal=False)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert not dk.any() and not dv.any()
+
+
+def test_sm90_backward_refuses_what_tma_cannot_read(cuda_device):
+    """A bf16 dO whose base is not 16-byte aligned raises before any launch
+    (no other kernel takes the call); a slice of a wider tensor is made
+    dense by the wrapper and runs."""
+    case = (1, 64, 64, 2, 2, 64)
+    q, k, v, do = flash_inputs(case, torch.bfloat16, cuda_device)
+    o, lse = flash_fwd_cuda(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(2, 64)
+    buf = torch.empty(do.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+    do_odd = buf[1:].view(do.shape)
+    do_odd.copy_(do)
+    before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+    for call in (lambda: flash_bwd_dq_cuda(q, k, v, do_odd, lse, delta),
+                 lambda: flash_bwd_dkv_cuda(q, k, v, do_odd, lse, delta)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == before
+    wide = torch.stack([do, do], dim=3)[:, :, :, 0]     # strided: made dense by the wrapper
+    dq = flash_bwd_dq_cuda(q, k, v, wide, lse, delta)
+    assert_flash_close(dq, flash_bwd_torch(q, k, v, o, lse, do)[0], FLASH_TOL[torch.bfloat16])
+
+
+def test_old_backward_entry_points_refuse_bf16_without_bias(cuda_device):
+    """``flash_bwd.cu`` no longer takes bf16 without a bias (its entry
+    points return cudaErrorInvalidValue); the new source's take only that."""
+    q, k, v, do = flash_inputs((1, 64, 64, 2, 2, 64), torch.bfloat16, cuda_device)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    out = torch.empty_like(q)
+    lib = _build.load()
+    common = (1, 2, 2, 64, 64, 64, 0, 1, 0, 0.125)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            lse.data_ptr())
+    assert lib.dstt_flash_bwd_dq(*ptrs, out.data_ptr(), *common, 0, None, 0, 0, 0, 0, 0, None,
+                                 stream) == 1   # cudaErrorInvalidValue
+    assert lib.dstt_flash_bwd_dkv(*ptrs, out.data_ptr(), out.data_ptr(), *common, 0, None, 0, 0,
+                                  0, 0, 0, stream) == 1
+    assert lib.dstt_flash_bwd_dq_sm90(*ptrs, out.data_ptr(), *common, stream) == 0
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------- #

@@ -31,6 +31,8 @@ CASES = {
     "gqa_q_offset": (1, 24, 64, 4, 1, 32, True, 40, None),
     "gqa_window": (1, 64, 64, 4, 2, 32, True, 0, 8),
     "tail": (1, 40, 40, 2, 2, 32, True, 0, None),
+    "tail_127_d64": (1, 127, 127, 2, 1, 64, True, 0, None),    # one row short of two 64-row tiles
+    "tail_129_d32": (1, 129, 129, 2, 2, 32, False, 0, None),   # one row past a 128-row item
 }
 
 
