@@ -65,12 +65,18 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    key) and at AlphaFold MSA row attention (512 rows x 256 residues, 8
    heads of 32, non-causal, summed fp32 mask + pair bias with one residue
    masked everywhere and one row wholly masked, which must average v
-   uniformly; dbias checked; fault: the bias read transposed). The
-   block-sparse kernels against their dense plain pieces at Llama-3-8B
+   uniformly; dbias checked; fault: the bias read transposed). The bias
+   mode of the bf16 backward (``flash_bwd_sm90.cu``) with its planted
+   faults at both shapes (ring stage late, band tile dropped, query head
+   skipped at BLOOM; the bias read one kv tile off at both), each of which
+   must fail. The block-sparse kernels against their dense plain pieces at Llama-3-8B
    width (S 4096, block 128: bigbird causal, fixed non-causal, sliding
    window), at blocks 16, 32 and 64, and with an empty kv column (exact zero
    dK/dV); fault: one list entry swapped. Times beside the bound, the plain
-   pieces and SDPA (float ``attn_mask``; for the sparse kernels the
+   pieces and SDPA (float ``attn_mask``; at the MSA shape a mask that
+   requires grad, so SDPA computes dbias as the dQ kernel does, on the
+   first fused backend that takes it, fp32 mask first; the bf16 mask
+   without grad on a line of its own; for the sparse kernels the
    dense-masked SDPA at S 16384).
 4. Main path: ``build_engine_v2`` with ``LlamaConfig.llama3_8b()`` (bf16
    weights from a seed, 512 x 128-token KV blocks, 64 slots) and
@@ -1934,13 +1940,86 @@ def _check_pieces(label, got, ref, keys) -> dict:
 
 
 def _fault_must_fail(what: str, got, ref, key: str):
-    tol, floor = FLASH_TOL[key], FLASH_FLOOR[key]
+    """The check ``check_close`` makes (dbias at dQ's limits) must fail
+    ``got``: a row beyond its limit, or a value that is not finite."""
+    import torch
+
+    tol, floor = (FLASH_TOL["dq"], FLASH_FLOOR["dq"]) if key == "dbias" else \
+        (FLASH_TOL[key], FLASH_FLOOR[key])
     err, rel = row_err(got, ref, floor=floor)
-    log(f"  planted fault ({what}): {key} max_abs_err={err:.3e}, row err/RMS={rel:.4f} "
-        f"(must exceed tol {tol:g})")
-    if not rel > tol:
+    finite = bool(torch.isfinite(got.float()).all())
+    log(f"  planted fault ({what}): {key} max_abs_err={err:.3e}, row err/RMS={rel:.4f}, "
+        f"finite {finite} (must exceed tol {tol:g} or not be finite)")
+    if rel <= tol and finite:
         raise AssertionError(f"the check passes a planted fault ({what}); too loose")
-    return {"what": what, "row_err_over_rms": rel}
+    return {"what": what, "row_err_over_rms": rel, "finite": finite}
+
+
+BIAS_BWD_FAULTS = [   # flash_bwd_sm90.cu's planted faults on the bias mode: code, what,
+    # the grads that must fail (BLOOM: no dbias), the shapes they run at
+    (1, "ring stage read one step late", ("dq", "dk"), ("bloom",)),
+    (2, "last tile of each band dropped", ("dq", "dv", "dbias"), ("bloom", "msa")),
+    (3, "last query head of each group skipped", ("dk", "dv"), ("bloom",)),
+    (4, "bias read one kv tile off", ("dq", "dk", "dbias"), ("bloom", "msa")),
+]
+
+
+def _bias_bwd_faults(shape, q, k, v, do, bias, kw, ref, need_dbias) -> dict:
+    """The bias-mode backward's planted faults at one shape: each must fail
+    the check the sound kernels passed against ``ref``."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.flash_attention import sm90_planted_fault
+
+    out = {}
+    for fault, what, keys, shapes in BIAS_BWD_FAULTS:
+        if shape not in shapes:
+            continue
+        with sm90_planted_fault(fault, "bwd"):
+            _, bad = _bias_pieces(q, k, v, do, bias, kw, need_dbias)
+        out[what] = [_fault_must_fail(f"bias backward, {what}, {key}", bad[key], ref[key], key)
+                     for key in keys if bad[key] is not None]
+        del bad
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sdpa_bias_grad(qt, kt, vt, dot, bias):
+    """SDPA forward and backward with ``bias`` as an ``attn_mask`` that
+    requires grad, so that it computes dQ, dK, dV and dbias, the function
+    of the bias-mode kernels with dbias: on the first fused backend
+    (memory-efficient, then cuDNN) that takes an fp32 mask, else a bf16
+    one, else the math backend with a bf16 mask. Returns (fwd, fwd_bwd,
+    label)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def make(mask, backends):
+        def fwd():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        def fwd_bwd():
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt, mask)]
+            with sdpa_kernel(backends):
+                F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3]).backward(dot)
+        return fwd, fwd_bwd
+
+    tried = []
+    for dtype in (torch.float32, torch.bfloat16):
+        mask = bias.to(dtype)
+        for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+            fwd, fwd_bwd = make(mask, [backend])
+            try:
+                fwd_bwd()
+                torch.cuda.synchronize()
+                return fwd, fwd_bwd, f"{backend.name}, {str(dtype)[6:]} mask with grad"
+            except RuntimeError as e:
+                tried.append(f"{backend.name}/{str(dtype)[6:]}: {str(e).splitlines()[0][:80]}")
+    log(f"  (no fused SDPA backend took a mask with grad: {tried})")
+    fwd, fwd_bwd = make(bias.to(torch.bfloat16), [SDPBackend.MATH])
+    return fwd, fwd_bwd, "MATH, bfloat16 mask with grad"
 
 
 def phase_bias_kernels(seed: int, card: str):
@@ -1987,6 +2066,10 @@ def phase_bias_kernels(seed: int, card: str):
     o_bad, _ = flash_fwd_bias_cuda(q, k, v, shifted, **kw)
     fault = _fault_must_fail("ALiBi shifted by one key", o_bad, o_ref, "o")
     del o_bad, o_ref, shifted
+    ref = dict(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, bias=alibi, **kw)))
+    bwd_faults = _bias_bwd_faults("bloom", q, k, v, do, alibi, kw, ref, False)
+    del ref
+    torch.cuda.empty_cache()
     pairs = b * h * s * (s + 1) // 2
     work = bias_work(b, h, s, s, hd, pairs, alibi.numel() * 4)
     t = {"fwd": measure(lambda: flash_fwd_bias_cuda(q, k, v, alibi, **kw), 10),
@@ -2020,8 +2103,8 @@ def phase_bias_kernels(seed: int, card: str):
     log("  (plain and SDPA backward times cover dQ, dK and dV together)")
     out["bloom"] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
                     "row_err_over_rms": {k_: r for k_, (_, r) in errs.items()},
-                    "lse_max_abs_err": lse_err, "planted_fault": fault, "timing": rows,
-                    "pairs": pairs}
+                    "lse_max_abs_err": lse_err, "planted_fault": fault,
+                    "planted_faults_bwd_sm90": bwd_faults, "timing": rows, "pairs": pairs}
     del q, k, v, do, o, lse, delta, got, qt, kt, vt, dot, fmask, causal
     torch.cuda.empty_cache()
 
@@ -2046,7 +2129,10 @@ def phase_bias_kernels(seed: int, card: str):
         raise AssertionError("a wholly masked MSA row is not v's uniform average")
     errs = _check_pieces("flash bias MSA row (512 x 256, 8 x 32, mask + pair)", got, ref,
                          ("o", "dq", "dk", "dv", "dbias"))
+    del got
+    bwd_faults = _bias_bwd_faults("msa", q, k, v, do, bias, kw, ref, True)
     del ref
+    torch.cuda.empty_cache()
     o_bad, _ = flash_fwd_bias_cuda(q, k, v, bias.transpose(-1, -2), **kw)
     fault = _fault_must_fail("pair + mask bias read transposed", o_bad, o_ref, "o")
     del o_bad, o_ref
@@ -2061,29 +2147,42 @@ def phase_bias_kernels(seed: int, card: str):
              "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, bias=bias,
                                                     need_dbias=True, **kw), 3)["ms"]}
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    # the same function as the kernels with dbias: a mask that requires grad
+    sdpa_fwd, sdpa_fwd_bwd, sdpa_label = _sdpa_bias_grad(qt, kt, vt, dot, bias)
+    lib_fwd = measure(sdpa_fwd, 10)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
+    log(f"  SDPA at the MSA shape ran on {sdpa_label}: forward {lib_fwd*1e3:.1f} us, "
+        f"backward with dbias {lib_bwd*1e3:.1f} us [{card}]")
+    torch.cuda.empty_cache()
+    # the earlier yardstick, kept for continuity: a bf16 mask without grad
+    # (SDPA reads half the bias bytes and computes no dbias)
     fmask = bias.to(torch.bfloat16)
 
-    def sdpa_fwd_bwd():
+    def sdpa_fwd_bwd_bf16():
         leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
         F.scaled_dot_product_attention(*leaves, attn_mask=fmask).backward(dot)
 
-    lib_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask),
+    old_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask),
                       10)["ms"]
-    lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
+    old_bwd = measure(sdpa_fwd_bwd_bf16, 10)["ms"] - old_fwd
+    log(f"  SDPA at the MSA shape, bf16 mask without grad (the earlier yardstick): forward "
+        f"{old_fwd*1e3:.1f} us, backward {old_bwd*1e3:.1f} us [{card}]")
     rows = {}
     for key, pk, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
                          ("dkv", "bwd", lib_bwd)):
         bound, by = work[key]
         rows[key] = {"ms": t[key]["ms"], "host_ms": t[key]["host_ms"], "plain_ms": plain[pk],
                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        rows[key]["library_ms_bf16_mask_no_grad"] = old_fwd if key == "fwd" else old_bwd
         log(f"  flash {key} bias MSA row [512 x 256, 8 x 32]: device {rows[key]['ms']*1e3:.1f} us, "
             f"bound {bound*1e3:.1f} us ({by}), plain {plain[pk]*1e3:.1f} us, "
-            f"SDPA float mask {lib*1e3:.1f} us [{card}]")
+            f"SDPA ({sdpa_label}) {lib*1e3:.1f} us [{card}]")
     out["evoformer"] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
                         "row_err_over_rms": {k_: r_ for k_, (_, r_) in errs.items()},
-                        "uniform_row_err": uniform, "planted_fault": fault, "timing": rows,
-                        "pairs": pairs}
-    del q, k, v, do, o, lse, delta, got, bias, qt, kt, vt, dot, fmask
+                        "uniform_row_err": uniform, "planted_fault": fault,
+                        "planted_faults_bwd_sm90": bwd_faults, "sdpa_backend": sdpa_label,
+                        "timing": rows, "pairs": pairs}
+    del q, k, v, do, o, lse, delta, bias, qt, kt, vt, dot, fmask
     torch.cuda.empty_cache()
     return out
 
@@ -2404,14 +2503,15 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "deepspeed_tpu_torch/ops/csrc/"
-                      + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd.cu"),
+                      + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd_sm90.cu"),
             "replaces": "deepspeed_tpu/ops/pallas/" + line + " (has_bias, _flash_b :787)",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(errs),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "evoformer": {k_: fb["evoformer"]["timing"][key][k_]
-                          for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+                          for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "library_ms_bf16_mask_no_grad")}})
     for key, name, line in (("fwd", "sparse_fwd", ":39"), ("dq", "sparse_bwd_dq", ":87"),
                             ("dkv", "sparse_bwd_dkv", ":126")):
         r = sp["timing"][key]

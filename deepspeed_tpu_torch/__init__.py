@@ -29,10 +29,10 @@ Ported so far:
   dQ and dK/dV kernels.
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
-CUDA counterpart: sixteen kernel entries in ten sources (the flash forward
+CUDA counterpart: eighteen kernel entries in ten sources (the flash forward
 runs bf16 on TMA + ``wgmma``, ``ops/csrc/flash_fwd_sm90.cu``, and fp32 on
-``ops/csrc/flash_fwd.cu``; the flash backward runs bf16 without a bias on
-``ops/csrc/flash_bwd_sm90.cu``, fp32 and the bias mode on
+``ops/csrc/flash_fwd.cu``; the flash backward runs bf16, with or without a
+bias, on ``ops/csrc/flash_bwd_sm90.cu``, and fp32 on
 ``ops/csrc/flash_bwd.cu``).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.

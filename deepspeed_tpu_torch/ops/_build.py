@@ -69,6 +69,9 @@ SIGNATURES = {
     "dstt_flash_bwd_dq_sm90": [_VP] * 7 + [_I] * 9 + [_F, _VP],
     # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, stream
     "dstt_flash_bwd_dkv_sm90": [_VP] * 8 + [_I] * 9 + [_F, _VP],
+    # their bias mode (flash_bwd_sm90.cu): the same, then bias, dbias (dQ), stream
+    "dstt_flash_bwd_dq_bias_sm90": [_VP] * 7 + [_I] * 9 + [_F] + _BIAS + [_VP, _VP],
+    "dstt_flash_bwd_dkv_bias_sm90": [_VP] * 8 + [_I] * 9 + [_F] + _BIAS + [_VP],
     # planted fault of both bf16 backward kernels' next launches (tests): 0 none
     "dstt_flash_bwd_sm90_plant": [_I],
     # q, k, v, o, lse, idx, cnt, max_a, B, H, Hkv, S, D, block, causal,

@@ -11,8 +11,9 @@ Op ``attention`` (:data:`attention`) has two implementations, chosen by the
 device of ``q`` (``ops/registry.py``): CPU tensors get
 :func:`attention_torch`; CUDA tensors get the flash kernels
 (``ops/flash_attention.py``, an autograd function over
-``ops/csrc/flash_fwd_sm90.cu`` (bf16) or ``flash_fwd.cu`` (fp32) and
-``flash_bwd.cu``; with an additive ``bias``, their bias mode). Masked calls — the paged prefill — go to
+``ops/csrc/flash_fwd_sm90.cu`` and ``flash_bwd_sm90.cu`` (bf16) or
+``flash_fwd.cu`` and ``flash_bwd.cu`` (fp32); with an additive ``bias``,
+their bias mode). Masked calls — the paged prefill — go to
 :func:`attention_torch`: the JAX package hands every masked call to XLA,
 never to its kernel.
 """

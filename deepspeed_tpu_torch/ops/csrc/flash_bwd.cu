@@ -1,25 +1,24 @@
-// Flash-attention backward, fp32 and the bias mode: dQ and dK/dV. bf16
-// without a bias runs flash_bwd_sm90.cu (TMA + wgmma); dstt_flash_bwd_dq /
-// dstt_flash_bwd_dkv below refuse it.
+// Flash-attention backward in fp32, with and without a bias: dQ and dK/dV.
+// Every bf16 call, with or without a bias, runs flash_bwd_sm90.cu (TMA +
+// wgmma); dstt_flash_bwd_dq / dstt_flash_bwd_dkv below refuse bf16.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_bwd_dq_kernel`
 // (:448, pallas_call at :657) and `_bwd_dkv_kernel` (:523, pallas_call at
 // :706), driven by `_flash_bwd` (:592). Same functions: p is recomputed from
 // the forward's saved lse, p = exp(scale * q k^T - lse) (0 where masked),
-// dp = dO v^T, ds = p * (dp - delta) * scale rounded to the inputs' dtype,
-// with delta = rowsum(dO * O) computed by the caller (XLA code in JAX, torch
-// code here); dq = ds k, dv = p^T dO (p rounded to dO's dtype), dk = ds^T q.
-// Accumulation in fp32, one cast at the end. Bias mode (`has_bias`, bf16 or
-// fp32): the bias joins the recomputed logits as in the forward (:481-482,
+// dp = dO v^T, ds = p * (dp - delta) * scale, with delta = rowsum(dO * O)
+// computed by the caller (XLA code in JAX, torch code here); dq = ds k,
+// dv = p^T dO, dk = ds^T q. Bias mode (`has_bias`, a bf16 or fp32 bias):
+// the bias joins the recomputed logits as in the forward (:481-482,
 // :557-558), in natural units, and the dQ kernel, given a dbias pointer,
 // writes dL/dlogits = p * (dp - delta) unscaled in fp32 (:492-494): every
 // position of its q rows, zero where nothing is visible and over the kv
 // tiles its causal band skips (:507-512).
 //
-// Bound on an H100 SXM: operations. At BLOOM-7b1's bias-mode shape (2 x
-// 2048 causal, 32 heads, hd 128) dQ does three products over the visible
-// pairs (~103 GFLOP, ~104 us at 989 TFLOP/s) and dK/dV four (~139 us); at
-// the MSA row shape the fp32 bias and dbias bytes bound them instead.
+// Bound on an H100 SXM: operations, at 67 TFLOP/s of fp32 outside the
+// tensor cores (the bf16 shapes and their bounds are in flash_bwd_sm90.cu's
+// head). No training or op path of the port runs fp32 on the card: these
+// kernels serve fp32 callers and the fp32 tests.
 //
 // Design. dQ: one block of 4 warps per (batch * head, 64-row q tile), each
 // warp owning 16 q rows, looping over the kv tiles of its causal/window band;
@@ -28,9 +27,8 @@
 // query heads of its group and over the 32-row q tiles of its band; the
 // group's contributions add up in registers onto NARROW dK/dV (the TPU
 // native-GQA kernel's row-axis contraction), deterministic, with no atomics
-// and no widen-then-sum. Transposed products load their fragments with
-// ldmatrix.trans. Products: mma.sync bf16 tensor-core tiles (fp32 inputs:
-// FMA).
+// and no widen-then-sum. Products: flash_common.cuh's FMA loop over fp32
+// tiles in shared memory, in the mma fragment layout.
 
 #include "flash_common.cuh"
 
@@ -269,9 +267,7 @@ cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
 template <bool DQ>
 cudaError_t launch_any(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
   const bool bias = bb.ptr != nullptr;
-  if (dtype == 0)   // bf16 without a bias: flash_bwd_sm90.cu
-    return bias ? launch_d<DQ, __nv_bfloat16, true>(a, bb, D, s) : cudaErrorInvalidValue;
-  if (dtype == 1)
+  if (dtype == 1)   // fp32 only: bf16 runs flash_bwd_sm90.cu
     return bias ? launch_d<DQ, float, true>(a, bb, D, s)
                 : launch_d<DQ, float, false>(a, bb, D, s);
   return cudaErrorInvalidValue;

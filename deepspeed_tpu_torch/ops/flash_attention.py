@@ -11,11 +11,11 @@ Three hand-written kernels replace the three TPU kernels:
   must be multiples of 16 bytes: :func:`tma_refusal` says why a tensor
   cannot be read so, and the bf16 wrapper raises on it;
 - ``dq`` (``_bwd_dq_kernel`` :448) and ``dkv`` (``_bwd_dkv_kernel`` :523),
-  which writes NARROW dK/dV under GQA (no widen-then-sum): bf16 without a
-  bias runs ``ops/csrc/flash_bwd_sm90.cu`` (TMA loads, wgmma products, the
-  forward's Hopper design), fp32 and the bias mode ``ops/csrc/flash_bwd.cu``
-  (``mma.sync`` / FMA products), as :func:`bwd_source` routes them; the
-  bf16 kernels' q, k, v and dO pass :func:`tma_check` first.
+  which writes NARROW dK/dV under GQA (no widen-then-sum): bf16, with or
+  without a bias, runs ``ops/csrc/flash_bwd_sm90.cu`` (TMA loads, wgmma
+  products, the forward's Hopper design), fp32 ``ops/csrc/flash_bwd.cu``
+  (FMA products), as :func:`bwd_source` routes them; the bf16 kernels' q,
+  k, v and dO pass :func:`tma_check` first.
 
 Each has a bias mode (``has_bias``, driven by ``_flash_b`` :787): an
 additive bf16/fp32 logits bias broadcastable to ``[B, H, Sq, Skv]``, added
@@ -125,8 +125,10 @@ def _bwd_plain(q, k, v, o, lse, do, vis, scale, bias=None, need_dbias=False):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def _bwd_plain_f32(q, k, v, o, lse, do, vis, scale, bias=None, need_dbias=False):
-    """:func:`_bwd_plain` before dq, dk and dv are cast to the inputs' dtype."""
+def _bwd_plain_f32(q, k, v, o, lse, do, vis, scale, bias=None, need_dbias=False,
+                   acc=torch.float32):
+    """:func:`_bwd_plain` before dq, dk and dv are cast to the inputs' dtype;
+    the dK/dV products sum over the query rows in ``acc``."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     kw, vw = widen_kv(k, v, h)
@@ -137,8 +139,8 @@ def _bwd_plain_f32(q, k, v, o, lse, do, vis, scale, bias=None, need_dbias=False)
     ds_raw = p * (dp - delta)    # dL/dlogits: the bias gradient
     ds = (ds_raw * scale).to(k.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kw.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc), do.to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(acc), q.to(acc))
     g = h // hkv
     dk = dk.reshape(b, skv, hkv, g, d).sum(3)
     dv = dv.reshape(b, skv, hkv, g, d).sum(3)
@@ -245,17 +247,17 @@ def tma_check(name: str, **tensors: torch.Tensor) -> None:
 BWD_SM90, BWD_MMA = "flash_bwd_sm90.cu", "flash_bwd.cu"
 
 
-def bwd_source(dtype: torch.dtype, d: int, has_bias: bool) -> str:
+def bwd_source(dtype: torch.dtype, d: int) -> str:
     """The source under ``ops/csrc/`` whose dQ and dK/dV kernels serve the
-    backward at this dtype, head dim and bias mode: bf16 without a bias
-    runs the Hopper kernels of ``flash_bwd_sm90.cu`` (TMA + wgmma), fp32
-    (whose wgmma would be TF32) and every bias-mode call the kernels of
-    ``flash_bwd.cu``. Raises on what neither takes."""
+    backward at this dtype and head dim, with or without a bias: bf16 runs
+    the Hopper kernels of ``flash_bwd_sm90.cu`` (TMA + wgmma), fp32 (whose
+    wgmma would be TF32) the kernels of ``flash_bwd.cu``. Raises on what
+    neither takes."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"the flash backward takes bf16 or fp32, not {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash backward takes head dim in {HEAD_DIMS}, not {d}")
-    return BWD_SM90 if dtype == torch.bfloat16 and not has_bias else BWD_MMA
+    return BWD_SM90 if dtype == torch.bfloat16 else BWD_MMA
 
 
 def _bias_args(bias: Optional[torch.Tensor], name: str, b: int, h: int, sq: int,
@@ -351,9 +353,10 @@ def _bwd_inputs(name, q, k, v, do, lse, delta, bias):
 
 
 def _sm90(name, q, k, v, do, bias) -> bool:
-    """Whether the backward runs ``flash_bwd_sm90.cu``; if so, q, k, v and
-    dO must pass the TMA check."""
-    if bwd_source(q.dtype, q.shape[-1], bias is not None) != BWD_SM90:
+    """Whether the backward runs ``flash_bwd_sm90.cu`` (with or without
+    ``bias``); if so, q, k, v and dO must pass the TMA check, which raises
+    rather than take another kernel."""
+    if bwd_source(q.dtype, q.shape[-1]) != BWD_SM90:
         return False
     tma_check(name, q=q, k=k, v=v, dO=do)
     return True
@@ -370,12 +373,14 @@ def _dq_launch(q, k, v, do, lse, delta, bias, need_dbias, name, causal, scale,
             delta.data_ptr(), dq.data_ptr())
     common = _common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale, q.dtype, q.device)
     lib = _build.load()
-    if _sm90(name, q, k, v, do, bias):
+    dbias_ptr = None if dbias is None else dbias.data_ptr()
+    if not _sm90(name, q, k, v, do, bias):
+        err = lib.dstt_flash_bwd_dq(*ptrs, *common, *ba, dbias_ptr, _stream(q.device))
+    elif bias is None:
         err = lib.dstt_flash_bwd_dq_sm90(*ptrs, *common[:-1], _stream(q.device))
     else:
-        err = lib.dstt_flash_bwd_dq(*ptrs, *common, *ba,
-                                    None if dbias is None else dbias.data_ptr(),
-                                    _stream(q.device))
+        err = lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, *common[:-1], *ba, dbias_ptr,
+                                              _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dq, dbias
 
@@ -399,8 +404,10 @@ def flash_bwd_dq_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool = True, scale: Optional[float] = None,
                            q_offset: int = 0, window: Optional[int] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the dQ kernel in its bias mode: ``(dq, dbias)``, dbias fp32
-    ``[B, H, Sq, Skv]`` when ``need_dbias``, else None (not computed)."""
+    """Launch the dQ kernel in its bias mode (bf16:
+    ``ops/csrc/flash_bwd_sm90.cu``, fp32: ``ops/csrc/flash_bwd.cu``):
+    ``(dq, dbias)``, dbias fp32 ``[B, H, Sq, Skv]`` when ``need_dbias``,
+    else None (not computed)."""
     _no_window("flash_bwd_dq_bias_cuda", window)
     out = _dq_launch(q, k, v, do, lse, delta, bias, need_dbias, "flash_bwd_dq_bias_cuda",
                      causal, scale, q_offset, window)
@@ -416,10 +423,12 @@ def _dkv_launch(q, k, v, do, lse, delta, bias, name, causal, scale, q_offset, wi
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     common = _common(b, h, hkv, sq, skv, d, causal, window, q_offset, scale, q.dtype, q.device)
     lib = _build.load()
-    if _sm90(name, q, k, v, do, bias):
+    if not _sm90(name, q, k, v, do, bias):
+        err = lib.dstt_flash_bwd_dkv(*ptrs, *common, *ba, _stream(q.device))
+    elif bias is None:
         err = lib.dstt_flash_bwd_dkv_sm90(*ptrs, *common[:-1], _stream(q.device))
     else:
-        err = lib.dstt_flash_bwd_dkv(*ptrs, *common, *ba, _stream(q.device))
+        err = lib.dstt_flash_bwd_dkv_bias_sm90(*ptrs, *common[:-1], *ba, _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dk, dv
 
@@ -444,7 +453,9 @@ def flash_bwd_dkv_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: Optional[float] = None, q_offset: int = 0,
                             window: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel in its bias mode: narrow ``(dk, dv)``."""
+    """Launch the dK/dV kernel in its bias mode (bf16:
+    ``ops/csrc/flash_bwd_sm90.cu``, fp32: ``ops/csrc/flash_bwd.cu``): narrow
+    ``(dk, dv)``."""
     _no_window("flash_bwd_dkv_bias_cuda", window)
     out = _dkv_launch(q, k, v, do, lse, delta, bias, "flash_bwd_dkv_bias_cuda", causal,
                       scale, q_offset, window)
@@ -459,10 +470,12 @@ _PLANTS = {"fwd": "dstt_flash_fwd_sm90_plant", "bwd": "dstt_flash_bwd_sm90_plant
 def sm90_planted_fault(fault: int, kernels: str = "fwd"):
     """For the tests that show a check can fail: the launches inside the
     block of the bf16 forward (``kernels="fwd"``) or of both bf16 backward
-    kernels (``"bwd"``) carry a planted fault. 1: each tile after an item's
-    first is read from the ring stage one step late; 2: the last tile of
-    each item's band (kv tiles in the forward and dQ, q tiles in dK/dV) is
-    dropped; 3 (dK/dV): the last query head of each GQA group is skipped."""
+    kernels, with or without a bias (``"bwd"``), carry a planted fault. 1:
+    each tile after an item's first is read from the ring stage one step
+    late; 2: the last tile of each item's band (kv tiles in the forward and
+    dQ, q tiles in dK/dV) is dropped; 3 (dK/dV): the last query head of
+    each GQA group is skipped; 4 (backward, bias mode): the bias is read
+    one 64-row kv tile off (kv row j reads row (j + 64) mod Skv)."""
     plant = getattr(_build.load(), _PLANTS[kernels])
     plant(int(fault))
     try:

@@ -209,9 +209,10 @@ def sparse_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: Optional[float] = None, q_chunk: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` as the kernels compute them (p from lse, delta =
-    rowsum(dO * O), ds rounded to the inputs' dtype), dK/dV narrow. With
-    ``q_chunk``, ``q_chunk`` query rows at a time, dK/dV summed over the
-    chunks in fp32."""
+    rowsum(dO * O), ds rounded to the inputs' dtype), dK/dV narrow. The
+    dK/dV products and their sum over ``q_chunk``-row chunks (all rows at
+    once without it) run in fp64, so the chunking changes dK/dV by at most
+    their last rounding to the inputs' dtype."""
     lay = _check_layout(layout, q.shape[1], block_size)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     vis = token_mask(lay, block_size, causal, q.device)
@@ -221,7 +222,7 @@ def sparse_bwd_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for r0, r1 in _chunks(s, q_chunk):
         dq_c, dk_c, dv_c, _ = _bwd_plain_f32(
             q[:, r0:r1], k, v, o[:, r0:r1], lse[:, :, r0:r1].reshape(b * h, r1 - r0),
-            do[:, r0:r1], vis[r0:r1], scale)
+            do[:, r0:r1], vis[r0:r1], scale, acc=torch.float64)
         dq.append(dq_c.to(q.dtype))
         dk, dv = dk + dk_c, dv + dv_c
     return torch.cat(dq, 1), dk.to(k.dtype), dv.to(v.dtype)

@@ -6,7 +6,7 @@ OPT-1.3B's (4 x 2048 tokens, causal, 32 / 32 heads, hd 64) and, where the
 checkout has it, the bias mode at BLOOM-7b1's (2 x 2048 tokens, causal, 32
 heads, hd 128, ALiBi [32, 1, S] fp32) and at AlphaFold MSA row attention's
 (512 rows x 256 residues, non-causal, 8 heads of 32, a full fp32 bias
-[512, 8, 256, 256] of 1.07 GB).
+[512, 8, 256, 256] of 1.07 GB; dQ there also with its fp32 dbias written).
 
     python3 scripts/flash_ab_timing.py --root PATH [--iters 20]
 
@@ -68,16 +68,21 @@ def main() -> int:
         return [torch.randn(b, s, n, d, generator=gen, device=dev).to(torch.bfloat16)
                 for n in (h, hkv, hkv, h)]
 
-    def times(q, k, v, do, fwd, dq, dkv, *extra, causal=True):
+    def times(q, k, v, do, fwd, dq, dkv, *extra, causal=True, dq_dbias=None):
         kw = {"causal": causal}
         o, lse = fwd(q, k, v, *extra, **kw)
         b, s, h, _ = q.shape
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
-        return {"fwd_ms": events_ms(lambda: fwd(q, k, v, *extra, **kw), args.iters),
-                "dq_ms": events_ms(lambda: dq(q, k, v, do, lse, delta, *extra, **kw),
-                                   args.iters),
-                "dkv_ms": events_ms(lambda: dkv(q, k, v, do, lse, delta, *extra, **kw),
-                                    args.iters)}
+        out = {"fwd_ms": events_ms(lambda: fwd(q, k, v, *extra, **kw), args.iters),
+               "dq_ms": events_ms(lambda: dq(q, k, v, do, lse, delta, *extra, **kw),
+                                  args.iters),
+               "dkv_ms": events_ms(lambda: dkv(q, k, v, do, lse, delta, *extra, **kw),
+                                   args.iters)}
+        if dq_dbias is not None:   # dQ writing dbias too, as the MSA entry points run it
+            out["dq_dbias_ms"] = events_ms(
+                lambda: dq_dbias(q, k, v, do, lse, delta, *extra, need_dbias=True, **kw),
+                args.iters)
+        return out
 
     plain = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     out = {"root": str(root), "card": card,
@@ -89,8 +94,11 @@ def main() -> int:
         bias = (fa.flash_fwd_bias_cuda, lambda *a, **kw: fa.flash_bwd_dq_bias_cuda(*a, **kw)[0],
                 fa.flash_bwd_dkv_bias_cuda)
         out["bloom_bias"] = times(*inputs(2, 2048, 32, 32), *bias, _alibi_bias(32, 2048, dev))
+        # the no-bias kernels at the same shape: what the bias mode adds
+        out["bloom_no_bias"] = times(*inputs(2, 2048, 32, 32), *plain)
         msa = torch.randn(512, 8, 256, 256, generator=gen, device=dev)
-        out["msa_bias"] = times(*inputs(512, 256, 8, 8, 32), *bias, msa, causal=False)
+        out["msa_bias"] = times(*inputs(512, 256, 8, 8, 32), *bias, msa, causal=False,
+                                dq_dbias=fa.flash_bwd_dq_bias_cuda)
     print(json.dumps(out), flush=True)
     return 0
 

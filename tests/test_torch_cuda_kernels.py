@@ -45,13 +45,21 @@ The bf16 backward without a bias (``flash_bwd_sm90.cu``, TMA + wgmma): dQ,
 dK and dV against the plain pieces at the flash limits above over lengths
 1-4096 on both sides (tails of both tiles), q_offset, windows, GQA 1/4/8,
 hd 32/64/128, non-causal and rows that see no key; each of its three
-planted faults must fail them.
+planted faults must fail them. Its bias mode (the same source): dQ, dK, dV
+and dbias against the plain pieces at the same limits over every broadcast
+form of the bias (bf16 and fp32, with and without dbias), ragged tails, Sq
+!= Skv, GQA 1/4/8 and hd 32/64/128; dbias zeros above the diagonal (written
+by the kernel, over memory that held NaN), a query whose every key carries
+-1e30, Sq = 0; its four planted faults (the bias read one kv tile off
+among them) must fail at an ALiBi and a full-bias shape; and
+``flash_bwd.cu``'s entry points refuse bf16 with a bias too.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.models.bloom import _alibi_bias
 from deepspeed_tpu_torch.ops import _build, get_op
 from deepspeed_tpu_torch.ops.attention import attention, attention_torch
 from deepspeed_tpu_torch.ops.evoformer_attn import evoformer_attention
@@ -694,6 +702,207 @@ def test_old_backward_entry_points_refuse_bf16_without_bias(cuda_device):
     assert lib.dstt_flash_bwd_dkv(*ptrs, out.data_ptr(), out.data_ptr(), *common, 0, None, 0, 0,
                                   0, 0, 0, stream) == 1
     assert lib.dstt_flash_bwd_dq_sm90(*ptrs, out.data_ptr(), *common, stream) == 0
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 backward's bias mode on TMA + wgmma (ops/csrc/flash_bwd_sm90.cu)
+# --------------------------------------------------------------------------- #
+def _sm90_bias_backward(q, k, v, do, bias, kw, need_dbias=True):
+    """The bias-mode forward, then dQ (with dbias when asked) and dK/dV,
+    one launch each and none of the no-bias wrappers': ``(o, lse, (dq, dk,
+    dv), dbias)``."""
+    o, lse = flash_fwd_bias_cuda(q, k, v, bias, **kw)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    wrappers = (flash_bwd_dq_bias_cuda, flash_bwd_dkv_bias_cuda, flash_bwd_dq_cuda,
+                flash_bwd_dkv_cuda)
+    before = [f.launches for f in wrappers]
+    dq, dbias = flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, bias, need_dbias=need_dbias,
+                                       **kw)
+    dk, dv = flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, bias, **kw)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [before[0] + 1, before[1] + 1, *before[2:]]
+    return o, lse, (dq, dk, dv), dbias
+
+
+def _sm90_bias_close(device, case, bias, seed, need_dbias=True):
+    """Hold the bf16 bias-mode dq, dk, dv (and dbias) on ``case`` = (B, Sq,
+    Skv, H, Hkv, D, causal, q_offset) to the plain pieces on the same o and
+    lse; returns (grads, dbias, refs)."""
+    q, k, v, do = flash_inputs(case, torch.bfloat16, device, seed=seed)
+    kw = dict(causal=case[6], q_offset=case[7])
+    o, lse, grads, dbias = _sm90_bias_backward(q, k, v, do, bias, kw, need_dbias)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, need_dbias=True, **kw)
+    for got, ref in zip(grads, refs):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert_flash_close(got, ref, FLASH_TOL[torch.bfloat16])
+    if need_dbias:
+        assert dbias.shape == refs[3].shape and dbias.dtype == torch.float32
+        assert_flash_close(dbias, refs[3], FLASH_TOL[torch.bfloat16])
+    else:
+        assert dbias is None
+    return grads, dbias, refs
+
+
+def _stored_bias(form, b, h, sq, skv, dtype, device, seed):
+    rs = np.random.RandomState(seed)
+    shape = BIAS_FORMS[form](b, h, sq, skv)
+    return torch.from_numpy(2 * rs.randn(*shape).astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.parametrize("need_dbias", [True, False])
+@pytest.mark.parametrize("form", sorted(BIAS_FORMS))
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal,sq,skv", [(32, False, 200, 256), (64, True, 129, 129),
+                                             (128, True, 200, 300)])
+def test_sm90_bias_backward_strides(cuda_device, d, causal, sq, skv, bias_dtype, form,
+                                    need_dbias):
+    """The bias read in place through its four strides, any of which may be
+    0 (ALiBi's q stride 0 takes dK/dV's per-kv-row path), bf16 or fp32,
+    odd and even kv lengths (pairs or single loads), with and without
+    dbias; GQA 4 / 2."""
+    b, h = 2, 4
+    bias = _stored_bias(form, b, h, sq, skv, bias_dtype, cuda_device, seed=d + skv)
+    _sm90_bias_close(cuda_device, (b, sq, skv, h, 2, d, causal, skv - sq if causal else 0),
+                     bias, seed=d, need_dbias=need_dbias)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,skv,causal", [(127, 127, True), (129, 129, False), (64, 300, True),
+                                           (300, 64, False), (1000, 1000, True),
+                                           (37, 4096, True)])
+def test_sm90_bias_backward_lengths(cuda_device, d, sq, skv, causal):
+    """Ragged tails of both tiles, Sq != Skv (causal as a continued prefill:
+    q row 0 at position Skv - Sq), a long kv side; a full fp32 bias and an
+    ALiBi one."""
+    case = (1, sq, skv, 4, 2, d, causal, max(0, skv - sq) if causal else 0)
+    for form in ("full", "alibi"):
+        bias = _stored_bias(form, 1, 4, sq, skv, torch.float32, cuda_device, seed=sq + d)
+        _sm90_bias_close(cuda_device, case, bias, seed=skv + d)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_bias_backward_gqa(cuda_device, g, d):
+    """GQA with a bias: each query head reads its own bias slice, and each
+    kv head's dK/dV sums its g query heads in registers."""
+    for form in ("pair", "alibi"):
+        bias = _stored_bias(form, 2, 8, 300, 300, torch.float32, cuda_device, seed=g + d)
+        _sm90_bias_close(cuda_device, (2, 300, 300, 8, 8 // g, d, True, 0), bias, seed=g * d)
+
+
+def test_sm90_bias_dbias_is_zero_above_the_diagonal(cuda_device):
+    """Causal: dbias is exact zeros where no key is visible, including the
+    kv tiles the dQ kernel's band skips, which it writes itself (no memset):
+    the allocator hands dbias a block that held NaN just before."""
+    b, h, s = 1, 2, 300
+    for d in (32, 128):
+        q, k, v, do = flash_inputs((b, s, s, h, h, d), torch.bfloat16, cuda_device, seed=d)
+        bias = _stored_bias("full", b, h, s, s, torch.float32, cuda_device, seed=d)
+        kw = dict(causal=True)
+        o, lse = flash_fwd_bias_cuda(q, k, v, bias, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+        junk = torch.full((b, h, s, s), float("nan"), device=cuda_device)
+        del junk
+        _, dbias = flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, bias, need_dbias=True, **kw)
+        torch.cuda.synchronize()
+        above = torch.ones(s, s, dtype=torch.bool, device=cuda_device).triu(1)
+        assert bool((dbias[:, :, above] == 0).all())
+        assert bool(torch.isfinite(dbias).all()) and bool((dbias[:, :, ~above] != 0).any())
+        ref = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, need_dbias=True, **kw)[3]
+        assert_flash_close(dbias, ref, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_bias_rows_whose_keys_all_carry_minus_1e30(cuda_device, d):
+    """A query row whose every key carries -1e30 (lse = -1e30 + log n, which
+    rounds to -1e30): p = 1 on each key, so its grads are n times the
+    softmax's, as in the JAX package, and finite; a key masked for every
+    row gets p = 0."""
+    b, h, sq, skv = 2, 4, 130, 260
+    bias = torch.zeros(b, 1, sq, skv, device=cuda_device)
+    bias[1, :, 7] = -1e30
+    bias[:, :, :, 11] = -1e30
+    grads, dbias, refs = _sm90_bias_close(cuda_device, (b, sq, skv, h, 2, d, False, 0), bias,
+                                          seed=d)
+    for got in (*grads, dbias):
+        assert torch.isfinite(got.float()).all()
+    others = torch.arange(sq, device=cuda_device) != 7
+    assert not dbias[0, :, :, 11].any() and not dbias[1, :, others, 11].any()
+    assert bool((dbias[1, :, 7] != 0).any())
+
+
+def test_sm90_bias_backward_takes_no_query_rows(cuda_device):
+    """Sq = 0: dq and dbias are empty, dK/dV zeros."""
+    q, k, v, do = flash_inputs((1, 0, 70, 4, 2, 64), torch.bfloat16, cuda_device)
+    bias = torch.zeros(4, 1, 70, device=cuda_device)
+    lse = torch.zeros(4, 0, device=cuda_device)
+    dq, dbias = flash_bwd_dq_bias_cuda(q, k, v, do, lse, lse, bias, need_dbias=True,
+                                       causal=False)
+    dk, dv = flash_bwd_dkv_bias_cuda(q, k, v, do, lse, lse, bias, causal=False)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dbias.shape == (1, 4, 0, 70)
+    assert dk.shape == k.shape and not dk.any() and not dv.any()
+
+
+SM90_BIAS_FAULTS = [   # (fault, what, grads that must fail: 0 dq, 1 dk, 2 dv, 3 dbias)
+    (1, "ring stage read one step late", (0, 1, 3)),
+    (2, "last tile of each band dropped", (0, 2, 3)),
+    (3, "last query head of each GQA group skipped", (1, 2)),
+    (4, "bias read one kv tile off", (0, 1, 3)),
+]
+
+
+@pytest.mark.parametrize("form", ["alibi", "full"])
+@pytest.mark.parametrize("fault,what,keys", SM90_BIAS_FAULTS)
+def test_sm90_bias_backward_check_fails_a_planted_fault(cuda_device, fault, what, keys, form):
+    """The planted faults of ``sm90_planted_fault(.., "bwd")`` reach the
+    bias-mode launches and must fail the check the sound kernels pass: at
+    BLOOM's ALiBi cut to S 1024 with GQA 32 / 8 (dK/dV's per-kv-row path),
+    and with a full fp32 bias at hd 32 (its tile-ahead path)."""
+    if form == "alibi":
+        case = (1, 1024, 1024, 32, 8, 128, True, 0)
+    else:
+        case = (2, 256, 256, 8, 4, 32, False, 0)
+    b, sq, skv, h = case[:4]
+    if form == "alibi":
+        bias = _alibi_bias(h, skv, cuda_device)           # [H, 1, S] fp32
+    else:
+        bias = _stored_bias(form, b, h, sq, skv, torch.float32, cuda_device, seed=fault)
+    _, _, refs = _sm90_bias_close(cuda_device, case, bias, seed=fault)
+    q, k, v, do = flash_inputs(case, torch.bfloat16, cuda_device, seed=fault)
+    with sm90_planted_fault(fault, "bwd"):
+        _, _, bad, dbias = _sm90_bias_backward(q, k, v, do, bias, dict(causal=case[6]))
+    bad = (*bad, dbias)
+    for i in keys:   # a row past its limit, or a value that is not finite
+        with pytest.raises(AssertionError, match="row err|isfinite"):
+            assert_flash_close(bad[i], refs[i], FLASH_TOL[torch.bfloat16])
+
+
+def test_old_backward_entry_points_refuse_bf16_with_bias(cuda_device):
+    """``flash_bwd.cu`` serves fp32 only: its entry points refuse bf16 with
+    a bias too (cudaErrorInvalidValue); ``flash_bwd_sm90.cu``'s bias entry
+    points take it."""
+    q, k, v, do = flash_inputs((1, 64, 64, 2, 2, 64), torch.bfloat16, cuda_device)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    bias = torch.zeros(2, 1, 64, device=cuda_device)
+    out = torch.empty_like(q)
+    dbias = torch.empty(1, 2, 64, 64, device=cuda_device)
+    lib = _build.load()
+    common = (1, 2, 2, 64, 64, 64, 0, 1, 0, 0.125)
+    ba = (bias.data_ptr(), 0, 64, 0, 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            lse.data_ptr())
+    assert lib.dstt_flash_bwd_dq(*ptrs, out.data_ptr(), *common, 0, *ba, dbias.data_ptr(),
+                                 stream) == 1   # cudaErrorInvalidValue
+    assert lib.dstt_flash_bwd_dkv(*ptrs, out.data_ptr(), out.data_ptr(), *common, 0, *ba,
+                                  stream) == 1
+    assert lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, out.data_ptr(), *common, *ba,
+                                           dbias.data_ptr(), stream) == 0
+    assert lib.dstt_flash_bwd_dkv_bias_sm90(*ptrs, out.data_ptr(), out.data_ptr(), *common,
+                                            *ba, stream) == 0
     torch.cuda.synchronize()
 
 

@@ -161,6 +161,46 @@ def test_fully_masked_row_is_a_uniform_average(small_blocks):
                                    err_msg=what)
 
 
+@pytest.mark.parametrize("row", [0, 5, 37])
+def test_masked_row_backward_and_dbias_zeros_causal(row, small_blocks):
+    """Causal, the backward pieces on the same o and lse: a query row whose
+    every visible key carries -1e30 (its lse rounds to -1e30, so p = 1 on
+    each visible key) gets dq, dk, dv and dbias equal to JAX's
+    ``_flash_bwd(bias)``, finite, and dbias is exactly zero above the
+    diagonal on both sides (the JAX kernel zeroes the blocks it skips; the
+    port's dQ kernel writes them). The forwards are not compared on that
+    row: JAX's block mask puts its -1e30 on the diagonal block's masked
+    keys too (ROADMAP queue C). fp32, rtol = atol = 1e-4 (the same
+    arithmetic in another summation order)."""
+    B, S, H, D = 1, 48, 2, 16
+    rs = np.random.RandomState(row + 7)
+    q, k, v, do = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(4))
+    bias = (0.5 * rs.randn(B, H, S, S)).astype(np.float32)
+    bias[:, :, row, : row + 1] = -1e30      # every key the row sees
+    t = [torch.from_numpy(a) for a in (q, k, v, do, bias)]
+    o_t, lse_t = flash_attention_fwd(*t[:3], causal=True, bias=t[4])
+    assert float(lse_t.view(H, S)[0, row]) == float(np.float32(-1e30))
+    dq_t, dk_t, dv_t, db_t = flash_attention_bwd(*t[:3], o_t, lse_t, t[3], causal=True,
+                                                 bias=t[4], need_dbias=True)
+    o_bh = jnp.asarray(o_t.numpy().transpose(0, 2, 1, 3).reshape(B * H, S, D))
+    lse_bh = jnp.broadcast_to(jnp.asarray(lse_t.numpy())[..., None], (B * H, S, 128))
+    dq_j, dk_j, dv_j, db_j = jfa._flash_bwd(
+        _to_bh(q, H), _to_bh(k, H), _to_bh(v, H), o_bh, lse_bh, _to_bh(do, H),
+        jnp.asarray(bias.reshape(B * H, S, S)), causal=True, scale=D ** -0.5, q_offset=0)
+
+    def bsd(x):   # [B * H, S, D] -> [B, S, H, D]
+        return np.asarray(x).reshape(B, H, S, D).transpose(0, 2, 1, 3)
+
+    for got, ref, what in ((dq_t, bsd(dq_j), "dq"), (dk_t, bsd(dk_j), "dk"),
+                           (dv_t, bsd(dv_j), "dv"),
+                           (db_t, np.asarray(db_j).reshape(B, H, S, S), "dbias")):
+        assert np.isfinite(got.numpy()).all(), what
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4, err_msg=what)
+    above = np.triu(np.ones((S, S), bool), 1)
+    assert not db_t.numpy()[..., above].any() and not np.asarray(db_j)[..., above].any()
+    assert np.abs(db_t.numpy()[0, :, row, : row + 1]).sum() > 0   # p = 1 there
+
+
 @pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
 def test_plain_attention_bias_matches_flash_bias(bias_dtype):
     """Op ``attention``'s ``torch`` backend adds the bias as the JAX

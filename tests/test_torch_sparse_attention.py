@@ -262,7 +262,7 @@ def test_host_compaction_runs_once_per_layout(monkeypatch):
 def test_chunked_plain_pieces_equal_whole(q_chunk):
     """``q_chunk`` (how the card holds the plain pieces at long sequences)
     computes the same rows: o, lse and dq equal, dK/dV summed over the
-    chunks in fp32 within 1e-6."""
+    chunks in fp64 and rounded once, within 1e-6."""
     b, s, h, hkv, d, bs = 2, 128, 4, 2, 32, 16
     builder, causal = LAYOUTS["bigbird_causal"]
     lay = builder(s // bs)
