@@ -48,6 +48,15 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    block, the table's end), within ``ROWS_TOL``; the wrong block's scales
    (int8) or one wrong table entry (bf16) on the longest row must fail.
    Prints their device times beside their plain versions' and bytes bound.
+   What the one paged kernel (``paged_sm90.cu``: positions split across
+   warps, merged in split order) adds: live lengths one before, on and one
+   after its split boundaries (64, 512, 4096), within one split, the
+   table's end, decode and verify on bf16 and int8 pools (groups 128 and
+   32), with and without a window; Falcon-7B's shapes (71 query heads over
+   one kv head, hd 64: decode, and verify of 355 rows); two calls giving
+   identical bits; its three planted faults (the merge dropping the last
+   split, a ring stage read before its copy lands, the K scale left out)
+   each failing the same check.
    LayerNorm at N in {1, 7, 64, 2048, 8192} rows of d = 2048, 4096 rows of
    d = 4096 (one BLOOM-7b1 micro-batch) and 64 rows of d = 768, bf16 and
    fp32, with and without bias, within ``RMS_TOL`` (fp32: 1e-4) of each
@@ -122,7 +131,9 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    1 .. 1900 on bf16 pools, then self-repeating prompts with speculative
    decoding + fused verify on int8 pools. Counters zeroed before and read
    after: LayerNorm 49 per forward, paged decode (bf16 or int8) 24 per
-   decode step, spec verify 24 per fused verify step, RMSNorm 0.
+   decode step, spec verify 24 per fused verify step, RMSNorm 0. Then the
+   bf16 decode and int8 verify kernels timed on the inputs of those
+   engines' last steps (MHA 32/32, hd 64, tables of 16 blocks).
 10. OPT-1.3B training at all 24 layers: bf16, AdamW (lr 3e-4, weight decay
    0.1), clipping 1.0, ZeRO 0, 2 micro-batches of 4 sequences of 2048
    tokens, 6 ``train_batch`` steps on one fixed batch; per step 48 launches
@@ -586,15 +597,19 @@ def phase_main_path(seed: int, max_new_tokens: int, card: str):
 # --------------------------------------------------------------------------- #
 ROWS_SHAPE = {"B": 64, "nh": 32, "nkv": 8, "hd": 128, "bs": 128, "nblocks": 512,
               "max_blocks": 64}
+# OPT-1.3B's serving step: MHA 32/32 at hd 64, tables of 16 blocks (2048 positions)
+OPT_ROWS_SHAPE = {"B": 64, "nh": 32, "nkv": 32, "hd": 64, "bs": 128, "nblocks": 512,
+                  "max_blocks": 16}
 
 
-def rows_work(ctx_np, t: int, ng: int, window=None) -> dict:
+def rows_work(ctx_np, t: int, ng: int, window=None, shape=None) -> dict:
     """Bytes and operations of one paged-attention call over t rows per
     sequence (t = 1: decode): the K and V rows of every position some row
     can see, read once (int8 codes and their ng fp32 scales, or bf16), q and
     out once, the tables and context lengths; 4 operations per (query row,
-    visible position, dim)."""
-    S = ROWS_SHAPE
+    visible position, dim). ``shape``: ``ROWS_SHAPE`` (Llama-3-8B) unless
+    given (``OPT_ROWS_SHAPE``)."""
+    S = shape or ROWS_SHAPE
     cap = S["max_blocks"] * S["bs"]
     ctx = ctx_np.astype(np.int64)
     hi = np.minimum(ctx + t, cap)
@@ -747,6 +762,182 @@ def phase_rows_kernels(seed: int, card: str):
         "functions (block-table gather, in-register dequant, per-row masked GQA softmax), "
         "so they have no library time")
     return out, time_case
+
+
+PAGED_FAULTS = [   # paged_sm90.cu's planted faults: code, what, (kind, ng) it runs at
+    (1, "the merge drops each sequence's last split", (("decode", 0), ("verify", 0))),
+    (2, "a ring stage read before its copy lands", (("verify", 0), ("verify", 4))),
+    (3, "the K scale left out at ng = 1", (("decode", 1), ("verify", 1)))]
+
+
+def phase_paged_sm90(seed: int, card: str):
+    """What ``paged_sm90.cu``'s design adds to check: contexts at the edges
+    of its splits at the Llama-3-8B shapes (live lengths one before a split
+    boundary, on it and one after; within one split; the table's last
+    position), Falcon-7B's shapes (71 query heads over one kv head, hd 64:
+    decode, and verify at t = 5 over 355 rows; bf16 and int8 at one scale
+    per vector), two calls giving identical bits, and its planted faults
+    failing the row check; each against the plain version."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_torch, paged_planted_fault,
+        paged_spec_verify_attention_cuda, paged_spec_verify_attention_torch, splits_of)
+    from deepspeed_tpu_torch.ops.quantization import kv_quantize_int8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    rs = np.random.RandomState(seed + 11)
+
+    def pools(nblocks, nkv, bs, hd, ngs):
+        kf, vf = (torch.randn(nblocks, nkv, bs, hd, generator=gen, device=dev) for _ in range(2))
+        out = {0: (kf.to(torch.bfloat16), vf.to(torch.bfloat16), {})}
+        for ng in ngs:
+            (kc, ks), (vc, vs) = kv_quantize_int8(kf, hd // ng), kv_quantize_int8(vf, hd // ng)
+            out[ng] = (kc, vc, {"k_scale": ks, "v_scale": vs})
+        return out
+
+    def call(kind, q, p, tables, ctx, window=None):
+        kp, vp, sc = p
+        if kind == "decode":
+            return (paged_decode_attention_cuda(q, kp, vp, tables, ctx, window=window, **sc),
+                    paged_decode_attention_torch(q, kp, vp, tables, ctx, window=window, **sc))
+        return (paged_spec_verify_attention_cuda(q, kp, vp, tables, ctx, window=window, **sc),
+                paged_spec_verify_attention_torch(q, kp, vp, tables, ctx, window=window, **sc))
+
+    def tol(kind, ng):
+        return DECODE_TOL if kind == "decode" and not ng else ROWS_TOL
+
+    out = {"split_edges": {}, "falcon": {}, "determinism": {}, "planted_faults": {}}
+    S = ROWS_SHAPE
+    nh, nkv, hd, bs, nblocks, mb = S["nh"], S["nkv"], S["hd"], S["bs"], S["nblocks"], \
+        S["max_blocks"]
+    cap, t = mb * bs, SPEC_K + 1
+    p = pools(nblocks, nkv, bs, hd, (1, 4))
+    # live lengths (ctx + t) around split boundaries: 64 | 65 (one split |
+    # two), 512 | 513 (8 of 64 | 7 of 80), 4096 | 4097 (8 of 512 | 9), the
+    # table's end (16 of 512)
+    lengths = [17, 63, 64, 65, 511, 512, 513, 4095, 4096, 4097, cap]
+    for kind, tt in (("decode", 1), ("verify", t)):
+        ctx_np = np.array([0] + [n - tt for n in lengths], np.int32)
+        tables_np = rs.randint(1, nblocks, (len(ctx_np), mb)).astype(np.int32)
+        tables_np[0] = 0
+        ctx, tables = torch.from_numpy(ctx_np).to(dev), torch.from_numpy(tables_np).to(dev)
+        shape_q = (len(ctx_np), nh, hd) if kind == "decode" else (len(ctx_np), tt, nh, hd)
+        q = torch.randn(*shape_q, generator=gen, device=dev).to(torch.bfloat16)
+        for ng in (0, 1, 4):
+            for window in (None, 4095):
+                got, ref = call(kind, q, p[ng], tables, ctx, window)
+                torch.cuda.synchronize()
+                name = f"{kind} {'int8 ng=%d' % ng if ng else 'bf16'} window={window}"
+                out["split_edges"][name] = check_close(
+                    f"paged_sm90 split edges {name} (splits "
+                    f"{[splits_of(min(c + tt, cap)) for c in ctx_np.tolist()]})",
+                    got, ref, tol(kind, ng))
+        if kind == "verify":
+            # determinism and the planted faults at the verify edges
+            for ng in (0, 1):
+                first = call(kind, q, p[ng], tables, ctx)[0].clone()
+                again = call(kind, q, p[ng], tables, ctx)[0]
+                torch.cuda.synchronize()
+                same = bool(torch.equal(first, again))
+                log(f"  paged_sm90 verify {'int8' if ng else 'bf16'}: two calls identical: {same}")
+                if not same:
+                    raise AssertionError("paged_sm90.cu gave two results on the same inputs")
+                out["determinism"][f"verify ng={ng}"] = same
+        for fault, what, runs in PAGED_FAULTS:
+            for fng in [ng for k_, ng in runs if k_ == kind]:
+                ref = call(kind, q, p[fng], tables, ctx)[1]
+                with paged_planted_fault(fault):
+                    bad = call(kind, q, p[fng], tables, ctx)[0]
+                    torch.cuda.synchronize()
+                err, rel = row_err(bad, ref)
+                finite = bool(torch.isfinite(bad.float()).all())
+                lim = tol(kind, fng)
+                log(f"  paged_sm90 planted fault {fault} ({what}; {kind} "
+                    f"{'int8 ng=%d' % fng if fng else 'bf16'}): max_abs_err={err:.3e}, "
+                    f"row err/RMS={rel:.4f}, finite {finite} (must exceed tol {lim:g} or not "
+                    "be finite)")
+                if rel <= lim and finite:
+                    raise AssertionError(f"the paged check passes a planted fault ({what})")
+                out["planted_faults"][f"{fault} {kind} ng={fng}"] = {
+                    "what": what, "row_err_over_rms": rel, "finite": finite}
+                # a faulty launch leaves the ticket counters as the sound one does
+                got, ref = call(kind, q, p[fng], tables, ctx)
+                check_close(f"paged_sm90 {kind} after planted fault {fault}", got, ref, lim)
+    del p
+
+    # Falcon-7B: 71 query heads over one kv head at hd 64
+    nh, nkv, hd, bs, nblocks, mb = 71, 1, 64, 128, 128, 16
+    p = pools(nblocks, nkv, bs, hd, (1,))
+    for kind, tt in (("decode", 1), ("verify", t)):
+        ctx_np = np.array([0, 5, 63, 64, 300, 513 - tt, 1000, mb * bs - tt], np.int32)
+        tables_np = rs.randint(1, nblocks, (len(ctx_np), mb)).astype(np.int32)
+        tables_np[0] = 0
+        ctx, tables = torch.from_numpy(ctx_np).to(dev), torch.from_numpy(tables_np).to(dev)
+        shape_q = (len(ctx_np), nh, hd) if kind == "decode" else (len(ctx_np), tt, nh, hd)
+        q = torch.randn(*shape_q, generator=gen, device=dev).to(torch.bfloat16)
+        for ng in (0, 1):
+            got, ref = call(kind, q, p[ng], tables, ctx)
+            torch.cuda.synchronize()
+            name = f"{kind} {'int8 ng=1' if ng else 'bf16'}"
+            out["falcon"][name] = check_close(
+                f"paged_sm90 Falcon-7B {name} (nh 71 over 1 kv head, hd 64, "
+                f"{71 * tt} rows)", got, ref, tol(kind, ng))
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def opt_paged_times(seed: int, card: str, dec_inputs, ver_inputs) -> dict:
+    """OPT-1.3B's main-path step (MHA 32/32, hd 64, tables of 16 blocks):
+    bf16 decode and int8 verify (t = 5) on the inputs of its serving
+    phase's last steps, timed as ``phase_rows_kernels`` times Llama's."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_torch,
+        paged_spec_verify_attention_cuda, paged_spec_verify_attention_torch)
+    from deepspeed_tpu_torch.ops.quantization import kv_quantize_int8
+
+    S = OPT_ROWS_SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    kf, vf = (torch.randn(S["nblocks"], S["nkv"], S["bs"], S["hd"], generator=gen, device=dev)
+              for _ in range(2))
+    kb, vb = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+    (kc, ks), (vc, vs) = kv_quantize_int8(kf, S["hd"]), kv_quantize_int8(vf, S["hd"])
+    del kf, vf
+    q1 = torch.randn(S["B"], S["nh"], S["hd"], generator=gen, device=dev).to(torch.bfloat16)
+    qt = torch.randn(S["B"], SPEC_K + 1, S["nh"], S["hd"], generator=gen,
+                     device=dev).to(torch.bfloat16)
+    out = {}
+    for name, (ctx_np, tables_np), t, ng in (("decode_bf16_main_path", dec_inputs, 1, 0),
+                                            ("verify_int8_main_path", ver_inputs, SPEC_K + 1, 1)):
+        c = torch.from_numpy(ctx_np.astype(np.int32)).to(dev)
+        tb = torch.from_numpy(tables_np).to(dev)
+        if ng:
+            sc = {"k_scale": ks, "v_scale": vs}
+            kern = lambda: paged_spec_verify_attention_cuda(qt, kc, vc, tb, c, **sc)  # noqa: E731
+            plain = lambda: paged_spec_verify_attention_torch(qt, kc, vc, tb, c, **sc)  # noqa: E731
+        else:
+            kern = lambda: paged_decode_attention_cuda(q1, kb, vb, tb, c)  # noqa: E731
+            plain = lambda: paged_decode_attention_torch(q1, kb, vb, tb, c)  # noqa: E731
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        check_close(f"OPT-1.3B {name}", got, ref, ROWS_TOL if ng else DECODE_TOL)
+        w = rows_work(ctx_np, t, ng, shape=S)
+        kt, pt = measure(kern, 100), measure(plain, 5)
+        r = {"ms": kt["ms"], "plain_ms": pt["ms"], "host_ms": kt["host_ms"],
+             "plain_host_ms": pt["host_ms"], **w}
+        log(f"  OPT-1.3B {name}: device kernel {r['ms']*1e3:.1f} us, plain "
+            f"{r['plain_ms']*1e3:.1f} us, bound {r['bound_ms']*1e3:.2f} us "
+            f"({r['live_tokens']} live positions); host loop: kernel {r['host_ms']*1e3:.1f} us "
+            f"[{card}]")
+        out[name] = r
+    del kb, vb, kc, vc
+    torch.cuda.empty_cache()
+    return out
 
 
 def spec_prompts(seed: int, vocab: int):
@@ -2529,12 +2720,14 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
     return kernels
 
 
-def main_step_inputs(prompt_lengths, generated: int, extra: int = 1):
+def main_step_inputs(prompt_lengths, generated: int, extra: int = 1, shape=None):
     """(context lengths, block tables) of a serving step over 64 slots: the
     first len(prompt_lengths) slots hold prompt_len + generated cached
     tokens in fresh blocks covering ``extra`` more positions; the rest are
-    inactive (ctx 0 on the trash block)."""
-    B, max_blocks, bs = ROWS_SHAPE["B"], ROWS_SHAPE["max_blocks"], ROWS_SHAPE["bs"]
+    inactive (ctx 0 on the trash block). ``shape``: ``ROWS_SHAPE`` unless
+    given."""
+    S = shape or ROWS_SHAPE
+    B, max_blocks, bs = S["B"], S["max_blocks"], S["bs"]
     ctx_np = np.zeros(B, np.int32)
     tables_np = np.zeros((B, max_blocks), np.int32)
     next_blk = 1
@@ -2585,6 +2778,7 @@ def main() -> int:
     kern, decode_case = phase_kernels(SEED, card)
     kern["flash"] = phase_flash(SEED, card)
     kern["rows"], rows_case = phase_rows_kernels(SEED, card)
+    kern["paged_sm90"] = phase_paged_sm90(SEED, card)
     kern.update(phase_ln_quant_kernels(SEED, card))
     kern["opt_shapes"] = phase_opt_shapes(SEED, card)
     kern["flash_bias"] = phase_bias_kernels(SEED, card)
@@ -2640,6 +2834,15 @@ def main() -> int:
         SEED, MAX_NEW_TOKENS, card, family=gpt, cfg=opt_cfg, norm="layer_norm",
         engines=(("bf16", {}, opt_prompts),
                  ("spec_int8", {**SPEC, **INT8}, spec_prompts(SEED, opt_cfg.vocab_size)[0])))
+
+    # the OPT engines' last steps: bf16 decode and int8 fused verify
+    opt_paged = opt_paged_times(
+        SEED, card,
+        main_step_inputs(opt_serve["bf16"]["prompt_lengths"], MAX_NEW_TOKENS - 2,
+                         shape=OPT_ROWS_SHAPE),
+        main_step_inputs(opt_serve["spec_int8"]["prompt_lengths"],
+                         MAX_NEW_TOKENS - SPEC_K - 1, extra=SPEC_K + 1, shape=OPT_ROWS_SHAPE))
+    kern["opt_paged"] = opt_paged
 
     log("== phase 10: OPT-1.3B training (24 layers through train_batch)")
     opt_train = phase_train(SEED, card, family=gpt, cfg=opt_cfg, label="OPT-1.3B",
@@ -2698,13 +2901,16 @@ def main() -> int:
          "ms": rms["ms"], "plain_ms": rms["plain_ms"], "bound_ms": rms["bound_ms"],
          "bound_by": "bytes", "library_ms": rms["library_ms"]},
         {"name": "paged_decode_attention", "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/csrc/paged_decode.cu",
+         "source": "deepspeed_tpu_torch/ops/csrc/paged_sm90.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:74",
          "launches": sum(decode_launches.values()), "launches_by_path": decode_launches,
          "max_abs_err": kern["paged_decode"]["max_abs_err"],
          "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
          "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         # the same kernel at OPT-1.3B's main-path step
+         "opt": {k_: opt_paged["decode_bf16_main_path"][k_]
+                 for k_ in ("ms", "plain_ms", "bound_ms")}},
     ]
     for key, name, line, err in (
             ("fwd", "flash_fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:284",
@@ -2745,21 +2951,23 @@ def main() -> int:
     qt = kern["quantize"]["timing"]
     kernels += [
         {"name": "paged_decode_attention_int8", "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/csrc/paged_decode.cu",
+         "source": "deepspeed_tpu_torch/ops/csrc/paged_sm90.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:74",
          "launches": sum(int8_launches.values()), "launches_by_path": int8_launches,
          "max_abs_err": kern["rows"]["decode_int8"]["max_abs_err"],
          "ms": dec8["ms"], "plain_ms": dec8["plain_ms"], "bound_ms": dec8["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "paged_spec_verify_attention", "route": "cuda",
-         "source": "deepspeed_tpu_torch/ops/csrc/paged_verify.cu",
+         "source": "deepspeed_tpu_torch/ops/csrc/paged_sm90.cu",
          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:315",
          "launches": sum(ver_launches.values()), "launches_by_path": ver_launches,
          "max_abs_err": kern["rows"]["verify"]["max_abs_err"],
          "ms": ver8["ms"], "plain_ms": ver8["plain_ms"], "bound_ms": ver8["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
          "bf16": {"ms": ver16["ms"], "plain_ms": ver16["plain_ms"],
-                  "bound_ms": ver16["bound_ms"]}},
+                  "bound_ms": ver16["bound_ms"]},
+         "opt": {k_: opt_paged["verify_int8_main_path"][k_]
+                 for k_ in ("ms", "plain_ms", "bound_ms")}},
     ]
     kernels += [
         {"name": "layer_norm", "route": "cuda",

@@ -43,17 +43,12 @@ SIGNATURES = {
     "dstt_quantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # q, scales, out, n_groups, group_size, dtype of out, stream
     "dstt_dequantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
-    # q, k_pool, v_pool, tables, ctx, window_ptr, window, out,
-    # B, nh, nkv, hd, bs, num_blocks, max_blocks, scale, stream
-    "dstt_paged_decode": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
-                          _I, _I, _I, _I, _I, _I, _I, _F, _VP],
-    # q, k_pool, v_pool, k_scale, v_scale, tables, ctx, window_ptr, window,
-    # out, B, nh, nkv, hd, bs, num_blocks, max_blocks, ng, scale, stream
-    "dstt_paged_decode_int8": [_VP] * 8 + [_I, _VP] + [_I] * 8 + [_F, _VP],
-    # q, k_pool, v_pool, k_scale, v_scale, tables, ctx, window_ptr, window,
-    # out, B, t, nh, nkv, hd, bs, num_blocks, max_blocks, ng, quant, scale,
-    # stream
-    "dstt_paged_verify": [_VP] * 8 + [_I, _VP] + [_I] * 10 + [_F, _VP],
+    # paged_sm90.cu: q, k_pool, v_pool, k_scale, v_scale, tables, ctx,
+    # window_ptr, window, out, counters, partials, B, t, nh, nkv, hd, bs,
+    # num_blocks, max_blocks, ng (0: bf16 pools), nsplit, scale, stream
+    "dstt_paged_attention": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 10 + [_F, _VP],
+    # planted fault of the paged kernel's next launches (tests): 0 none
+    "dstt_paged_sm90_plant": [_I],
     # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
     # scale, dtype, bias, stream
     "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],

@@ -17,13 +17,17 @@ Each op has two implementations, chosen by the input's device
   (``paged_spec_verify_attention_xla`` :479: the same expressions as the
   multi-token prefill read in ``models/_paged.py``). They serve CPU tensors
   and are the oracles the kernels are held against.
-- the wrappers of the hand-written kernels: :func:`paged_decode_attention_cuda`
-  (bf16 pools: ``ops/csrc/paged_decode.cu``, replacing ``_decode_kernel``
-  :74), :func:`paged_decode_attention_int8_cuda` (int8 pools: the int8 mode of
-  ``paged_decode.cu``, replacing the same kernel's ``quant=True`` mode) and
-  :func:`paged_spec_verify_attention_cuda` (``ops/csrc/paged_verify.cu``,
-  both modes, replacing ``_spec_verify_kernel`` :315). Each counts its
-  kernel launches in ``.launches``.
+- the wrappers of the hand-written kernel ``ops/csrc/paged_sm90.cu`` (one
+  source for both ops and both pool types; decode is its t = 1 case):
+  :func:`paged_decode_attention_cuda` (bf16 pools, replacing
+  ``_decode_kernel`` :74), :func:`paged_decode_attention_int8_cuda` (int8
+  pools, the same kernel's ``quant=True`` mode) and
+  :func:`paged_spec_verify_attention_cuda` (both modes, replacing
+  ``_spec_verify_kernel`` :315). Each counts its calls that launch the
+  kernel in ``.launches``. The kernel cuts each sequence's live positions
+  into splits (:func:`split_positions`) and the query rows of a kv head
+  into tiles of :data:`ROW_TILE` (:func:`split_plan`); what it does not
+  take is refused by :func:`paged_refusal` with ``ValueError``.
 
 Layout (as in the JAX package):
   q            [B, nh, hd] (decode) or [B, t, nh, hd] (verify: row ti sits at
@@ -39,6 +43,7 @@ Layout (as in the JAX package):
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -160,91 +165,113 @@ def _window_args(window: Window, dev):
     return None, (window or 0), None
 
 
-@register("paged_decode_attention", backend="cuda")
-def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
-                                v_pool: torch.Tensor,
-                                block_tables: torch.Tensor,
-                                context_lens: torch.Tensor, *,
-                                scale: Optional[float] = None,
-                                window: Window = None,
-                                k_scale: Optional[torch.Tensor] = None,
-                                v_scale: Optional[torch.Tensor] = None
-                                ) -> torch.Tensor:
-    """Launch ``ops/csrc/paged_decode.cu``. Returns [B, nh, hd] bf16. With
-    ``k_scale``/``v_scale`` (int8 pools) the int8 mode runs
-    (:func:`paged_decode_attention_int8_cuda`)."""
-    if _check_scales(k_scale, v_scale):
-        return paged_decode_attention_int8_cuda(
-            q, k_pool, v_pool, block_tables, context_lens, scale=scale,
-            window=window, k_scale=k_scale, v_scale=v_scale)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"paged_decode_attention_cuda needs CUDA tensors, got {dev}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables),
-                    ("context_lens", context_lens)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-    if q.dtype != torch.bfloat16 or k_pool.dtype != torch.bfloat16 \
-            or v_pool.dtype != torch.bfloat16:
-        raise ValueError("paged_decode_attention_cuda takes bf16 q and pools, got "
-                         f"{q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
-    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise ValueError("block_tables and context_lens must be int32")
-    B, nh, hd = q.shape
-    num_blocks, nkv, bs, hd_k = k_pool.shape
-    if v_pool.shape != k_pool.shape or hd_k != hd:
-        raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
-                         f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-    if nh % nkv or nh // nkv > 16 or hd not in (64, 128, 256):
-        raise ValueError(f"unsupported heads: nh={nh}, nkv={nkv}, hd={hd} "
-                         f"(needs nh % nkv == 0, nh/nkv <= 16, hd in 64/128/256)")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or context_lens.shape != (B,):
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
-                         f"context_lens {tuple(context_lens.shape)} do not "
-                         f"match batch {B}")
-    max_blocks = block_tables.shape[1]
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous")
-    q = q.contiguous()
-    tables = block_tables.contiguous()
-    ctx = context_lens.contiguous()
-    window_ptr, window_static, _window = _window_args(window, dev)
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
-    scale = hd ** -0.5 if scale is None else scale
-    lib = _build.load()
-    err = lib.dstt_paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        ctx.data_ptr(), window_ptr, window_static, out.data_ptr(),
-        B, nh, nkv, hd, bs, num_blocks, max_blocks, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "paged_decode_attention kernel")
-    paged_decode_attention_cuda.launches += 1
-    return out
+# ``paged_sm90.cu``'s plan: a warp takes 16 positions at a time (a subtile)
+# for 16 query rows (a row tile, the M of its mma.sync.m16n8k16); a split of
+# a sequence is 4 subtiles at least, 32 at most, and a sequence has about 8
+# splits in between
+SUBTILE = 16
+ROW_TILE = 16
+SPLIT_SUBTILES = (4, 32)
+SPLIT_TARGET = 8
+KERNEL_HD = (64, 128, 256)
 
 
-paged_decode_attention_cuda.launches = 0
-
-# ``paged_rows.cuh``'s shared-memory budget: a block holds one K and one V
-# tile of 128 positions (int8 mode: and their scale rows) and fp32 q, acc
-# and p for its g * t rows
-_SMEM_LIMIT = 232448
-
-
-def _rows_smem(hd: int, quant: bool, rows: int, ng: int) -> int:
-    esz = 1 if quant else 2
-    return (128 * (hd * esz + 16) + 128 * hd * esz
-            + (2 * 128 * ng * 4 if quant else 0)
-            + rows * hd * 8 + rows * 128 * 4 + rows * 12)
+def split_positions(live: int) -> int:
+    """Positions of each split of a sequence with ``live`` live positions
+    (the last split takes the rest), as the kernel computes it on the
+    device from the context length."""
+    nsub = -(-max(live, 0) // SUBTILE)
+    lo, hi = SPLIT_SUBTILES
+    return SUBTILE * min(hi, max(lo, -(-nsub // SPLIT_TARGET)))
 
 
-def _check_rows_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
-                     k_scale, v_scale, t: int):
-    """Device, dtype and shape checks of the paged_rows kernels' wrappers
-    (``q`` is [B, t, nh, hd]); returns ``ng`` (0 for bf16 pools)."""
+def splits_of(live: int) -> int:
+    """Splits of a sequence with ``live`` live positions (at least 1)."""
+    return max(1, -(-max(live, 0) // split_positions(live)))
+
+
+def paged_refusal(*, q_dtype, pool_dtype, hd: int, nh: int, nkv: int,
+                  ng: int = 0) -> Optional[str]:
+    """Why ``paged_sm90.cu`` does not take these types and shapes (``ng``:
+    scale groups per vector of int8 pools, 0 for bf16 pools), or None. Any
+    number of query rows per kv head runs: shared memory does not grow with
+    them."""
+    want = torch.int8 if ng else torch.bfloat16
+    if q_dtype != torch.bfloat16 or pool_dtype != want:
+        return (f"takes bf16 q and {'int8' if ng else 'bf16'} pools, got {q_dtype}, "
+                f"{pool_dtype}")
+    if hd not in KERNEL_HD:
+        return f"unsupported head dim {hd} (the kernel takes 64, 128 or 256)"
+    if nkv < 1 or nh % nkv:
+        return f"unsupported heads: nh={nh} is not a multiple of nkv={nkv}"
+    if ng and hd % (16 * ng):
+        return (f"{ng} scale groups of a {hd}-lane row: the kernel needs groups of a "
+                "multiple of 16 lanes")
+    return None
+
+
+def split_plan(B: int, t: int, nh: int, nkv: int, hd: int, bs: int, max_blocks: int,
+               window: Optional[int] = None) -> dict:
+    """How ``paged_sm90.cu`` cuts one call: query rows per kv head (``rows``
+    = g * t) in ``row_tiles`` of :data:`ROW_TILE`; a sequence's live
+    positions (at most the table's ``max_blocks * bs``, or ``window + t -
+    1`` with a static window) in at most ``splits`` (:func:`splits_of` of
+    any length up to that). The scratch holds, where a sequence can have
+    more than one split, fp32 partials (acc, then m and l) for every
+    (sequence, split, kv head, row): ``partials`` floats; ``counters`` int32
+    tickets, one per (sequence, kv head, row tile). One warp takes each
+    (sequence, split, kv head, row tile): at most ``items_max``."""
+    rows = nh // nkv * t
+    row_tiles = -(-rows // ROW_TILE)
+    span = max_blocks * bs
+    if window is not None:
+        span = min(span, window + t - 1)
+    # splits_of is largest at the longest span past lo * SPLIT_TARGET
+    # subtiles, and at most SPLIT_TARGET below it
+    nsub = -(-span // SUBTILE)
+    lo, hi = SPLIT_SUBTILES
+    splits = max(1, -(-min(nsub, lo * SPLIT_TARGET) // lo), -(-nsub // hi))
+    return {"rows": rows, "row_tiles": row_tiles, "splits": splits,
+            "items_max": B * splits * nkv * row_tiles,
+            "counters": B * nkv * row_tiles,
+            "partials": B * splits * nkv * rows * (hd + 2) if splits > 1 else 0}
+
+
+# per (device, stream): the kernel's ticket counters (zero between calls;
+# the merging warp resets its own) and its partials scratch, grown as needed
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev, stream: int, counters: int, partials: int):
+    key = (dev.index, stream)
+    c, p = _WORKSPACE.get(key, (None, None))
+    if c is None or c.numel() < counters:
+        c = torch.zeros(max(counters, 1024), dtype=torch.int32, device=dev)
+    if p is None or p.numel() < partials:
+        p = torch.empty(max(partials, 1), dtype=torch.float32, device=dev)
+    _WORKSPACE[key] = (c, p)
+    return c, p
+
+
+@contextlib.contextmanager
+def paged_planted_fault(fault: int):
+    """For the tests that show a check can fail: the paged kernel's
+    launches inside the block carry a planted fault. 1: the merge drops
+    each sequence's last split; 2: each subtile is read from the ring stage
+    after its own, before that copy has landed; 3: at one scale group per
+    vector the K scale is left out of the scores."""
+    plant = _build.load().dstt_paged_sm90_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
+
+
+def _check_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
+                k_scale, v_scale) -> int:
+    """Device, dtype and shape checks of the kernel's wrappers (``q`` is
+    [B, t, nh, hd]); returns ``ng`` (0 for bf16 pools)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -253,7 +280,7 @@ def _check_rows_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
                    ("v_scale", v_scale)):
         if x is not None and x.device != dev:
             raise ValueError(f"{arg} on {x.device}, q on {dev}")
-    quant = k_scale is not None
+    quant = _check_scales(k_scale, v_scale)
     want = torch.int8 if quant else torch.bfloat16
     if q.dtype != torch.bfloat16 or k_pool.dtype != want or v_pool.dtype != want:
         raise ValueError(f"{name} takes bf16 q and {'int8' if quant else 'bf16'} "
@@ -272,6 +299,9 @@ def _check_rows_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
                          f"match batch {B}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("pools must be contiguous")
+    if num_blocks * nkv * bs >= 2 ** 31:
+        raise ValueError(f"pools of {num_blocks * nkv * bs} rows: the kernel indexes "
+                         "rows in 31 bits")
     ng = 0
     if quant:
         ng = k_scale.shape[-1]
@@ -283,21 +313,16 @@ def _check_rows_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
                              f"{tuple(v_scale.shape)}")
         if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
             raise ValueError("scales must be contiguous")
-        if hd % (16 * ng):
-            raise ValueError(f"{ng} scale groups of a {hd}-lane row: the kernel "
-                             "needs groups of a multiple of 16 lanes")
-    rows = (nh // nkv) * t if nkv and nh % nkv == 0 else 0
-    if not rows or hd not in (64, 128, 256) \
-            or _rows_smem(hd, quant, rows, ng) > _SMEM_LIMIT:
-        raise ValueError(f"unsupported shape: nh={nh}, nkv={nkv}, t={t}, hd={hd} "
-                         f"(needs nh % nkv == 0, hd in 64/128/256 and the "
-                         f"{rows} rows of a kv head within shared memory)")
+    why = paged_refusal(q_dtype=q.dtype, pool_dtype=k_pool.dtype, hd=hd, nh=nh, nkv=nkv,
+                        ng=ng)
+    if why:
+        raise ValueError(f"{name} {why}")
     return ng
 
 
-def _launch_rows(entry: str, q4, k_pool, v_pool, block_tables, context_lens,
-                 k_scale, v_scale, window, scale, ng: int) -> torch.Tensor:
-    """Launch a ``paged_rows.cuh`` kernel over q4 [B, t, nh, hd]."""
+def _launch(q4, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale, window,
+            scale, ng: int) -> torch.Tensor:
+    """Launch ``paged_sm90.cu`` over q4 [B, t, nh, hd]."""
     dev = q4.device
     q4 = q4.contiguous()
     tables = block_tables.contiguous()
@@ -308,25 +333,52 @@ def _launch_rows(entry: str, q4, k_pool, v_pool, block_tables, context_lens,
     if B == 0:
         return out
     num_blocks, nkv, bs, _ = k_pool.shape
+    plan = split_plan(B, t, nh, nkv, hd, bs, tables.shape[1], window_static or None)
+    if plan["items_max"] >= 2 ** 31:
+        raise ValueError(f"{plan['items_max']} work items: the kernel counts them in 31 bits")
     scale = hd ** -0.5 if scale is None else scale
-    ks_ptr = k_scale.data_ptr() if k_scale is not None else None
-    vs_ptr = v_scale.data_ptr() if v_scale is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.load()
-    if entry == "decode_int8":
-        err = lib.dstt_paged_decode_int8(
-            q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
-            tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static,
-            out.data_ptr(), B, nh, nkv, hd, bs, num_blocks, tables.shape[1], ng,
-            float(scale), stream)
-    else:
-        err = lib.dstt_paged_verify(
-            q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
-            tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static,
-            out.data_ptr(), B, t, nh, nkv, hd, bs, num_blocks, tables.shape[1],
-            max(ng, 1), int(ng > 0), float(scale), stream)
-    _build.check(err, f"paged attention kernel ({entry})")
+    counters, partials = _workspace(dev, stream, plan["counters"], plan["partials"])
+    err = _build.load().dstt_paged_attention(
+        q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if ng else None, v_scale.data_ptr() if ng else None,
+        tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static, out.data_ptr(),
+        counters.data_ptr(), partials.data_ptr(), B, t, nh, nkv, hd, bs, num_blocks,
+        tables.shape[1], ng, plan["splits"], float(scale), stream)
+    _build.check(err, "paged attention kernel (paged_sm90.cu)")
     return out
+
+
+@register("paged_decode_attention", backend="cuda")
+def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                context_lens: torch.Tensor, *,
+                                scale: Optional[float] = None,
+                                window: Window = None,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Launch ``ops/csrc/paged_sm90.cu`` at t = 1 on bf16 pools. Returns
+    [B, nh, hd] bf16. With ``k_scale``/``v_scale`` (int8 pools) the int8
+    mode runs (:func:`paged_decode_attention_int8_cuda`)."""
+    if _check_scales(k_scale, v_scale):
+        return paged_decode_attention_int8_cuda(
+            q, k_pool, v_pool, block_tables, context_lens, scale=scale,
+            window=window, k_scale=k_scale, v_scale=v_scale)
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, nh, hd], got {tuple(q.shape)}")
+    q4 = q[:, None]
+    _check_args("paged_decode_attention_cuda", q4, k_pool, v_pool, block_tables,
+                context_lens, None, None)
+    out = _launch(q4, k_pool, v_pool, block_tables, context_lens, None, None, window,
+                  scale, 0)
+    if q.shape[0]:
+        paged_decode_attention_cuda.launches += 1
+    return out[:, 0]
+
+
+paged_decode_attention_cuda.launches = 0
 
 
 def paged_decode_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -336,17 +388,17 @@ def paged_decode_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                      k_scale: torch.Tensor, v_scale: torch.Tensor,
                                      scale: Optional[float] = None,
                                      window: Window = None) -> torch.Tensor:
-    """Launch the int8 mode of ``ops/csrc/paged_decode.cu`` (int8 code
-    pools, fp32 scales dequantized in registers). Returns [B, nh, hd] bf16."""
+    """Launch the int8 mode of ``ops/csrc/paged_sm90.cu`` at t = 1 (int8
+    code pools, fp32 scales applied in registers). Returns [B, nh, hd] bf16."""
     if k_scale is None or v_scale is None:
         raise ValueError("k_scale and v_scale must be given together")
     if q.dim() != 3:
         raise ValueError(f"q must be [B, nh, hd], got {tuple(q.shape)}")
     q4 = q[:, None]
-    ng = _check_rows_args("paged_decode_attention_int8_cuda", q4, k_pool, v_pool,
-                          block_tables, context_lens, k_scale, v_scale, 1)
-    out = _launch_rows("decode_int8", q4, k_pool, v_pool, block_tables,
-                       context_lens, k_scale, v_scale, window, scale, ng)
+    ng = _check_args("paged_decode_attention_int8_cuda", q4, k_pool, v_pool,
+                     block_tables, context_lens, k_scale, v_scale)
+    out = _launch(q4, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale,
+                  window, scale, ng)
     if q.shape[0]:
         paged_decode_attention_int8_cuda.launches += 1
     return out[:, 0]
@@ -402,15 +454,15 @@ def paged_spec_verify_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                      k_scale: Optional[torch.Tensor] = None,
                                      v_scale: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
-    """Launch ``ops/csrc/paged_verify.cu`` (bf16 pools, or int8 pools with
+    """Launch ``ops/csrc/paged_sm90.cu`` (bf16 pools, or int8 pools with
     ``k_scale``/``v_scale``). Returns [B, t, nh, hd] bf16."""
     _check_scales(k_scale, v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, t, nh, hd], got {tuple(q.shape)}")
-    ng = _check_rows_args("paged_spec_verify_attention_cuda", q, k_pool, v_pool,
-                          block_tables, context_lens, k_scale, v_scale, q.shape[1])
-    out = _launch_rows("verify", q, k_pool, v_pool, block_tables, context_lens,
-                       k_scale, v_scale, window, scale, ng)
+    ng = _check_args("paged_spec_verify_attention_cuda", q, k_pool, v_pool,
+                     block_tables, context_lens, k_scale, v_scale)
+    out = _launch(q, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale,
+                  window, scale, ng)
     if q.shape[0]:
         paged_spec_verify_attention_cuda.launches += 1
     return out

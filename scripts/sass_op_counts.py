@@ -9,7 +9,8 @@ prints, for each kernel whose mangled name matches ``--match`` (default:
 the bf16 flash backward kernels at hd 128 without a bias, those of
 ``flash_bwd_sm90.cu``), its instruction
 count and the counts of the opcodes that tell two builds apart (branches,
-constant loads, predicate ops, MUFU, HMMA, HGMMA, FFMA) as one JSON line. Two
+constant loads, predicate ops, MUFU, HMMA, HGMMA, FFMA) as one JSON line
+(``--match '^(?!.*paged)'``: every kernel outside the paged source). Two
 checkouts whose kernels read the same here compiled to the same code
 shape; run it on both when a kernel's time moves without its source.
 Needs the CUDA toolkit (``cuobjdump``) and a GPU-capable ``nvcc``.
@@ -50,7 +51,10 @@ def main() -> int:
                           check=True).stdout
     out = {"root": str(root), "kernels": {}}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = func.split("\n", 1)[0].strip()
+        # an anonymous namespace's name carries a hash of the build's path:
+        # drop it, so two checkouts' kernels match by name
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__",
+                      func.split("\n", 1)[0].strip())
         if not re.search(args.match, name):
             continue
         ops = collections.Counter(

@@ -31,6 +31,10 @@ the same limits as RMSNorm. int8 quantize and dequantize: codes, scales and
 values EQUAL to the plain versions' (IEEE division, round half to even, one
 fp32 product), so no tolerance. The OPT-1.3B shapes of the paged and flash
 kernels (MHA: g = 1, 32 kv heads, hd 64, S 2048) at the limits above.
+The one paged kernel (``paged_sm90.cu``) also at live lengths around its
+split boundaries, at Falcon-7B's shapes (71 query heads over one kv head:
+71 and 355 rows), giving identical bits on two calls, and failing the
+row check under each of its planted faults.
 
 The flash kernels' bias mode (forward, dQ with and without dbias, dK/dV)
 against the plain pieces with the same bias, at the flash limits above
@@ -72,7 +76,7 @@ from deepspeed_tpu_torch.ops.norms import (
     rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
-    paged_decode_attention_torch, paged_spec_verify_attention_cuda,
+    paged_decode_attention_torch, paged_planted_fault, paged_spec_verify_attention_cuda,
     paged_spec_verify_attention_torch)
 from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
@@ -907,7 +911,7 @@ def test_old_backward_entry_points_refuse_bf16_with_bias(cuda_device):
 
 
 # --------------------------------------------------------------------------- #
-# int8 paged decode and the spec-verify kernel (ops/csrc/paged_rows.cuh)
+# int8 paged decode and the spec-verify kernel (ops/csrc/paged_sm90.cu)
 # --------------------------------------------------------------------------- #
 def _pools(rs, nblocks, nkv, bs, hd, device, ng=0):
     """bf16 pools (ng = 0) or int8 code pools with fp32 scale pools, as
@@ -1064,12 +1068,118 @@ def test_paged_rows_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         paged_spec_verify_attention_cuda(*args, k_scale=ks8, v_scale=ks8)
     with pytest.raises(ValueError, match=">= 1"):
         paged_spec_verify_attention_cuda(*args, window=0, **sc)
-    with pytest.raises(ValueError, match="shared memory"):   # 256 rows of hd 256
-        q256 = torch.zeros(1, 16, 16, 256, device=cuda_device, dtype=torch.bfloat16)
-        kp256 = torch.zeros(4, 1, 8, 256, device=cuda_device, dtype=torch.bfloat16)
-        paged_spec_verify_attention_cuda(q256, kp256, kp256, tables[:1], ctx[:1])
+    with pytest.raises(ValueError, match="head dim 96"):
+        q96 = torch.zeros(1, 5, 8, 96, device=cuda_device, dtype=torch.bfloat16)
+        kp96 = torch.zeros(4, 2, 8, 96, device=cuda_device, dtype=torch.bfloat16)
+        paged_spec_verify_attention_cuda(q96, kp96, kp96, tables[:1], ctx[:1])
+    # 256 rows of hd 256 over one kv head: shared memory does not grow with
+    # the rows, so the kernel takes it
+    rs = np.random.RandomState(3)
+    q256 = torch.from_numpy(rs.randn(1, 16, 16, 256).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    kp256, vp256 = (torch.from_numpy(rs.randn(4, 1, 8, 256).astype(np.float32)).to(
+        cuda_device, torch.bfloat16) for _ in range(2))
+    t256 = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=cuda_device)
+    c256 = torch.tensor([7], dtype=torch.int32, device=cuda_device)
+    assert_rows_close(paged_spec_verify_attention_cuda(q256, kp256, vp256, t256, c256),
+                      paged_spec_verify_attention_torch(q256, kp256, vp256, t256, c256))
     with pytest.raises(ValueError, match="CUDA"):
         paged_spec_verify_attention_cuda(*(a.cpu() for a in args))
+
+
+def _paged_call(args, sc, t, window=None):
+    """(kernel, plain) over ``args`` from ``_rows_case``: decode at t = 1."""
+    q, kp, vp, tables, ctx = args
+    if t == 1:
+        return (paged_decode_attention_cuda(q[:, 0], kp, vp, tables, ctx, window=window, **sc),
+                paged_decode_attention_torch(q[:, 0], kp, vp, tables, ctx, window=window, **sc))
+    return (paged_spec_verify_attention_cuda(*args, window=window, **sc),
+            paged_spec_verify_attention_torch(*args, window=window, **sc))
+
+
+# live lengths (ctx + t) around the kernel's split boundaries: 64 is one
+# split of 4 subtiles, 65 two; 512 is 8 splits of 64 positions, 513 seven
+# of 80; 4096 is 8 of 512, 4097 nine (split_positions, splits_of)
+SPLIT_EDGES = [17, 63, 64, 65, 511, 512, 513, 4095, 4096, 4097]
+
+
+def _split_edge_ctx(t, cap):
+    """Contexts whose live positions end one before a split boundary, on it
+    and one after; within one split; 0 on the trash block; the table's last
+    position."""
+    return np.array([0] + [e - t for e in SPLIT_EDGES + [cap]], np.int32)
+
+
+@pytest.mark.parametrize("ng", [0, 1, 4])
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("window", [None, 509, "tensor"])
+def test_paged_kernel_at_split_edges(cuda_device, ng, t, window):
+    """paged_sm90.cu cuts each sequence's live positions into splits and
+    merges them: contexts around split boundaries, one split, the table's
+    end, with and without a window."""
+    mb, bs = 260, 16
+    ctx = _split_edge_ctx(t, mb * bs)
+    args, sc = _rows_case(cuda_device, len(ctx), t, 8, 2, 128, bs, 300, mb, ng,
+                          seed=7 * t + ng, ctx=ctx)
+    if window == "tensor":
+        window = torch.tensor(4095, dtype=torch.int32, device=cuda_device)
+    got, ref = _paged_call(args, sc, t, window)
+    torch.cuda.synchronize()
+    assert_rows_close(got, ref)
+
+
+@pytest.mark.parametrize("ng", [0, 1])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_kernel_at_falcon_shapes(cuda_device, ng, t):
+    """Falcon-7B: 71 query heads over one kv head at hd 64 (decode: 71 rows;
+    verify at t = 5: 355 rows), which the earlier kernels refused."""
+    mb, bs = 12, 64
+    ctx = np.array([0, 5, 63, 64, 300, 513 - t, mb * bs - t], np.int32)
+    args, sc = _rows_case(cuda_device, len(ctx), t, 71, 1, 64, bs, 40, mb, ng,
+                          seed=71 + t + ng, ctx=ctx)
+    got, ref = _paged_call(args, sc, t)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert_rows_close(got, ref)
+
+
+@pytest.mark.parametrize("ng", [0, 1, 4])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_kernel_is_deterministic(cuda_device, ng, t):
+    """Two calls on the same inputs give identical bits: the splits merge in
+    split order, with no atomics on values."""
+    mb, bs = 40, 16
+    args, sc = _rows_case(cuda_device, 16, t, 32, 8, 128, bs, 64, mb, ng, seed=11 + ng)
+    first = _paged_call(args, sc, t)[0].clone()
+    for _ in range(3):
+        again = _paged_call(args, sc, t)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("fault,what,ng", [
+    (1, "the merge drops the last split", 0),
+    (1, "the merge drops the last split", 1),
+    (2, "a ring stage read before its copy lands", 0),
+    (2, "a ring stage read before its copy lands", 4),
+    (3, "the K scale left out at ng = 1", 1)])
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_check_fails_a_planted_fault(cuda_device, fault, what, ng, t):
+    """The planted faults of ``paged_planted_fault`` must fail the check the
+    sound kernel passes, on rows of more than one split."""
+    mb, bs = 40, 16
+    ctx = np.array([70, 300, 513, mb * bs - t], np.int32)
+    args, sc = _rows_case(cuda_device, len(ctx), t, 32, 8, 128, bs, 64, mb, ng,
+                          seed=fault + ng, ctx=ctx)
+    got, ref = _paged_call(args, sc, t)
+    assert_rows_close(got, ref)
+    with paged_planted_fault(fault):
+        bad = _paged_call(args, sc, t)[0]
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        assert_rows_close(bad, ref)
+    # and the counters left by the faulty launches do not disturb the next
+    assert_rows_close(_paged_call(args, sc, t)[0], ref)
 
 
 # --------------------------------------------------------------------------- #
