@@ -58,9 +58,12 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    split, a ring stage read before its copy lands, the K scale left out)
    each failing the same check.
    LayerNorm at N in {1, 7, 64, 2048, 8192} rows of d = 2048, 4096 rows of
-   d = 4096 (one BLOOM-7b1 micro-batch) and 64 rows of d = 768, bf16 and
-   fp32, with and without bias, within ``RMS_TOL`` (fp32: 1e-4) of each
-   row's RMS; a left-out bias must fail (d 4096 bf16 and d 768 fp32). int8 quantize of
+   d = 4096 (one BLOOM-7b1 micro-batch) and 64 rows of d = 768, bf16, fp16
+   and fp32, with and without bias, within ``RMS_TOL`` (fp32: 1e-4) of each
+   row's RMS; a left-out bias must fail (d 4096 bf16 and d 768 fp32), and so
+   must the warp kernel's planted fault (lane 31's share left out of the
+   centred sum, 64 rows of d 2048); times at 1 row (the launch floor), 64,
+   8192 and [4096 x 4096]. int8 quantize of
    OPT-1.3B's ``w_up`` [2048, 8192] in bf16 and fp32 at groups 2048 and 128
    (one all-zero row, one group of exact .5 ties) and dequantize to fp32
    and bf16: codes, scales and values EQUAL to the plain versions' bit for
@@ -81,7 +84,12 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    must fail. The block-sparse kernels against their dense plain pieces at Llama-3-8B
    width (S 4096, block 128: bigbird causal, fixed non-causal, sliding
    window), at blocks 16, 32 and 64, and with an empty kv column (exact zero
-   dK/dV); fault: one list entry swapped. Times beside the bound, the plain
+   dK/dV); fault: one list entry swapped. The dK/dV at block 128 runs
+   ``sparse_sm90.cu`` (columns split over work items, TMA + wgmma): two
+   calls bit-identical, and its three planted faults (the merge dropping a
+   chunk's partial, a ring stage read before its copy lands, a query head of
+   the group skipped) must fail; its time at each S 4096 layout; the dK/dV
+   of ``sparse_attention.cu`` timed at S 4096 block 32. Times beside the bound, the plain
    pieces and SDPA (float ``attn_mask``; at the MSA shape a mask that
    requires grad, so SDPA computes dbias as the dQ kernel does, on the
    first fused backend that takes it, fp32 mask first; the bf16 mask
@@ -170,7 +178,9 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    path in fp32, and ``blocksparse_attention`` at S 16384 (bigbird causal,
    block 128, 32/8 heads, hd 128) against the dense-masked SDPA, within
    ``ENTRY_RTOL`` (relative Frobenius), its grads against the plain pieces
-   (query-row chunks) at ``FLASH_TOL``; launches equal the calls made.
+   (query-row chunks) at ``FLASH_TOL``; launches equal the calls made (dK/dV
+   on ``sparse_sm90.cu``); then at S 4096, block 32, whose dK/dV runs
+   ``sparse_attention.cu``, the grads held the same way.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -1500,9 +1510,11 @@ PROFILE_GROUPS = [
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
-    ("sparse", ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")),
+    ("sparse", ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel",
+                "sparse_dkv_sm90_kernel")),
     ("rms_norm", ("rms_norm_kernel",)),
-    ("layer_norm", ("layer_norm_vec_kernel", "layer_norm_scalar_kernel")),
+    ("layer_norm", ("layer_norm_warp_kernel", "layer_norm_vec_kernel",
+                    "layer_norm_scalar_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("softmax_ce", ("softmax", "SoftMax", "nll_loss", "cross_entropy")),
     ("reduce", ("reduce_kernel",)),
@@ -1796,7 +1808,8 @@ def phase_ln_quant_kernels(seed: int, card: str):
     import torch
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda, layer_norm_torch
+    from deepspeed_tpu_torch.ops.norms import (
+        layer_norm_cuda, layer_norm_planted_fault, layer_norm_torch)
     from deepspeed_tpu_torch.ops.quantization import (
         dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
         quantize_int8_torch)
@@ -1808,10 +1821,11 @@ def phase_ln_quant_kernels(seed: int, card: str):
     # ---- LayerNorm -------------------------------------------------------
     eps = 1e-5
     errs, rows, faults = [], {}, {}
+    lane_fault = None
     # OPT-1.3B (d 2048), one BLOOM-7b1 micro-batch (2 x 2048 tokens of d 4096)
-    # and GPT-2 (768)
+    # and GPT-2 (768); bf16, fp16 (at the bf16 limit) and fp32
     for d, ns in ((2048, (1, 7, 64, 2048, 8192)), (4096, (4096,)), (768, (64,))):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
             b = (0.2 * torch.randn(d, generator=gen, device=dev)).to(dtype)
             for n in ns:
@@ -1822,25 +1836,37 @@ def phase_ln_quant_kernels(seed: int, card: str):
                     name = (f"layer_norm N={n} d={d} {str(dtype)[6:]} "
                             f"{'bias' if bias is not None else 'no bias'}")
                     errs.append(check_close(name, y, layer_norm_torch(x, w, bias, eps),
-                                            RMS_TOL if dtype == torch.bfloat16 else 1e-4))
+                                            1e-4 if dtype == torch.float32 else RMS_TOL))
                 if d == 4096 and dtype == torch.bfloat16:
                     faults[d] = row_err(layer_norm_cuda(x, w, None, eps),
                                         layer_norm_torch(x, w, b, eps))
-                if d != 2048 or dtype != torch.bfloat16 or n not in (64, 8192):
+                if d == 2048 and dtype == torch.bfloat16 and n == 64:
+                    # planted fault (the warp kernel, which serves 64 rows):
+                    # lane 31's share left out of the centred sum
+                    with layer_norm_planted_fault(1):
+                        y_bad = layer_norm_cuda(x, w, b, eps)
+                        torch.cuda.synchronize()
+                    lane_fault = row_err(y_bad, layer_norm_torch(x, w, b, eps))
+                    del y_bad
+                if dtype != torch.bfloat16 or (d, n) not in ((2048, 1), (2048, 64), (2048, 8192),
+                                                             (4096, 4096)):
                     continue
-                # times at the serving step's rows (64 slots) and a training
-                # micro-batch's (4 x 2048 tokens)
+                # times at one row (the launch floor), the serving step's rows
+                # (64 slots), an OPT training micro-batch's (4 x 2048 tokens)
+                # and a BLOOM-7b1 one's (2 x 2048 tokens of d 4096)
                 iters = 2000 if n <= 64 else 300
                 byt = 2 * n * d * 2 + 2 * d * 2
                 kern_t = measure(lambda: layer_norm_cuda(x, w, b, eps), iters)
                 plain_t = measure(lambda: layer_norm_torch(x, w, b, eps), iters)
                 lib_t = measure(lambda: F.layer_norm(x, (d,), w, b, eps), iters)
-                rows[n] = {"ms": kern_t["ms"], "plain_ms": plain_t["ms"],
-                           "library_ms": lib_t["ms"], "host_ms": kern_t["host_ms"],
-                           "plain_kernels": plain_t["kernels_per_call"],
-                           "bound_ms": max(byt / HBM_BYTES_PER_S, 8 * n * d / FP32_FLOPS) * 1e3,
-                           "bytes": byt}
-                r = rows[n]
+                key = n if d == 2048 else f"{n}x{d}"
+                rows[key] = {"ms": kern_t["ms"], "plain_ms": plain_t["ms"],
+                             "library_ms": lib_t["ms"], "host_ms": kern_t["host_ms"],
+                             "plain_kernels": plain_t["kernels_per_call"],
+                             "bound_ms": max(byt / HBM_BYTES_PER_S,
+                                             8 * n * d / FP32_FLOPS) * 1e3,
+                             "bytes": byt}
+                r = rows[key]
                 log(f"  layer_norm N={n} d={d} bf16: device kernel {r['ms']*1e3:.2f} us, plain "
                     f"{r['plain_ms']*1e3:.2f} us ({r['plain_kernels']} kernels), F.layer_norm "
                     f"{r['library_ms']*1e3:.2f} us, bound {r['bound_ms']*1e3:.3f} us (bytes); "
@@ -1853,10 +1879,17 @@ def phase_ln_quant_kernels(seed: int, card: str):
             f"row err/RMS={fault_rel:.4f} (must exceed tol {RMS_TOL:g})")
         if fault_rel <= RMS_TOL:
             raise AssertionError("layer_norm tolerance passes a missing bias; it is too loose")
+    log(f"  layer_norm planted fault (lane 31's share left out of the centred sum, N=64 "
+        f"d=2048 bf16): max_abs_err={lane_fault[0]:.3e}, row err/RMS={lane_fault[1]:.4f} "
+        f"(must exceed tol {RMS_TOL:g})")
+    if lane_fault[1] <= RMS_TOL:
+        raise AssertionError("layer_norm tolerance passes a lane left out of the variance")
     out["layer_norm"] = {"max_abs_err": max(e for e, _ in errs),
                          "max_row_err_over_rms": max(r for _, r in errs), "tol": RMS_TOL,
                          "planted_fault": {f"d={d}": {"max_abs_err": e, "row_err_over_rms": r}
                                            for d, (e, r) in faults.items()},
+                         "planted_fault_lane31": {"max_abs_err": lane_fault[0],
+                                                  "row_err_over_rms": lane_fault[1]},
                          "rows": rows}
 
     # ---- quantize / dequantize -------------------------------------------
@@ -2067,6 +2100,7 @@ def phase_modules(seed: int, card: str):
 BLOOM_B, BLOOM_S, BLOOM_H = 2, 2048, 32          # one BLOOM-7b1 micro-batch, hd 128
 MSA_ROWS, MSA_RES, MSA_H, MSA_HD = 512, 256, 8, 32   # AlphaFold MSA row attention
 SPARSE_S, SPARSE_S_LONG, SPARSE_BS = 4096, 16384, 128
+SPARSE_BS_OLD = 32             # a block that sparse_attention.cu's dK/dV keeps
 SPARSE_Q_CHUNK = 1024          # query rows a plain piece holds at S 16384
 SPARSE_LAYOUTS = {   # name: (builder of the [nb, nb] layout, causal)
     "bigbird causal": (lambda nb: _sparse().bigbird_layout(nb, 3, 1, 2, seed=SEED, causal=True),
@@ -2437,7 +2471,8 @@ def phase_sparse_kernels(seed: int, card: str):
 
     def case(label, layout, bs, causal, tensors, q_chunk=None):
         q, k, v, do = tensors
-        (o, lse, _), got = _sparse_pieces(q, k, v, do, layout, bs, causal)
+        stats, got = _sparse_pieces(q, k, v, do, layout, bs, causal)
+        o, lse, _ = stats
         o_ref, _ = sa.sparse_fwd_torch(q, k, v, layout, bs, causal=causal, q_chunk=q_chunk)
         ref = dict(zip(("dq", "dk", "dv"),
                        sa.sparse_bwd_torch(q, k, v, o, lse, do, layout, bs, causal=causal,
@@ -2446,19 +2481,30 @@ def phase_sparse_kernels(seed: int, card: str):
         errs = _check_pieces(f"sparse {label}", got, ref, ("o", "dq", "dk", "dv"))
         out["cases"][label] = {"max_abs_err": {k_: e for k_, (e, _) in errs.items()},
                                "row_err_over_rms": {k_: r for k_, (_, r) in errs.items()}}
-        return got, o_ref
+        return got, o_ref, stats
 
     s, bs = SPARSE_S, SPARSE_BS
     nb = s // bs
     main = None
+    t4096 = {}
     for name, (builder, causal) in SPARSE_LAYOUTS.items():
         tensors = qkv(s, H, 8, HD)
         lay = builder(nb)
-        got, o_ref = case(f"{name} S={s} block {bs}", lay, bs, causal, tensors)
+        got, o_ref, (_, lse, delta) = case(f"{name} S={s} block {bs}", lay, bs, causal, tensors)
+        q, k, v, do = tensors
+        # the dK/dV kernel (sparse_sm90.cu at block 128) timed at each layout
+        w4 = sparse_work(lay, bs, causal, 1, s, H, 8, HD)
+        t4096[name] = {"ms": measure(lambda: sa.sparse_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, lay, bs, causal=causal), 10)["ms"],
+            "bound_ms": w4["dkv"][0], "bound_by": w4["dkv"][1]}
+        log(f"  sparse dkv {name} S={s} block {bs} (sparse_sm90.cu): device "
+            f"{t4096[name]['ms']*1e3:.1f} us, bound {w4['dkv'][0]*1e3:.1f} us "
+            f"({w4['dkv'][1]}) [{card}]")
         if main is None:
-            main = (tensors, lay, causal, o_ref)
-        del got
+            main = (tensors, lay, causal, o_ref, lse, delta, got)
+        del got, q, k, v, do, lse, delta
         torch.cuda.empty_cache()
+    out["timing_s4096_dkv"] = t4096
     for small_bs, hd, h, hkv in ((16, 32, 4, 2), (32, 64, 8, 2), (64, 128, 8, 8)):
         nb_s = 12
         lay = sa.bigbird_layout(nb_s, 3, 1, 2, seed=seed, causal=True)
@@ -2467,13 +2513,36 @@ def phase_sparse_kernels(seed: int, card: str):
     lay = np.eye(8, dtype=bool)
     lay[:, 0] = True
     lay[1, 1] = False                                    # nobody attends to kv block 1
-    got, _ = case("empty kv column block 128", lay, bs, False, qkv(8 * bs, H, 8, HD))
+    got, _, _ = case("empty kv column block 128", lay, bs, False, qkv(8 * bs, H, 8, HD))
     if got["dk"][:, bs:2 * bs].any() or got["dv"][:, bs:2 * bs].any():
         raise AssertionError("an unattended kv block got nonzero dK/dV")
     log("  empty kv column: dK/dV exactly zero")
 
+    # sparse_sm90.cu on the bigbird layout (its global column split into
+    # chunks): two calls give the same bits, and each planted fault (the
+    # merge dropping a chunk, a ring stage read early, a query head
+    # skipped) fails the check the sound kernel passed
+    (q, k, v, do), lay, causal, o_ref, lse, delta, good = main
+    chunks0 = int(sa.dkv_split_plan(lay, causal, H // 8)["plan"][0, 4])
+    again = sa.sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, delta, lay, bs, causal=causal)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], good["dk"]) and torch.equal(again[1], good["dv"])):
+        raise AssertionError("sparse_sm90.cu: two calls gave different bits")
+    log(f"  sparse dkv (sparse_sm90.cu): two calls bit-identical; kv block 0 in {chunks0} "
+        "chunks")
+    out["sm90_faults"] = {}
+    for fault, what in ((1, "the merge drops a chunk's partial"),
+                        (2, "a ring stage read before its copy lands"),
+                        (3, "one query head of the group skipped")):
+        with sa.sparse_sm90_planted_fault(fault):
+            bad = sa.sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, delta, lay, bs, causal=causal)
+            torch.cuda.synchronize()
+        out["sm90_faults"][fault] = _fault_must_fail(
+            f"sparse_sm90.cu planted fault {fault} ({what})", bad[0], good["dk"], "dk")
+        del bad
+    del good, lse, delta
+
     # planted fault: one list entry of the bigbird layout swapped
-    (q, k, v, do), lay, causal, o_ref = main
     bad = lay.copy()
     row = nb - 1
     act = np.nonzero(bad[row, :row])[0]
@@ -2490,6 +2559,42 @@ def phase_sparse_kernels(seed: int, card: str):
     del q, k, v, do, o, lse, o_bad, o_ref, main
     torch.cuda.empty_cache()
 
+    # the dK/dV kernel of sparse_attention.cu (bf16 below block 128, fp32)
+    # timed where phase 15's second call runs it: S 4096, bigbird causal,
+    # block 32, beside its bound, its plain piece and the dense-masked SDPA
+    bs32 = SPARSE_BS_OLD
+    lay = SPARSE_LAYOUTS["bigbird causal"][0](s // bs32)
+    q, k, v, do = qkv(s, H, 8, HD)
+    o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs32, causal=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
+    if sa.sparse_dkv_source(q.dtype, bs32, HD) != sa.DKV_MMA:
+        raise AssertionError(f"block {bs32} is not routed to {sa.DKV_MMA}")
+    w32 = sparse_work(lay, bs32, True, 1, s, H, 8, HD)
+    mask = sa.token_mask(lay, bs32, True, dev)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kt, vt = (x.repeat_interleave(H // 8, dim=1) for x in (kt, vt))
+
+    def sdpa32():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(dot)
+
+    lib32 = (measure(sdpa32, 5)["ms"]
+             - measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask),
+                       5)["ms"])
+    out["timing_mma_dkv"] = {
+        "ms": measure(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, bs32,
+                                                     causal=True), 10)["ms"],
+        "plain_ms": measure(lambda: sa.sparse_bwd_torch(q, k, v, o, lse, do, lay, bs32,
+                                                        causal=True), 3)["ms"],
+        "plain_at": f"S {s} block {bs32}", "library_ms": lib32,
+        "bound_ms": w32["dkv"][0], "bound_by": w32["dkv"][1]}
+    r = out["timing_mma_dkv"]
+    log(f"  sparse dkv bigbird causal S={s} block {bs32} (sparse_attention.cu): device "
+        f"{r['ms']*1e3:.1f} us, bound {r['bound_ms']*1e3:.1f} us ({r['bound_by']}), plain "
+        f"{r['plain_ms']*1e3:.1f} us, dense-masked SDPA backward {lib32*1e3:.1f} us [{card}]")
+    del q, k, v, do, o, lse, delta, mask, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
     # S 16384, bigbird causal, block 128 (phase 15's shape): held against the
     # plain pieces SPARSE_Q_CHUNK query rows at a time (their dense fp32
     # scores whole would take 32 GiB), the global kv column's transposed list
@@ -2499,8 +2604,8 @@ def phase_sparse_kernels(seed: int, card: str):
     builder, causal = SPARSE_LAYOUTS["bigbird causal"]
     lay = builder(nb)
     q, k, v, do = tensors = qkv(s, H, 8, HD)
-    got, _ = case(f"bigbird causal S={s} block {bs}", lay, bs, causal, tensors,
-                  q_chunk=SPARSE_Q_CHUNK)
+    got, _, _ = case(f"bigbird causal S={s} block {bs}", lay, bs, causal, tensors,
+                     q_chunk=SPARSE_Q_CHUNK)
     o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
     bad = lay.copy()
@@ -2634,7 +2739,10 @@ def phase_entry_points(seed: int, card: str):
     q, k, v = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
                .requires_grad_() for hh in (H, 8, 8))
     do = torch.randn(1, s, H, HD, generator=gen, device=dev).to(torch.bfloat16)
-    fns = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+    # dK/dV: sparse_sm90.cu at block 128 (bf16), sparse_attention.cu below it
+    fns = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_sm90_cuda,
+           sa.sparse_bwd_dkv_cuda)
+    names = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv_sm90", "sparse_bwd_dkv")
     for f in fns:
         f.launches = 0
     torch.cuda.synchronize()
@@ -2644,9 +2752,9 @@ def phase_entry_points(seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [f.launches for f in fns]
-    log(f"  blocksparse_attention S={s} bigbird causal: launches (fwd, dq, dkv) {launches}, "
-        f"expected [1, 1, 1]; fwd+bwd {wall*1e3:.1f} ms by host clock [{card}]")
-    if launches != [1, 1, 1]:
+    log(f"  blocksparse_attention S={s} bigbird causal: launches (fwd, dq, dkv sm90, dkv) "
+        f"{launches}, expected [1, 1, 1, 0]; fwd+bwd {wall*1e3:.1f} ms by host clock [{card}]")
+    if launches != [1, 1, 1, 0]:
         raise AssertionError(f"blocksparse_attention launches {launches} != calls made")
     if not all(bool(torch.isfinite(t.float()).all()) for t in (o, q.grad, k.grad, v.grad)):
         raise AssertionError("blocksparse_attention: non-finite output or grads")
@@ -2667,10 +2775,42 @@ def phase_entry_points(seed: int, card: str):
             qd, kd, vd, o_ref, lse_ref, do, lay, bs, causal=causal, q_chunk=SPARSE_Q_CHUNK)))
     errs = _check_pieces(f"blocksparse_attention S={s} grads vs plain pieces",
                          {"dq": q.grad, "dk": k.grad, "dv": v.grad}, ref, ("dq", "dk", "dv"))
-    out["blocksparse"] = {"launches": dict(zip(("sparse_fwd", "sparse_bwd_dq",
-                                                "sparse_bwd_dkv"), launches)),
+    out["blocksparse"] = {"launches": dict(zip(names, launches)),
                           "rel_fro": e_out, "host_ms": wall * 1e3,
                           "grad_row_err_over_rms": {k_: r for k_, (_, r) in errs.items()}}
+    del q, k, v, do, o, ref, o_ref, lse_ref
+    torch.cuda.empty_cache()
+
+    # ---- blocksparse_attention at S 4096, block 32 ------------------------
+    # (the dK/dV of sparse_attention.cu, which keeps the blocks below 128)
+    s, bs = SPARSE_S, SPARSE_BS_OLD
+    lay = builder(s // bs)
+    q, k, v = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_() for hh in (H, 8, 8))
+    do = torch.randn(1, s, H, HD, generator=gen, device=dev).to(torch.bfloat16)
+    for f in fns:
+        f.launches = 0
+    o = sa.blocksparse_attention(q, k, v, lay, bs, causal=causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = [f.launches for f in fns]
+    log(f"  blocksparse_attention S={s} block {bs} bigbird causal: launches (fwd, dq, dkv "
+        f"sm90, dkv) {launches}, expected [1, 1, 0, 1]")
+    if launches != [1, 1, 0, 1]:
+        raise AssertionError(f"blocksparse_attention launches {launches} != calls made")
+    if not all(bool(torch.isfinite(t.float()).all()) for t in (o, q.grad, k.grad, v.grad)):
+        raise AssertionError("blocksparse_attention: non-finite output or grads")
+    with torch.no_grad():
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        o_ref, lse_ref = sa.sparse_fwd_torch(qd, kd, vd, lay, bs, causal=causal,
+                                             q_chunk=SPARSE_Q_CHUNK)
+        ref = dict(zip(("dq", "dk", "dv"), sa.sparse_bwd_torch(
+            qd, kd, vd, o_ref, lse_ref, do, lay, bs, causal=causal, q_chunk=SPARSE_Q_CHUNK)))
+    errs = _check_pieces(f"blocksparse_attention S={s} block {bs} grads vs plain pieces",
+                         {"dq": q.grad, "dk": k.grad, "dv": v.grad}, ref, ("dq", "dk", "dv"))
+    out["blocksparse_block32"] = {
+        "launches": dict(zip(names, launches)),
+        "grad_row_err_over_rms": {k_: r for k_, (_, r) in errs.items()}}
     del q, k, v, do, o, ref, o_ref, lse_ref
     torch.cuda.empty_cache()
     return out
@@ -2703,20 +2843,31 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
             "evoformer": {k_: fb["evoformer"]["timing"][key][k_]
                           for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "library_ms_bf16_mask_no_grad")}})
-    for key, name, line in (("fwd", "sparse_fwd", ":39"), ("dq", "sparse_bwd_dq", ":87"),
-                            ("dkv", "sparse_bwd_dkv", ":126")):
-        r = sp["timing"][key]
-        keys = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}[key]
+    # the cases each dK/dV kernel ran: block 128 on sparse_sm90.cu, the
+    # smaller blocks on sparse_attention.cu
+    sm90_case = {c: c.endswith("block 128") for c in sp["cases"]}
+    for key, name, line, src, which in (
+            ("fwd", "sparse_fwd", ":39", "sparse_attention.cu", None),
+            ("dq", "sparse_bwd_dq", ":87", "sparse_attention.cu", None),
+            ("dkv", "sparse_bwd_dkv_sm90", ":126", "sparse_sm90.cu", True),
+            ("dkv_mma", "sparse_bwd_dkv", ":126", "sparse_attention.cu", False)):
+        r = sp["timing_mma_dkv"] if key == "dkv_mma" else sp["timing"][key]
+        keys = {"fwd": ("o",), "dq": ("dq",)}.get(key, ("dk", "dv"))
+        cases = [c for label, c in sp["cases"].items() if which in (None, sm90_case[label])]
+        by_path = {"blocksparse_attention S 16384 block 128":
+                   entry["blocksparse"]["launches"][name],
+                   "blocksparse_attention S 4096 block 32":
+                   entry["blocksparse_block32"]["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "deepspeed_tpu_torch/ops/csrc/sparse_attention.cu",
+            "source": "deepspeed_tpu_torch/ops/csrc/" + src,
             "replaces": "deepspeed_tpu/ops/pallas/sparse_attention.py" + line,
-            "launches": entry["blocksparse"]["launches"][name],
-            "launches_by_path": {"blocksparse_attention": entry["blocksparse"]["launches"][name]},
-            "max_abs_err": max(c["max_abs_err"][x] for c in sp["cases"].values() for x in keys),
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"][x] for c in cases for x in keys),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_at": r["plain_at"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels[-2]["s4096"] = sp["timing_s4096_dkv"]
     return kernels
 
 

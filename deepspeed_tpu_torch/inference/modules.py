@@ -262,4 +262,4 @@ def _unembed_tiled(cfg: UnembedConfig):
 def _moe(cfg: MoEConfig):
     raise NotImplementedError(
         "the moe slot's top_k_gating (moe/sharded_moe.py) is not ported yet: "
-        "ROADMAP.md queue A.10")
+        "ROADMAP.md queue A.7")

@@ -207,6 +207,7 @@ def model_spec(cfg: BloomConfig, compute_dtype=torch.bfloat16):
         init_fn=lambda gen: init(cfg, gen),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
+        compute_dtype=compute_dtype,
     )
 
 

@@ -348,4 +348,5 @@ def model_spec(cfg: GPTConfig, compute_dtype=torch.bfloat16):
         init_fn=lambda gen: init(cfg, gen),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
+        compute_dtype=compute_dtype,
     )

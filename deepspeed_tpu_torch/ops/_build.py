@@ -37,8 +37,10 @@ _BIAS = [_VP, _LL, _LL, _LL, _LL, _I]
 SIGNATURES = {
     # x, w, y, n_rows, d, eps, dtype (0 bf16, 1 f32), stream
     "dstt_rms_norm": [_VP, _VP, _VP, _I, _I, _F, _I, _VP],
-    # x, w, b (may be null), y, n_rows, d, eps, dtype, stream
+    # x, w, b (may be null), y, n_rows, d, eps, dtype (2: f16 too), stream
     "dstt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # planted fault of the LayerNorm kernel's next launches (tests): 0 none
+    "dstt_layer_norm_plant": [_I],
     # x, q, scales, n_groups, group_size, dtype of x, stream
     "dstt_quantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # q, scales, out, n_groups, group_size, dtype of out, stream
@@ -78,6 +80,12 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dk, dv, idx_t, cnt_t, (max_t .. causal),
     # scale, dtype, stream
     "dstt_sparse_bwd_dkv": [_VP] * 10 + [_I] * 8 + [_F, _I, _VP],
+    # bf16 at block 128 (sparse_sm90.cu): q, k, v, dout, lse, delta, dk, dv,
+    # idx_t, cnt_t, plan, counters, partials, max_t, n_plan, B, H, Hkv, S, D,
+    # causal, scale, stream
+    "dstt_sparse_bwd_dkv_sm90": [_VP] * 13 + [_I] * 8 + [_F, _VP],
+    # planted fault of sparse_sm90.cu's next launches (tests): 0 none
+    "dstt_sparse_sm90_plant": [_I],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,0 +1,563 @@
+// Block-sparse attention dK/dV for Hopper (sm_90a), bf16, layout block 128,
+// hd 32 / 64 / 128: the columns of the layout split over work items, TMA
+// loads into an mbarrier ring, wgmma products, warp specialisation. bf16 at
+// blocks 16-64 and all of fp32 stay on sparse_attention.cu
+// (ops/sparse_attention.py `sparse_dkv_source` routes by shape and dtype).
+//
+// Replaces: deepspeed_tpu/ops/pallas/sparse_attention.py `_sparse_dkv_kernel`
+// (:126, pallas_call at :333), driven by `sparse_flash_attention_bwd` (:270).
+// The same function as sparse_attention.cu's dK/dV: for each kv block, the
+// q blocks of its transposed list (`compact_layout_t`, :193), each of the
+// kv head's g query heads in turn; p recomputed from the forward's lse, p =
+// exp(scale q k^T - lse) (0 above the diagonal of a causal layout's
+// diagonal block), dp = dO v^T, ds = p (dp - delta) scale rounded to bf16;
+// dv = p^T dO (p rounded to bf16), dk = ds^T q, fp32 accumulation. Under GQA
+// K / V are read in place and the group's heads add up: NARROW dK/dV, no
+// widen-then-sum. A kv block no q block sees gets zero dK/dV.
+//
+// Bound on an H100 SXM: operations, over the active pairs. At Llama-3-8B
+// width (32 / 8 heads, hd 128) with S 16384, block 128 and a causal bigbird
+// layout (window 3, global 1, random 2): four products over the visible
+// (q, k) pairs, ~308 GFLOP, 311 us at 989 TFLOP/s, against ~0.41 GB of
+// inputs and outputs (~121 us of HBM time).
+//
+// What bounded sparse_attention.cu's kernel there: one block per (kv block,
+// batch, kv head) walks that column's whole list. The global column (kv
+// block 0) is in all 128 q blocks' lists, so its blocks walk 128 q blocks x
+// 4 heads while a typical one walks ~4 x 4: the kernel's time was that
+// one walk (7.3 ms against 0.3 ms of operations), on mma.sync tiles.
+// Design, accordingly:
+// - Work items split the long columns. An item is (plan entry, batch, kv
+//   head); a plan entry (ops/sparse_attention.py `dkv_split_plan`, uploaded
+//   as int32 [entries, 8]) is one chunk of one column: a run of at most L
+//   consecutive (query head, listed q block) pairs, L twice the median
+//   column's pairs. At that layout column 0's 512 pairs become 16 chunks of
+//   32 and every other column (<= 32 pairs) stays one. Entries come longest
+//   first and a persistent grid (one block of 3 warpgroups per SM) deals
+//   items forward and backward in turn, as flash_bwd_sm90.cu does.
+// - A column of one chunk stores bf16 dK/dV directly (zeros when it has no
+//   pair). The chunks of a split column write fp32 partials to scratch;
+//   then each consumer warp takes a ticket from a counter of its own (per
+//   column, batch, kv head and warp) after a __threadfence, and the warp
+//   that draws the last ticket sums the column's partials in chunk order
+//   (deterministic: two calls give the same bits) into bf16 dK/dV and
+//   resets its counter to 0 for the next call. A warp stores its partial in
+//   its own threads' accumulator layout, so it reads back exactly its lanes'
+//   values: no exchange between warps, no barrier.
+// - The item's step is flash_bwd_sm90.cu's dK/dV step: 128 kv rows of K and
+//   V loaded once by TMA; Q and dO tiles of 64 rows streamed through a
+//   4-stage ring by the producer warp, whose next coordinate comes from the
+//   item's chunk of the transposed list (query head, q block, one of its two
+//   64-row tiles), with each tile's lse (base 2) and delta staged beside it
+//   by the producer's ordinary loads; per tile and consumer warpgroup (64 kv
+//   rows) S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16 from shared
+//   memory), p^T packed to bf16 in registers as the A operand of dV += P^T
+//   dO, ds^T that of dK += dS^T Q. P and dS never leave registers. The
+//   element mask applies only on a causal layout's diagonal block.
+// - The rules of the repo's wgmma kernels hold: [rows, 64] TMA boxes with a
+//   128-byte swizzle (64-byte at hd 32); setmaxnreg only inside `if
+//   (consumer) {...} else {...}`; wgmma only under conditions on tile and
+//   item indices, every value loaded from the plan or the lists broadcast
+//   through __shfl_sync (as the warpgroup index is), so ptxas sees uniform
+//   branches and keeps the wgmma asynchronous (C7520 otherwise).
+// - A copy of the step, not a header shared with flash_bwd_sm90.cu: moving
+//   it would change the text every flash kernel is compiled from, and nvcc
+//   compiled unchanged flash text 44% slower once before when a shared
+//   struct grew. This source includes the two headers unchanged.
+// - Block 64 is not taken: an item is 128 kv rows for two consumer
+//   warpgroups; a 64-row layout block would leave one of them idle or need
+//   two items per block with lists of their own.
+// Shared memory as flash_bwd_sm90.cu's dK/dV: K + V 4 * 128 * D bytes, 4
+// stages of Q + dO 4 * 64 * D and 512 B of lse and delta; D = 128: 194 KB.
+// Planted faults (dstt_sparse_sm90_plant, tests only): 1 the merge drops the
+// last chunk's partial; 2 each tile is read from the ring stage after its
+// own, before that copy has landed; 3 the last query head of each GQA group
+// is skipped.
+
+#include "flash_common.cuh"
+#include "hopper_common.cuh"
+
+namespace dstt_sparse {
+
+namespace {
+
+using namespace dstt_hopper;
+using dstt_flash::allow_smem;
+using dstt_flash::kLog2e;
+
+constexpr int WG = 64;        // kv rows a consumer warpgroup owns
+constexpr int BM = 2 * WG;    // kv rows of a work item: one layout block
+constexpr int BT = 64;        // q rows of a ring tile
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 3 * 128;   // producer + two consumer warpgroups
+constexpr int STAGES = 4;
+constexpr int kPlanInts = 8;        // int32 fields of a plan entry
+
+template <int D>
+struct Cfg {
+  static constexpr int CB = D < 64 ? D : 64;        // columns of one swizzled block
+  static constexpr int RB = CB * 2;                 // its row bytes
+  static constexpr int NCB = D / CB;                // column blocks of a tile
+  static constexpr int SWZ = RB;                    // 128-byte (64-byte at D = 32) swizzle
+  static constexpr int SBO = 8 * RB;                // stride of 8-row groups
+  static constexpr int ITEM_BYTES = BM * D * 2;     // K or V
+  static constexpr int TILE_BYTES = BT * D * 2;     // one ring tile of Q or dO
+  static constexpr int ROW_BYTES = 2 * BT * 4;      // a tile's lse and delta
+  static constexpr size_t SMEM = 1024 + 2 * ITEM_BYTES + (size_t)STAGES * 2 * TILE_BYTES +
+                                 8 * (2 + 2 * STAGES) + (size_t)STAGES * ROW_BYTES;
+  static constexpr int PART = 2 * BM * D;           // floats of one partial (dK, dV)
+};
+
+int g_plant = 0;
+
+struct SpArgs {
+  const float* lse;     // [B * H, S], base e
+  const float* delta;   // [B * H, S]
+  void* dk;             // [B, S, Hkv, D] bf16
+  void* dv;
+  const int* idx_t;     // [S / BM, max_t] transposed lists
+  const int* cnt_t;     // [S / BM]
+  const int* plan;      // [n_plan, kPlanInts]
+  int* counters;        // [split columns, B * Hkv, 8 warps], 0 between calls
+  float* partials;      // [slots, B * Hkv, PART]
+  int max_t, n_plan, B, H, Hkv, S, causal;
+  float scale;
+};
+
+// A value every lane of the warp loaded alike, as lane 0's: branches on it
+// are then uniform to ptxas.
+__device__ __forceinline__ int uni(int v) { return __shfl_sync(0xffffffffu, v, 0); }
+
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n32(d, a[0], a[1], a[2], a[3], db, 1);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n64(d, a[0], a[1], a[2], a[3], db, 1);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n128(d, a[0], a[1], a[2], a[3], db, 1);
+}
+
+// acc = A B^T over D (64 x 64): A's 64 rows of an item tile at sa, B a ring
+// tile at sb, both K-major.
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[BT / 2], uint32_t sa, uint32_t sb) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int cb = kk * 16 / C::CB, in_row = (kk * 16 % C::CB) * 2;
+    wgmma_ss_n64(acc, smem_desc(sa + cb * BM * C::RB + in_row, 16, C::SBO, C::SWZ),
+                 smem_desc(sb + cb * BT * C::RB + in_row, 16, C::SBO, C::SWZ), kk > 0);
+  }
+}
+
+// acc += A B: A (64 x BT, bf16) in registers, k16 step kt in a[4 kt .. +3];
+// B the [BT, D] ring tile at sb read MN-major.
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[BT / 4],
+                                         uint32_t sb) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kt = 0; kt < BT / 16; ++kt)
+    wgmma_rs(acc, &a[4 * kt], smem_desc(sb + kt * 16 * C::RB, BT * C::RB, C::SBO, C::SWZ));
+}
+
+template <int N>
+__device__ __forceinline__ void pack(uint32_t (&pa)[N / 2], const float (&v)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) pa[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+}
+
+// This thread's rows r0 and r0 + 8 of an accumulator (D / 2 registers) as
+// bf16 rows of `first` (row stride `stride` elements).
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&v)[D / 2], int t, int r0,
+                                          __nv_bfloat16* first, size_t stride) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* out = first + (size_t)(r0 + 8 * r) * stride;
+#pragma unroll
+    for (int i = 2 * r; i < D / 2; i += 4)   // registers i, i + 1 of this row
+      *reinterpret_cast<__nv_bfloat162*>(out + acc_col(t, i)) =
+          __floats2bfloat162_rn(v[i], v[i + 1]);
+  }
+}
+
+// The item a block takes in its round k: rounds of gridDim.x items, dealt
+// forward in even rounds and backward in odd ones.
+__device__ __forceinline__ int item_of(int k) {
+  const int g = gridDim.x, c = blockIdx.x;
+  return k * g + ((k & 1) ? g - 1 - c : c);
+}
+
+__host__ __device__ __forceinline__ int n_items(const SpArgs& a) { return a.n_plan * a.B * a.Hkv; }
+
+// A work item: one plan entry (a chunk of kv block kb's pairs) at one
+// (batch, kv head). Every field is warp-uniform (uni).
+struct Item {
+  int b, hk, kb, p0, np, chunk, chunks, slot0, ctr, cnt;
+  __device__ Item(int w, const SpArgs& a) {
+    const int bh = w % (a.B * a.Hkv);
+    const int* e = a.plan + (size_t)(w / (a.B * a.Hkv)) * kPlanInts;
+    b = bh / a.Hkv;
+    hk = bh % a.Hkv;
+    kb = uni(__ldg(e));
+    p0 = uni(__ldg(e + 1));
+    np = uni(__ldg(e + 2));
+    chunk = uni(__ldg(e + 3));
+    chunks = uni(__ldg(e + 4));
+    slot0 = uni(__ldg(e + 5));
+    ctr = uni(__ldg(e + 6));
+    cnt = uni(__ldg(a.cnt_t + kb));
+  }
+  // pair p: query head p / cnt of the group, q block idx_t[kb][p % cnt]
+  __device__ int head(int p) const { return p / cnt; }
+  __device__ int qblock(const SpArgs& a, int p) const {
+    return uni(__ldg(a.idx_t + (size_t)kb * a.max_t + p % cnt));
+  }
+  // planted fault 3: the last query head of the group is skipped
+  __device__ bool skipped(const SpArgs& a, int p, int plant) const {
+    return plant == 3 && head(p) == a.H / a.Hkv - 1;
+  }
+};
+
+template <int D>
+struct Smem {
+  uint32_t k, v, ring, rows, kv_full, kv_empty, full0, empty0;
+  float* rows_gen;
+  __device__ explicit Smem(unsigned char* raw) {
+    using C = Cfg<D>;
+    k = (smem_u32(raw) + 1023u) & ~1023u;   // swizzled tiles start on 1024-byte lines
+    v = k + C::ITEM_BYTES;
+    ring = v + C::ITEM_BYTES;               // stage s: Q at ring + 2 s TILE_BYTES, dO after it
+    rows = ring + STAGES * 2 * C::TILE_BYTES;   // stage s: lse (base 2), delta: BT each
+    rows_gen = reinterpret_cast<float*>(raw + (rows - smem_u32(raw)));
+    kv_full = rows + STAGES * C::ROW_BYTES;
+    kv_empty = kv_full + 8;
+    full0 = kv_empty + 8;
+    empty0 = full0 + 8 * STAGES;
+  }
+  __device__ uint32_t q(int s) const { return ring + s * 2 * Cfg<D>::TILE_BYTES; }
+  __device__ uint32_t dout(int s) const { return q(s) + Cfg<D>::TILE_BYTES; }
+  __device__ float* lse(int s) const { return rows_gen + s * 2 * BT; }
+  __device__ float* delta(int s) const { return lse(s) + BT; }
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+};
+
+// The producer warp: per item, K and V (once the consumers are done with the
+// last ones; lane 0), then the two 64-row Q / dO tiles of each of the
+// chunk's pairs into the ring (lane 0, TMA) with their lse and delta (every
+// lane). A stage's full barrier counts the 32 lanes' arrivals and the TMA
+// bytes.
+template <int D>
+__device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* tm_q,
+                                        const CUtensorMap* tm_do, const CUtensorMap* tm_k,
+                                        const CUtensorMap* tm_v, const SpArgs& a, int plant) {
+  using C = Cfg<D>;
+  const int lane = threadIdx.x & 31, g = a.H / a.Hkv;
+  if (lane == 0) {
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_do);
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+  }
+  int it = 0;   // q tiles loaded so far
+  for (int n = 0; item_of(n) < n_items(a); ++n) {
+    const Item item(item_of(n), a);
+    if (lane == 0) {
+      if (n > 0) mbar_wait(sm.kv_empty, (n - 1) & 1);
+      mbar_expect_tx(sm.kv_full, 2 * C::ITEM_BYTES);
+      for (int c = 0; c < C::NCB; ++c) {
+        tma_load_4d(sm.k + c * BM * C::RB, tm_k, sm.kv_full, c * C::CB, item.hk,
+                    item.kb * BM, item.b);
+        tma_load_4d(sm.v + c * BM * C::RB, tm_v, sm.kv_full, c * C::CB, item.hk,
+                    item.kb * BM, item.b);
+      }
+    }
+    for (int p = item.p0; p < item.p0 + item.np; ++p) {
+      if (item.skipped(a, p, plant)) continue;
+      const int hq = item.hk * g + item.head(p), qb = item.qblock(a, p);
+      const float* lse = a.lse + ((size_t)item.b * a.H + hq) * a.S;
+      const float* delta = a.delta + ((size_t)item.b * a.H + hq) * a.S;
+      for (int t = 0; t < BM / BT; ++t, ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(sm.empty(s), (it / STAGES - 1) & 1);
+        const int i0 = qb * BM + t * BT;
+        float* sl = sm.lse(s);
+        float* sd = sm.delta(s);
+        for (int r = lane; r < BT; r += 32) {
+          sl[r] = lse[i0 + r] * kLog2e;
+          sd[r] = delta[i0 + r];
+        }
+        if (lane == 0) {
+          mbar_expect_tx(sm.full(s), 2 * C::TILE_BYTES);
+          for (int c = 0; c < C::NCB; ++c) {
+            tma_load_4d(sm.q(s) + c * BT * C::RB, tm_q, sm.full(s), c * C::CB, hq, i0, item.b);
+            tma_load_4d(sm.dout(s) + c * BT * C::RB, tm_do, sm.full(s), c * C::CB, hq, i0,
+                        item.b);
+          }
+        } else {
+          mbar_arrive(sm.full(s));
+        }
+      }
+    }
+  }
+}
+
+// A consumer warpgroup (cw 0 or 1: kv rows kb * 128 + 64 cw ..). Per q tile:
+// S^T and dP^T as two commit groups; p^T once S^T is done, then dV += P^T dO
+// issued while ds^T waits for dP^T; then dK += dS^T Q, and the stage is
+// released once both products are done. Then the item's epilogue: a store,
+// or a partial, a ticket and (for the last chunk to finish) the merge.
+template <int D>
+__device__ __forceinline__ void consume(const Smem<D>& sm, const SpArgs& a, int cw, int plant) {
+  using C = Cfg<D>;
+  const int t = threadIdx.x % 128, lane = t & 31, wi = t >> 5;
+  const uint32_t sKw = sm.k + cw * WG * C::RB;   // this warpgroup's 64 K rows
+  const uint32_t sVw = sm.v + cw * WG * C::RB;   // and V rows
+  const float sl2 = a.scale * kLog2e;
+  const size_t BH = (size_t)a.B * a.Hkv;
+  int it = 0;                                    // q tiles consumed so far
+
+  for (int n = 0; item_of(n) < n_items(a); ++n) {
+    const Item item(item_of(n), a);
+    const int kr0 = item.kb * BM + cw * WG + acc_row(t, 0);   // kv rows kr0, kr0 + 8
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(sm.kv_full, n & 1);
+    for (int p = item.p0; p < item.p0 + item.np; ++p) {
+      if (item.skipped(a, p, plant)) continue;
+      const int qb = item.qblock(a, p);
+      const bool mask = a.causal && qb == item.kb;   // the diagonal block
+      for (int tt = 0; tt < BM / BT; ++tt, ++it) {
+        const int s = it % STAGES;
+        const int i0 = qb * BM + tt * BT;
+        const int sr = plant == 2 ? (it + 1) % STAGES : s;   // planted fault 2
+        mbar_wait(sm.full(s), (it / STAGES) & 1);
+
+        float st[BT / 2], dpt[BT / 2];   // [kv row][q col]
+        wgmma_fence();
+        issue_ss<D>(st, sKw, sm.q(sr));
+        wgmma_commit();
+        issue_ss<D>(dpt, sVw, sm.dout(sr));
+        wgmma_commit();
+
+        const float* lse2 = sm.lse(sr);
+        const float* dlt = sm.delta(sr);
+        wgmma_wait<1>();   // S^T is done
+        fence_regs(st);
+        if (mask) {
+#pragma unroll
+          for (int e = 0; e < BT / 2; ++e) {
+            const int col = acc_col(t, e);
+            st[e] = kr0 + 8 * ((e >> 1) & 1) <= i0 + col
+                        ? exp2_ftz(fmaf(st[e], sl2, -lse2[col]))
+                        : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < BT / 2; ++e) st[e] = exp2_ftz(fmaf(st[e], sl2, -lse2[acc_col(t, e)]));
+        }
+        uint32_t pa[BT / 4];   // p^T rounded to bf16: the A operand of dV += P^T dO
+        pack<BT / 2>(pa, st);
+        wgmma_fence();
+        issue_rs<D>(dv, pa, sm.dout(sr));
+        wgmma_commit();
+
+        wgmma_wait<1>();   // dP^T is done; dV may still run
+        fence_regs(dpt);
+#pragma unroll
+        for (int e = 0; e < BT / 2; ++e)
+          dpt[e] = st[e] * (dpt[e] - dlt[acc_col(t, e)]) * a.scale;
+        uint32_t sa[BT / 4];   // ds^T rounded to bf16: the A operand of dK += dS^T Q
+        pack<BT / 2>(sa, dpt);
+        wgmma_fence();
+        issue_rs<D>(dk, sa, sm.q(sr));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(sa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty(s));
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.kv_empty);   // every S^T and dP^T of this item is done
+
+    const size_t kstride = (size_t)a.Hkv * D;   // dk, dv [B, S, Hkv, D]
+    const size_t first = (size_t)item.b * a.S * kstride + (size_t)item.hk * D;
+    __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk) + first;
+    __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv) + first;
+    if (item.chunks == 1) {
+      store_acc<D>(dk, t, kr0, dkp, kstride);
+      store_acc<D>(dv, t, kr0, dvp, kstride);
+      continue;
+    }
+    // a split column: this chunk's fp32 partial, in this thread's register
+    // order (float4 q of thread t at (tensor, cw, q, t)), then a ticket
+    const size_t bh = (size_t)item.b * a.Hkv + item.hk;
+    float4* part = reinterpret_cast<float4*>(a.partials) +
+                   ((size_t)(item.slot0 + item.chunk) * BH + bh) * (C::PART / 4);
+#pragma unroll
+    for (int q = 0; q < D / 8; ++q) {
+      part[((0 * 2 + cw) * (D / 8) + q) * 128 + t] =
+          make_float4(dk[4 * q], dk[4 * q + 1], dk[4 * q + 2], dk[4 * q + 3]);
+      part[((1 * 2 + cw) * (D / 8) + q) * 128 + t] =
+          make_float4(dv[4 * q], dv[4 * q + 1], dv[4 * q + 2], dv[4 * q + 3]);
+    }
+    __threadfence();
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      int* ctr = a.counters + ((size_t)item.ctr * BH + bh) * kConsumerWarps + cw * 4 + wi;
+      last = atomicAdd(ctr, 1) == item.chunks - 1;
+      if (last) *ctr = 0;   // every chunk has arrived: ready for the next call
+    }
+    last = uni(last);
+    if (!last) continue;
+    __threadfence();
+    // the last chunk to arrive sums the column's partials in chunk order
+    const int nuse = plant == 1 ? item.chunks - 1 : item.chunks;   // planted fault 1
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int c = 0; c < nuse; ++c) {
+      const float4* src = reinterpret_cast<const float4*>(a.partials) +
+                          ((size_t)(item.slot0 + c) * BH + bh) * (C::PART / 4);
+#pragma unroll
+      for (int q = 0; q < D / 8; ++q) {
+        const float4 x = __ldcg(src + ((0 * 2 + cw) * (D / 8) + q) * 128 + t);
+        const float4 y = __ldcg(src + ((1 * 2 + cw) * (D / 8) + q) * 128 + t);
+        dk[4 * q] += x.x;
+        dk[4 * q + 1] += x.y;
+        dk[4 * q + 2] += x.z;
+        dk[4 * q + 3] += x.w;
+        dv[4 * q] += y.x;
+        dv[4 * q + 1] += y.y;
+        dv[4 * q + 2] += y.z;
+        dv[4 * q + 3] += y.w;
+      }
+    }
+    store_acc<D>(dk, t, kr0, dkp, kstride);
+    store_acc<D>(dv, t, kr0, dvp, kstride);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const SpArgs a,
+                           const int plant) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  if (threadIdx.x == 0) {
+    mbar_init(sm.kv_full, 1);
+    mbar_init(sm.kv_empty, kConsumerWarps);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 32);   // the producer warp's lanes; lane 0's also brings the bytes
+      mbar_init(sm.empty(s), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    setmaxnreg_inc<240>();
+    // the warpgroup index broadcast from lane 0: branches on it are then
+    // uniform to ptxas, which keeps the wgmma after them asynchronous
+    const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
+    consume<D>(sm, a, cw, plant);
+  } else {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) produce<D>(sm, &tm_q, &tm_do, &tm_k, &tm_v, a, plant);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const SpArgs& a, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t err = bhsd_map(&tq, q, a.B, a.S, a.H, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tdo, dout, a.B, a.S, a.H, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tk, k, a.B, a.S, a.Hkv, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tv, v, a.B, a.S, a.Hkv, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(sparse_dkv_sm90_kernel<D>, C::SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int items = n_items(a);
+  sparse_dkv_sm90_kernel<D><<<items < sms ? items : sms, kThreads, C::SMEM, stream>>>(
+      tq, tdo, tk, tv, a, g_plant);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+}  // namespace dstt_sparse
+
+// dk, dv [B, S, Hkv, D] bf16 (narrow) from q, dout [B, S, H, D], k, v [B, S,
+// Hkv, D] (bf16, dense, 16-byte aligned), lse and delta [B * H, S] fp32 (lse
+// in base e), over the transposed lists idx_t [S / 128, max_t], cnt_t
+// [S / 128] (layout block 128) and the plan [n_plan, 8] int32 of
+// ops/sparse_attention.py `dkv_split_plan`; counters (int32, zero, one per
+// split column x B * Hkv x 8) and partials (fp32, the plan's slots x B * Hkv
+// x 2 * 128 * D) are the wrapper's cached scratch. D: 32, 64 or 128.
+extern "C" int dstt_sparse_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* lse, const float* delta,
+                                        void* dk, void* dv, const int* idx_t, const int* cnt_t,
+                                        const int* plan, int* counters, float* partials,
+                                        int max_t, int n_plan, int B, int H, int Hkv, int S,
+                                        int D, int causal, float scale, void* stream) {
+  using namespace dstt_sparse;
+  if (B == 0 || S == 0) return 0;
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || S % BM != 0 || max_t <= 0 || n_plan <= 0 ||
+      (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  SpArgs a{};
+  a.lse = lse;
+  a.delta = delta;
+  a.dk = dk;
+  a.dv = dv;
+  a.idx_t = idx_t;
+  a.cnt_t = cnt_t;
+  a.plan = plan;
+  a.counters = counters;
+  a.partials = partials;
+  a.max_t = max_t;
+  a.n_plan = n_plan;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.causal = causal;
+  a.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return (int)launch<128>(q, k, v, dout, a, s);
+  if (D == 64) return (int)launch<64>(q, k, v, dout, a, s);
+  return (int)launch<32>(q, k, v, dout, a, s);
+}
+
+// Plants a fault in the kernel's next launches (tests only): 1 the merge
+// drops the last chunk's partial, 2 each tile is read from the ring stage
+// after its own, 3 the last query head of each GQA group is skipped; 0 none.
+extern "C" int dstt_sparse_sm90_plant(int fault) {
+  dstt_sparse::g_plant = fault;
+  return 0;
+}

@@ -10,8 +10,10 @@ the input's device (``ops/registry.py``):
   the oracle the kernel is held against on the card.
 - the differentiable op over the hand-written kernel (:func:`rms_norm_cuda`
   over ``ops/csrc/rms_norm.cu``, :func:`layer_norm_cuda` over
-  ``ops/csrc/layer_norm.cu``): one block per row, 16-byte loads, fp32
-  warp-shuffle reductions. They replace the TPU kernels
+  ``ops/csrc/layer_norm.cu``): 16-byte loads, fp32 reductions (RMSNorm a
+  block per row, bf16 and fp32; LayerNorm bf16, fp16 and fp32 as the
+  Pallas kernel takes them, a few warps a row with shuffle-only sums for
+  calls of few rows, a block per row otherwise). They replace the TPU kernels
   ``deepspeed_tpu/ops/pallas/norms.py:27`` and ``:87``; each source's header
   note gives the bound. ``rms_norm_cuda.launches`` and
   ``layer_norm_cuda.launches`` count the kernel launches.
@@ -26,6 +28,7 @@ gradients.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +37,8 @@ from . import _build
 from .registry import op, register
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# layer_norm.cu also takes fp16 (ROADMAP queue B.2); rms_norm.cu does not yet
+_LN_DTYPE_CODE = {**_DTYPE_CODE, torch.float16: 2}
 
 
 @register("rms_norm", backend="torch")
@@ -175,7 +180,7 @@ def _launch_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     lib = _build.load()
     err = lib.dstt_layer_norm(x2.data_ptr(), w.data_ptr(),
                               None if b is None else b.data_ptr(), y.data_ptr(),
-                              x2.shape[0], d, float(eps), _DTYPE_CODE[x.dtype],
+                              x2.shape[0], d, float(eps), _LN_DTYPE_CODE[x.dtype],
                               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layer_norm kernel")
     if x2.shape[0]:
@@ -213,8 +218,8 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
         if x.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"layer_norm_cuda needs x and {name} on one CUDA "
                              f"device, got {x.device} and {t.device}")
-        if x.dtype not in _DTYPE_CODE or t.dtype != x.dtype:
-            raise ValueError(f"layer_norm_cuda takes bf16 or f32 x with a {name} "
+        if x.dtype not in _LN_DTYPE_CODE or t.dtype != x.dtype:
+            raise ValueError(f"layer_norm_cuda takes bf16, fp16 or f32 x with a {name} "
                              f"of the same dtype, got {x.dtype} and {t.dtype}")
         if t.shape != (x.shape[-1],):
             raise ValueError(f"{name} shape {tuple(t.shape)} != ({x.shape[-1]},)")
@@ -222,5 +227,19 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 
 layer_norm_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def layer_norm_planted_fault(fault: int):
+    """For the tests that show a check can fail: the LayerNorm kernel's
+    launches inside the block carry a planted fault. 1: lane 31's share of
+    each row's centred sum of squares is left out (a row must give lane 31
+    values: d of at least 32 vectors of 16 bytes)."""
+    plant = _build.load().dstt_layer_norm_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
 
 layer_norm = op("layer_norm")

@@ -95,7 +95,7 @@ def get_optimizer(name: str, **params) -> Optimizer:
     key = name.lower().replace("_", "")
     if key in _NOT_PORTED:
         raise NotImplementedError(f"optimizer '{name}' is not yet ported to "
-                                  f"deepspeed_tpu_torch (queue A.4)")
+                                  f"deepspeed_tpu_torch (queue A.6)")
     if key not in _FACTORY:
         raise ValueError(f"unknown optimizer '{name}' (known: {sorted(_FACTORY)})")
     params = dict(params)

@@ -237,8 +237,10 @@ def split_plan(B: int, t: int, nh: int, nkv: int, hd: int, bs: int, max_blocks: 
             "partials": B * splits * nkv * rows * (hd + 2) if splits > 1 else 0}
 
 
-# per (device, stream): the kernel's ticket counters (zero between calls;
-# the merging warp resets its own) and its partials scratch, grown as needed
+# per (device, stream): the ticket counters (zero between calls; the merging
+# warp resets its own) and the fp32 partials scratch of this kernel and of
+# sparse_sm90.cu's dK/dV (calls on one stream run in turn), grown before a
+# launch that needs more
 _WORKSPACE: dict = {}
 
 

@@ -9,13 +9,17 @@ kv blocks (columns); tokens attend iff their blocks are connected and, when
 (``fixed``, ``sliding_window``, ``bigbird``) are the JAX package's, byte
 for byte (bigbird draws from ``np.random.RandomState(seed)``).
 
-Three hand-written kernels (``ops/csrc/sparse_attention.cu``) replace the
-three TPU kernels; their wrappers take CUDA tensors only and count their
-launches: :func:`sparse_fwd_cuda` ``-> (o, lse)`` and :func:`sparse_bwd_dq_cuda`
-walk each q block's compacted list of active kv blocks
-(:func:`compact_layout`), :func:`sparse_bwd_dkv_cuda` each kv block's
-transposed list (:func:`compact_layout_t`) and writes NARROW dK/dV under
-GQA (the query group summed in the kernel). The plain versions
+Hand-written kernels replace the three TPU kernels; their wrappers take
+CUDA tensors only and count their launches: :func:`sparse_fwd_cuda`
+``-> (o, lse)`` and :func:`sparse_bwd_dq_cuda` walk each q block's
+compacted list of active kv blocks (:func:`compact_layout`,
+``ops/csrc/sparse_attention.cu``); :func:`sparse_bwd_dkv_cuda` walks each kv
+block's transposed list (:func:`compact_layout_t`) and writes NARROW dK/dV
+under GQA (the query group summed in the kernel). It routes by
+:func:`sparse_dkv_source`: bf16 at block 128 runs the Hopper kernel of
+``ops/csrc/sparse_sm90.cu`` (:func:`sparse_bwd_dkv_sm90_cuda`: the columns
+split over work items by :func:`dkv_split_plan`, TMA + wgmma), every other
+block and fp32 the kernel of ``sparse_attention.cu``. The plain versions
 :func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
 functions densely over the token mask, serve CPU tensors, and are what the
 kernels are held against on the card. The compacted lists are cached per
@@ -30,6 +34,7 @@ Layout ``[B, S, H, D]`` for q, ``[B, S, Hkv, D]`` for k/v.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -38,9 +43,15 @@ import torch
 
 from . import _build
 from .attention import attention_torch
-from .flash_attention import _DTYPE_CODE, HEAD_DIMS, _bwd_plain_f32, _fwd_plain
+from .flash_attention import _DTYPE_CODE, HEAD_DIMS, _bwd_plain_f32, _fwd_plain, tma_check
+from .paged_attention import _workspace
 
 BLOCK_SIZES = (16, 32, 64, 128)
+DKV_SM90, DKV_MMA = "sparse_sm90.cu", "sparse_attention.cu"
+SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's kv rows
+SPLIT_FACTOR = 2     # a work item takes at most this many times the median column's pairs
+PLAN_INTS = 8        # int32 fields of a plan entry (PLAN_FIELDS, then padding)
+PLAN_FIELDS = ("kv_block", "pair_lo", "pairs", "chunk", "chunks", "slot0", "counter")
 
 
 # --------------------------------------------------------------------------- #
@@ -164,6 +175,75 @@ def layout_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor
     JAX ``_kernel_vjp``'s cache)."""
     lay = np.ascontiguousarray(layout, bool)
     return _device_lists(lay.tobytes(), lay.shape[0], bool(causal), str(torch.device(device)))
+
+
+def sparse_dkv_source(dtype: torch.dtype, block: int, d: int) -> str:
+    """The source under ``ops/csrc/`` whose kernel computes block-sparse
+    dK/dV at this dtype, layout block and head dim: bf16 at block 128 runs
+    ``sparse_sm90.cu`` (TMA + wgmma; a work item is one 128-row kv block),
+    bf16 at blocks 16-64 and all of fp32 (whose wgmma would be TF32) the
+    ``mma.sync`` / FMA kernel of ``sparse_attention.cu``. Raises on what
+    neither takes. A dispatch by shape, not a fallback."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"block-sparse dK/dV takes bf16 or fp32, not {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"block-sparse dK/dV takes head dim in {HEAD_DIMS}, not {d}")
+    if block not in BLOCK_SIZES:
+        raise ValueError(f"block-sparse dK/dV takes block size in {BLOCK_SIZES}, not {block}")
+    return DKV_SM90 if dtype == torch.bfloat16 and block == SM90_BLOCK else DKV_MMA
+
+
+@functools.lru_cache(maxsize=64)
+def _split_plan(layout_bytes: bytes, nb: int, causal: bool, group: int):
+    _, _, _, cnt_t = _compacted(layout_bytes, nb, causal)
+    pairs = cnt_t.astype(np.int64) * group
+    live = pairs[pairs > 0]
+    chunk_pairs = max(1, int(SPLIT_FACTOR * np.median(live))) if len(live) else 1
+    entries, slots, split = [], 0, 0
+    for kb in range(nb):
+        n = int(pairs[kb])
+        chunks = max(1, -(-n // chunk_pairs))
+        bounds = [n * c // chunks for c in range(chunks + 1)]   # runs within one pair
+        slot0, ctr = (slots, split) if chunks > 1 else (-1, -1)
+        if chunks > 1:
+            slots, split = slots + chunks, split + 1
+        entries += [(kb, bounds[c], bounds[c + 1] - bounds[c], c, chunks, slot0, ctr)
+                    for c in range(chunks)]
+    # longest first (stable: kv block, then chunk order)
+    entries.sort(key=lambda e: -e[2])
+    plan = np.zeros((len(entries), PLAN_INTS), np.int32)
+    plan[:, :len(PLAN_FIELDS)] = np.asarray(entries, np.int64)
+    plan.setflags(write=False)
+    return plan, chunk_pairs, slots, split
+
+
+def dkv_split_plan(layout: np.ndarray, causal: bool, group: int) -> dict:
+    """The work items of ``sparse_sm90.cu``'s dK/dV over one layout, cached
+    per ``(layout bytes, causal, group)`` like the compacted lists.
+
+    Kv block ``j``'s pairs are ``(query head, listed q block)`` of its
+    transposed list (:func:`compact_layout_t`), numbered ``head * cnt_t[j] +
+    list position`` for the ``group`` query heads of a kv head. A column of
+    more than ``chunk_pairs`` (``SPLIT_FACTOR`` times the median non-empty
+    column's pairs) is cut into that many near-equal runs of consecutive
+    pairs, its chunks; every other column, an empty one included, is one
+    chunk. ``plan`` is int32 ``[entries, PLAN_INTS]``, its fields
+    ``PLAN_FIELDS``: kv block, first pair, pair count, chunk, chunks of the
+    column, the column's first partial slot and its ticket counter (-1 for a
+    column of one chunk), longest entries first. The kernel runs each entry
+    once per (batch, kv head); a split column's chunks write fp32 partials
+    to slots ``slot0 + chunk`` and the last to finish sums them in chunk
+    order. ``slots`` and ``split_columns`` size that scratch."""
+    lay = np.ascontiguousarray(layout, bool)
+    plan, chunk_pairs, slots, split = _split_plan(lay.tobytes(), lay.shape[0], bool(causal),
+                                                  int(group))
+    return {"plan": plan, "chunk_pairs": chunk_pairs, "slots": slots,
+            "split_columns": split}
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(layout_bytes: bytes, nb: int, causal: bool, group: int, device: str):
+    return torch.from_numpy(_split_plan(layout_bytes, nb, causal, group)[0].copy()).to(device)
 
 
 def token_mask(layout: np.ndarray, block_size: int, causal: bool, device) -> torch.Tensor:
@@ -311,8 +391,14 @@ def sparse_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                         layout: np.ndarray, block_size: int, *, causal: bool = True,
                         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel of ``ops/csrc/sparse_attention.cu``: narrow
-    ``(dk, dv)`` shaped like k and v."""
+    """Block-sparse dK/dV on the card: narrow ``(dk, dv)`` shaped like k and
+    v. The kernel that :func:`sparse_dkv_source` names: bf16 at block 128
+    :func:`sparse_bwd_dkv_sm90_cuda`, otherwise the kernel of
+    ``ops/csrc/sparse_attention.cu``, whose launches this function counts."""
+    if q.device.type == "cuda" and \
+            sparse_dkv_source(q.dtype, block_size, q.shape[-1]) == DKV_SM90:
+        return sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
+                                        causal=causal, scale=scale)
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
     (b, s, h, _, _), (_, _, idx_t, cnt_t), common = _kernel_args(
         "sparse_bwd_dkv_cuda", q, k, v, layout, block_size, causal, scale, do)
@@ -327,9 +413,62 @@ def sparse_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+def sparse_bwd_dkv_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                             layout: np.ndarray, block_size: int, *, causal: bool = True,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel of ``ops/csrc/sparse_sm90.cu`` (bf16, block
+    128): one launch over the work items of :func:`dkv_split_plan`; narrow
+    ``(dk, dv)`` shaped like k and v."""
+    name = "sparse_bwd_dkv_sm90_cuda"
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    (b, s, h, d, hkv), (_, _, idx_t, cnt_t), common = _kernel_args(
+        name, q, k, v, layout, block_size, causal, scale, do)
+    if q.dtype != torch.bfloat16 or block_size != SM90_BLOCK:
+        raise ValueError(f"{name} takes bf16 at block {SM90_BLOCK}, got {q.dtype} at "
+                         f"block {block_size} (sparse_dkv_source routes those)")
+    tma_check(name, q=q, k=k, v=v, do=do)
+    lse, delta = _stats(lse, delta, b, h, s)
+    lay = np.ascontiguousarray(layout, bool)
+    info = dkv_split_plan(lay, causal, h // hkv)
+    plan = _device_plan(lay.tobytes(), lay.shape[0], bool(causal), h // hkv, str(q.device))
+    if plan.shape[0] * b * hkv >= 2 ** 31:
+        raise ValueError(f"{name}: {plan.shape[0] * b * hkv} work items; the kernel counts "
+                         "them in 31 bits")
+    stream = common[-1]
+    counters, partials = _workspace(q.device, stream, info["split_columns"] * b * hkv * 8,
+                                    info["slots"] * b * hkv * SM90_BLOCK * d * 2)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load().dstt_sparse_bwd_dkv_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), idx_t.data_ptr(), cnt_t.data_ptr(),
+        plan.data_ptr(), counters.data_ptr(), partials.data_ptr(), idx_t.shape[1],
+        plan.shape[0], b, h, hkv, s, d, int(bool(causal)), common[7], stream)
+    _build.check(err, "sparse_bwd_dkv kernel (sparse_sm90.cu)")
+    sparse_bwd_dkv_sm90_cuda.launches += 1
+    return dk, dv
+
+
+@contextlib.contextmanager
+def sparse_sm90_planted_fault(fault: int):
+    """For the tests that show a check can fail: the launches of
+    ``sparse_sm90.cu`` inside the block carry a planted fault. 1: the merge
+    of a split column drops its last chunk's partial; 2: each q tile is
+    read from the ring stage after its own, before that copy has landed; 3:
+    the last query head of each GQA group is skipped."""
+    plant = _build.load().dstt_sparse_sm90_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
+
+
 sparse_fwd_cuda.launches = 0
 sparse_bwd_dq_cuda.launches = 0
 sparse_bwd_dkv_cuda.launches = 0
+sparse_bwd_dkv_sm90_cuda.launches = 0
 
 
 # --------------------------------------------------------------------------- #

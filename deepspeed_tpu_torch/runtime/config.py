@@ -871,7 +871,7 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
 def check_ported(cfg: DeepSpeedTPUConfig, world_size: int = 1) -> None:
     """Raise ``NotImplementedError`` naming every enabled block the port
     does not implement yet, and for a world size above 1 (distributed
-    training and ZeRO sharding come with queue A.6)."""
+    training and ZeRO sharding come with queue A.3)."""
     missing = unported_features(cfg)
     if world_size > 1:
         missing.append(f"world size {world_size} (distributed training)")

@@ -61,6 +61,9 @@ class ModelSpec:
     init_fn: Optional[Callable[[torch.Generator], Params]] = None
     params: Optional[Params] = None
     name: str = "model"
+    # the dtype loss_fn computes in (None: not stated); initialize refuses
+    # one that no CUDA kernel takes (check_compute_dtype)
+    compute_dtype: Optional[torch.dtype] = None
 
     def materialize(self, generator: torch.Generator) -> Params:
         if self.params is not None:
@@ -299,6 +302,18 @@ def _mean_aux(auxes: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def check_compute_dtype(compute_dtype: Optional[torch.dtype],
+                        device: torch.device) -> None:
+    """Raise ``NotImplementedError`` for a compute dtype that the card path
+    cannot run: fp16 on a CUDA device, where the flash-attention and RMSNorm
+    kernels take bf16 and fp32 only (ROADMAP queue B.2; LayerNorm takes fp16
+    already). On the CPU, fp16 runs the plain versions."""
+    if compute_dtype == torch.float16 and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            "an fp16 compute dtype has no CUDA kernel yet on the flash-attention and "
+            "RMSNorm path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
+
+
 def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
                model_parameters=None, training_data=None, lr_scheduler=None,
                config=None, config_params=None, device="cuda",
@@ -306,8 +321,9 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
     """Returns ``(engine, optimizer, training_dataloader, lr_scheduler)`` —
     the reference's 4-tuple. Runs on the GPU unless ``device="cpu"``; raises
     ``RuntimeError`` when no GPU is present, and ``NotImplementedError``
-    for config blocks the port does not implement yet or a distributed
-    world size above 1."""
+    for config blocks the port does not implement yet, a distributed
+    world size above 1, or a model that computes in fp16 on the GPU
+    (:func:`check_compute_dtype`)."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -320,6 +336,7 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
         world = torch.distributed.get_world_size()
     cfg = parse_config(config, world_size=world)
     check_ported(cfg, world_size=world)
+    check_compute_dtype(model.compute_dtype, device)
     engine = DeepSpeedTPUEngine(model=model, config=cfg, device=device,
                                 optimizer=optimizer, lr_schedule=lr_scheduler,
                                 training_data=training_data, generator=generator)

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Device times of the LayerNorm kernel and the block-sparse dK/dV kernel
+of one checkout of the PyTorch port, at the shapes ``chip_smoke.py`` gives
+them:
+
+- LayerNorm, bf16 with a bias: [1 x 2048] (the launch floor), [64 x 2048]
+  (an OPT-1.3B serving step's 64 slots), [8192 x 2048] (an OPT-1.3B
+  training micro-batch of 4 x 2048 tokens), [4096 x 4096] (a BLOOM-7b1
+  micro-batch of 2 x 2048 tokens), and ``F.layer_norm`` on the same inputs;
+- block-sparse dK/dV (``sparse_bwd_dkv_cuda``: whichever kernel the
+  checkout routes bf16 at block 128 to), batch 1, 32 query / 8 kv heads,
+  hd 128, bf16: S 16384 with the causal bigbird layout of
+  ``blocksparse_attention``'s smoke phase, and S 4096 with its three
+  layouts (bigbird causal, fixed non-causal, sliding window);
+- ``blocksparse_attention`` forward and backward under autograd at that
+  S 16384 (every kernel of the step: the three sparse kernels, delta, the
+  casts).
+
+    python3 scripts/norm_sparse_ab_timing.py --root PATH [--iters 100]
+
+To compare two checkouts, run it on both in turns (parent, change, change,
+parent) on one card, one after another: each run builds its checkout's
+kernels (into PATH/build/) and prints one JSON line with the card's name
+and power limit and, per case, the mean device time of one launch in
+microseconds (the kernels' own time from ``torch.profiler``, after a
+warm-up; ``paged_ab_timing.device_us``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from paged_ab_timing import device_us  # noqa: E402
+
+LN_SHAPES = {"ln_1x2048": (1, 2048), "ln_64x2048": (64, 2048), "ln_8192x2048": (8192, 2048),
+             "ln_4096x4096": (4096, 4096)}
+H, HKV, HD, BS = 32, 8, 128, 128
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", required=True, help="checkout holding deepspeed_tpu_torch/")
+    ap.add_argument("--iters", type=int, default=100)
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("norm_sparse_ab_timing.py needs a CUDA GPU", file=sys.stderr)
+        return 1
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda
+
+    if Path(sa.__file__).resolve().parents[2] != root:
+        print(f"imported {sa.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    us = {}
+    for name, (n, d) in LN_SHAPES.items():
+        x = (3 * torch.randn(n, d, generator=gen, device=dev) + 1).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+        b = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+        iters = args.iters * 10 if n <= 64 else args.iters
+        us[name] = device_us(lambda: layer_norm_cuda(x, w, b, 1e-5), iters)
+        us[name + "_F.layer_norm"] = device_us(lambda: F.layer_norm(x, (d,), w, b, 1e-5), iters)
+
+    layouts = {"sparse_dkv_s16384_bigbird": (16384, sa.bigbird_layout(128, 3, 1, 2, seed=0,
+                                                                      causal=True), True),
+               "sparse_dkv_s4096_bigbird": (4096, sa.bigbird_layout(32, 3, 1, 2, seed=0,
+                                                                    causal=True), True),
+               "sparse_dkv_s4096_fixed": (4096, sa.fixed_layout(32, 4, 4, causal=False), False),
+               "sparse_dkv_s4096_sliding": (4096, sa.sliding_window_layout(32, 4, causal=True),
+                                            True)}
+    for name, (s, lay, causal) in layouts.items():
+        q, k, v, do = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
+                       for hh in (H, HKV, HKV, H))
+        o, lse = sa.sparse_fwd_cuda(q, k, v, lay, BS, causal=causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
+        us[name] = device_us(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, BS,
+                                                            causal=causal),
+                             max(args.iters // 10, 3))
+        if name == "sparse_dkv_s16384_bigbird":
+            leaves = [x.requires_grad_() for x in (q, k, v)]
+
+            def step():
+                for x in leaves:
+                    x.grad = None
+                sa.blocksparse_attention(*leaves, lay, BS, causal=causal).backward(do)
+
+            us["blocksparse_fwd_bwd_s16384"] = device_us(step, max(args.iters // 10, 3))
+            del leaves
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": str(root), "card": card, "us": us}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

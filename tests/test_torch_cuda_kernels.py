@@ -27,7 +27,9 @@ in fp32 under autograd, the limits of ``chip_smoke.py``'s ``FLASH_TOL``
 simulation in ``tests/test_torch_flash_attention.py``. RMSNorm
 backward: the autograd function's grads against the plain version's, 1e-2
 in bf16 (one rounding step), 1e-5 in fp32. LayerNorm forward and backward:
-the same limits as RMSNorm. int8 quantize and dequantize: codes, scales and
+the same limits as RMSNorm, fp16 1e-3 (one fp16 rounding step of outputs
+of order 1); lane 31's share left out of the centred sum (its planted
+fault) must fail them. int8 quantize and dequantize: codes, scales and
 values EQUAL to the plain versions' (IEEE division, round half to even, one
 fp32 product), so no tolerance. The OPT-1.3B shapes of the paged and flash
 kernels (MHA: g = 1, 32 kv heads, hd 64, S 2048) at the limits above.
@@ -43,7 +45,12 @@ against the plain pieces with the same bias, at the flash limits above
 and fp32, hd 32/64/128. The block-sparse kernels (forward, dQ, dK/dV)
 against their dense plain versions at the same limits, over blocks
 16-128, sliding-window / fixed / bigbird layouts, causal and not, GQA and
-a kv block nobody attends to (exactly zero dK/dV).
+a kv block nobody attends to (exactly zero dK/dV). The bf16 dK/dV at block
+128 (``sparse_sm90.cu``: columns split over work items, TMA + wgmma) at
+S 4096 for the three layouts, groups 1 and 4, hd 32/64/128, with the
+global column split into >= 4 chunks, giving identical bits on two calls,
+and failing the same limits under each of its three planted faults; the
+old kernel (``sparse_attention.cu``) keeps blocks 16-64 and fp32.
 
 The bf16 backward without a bias (``flash_bwd_sm90.cu``, TMA + wgmma): dQ,
 dK and dV against the plain pieces at the flash limits above over lengths
@@ -72,7 +79,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_bwd_dq_bias_cuda, flash_bwd_dq_cuda, flash_bwd_torch, flash_fwd_bias_cuda,
     flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault, tma_refusal)
 from deepspeed_tpu_torch.ops.norms import (
-    layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_torch,
+    layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_planted_fault, layer_norm_torch,
     rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
@@ -82,13 +89,14 @@ from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
     quantize_int8_torch)
 from deepspeed_tpu_torch.ops.sparse_attention import (
-    bigbird_layout, blocksparse_attention, fixed_layout,
-    sliding_window_layout, sparse_bwd_dkv_cuda, sparse_bwd_dq_cuda, sparse_bwd_torch,
-    sparse_fwd_cuda, sparse_fwd_torch)
+    DKV_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan, fixed_layout,
+    sliding_window_layout, sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda,
+    sparse_bwd_torch, sparse_dkv_source, sparse_fwd_cuda, sparse_fwd_torch,
+    sparse_sm90_planted_fault)
 
 pytestmark = pytest.mark.cuda
 
-RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 DECODE_ROW_TOL = 0.06
 
 
@@ -1195,11 +1203,13 @@ def _ln_inputs(rows, d, dtype, device, mean=0.0):
 
 @pytest.mark.parametrize("rows", [0, 1, 7, 4096])
 @pytest.mark.parametrize("d", [64, 768, 2048, 4096, 100, 20000])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_layer_norm_kernel_matches_plain(cuda_device, rows, d, dtype, with_bias):
-    """Vector path (d 64 .. 4096), scalar path (d 100) and rows too wide for
-    the register cache (d 20000); zero rows launch nothing."""
+    """The warp kernel (1 and 7 rows at d 64 .. 2048, fp32 to 1024), the
+    block kernel (4096 rows; d 4096 at any rows), the scalar kernel (d 100,
+    and d 20000, too wide for 8 vectors a thread); zero rows launch
+    nothing."""
     if rows == 4096 and d == 20000:
         rows = 64
     x, w, b = _ln_inputs(rows, d, dtype, cuda_device)
@@ -1256,13 +1266,31 @@ def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="same dtype"):
         layer_norm_cuda(x, w, b.float())
     with pytest.raises(ValueError, match="same dtype"):
-        layer_norm_cuda(x.half(), w.half(), b.half())
+        layer_norm_cuda(x.double(), w.double(), b.double())
     with pytest.raises(ValueError, match="shape"):
         layer_norm_cuda(x, w[:100], b)
     with pytest.raises(ValueError, match="CUDA"):
         layer_norm_cuda(x, w.cpu(), b)
     with pytest.raises(ValueError, match="aligned"):
         layer_norm_cuda(x, torch.cat([w, w])[1:769], b)
+
+
+@pytest.mark.parametrize("d,dtype", [(2048, torch.bfloat16), (256, torch.bfloat16),
+                                     (768, torch.bfloat16), (1024, torch.float32),
+                                     (2048, torch.float16)])
+def test_layer_norm_check_fails_a_planted_fault(cuda_device, d, dtype):
+    """Lane 31's share of the centred sum of squares left out (the warp
+    kernel at 64 rows: one warp a row at d 256, eight at d 2048) must fail
+    the check that the sound kernel passes, on the same inputs."""
+    x, w, b = _ln_inputs(64, d, dtype, cuda_device)
+    ref = layer_norm_torch(x, w, b, 1e-5).float()
+    tol = RMS_TOL[dtype] if dtype != torch.float32 else 1e-4
+    torch.testing.assert_close(layer_norm_cuda(x, w, b, 1e-5).float(), ref, rtol=tol, atol=tol)
+    with layer_norm_planted_fault(1):
+        bad = layer_norm_cuda(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad.float(), ref, rtol=tol, atol=tol)
 
 
 # --------------------------------------------------------------------------- #
@@ -1590,10 +1618,14 @@ def test_sparse_kernels_match_plain(cuda_device, bs, d, h, hkv, kind, causal, dt
     nb = 6
     q, k, v, do = flash_inputs((2, nb * bs, nb * bs, h, hkv, d), dtype, cuda_device,
                                seed=bs + d)
-    counts = [f.launches for f in (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda)]
+    # dK/dV: the kernel sparse_dkv_source names (bf16 at block 128: sparse_sm90.cu)
+    dkv = sparse_bwd_dkv_sm90_cuda if sparse_dkv_source(dtype, bs, d) == DKV_SM90 \
+        else sparse_bwd_dkv_cuda
+    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda)
+    counts = [f.launches for f in fns]
     _sparse_check(q, k, v, do, _layout(kind, nb, causal), bs, causal, dtype)
-    assert [f.launches for f in (sparse_fwd_cuda, sparse_bwd_dq_cuda,
-                                 sparse_bwd_dkv_cuda)] == [c + 1 for c in counts]
+    assert [f.launches for f in fns] == [c + (f in (sparse_fwd_cuda, sparse_bwd_dq_cuda, dkv))
+                                        for c, f in zip(counts, fns)]
 
 
 @pytest.mark.parametrize("bs", [16, 64, 128])
@@ -1661,3 +1693,95 @@ def test_bias_and_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_devic
         sparse_fwd_cuda(q.cpu(), k.cpu(), v.cpu(), lay, 48)
     with pytest.raises(ValueError, match="attend to no kv block"):
         blocksparse_attention(q, k, v, np.zeros((2, 2), bool), 48)
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse dK/dV on sparse_sm90.cu (bf16, block 128)
+# --------------------------------------------------------------------------- #
+SM90_LAYOUTS = {   # S 4096, block 128: name -> (layout of 32 blocks, causal)
+    "bigbird causal": (lambda: bigbird_layout(32, 3, 1, 2, seed=0, causal=True), True),
+    "fixed non-causal": (lambda: fixed_layout(32, 4, 4, causal=False), False),
+    "sliding window": (lambda: sliding_window_layout(32, 4, causal=True), True),
+}
+
+
+def _dkv_inputs(lay, causal, h, hkv, d, seed=0):
+    """bf16 q, k, v, dO at S 4096, batch 1, with the forward's lse and
+    delta from the forward kernel, and the plain pieces' dK/dV."""
+    bs = 128
+    q, k, v, do = flash_inputs((1, 32 * bs, 32 * bs, h, hkv, d), torch.bfloat16,
+                               torch.device("cuda"), seed=seed)
+    o, lse = sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(h, -1)
+    _, dk_ref, dv_ref = sparse_bwd_torch(q, k, v, o, lse, do, lay, bs, causal=causal)
+    return (q, k, v, do, lse, delta), (dk_ref, dv_ref)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("name", sorted(SM90_LAYOUTS))
+def test_sparse_dkv_sm90_matches_plain(cuda_device, name, h, hkv, d):
+    """S 4096 at block 128, groups 1 and 4; the bigbird layout's global
+    column is split into >= 4 chunks; routed by sparse_dkv_source."""
+    builder, causal = SM90_LAYOUTS[name]
+    lay = builder()
+    if name.startswith("bigbird"):
+        plan = dkv_split_plan(lay, causal, h // hkv)["plan"]
+        assert (plan[:, 0] == 0).sum() >= 4 and plan[plan[:, 0] == 0, 4].min() >= 4
+    args, refs = _dkv_inputs(lay, causal, h, hkv, d, seed=d + h // hkv)
+    before = (sparse_bwd_dkv_cuda.launches, sparse_bwd_dkv_sm90_cuda.launches)
+    got = sparse_bwd_dkv_cuda(*args, lay, 128, causal=causal)
+    torch.cuda.synchronize()
+    assert (sparse_bwd_dkv_cuda.launches, sparse_bwd_dkv_sm90_cuda.launches) == \
+        (before[0], before[1] + 1)
+    for g, r in zip(got, refs):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        assert_flash_close(g, r, FLASH_TOL[torch.bfloat16])
+
+
+def test_sparse_dkv_sm90_empty_column_and_identical_bits(cuda_device):
+    """kv block 1 seen by no q block gets exact zeros; two calls give the
+    same bits (the split column's merge sums in chunk order)."""
+    lay = bigbird_layout(32, 3, 1, 2, seed=0, causal=True)
+    lay[:, 1] = False
+    lay[1, 0] = True
+    args, refs = _dkv_inputs(lay, True, 8, 2, 128)
+    a = sparse_bwd_dkv_sm90_cuda(*args, lay, 128, causal=True)
+    b = sparse_bwd_dkv_sm90_cuda(*args, lay, 128, causal=True)
+    torch.cuda.synchronize()
+    for x, y, r in zip(a, b, refs):
+        assert torch.equal(x, y)
+        assert not x[:, 128:256].any()
+        assert_flash_close(x, r, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("fault,what", [(1, "merge drops a chunk"),
+                                        (2, "ring stage read early"),
+                                        (3, "query head skipped")])
+def test_sparse_dkv_sm90_check_fails_a_planted_fault(cuda_device, fault, what):
+    lay = bigbird_layout(32, 3, 1, 2, seed=0, causal=True)
+    args, refs = _dkv_inputs(lay, True, 8, 2, 128, seed=fault)
+    with sparse_sm90_planted_fault(fault):
+        bad = sparse_bwd_dkv_sm90_cuda(*args, lay, 128, causal=True)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):   # a row beyond the limit, or not finite
+        for g, r in zip(bad, refs):
+            assert_flash_close(g, r, FLASH_TOL[torch.bfloat16])
+    # and the counters left by the faulty launch do not disturb the next
+    good = sparse_bwd_dkv_sm90_cuda(*args, lay, 128, causal=True)
+    for g, r in zip(good, refs):
+        assert_flash_close(g, r, FLASH_TOL[torch.bfloat16])
+
+
+def test_sparse_dkv_sm90_refuses_what_it_does_not_take(cuda_device):
+    lay = sliding_window_layout(4, 2, causal=True)
+    q, k, v, do = flash_inputs((1, 256, 256, 2, 2, 64), torch.bfloat16, cuda_device)
+    lse = torch.zeros(2, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, lse, lay, 64)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_bwd_dkv_sm90_cuda(*(t.float() for t in (q, k, v, do)), lse, lse,
+                                 sliding_window_layout(2, 2), 128)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        sparse_bwd_dkv_cuda(*(t.half() for t in (q, k, v, do)), lse, lse,
+                            sliding_window_layout(2, 2), 128)

@@ -138,7 +138,7 @@ def test_initialize_runs_on_the_gpu_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         deepspeed_tpu_torch.initialize(model=_spec(), config={})
-    with pytest.raises(NotImplementedError, match="queue A.4"):
+    with pytest.raises(NotImplementedError, match="queue A.6"):
         topt.get_optimizer("lamb", lr=1e-3)
 
 
