@@ -9,7 +9,12 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
 2. Build: compile ``deepspeed_tpu_torch/ops/csrc/*.cu`` with nvcc for
    sm_90a into ``build/deepspeed_tpu_torch/`` and print the build seconds.
 3. Kernels against their plain PyTorch versions on the card: RMSNorm at
-   N in {1, 7, 64, 2048, 4096} rows of d = 4096 (bf16); paged decode at the 8B
+   N in {1, 7, 64, 2048, 4096} rows of d = 4096 (bf16; fp16 within
+   ``FP16_TOL`` and fp32 within 1e-4 at 1, 7, 64 and 4096 rows, where the
+   plain version rounded through bf16 must exceed ``FP16_TOL``), and its
+   two planted faults (lane 31's partial left out of the sum, the weight
+   left off a row's first vector) must fail at 64 and 4096 rows; paged
+   decode at the 8B
    shapes (B = 64 slots, 32 heads, 8 kv heads, hd 128, 512 blocks of 128)
    with random tables and context lengths 0, bs-1, bs, bs+1 .. 8191, with
    and without a window. Each output row's largest error must stay within
@@ -59,8 +64,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    each failing the same check.
    LayerNorm at N in {1, 7, 64, 2048, 8192} rows of d = 2048, 4096 rows of
    d = 4096 (one BLOOM-7b1 micro-batch) and 64 rows of d = 768, bf16, fp16
-   and fp32, with and without bias, within ``RMS_TOL`` (fp32: 1e-4) of each
-   row's RMS; a left-out bias must fail (d 4096 bf16 and d 768 fp32), and so
+   and fp32, with and without bias, within ``RMS_TOL`` (fp16: ``FP16_TOL``,
+   fp32: 1e-4) of each row's RMS; a left-out bias must fail (d 4096 bf16 and d 768 fp32), and so
    must the warp kernel's planted fault (lane 31's share left out of the
    centred sum, 64 rows of d 2048); times at 1 row (the launch floor), 64,
    8192 and [4096 x 4096]. int8 quantize of
@@ -84,12 +89,14 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    must fail. The block-sparse kernels against their dense plain pieces at Llama-3-8B
    width (S 4096, block 128: bigbird causal, fixed non-causal, sliding
    window), at blocks 16, 32 and 64, and with an empty kv column (exact zero
-   dK/dV); fault: one list entry swapped. The dK/dV at block 128 runs
-   ``sparse_sm90.cu`` (columns split over work items, TMA + wgmma): two
-   calls bit-identical, and its three planted faults (the merge dropping a
-   chunk's partial, a ring stage read before its copy lands, a query head of
-   the group skipped) must fail; its time at each S 4096 layout; the dK/dV
-   of ``sparse_attention.cu`` timed at S 4096 block 32. Times beside the bound, the plain
+   dK/dV); fault: one list entry swapped. The dQ and dK/dV at block 128 run
+   ``sparse_sm90.cu`` (TMA + wgmma; dK/dV's columns split over work items):
+   each two calls bit-identical, and their planted faults (dK/dV: the merge
+   dropping a chunk's partial, a ring stage read before its copy lands, a
+   query head of the group skipped; dQ: each list's last entry left out, a
+   ring stage read early, the diagonal block's mask left out) must fail;
+   their times at each S 4096 layout; the dQ and dK/dV of
+   ``sparse_attention.cu`` timed at S 4096 block 32. Times beside the bound, the plain
    pieces and SDPA (float ``attn_mask``; at the MSA shape a mask that
    requires grad, so SDPA computes dbias as the dQ kernel does, on the
    first fused backend that takes it, fp32 mask first; the bf16 mask
@@ -178,9 +185,9 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    path in fp32, and ``blocksparse_attention`` at S 16384 (bigbird causal,
    block 128, 32/8 heads, hd 128) against the dense-masked SDPA, within
    ``ENTRY_RTOL`` (relative Frobenius), its grads against the plain pieces
-   (query-row chunks) at ``FLASH_TOL``; launches equal the calls made (dK/dV
-   on ``sparse_sm90.cu``); then at S 4096, block 32, whose dK/dV runs
-   ``sparse_attention.cu``, the grads held the same way.
+   (query-row chunks) at ``FLASH_TOL``; launches equal the calls made (dQ
+   and dK/dV on ``sparse_sm90.cu``); then at S 4096, block 32, whose dQ and
+   dK/dV run ``sparse_attention.cu``, the grads held the same way.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -211,6 +218,8 @@ FP32_FLOPS = 67e12             # fp32 outside the tensor cores
 # paged-decode row over n positions has an RMS of about sqrt(e/n), 0.02 at
 # n = 8191, where an absolute limit of that size would pass a wrong block.
 RMS_TOL = 0.05         # bf16: one rounding step (<= 0.031) of |y| < 8, row RMS ~1
+FP16_TOL = 0.005       # norms at fp16: sound kernels read <= 0.0020, an RMSNorm
+                       # rounded through bf16 >= 0.0117 (checked in phase 3)
 DECODE_TOL = 0.06      # sound kernels read <= 0.03 (the plain version rounds p
                        # to bf16); one wrong 128-position block reads >= 0.5
 WHOLE_PATH_TOL = 0.1   # logits after 2 bf16 layers + lm-head, row RMS ~1
@@ -399,7 +408,8 @@ def phase_kernels(seed: int, card: str):
     import torch
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda, rms_norm_torch
+    from deepspeed_tpu_torch.ops.norms import (
+        rms_norm_cuda, rms_norm_planted_fault, rms_norm_torch)
     from deepspeed_tpu_torch.ops.paged_attention import (
         paged_decode_attention_cuda, paged_decode_attention_torch)
 
@@ -438,9 +448,53 @@ def phase_kernels(seed: int, card: str):
             f"bound {r['bound_ms']*1e3:.3f} us; host loop: kernel {r['host_ms']*1e3:.2f} us, "
             f"plain {r['plain_host_ms']*1e3:.2f} us, F.rms_norm {r['library_host_ms']*1e3:.2f} us "
             f"[{card}]")
+    # fp16 (FP16_TOL) and fp32 (1e-4) at the serving and training rows,
+    # from a generator of their own (the later phases' inputs stay); at
+    # fp16 the plain version rounded through bf16 (its inputs, its output)
+    # must read above FP16_TOL, as an fp16 kernel working in bf16 would
+    gen16 = torch.Generator(device=dev).manual_seed(seed + 20)
+    bf16_control = {}
+    for dtype, tol in ((torch.float16, FP16_TOL), (torch.float32, 1e-4)):
+        wd = w.to(dtype)
+        for n in (1, 7, 64, 4096):
+            x = (3 * torch.randn(n, d, generator=gen16, device=dev)).to(dtype)
+            y = rms_norm_cuda(x, wd, eps)
+            torch.cuda.synchronize()
+            ref = rms_norm_torch(x, wd, eps)
+            errs.append(check_close(f"rms_norm N={n} d={d} {str(dtype)[6:]}", y, ref, tol))
+            if dtype != torch.float16:
+                continue
+            for through, bad in (
+                    ("inputs", rms_norm_torch(x.bfloat16(), wd.bfloat16(), eps).half()),
+                    ("output", ref.bfloat16().half())):
+                rel = row_err(bad, ref)[1]
+                log(f"  rms_norm N={n} d={d} float16, plain version with its {through} "
+                    f"rounded through bf16: row err/RMS={rel:.4f} (must exceed tol {tol:g})")
+                if rel <= tol:
+                    raise AssertionError("rms_norm fp16 tolerance passes bf16 rounding")
+                bf16_control[f"{through} N={n}"] = rel
+    # planted faults, each of which must fail the check: lane 31's partial
+    # left out of the sum, the weight left off a row's first vector; at the
+    # serving step's 64 rows and a training micro-batch's 4096, bf16
+    faults = {}
+    for fault, what in ((1, "lane 31's partial left out of the sum"),
+                        (2, "the weight left off a row's first vector")):
+        for n in (64, 4096):
+            x = (3 * torch.randn(n, d, generator=gen16, device=dev)).to(torch.bfloat16)
+            with rms_norm_planted_fault(fault):
+                y_bad = rms_norm_cuda(x, w, eps)
+                torch.cuda.synchronize()
+            err, rel = row_err(y_bad, rms_norm_torch(x, w, eps))
+            log(f"  rms_norm planted fault {fault} ({what}, N={n} d={d} bf16): "
+                f"max_abs_err={err:.3e}, row err/RMS={rel:.4f} (must exceed tol {RMS_TOL:g})")
+            if rel <= RMS_TOL:
+                raise AssertionError(f"rms_norm tolerance passes planted fault {fault}")
+            faults[f"{fault} N={n}"] = {"what": what, "max_abs_err": err,
+                                        "row_err_over_rms": rel}
     out["rms_norm"] = {"max_abs_err": max(e for e, _ in errs),
                        "max_row_err_over_rms": max(r for _, r in errs), "tol": RMS_TOL,
-                       "rows": rows}
+                       "fp16_tol": FP16_TOL, "fp16_bf16_control": bf16_control,
+                       "planted_faults": faults, "rows": rows}
 
     # ---- paged decode ----------------------------------------------------
     B, nh, nkv, hd, bs, nblocks, max_blocks = 64, 32, 8, 128, 128, 512, 64
@@ -1511,8 +1565,9 @@ PROFILE_GROUPS = [
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("sparse", ("sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel",
-                "sparse_dkv_sm90_kernel")),
-    ("rms_norm", ("rms_norm_kernel",)),
+                "sparse_dq_sm90_kernel", "sparse_dkv_sm90_kernel")),
+    ("rms_norm", ("rms_norm_vec_kernel", "rms_norm_scalar_kernel",
+                  "rms_norm_wide_kernel")),
     ("layer_norm", ("layer_norm_warp_kernel", "layer_norm_vec_kernel",
                     "layer_norm_scalar_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
@@ -1823,7 +1878,7 @@ def phase_ln_quant_kernels(seed: int, card: str):
     errs, rows, faults = [], {}, {}
     lane_fault = None
     # OPT-1.3B (d 2048), one BLOOM-7b1 micro-batch (2 x 2048 tokens of d 4096)
-    # and GPT-2 (768); bf16, fp16 (at the bf16 limit) and fp32
+    # and GPT-2 (768); bf16, fp16 (FP16_TOL) and fp32 (1e-4)
     for d, ns in ((2048, (1, 7, 64, 2048, 8192)), (4096, (4096,)), (768, (64,))):
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
@@ -1835,8 +1890,8 @@ def phase_ln_quant_kernels(seed: int, card: str):
                     torch.cuda.synchronize()
                     name = (f"layer_norm N={n} d={d} {str(dtype)[6:]} "
                             f"{'bias' if bias is not None else 'no bias'}")
-                    errs.append(check_close(name, y, layer_norm_torch(x, w, bias, eps),
-                                            1e-4 if dtype == torch.float32 else RMS_TOL))
+                    tol = {torch.float32: 1e-4, torch.float16: FP16_TOL}.get(dtype, RMS_TOL)
+                    errs.append(check_close(name, y, layer_norm_torch(x, w, bias, eps), tol))
                 if d == 4096 and dtype == torch.bfloat16:
                     faults[d] = row_err(layer_norm_cuda(x, w, None, eps),
                                         layer_norm_torch(x, w, b, eps))
@@ -2486,7 +2541,7 @@ def phase_sparse_kernels(seed: int, card: str):
     s, bs = SPARSE_S, SPARSE_BS
     nb = s // bs
     main = None
-    t4096 = {}
+    t4096, t4096_dq = {}, {}
     for name, (builder, causal) in SPARSE_LAYOUTS.items():
         tensors = qkv(s, H, 8, HD)
         lay = builder(nb)
@@ -2500,11 +2555,19 @@ def phase_sparse_kernels(seed: int, card: str):
         log(f"  sparse dkv {name} S={s} block {bs} (sparse_sm90.cu): device "
             f"{t4096[name]['ms']*1e3:.1f} us, bound {w4['dkv'][0]*1e3:.1f} us "
             f"({w4['dkv'][1]}) [{card}]")
+        # and the dQ kernel (sparse_sm90.cu at block 128)
+        t4096_dq[name] = {"ms": measure(lambda: sa.sparse_bwd_dq_cuda(
+            q, k, v, do, lse, delta, lay, bs, causal=causal), 10)["ms"],
+            "bound_ms": w4["dq"][0], "bound_by": w4["dq"][1]}
+        log(f"  sparse dq {name} S={s} block {bs} (sparse_sm90.cu): device "
+            f"{t4096_dq[name]['ms']*1e3:.1f} us, bound {w4['dq'][0]*1e3:.1f} us "
+            f"({w4['dq'][1]}) [{card}]")
         if main is None:
             main = (tensors, lay, causal, o_ref, lse, delta, got)
         del got, q, k, v, do, lse, delta
         torch.cuda.empty_cache()
     out["timing_s4096_dkv"] = t4096
+    out["timing_s4096_dq"] = t4096_dq
     for small_bs, hd, h, hkv in ((16, 32, 4, 2), (32, 64, 8, 2), (64, 128, 8, 8)):
         nb_s = 12
         lay = sa.bigbird_layout(nb_s, 3, 1, 2, seed=seed, causal=True)
@@ -2540,7 +2603,23 @@ def phase_sparse_kernels(seed: int, card: str):
         out["sm90_faults"][fault] = _fault_must_fail(
             f"sparse_sm90.cu planted fault {fault} ({what})", bad[0], good["dk"], "dk")
         del bad
-    del good, lse, delta
+    # its dQ (each item owns its rows: no merge): two calls give the same
+    # bits, and each planted fault fails the check the sound kernel passed
+    again = sa.sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, delta, lay, bs, causal=causal)
+    torch.cuda.synchronize()
+    if not torch.equal(again, good["dq"]):
+        raise AssertionError("sparse_sm90.cu dQ: two calls gave different bits")
+    log("  sparse dq (sparse_sm90.cu): two calls bit-identical")
+    for fault, what in ((4, "each list's last entry left out"),
+                        (5, "a ring stage read before its copy lands"),
+                        (6, "the diagonal block's mask left out")):
+        with sa.sparse_sm90_planted_fault(fault):
+            bad = sa.sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, delta, lay, bs, causal=causal)
+            torch.cuda.synchronize()
+        out["sm90_faults"][fault] = _fault_must_fail(
+            f"sparse_sm90.cu planted fault {fault} ({what})", bad, good["dq"], "dq")
+        del bad
+    del good, lse, delta, again
 
     # planted fault: one list entry of the bigbird layout swapped
     bad = lay.copy()
@@ -2567,8 +2646,8 @@ def phase_sparse_kernels(seed: int, card: str):
     q, k, v, do = qkv(s, H, 8, HD)
     o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs32, causal=True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
-    if sa.sparse_dkv_source(q.dtype, bs32, HD) != sa.DKV_MMA:
-        raise AssertionError(f"block {bs32} is not routed to {sa.DKV_MMA}")
+    if sa.sparse_bwd_source(q.dtype, bs32, HD) != sa.SPARSE_MMA:
+        raise AssertionError(f"block {bs32} is not routed to {sa.SPARSE_MMA}")
     w32 = sparse_work(lay, bs32, True, 1, s, H, 8, HD)
     mask = sa.token_mask(lay, bs32, True, dev)
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -2588,10 +2667,17 @@ def phase_sparse_kernels(seed: int, card: str):
                                                         causal=True), 3)["ms"],
         "plain_at": f"S {s} block {bs32}", "library_ms": lib32,
         "bound_ms": w32["dkv"][0], "bound_by": w32["dkv"][1]}
-    r = out["timing_mma_dkv"]
-    log(f"  sparse dkv bigbird causal S={s} block {bs32} (sparse_attention.cu): device "
-        f"{r['ms']*1e3:.1f} us, bound {r['bound_ms']*1e3:.1f} us ({r['bound_by']}), plain "
-        f"{r['plain_ms']*1e3:.1f} us, dense-masked SDPA backward {lib32*1e3:.1f} us [{card}]")
+    out["timing_mma_dq"] = {
+        "ms": measure(lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs32,
+                                                    causal=True), 10)["ms"],
+        **{k_: out["timing_mma_dkv"][k_] for k_ in ("plain_ms", "plain_at", "library_ms")},
+        "bound_ms": w32["dq"][0], "bound_by": w32["dq"][1]}
+    for key in ("dq", "dkv"):
+        r = out[f"timing_mma_{key}"]
+        log(f"  sparse {key} bigbird causal S={s} block {bs32} (sparse_attention.cu): device "
+            f"{r['ms']*1e3:.1f} us, bound {r['bound_ms']*1e3:.1f} us ({r['bound_by']}), plain "
+            f"{r['plain_ms']*1e3:.1f} us, dense-masked SDPA backward {lib32*1e3:.1f} us "
+            f"[{card}]")
     del q, k, v, do, o, lse, delta, mask, qt, kt, vt, dot
     torch.cuda.empty_cache()
 
@@ -2739,10 +2825,12 @@ def phase_entry_points(seed: int, card: str):
     q, k, v = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
                .requires_grad_() for hh in (H, 8, 8))
     do = torch.randn(1, s, H, HD, generator=gen, device=dev).to(torch.bfloat16)
-    # dK/dV: sparse_sm90.cu at block 128 (bf16), sparse_attention.cu below it
-    fns = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_sm90_cuda,
-           sa.sparse_bwd_dkv_cuda)
-    names = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv_sm90", "sparse_bwd_dkv")
+    # dQ and dK/dV: sparse_sm90.cu at block 128 (bf16), sparse_attention.cu
+    # below it
+    fns = (sa.sparse_fwd_cuda, sa.sparse_bwd_dq_sm90_cuda, sa.sparse_bwd_dkv_sm90_cuda,
+           sa.sparse_bwd_dq_cuda, sa.sparse_bwd_dkv_cuda)
+    names = ("sparse_fwd", "sparse_bwd_dq_sm90", "sparse_bwd_dkv_sm90", "sparse_bwd_dq",
+             "sparse_bwd_dkv")
     for f in fns:
         f.launches = 0
     torch.cuda.synchronize()
@@ -2752,9 +2840,10 @@ def phase_entry_points(seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = [f.launches for f in fns]
-    log(f"  blocksparse_attention S={s} bigbird causal: launches (fwd, dq, dkv sm90, dkv) "
-        f"{launches}, expected [1, 1, 1, 0]; fwd+bwd {wall*1e3:.1f} ms by host clock [{card}]")
-    if launches != [1, 1, 1, 0]:
+    log(f"  blocksparse_attention S={s} bigbird causal: launches (fwd, dq sm90, dkv sm90, dq, "
+        f"dkv) {launches}, expected [1, 1, 1, 0, 0]; fwd+bwd {wall*1e3:.1f} ms by host clock "
+        f"[{card}]")
+    if launches != [1, 1, 1, 0, 0]:
         raise AssertionError(f"blocksparse_attention launches {launches} != calls made")
     if not all(bool(torch.isfinite(t.float()).all()) for t in (o, q.grad, k.grad, v.grad)):
         raise AssertionError("blocksparse_attention: non-finite output or grads")
@@ -2782,7 +2871,7 @@ def phase_entry_points(seed: int, card: str):
     torch.cuda.empty_cache()
 
     # ---- blocksparse_attention at S 4096, block 32 ------------------------
-    # (the dK/dV of sparse_attention.cu, which keeps the blocks below 128)
+    # (the dQ and dK/dV of sparse_attention.cu, which keeps the blocks below 128)
     s, bs = SPARSE_S, SPARSE_BS_OLD
     lay = builder(s // bs)
     q, k, v = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
@@ -2794,9 +2883,9 @@ def phase_entry_points(seed: int, card: str):
     o.backward(do)
     torch.cuda.synchronize()
     launches = [f.launches for f in fns]
-    log(f"  blocksparse_attention S={s} block {bs} bigbird causal: launches (fwd, dq, dkv "
-        f"sm90, dkv) {launches}, expected [1, 1, 0, 1]")
-    if launches != [1, 1, 0, 1]:
+    log(f"  blocksparse_attention S={s} block {bs} bigbird causal: launches (fwd, dq sm90, "
+        f"dkv sm90, dq, dkv) {launches}, expected [1, 0, 0, 1, 1]")
+    if launches != [1, 0, 0, 1, 1]:
         raise AssertionError(f"blocksparse_attention launches {launches} != calls made")
     if not all(bool(torch.isfinite(t.float()).all()) for t in (o, q.grad, k.grad, v.grad)):
         raise AssertionError("blocksparse_attention: non-finite output or grads")
@@ -2843,16 +2932,18 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
             "evoformer": {k_: fb["evoformer"]["timing"][key][k_]
                           for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                      "library_ms_bf16_mask_no_grad")}})
-    # the cases each dK/dV kernel ran: block 128 on sparse_sm90.cu, the
+    # the cases each backward kernel ran: block 128 on sparse_sm90.cu, the
     # smaller blocks on sparse_attention.cu
     sm90_case = {c: c.endswith("block 128") for c in sp["cases"]}
     for key, name, line, src, which in (
             ("fwd", "sparse_fwd", ":39", "sparse_attention.cu", None),
-            ("dq", "sparse_bwd_dq", ":87", "sparse_attention.cu", None),
+            ("dq", "sparse_bwd_dq_sm90", ":87", "sparse_sm90.cu", True),
+            ("dq_mma", "sparse_bwd_dq", ":87", "sparse_attention.cu", False),
             ("dkv", "sparse_bwd_dkv_sm90", ":126", "sparse_sm90.cu", True),
             ("dkv_mma", "sparse_bwd_dkv", ":126", "sparse_attention.cu", False)):
-        r = sp["timing_mma_dkv"] if key == "dkv_mma" else sp["timing"][key]
-        keys = {"fwd": ("o",), "dq": ("dq",)}.get(key, ("dk", "dv"))
+        r = {"dq_mma": sp["timing_mma_dq"], "dkv_mma": sp["timing_mma_dkv"]}.get(
+            key, sp["timing"].get(key))
+        keys = {"fwd": ("o",)}.get(key, ("dq",) if key.startswith("dq") else ("dk", "dv"))
         cases = [c for label, c in sp["cases"].items() if which in (None, sm90_case[label])]
         by_path = {"blocksparse_attention S 16384 block 128":
                    entry["blocksparse"]["launches"][name],
@@ -2867,6 +2958,7 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "plain_at": r["plain_at"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels[-4]["s4096"] = sp["timing_s4096_dq"]
     kernels[-2]["s4096"] = sp["timing_s4096_dkv"]
     return kernels
 

@@ -35,8 +35,10 @@ _VP, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longl
 _BIAS = [_VP, _LL, _LL, _LL, _LL, _I]
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    # x, w, y, n_rows, d, eps, dtype (0 bf16, 1 f32), stream
+    # x, w, y, n_rows, d, eps, dtype (0 bf16, 1 f32, 2 f16), stream
     "dstt_rms_norm": [_VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # planted fault of the RMSNorm kernels' next launches (tests): 0 none
+    "dstt_rms_norm_plant": [_I],
     # x, w, b (may be null), y, n_rows, d, eps, dtype (2: f16 too), stream
     "dstt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # planted fault of the LayerNorm kernel's next launches (tests): 0 none
@@ -84,6 +86,9 @@ SIGNATURES = {
     # idx_t, cnt_t, plan, counters, partials, max_t, n_plan, B, H, Hkv, S, D,
     # causal, scale, stream
     "dstt_sparse_bwd_dkv_sm90": [_VP] * 13 + [_I] * 8 + [_F, _VP],
+    # bf16 at block 128 (sparse_sm90.cu): q, k, v, dout, lse, delta, dq, idx,
+    # cnt, order, max_a, B, H, Hkv, S, D, causal, scale, stream
+    "dstt_sparse_bwd_dq_sm90": [_VP] * 10 + [_I] * 7 + [_F, _VP],
     # planted fault of sparse_sm90.cu's next launches (tests): 0 none
     "dstt_sparse_sm90_plant": [_I],
 }

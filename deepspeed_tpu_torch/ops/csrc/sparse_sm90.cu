@@ -1,10 +1,11 @@
-// Block-sparse attention dK/dV for Hopper (sm_90a), bf16, layout block 128,
-// hd 32 / 64 / 128: the columns of the layout split over work items, TMA
-// loads into an mbarrier ring, wgmma products, warp specialisation. bf16 at
-// blocks 16-64 and all of fp32 stay on sparse_attention.cu
-// (ops/sparse_attention.py `sparse_dkv_source` routes by shape and dtype).
+// Block-sparse attention backward for Hopper (sm_90a), bf16, layout block
+// 128, hd 32 / 64 / 128: dK/dV (the columns of the layout split over work
+// items) and dQ (further down), each on TMA loads into an mbarrier ring,
+// wgmma products and warp specialisation. bf16 at blocks 16-64 and all of
+// fp32 stay on sparse_attention.cu (ops/sparse_attention.py
+// `sparse_bwd_source` routes both kernels by one rule of shape and dtype).
 //
-// Replaces: deepspeed_tpu/ops/pallas/sparse_attention.py `_sparse_dkv_kernel`
+// dK/dV replaces: deepspeed_tpu/ops/pallas/sparse_attention.py `_sparse_dkv_kernel`
 // (:126, pallas_call at :333), driven by `sparse_flash_attention_bwd` (:270).
 // The same function as sparse_attention.cu's dK/dV: for each kv block, the
 // q blocks of its transposed list (`compact_layout_t`, :193), each of the
@@ -73,6 +74,43 @@
 // last chunk's partial; 2 each tile is read from the ring stage after its
 // own, before that copy has landed; 3 the last query head of each GQA group
 // is skipped.
+//
+// dQ replaces: deepspeed_tpu/ops/pallas/sparse_attention.py `_sparse_dq_kernel`
+// (:87, pallas_call at :307), driven by `sparse_flash_attention_bwd` (:280).
+// The same function as sparse_attention.cu's dQ: for each q block, the kv
+// blocks of its compacted list (`compact_layout`, :170); p = exp(scale q k^T
+// - lse), 0 above the diagonal of a causal layout's diagonal block; dp = dO
+// v^T; ds = p (dp - delta) scale rounded to bf16; dq = ds k in fp32, cast
+// once. Bound: operations, three products over the visible pairs (at the
+// dK/dV's S 16384 shape ~231 GFLOP, 233.5 us). sparse_attention.cu's dQ
+// (one block of 64 q rows, mma.sync, K / V loaded synchronously per 64-row
+// sub-tile) ran at 16% of it. Design: flash_bwd_sm90.cu's dQ step, copied
+// (not shared, as above):
+// - An item is 128 q rows (one layout block) of one (batch, head): Q and dO
+//   loaded once by TMA, the two 64-row K / V tiles of each listed kv block
+//   streamed through the 4-stage ring by the producer warp, which takes
+//   each next coordinate from the q block's list (GQA: kv head h / g, read
+//   in place). A list holds at most window + globals + randoms blocks, so
+//   no row needs a split: each item owns its rows and stores bf16 dQ
+//   directly (no merge, no atomics, the same bits on every call).
+// - Per tile and consumer warpgroup (64 q rows): S = Q K^T and dP = dO V^T
+//   (wgmma m64n64k16 from shared memory); dQ += dS K of the previous tile
+//   (dS in registers as the A operand, K read MN-major) runs while p and ds
+//   of this tile are computed. Masks by tile index only: on a causal
+//   layout's diagonal block the tile below a consumer's rows is visible
+//   whole, the tile on them takes the element mask, the tile above them is
+//   skipped (its stage waited for and released, no product).
+// - A persistent grid (one block of 3 warpgroups per SM); items in q blocks
+//   of longest list first (ops/sparse_attention.py `dq_item_order`, an
+//   int32 [S / 128] upload), all heads of a block together, dealt forward
+//   and backward in turn.
+// - The repo's wgmma rules as above: every list value and count broadcast
+//   through __shfl_sync before it steers a branch around a wgmma.
+// Shared memory as flash_bwd_sm90.cu's dQ: Q + dO 4 * 128 * D bytes, 4
+// stages of K + V 4 * 64 * D; D = 128: 192 KB.
+// Planted faults: 4 each list's last entry is left out; 5 each tile is
+// read from the ring stage after its own; 6 the diagonal block's element
+// mask is left out.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -106,6 +144,9 @@ struct Cfg {
   static constexpr size_t SMEM = 1024 + 2 * ITEM_BYTES + (size_t)STAGES * 2 * TILE_BYTES +
                                  8 * (2 + 2 * STAGES) + (size_t)STAGES * ROW_BYTES;
   static constexpr int PART = 2 * BM * D;           // floats of one partial (dK, dV)
+  // the dQ kernel: Q + dO of the item, 4 stages of K + V tiles, the barriers
+  static constexpr size_t DQ_SMEM =
+      1024 + 2 * ITEM_BYTES + (size_t)STAGES * 2 * TILE_BYTES + 8 * (2 + 2 * STAGES);
 };
 
 int g_plant = 0;
@@ -505,6 +546,271 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------- dQ --
+struct DqArgs {
+  const float* lse;     // [B * H, S], base e
+  const float* delta;   // [B * H, S]
+  void* dq;             // [B, S, H, D] bf16
+  const int* idx;       // [S / BM, max_a] compacted lists
+  const int* cnt;       // [S / BM]
+  const int* order;     // [S / BM] q blocks, longest list first
+  int max_a, B, H, Hkv, S, causal;
+  float scale;
+};
+
+__host__ __device__ __forceinline__ int dq_items(const DqArgs& a) {
+  return a.S / BM * a.B * a.H;
+}
+
+// A dQ item: the 128 q rows of layout block qb at one (batch, head), over
+// the n kv blocks of qb's list (planted fault 4: its last entry left out),
+// two 64-row K / V tiles each. Items run through `order` (longest list
+// first), all heads of a q block together. Every field is warp-uniform.
+struct DqItem {
+  int b, h, qb, n;
+  __device__ DqItem(int w, const DqArgs& a, int plant) {
+    const int bh = w % (a.B * a.H);
+    b = bh / a.H;
+    h = bh % a.H;
+    qb = uni(__ldg(a.order + w / (a.B * a.H)));
+    n = uni(__ldg(a.cnt + qb)) - (plant == 4 ? 1 : 0);   // planted fault 4
+  }
+  __device__ int kblock(const DqArgs& a, int j) const {
+    return uni(__ldg(a.idx + (size_t)qb * a.max_a + j));
+  }
+};
+
+// Shared-memory addresses of the dQ kernel's tiles and barriers.
+template <int D>
+struct DqSmem {
+  uint32_t q, dout, ring, q_full, q_empty, full0, empty0;
+  __device__ explicit DqSmem(const void* raw) {
+    using C = Cfg<D>;
+    q = (smem_u32(raw) + 1023u) & ~1023u;   // swizzled tiles start on 1024-byte lines
+    dout = q + C::ITEM_BYTES;
+    ring = dout + C::ITEM_BYTES;            // stage s: K at ring + 2 s TILE_BYTES, V after it
+    q_full = ring + STAGES * 2 * C::TILE_BYTES;
+    q_empty = q_full + 8;
+    full0 = q_empty + 8;
+    empty0 = full0 + 8 * STAGES;
+  }
+  __device__ uint32_t k(int s) const { return ring + s * 2 * Cfg<D>::TILE_BYTES; }
+  __device__ uint32_t v(int s) const { return k(s) + Cfg<D>::TILE_BYTES; }
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+};
+
+// The producer warp (lane 0 issues; every lane reads the lists, so their
+// values are warp-uniform): per item, Q and dO once the consumers are done
+// with the last ones, then the two 64-row K / V tiles of each listed kv
+// block into the ring, whose stage and phase run on across items. GQA: K /
+// V of kv head h / g, read in place.
+template <int D>
+__device__ __forceinline__ void dq_produce(const DqSmem<D>& sm, const CUtensorMap* tm_q,
+                                           const CUtensorMap* tm_do, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, const DqArgs& a, int plant) {
+  using C = Cfg<D>;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_do);
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+  }
+  int it = 0;   // kv tiles loaded so far
+  for (int n = 0; item_of(n) < dq_items(a); ++n) {
+    const DqItem item(item_of(n), a, plant);
+    const int hk = item.h / (a.H / a.Hkv);
+    if (lane == 0) {
+      if (n > 0) mbar_wait(sm.q_empty, (n - 1) & 1);
+      mbar_expect_tx(sm.q_full, 2 * C::ITEM_BYTES);
+      for (int c = 0; c < C::NCB; ++c) {
+        tma_load_4d(sm.q + c * BM * C::RB, tm_q, sm.q_full, c * C::CB, item.h, item.qb * BM,
+                    item.b);
+        tma_load_4d(sm.dout + c * BM * C::RB, tm_do, sm.q_full, c * C::CB, item.h,
+                    item.qb * BM, item.b);
+      }
+    }
+    for (int j = 0; j < item.n; ++j) {
+      const int kb = item.kblock(a, j);
+      for (int t = 0; t < BM / BT; ++t, ++it) {
+        if (lane != 0) continue;
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(sm.empty(s), (it / STAGES - 1) & 1);
+        mbar_expect_tx(sm.full(s), 2 * C::TILE_BYTES);
+        for (int c = 0; c < C::NCB; ++c) {
+          tma_load_4d(sm.k(s) + c * BT * C::RB, tm_k, sm.full(s), c * C::CB, hk,
+                      kb * BM + t * BT, item.b);
+          tma_load_4d(sm.v(s) + c * BT * C::RB, tm_v, sm.full(s), c * C::CB, hk,
+                      kb * BM + t * BT, item.b);
+        }
+      }
+    }
+  }
+}
+
+// A dQ consumer warpgroup (cw 0 or 1: q rows qb * 128 + 64 cw ..). Per kv
+// tile it issues S, dP and dQ += dS K of the previous tile as three commit
+// groups, computes p from S while dP and that dQ product run, then ds; the
+// previous tile's stage is released once its dQ product is done. On a
+// causal layout's diagonal block the consumer's tile t = cw takes the
+// element mask (planted fault 6: left out), t < cw none, and t > cw (every
+// score above the diagonal) is skipped: its stage is waited for and
+// released, no product issued. The epilogue stores dQ from registers.
+template <int D>
+__device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const DqArgs& a, int cw,
+                                           int plant) {
+  using C = Cfg<D>;
+  const int t = threadIdx.x % 128, lane = t & 31;
+  const uint32_t sQw = sm.q + cw * WG * C::RB;      // this warpgroup's 64 Q rows
+  const uint32_t sdOw = sm.dout + cw * WG * C::RB;  // and dO rows
+  const float sl2 = a.scale * kLog2e;
+  int it = 0;                                       // kv tiles consumed so far
+
+  for (int n = 0; item_of(n) < dq_items(a); ++n) {
+    const DqItem item(item_of(n), a, plant);
+    const int lr0 = cw * WG + acc_row(t, 0);        // this thread's rows in the block
+    const int r0 = item.qb * BM + lr0;              // and in the sequence: r0, r0 + 8
+    const size_t bh = (size_t)item.b * a.H + item.h;
+    float lse2[2], dlt[2];                          // lse in base 2, delta
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = a.lse[bh * a.S + r0 + 8 * r] * kLog2e;
+      dlt[r] = a.delta[bh * a.S + r0 + 8 * r];
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    uint32_t da[BT / 4];   // dS of the previous tile as bf16, the A operand
+    int prev = 0, prev_read = 0, done = 0;   // its stage, the one its K is read from; tiles done
+
+    mbar_wait(sm.q_full, n & 1);
+    for (int j = 0; j < item.n; ++j) {
+      const bool diag = a.causal && item.kblock(a, j) == item.qb;
+      for (int tt = 0; tt < BM / BT; ++tt, ++it) {
+        const int s = it % STAGES;
+        const int sr = plant == 5 ? (it + 1) % STAGES : s;   // planted fault 5
+        mbar_wait(sm.full(s), (it / STAGES) & 1);
+        if (diag && tt > cw) {   // above the diagonal: no score visible
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sm.empty(s));
+          continue;
+        }
+        const bool mask = diag && tt == cw && plant != 6;   // planted fault 6
+
+        float sacc[BT / 2], dpacc[BT / 2];
+        wgmma_fence();
+        issue_ss<D>(sacc, sQw, sm.k(sr));
+        wgmma_commit();
+        issue_ss<D>(dpacc, sdOw, sm.v(sr));
+        wgmma_commit();
+        if (done > 0) issue_rs<D>(dq, da, sm.k(prev_read));
+        wgmma_commit();
+
+        wgmma_wait<2>();   // S is done
+        fence_regs(sacc);
+        if (mask) {        // local kv column <= local q row (tile t = cw)
+#pragma unroll
+          for (int e = 0; e < BT / 2; ++e) {
+            const int r = (e >> 1) & 1;
+            sacc[e] = cw * WG + acc_col(t, e) <= lr0 + 8 * r
+                          ? exp2_ftz(fmaf(sacc[e], sl2, -lse2[r]))
+                          : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < BT / 2; ++e)
+            sacc[e] = exp2_ftz(fmaf(sacc[e], sl2, -lse2[(e >> 1) & 1]));
+        }
+        wgmma_wait<1>();   // dP is done
+        fence_regs(dpacc);
+#pragma unroll
+        for (int e = 0; e < BT / 2; ++e)
+          dpacc[e] = sacc[e] * (dpacc[e] - dlt[(e >> 1) & 1]) * a.scale;
+        wgmma_wait<0>();   // the previous tile's dQ product is done: its stage and da are free
+        fence_regs(dq);
+        fence_regs(da);
+        __syncwarp();
+        if (done > 0 && lane == 0) mbar_arrive(sm.empty(prev));
+        pack<BT / 2>(da, dpacc);   // ds rounded to bf16, as on the TPU
+        prev = s;
+        prev_read = sr;
+        ++done;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.q_empty);   // every S and dP of this item has read Q, dO
+    if (done > 0) {
+      wgmma_fence();
+      issue_rs<D>(dq, da, sm.k(prev_read));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(prev));
+    }
+    const size_t qstride = (size_t)a.H * D;   // dq [B, S, H, D]
+    store_acc<D>(dq, t, r0,
+                 static_cast<__nv_bfloat16*>(a.dq) + (size_t)item.b * a.S * qstride +
+                     (size_t)item.h * D,
+                 qstride);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, const DqArgs a,
+                          const int plant) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const DqSmem<D> sm(smem_raw);
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full, 1);
+    mbar_init(sm.q_empty, kConsumerWarps);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    setmaxnreg_inc<240>();
+    // the warpgroup index broadcast from lane 0: branches on it are then
+    // uniform to ptxas, which keeps the wgmma after them asynchronous
+    const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
+    dq_consume<D>(sm, a, cw, plant);
+  } else {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) dq_produce<D>(sm, &tm_q, &tm_do, &tm_k, &tm_v, a, plant);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const DqArgs& a, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t err = bhsd_map(&tq, q, a.B, a.S, a.H, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tdo, dout, a.B, a.S, a.H, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tk, k, a.B, a.S, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tv, v, a.B, a.S, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(sparse_dq_sm90_kernel<D>, C::DQ_SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int items = dq_items(a);
+  sparse_dq_sm90_kernel<D><<<items < sms ? items : sms, kThreads, C::DQ_SMEM, stream>>>(
+      tq, tdo, tk, tv, a, g_plant);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 }  // namespace dstt_sparse
@@ -554,9 +860,49 @@ extern "C" int dstt_sparse_bwd_dkv_sm90(const void* q, const void* k, const void
   return (int)launch<32>(q, k, v, dout, a, s);
 }
 
-// Plants a fault in the kernel's next launches (tests only): 1 the merge
-// drops the last chunk's partial, 2 each tile is read from the ring stage
-// after its own, 3 the last query head of each GQA group is skipped; 0 none.
+// bf16 dq [B, S, H, D] from q, dout [B, S, H, D], k, v [B, S, Hkv, D]
+// (bf16, dense, 16-byte aligned), lse and delta [B * H, S] fp32 (lse in base
+// e), over the compacted lists idx [S / 128, max_a], cnt [S / 128] (layout
+// block 128; every count >= 1) and order [S / 128], the q blocks longest
+// list first (ops/sparse_attention.py `dq_item_order`). D: 32, 64 or 128.
+extern "C" int dstt_sparse_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* delta,
+                                       void* dq, const int* idx, const int* cnt,
+                                       const int* order, int max_a, int B, int H, int Hkv,
+                                       int S, int D, int causal, float scale, void* stream) {
+  using namespace dstt_sparse;
+  if (B == 0 || S == 0) return 0;
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || S % BM != 0 || max_a <= 0 ||
+      (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  DqArgs a{};
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  a.idx = idx;
+  a.cnt = cnt;
+  a.order = order;
+  a.max_a = max_a;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.causal = causal;
+  a.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return (int)launch_dq<128>(q, k, v, dout, a, s);
+  if (D == 64) return (int)launch_dq<64>(q, k, v, dout, a, s);
+  return (int)launch_dq<32>(q, k, v, dout, a, s);
+}
+
+// Plants a fault in the kernels' next launches (tests only). dK/dV: 1 the
+// merge drops the last chunk's partial, 2 each tile is read from the ring
+// stage after its own, 3 the last query head of each GQA group is skipped.
+// dQ: 4 each list's last entry is left out, 5 each tile is read from the
+// ring stage after its own, 6 the diagonal block's mask is left out. 0 none.
 extern "C" int dstt_sparse_sm90_plant(int fault) {
   dstt_sparse::g_plant = fault;
   return 0;

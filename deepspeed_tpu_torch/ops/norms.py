@@ -10,10 +10,12 @@ the input's device (``ops/registry.py``):
   the oracle the kernel is held against on the card.
 - the differentiable op over the hand-written kernel (:func:`rms_norm_cuda`
   over ``ops/csrc/rms_norm.cu``, :func:`layer_norm_cuda` over
-  ``ops/csrc/layer_norm.cu``): 16-byte loads, fp32 reductions (RMSNorm a
-  block per row, bf16 and fp32; LayerNorm bf16, fp16 and fp32 as the
-  Pallas kernel takes them, a few warps a row with shuffle-only sums for
-  calls of few rows, a block per row otherwise). They replace the TPU kernels
+  ``ops/csrc/layer_norm.cu``): 16-byte loads, fp32 reductions, bf16, fp16
+  and fp32 as the Pallas kernels take them; shuffle-only sums within a
+  warp (RMSNorm: a block a row, each thread holding its share of the row
+  and of the weight in registers, a strided loop for rows wider than that;
+  LayerNorm: a few warps a row for calls of few rows, a block per row
+  otherwise). They replace the TPU kernels
   ``deepspeed_tpu/ops/pallas/norms.py:27`` and ``:87``; each source's header
   note gives the bound. ``rms_norm_cuda.launches`` and
   ``layer_norm_cuda.launches`` count the kernel launches.
@@ -36,10 +38,8 @@ import torch
 from . import _build
 from .registry import op, register
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-# layer_norm.cu also takes fp16 (ROADMAP queue B.2); rms_norm.cu does not yet
-_LN_DTYPE_CODE = {**_DTYPE_CODE, torch.float16: 2}
-
+# dtype codes of rms_norm.cu and layer_norm.cu
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 @register("rms_norm", backend="torch")
 def rms_norm_torch(x: torch.Tensor, weight: torch.Tensor,
@@ -80,7 +80,8 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
                             x2.shape[0], d, float(eps), _DTYPE_CODE[x.dtype],
                             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "rms_norm kernel")
-    rms_norm_cuda.launches += 1
+    if x2.shape[0]:
+        rms_norm_cuda.launches += 1
     return y.view(x.shape)
 
 
@@ -113,7 +114,7 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"rms_norm_cuda needs x and weight on one CUDA device, "
                          f"got {x.device} and {weight.device}")
     if x.dtype not in _DTYPE_CODE or weight.dtype != x.dtype:
-        raise ValueError(f"rms_norm_cuda takes bf16 or f32 x with a weight of "
+        raise ValueError(f"rms_norm_cuda takes bf16, fp16 or f32 x with a weight of "
                          f"the same dtype, got {x.dtype} and {weight.dtype}")
     d = x.shape[-1]
     if weight.shape != (d,):
@@ -122,6 +123,22 @@ def rms_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 
 
 rms_norm_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def rms_norm_planted_fault(fault: int):
+    """For the tests that show a check can fail: the RMSNorm kernels'
+    launches inside the block carry a planted fault. 1: lane 31's partial
+    is left out of each warp's sum of squares (a row must give lane 31
+    values); 2: the first 16-byte vector of each row is not multiplied by
+    the weight."""
+    plant = _build.load().dstt_rms_norm_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
+
 
 rms_norm = op("rms_norm")
 
@@ -180,7 +197,7 @@ def _launch_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     lib = _build.load()
     err = lib.dstt_layer_norm(x2.data_ptr(), w.data_ptr(),
                               None if b is None else b.data_ptr(), y.data_ptr(),
-                              x2.shape[0], d, float(eps), _LN_DTYPE_CODE[x.dtype],
+                              x2.shape[0], d, float(eps), _DTYPE_CODE[x.dtype],
                               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layer_norm kernel")
     if x2.shape[0]:
@@ -218,7 +235,7 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
         if x.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"layer_norm_cuda needs x and {name} on one CUDA "
                              f"device, got {x.device} and {t.device}")
-        if x.dtype not in _LN_DTYPE_CODE or t.dtype != x.dtype:
+        if x.dtype not in _DTYPE_CODE or t.dtype != x.dtype:
             raise ValueError(f"layer_norm_cuda takes bf16, fp16 or f32 x with a {name} "
                              f"of the same dtype, got {x.dtype} and {t.dtype}")
         if t.shape != (x.shape[-1],):

@@ -12,14 +12,16 @@ for byte (bigbird draws from ``np.random.RandomState(seed)``).
 Hand-written kernels replace the three TPU kernels; their wrappers take
 CUDA tensors only and count their launches: :func:`sparse_fwd_cuda`
 ``-> (o, lse)`` and :func:`sparse_bwd_dq_cuda` walk each q block's
-compacted list of active kv blocks (:func:`compact_layout`,
-``ops/csrc/sparse_attention.cu``); :func:`sparse_bwd_dkv_cuda` walks each kv
-block's transposed list (:func:`compact_layout_t`) and writes NARROW dK/dV
-under GQA (the query group summed in the kernel). It routes by
-:func:`sparse_dkv_source`: bf16 at block 128 runs the Hopper kernel of
-``ops/csrc/sparse_sm90.cu`` (:func:`sparse_bwd_dkv_sm90_cuda`: the columns
-split over work items by :func:`dkv_split_plan`, TMA + wgmma), every other
-block and fp32 the kernel of ``sparse_attention.cu``. The plain versions
+compacted list of active kv blocks (:func:`compact_layout`);
+:func:`sparse_bwd_dkv_cuda` walks each kv block's transposed list
+(:func:`compact_layout_t`) and writes NARROW dK/dV under GQA (the query
+group summed in the kernel). The two backward wrappers route by
+:func:`sparse_bwd_source`: bf16 at block 128 runs the Hopper kernels of
+``ops/csrc/sparse_sm90.cu`` (TMA + wgmma; :func:`sparse_bwd_dq_sm90_cuda`,
+a work item per (q block, batch, head) in :func:`dq_item_order`, and
+:func:`sparse_bwd_dkv_sm90_cuda`, the columns split over work items by
+:func:`dkv_split_plan`), every other block and fp32 the kernels of
+``ops/csrc/sparse_attention.cu``, which also holds the forward. The plain versions
 :func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
 functions densely over the token mask, serve CPU tensors, and are what the
 kernels are held against on the card. The compacted lists are cached per
@@ -47,8 +49,8 @@ from .flash_attention import _DTYPE_CODE, HEAD_DIMS, _bwd_plain_f32, _fwd_plain,
 from .paged_attention import _workspace
 
 BLOCK_SIZES = (16, 32, 64, 128)
-DKV_SM90, DKV_MMA = "sparse_sm90.cu", "sparse_attention.cu"
-SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's kv rows
+SPARSE_SM90, SPARSE_MMA = "sparse_sm90.cu", "sparse_attention.cu"
+SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's q or kv rows
 SPLIT_FACTOR = 2     # a work item takes at most this many times the median column's pairs
 PLAN_INTS = 8        # int32 fields of a plan entry (PLAN_FIELDS, then padding)
 PLAN_FIELDS = ("kv_block", "pair_lo", "pairs", "chunk", "chunks", "slot0", "counter")
@@ -177,20 +179,47 @@ def layout_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor
     return _device_lists(lay.tobytes(), lay.shape[0], bool(causal), str(torch.device(device)))
 
 
-def sparse_dkv_source(dtype: torch.dtype, block: int, d: int) -> str:
-    """The source under ``ops/csrc/`` whose kernel computes block-sparse
-    dK/dV at this dtype, layout block and head dim: bf16 at block 128 runs
-    ``sparse_sm90.cu`` (TMA + wgmma; a work item is one 128-row kv block),
-    bf16 at blocks 16-64 and all of fp32 (whose wgmma would be TF32) the
-    ``mma.sync`` / FMA kernel of ``sparse_attention.cu``. Raises on what
-    neither takes. A dispatch by shape, not a fallback."""
+def sparse_bwd_source(dtype: torch.dtype, block: int, d: int) -> str:
+    """The source under ``ops/csrc/`` whose kernels compute the block-sparse
+    backward (dQ and dK/dV alike) at this dtype, layout block and head dim:
+    bf16 at block 128 runs ``sparse_sm90.cu`` (TMA + wgmma; a work item is
+    one 128-row layout block), bf16 at blocks 16-64 and all of fp32 (whose
+    wgmma would be TF32) the ``mma.sync`` / FMA kernels of
+    ``sparse_attention.cu``. Raises on what neither takes. A dispatch by
+    shape, not a fallback."""
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"block-sparse dK/dV takes bf16 or fp32, not {dtype}")
+        raise ValueError(f"block-sparse backward takes bf16 or fp32, not {dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"block-sparse dK/dV takes head dim in {HEAD_DIMS}, not {d}")
+        raise ValueError(f"block-sparse backward takes head dim in {HEAD_DIMS}, not {d}")
     if block not in BLOCK_SIZES:
-        raise ValueError(f"block-sparse dK/dV takes block size in {BLOCK_SIZES}, not {block}")
-    return DKV_SM90 if dtype == torch.bfloat16 and block == SM90_BLOCK else DKV_MMA
+        raise ValueError(f"block-sparse backward takes block size in {BLOCK_SIZES}, "
+                         f"not {block}")
+    return SPARSE_SM90 if dtype == torch.bfloat16 and block == SM90_BLOCK else SPARSE_MMA
+
+
+@functools.lru_cache(maxsize=64)
+def _dq_order(layout_bytes: bytes, nb: int, causal: bool) -> np.ndarray:
+    _, cnt, _, _ = _compacted(layout_bytes, nb, causal)
+    order = np.argsort(-cnt.astype(np.int64), kind="stable").astype(np.int32)
+    order.setflags(write=False)
+    return order
+
+
+def dq_item_order(layout: np.ndarray, causal: bool) -> np.ndarray:
+    """The q blocks in the order ``sparse_sm90.cu``'s dQ takes them: longest
+    compacted list first (ties by block index), cached per ``(layout bytes,
+    causal)``. Work item ``w`` of a launch over ``batch`` x ``heads`` is q
+    block ``order[w // (batch * heads)]`` at ``(batch, head) = divmod(w %
+    (batch * heads), heads)``: all heads of a q block together (the
+    kernel's ``DqItem``). A persistent grid deals the items forward and
+    backward in turn."""
+    lay = np.ascontiguousarray(layout, bool)
+    return _dq_order(lay.tobytes(), lay.shape[0], bool(causal))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_order(layout_bytes: bytes, nb: int, causal: bool, device: str):
+    return torch.from_numpy(_dq_order(layout_bytes, nb, causal).copy()).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -372,7 +401,14 @@ def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                        layout: np.ndarray, block_size: int, *, causal: bool = True,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the dQ kernel of ``ops/csrc/sparse_attention.cu``."""
+    """Block-sparse dQ on the card. The kernel that :func:`sparse_bwd_source`
+    names: bf16 at block 128 :func:`sparse_bwd_dq_sm90_cuda`, otherwise the
+    dQ kernel of ``ops/csrc/sparse_attention.cu``, whose launches this
+    function counts."""
+    if q.device.type == "cuda" and \
+            sparse_bwd_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
+        return sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
+                                       causal=causal, scale=scale)
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
     (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
         "sparse_bwd_dq_cuda", q, k, v, layout, block_size, causal, scale, do)
@@ -387,16 +423,53 @@ def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
+def _sm90_args(name, q, k, v, do, layout, block_size, causal, scale):
+    """``sparse_sm90.cu``'s inputs checked as both its wrappers need them."""
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    shape, lists, common = _kernel_args(name, q, k, v, layout, block_size, causal, scale, do)
+    if q.dtype != torch.bfloat16 or block_size != SM90_BLOCK:
+        raise ValueError(f"{name} takes bf16 at block {SM90_BLOCK}, got {q.dtype} at "
+                         f"block {block_size} (sparse_bwd_source routes those)")
+    tma_check(name, q=q, k=k, v=v, do=do)
+    return (q, k, v, do), shape, lists, common
+
+
+def sparse_bwd_dq_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                            layout: np.ndarray, block_size: int, *, causal: bool = True,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the dQ kernel of ``ops/csrc/sparse_sm90.cu`` (bf16, block
+    128): one launch over the (q block, batch, head) work items in
+    :func:`dq_item_order`; dq shaped like q."""
+    name = "sparse_bwd_dq_sm90_cuda"
+    (q, k, v, do), (b, s, h, d, hkv), (idx, cnt, _, _), common = _sm90_args(
+        name, q, k, v, do, layout, block_size, causal, scale)
+    lse, delta = _stats(lse, delta, b, h, s)
+    lay = np.ascontiguousarray(layout, bool)
+    if lay.shape[0] * b * h >= 2 ** 31:
+        raise ValueError(f"{name}: {lay.shape[0] * b * h} work items; the kernel counts them "
+                         "in 31 bits")
+    order = _device_order(lay.tobytes(), lay.shape[0], bool(causal), str(q.device))
+    dq = torch.empty_like(q)
+    err = _build.load().dstt_sparse_bwd_dq_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), idx.data_ptr(), cnt.data_ptr(), order.data_ptr(),
+        idx.shape[1], b, h, hkv, s, d, int(bool(causal)), common[7], common[-1])
+    _build.check(err, "sparse_bwd_dq kernel (sparse_sm90.cu)")
+    sparse_bwd_dq_sm90_cuda.launches += 1
+    return dq
+
+
 def sparse_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                         layout: np.ndarray, block_size: int, *, causal: bool = True,
                         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-sparse dK/dV on the card: narrow ``(dk, dv)`` shaped like k and
-    v. The kernel that :func:`sparse_dkv_source` names: bf16 at block 128
+    v. The kernel that :func:`sparse_bwd_source` names: bf16 at block 128
     :func:`sparse_bwd_dkv_sm90_cuda`, otherwise the kernel of
     ``ops/csrc/sparse_attention.cu``, whose launches this function counts."""
     if q.device.type == "cuda" and \
-            sparse_dkv_source(q.dtype, block_size, q.shape[-1]) == DKV_SM90:
+            sparse_bwd_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
         return sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
                                         causal=causal, scale=scale)
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
@@ -422,13 +495,8 @@ def sparse_bwd_dkv_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     128): one launch over the work items of :func:`dkv_split_plan`; narrow
     ``(dk, dv)`` shaped like k and v."""
     name = "sparse_bwd_dkv_sm90_cuda"
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    (b, s, h, d, hkv), (_, _, idx_t, cnt_t), common = _kernel_args(
-        name, q, k, v, layout, block_size, causal, scale, do)
-    if q.dtype != torch.bfloat16 or block_size != SM90_BLOCK:
-        raise ValueError(f"{name} takes bf16 at block {SM90_BLOCK}, got {q.dtype} at "
-                         f"block {block_size} (sparse_dkv_source routes those)")
-    tma_check(name, q=q, k=k, v=v, do=do)
+    (q, k, v, do), (b, s, h, d, hkv), (_, _, idx_t, cnt_t), common = _sm90_args(
+        name, q, k, v, do, layout, block_size, causal, scale)
     lse, delta = _stats(lse, delta, b, h, s)
     lay = np.ascontiguousarray(layout, bool)
     info = dkv_split_plan(lay, causal, h // hkv)
@@ -453,10 +521,12 @@ def sparse_bwd_dkv_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @contextlib.contextmanager
 def sparse_sm90_planted_fault(fault: int):
     """For the tests that show a check can fail: the launches of
-    ``sparse_sm90.cu`` inside the block carry a planted fault. 1: the merge
-    of a split column drops its last chunk's partial; 2: each q tile is
-    read from the ring stage after its own, before that copy has landed; 3:
-    the last query head of each GQA group is skipped."""
+    ``sparse_sm90.cu`` inside the block carry a planted fault. dK/dV: 1 the
+    merge of a split column drops its last chunk's partial; 2 each q tile is
+    read from the ring stage after its own, before that copy has landed; 3
+    the last query head of each GQA group is skipped. dQ: 4 each q block's
+    list loses its last entry; 5 each kv tile is read from the ring stage
+    after its own; 6 the causal diagonal block's element mask is left out."""
     plant = _build.load().dstt_sparse_sm90_plant
     plant(int(fault))
     try:
@@ -467,6 +537,7 @@ def sparse_sm90_planted_fault(fault: int):
 
 sparse_fwd_cuda.launches = 0
 sparse_bwd_dq_cuda.launches = 0
+sparse_bwd_dq_sm90_cuda.launches = 0
 sparse_bwd_dkv_cuda.launches = 0
 sparse_bwd_dkv_sm90_cuda.launches = 0
 

@@ -305,13 +305,13 @@ def _mean_aux(auxes: List[Dict[str, Any]]) -> Dict[str, Any]:
 def check_compute_dtype(compute_dtype: Optional[torch.dtype],
                         device: torch.device) -> None:
     """Raise ``NotImplementedError`` for a compute dtype that the card path
-    cannot run: fp16 on a CUDA device, where the flash-attention and RMSNorm
-    kernels take bf16 and fp32 only (ROADMAP queue B.2; LayerNorm takes fp16
-    already). On the CPU, fp16 runs the plain versions."""
+    cannot run: fp16 on a CUDA device, where the flash-attention kernels
+    take bf16 and fp32 only (ROADMAP queue B.2; RMSNorm and LayerNorm take
+    fp16 already). On the CPU, fp16 runs the plain versions."""
     if compute_dtype == torch.float16 and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            "an fp16 compute dtype has no CUDA kernel yet on the flash-attention and "
-            "RMSNorm path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
+            "an fp16 compute dtype has no CUDA kernel yet on the flash-attention "
+            "path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
 
 
 def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of the LayerNorm kernel and the block-sparse dK/dV kernel
+"""Device times of the norm kernels and the block-sparse backward kernels
 of one checkout of the PyTorch port, at the shapes ``chip_smoke.py`` gives
 them:
 
@@ -7,10 +7,17 @@ them:
   (an OPT-1.3B serving step's 64 slots), [8192 x 2048] (an OPT-1.3B
   training micro-batch of 4 x 2048 tokens), [4096 x 4096] (a BLOOM-7b1
   micro-batch of 2 x 2048 tokens), and ``F.layer_norm`` on the same inputs;
-- block-sparse dK/dV (``sparse_bwd_dkv_cuda``: whichever kernel the
-  checkout routes bf16 at block 128 to), batch 1, 32 query / 8 kv heads,
-  hd 128, bf16: S 16384 with the causal bigbird layout of
-  ``blocksparse_attention``'s smoke phase, and S 4096 with its three
+- RMSNorm, bf16: [1 x 4096], [64 x 4096] (a Llama-3-8B serving step's 64
+  slots), [4096 x 4096] (a Llama-3-8B training micro-batch), and
+  ``F.rms_norm`` on the same inputs; where the checkout's ``rms_norm.cu``
+  caps a row at ``kThreads = 256`` threads, a row of 4096 as 8 warps of two
+  16-byte vectors a lane (the kernel as shipped) and as 16 warps of one (a
+  copy of ``rms_norm.cu`` built here with the cap at 512), over 64 to 4096
+  rows;
+- block-sparse dQ and dK/dV (``sparse_bwd_dq_cuda``, ``sparse_bwd_dkv_cuda``:
+  whichever kernels the checkout routes bf16 at block 128 to), batch 1, 32
+  query / 8 kv heads, hd 128, bf16: S 16384 with the causal bigbird layout
+  of ``blocksparse_attention``'s smoke phase, and S 4096 with its three
   layouts (bigbird causal, fixed non-causal, sliding window);
 - ``blocksparse_attention`` forward and backward under autograd at that
   S 16384 (every kernel of the step: the three sparse kernels, delta, the
@@ -39,7 +46,33 @@ from paged_ab_timing import device_us  # noqa: E402
 
 LN_SHAPES = {"ln_1x2048": (1, 2048), "ln_64x2048": (64, 2048), "ln_8192x2048": (8192, 2048),
              "ln_4096x4096": (4096, 4096)}
+RMS_SHAPES = {"rms_1x4096": (1, 4096), "rms_64x4096": (64, 4096),
+              "rms_4096x4096": (4096, 4096)}
+RMS_SHAPE_ROWS = (64, 256, 528, 1056, 2048, 4096)
 H, HKV, HD, BS = 32, 8, 128, 128
+
+
+def rms_thread_cap_variant(root: Path, threads: int):
+    """``rms_norm.cu`` of the checkout alone, built with its row's thread cap
+    ``kThreads`` at ``threads`` into ``root/build/rms_norm_cap<threads>/``
+    and loaded through ctypes; None where the source has no such cap."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import _build
+
+    src = (root / "deepspeed_tpu_torch/ops/csrc/rms_norm.cu").read_text()
+    cap = "constexpr int kThreads = 256;"
+    if cap not in src:
+        return None
+    out = root / "build" / f"rms_norm_cap{threads}"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "rms_norm.cu").write_text(src.replace(cap, f"constexpr int kThreads = {threads};"))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(out / "rms_norm.cu"),
+                    "-o", str(out / "lib.so")], check=True, timeout=600)
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    lib.dstt_rms_norm.argtypes = _build.SIGNATURES["dstt_rms_norm"]
+    lib.dstt_rms_norm.restype = ctypes.c_int
+    return lib
 
 
 def main() -> int:
@@ -56,7 +89,7 @@ def main() -> int:
         print("norm_sparse_ab_timing.py needs a CUDA GPU", file=sys.stderr)
         return 1
     from deepspeed_tpu_torch.ops import sparse_attention as sa
-    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda
+    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda, rms_norm_cuda, rms_norm_torch
 
     if Path(sa.__file__).resolve().parents[2] != root:
         print(f"imported {sa.__file__}, not from {root}", file=sys.stderr)
@@ -74,6 +107,33 @@ def main() -> int:
         iters = args.iters * 10 if n <= 64 else args.iters
         us[name] = device_us(lambda: layer_norm_cuda(x, w, b, 1e-5), iters)
         us[name + "_F.layer_norm"] = device_us(lambda: F.layer_norm(x, (d,), w, b, 1e-5), iters)
+    for name, (n, d) in RMS_SHAPES.items():
+        x = (3 * torch.randn(n, d, generator=gen, device=dev)).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+        iters = args.iters * 10 if n <= 64 else args.iters
+        us[name] = device_us(lambda: rms_norm_cuda(x, w, 1e-5), iters)
+        us[name + "_F.rms_norm"] = device_us(lambda: F.rms_norm(x, (d,), w, 1e-5), iters)
+    variant = rms_thread_cap_variant(root, 512)
+    if variant is not None:
+        # a row of 4096 as 8 warps of 2 vectors a lane (as shipped) or 16 of 1
+        w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+        for n in RMS_SHAPE_ROWS:
+            x = (3 * torch.randn(n, 4096, generator=gen, device=dev)).to(torch.bfloat16)
+            y = torch.empty_like(x)
+            iters = args.iters * 10 if n <= 528 else args.iters
+
+            def cap512():
+                variant.dstt_rms_norm(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, 4096, 1e-5,
+                                      0, torch.cuda.current_stream().cuda_stream)
+
+            cap512()
+            torch.cuda.synchronize()
+            ref = rms_norm_torch(x, w, 1e-5).float()
+            if not torch.allclose(y.float(), ref, rtol=1e-2, atol=1e-2):
+                print("the 512-thread copy of rms_norm.cu disagrees", file=sys.stderr)
+                return 1
+            us[f"rms_{n}x4096_8x2"] = device_us(lambda: rms_norm_cuda(x, w, 1e-5), iters)
+            us[f"rms_{n}x4096_16x1"] = device_us(cap512, iters)
 
     layouts = {"sparse_dkv_s16384_bigbird": (16384, sa.bigbird_layout(128, 3, 1, 2, seed=0,
                                                                       causal=True), True),
@@ -90,6 +150,9 @@ def main() -> int:
         us[name] = device_us(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, BS,
                                                             causal=causal),
                              max(args.iters // 10, 3))
+        us[name.replace("dkv", "dq")] = device_us(
+            lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, BS, causal=causal),
+            max(args.iters // 10, 3))
         if name == "sparse_dkv_s16384_bigbird":
             leaves = [x.requires_grad_() for x in (q, k, v)]
 

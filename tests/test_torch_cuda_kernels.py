@@ -80,7 +80,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault, tma_refusal)
 from deepspeed_tpu_torch.ops.norms import (
     layer_norm, layer_norm_bwd, layer_norm_cuda, layer_norm_planted_fault, layer_norm_torch,
-    rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
+    rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_planted_fault, rms_norm_torch)
 from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
     paged_decode_attention_torch, paged_planted_fault, paged_spec_verify_attention_cuda,
@@ -89,10 +89,10 @@ from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
     quantize_int8_torch)
 from deepspeed_tpu_torch.ops.sparse_attention import (
-    DKV_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan, fixed_layout,
+    SPARSE_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan, fixed_layout,
     sliding_window_layout, sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda,
-    sparse_bwd_torch, sparse_dkv_source, sparse_fwd_cuda, sparse_fwd_torch,
-    sparse_sm90_planted_fault)
+    sparse_bwd_dq_sm90_cuda, sparse_bwd_source, sparse_bwd_torch, sparse_fwd_cuda,
+    sparse_fwd_torch, sparse_sm90_planted_fault)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,20 +116,67 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _rms_inputs(rows, d, dtype, device):
+    rs = np.random.RandomState(rows + d)
+    x = torch.from_numpy(rs.randn(rows, d).astype(np.float32) * 3).to(device, dtype)
+    w = torch.from_numpy(1 + 0.1 * rs.randn(d).astype(np.float32)).to(device, dtype)
+    return x, w
+
+
 @pytest.mark.parametrize("rows", [1, 7, 64, 333])
 @pytest.mark.parametrize("d", [4096, 256, 100])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_rms_norm_kernel_matches_plain(cuda_device, rows, d, dtype):
-    rs = np.random.RandomState(rows + d)
-    x = torch.from_numpy(rs.randn(rows, d).astype(np.float32) * 3).to(cuda_device, dtype)
-    w = torch.from_numpy(1 + 0.1 * rs.randn(d).astype(np.float32)).to(cuda_device, dtype)
+    x, w = _rms_inputs(rows, d, dtype, cuda_device)
     before = rms_norm_cuda.launches
     got = rms_norm(x, w, 1e-5)
     torch.cuda.synchronize()
     assert rms_norm_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
     ref = rms_norm_torch(x, w, 1e-5)
     tol = RMS_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# widths that reach each of rms_norm.cu's kernels: the vector kernel at 1-16
+# 16-byte vectors a thread (bf16/fp16: d 256-2048 1, 4096 2, 8192 4, 16384 8,
+# 18432 and 32768 16; fp32 a step further), the scalar kernel (d not a whole
+# number of vectors, up to 8192: 100 and 4100 at bf16/fp16) and the wide
+# kernel (bf16/fp16 d 65536, fp32 from 18432, 8193 at every dtype)
+RMS_WIDTHS = [256, 2048, 4096, 8192, 16384, 18432, 32768, 65536, 100, 4100, 8193]
+
+
+@pytest.mark.parametrize("d", RMS_WIDTHS)
+@pytest.mark.parametrize("rows", [1, 64, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_rms_norm_each_kernel_matches_plain(cuda_device, d, rows, dtype):
+    """Every kernel of rms_norm.cu at each shape it runs: no width is
+    refused."""
+    x, w = _rms_inputs(rows, d, dtype, cuda_device)
+    got = rms_norm_cuda(x, w, 1e-5)
+    torch.cuda.synchronize()
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), rms_norm_torch(x, w, 1e-5).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("fault", [1, 2])
+@pytest.mark.parametrize("d", [2048, 4096, 16384, 1001, 65536, 8193])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_rms_norm_check_fails_a_planted_fault(cuda_device, fault, d, dtype):
+    """Lane 31's partial left out of the sum (1), the weight left off a
+    row's first vector (2): each kernel (vector, scalar at d 1001, wide at
+    d 65536 and 8193) under each fault must fail the check that it passes
+    on the same inputs."""
+    x, w = _rms_inputs(64, d, dtype, cuda_device)
+    ref = rms_norm_torch(x, w, 1e-5).float()
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(rms_norm_cuda(x, w, 1e-5).float(), ref, rtol=tol, atol=tol)
+    with rms_norm_planted_fault(fault):
+        bad = rms_norm_cuda(x, w, 1e-5)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad.float(), ref, rtol=tol, atol=tol)
 
 
 NH, HD, BS, NBLOCKS, MAX_BLOCKS = 8, 64, 8, 24, 4
@@ -196,12 +243,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         paged_decode_attention_cuda(t[0].float(), t[1], t[2], t[3], t[4])
     with pytest.raises(ValueError, match=">= 1"):
         paged_decode_attention_cuda(*t, window=0)
-    x = torch.ones(4, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        rms_norm_cuda(x, torch.ones(64, device=cuda_device, dtype=torch.float16))
+    x = torch.ones(4, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="bf16, fp16 or f32"):
+        rms_norm_cuda(x, torch.ones(64, device=cuda_device, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_rms_norm_kernel_backward(cuda_device, dtype):
     """The kernel's output carries gradients; they are the plain backward's."""
     rs = np.random.RandomState(7)
@@ -1618,14 +1665,16 @@ def test_sparse_kernels_match_plain(cuda_device, bs, d, h, hkv, kind, causal, dt
     nb = 6
     q, k, v, do = flash_inputs((2, nb * bs, nb * bs, h, hkv, d), dtype, cuda_device,
                                seed=bs + d)
-    # dK/dV: the kernel sparse_dkv_source names (bf16 at block 128: sparse_sm90.cu)
-    dkv = sparse_bwd_dkv_sm90_cuda if sparse_dkv_source(dtype, bs, d) == DKV_SM90 \
-        else sparse_bwd_dkv_cuda
-    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda)
+    # dQ and dK/dV: the kernels sparse_bwd_source names (bf16 at block 128:
+    # sparse_sm90.cu)
+    sm90 = sparse_bwd_source(dtype, bs, d) == SPARSE_SM90
+    ran = (sparse_fwd_cuda,) + ((sparse_bwd_dq_sm90_cuda, sparse_bwd_dkv_sm90_cuda) if sm90
+                                else (sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda))
+    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda, sparse_bwd_dq_sm90_cuda,
+           sparse_bwd_dkv_sm90_cuda)
     counts = [f.launches for f in fns]
     _sparse_check(q, k, v, do, _layout(kind, nb, causal), bs, causal, dtype)
-    assert [f.launches for f in fns] == [c + (f in (sparse_fwd_cuda, sparse_bwd_dq_cuda, dkv))
-                                        for c, f in zip(counts, fns)]
+    assert [f.launches for f in fns] == [c + (f in ran) for c, f in zip(counts, fns)]
 
 
 @pytest.mark.parametrize("bs", [16, 64, 128])
@@ -1722,7 +1771,7 @@ def _dkv_inputs(lay, causal, h, hkv, d, seed=0):
 @pytest.mark.parametrize("name", sorted(SM90_LAYOUTS))
 def test_sparse_dkv_sm90_matches_plain(cuda_device, name, h, hkv, d):
     """S 4096 at block 128, groups 1 and 4; the bigbird layout's global
-    column is split into >= 4 chunks; routed by sparse_dkv_source."""
+    column is split into >= 4 chunks; routed by sparse_bwd_source."""
     builder, causal = SM90_LAYOUTS[name]
     lay = builder()
     if name.startswith("bigbird"):
@@ -1785,3 +1834,87 @@ def test_sparse_dkv_sm90_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="bf16 or fp32"):
         sparse_bwd_dkv_cuda(*(t.half() for t in (q, k, v, do)), lse, lse,
                             sliding_window_layout(2, 2), 128)
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse dQ on sparse_sm90.cu (bf16, block 128)
+# --------------------------------------------------------------------------- #
+def _off_diagonal_layout():
+    """Causal, 32 blocks: row i sees block 0 and block i - 1, so only row 0
+    holds its diagonal block."""
+    lay = np.zeros((32, 32), bool)
+    lay[:, 0] = True
+    lay[np.arange(1, 32), np.arange(31)] = True
+    return lay
+
+
+DQ_LAYOUTS = {**SM90_LAYOUTS, "off-diagonal causal": (_off_diagonal_layout, True)}
+
+
+def _dq_inputs(lay, causal, h, hkv, d, seed=0):
+    """bf16 q, k, v, dO at S 4096, batch 1, the forward kernel's lse and
+    delta, and the plain pieces' dQ."""
+    bs = 128
+    q, k, v, do = flash_inputs((1, 32 * bs, 32 * bs, h, hkv, d), torch.bfloat16,
+                               torch.device("cuda"), seed=seed)
+    o, lse = sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(h, -1)
+    dq_ref, _, _ = sparse_bwd_torch(q, k, v, o, lse, do, lay, bs, causal=causal)
+    return (q, k, v, do, lse, delta), dq_ref
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("name", sorted(DQ_LAYOUTS))
+def test_sparse_dq_sm90_matches_plain(cuda_device, name, h, hkv, d):
+    """S 4096 at block 128, groups 1 and 4, causal and not; a CUDA bf16
+    call at block 128 launches the sparse_sm90.cu kernel, not the old one."""
+    builder, causal = DQ_LAYOUTS[name]
+    lay = builder()
+    args, ref = _dq_inputs(lay, causal, h, hkv, d, seed=d + h // hkv)
+    before = (sparse_bwd_dq_cuda.launches, sparse_bwd_dq_sm90_cuda.launches)
+    got = sparse_bwd_dq_cuda(*args, lay, 128, causal=causal)
+    torch.cuda.synchronize()
+    assert (sparse_bwd_dq_cuda.launches, sparse_bwd_dq_sm90_cuda.launches) == \
+        (before[0], before[1] + 1)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert_flash_close(got, ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_sparse_dq_sm90_gives_identical_bits(cuda_device):
+    lay = bigbird_layout(32, 3, 1, 2, seed=0, causal=True)
+    args, ref = _dq_inputs(lay, True, 8, 2, 128)
+    a = sparse_bwd_dq_sm90_cuda(*args, lay, 128, causal=True)
+    b = sparse_bwd_dq_sm90_cuda(*args, lay, 128, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert_flash_close(a, ref, FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("fault,what", [(4, "last list entry left out"),
+                                        (5, "ring stage read early"),
+                                        (6, "diagonal mask left out")])
+def test_sparse_dq_sm90_check_fails_a_planted_fault(cuda_device, fault, what):
+    lay = bigbird_layout(32, 3, 1, 2, seed=0, causal=True)
+    args, ref = _dq_inputs(lay, True, 8, 2, 128, seed=fault)
+    with sparse_sm90_planted_fault(fault):
+        bad = sparse_bwd_dq_sm90_cuda(*args, lay, 128, causal=True)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):   # a row beyond the limit, or not finite
+        assert_flash_close(bad, ref, FLASH_TOL[torch.bfloat16])
+    good = sparse_bwd_dq_sm90_cuda(*args, lay, 128, causal=True)
+    assert_flash_close(good, ref, FLASH_TOL[torch.bfloat16])
+
+
+def test_sparse_dq_sm90_refuses_what_it_does_not_take(cuda_device):
+    lay = sliding_window_layout(4, 2, causal=True)
+    q, k, v, do = flash_inputs((1, 256, 256, 2, 2, 64), torch.bfloat16, cuda_device)
+    lse = torch.zeros(2, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, lse, lay, 64)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_bwd_dq_sm90_cuda(*(t.float() for t in (q, k, v, do)), lse, lse,
+                                sliding_window_layout(2, 2), 128)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        sparse_bwd_dq_cuda(*(t.half() for t in (q, k, v, do)), lse, lse,
+                           sliding_window_layout(2, 2), 128)

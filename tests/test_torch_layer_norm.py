@@ -253,11 +253,11 @@ def test_model_specs_state_their_compute_dtype():
 
 
 def test_fp16_compute_is_refused_on_cuda_and_trains_on_the_cpu():
-    """No flash or RMSNorm kernel takes fp16 yet (queue B.2): a CUDA device
+    """No flash kernel takes fp16 yet (queue B.2): a CUDA device
     refuses it at ``initialize`` (the decision is ``check_compute_dtype``,
     called here with a CUDA device and no card); bf16 and fp32 pass, and on
     the CPU an fp16 OPT-style model trains with the fp16 loss scaler."""
-    with pytest.raises(NotImplementedError, match="B.2"):
+    with pytest.raises(NotImplementedError, match="flash-attention path .*B.2"):
         check_compute_dtype(torch.float16, torch.device("cuda"))
     for ok in (torch.bfloat16, torch.float32, None):
         check_compute_dtype(ok, torch.device("cuda"))

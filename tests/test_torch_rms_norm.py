@@ -9,7 +9,16 @@ with numpy. The CUDA kernel is held against the plain version on a GPU by
 Tolerances: fp32 1e-5 (same arithmetic, only the order of the row sum
 differs); bf16 1e-2 absolute and relative, one bf16 rounding step (2^-8
 relative) of outputs of order 1, since both sides round the same fp32 value
-and a different summation order can move it across a rounding boundary.
+and a different summation order can move it across a rounding boundary;
+fp16 1e-3 likewise (one fp16 rounding step, 2^-11 relative, of outputs up
+to ~4).
+
+A plain-torch rendering of ``ops/csrc/rms_norm.cu``'s planted faults (lane
+31's partial left out of the sum; the weight left off a row's first vector)
+at ``chip_smoke.py``'s RMSNorm shapes reads above its row limit, so the
+smoke's check can fail them; the sound rendering (the sum in the kernels'
+lane order) reads below. At fp16 the sound rendering reads below the
+smoke's fp16 limit and an RMSNorm that rounds through bf16 above it.
 The backward (``rms_norm_bwd``, and the autograd function over it) is held
 against ``jax.grad`` of ``rms_norm_pallas`` at 1e-4, as
 ``tests/test_pallas_kernels.py`` holds the Pallas VJP against XLA's.
@@ -29,9 +38,9 @@ from deepspeed_tpu_torch.ops.norms import (
     RMSNormFunction, rms_norm, rms_norm_bwd, rms_norm_cuda, rms_norm_torch)
 
 D = 256
-TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-3}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float16": jnp.float16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _inputs(rows, dtype, seed=0):
@@ -46,7 +55,7 @@ def _inputs(rows, dtype, seed=0):
     return x_t, w_t, x_j, w_j
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("rows", [1, 7, 33])
 def test_rms_norm_matches_jax(rows, dtype):
     x_t, w_t, x_j, w_j = _inputs(rows, dtype)
@@ -103,3 +112,73 @@ def test_rms_norm_backward_dtypes():
     dx, dw = rms_norm_bwd(x, w, torch.randn(4, 64, dtype=torch.bfloat16))
     assert dx.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
     assert dx.shape == x.shape and dw.shape == w.shape
+
+
+# --------------------------------------------------------------------------- #
+# rms_norm.cu's planted faults and the smoke's limits
+# --------------------------------------------------------------------------- #
+def _kernel_rendering(x, w, eps, fault=0):
+    """The kernels' arithmetic in plain torch: each lane's partial sum of
+    squares (the elements of 16-byte vectors i = lane mod 32; the scalar
+    kernel's elements likewise), lane 31's left out under fault 1; y from
+    the same values, the first vector unweighted under fault 2."""
+    n, d = x.shape
+    vec = 16 // x.element_size()
+    xf, wf = x.float(), w.float()
+    unit = torch.arange(d) // vec if d % vec == 0 else torch.arange(d)
+    lane = unit % 32
+    sq = xf * xf
+    if fault == 1:
+        sq = sq * (lane != 31)
+    ss = torch.stack([sq[:, lane == ln].sum(-1) for ln in range(32)], -1).sum(-1, keepdim=True)
+    r = torch.rsqrt(ss / d + eps)
+    wv = wf.clone()
+    if fault == 2:
+        wv[:vec] = 1.0
+    return ((xf * r) * wv).to(x.dtype)
+
+
+def _row_err(got, ref):
+    """``chip_smoke.py``'s ``row_err``: max over rows of max |got - ref| /
+    RMS(ref row)."""
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    return float((diff / ref.float().pow(2).mean(-1).sqrt()).max())
+
+
+SMOKE_RMS_TOL = 0.05   # chip_smoke.py RMS_TOL
+SMOKE_FP16_TOL = 0.005  # chip_smoke.py FP16_TOL
+
+
+def _smoke_inputs(rows, dtype):
+    g = torch.Generator().manual_seed(rows)
+    x = (3 * torch.randn(rows, 4096, generator=g)).to(dtype)
+    w = (1 + 0.1 * torch.randn(4096, generator=g)).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rms_norm_planted_faults_exceed_the_smoke_limit(rows, dtype):
+    """At d 4096 with the smoke's inputs (x = 3 N(0, 1), w = 1 + 0.1 N(0, 1)):
+    the sound rendering reads below RMS_TOL and each fault above it."""
+    x, w = _smoke_inputs(rows, dtype)
+    ref = rms_norm_torch(x, w, 1e-5)
+    assert _row_err(_kernel_rendering(x, w, 1e-5), ref) < SMOKE_RMS_TOL / 4
+    for fault in (1, 2):
+        assert _row_err(_kernel_rendering(x, w, 1e-5, fault), ref) > SMOKE_RMS_TOL
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+@pytest.mark.parametrize("through", ["inputs", "output"])
+def test_rms_norm_fp16_limit_fails_bf16_rounding(rows, through):
+    """At fp16 with the smoke's inputs the sound rendering reads below the
+    smoke's FP16_TOL by more than twice, and an RMSNorm that rounds its
+    inputs or its output through bf16 above it by more than twice."""
+    x, w = _smoke_inputs(rows, torch.float16)
+    ref = rms_norm_torch(x, w, 1e-5)
+    assert _row_err(_kernel_rendering(x, w, 1e-5), ref) < SMOKE_FP16_TOL / 2
+    if through == "inputs":
+        bad = rms_norm_torch(x.bfloat16(), w.bfloat16(), 1e-5).half()
+    else:
+        bad = rms_norm_torch(x, w, 1e-5).bfloat16().half()
+    assert _row_err(bad, ref) > 2 * SMOKE_FP16_TOL

@@ -15,9 +15,9 @@
   rendering against the JAX package's Pallas dK/dV kernel in interpret mode
   (MHA, where its widened dK/dV are the narrow ones) at the 2e-4 of
   ``tests/test_torch_sparse_attention.py``.
-- ``sparse_dkv_source`` routes bf16 at block 128 to ``sparse_sm90.cu`` and
-  everything else it takes to ``sparse_attention.cu``, and raises on what
-  neither takes.
+- ``sparse_bwd_source`` routes both backward kernels (dQ and dK/dV) by one
+  rule: bf16 at block 128 to ``sparse_sm90.cu``, everything else it takes
+  to ``sparse_attention.cu``; it raises on what neither takes.
 """
 
 import jax.numpy as jnp
@@ -190,22 +190,23 @@ def test_split_sum_matches_jax_kernel():
 
 
 @pytest.mark.parametrize("dtype,block,d,source", [
-    (torch.bfloat16, 128, 128, tsa.DKV_SM90), (torch.bfloat16, 128, 32, tsa.DKV_SM90),
-    (torch.bfloat16, 128, 64, tsa.DKV_SM90), (torch.bfloat16, 64, 128, tsa.DKV_MMA),
-    (torch.bfloat16, 32, 64, tsa.DKV_MMA), (torch.bfloat16, 16, 32, tsa.DKV_MMA),
-    (torch.float32, 128, 128, tsa.DKV_MMA), (torch.float32, 16, 64, tsa.DKV_MMA)])
+    (torch.bfloat16, 128, 128, tsa.SPARSE_SM90), (torch.bfloat16, 128, 32, tsa.SPARSE_SM90),
+    (torch.bfloat16, 128, 64, tsa.SPARSE_SM90), (torch.bfloat16, 64, 128, tsa.SPARSE_MMA),
+    (torch.bfloat16, 32, 64, tsa.SPARSE_MMA), (torch.bfloat16, 16, 32, tsa.SPARSE_MMA),
+    (torch.float32, 128, 128, tsa.SPARSE_MMA), (torch.float32, 16, 64, tsa.SPARSE_MMA)])
 def test_sparse_dkv_source_routes_by_dtype_and_block(dtype, block, d, source):
-    assert tsa.sparse_dkv_source(dtype, block, d) == source
+    assert tsa.sparse_bwd_source(dtype, block, d) == source
 
 
 def test_sparse_dkv_source_raises_on_what_no_source_takes():
     with pytest.raises(ValueError, match="bf16 or fp32"):
-        tsa.sparse_dkv_source(torch.float16, 128, 128)
+        tsa.sparse_bwd_source(torch.float16, 128, 128)
     with pytest.raises(ValueError, match="head dim"):
-        tsa.sparse_dkv_source(torch.bfloat16, 128, 96)
+        tsa.sparse_bwd_source(torch.bfloat16, 128, 96)
     with pytest.raises(ValueError, match="block size"):
-        tsa.sparse_dkv_source(torch.bfloat16, 48, 128)
+        tsa.sparse_bwd_source(torch.bfloat16, 48, 128)
     q = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
     lse = torch.zeros(2, 256)
-    with pytest.raises(ValueError, match="CUDA"):   # CPU tensors: no kernel
-        tsa.sparse_bwd_dkv_sm90_cuda(q, q, q, q, lse, lse, np.ones((2, 2), bool), 128)
+    for wrapper in (tsa.sparse_bwd_dq_sm90_cuda, tsa.sparse_bwd_dkv_sm90_cuda):
+        with pytest.raises(ValueError, match="CUDA"):   # CPU tensors: no kernel
+            wrapper(q, q, q, q, lse, lse, np.ones((2, 2), bool), 128)
