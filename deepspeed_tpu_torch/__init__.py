@@ -29,14 +29,15 @@ Ported so far:
   dQ and dK/dV kernels.
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
-CUDA counterpart: seventeen kernel entries and six planted-fault hooks in
+CUDA counterpart: eighteen kernel entries and seven planted-fault hooks in
 ten ``.cu`` sources (``ops/_build.py`` ``SIGNATURES``). The flash forward
 runs bf16 on TMA + ``wgmma``, ``ops/csrc/flash_fwd_sm90.cu``, and fp32 on
 ``ops/csrc/flash_fwd.cu``; the flash backward runs bf16, with or without a
 bias, on ``ops/csrc/flash_bwd_sm90.cu``, and fp32 on
-``ops/csrc/flash_bwd.cu``; the block-sparse dQ and dK/dV run bf16 at block
-128 on ``ops/csrc/sparse_sm90.cu`` (TMA + ``wgmma``; dK/dV's columns
-split) and the rest on ``ops/csrc/sparse_attention.cu``.
+``ops/csrc/flash_bwd.cu``; the block-sparse forward, dQ and dK/dV run bf16
+at block 128 on ``ops/csrc/sparse_sm90.cu`` (TMA + ``wgmma``) and the rest
+on ``ops/csrc/sparse_attention.cu``, both dK/dV kernels with the long
+columns split over work items.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

@@ -79,9 +79,12 @@ SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, idx, cnt, (max_a .. causal), scale,
     # dtype, stream
     "dstt_sparse_bwd_dq": [_VP] * 9 + [_I] * 8 + [_F, _I, _VP],
-    # q, k, v, dout, lse, delta, dk, dv, idx_t, cnt_t, (max_t .. causal),
-    # scale, dtype, stream
-    "dstt_sparse_bwd_dkv": [_VP] * 10 + [_I] * 8 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, idx_t, cnt_t, plan, counters,
+    # partials, max_t, n_plan, B, H, Hkv, S, D, block, causal, scale, dtype,
+    # stream
+    "dstt_sparse_bwd_dkv": [_VP] * 13 + [_I] * 9 + [_F, _I, _VP],
+    # planted fault of sparse_attention.cu's dK/dV next launches (tests): 0 none
+    "dstt_sparse_attention_plant": [_I],
     # bf16 at block 128 (sparse_sm90.cu): q, k, v, dout, lse, delta, dk, dv,
     # idx_t, cnt_t, plan, counters, partials, max_t, n_plan, B, H, Hkv, S, D,
     # causal, scale, stream
@@ -89,6 +92,9 @@ SIGNATURES = {
     # bf16 at block 128 (sparse_sm90.cu): q, k, v, dout, lse, delta, dq, idx,
     # cnt, order, max_a, B, H, Hkv, S, D, causal, scale, stream
     "dstt_sparse_bwd_dq_sm90": [_VP] * 10 + [_I] * 7 + [_F, _VP],
+    # bf16 at block 128 (sparse_sm90.cu): q, k, v, o, lse, idx, cnt, order,
+    # max_a, B, H, Hkv, S, D, causal, scale, stream
+    "dstt_sparse_fwd_sm90": [_VP] * 8 + [_I] * 7 + [_F, _VP],
     # planted fault of sparse_sm90.cu's next launches (tests): 0 none
     "dstt_sparse_sm90_plant": [_I],
 }

@@ -77,7 +77,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using dstt_flash::cp_async_commit;
+using dstt_flash::cp_async_wait;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -145,13 +150,6 @@ __device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
@@ -326,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
           }
         }
       }
-      cp_commit();
+      cp_async_commit();
     };
 
     // Q fragments of rows rt*16 + g4 and + 8 (rows past R read 0 and see
@@ -357,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
 
 #pragma unroll
     for (int k = 0; k < C::STAGES - 1; ++k) {
-      if (k < cnt) issue(k); else cp_commit();
+      if (k < cnt) issue(k); else cp_async_commit();
     }
 
     float acc[C::NT][4];
@@ -453,7 +451,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
     uint32_t pa[4] = {0u, 0u, 0u, 0u};
     int prev = 0;   // the stage of subtile k - 1
     for (int k = 0; k < cnt; ++k) {
-      cp_wait<C::STAGES - 2>();
+      cp_async_wait<C::STAGES - 2>();
       __syncwarp();
       const int sidx = (plant == 2 ? k + 1 : k) % C::STAGES;   // planted fault 2
       const float* ksc = reinterpret_cast<const float*>(wreg + sidx * C::STAGE + 2 * C::KV);
@@ -463,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
       scores(sidx, sc);
       if (k > 0) pv(prev, pa);
       __syncwarp();
-      if (k + C::STAGES - 1 < cnt) issue(k + C::STAGES - 1); else cp_commit();
+      if (k + C::STAGES - 1 < cnt) issue(k + C::STAGES - 1); else cp_async_commit();
 
       // scale, mask, online softmax; this lane holds rows g4 (e2 = 0) and
       // g4 + 8 (e2 = 1), positions nt*8 + 2*c4 + e
@@ -521,7 +519,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
       prev = sidx;
     }
     if (cnt > 0) pv(prev, pa);
-    cp_wait<0>();
+    cp_async_wait<0>();
     __syncwarp();
 
     // the split's result: l summed over the quad; this lane's 4 values of
@@ -633,7 +631,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
         for (int c = lane; c < n_it; c += 32) cp16(dst + c * 16, pacc + prow * HD + 4 * c, true);
         if (lane < nrows) cp4(dst + (nrows * HD + lane) * 4, pml + (prow + lane) * 2, true);
       }
-      cp_commit();
+      cp_async_commit();
     };
     fetch(0);
     const int rl = lane & 15;
@@ -661,7 +659,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
     for (int k = 0; k < KMAX; ++k) o[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int sb = 0; sb < nuse; sb += nbat_max) {
       const int nbat = min(nbat_max, nuse - sb);
-      cp_wait<0>();
+      cp_async_wait<0>();
       __syncwarp();
       for (int i0 = 0; i0 < nbat * nrows; i0 += 32) {   // warp-uniform trip count
         const int idx = i0 + lane, j = idx / nrows, r = idx - j * nrows;

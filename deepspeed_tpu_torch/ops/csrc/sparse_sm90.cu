@@ -1,9 +1,9 @@
-// Block-sparse attention backward for Hopper (sm_90a), bf16, layout block
-// 128, hd 32 / 64 / 128: dK/dV (the columns of the layout split over work
-// items) and dQ (further down), each on TMA loads into an mbarrier ring,
-// wgmma products and warp specialisation. bf16 at blocks 16-64 and all of
-// fp32 stay on sparse_attention.cu (ops/sparse_attention.py
-// `sparse_bwd_source` routes both kernels by one rule of shape and dtype).
+// Block-sparse attention for Hopper (sm_90a), bf16, layout block 128, hd
+// 32 / 64 / 128: dK/dV (the columns of the layout split over work items),
+// dQ and the forward (further down), each on TMA loads into an mbarrier
+// ring, wgmma products and warp specialisation. bf16 at blocks 16-64 and
+// all of fp32 stay on sparse_attention.cu (ops/sparse_attention.py
+// `sparse_source` routes the three kernels by one rule of shape and dtype).
 //
 // dK/dV replaces: deepspeed_tpu/ops/pallas/sparse_attention.py `_sparse_dkv_kernel`
 // (:126, pallas_call at :333), driven by `sparse_flash_attention_bwd` (:270).
@@ -111,6 +111,53 @@
 // Planted faults: 4 each list's last entry is left out; 5 each tile is
 // read from the ring stage after its own; 6 the diagonal block's element
 // mask is left out.
+//
+// Forward replaces: deepspeed_tpu/ops/pallas/sparse_attention.py
+// `_sparse_fwd_kernel` (:39, pallas_call at :252), driven by
+// `_sparse_fwd_lse` (:213). The same function as sparse_attention.cu's
+// forward: for each q block, the kv blocks of its compacted list; s = scale
+// q k^T (-inf above the diagonal of a causal layout's diagonal block), the
+// running max m, sum l and accumulator O in fp32 (base-2 units), p rounded
+// to bf16 before O += P V; o = O / l in bf16 and lse = m ln 2 + log l in
+// fp32 [B * H, S], which both backward routes read. Bound: operations, two
+// products over the visible pairs (at the dK/dV's S 16384 shape ~154 GFLOP,
+// 155.7 us). sparse_attention.cu's forward (a block of 64 q rows, mma.sync,
+// each kv sub-tile loaded synchronously behind two barriers) ran at 16% of
+// it. Design: flash_fwd_sm90.cu's step, copied (not shared, as above), over
+// the dQ kernel's items:
+// - An item is 128 q rows of one (batch, head): Q loaded once by TMA, the
+//   two 64-row K / V tiles of each listed kv block streamed through the
+//   4-stage ring by the producer warp, which takes each coordinate from the
+//   q block's list. Items in `dq_item_order` (longest list first), all
+//   heads of a q block together, on a persistent grid dealt forward and
+//   backward in turn; each item owns its rows (no merge).
+// - Per tile and consumer warpgroup (64 q rows): S = Q K^T (wgmma
+//   m64n64k16; Q's rows held in registers as the A operand, loaded once an
+//   item by ldmatrix, so a tile's S reads only K from shared memory: 4-5%
+//   faster at S 16384 on an H100 than Q read from shared memory); O += P V
+//   of the previous tile (P in registers as the A operand, V read MN-major)
+//   runs while this tile's online softmax is computed. Masks by tile index
+//   only, as in dQ: on a causal layout's diagonal block the tile below a
+//   consumer's rows is visible whole, the tile on them takes the element
+//   mask, the tile above them is skipped.
+// - The two consumers take turns on the tensor cores (named barriers, as in
+//   flash_fwd_sm90.cu), so one's softmax runs under the other's products; a
+//   skipped tile passes its turn on, so the two walks stay equal and the
+//   turns run on across items. Q has two slots, each freed once its rows
+//   are in registers: the next item's Q and first tiles load under this
+//   item's products and epilogue (~6% faster at S 16384 on an H100 than one
+//   slot; a deeper ring bought nothing).
+// - The softmax sits on the critical path (on an H100 the forward without it
+//   ran 28% faster at S 16384), so an unmasked tile takes one FFMA and one
+//   exp2 a score, each thread keeps its share of a row's sum until the
+//   epilogue, and O's rescale is skipped where a warp's factors are all 1.
+// Shared memory: two Q slots 2 * 2 * 128 * D bytes, 4 stages of K + V 4 *
+// 64 * D; D = 128: 192 KB. What still bounds it is not measured (no stall
+// profiler): on an H100 a fit over the S 4096 layouts gives ~1.1 us a
+// 64-row tile and ~3.4 us an item, against ~0.56 us of tensor time a tile.
+// Planted faults: 7 each list's last entry is left out; 8 each kv tile is
+// read from the ring stage after its own; 9 the diagonal block's element
+// mask is left out.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -121,7 +168,11 @@ namespace {
 
 using namespace dstt_hopper;
 using dstt_flash::allow_smem;
+using dstt_flash::kLn2;
 using dstt_flash::kLog2e;
+using dstt_flash::kNegInf;
+using dstt_flash::quad_max;
+using dstt_flash::quad_sum;
 
 constexpr int WG = 64;        // kv rows a consumer warpgroup owns
 constexpr int BM = 2 * WG;    // kv rows of a work item: one layout block
@@ -130,6 +181,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 3 * 128;   // producer + two consumer warpgroups
 constexpr int STAGES = 4;
 constexpr int kPlanInts = 8;        // int32 fields of a plan entry
+constexpr int FWD_QBUF = 2;         // the forward's Q slots: item n in slot n % 2
 
 template <int D>
 struct Cfg {
@@ -147,6 +199,11 @@ struct Cfg {
   // the dQ kernel: Q + dO of the item, 4 stages of K + V tiles, the barriers
   static constexpr size_t DQ_SMEM =
       1024 + 2 * ITEM_BYTES + (size_t)STAGES * 2 * TILE_BYTES + 8 * (2 + 2 * STAGES);
+  // the forward: FWD_QBUF slots of an item's Q, 4 stages of K + V tiles,
+  // the barriers
+  static constexpr size_t FWD_SMEM = 1024 + (size_t)FWD_QBUF * ITEM_BYTES +
+                                     (size_t)STAGES * 2 * TILE_BYTES +
+                                     8 * (2 * FWD_QBUF + 2 * STAGES);
 };
 
 int g_plant = 0;
@@ -811,6 +868,392 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+
+// -------------------------------------------------------------- forward --
+struct FwdArgs {
+  void* o;              // [B, S, H, D] bf16
+  float* lse;           // [B * H, S], base e
+  const int* idx;       // [S / BM, max_a] compacted lists
+  const int* cnt;       // [S / BM]
+  const int* order;     // [S / BM] q blocks, longest list first
+  int max_a, B, H, Hkv, S, causal;
+  float scale;
+};
+
+__host__ __device__ __forceinline__ int fwd_items(const FwdArgs& a) {
+  return a.S / BM * a.B * a.H;
+}
+
+// A forward item: the 128 q rows of layout block qb at one (batch, head),
+// over the n kv blocks of qb's list (planted fault 7: its last entry left
+// out), two 64-row K / V tiles each; items in `order`, all heads of a q
+// block together. Every field is warp-uniform.
+struct FwdItem {
+  int b, h, qb, n;
+  __device__ FwdItem(int w, const FwdArgs& a, int plant) {
+    const int bh = w % (a.B * a.H);
+    b = bh / a.H;
+    h = bh % a.H;
+    qb = uni(__ldg(a.order + w / (a.B * a.H)));
+    n = uni(__ldg(a.cnt + qb)) - (plant == 7 ? 1 : 0);   // planted fault 7
+  }
+  __device__ int kblock(const FwdArgs& a, int j) const {
+    return uni(__ldg(a.idx + (size_t)qb * a.max_a + j));
+  }
+};
+
+// Shared-memory addresses of the forward's tiles and barriers: FWD_QBUF
+// slots of Q (item n in slot n % FWD_QBUF, so the next item's Q and first
+// tiles load while this item's last tiles and epilogue run), then the ring.
+template <int D>
+struct FwdSmem {
+  uint32_t q0, ring, q_full0, q_empty0, full0, empty0;
+  __device__ explicit FwdSmem(const void* raw) {
+    using C = Cfg<D>;
+    q0 = (smem_u32(raw) + 1023u) & ~1023u;   // swizzled tiles start on 1024-byte lines
+    ring = q0 + FWD_QBUF * C::ITEM_BYTES;    // stage s: K at ring + 2 s TILE_BYTES, V after it
+    q_full0 = ring + STAGES * 2 * C::TILE_BYTES;
+    q_empty0 = q_full0 + 8 * FWD_QBUF;
+    full0 = q_empty0 + 8 * FWD_QBUF;
+    empty0 = full0 + 8 * STAGES;
+  }
+  __device__ uint32_t q(int n) const { return q0 + n % FWD_QBUF * Cfg<D>::ITEM_BYTES; }
+  __device__ uint32_t q_full(int n) const { return q_full0 + 8 * (n % FWD_QBUF); }
+  __device__ uint32_t q_empty(int n) const { return q_empty0 + 8 * (n % FWD_QBUF); }
+  __device__ uint32_t k(int s) const { return ring + s * 2 * Cfg<D>::TILE_BYTES; }
+  __device__ uint32_t v(int s) const { return k(s) + Cfg<D>::TILE_BYTES; }
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+};
+
+// This thread's A fragments of its warpgroup's 64 Q rows (one k16 step in
+// qa[4 kk .. +3], the m16n8k16 A fragment of the warp's 16 rows) by
+// ldmatrix from the swizzled Q tile at sq (TMA's layout: the 16-byte chunk c
+// of row r at c ^ (r % 8), 64-byte rows at D = 32: c ^ (r / 2 % 4)).
+template <int D>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qa)[D / 4], uint32_t sq, int cw) {
+  using C = Cfg<D>;
+  const int t = threadIdx.x % 128, lane = t & 31;
+  const int row = cw * WG + 16 * (t >> 5) + (lane & 15);   // row of the item tile
+  const int swz = C::RB == 128 ? row % 8 : row / 2 % 4;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int chunk = (kk * 16 % C::CB) / 8 + (lane >> 4);
+    const uint32_t addr = sq + (kk * 16 / C::CB) * BM * C::RB + row * C::RB + ((chunk ^ swz) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(qa[4 * kk]), "=r"(qa[4 * kk + 1]), "=r"(qa[4 * kk + 2]),
+                   "=r"(qa[4 * kk + 3])
+                 : "r"(addr));
+  }
+}
+
+// d[32] (+)= A (registers, 4 x bf16x2 a thread) * B (smem, K-major): m64n64k16;
+// acc 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs_n64_kmajor(float (&d)[32], const uint32_t* a,
+                                                    uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// S = Q K^T over D (64 x 64): Q's fragments in registers, K the ring tile at
+// sk (K-major).
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&acc)[BT / 2], const uint32_t (&qa)[D / 4],
+                                         uint32_t sk) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int cb = kk * 16 / C::CB, in_row = (kk * 16 % C::CB) * 2;
+    wgmma_rs_n64_kmajor(acc, &qa[4 * kk],
+                        smem_desc(sk + cb * BT * C::RB + in_row, 16, C::SBO, C::SWZ), kk > 0);
+  }
+}
+
+// The forward's producer warp (lane 0 issues; every lane reads the lists):
+// per item, Q once the consumers are done with the last one, then the two
+// 64-row K / V tiles of each listed kv block into the ring. GQA: K / V of kv
+// head h / g, read in place.
+template <int D>
+__device__ __forceinline__ void fwd_produce(const FwdSmem<D>& sm, const CUtensorMap* tm_q,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            const FwdArgs& a, int plant) {
+  using C = Cfg<D>;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    tma_prefetch_map(tm_q);
+    tma_prefetch_map(tm_k);
+    tma_prefetch_map(tm_v);
+  }
+  int it = 0;   // kv tiles loaded so far
+  for (int n = 0; item_of(n) < fwd_items(a); ++n) {
+    const FwdItem item(item_of(n), a, plant);
+    const int hk = item.h / (a.H / a.Hkv);
+    if (lane == 0) {
+      // the slot's last item (n - FWD_QBUF) is done with it
+      if (n >= FWD_QBUF) mbar_wait(sm.q_empty(n), (n / FWD_QBUF - 1) & 1);
+      mbar_expect_tx(sm.q_full(n), C::ITEM_BYTES);
+      for (int c = 0; c < C::NCB; ++c)
+        tma_load_4d(sm.q(n) + c * BM * C::RB, tm_q, sm.q_full(n), c * C::CB, item.h,
+                    item.qb * BM, item.b);
+    }
+    for (int j = 0; j < item.n; ++j) {
+      const int kb = item.kblock(a, j);
+      for (int t = 0; t < BM / BT; ++t, ++it) {
+        if (lane != 0) continue;
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(sm.empty(s), (it / STAGES - 1) & 1);
+        mbar_expect_tx(sm.full(s), 2 * C::TILE_BYTES);
+        for (int c = 0; c < C::NCB; ++c) {
+          tma_load_4d(sm.k(s) + c * BT * C::RB, tm_k, sm.full(s), c * C::CB, hk,
+                      kb * BM + t * BT, item.b);
+          tma_load_4d(sm.v(s) + c * BT * C::RB, tm_v, sm.full(s), c * C::CB, hk,
+                      kb * BM + t * BT, item.b);
+        }
+      }
+    }
+  }
+}
+
+// One kv tile's scores (this thread's 2 rows x 64 columns) through the
+// mask, the scale and the online softmax, in base-2 units: s becomes p, m
+// and l move on, alpha is the factor the accumulator must take. l is this
+// thread's share of each row's sum (the quad sums it once, in the
+// epilogue). MASK: the diagonal tile of a causal layout's diagonal block,
+// local column <= local row.
+template <bool MASK>
+__device__ __forceinline__ void fwd_softmax(float (&s)[BT / 2], float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], float sl2, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (!MASK && sl2 > 0.f) {
+    // no mask: the row max of s, scaled once, and p = 2^(s sl2 - m) as one
+    // FFMA and one exp2 per score (flash_fwd_sm90.cu's no-mask path)
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+      alpha[r] = mn == -INFINITY ? 1.f : exp2f(m[r] - mn);
+      m[r] = mn;
+      mu[r] = mn == -INFINITY ? 0.f : mn;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) {
+      s[e] = exp2_ftz(fmaf(s[e], sl2, -mu[(e >> 1) & 1]));
+      ls[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < BT / 2; ++e) {
+    const float x = MASK && acc_col(t, e) > acc_row(t, e) ? -INFINITY : s[e] * sl2;
+    s[e] = x;
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+  }
+  float mu[2];   // the max subtracted: 0 for a row that has seen no key
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = mn == -INFINITY ? 1.f : exp2f(m[r] - mn);
+    m[r] = mn;
+    mu[r] = mn == -INFINITY ? 0.f : mn;
+  }
+  float ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < BT / 2; ++e) {
+    const float p = exp2_ftz(s[e] - mu[(e >> 1) & 1]);
+    s[e] = p;
+    ls[(e >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+}
+
+// A forward consumer warpgroup (cw 0 or 1: q rows qb * 128 + 64 cw ..). Per
+// item it takes its Q rows into registers and frees the Q slot. Per kv
+// tile, in its turn on the tensor cores, it issues S = Q K^T and O += P V
+// of the previous tile as two commit groups and hands the turn to the other
+// warpgroup; then it runs the softmax of S while that product may still
+// run, rescales O once it is done and releases the previous tile's stage.
+// So one warpgroup's products overlap the other's softmax (the turns are
+// named barriers 1 and 2, as in flash_fwd_sm90.cu). On a causal layout's
+// diagonal block the consumer's tile t = cw takes the element mask (planted
+// fault 9: left out), t < cw none, and t > cw is skipped: its stage waited
+// for and released, its turn passed on without a product, so both
+// warpgroups take 2 n turns an item and the turns alternate across items
+// (the next item's Q may already sit in the other slot). The epilogue
+// writes o = O / l and lse = m ln 2 + log l from registers.
+template <int D>
+__device__ __forceinline__ void fwd_consume(const FwdSmem<D>& sm, const FwdArgs& a, int cw,
+                                            int plant) {
+  using C = Cfg<D>;
+  constexpr int kTurn = 1;   // named barriers kTurn + cw
+  const int t = threadIdx.x % 128, lane = t & 31;
+  const float sl2 = a.scale * kLog2e;
+  int it = 0;                                    // kv tiles consumed so far
+
+  // The turns run on across items (both warpgroups take 2 n of them an
+  // item): warpgroup 0 takes the first, and the last hand-over of warpgroup
+  // 1, which has no turn after it, after the last item.
+  if (cw == 1) named_bar_arrive(kTurn, 256);
+  for (int n = 0; item_of(n) < fwd_items(a); ++n) {
+    const FwdItem item(item_of(n), a, plant);
+    const int r0 = item.qb * BM + cw * WG + acc_row(t, 0);   // this thread's rows r0, r0 + 8
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    uint32_t pa[BT / 4];   // P of the previous tile as bf16, the A operand of O += P V
+    int prev = 0, prev_read = 0, done = 0;   // its stage, the one its V is read from; tiles done
+
+    mbar_wait(sm.q_full(n), (n / FWD_QBUF) & 1);
+    uint32_t qa[D / 4];   // this warpgroup's 64 Q rows as the A operand of S = Q K^T
+    load_q_frags<D>(qa, sm.q(n), cw);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.q_empty(n));   // Q is in registers: its slot is free
+    for (int j = 0; j < item.n; ++j) {
+      const bool diag = a.causal && item.kblock(a, j) == item.qb;
+      for (int tt = 0; tt < BM / BT; ++tt, ++it) {
+        const int s = it % STAGES;
+        const int sr = plant == 8 ? (it + 1) % STAGES : s;   // planted fault 8
+        mbar_wait(sm.full(s), (it / STAGES) & 1);
+        named_bar_sync(kTurn + cw, 256);
+        if (diag && tt > cw) {   // above the diagonal: no score visible
+          named_bar_arrive(kTurn + 1 - cw, 256);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sm.empty(s));
+          continue;
+        }
+        const bool mask = diag && tt == cw && plant != 9;   // planted fault 9
+
+        float sacc[BT / 2];
+        wgmma_fence();
+        issue_qk<D>(sacc, qa, sm.k(sr));
+        wgmma_commit();
+        if (done > 0) issue_rs<D>(o, pa, sm.v(prev_read));
+        wgmma_commit();
+        named_bar_arrive(kTurn + 1 - cw, 256);
+
+        float alpha[2];
+        wgmma_wait<1>();   // S is done; the previous P V may still run
+        fence_regs(sacc);
+        if (mask)
+          fwd_softmax<true>(sacc, m, l, alpha, sl2, t);
+        else
+          fwd_softmax<false>(sacc, m, l, alpha, sl2, t);
+        wgmma_wait<0>();   // the previous P V is done: its stage and pa are free
+        fence_regs(o);
+        fence_regs(pa);
+        __syncwarp();
+        if (done > 0 && lane == 0) mbar_arrive(sm.empty(prev));
+        // once a row's max stops moving its alpha is exactly 1: skip the rescale
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        }
+        pack<BT / 2>(pa, sacc);   // p rounded to bf16, as on the TPU
+        prev = s;
+        prev_read = sr;
+        ++done;
+      }
+    }
+    if (done > 0) {
+      wgmma_fence();
+      issue_rs<D>(o, pa, sm.v(prev_read));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(prev));
+    }
+    const size_t bh = (size_t)item.b * a.H + item.h;
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      const float l_safe = l[r] == 0.f ? 1.f : l[r];
+      inv[r] = 1.f / l_safe;
+      if ((t & 3) == 0)
+        a.lse[bh * a.S + r0 + 8 * r] = (m[r] == -INFINITY ? kNegInf : m[r] * kLn2) + logf(l_safe);
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+    const size_t qstride = (size_t)a.H * D;   // o [B, S, H, D]
+    store_acc<D>(o, t, r0,
+                 static_cast<__nv_bfloat16*>(a.o) + (size_t)item.b * a.S * qstride +
+                     (size_t)item.h * D,
+                 qstride);
+  }
+  if (cw == 0) named_bar_sync(kTurn, 256);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    sparse_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const FwdArgs a,
+                           const int plant) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const FwdSmem<D> sm(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int n = 0; n < FWD_QBUF; ++n) {
+      mbar_init(sm.q_full(n), 1);
+      mbar_init(sm.q_empty(n), kConsumerWarps);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    setmaxnreg_inc<240>();
+    // the warpgroup index broadcast from lane 0: branches on it are then
+    // uniform to ptxas, which keeps the wgmma after them asynchronous
+    const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
+    fwd_consume<D>(sm, a, cw, plant);
+  } else {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) fwd_produce<D>(sm, &tm_q, &tm_k, &tm_v, a, plant);
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const FwdArgs& a,
+                       cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = bhsd_map(&tq, q, a.B, a.S, a.H, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tk, k, a.B, a.S, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = bhsd_map(&tv, v, a.B, a.S, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(sparse_fwd_sm90_kernel<D>, C::FWD_SMEM);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int items = fwd_items(a);
+  sparse_fwd_sm90_kernel<D><<<items < sms ? items : sms, kThreads, C::FWD_SMEM, stream>>>(
+      tq, tk, tv, a, g_plant);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 }  // namespace dstt_sparse
@@ -898,11 +1341,50 @@ extern "C" int dstt_sparse_bwd_dq_sm90(const void* q, const void* k, const void*
   return (int)launch_dq<32>(q, k, v, dout, a, s);
 }
 
+// bf16 o [B, S, H, D] and fp32 lse [B * H, S] (base e) from q [B, S, H, D],
+// k, v [B, S, Hkv, D] (bf16, dense, 16-byte aligned) over the compacted
+// lists idx [S / 128, max_a], cnt [S / 128] (layout block 128; every count
+// >= 1) and order [S / 128], the q blocks longest list first
+// (ops/sparse_attention.py `dq_item_order`). D: 32, 64 or 128.
+extern "C" int dstt_sparse_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, const int* idx, const int* cnt, const int* order,
+                                    int max_a, int B, int H, int Hkv, int S, int D, int causal,
+                                    float scale, void* stream) {
+  using namespace dstt_sparse;
+  if (B == 0 || S == 0) return 0;
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || S % BM != 0 || max_a <= 0 ||
+      (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  FwdArgs a{};
+  a.o = o;
+  a.lse = lse;
+  a.idx = idx;
+  a.cnt = cnt;
+  a.order = order;
+  a.max_a = max_a;
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.causal = causal;
+  a.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return (int)launch_fwd<128>(q, k, v, a, s);
+  if (D == 64) return (int)launch_fwd<64>(q, k, v, a, s);
+  return (int)launch_fwd<32>(q, k, v, a, s);
+}
+
 // Plants a fault in the kernels' next launches (tests only). dK/dV: 1 the
 // merge drops the last chunk's partial, 2 each tile is read from the ring
 // stage after its own, 3 the last query head of each GQA group is skipped.
 // dQ: 4 each list's last entry is left out, 5 each tile is read from the
-// ring stage after its own, 6 the diagonal block's mask is left out. 0 none.
+// ring stage after its own, 6 the diagonal block's mask is left out.
+// Forward: 7 each list's last entry is left out, 8 each kv tile is read
+// from the ring stage after its own, 9 the diagonal block's mask is left
+// out. 0 none.
 extern "C" int dstt_sparse_sm90_plant(int fault) {
   dstt_sparse::g_plant = fault;
   return 0;

@@ -14,14 +14,15 @@ CUDA tensors only and count their launches: :func:`sparse_fwd_cuda`
 ``-> (o, lse)`` and :func:`sparse_bwd_dq_cuda` walk each q block's
 compacted list of active kv blocks (:func:`compact_layout`);
 :func:`sparse_bwd_dkv_cuda` walks each kv block's transposed list
-(:func:`compact_layout_t`) and writes NARROW dK/dV under GQA (the query
-group summed in the kernel). The two backward wrappers route by
-:func:`sparse_bwd_source`: bf16 at block 128 runs the Hopper kernels of
-``ops/csrc/sparse_sm90.cu`` (TMA + wgmma; :func:`sparse_bwd_dq_sm90_cuda`,
-a work item per (q block, batch, head) in :func:`dq_item_order`, and
-:func:`sparse_bwd_dkv_sm90_cuda`, the columns split over work items by
-:func:`dkv_split_plan`), every other block and fp32 the kernels of
-``ops/csrc/sparse_attention.cu``, which also holds the forward. The plain versions
+(:func:`compact_layout_t`), its long columns split over work items by
+:func:`dkv_split_plan`, and writes NARROW dK/dV under GQA (the query group
+summed in the kernel). The three wrappers route by :func:`sparse_source`:
+bf16 at block 128 runs the Hopper kernels of ``ops/csrc/sparse_sm90.cu``
+(TMA + wgmma; :func:`sparse_fwd_sm90_cuda` and
+:func:`sparse_bwd_dq_sm90_cuda`, a work item per (q block, batch, head) in
+:func:`dq_item_order`, and :func:`sparse_bwd_dkv_sm90_cuda`), every other
+block and fp32 the ``mma.sync`` / FMA kernels of
+``ops/csrc/sparse_attention.cu``. The plain versions
 :func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
 functions densely over the token mask, serve CPU tensors, and are what the
 kernels are held against on the card. The compacted lists are cached per
@@ -179,21 +180,20 @@ def layout_lists(layout: np.ndarray, causal: bool, device) -> Tuple[torch.Tensor
     return _device_lists(lay.tobytes(), lay.shape[0], bool(causal), str(torch.device(device)))
 
 
-def sparse_bwd_source(dtype: torch.dtype, block: int, d: int) -> str:
-    """The source under ``ops/csrc/`` whose kernels compute the block-sparse
-    backward (dQ and dK/dV alike) at this dtype, layout block and head dim:
-    bf16 at block 128 runs ``sparse_sm90.cu`` (TMA + wgmma; a work item is
-    one 128-row layout block), bf16 at blocks 16-64 and all of fp32 (whose
-    wgmma would be TF32) the ``mma.sync`` / FMA kernels of
+def sparse_source(dtype: torch.dtype, block: int, d: int) -> str:
+    """The source under ``ops/csrc/`` whose kernels compute block-sparse
+    attention (the forward, dQ and dK/dV alike) at this dtype, layout block
+    and head dim: bf16 at block 128 runs ``sparse_sm90.cu`` (TMA + wgmma; a
+    work item is one 128-row layout block), bf16 at blocks 16-64 and all of
+    fp32 (whose wgmma would be TF32) the ``mma.sync`` / FMA kernels of
     ``sparse_attention.cu``. Raises on what neither takes. A dispatch by
     shape, not a fallback."""
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"block-sparse backward takes bf16 or fp32, not {dtype}")
+        raise ValueError(f"block-sparse attention takes bf16 or fp32, not {dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"block-sparse backward takes head dim in {HEAD_DIMS}, not {d}")
+        raise ValueError(f"block-sparse attention takes head dim in {HEAD_DIMS}, not {d}")
     if block not in BLOCK_SIZES:
-        raise ValueError(f"block-sparse backward takes block size in {BLOCK_SIZES}, "
-                         f"not {block}")
+        raise ValueError(f"block-sparse attention: block size {block} not in {BLOCK_SIZES}")
     return SPARSE_SM90 if dtype == torch.bfloat16 and block == SM90_BLOCK else SPARSE_MMA
 
 
@@ -206,13 +206,13 @@ def _dq_order(layout_bytes: bytes, nb: int, causal: bool) -> np.ndarray:
 
 
 def dq_item_order(layout: np.ndarray, causal: bool) -> np.ndarray:
-    """The q blocks in the order ``sparse_sm90.cu``'s dQ takes them: longest
+    """The q blocks in the order ``sparse_sm90.cu``'s dQ and forward take them: longest
     compacted list first (ties by block index), cached per ``(layout bytes,
     causal)``. Work item ``w`` of a launch over ``batch`` x ``heads`` is q
     block ``order[w // (batch * heads)]`` at ``(batch, head) = divmod(w %
     (batch * heads), heads)``: all heads of a q block together (the
-    kernel's ``DqItem``). A persistent grid deals the items forward and
-    backward in turn."""
+    kernels' ``DqItem`` and ``FwdItem``). A persistent grid deals the items
+    forward and backward in turn."""
     lay = np.ascontiguousarray(layout, bool)
     return _dq_order(lay.tobytes(), lay.shape[0], bool(causal))
 
@@ -247,8 +247,10 @@ def _split_plan(layout_bytes: bytes, nb: int, causal: bool, group: int):
 
 
 def dkv_split_plan(layout: np.ndarray, causal: bool, group: int) -> dict:
-    """The work items of ``sparse_sm90.cu``'s dK/dV over one layout, cached
-    per ``(layout bytes, causal, group)`` like the compacted lists.
+    """The work items of the dK/dV kernels (``sparse_sm90.cu`` and
+    ``sparse_attention.cu``) over one layout, cached per ``(layout bytes,
+    causal, group)`` like the compacted lists. The plan counts in layout
+    blocks, so one plan serves every block size.
 
     Kv block ``j``'s pairs are ``(query head, listed q block)`` of its
     transposed list (:func:`compact_layout_t`), numbered ``head * cnt_t[j] +
@@ -259,7 +261,7 @@ def dkv_split_plan(layout: np.ndarray, causal: bool, group: int) -> dict:
     chunk. ``plan`` is int32 ``[entries, PLAN_INTS]``, its fields
     ``PLAN_FIELDS``: kv block, first pair, pair count, chunk, chunks of the
     column, the column's first partial slot and its ticket counter (-1 for a
-    column of one chunk), longest entries first. The kernel runs each entry
+    column of one chunk), longest entries first. The kernels run each entry
     once per (batch, kv head); a split column's chunks write fp32 partials
     to slots ``slot0 + chunk`` and the last to finish sums them in chunk
     order. ``slots`` and ``split_columns`` size that scratch."""
@@ -375,7 +377,13 @@ def _kernel_args(name: str, q, k, v, layout, block_size, causal, scale, *rest):
 def sparse_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     layout: np.ndarray, block_size: int, *, causal: bool = True,
                     scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward of ``ops/csrc/sparse_attention.cu``: ``(o, lse)``."""
+    """Block-sparse forward on the card: ``(o, lse)``. The kernel that
+    :func:`sparse_source` names: bf16 at block 128 :func:`sparse_fwd_sm90_cuda`,
+    otherwise the forward of ``ops/csrc/sparse_attention.cu``, whose
+    launches this function counts."""
+    if q.device.type == "cuda" and \
+            sparse_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
+        return sparse_fwd_sm90_cuda(q, k, v, layout, block_size, causal=causal, scale=scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
         "sparse_fwd_cuda", q, k, v, layout, block_size, causal, scale)
@@ -386,6 +394,27 @@ def sparse_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         idx.data_ptr(), cnt.data_ptr(), idx.shape[1], *common)
     _build.check(err, "sparse_fwd kernel")
     sparse_fwd_cuda.launches += 1
+    return o, lse
+
+
+def sparse_fwd_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         layout: np.ndarray, block_size: int, *, causal: bool = True,
+                         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward of ``ops/csrc/sparse_sm90.cu`` (bf16, block 128):
+    one launch over the (q block, batch, head) work items in
+    :func:`dq_item_order`; ``(o, lse)`` as :func:`sparse_fwd_cuda` gives them."""
+    name = "sparse_fwd_sm90_cuda"
+    (q, k, v), (b, s, h, d, hkv), (idx, cnt, _, _), common = _sm90_args(
+        name, q, k, v, layout, block_size, causal, scale)
+    order = _item_order(name, layout, causal, b, h, q.device)
+    o = torch.empty_like(q)
+    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
+    err = _build.load().dstt_sparse_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        idx.data_ptr(), cnt.data_ptr(), order.data_ptr(), idx.shape[1], b, h, hkv, s, d,
+        int(bool(causal)), common[7], common[-1])
+    _build.check(err, "sparse_fwd kernel (sparse_sm90.cu)")
+    sparse_fwd_sm90_cuda.launches += 1
     return o, lse
 
 
@@ -401,12 +430,12 @@ def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                        layout: np.ndarray, block_size: int, *, causal: bool = True,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """Block-sparse dQ on the card. The kernel that :func:`sparse_bwd_source`
+    """Block-sparse dQ on the card. The kernel that :func:`sparse_source`
     names: bf16 at block 128 :func:`sparse_bwd_dq_sm90_cuda`, otherwise the
     dQ kernel of ``ops/csrc/sparse_attention.cu``, whose launches this
     function counts."""
     if q.device.type == "cuda" and \
-            sparse_bwd_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
+            sparse_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
         return sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
                                        causal=causal, scale=scale)
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
@@ -423,15 +452,26 @@ def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq
 
 
-def _sm90_args(name, q, k, v, do, layout, block_size, causal, scale):
-    """``sparse_sm90.cu``'s inputs checked as both its wrappers need them."""
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    shape, lists, common = _kernel_args(name, q, k, v, layout, block_size, causal, scale, do)
+def _sm90_args(name, q, k, v, layout, block_size, causal, scale, *rest):
+    """``sparse_sm90.cu``'s inputs (q, k, v and, for the backward, dO)
+    checked as its three wrappers need them."""
+    q, k, v, *rest = (t.contiguous() for t in (q, k, v, *rest))
+    shape, lists, common = _kernel_args(name, q, k, v, layout, block_size, causal, scale, *rest)
     if q.dtype != torch.bfloat16 or block_size != SM90_BLOCK:
         raise ValueError(f"{name} takes bf16 at block {SM90_BLOCK}, got {q.dtype} at "
-                         f"block {block_size} (sparse_bwd_source routes those)")
-    tma_check(name, q=q, k=k, v=v, do=do)
-    return (q, k, v, do), shape, lists, common
+                         f"block {block_size} (sparse_source routes those)")
+    tma_check(name, q=q, k=k, v=v, **dict(zip(("do",), rest)))
+    return (q, k, v, *rest), shape, lists, common
+
+
+def _item_order(name, layout, causal, b, h, device):
+    """:func:`dq_item_order` on ``device``, for a launch of ``b * h`` items a
+    q block."""
+    lay = np.ascontiguousarray(layout, bool)
+    if lay.shape[0] * b * h >= 2 ** 31:
+        raise ValueError(f"{name}: {lay.shape[0] * b * h} work items; the kernel counts them "
+                         "in 31 bits")
+    return _device_order(lay.tobytes(), lay.shape[0], bool(causal), str(device))
 
 
 def sparse_bwd_dq_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -443,13 +483,9 @@ def sparse_bwd_dq_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`dq_item_order`; dq shaped like q."""
     name = "sparse_bwd_dq_sm90_cuda"
     (q, k, v, do), (b, s, h, d, hkv), (idx, cnt, _, _), common = _sm90_args(
-        name, q, k, v, do, layout, block_size, causal, scale)
+        name, q, k, v, layout, block_size, causal, scale, do)
     lse, delta = _stats(lse, delta, b, h, s)
-    lay = np.ascontiguousarray(layout, bool)
-    if lay.shape[0] * b * h >= 2 ** 31:
-        raise ValueError(f"{name}: {lay.shape[0] * b * h} work items; the kernel counts them "
-                         "in 31 bits")
-    order = _device_order(lay.tobytes(), lay.shape[0], bool(causal), str(q.device))
+    order = _item_order(name, layout, causal, b, h, q.device)
     dq = torch.empty_like(q)
     err = _build.load().dstt_sparse_bwd_dq_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -465,25 +501,46 @@ def sparse_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: np.ndarray, block_size: int, *, causal: bool = True,
                         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-sparse dK/dV on the card: narrow ``(dk, dv)`` shaped like k and
-    v. The kernel that :func:`sparse_bwd_source` names: bf16 at block 128
+    v. The kernel that :func:`sparse_source` names: bf16 at block 128
     :func:`sparse_bwd_dkv_sm90_cuda`, otherwise the kernel of
-    ``ops/csrc/sparse_attention.cu``, whose launches this function counts."""
+    ``ops/csrc/sparse_attention.cu`` (one launch over the work items of
+    :func:`dkv_split_plan`), whose launches this function counts."""
     if q.device.type == "cuda" and \
-            sparse_bwd_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
+            sparse_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
         return sparse_bwd_dkv_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
                                         causal=causal, scale=scale)
+    name = "sparse_bwd_dkv_cuda"
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    (b, s, h, _, _), (_, _, idx_t, cnt_t), common = _kernel_args(
-        "sparse_bwd_dkv_cuda", q, k, v, layout, block_size, causal, scale, do)
+    (b, s, h, d, hkv), (_, _, idx_t, cnt_t), common = _kernel_args(
+        name, q, k, v, layout, block_size, causal, scale, do)
     lse, delta = _stats(lse, delta, b, h, s)
+    plan, (counters, partials) = _split_args(name, layout, causal, b, h, hkv, d, block_size,
+                                             q.device, common[-1], max(1, block_size // 64))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _build.load().dstt_sparse_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), idx_t.data_ptr(),
-        cnt_t.data_ptr(), idx_t.shape[1], *common)
+        cnt_t.data_ptr(), plan.data_ptr(), counters.data_ptr(), partials.data_ptr(),
+        idx_t.shape[1], plan.shape[0], *common)
     _build.check(err, "sparse_bwd_dkv kernel")
     sparse_bwd_dkv_cuda.launches += 1
     return dk, dv
+
+
+def _split_args(name, layout, causal, b, h, hkv, d, block_size, device, stream, parts=1):
+    """The dK/dV kernels' plan (:func:`dkv_split_plan`, on ``device``) and
+    scratch: ``(plan, (counters, partials))``, the scratch cached per
+    (device, stream) and shared with the paged kernel's (a kernel leaves its
+    counters at 0). ``parts``: blocks a work item takes (its kv rows in
+    64-row parts)."""
+    lay = np.ascontiguousarray(layout, bool)
+    info = dkv_split_plan(lay, causal, h // hkv)
+    plan = _device_plan(lay.tobytes(), lay.shape[0], bool(causal), h // hkv, str(device))
+    blocks = plan.shape[0] * b * hkv * parts
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{name}: {blocks} blocks; the kernel counts them in 31 bits")
+    return plan, _workspace(device, stream, info["split_columns"] * b * hkv * 8,
+                            info["slots"] * b * hkv * block_size * d * 2)
 
 
 def sparse_bwd_dkv_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -496,17 +553,11 @@ def sparse_bwd_dkv_sm90_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``(dk, dv)`` shaped like k and v."""
     name = "sparse_bwd_dkv_sm90_cuda"
     (q, k, v, do), (b, s, h, d, hkv), (_, _, idx_t, cnt_t), common = _sm90_args(
-        name, q, k, v, do, layout, block_size, causal, scale)
+        name, q, k, v, layout, block_size, causal, scale, do)
     lse, delta = _stats(lse, delta, b, h, s)
-    lay = np.ascontiguousarray(layout, bool)
-    info = dkv_split_plan(lay, causal, h // hkv)
-    plan = _device_plan(lay.tobytes(), lay.shape[0], bool(causal), h // hkv, str(q.device))
-    if plan.shape[0] * b * hkv >= 2 ** 31:
-        raise ValueError(f"{name}: {plan.shape[0] * b * hkv} work items; the kernel counts "
-                         "them in 31 bits")
     stream = common[-1]
-    counters, partials = _workspace(q.device, stream, info["split_columns"] * b * hkv * 8,
-                                    info["slots"] * b * hkv * SM90_BLOCK * d * 2)
+    plan, (counters, partials) = _split_args(name, layout, causal, b, h, hkv, d, SM90_BLOCK,
+                                             q.device, stream)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _build.load().dstt_sparse_bwd_dkv_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -526,7 +577,8 @@ def sparse_sm90_planted_fault(fault: int):
     read from the ring stage after its own, before that copy has landed; 3
     the last query head of each GQA group is skipped. dQ: 4 each q block's
     list loses its last entry; 5 each kv tile is read from the ring stage
-    after its own; 6 the causal diagonal block's element mask is left out."""
+    after its own; 6 the causal diagonal block's element mask is left out.
+    Forward: 7, 8 and 9, the same three faults as 4, 5 and 6."""
     plant = _build.load().dstt_sparse_sm90_plant
     plant(int(fault))
     try:
@@ -535,7 +587,21 @@ def sparse_sm90_planted_fault(fault: int):
         plant(0)
 
 
+@contextlib.contextmanager
+def sparse_attention_planted_fault(fault: int):
+    """For the tests that show a check can fail: the dK/dV launches of
+    ``sparse_attention.cu`` inside the block carry a planted fault. 1 the
+    merge of a split column drops its last chunk's partial."""
+    plant = _build.load().dstt_sparse_attention_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
+
+
 sparse_fwd_cuda.launches = 0
+sparse_fwd_sm90_cuda.launches = 0
 sparse_bwd_dq_cuda.launches = 0
 sparse_bwd_dq_sm90_cuda.launches = 0
 sparse_bwd_dkv_cuda.launches = 0

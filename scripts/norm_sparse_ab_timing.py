@@ -14,16 +14,33 @@ them:
   16-byte vectors a lane (the kernel as shipped) and as 16 warps of one (a
   copy of ``rms_norm.cu`` built here with the cap at 512), over 64 to 4096
   rows;
-- block-sparse dQ and dK/dV (``sparse_bwd_dq_cuda``, ``sparse_bwd_dkv_cuda``:
-  whichever kernels the checkout routes bf16 at block 128 to), batch 1, 32
-  query / 8 kv heads, hd 128, bf16: S 16384 with the causal bigbird layout
-  of ``blocksparse_attention``'s smoke phase, and S 4096 with its three
-  layouts (bigbird causal, fixed non-causal, sliding window);
+- the block-sparse forward, dQ and dK/dV (``sparse_fwd_cuda``,
+  ``sparse_bwd_dq_cuda``, ``sparse_bwd_dkv_cuda``: whichever kernels the
+  checkout routes each case to), batch 1, 32 query / 8 kv heads, hd 128,
+  bf16: S 16384 at block 128 with the causal bigbird layout of
+  ``blocksparse_attention``'s smoke phase; S 4096 with its three layouts
+  (bigbird causal, fixed non-causal, sliding window) at blocks 128 and 32;
+  the bigbird layout at blocks 16 and 64;
 - ``blocksparse_attention`` forward and backward under autograd at that
-  S 16384 (every kernel of the step: the three sparse kernels, delta, the
-  casts).
+  S 16384 and at S 4096 block 32 (every kernel of the step: the three
+  sparse kernels, delta, the casts).
 
     python3 scripts/norm_sparse_ab_timing.py --root PATH [--iters 100]
+        [--kinds norms,fwd,dq,dkv,step] [--plain]
+
+``--kinds`` chooses what is timed: ``norms`` the LayerNorm and RMSNorm
+cases, ``fwd``, ``dq`` and ``dkv`` the block-sparse kernels, ``step``
+``blocksparse_attention`` forward and backward.
+
+Beside the times, ``bound_us`` holds each sparse case's bound
+(``chip_smoke.py``'s ``sparse_work``: operations over the visible pairs
+against the bytes moved once, on the H100 SXM's published peaks). With
+``--plain``, ``plain_us`` and ``library_us`` also hold each sparse case's
+plain version (``sparse_fwd_torch``; ``sparse_bwd_torch``, all three
+grads, for dq and dkv; at S 16384 over 1024-row query chunks) and one
+dense-masked SDPA call on the same inputs (K / V widened to the query
+heads; the backward as forward + backward less the forward). Both are the
+same functions in every checkout: time them once.
 
 To compare two checkouts, run it on both in turns (parent, change, change,
 parent) on one card, one after another: each run builds its checkout's
@@ -75,10 +92,27 @@ def rms_thread_cap_variant(root: Path, threads: int):
     return lib
 
 
+def _sparse_work():
+    """``sparse_work`` of the ``chip_smoke.py`` beside this script (the
+    bounds are the same whichever checkout is timed)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.sparse_work
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", required=True, help="checkout holding deepspeed_tpu_torch/")
     ap.add_argument("--iters", type=int, default=100)
+    ap.add_argument("--kinds", default="norms,fwd,dq,dkv,step",
+                    help="what to time: norms, and the block-sparse fwd, dq, dkv and step "
+                         "(blocksparse_attention fwd + bwd)")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time each sparse case's plain version and dense-masked SDPA")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -99,21 +133,23 @@ def main() -> int:
                           timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    us = {}
-    for name, (n, d) in LN_SHAPES.items():
+    us, bound, plain, library = {}, {}, {}, {}
+    kinds = set(args.kinds.split(","))
+    norms = "norms" in kinds
+    for name, (n, d) in (LN_SHAPES if norms else {}).items():
         x = (3 * torch.randn(n, d, generator=gen, device=dev) + 1).to(torch.bfloat16)
         w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         b = (0.2 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         iters = args.iters * 10 if n <= 64 else args.iters
         us[name] = device_us(lambda: layer_norm_cuda(x, w, b, 1e-5), iters)
         us[name + "_F.layer_norm"] = device_us(lambda: F.layer_norm(x, (d,), w, b, 1e-5), iters)
-    for name, (n, d) in RMS_SHAPES.items():
+    for name, (n, d) in (RMS_SHAPES if norms else {}).items():
         x = (3 * torch.randn(n, d, generator=gen, device=dev)).to(torch.bfloat16)
         w = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
         iters = args.iters * 10 if n <= 64 else args.iters
         us[name] = device_us(lambda: rms_norm_cuda(x, w, 1e-5), iters)
         us[name + "_F.rms_norm"] = device_us(lambda: F.rms_norm(x, (d,), w, 1e-5), iters)
-    variant = rms_thread_cap_variant(root, 512)
+    variant = rms_thread_cap_variant(root, 512) if norms else None
     if variant is not None:
         # a row of 4096 as 8 warps of 2 vectors a lane (as shipped) or 16 of 1
         w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
@@ -135,37 +171,69 @@ def main() -> int:
             us[f"rms_{n}x4096_8x2"] = device_us(lambda: rms_norm_cuda(x, w, 1e-5), iters)
             us[f"rms_{n}x4096_16x1"] = device_us(cap512, iters)
 
-    layouts = {"sparse_dkv_s16384_bigbird": (16384, sa.bigbird_layout(128, 3, 1, 2, seed=0,
-                                                                      causal=True), True),
-               "sparse_dkv_s4096_bigbird": (4096, sa.bigbird_layout(32, 3, 1, 2, seed=0,
-                                                                    causal=True), True),
-               "sparse_dkv_s4096_fixed": (4096, sa.fixed_layout(32, 4, 4, causal=False), False),
-               "sparse_dkv_s4096_sliding": (4096, sa.sliding_window_layout(32, 4, causal=True),
-                                            True)}
-    for name, (s, lay, causal) in layouts.items():
+    sparse_work = _sparse_work()
+    builders = {"bigbird": lambda nb: (sa.bigbird_layout(nb, 3, 1, 2, seed=0, causal=True), True),
+                "fixed": lambda nb: (sa.fixed_layout(nb, 4, 4, causal=False), False),
+                "sliding": lambda nb: (sa.sliding_window_layout(nb, 4, causal=True), True)}
+    # (S, block, layout); the block-128 keys keep their names of earlier PRs
+    cases = [(16384, BS, "bigbird")] + [(4096, bs, name) for bs in (BS, 32)
+                                         for name in builders] + \
+        [(4096, 16, "bigbird"), (4096, 64, "bigbird")]
+    for s, bs, name in cases:
+        lay, causal = builders[name](s // bs)
+        tag = f"s{s}_{name}" + ("" if bs == BS else f"_block{bs}")
         q, k, v, do = (torch.randn(1, s, hh, HD, generator=gen, device=dev).to(torch.bfloat16)
                        for hh in (H, HKV, HKV, H))
-        o, lse = sa.sparse_fwd_cuda(q, k, v, lay, BS, causal=causal)
+        o, lse = sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
-        us[name] = device_us(lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, BS,
-                                                            causal=causal),
-                             max(args.iters // 10, 3))
-        us[name.replace("dkv", "dq")] = device_us(
-            lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, BS, causal=causal),
-            max(args.iters // 10, 3))
-        if name == "sparse_dkv_s16384_bigbird":
+        iters = max(args.iters // 10, 3)
+        work = sparse_work(lay, bs, causal, 1, s, H, HKV, HD)
+        for kind, fn in (
+                ("fwd", lambda: sa.sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)),
+                ("dq", lambda: sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs,
+                                                     causal=causal)),
+                ("dkv", lambda: sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, bs,
+                                                       causal=causal))):
+            if kind not in kinds:
+                continue
+            us[f"sparse_{kind}_{tag}"] = device_us(fn, iters)
+            bound[f"sparse_{kind}_{tag}"] = work[kind][0] * 1e3
+        if args.plain:
+            q_chunk = 1024 if s > 4096 else None
+            fwd_plain = device_us(lambda: sa.sparse_fwd_torch(q, k, v, lay, bs, causal=causal,
+                                                              q_chunk=q_chunk), 3)
+            bwd_plain = device_us(lambda: sa.sparse_bwd_torch(q, k, v, o, lse, do, lay, bs,
+                                                              causal=causal, q_chunk=q_chunk), 3)
+            mask = sa.token_mask(lay, bs, causal, dev)
+            qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+            kt, vt = (x.repeat_interleave(H // HKV, dim=1) for x in (kt, vt))
+
+            def sdpa_fwd_bwd():
+                leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                F.scaled_dot_product_attention(*leaves, attn_mask=mask).backward(dot)
+
+            lib_fwd = device_us(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       attn_mask=mask), 3)
+            lib_bwd = device_us(sdpa_fwd_bwd, 3) - lib_fwd
+            for kind in ("fwd", "dq", "dkv"):
+                plain[f"sparse_{kind}_{tag}"] = fwd_plain if kind == "fwd" else bwd_plain
+                library[f"sparse_{kind}_{tag}"] = lib_fwd if kind == "fwd" else lib_bwd
+            del mask, qt, kt, vt, dot
+        if name == "bigbird" and bs in (BS, 32) and "step" in kinds:
             leaves = [x.requires_grad_() for x in (q, k, v)]
 
             def step():
                 for x in leaves:
                     x.grad = None
-                sa.blocksparse_attention(*leaves, lay, BS, causal=causal).backward(do)
+                sa.blocksparse_attention(*leaves, lay, bs, causal=causal).backward(do)
 
-            us["blocksparse_fwd_bwd_s16384"] = device_us(step, max(args.iters // 10, 3))
+            us["blocksparse_fwd_bwd_" + tag] = device_us(step, iters)
             del leaves
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
-    print(json.dumps({"root": str(root), "card": card, "us": us}), flush=True)
+    print(json.dumps({"root": str(root), "card": card, "us": us, "bound_us": bound,
+                      **({"plain_us": plain, "library_us": library} if args.plain else {})}),
+          flush=True)
     return 0
 
 

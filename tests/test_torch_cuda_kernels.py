@@ -49,8 +49,14 @@ a kv block nobody attends to (exactly zero dK/dV). The bf16 dK/dV at block
 128 (``sparse_sm90.cu``: columns split over work items, TMA + wgmma) at
 S 4096 for the three layouts, groups 1 and 4, hd 32/64/128, with the
 global column split into >= 4 chunks, giving identical bits on two calls,
-and failing the same limits under each of its three planted faults; the
-old kernel (``sparse_attention.cu``) keeps blocks 16-64 and fp32.
+and failing the same limits under each of its three planted faults; its dQ
+and forward likewise (the forward's o and lse against ``sparse_fwd_torch``
+over the three layouts, causal and not, groups 1 and 4, hd 32/64/128; its
+planted faults 7-9). ``sparse_attention.cu`` keeps blocks 16-64 and fp32;
+its dK/dV splits the columns by the same plan: at blocks 16, 32 and 64, bf16
+and fp32, against the plain pieces, two calls bit-identical, a column
+nobody attends to exactly zero, and its planted fault (the merge dropping a
+split column's last chunk) failing.
 
 The bf16 backward without a bias (``flash_bwd_sm90.cu``, TMA + wgmma): dQ,
 dK and dV against the plain pieces at the flash limits above over lengths
@@ -90,9 +96,10 @@ from deepspeed_tpu_torch.ops.quantization import (
     quantize_int8_torch)
 from deepspeed_tpu_torch.ops.sparse_attention import (
     SPARSE_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan, fixed_layout,
-    sliding_window_layout, sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda,
-    sparse_bwd_dq_sm90_cuda, sparse_bwd_source, sparse_bwd_torch, sparse_fwd_cuda,
-    sparse_fwd_torch, sparse_sm90_planted_fault)
+    sliding_window_layout, sparse_attention_planted_fault, sparse_bwd_dkv_cuda,
+    sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda, sparse_bwd_dq_sm90_cuda, sparse_bwd_torch,
+    sparse_fwd_cuda, sparse_fwd_sm90_cuda, sparse_fwd_torch, sparse_sm90_planted_fault,
+    sparse_source)
 
 pytestmark = pytest.mark.cuda
 
@@ -1665,13 +1672,12 @@ def test_sparse_kernels_match_plain(cuda_device, bs, d, h, hkv, kind, causal, dt
     nb = 6
     q, k, v, do = flash_inputs((2, nb * bs, nb * bs, h, hkv, d), dtype, cuda_device,
                                seed=bs + d)
-    # dQ and dK/dV: the kernels sparse_bwd_source names (bf16 at block 128:
-    # sparse_sm90.cu)
-    sm90 = sparse_bwd_source(dtype, bs, d) == SPARSE_SM90
-    ran = (sparse_fwd_cuda,) + ((sparse_bwd_dq_sm90_cuda, sparse_bwd_dkv_sm90_cuda) if sm90
-                                else (sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda))
-    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda, sparse_bwd_dq_sm90_cuda,
-           sparse_bwd_dkv_sm90_cuda)
+    # the three kernels sparse_source names (bf16 at block 128: sparse_sm90.cu)
+    sm90 = sparse_source(dtype, bs, d) == SPARSE_SM90
+    ran = ((sparse_fwd_sm90_cuda, sparse_bwd_dq_sm90_cuda, sparse_bwd_dkv_sm90_cuda) if sm90
+           else (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda))
+    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_bwd_dkv_cuda, sparse_fwd_sm90_cuda,
+           sparse_bwd_dq_sm90_cuda, sparse_bwd_dkv_sm90_cuda)
     counts = [f.launches for f in fns]
     _sparse_check(q, k, v, do, _layout(kind, nb, causal), bs, causal, dtype)
     assert [f.launches for f in fns] == [c + (f in ran) for c, f in zip(counts, fns)]
@@ -1771,7 +1777,7 @@ def _dkv_inputs(lay, causal, h, hkv, d, seed=0):
 @pytest.mark.parametrize("name", sorted(SM90_LAYOUTS))
 def test_sparse_dkv_sm90_matches_plain(cuda_device, name, h, hkv, d):
     """S 4096 at block 128, groups 1 and 4; the bigbird layout's global
-    column is split into >= 4 chunks; routed by sparse_bwd_source."""
+    column is split into >= 4 chunks; routed by sparse_source."""
     builder, causal = SM90_LAYOUTS[name]
     lay = builder()
     if name.startswith("bigbird"):
@@ -1918,3 +1924,148 @@ def test_sparse_dq_sm90_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="bf16 or fp32"):
         sparse_bwd_dq_cuda(*(t.half() for t in (q, k, v, do)), lse, lse,
                            sliding_window_layout(2, 2), 128)
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse forward on sparse_sm90.cu (bf16, block 128)
+# --------------------------------------------------------------------------- #
+FWD_LAYOUTS = {   # 32 blocks of 128: name -> builder(causal)
+    "bigbird": lambda causal: bigbird_layout(32, 3, 1, 2, seed=0, causal=causal),
+    "fixed": lambda causal: fixed_layout(32, 4, 4, causal=causal),
+    "sliding": lambda causal: sliding_window_layout(32, 4, causal=causal),
+}
+
+
+def _fwd_case(name, causal, h, hkv, d, seed=0):
+    lay = FWD_LAYOUTS[name](causal)
+    q, k, v, _ = flash_inputs((1, 32 * 128, 32 * 128, h, hkv, d), torch.bfloat16,
+                              torch.device("cuda"), seed=seed)
+    return (q, k, v), lay, sparse_fwd_torch(q, k, v, lay, 128, causal=causal)
+
+
+def _fwd_close(got, ref):
+    assert got[0].shape == ref[0].shape and got[0].dtype == torch.bfloat16
+    assert_flash_close(got[0], ref[0], FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", sorted(FWD_LAYOUTS))
+def test_sparse_fwd_sm90_matches_plain(cuda_device, name, causal, h, hkv, d):
+    """S 4096 at block 128: o and lse against the plain forward; a CUDA
+    bf16 call at block 128 launches the sparse_sm90.cu kernel, not the old
+    one."""
+    args, lay, ref = _fwd_case(name, causal, h, hkv, d, seed=d + h // hkv)
+    before = (sparse_fwd_cuda.launches, sparse_fwd_sm90_cuda.launches)
+    got = sparse_fwd_cuda(*args, lay, 128, causal=causal)
+    torch.cuda.synchronize()
+    assert (sparse_fwd_cuda.launches, sparse_fwd_sm90_cuda.launches) == \
+        (before[0], before[1] + 1)
+    _fwd_close(got, ref)
+
+
+def test_sparse_fwd_sm90_gives_identical_bits(cuda_device):
+    args, lay, ref = _fwd_case("bigbird", True, 8, 2, 128)
+    a = sparse_fwd_sm90_cuda(*args, lay, 128, causal=True)
+    b = sparse_fwd_sm90_cuda(*args, lay, 128, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _fwd_close(a, ref)
+
+
+@pytest.mark.parametrize("fault,what", [(7, "last list entry left out"),
+                                        (8, "ring stage read early"),
+                                        (9, "diagonal mask left out")])
+def test_sparse_fwd_sm90_check_fails_a_planted_fault(cuda_device, fault, what):
+    args, lay, ref = _fwd_case("bigbird", True, 8, 2, 128, seed=fault)
+    with sparse_sm90_planted_fault(fault):
+        bad = sparse_fwd_sm90_cuda(*args, lay, 128, causal=True)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):   # a row beyond the limit, or not finite
+        assert_flash_close(bad[0], ref[0], FLASH_TOL[torch.bfloat16])
+    _fwd_close(sparse_fwd_sm90_cuda(*args, lay, 128, causal=True), ref)
+
+
+def test_sparse_fwd_sm90_refuses_what_it_does_not_take(cuda_device):
+    lay = sliding_window_layout(4, 2, causal=True)
+    q, k, v, _ = flash_inputs((1, 256, 256, 2, 2, 64), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_fwd_sm90_cuda(q, k, v, lay, 64)
+    with pytest.raises(ValueError, match="block 128"):
+        sparse_fwd_sm90_cuda(*(t.float() for t in (q, k, v)), sliding_window_layout(2, 2), 128)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        sparse_fwd_cuda(*(t.half() for t in (q, k, v)), sliding_window_layout(2, 2), 128)
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse dK/dV on sparse_attention.cu (blocks 16-64; fp32): split columns
+# --------------------------------------------------------------------------- #
+# (dtype, block): bf16 below block 128; fp32 at block 128 too, the one route
+# whose work items take two 64-row parts (the partial slots and tickets
+# indexed by part and warp)
+SPLIT_CASES = [(dt, bs) for dt in (torch.bfloat16, torch.float32) for bs in (16, 32, 64)] + \
+    [(torch.float32, 128)]
+def _split_inputs(bs, dtype, h, hkv, d, lay, causal, seed=0):
+    """q, k, v, dO at S 2048, batch 2, the forward kernel's lse and delta,
+    and the plain pieces' dK/dV."""
+    s = 2048
+    q, k, v, do = flash_inputs((2, s, s, h, hkv, d), dtype, torch.device("cuda"), seed=seed)
+    o, lse = sparse_fwd_cuda(q, k, v, lay, bs, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(2 * h, s)
+    _, dk_ref, dv_ref = sparse_bwd_torch(q, k, v, o, lse, do, lay, bs, causal=causal)
+    return (q, k, v, do, lse, delta), (dk_ref, dv_ref)
+
+
+@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (64, 8, 8), (32, 4, 1)])
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_dkv_split_matches_plain(cuda_device, bs, d, h, hkv, dtype):
+    """S 2048, bigbird causal with its global column split; and fixed
+    non-causal; routed to sparse_attention.cu (fp32 at block 128 too)."""
+    for lay, causal in ((bigbird_layout(2048 // bs, 3, 1, 2, seed=0, causal=True), True),
+                        (fixed_layout(2048 // bs, 4, 4, causal=False), False)):
+        if causal:
+            assert dkv_split_plan(lay, causal, h // hkv)["split_columns"] >= 1
+        args, refs = _split_inputs(bs, dtype, h, hkv, d, lay, causal, seed=bs + d)
+        before = (sparse_bwd_dkv_cuda.launches, sparse_bwd_dkv_sm90_cuda.launches)
+        got = sparse_bwd_dkv_cuda(*args, lay, bs, causal=causal)
+        torch.cuda.synchronize()
+        assert (sparse_bwd_dkv_cuda.launches, sparse_bwd_dkv_sm90_cuda.launches) == \
+            (before[0] + 1, before[1])
+        for g, r in zip(got, refs):
+            assert g.shape == r.shape and g.dtype == dtype
+            assert_flash_close(g, r, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_dkv_split_empty_column_and_identical_bits(cuda_device, bs, dtype):
+    """kv block 1 seen by no q block gets exact zeros; two calls give the
+    same bits (the split column's merge sums in chunk order)."""
+    lay = bigbird_layout(2048 // bs, 3, 1, 2, seed=0, causal=True)
+    lay[:, 1] = False
+    lay[1, 0] = True
+    args, refs = _split_inputs(bs, dtype, 8, 2, 128, lay, True)
+    a = sparse_bwd_dkv_cuda(*args, lay, bs, causal=True)
+    b = sparse_bwd_dkv_cuda(*args, lay, bs, causal=True)
+    torch.cuda.synchronize()
+    for x, y, r in zip(a, b, refs):
+        assert torch.equal(x, y)
+        assert not x[:, bs:2 * bs].any()
+        assert_flash_close(x, r, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_dkv_split_check_fails_a_planted_fault(cuda_device, bs, dtype):
+    """The merge dropping a split column's last chunk fails the check; the
+    counters it leaves do not disturb the next call."""
+    lay = bigbird_layout(2048 // bs, 3, 1, 2, seed=0, causal=True)
+    args, refs = _split_inputs(bs, dtype, 8, 2, 128, lay, True, seed=1)
+    with sparse_attention_planted_fault(1):
+        bad = sparse_bwd_dkv_cuda(*args, lay, bs, causal=True)
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        for g, r in zip(bad, refs):
+            assert_flash_close(g, r, FLASH_TOL[dtype])
+    for g, r in zip(sparse_bwd_dkv_cuda(*args, lay, bs, causal=True), refs):
+        assert_flash_close(g, r, FLASH_TOL[dtype])
