@@ -97,8 +97,11 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    list's last entry left out, a ring stage read early, the diagonal
    block's mask left out) must fail; their times at each S 4096 layout. The
    forward, dQ and dK/dV of ``sparse_attention.cu`` timed at S 4096 block
-   32, its dK/dV (columns split by the same plan) two calls bit-identical
-   and its planted fault (a split column's last chunk dropped) failing.
+   32, its forward and dQ held there against the plain forward and dQ, each
+   of the three two calls bit-identical (dK/dV's columns split by the same
+   plan) and its planted faults (1: a split column's last chunk dropped; 2:
+   the forward's ring stage read early; 3: dQ's last head of each item left
+   out) failing.
    Times beside the bound, the plain
    pieces and SDPA (float ``attn_mask``; at the MSA shape a mask that
    requires grad, so SDPA computes dbias as the dQ kernel does, on the
@@ -2673,8 +2676,7 @@ def phase_sparse_kernels(seed: int, card: str):
     # the kernels of sparse_attention.cu (bf16 below block 128, fp32) timed
     # where phase 15's second call runs them: S 4096, bigbird causal, block
     # 32, beside their bounds, their plain pieces and the dense-masked SDPA;
-    # its dK/dV (the global column split) two calls bit-identical, and its
-    # planted fault (the merge dropping a split column's last chunk) failing
+    # each two calls bit-identical, and its planted faults failing
     bs32 = SPARSE_BS_OLD
     lay = SPARSE_LAYOUTS["bigbird causal"][0](s // bs32)
     q, k, v, do = qkv(s, H, 8, HD)
@@ -2693,12 +2695,38 @@ def phase_sparse_kernels(seed: int, card: str):
     if not lse_ok:
         raise AssertionError(f"sparse {label32}: lse disagrees with the plain forward "
                              f"(max abs err {lse_err})")
-    out["cases"][label32] = {"max_abs_err": {"o": err_o, "lse": lse_err},
-                             "row_err_over_rms": {"o": rel_o}}
-    del o_ref, lse_ref
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(H, s)
     if sa.sparse_source(q.dtype, bs32, HD) != sa.SPARSE_MMA:
         raise AssertionError(f"block {bs32} is not routed to {sa.SPARSE_MMA}")
+    # its dQ on its own against the plain dQ from the same o and lse
+    dq = sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs32, causal=True)
+    dq_ref = sa.sparse_bwd_torch(q, k, v, o, lse, do, lay, bs32, causal=True)[0]
+    (err_dq, rel_dq), = _check_pieces(f"sparse {label32}", {"dq": dq}, {"dq": dq_ref},
+                                      ("dq",)).values()
+    out["cases"][label32] = {"max_abs_err": {"o": err_o, "lse": lse_err, "dq": err_dq},
+                             "row_err_over_rms": {"o": rel_o, "dq": rel_dq}}
+    # the forward and dQ (the query heads of a kv head in one work item, a
+    # cp.async K / V ring): two calls give the same bits, and planted faults
+    # 2 (the forward's ring stage read early) and 3 (dQ's last head of each
+    # item left out) fail the checks the sound kernels passed
+    again_o, again_lse = sa.sparse_fwd_cuda(q, k, v, lay, bs32, causal=True)
+    again_dq = sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs32, causal=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(again_o, o) and torch.equal(again_lse, lse) and
+            torch.equal(again_dq, dq)):
+        raise AssertionError("sparse_attention.cu forward / dQ: two calls gave different bits")
+    log(f"  sparse fwd, dq block {bs32} (sparse_attention.cu): two calls bit-identical")
+    with sa.sparse_attention_planted_fault(2):
+        bad_o, _ = sa.sparse_fwd_cuda(q, k, v, lay, bs32, causal=True)
+    with sa.sparse_attention_planted_fault(3):
+        bad_dq = sa.sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs32, causal=True)
+    torch.cuda.synchronize()
+    out["mma_faults"] = {
+        2: _fault_must_fail("sparse_attention.cu planted fault 2 (the forward reads a ring "
+                            "stage before its copy lands)", bad_o, o_ref, "o"),
+        3: _fault_must_fail("sparse_attention.cu planted fault 3 (dQ leaves each item's last "
+                            "query head out)", bad_dq, dq_ref, "dq")}
+    del o_ref, lse_ref, dq, dq_ref, again_o, again_lse, again_dq, bad_o, bad_dq
     good = sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, bs32, causal=True)
     again = sa.sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, lay, bs32, causal=True)
     with sa.sparse_attention_planted_fault(1):

@@ -73,12 +73,12 @@ SIGNATURES = {
     "dstt_flash_bwd_dkv_bias_sm90": [_VP] * 8 + [_I] * 9 + [_F] + _BIAS + [_VP],
     # planted fault of both bf16 backward kernels' next launches (tests): 0 none
     "dstt_flash_bwd_sm90_plant": [_I],
-    # q, k, v, o, lse, idx, cnt, max_a, B, H, Hkv, S, D, block, causal,
+    # q, k, v, o, lse, idx, cnt, items, max_a, n_items, heads_per_item, B,
+    # H, Hkv, S, D, block, causal, scale, dtype, stream
+    "dstt_sparse_fwd": [_VP] * 8 + [_I] * 10 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dq, idx, cnt, items, (max_a .. causal),
     # scale, dtype, stream
-    "dstt_sparse_fwd": [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],
-    # q, k, v, dout, lse, delta, dq, idx, cnt, (max_a .. causal), scale,
-    # dtype, stream
-    "dstt_sparse_bwd_dq": [_VP] * 9 + [_I] * 8 + [_F, _I, _VP],
+    "dstt_sparse_bwd_dq": [_VP] * 10 + [_I] * 10 + [_F, _I, _VP],
     # q, k, v, dout, lse, delta, dk, dv, idx_t, cnt_t, plan, counters,
     # partials, max_t, n_plan, B, H, Hkv, S, D, block, causal, scale, dtype,
     # stream

@@ -22,8 +22,9 @@ bf16 at block 128 runs the Hopper kernels of ``ops/csrc/sparse_sm90.cu``
 :func:`sparse_bwd_dq_sm90_cuda`, a work item per (q block, batch, head) in
 :func:`dq_item_order`, and :func:`sparse_bwd_dkv_sm90_cuda`), every other
 block and fp32 the ``mma.sync`` / FMA kernels of
-``ops/csrc/sparse_attention.cu``. The plain versions
-:func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
+``ops/csrc/sparse_attention.cu`` (forward and dQ over the work items of
+:func:`mma_items`, which stack the query heads of a kv head). The plain
+versions :func:`sparse_fwd_torch` and :func:`sparse_bwd_torch` compute the same
 functions densely over the token mask, serve CPU tensors, and are what the
 kernels are held against on the card. The compacted lists are cached per
 ``(layout bytes, causal)`` and uploaded to each device once.
@@ -55,6 +56,10 @@ SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's q or 
 SPLIT_FACTOR = 2     # a work item takes at most this many times the median column's pairs
 PLAN_INTS = 8        # int32 fields of a plan entry (PLAN_FIELDS, then padding)
 PLAN_FIELDS = ("kv_block", "pair_lo", "pairs", "chunk", "chunks", "slot0", "counter")
+# q rows a forward / dQ work item of sparse_attention.cu holds at most (8 warps
+# of 16 rows in bf16; 4 in fp32, whose tiles take twice the shared memory)
+MMA_ITEM_ROWS = {torch.bfloat16: 128, torch.float32: 64}
+ITEM_FIELDS = ("q_block", "part", "head0")   # int32 fields of such an item
 
 
 # --------------------------------------------------------------------------- #
@@ -206,13 +211,14 @@ def _dq_order(layout_bytes: bytes, nb: int, causal: bool) -> np.ndarray:
 
 
 def dq_item_order(layout: np.ndarray, causal: bool) -> np.ndarray:
-    """The q blocks in the order ``sparse_sm90.cu``'s dQ and forward take them: longest
-    compacted list first (ties by block index), cached per ``(layout bytes,
-    causal)``. Work item ``w`` of a launch over ``batch`` x ``heads`` is q
-    block ``order[w // (batch * heads)]`` at ``(batch, head) = divmod(w %
-    (batch * heads), heads)``: all heads of a q block together (the
-    kernels' ``DqItem`` and ``FwdItem``). A persistent grid deals the items
-    forward and backward in turn."""
+    """The q blocks in the order the forward and dQ kernels take them
+    (``sparse_sm90.cu``'s, and ``sparse_attention.cu``'s through
+    :func:`mma_items`): longest compacted list first (ties by block index),
+    cached per ``(layout bytes, causal)``. In ``sparse_sm90.cu`` work item
+    ``w`` of a launch over ``batch`` x ``heads`` is q block ``order[w //
+    (batch * heads)]`` at ``(batch, head) = divmod(w % (batch * heads),
+    heads)``: all heads of a q block together (the kernels' ``DqItem`` and
+    ``FwdItem``), dealt by a persistent grid forward and backward in turn."""
     lay = np.ascontiguousarray(layout, bool)
     return _dq_order(lay.tobytes(), lay.shape[0], bool(causal))
 
@@ -220,6 +226,51 @@ def dq_item_order(layout: np.ndarray, causal: bool) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _device_order(layout_bytes: bytes, nb: int, causal: bool, device: str):
     return torch.from_numpy(_dq_order(layout_bytes, nb, causal).copy()).to(device)
+
+
+def mma_heads_per_item(group: int, block_size: int, dtype: torch.dtype) -> int:
+    """Query heads of one kv head that a forward / dQ work item of
+    ``sparse_attention.cu`` stacks: the largest divisor of ``group`` whose
+    heads, ``min(block_size, 64)`` q rows each, fit ``MMA_ITEM_ROWS``."""
+    cap = MMA_ITEM_ROWS[dtype] // min(block_size, 64)
+    return max(d for d in range(1, min(group, cap) + 1) if group % d == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _mma_items(layout_bytes: bytes, nb: int, causal: bool, block_size: int, group: int,
+               heads: int) -> np.ndarray:
+    order = _dq_order(layout_bytes, nb, causal)
+    parts, firsts = block_size // min(block_size, 64), np.arange(0, group, heads)
+    items = np.stack([np.repeat(order, parts * len(firsts)),
+                      np.tile(np.repeat(np.arange(parts), len(firsts)), len(order)),
+                      np.tile(firsts, len(order) * parts)], 1).astype(np.int32)
+    items.setflags(write=False)
+    return items
+
+
+def mma_items(layout: np.ndarray, causal: bool, block_size: int, group: int,
+              dtype: torch.dtype) -> dict:
+    """The work items of ``sparse_attention.cu``'s forward and dQ over one
+    layout, cached per ``(layout bytes, causal, block, group, heads an
+    item)``. An item holds ``rows = min(block_size, 64)`` q rows (``part``
+    of its q block) of ``heads`` (:func:`mma_heads_per_item`) query heads
+    of one kv head, from ``head0`` within the group. ``items`` is int32
+    ``[entries, 3]``, its fields ``ITEM_FIELDS``, the q blocks longest list
+    first (:func:`dq_item_order`). The kernels run each entry once per
+    (batch, kv head): work item ``w`` is entry ``w // (batch * kv_heads)``
+    at ``(batch, kv head) = divmod(w % (batch * kv_heads), kv_heads)``."""
+    lay = np.ascontiguousarray(layout, bool)
+    heads = mma_heads_per_item(group, block_size, dtype)
+    items = _mma_items(lay.tobytes(), lay.shape[0], bool(causal), int(block_size), int(group),
+                       heads)
+    return {"items": items, "heads": heads, "rows": min(int(block_size), 64)}
+
+
+@functools.lru_cache(maxsize=64)
+def _device_items(layout_bytes: bytes, nb: int, causal: bool, block_size: int, group: int,
+                  heads: int, device: str):
+    return torch.from_numpy(
+        _mma_items(layout_bytes, nb, causal, block_size, group, heads).copy()).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -384,14 +435,17 @@ def sparse_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda" and \
             sparse_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
         return sparse_fwd_sm90_cuda(q, k, v, layout, block_size, causal=causal, scale=scale)
+    name = "sparse_fwd_cuda"
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
-        "sparse_fwd_cuda", q, k, v, layout, block_size, causal, scale)
+    (b, s, h, _, hkv), (idx, cnt, _, _), common = _kernel_args(
+        name, q, k, v, layout, block_size, causal, scale)
+    items, heads = _mma_args(name, layout, causal, block_size, b, h, hkv, q.dtype, q.device)
     o = torch.empty_like(q)
     lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     err = _build.load().dstt_sparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        idx.data_ptr(), cnt.data_ptr(), idx.shape[1], *common)
+        idx.data_ptr(), cnt.data_ptr(), items.data_ptr(), idx.shape[1], items.shape[0], heads,
+        *common)
     _build.check(err, "sparse_fwd kernel")
     sparse_fwd_cuda.launches += 1
     return o, lse
@@ -438,18 +492,33 @@ def sparse_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             sparse_source(q.dtype, block_size, q.shape[-1]) == SPARSE_SM90:
         return sparse_bwd_dq_sm90_cuda(q, k, v, do, lse, delta, layout, block_size,
                                        causal=causal, scale=scale)
+    name = "sparse_bwd_dq_cuda"
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    (b, s, h, _, _), (idx, cnt, _, _), common = _kernel_args(
-        "sparse_bwd_dq_cuda", q, k, v, layout, block_size, causal, scale, do)
+    (b, s, h, _, hkv), (idx, cnt, _, _), common = _kernel_args(
+        name, q, k, v, layout, block_size, causal, scale, do)
     lse, delta = _stats(lse, delta, b, h, s)
+    items, heads = _mma_args(name, layout, causal, block_size, b, h, hkv, q.dtype, q.device)
     dq = torch.empty_like(q)
     err = _build.load().dstt_sparse_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), idx.data_ptr(), cnt.data_ptr(), idx.shape[1],
-        *common)
+        delta.data_ptr(), dq.data_ptr(), idx.data_ptr(), cnt.data_ptr(), items.data_ptr(),
+        idx.shape[1], items.shape[0], heads, *common)
     _build.check(err, "sparse_bwd_dq kernel")
     sparse_bwd_dq_cuda.launches += 1
     return dq
+
+
+def _mma_args(name, layout, causal, block_size, b, h, hkv, dtype, device):
+    """``sparse_attention.cu``'s forward / dQ work items (:func:`mma_items`,
+    on ``device``) and the heads an item stacks."""
+    lay = np.ascontiguousarray(layout, bool)
+    heads = mma_heads_per_item(h // hkv, block_size, dtype)
+    items = _device_items(lay.tobytes(), lay.shape[0], bool(causal), int(block_size), h // hkv,
+                          heads, str(device))
+    if items.shape[0] * b * hkv >= 2 ** 31:
+        raise ValueError(f"{name}: {items.shape[0] * b * hkv} work items; the kernel counts "
+                         "them in 31 bits")
+    return items, heads
 
 
 def _sm90_args(name, q, k, v, layout, block_size, causal, scale, *rest):
@@ -589,9 +658,12 @@ def sparse_sm90_planted_fault(fault: int):
 
 @contextlib.contextmanager
 def sparse_attention_planted_fault(fault: int):
-    """For the tests that show a check can fail: the dK/dV launches of
-    ``sparse_attention.cu`` inside the block carry a planted fault. 1 the
-    merge of a split column drops its last chunk's partial."""
+    """For the tests that show a check can fail: the launches of
+    ``sparse_attention.cu`` inside the block carry a planted fault. dK/dV: 1
+    the merge of a split column drops its last chunk's partial. Forward: 2
+    each step reads K and V from the ring stage after its own, before that
+    copy has landed. dQ: 3 the last query head of each work item is left
+    out (its dq rows come back zero)."""
     plant = _build.load().dstt_sparse_attention_plant
     plant(int(fault))
     try:

@@ -56,7 +56,13 @@ planted faults 7-9). ``sparse_attention.cu`` keeps blocks 16-64 and fp32;
 its dK/dV splits the columns by the same plan: at blocks 16, 32 and 64, bf16
 and fp32, against the plain pieces, two calls bit-identical, a column
 nobody attends to exactly zero, and its planted fault (the merge dropping a
-split column's last chunk) failing.
+split column's last chunk) failing. Its forward and dQ (work items that
+stack the query heads of a kv head, a cp.async K / V ring, bf16 P and dS in
+registers): o, lse and dq against the plain pieces at blocks 16/32/64 bf16
+and 16-128 fp32, groups 1, 2, 4 and 8 (a group over several items), causal
+and not, the fixed layout's long rows; two calls bit-identical; planted
+faults 2 (the forward's ring stage read early) and 3 (dQ's last head left
+out) failing, the next call clean.
 
 The bf16 backward without a bias (``flash_bwd_sm90.cu``, TMA + wgmma): dQ,
 dK and dV against the plain pieces at the flash limits above over lengths
@@ -95,11 +101,11 @@ from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
     quantize_int8_torch)
 from deepspeed_tpu_torch.ops.sparse_attention import (
-    SPARSE_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan, fixed_layout,
-    sliding_window_layout, sparse_attention_planted_fault, sparse_bwd_dkv_cuda,
-    sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda, sparse_bwd_dq_sm90_cuda, sparse_bwd_torch,
-    sparse_fwd_cuda, sparse_fwd_sm90_cuda, sparse_fwd_torch, sparse_sm90_planted_fault,
-    sparse_source)
+    MMA_ITEM_ROWS, SPARSE_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan,
+    fixed_layout, mma_items, sliding_window_layout, sparse_attention_planted_fault,
+    sparse_bwd_dkv_cuda, sparse_bwd_dkv_sm90_cuda, sparse_bwd_dq_cuda, sparse_bwd_dq_sm90_cuda,
+    sparse_bwd_torch, sparse_fwd_cuda, sparse_fwd_sm90_cuda, sparse_fwd_torch,
+    sparse_sm90_planted_fault, sparse_source)
 
 pytestmark = pytest.mark.cuda
 
@@ -2069,3 +2075,87 @@ def test_sparse_dkv_split_check_fails_a_planted_fault(cuda_device, bs, dtype):
             assert_flash_close(g, r, FLASH_TOL[dtype])
     for g, r in zip(sparse_bwd_dkv_cuda(*args, lay, bs, causal=True), refs):
         assert_flash_close(g, r, FLASH_TOL[dtype])
+
+
+# --------------------------------------------------------------------------- #
+# block-sparse forward and dQ on sparse_attention.cu (blocks 16-64; fp32)
+# --------------------------------------------------------------------------- #
+MMA_LAYOUTS = {   # name -> (builder over nb, causal)
+    "bigbird causal": (lambda nb: bigbird_layout(nb, 3, 1, 2, seed=0, causal=True), True),
+    "fixed non-causal": (lambda nb: fixed_layout(nb, 4, 4, causal=False), False),
+    "sliding causal": (lambda nb: sliding_window_layout(nb, 4, causal=True), True),
+}
+
+
+def _mma_case(dtype, bs, h, hkv, d, lay, causal, seed=0):
+    """q, k, v, dO at S 1024, batch 2, and the plain forward's o and lse."""
+    q, k, v, do = flash_inputs((2, 1024, 1024, h, hkv, d), dtype, torch.device("cuda"),
+                               seed=seed)
+    return (q, k, v, do), sparse_fwd_torch(q, k, v, lay, bs, causal=causal)
+
+
+def _mma_dq(args, o, lse, lay, bs, causal):
+    """dq from the kernel with the given o and lse, and the plain dq."""
+    q, k, v, do = args
+    b, s, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    dq = sparse_bwd_dq_cuda(q, k, v, do, lse, delta, lay, bs, causal=causal)
+    ref = sparse_bwd_torch(q, k, v, o, lse, do, lay, bs, causal=causal)[0]
+    return dq, ref, delta
+
+
+@pytest.mark.parametrize("name", sorted(MMA_LAYOUTS))
+@pytest.mark.parametrize("h,hkv,d", [(4, 4, 64), (8, 4, 32), (8, 2, 128), (16, 2, 64)])
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_mma_fwd_dq_match_plain(cuda_device, bs, dtype, h, hkv, d, name):
+    """Groups 1, 2, 4 and 8 (8 heads of 32 rows: two items of four); o, lse
+    and dq of sparse_attention.cu against the plain pieces; one launch of
+    each wrapper, none of sparse_sm90.cu's."""
+    builder, causal = MMA_LAYOUTS[name]
+    lay = builder(1024 // bs)
+    args, (o_ref, lse_ref) = _mma_case(dtype, bs, h, hkv, d, lay, causal, seed=bs + h)
+    plan = mma_items(lay, causal, bs, h // hkv, dtype)
+    if h // hkv * plan["rows"] > MMA_ITEM_ROWS[dtype]:
+        assert plan["heads"] < h // hkv   # the group takes several items
+    fns = (sparse_fwd_cuda, sparse_bwd_dq_cuda, sparse_fwd_sm90_cuda, sparse_bwd_dq_sm90_cuda)
+    before = [f.launches for f in fns]
+    o, lse = sparse_fwd_cuda(*args[:3], lay, bs, causal=causal)
+    dq, dq_ref, _ = _mma_dq(args, o, lse, lay, bs, causal)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [before[0] + 1, before[1] + 1, before[2], before[3]]
+    assert o.dtype == dq.dtype == dtype
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    assert_flash_close(dq, dq_ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_mma_fwd_dq_identical_bits(cuda_device, bs, dtype):
+    lay = bigbird_layout(1024 // bs, 3, 1, 2, seed=0, causal=True)
+    args, _ = _mma_case(dtype, bs, 8, 2, 128, lay, True)
+    a = sparse_fwd_cuda(*args[:3], lay, bs, causal=True)
+    b = sparse_fwd_cuda(*args[:3], lay, bs, causal=True)
+    dq_a, _, delta = _mma_dq(args, *a, lay, bs, True)
+    dq_b = sparse_bwd_dq_cuda(*args, a[1], delta, lay, bs, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(dq_a, dq_b)
+
+
+@pytest.mark.parametrize("fault,what", [(2, "forward: ring stage read early"),
+                                        (3, "dQ: last head of the item left out")])
+@pytest.mark.parametrize("dtype,bs", SPLIT_CASES)
+def test_sparse_mma_check_fails_a_planted_fault(cuda_device, bs, dtype, fault, what):
+    lay = bigbird_layout(1024 // bs, 3, 1, 2, seed=0, causal=True)
+    args, (o_ref, lse_ref) = _mma_case(dtype, bs, 8, 2, 128, lay, True, seed=fault)
+    with sparse_attention_planted_fault(fault):
+        o, lse = sparse_fwd_cuda(*args[:3], lay, bs, causal=True)
+        dq, dq_ref, _ = _mma_dq(args, o_ref, lse_ref, lay, bs, True)
+        torch.cuda.synchronize()
+    bad, ref = (o, o_ref) if fault == 2 else (dq, dq_ref)
+    with pytest.raises(AssertionError):   # a row beyond the limit, or not finite
+        assert_flash_close(bad, ref, FLASH_TOL[dtype])
+    # the next calls are sound
+    o, lse = sparse_fwd_cuda(*args[:3], lay, bs, causal=True)
+    dq, dq_ref, _ = _mma_dq(args, o, lse, lay, bs, True)
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    assert_flash_close(dq, dq_ref, FLASH_TOL[dtype])

@@ -278,3 +278,61 @@ def test_chunked_plain_pieces_equal_whole(q_chunk):
     for got, ref in zip(chunked[1:], whole[1:]):
         assert got.shape == ref.shape == k.shape
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# the forward / dQ work items of sparse_attention.cu (mma_items)
+# --------------------------------------------------------------------------- #
+ITEM_LAYOUTS = {   # 16 blocks: name -> (layout, causal)
+    "bigbird_causal": (lambda: tsa.bigbird_layout(16, 3, 1, 2, seed=0, causal=True), True),
+    "fixed_noncausal": (lambda: tsa.fixed_layout(16, 4, 4, causal=False), False),
+    "sliding_causal": (lambda: tsa.sliding_window_layout(16, 4, causal=True), True),
+}
+ITEM_ROUTES = [(torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 64),
+               (torch.float32, 32), (torch.float32, 128)]
+
+
+@pytest.mark.parametrize("dtype,block", ITEM_ROUTES)
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("name", sorted(ITEM_LAYOUTS))
+def test_mma_items_hold_each_q_block_and_head_once_longest_first(name, group, dtype, block):
+    """Every (q block, 64-row part, query head of the group) in exactly one
+    item, an item's heads as many as fit ``MMA_ITEM_ROWS`` and divide the
+    group, the q blocks longest compacted list first."""
+    builder, causal = ITEM_LAYOUTS[name]
+    lay = builder()
+    plan = tsa.mma_items(lay, causal, block, group, dtype)
+    items, heads, rows = plan["items"], plan["heads"], plan["rows"]
+    assert items.dtype == np.int32 and items.shape[1] == len(tsa.ITEM_FIELDS)
+    assert rows == min(block, 64) and group % heads == 0
+    cap = tsa.MMA_ITEM_ROWS[dtype]
+    assert heads * rows <= cap
+    assert all(group % more or more * rows > cap for more in range(heads + 1, group + 1))
+    got = sorted((qb, part, h) for qb, part, h0 in items.tolist()
+                 for h in range(h0, h0 + heads))
+    want = [(qb, part, h) for qb in range(16) for part in range(block // rows)
+            for h in range(group)]
+    assert got == want
+    _, cnt = tsa.compact_layout(lay, causal)
+    assert (np.diff(cnt[items[:, 0]]) <= 0).all()
+    assert not items.flags.writeable
+
+
+@pytest.mark.parametrize("group,block,dtype,heads", [
+    (4, 32, torch.bfloat16, 4), (4, 16, torch.bfloat16, 4), (4, 64, torch.bfloat16, 2),
+    (8, 32, torch.bfloat16, 4), (1, 64, torch.bfloat16, 1), (3, 64, torch.bfloat16, 1),
+    (6, 32, torch.bfloat16, 3), (5, 16, torch.bfloat16, 5), (4, 32, torch.float32, 2),
+    (4, 128, torch.float32, 1), (8, 16, torch.float32, 4)])
+def test_mma_heads_per_item(group, block, dtype, heads):
+    """Llama's 32/8 heads at block 32 stack all 4 query heads (8 warps);
+    block 64 two items of 2; fp32 half the rows."""
+    assert tsa.mma_heads_per_item(group, block, dtype) == heads
+
+
+def test_mma_items_are_cached_per_layout():
+    lay = tsa.bigbird_layout(16, 3, 1, 2, seed=0, causal=True)
+    a = tsa.mma_items(lay, True, 32, 4, torch.bfloat16)["items"]
+    assert tsa.mma_items(lay.copy(), True, 32, 4, torch.bfloat16)["items"] is a
+    for other in ((lay, False, 32, 4, torch.bfloat16), (lay, True, 16, 4, torch.bfloat16),
+                  (lay, True, 32, 2, torch.bfloat16), (lay, True, 32, 4, torch.float32)):
+        assert tsa.mma_items(*other)["items"] is not a
