@@ -69,11 +69,19 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    must the warp kernel's planted fault (lane 31's share left out of the
    centred sum, 64 rows of d 2048); times at 1 row (the launch floor), 64,
    8192 and [4096 x 4096]. int8 quantize of
-   OPT-1.3B's ``w_up`` [2048, 8192] in bf16 and fp32 at groups 2048 and 128
-   (one all-zero row, one group of exact .5 ties) and dequantize to fp32
-   and bf16: codes, scales and values EQUAL to the plain versions' bit for
-   bit; scales shifted by one group must break the equality. Times beside
-   the plain versions', the bytes bound and ``F.layer_norm``. The reused
+   OPT-1.3B's ``w_up`` [2048, 8192] in bf16, fp16 and fp32 at groups 2048
+   and 128 (one all-zero row, one group of exact .5 ties) and dequantize to
+   fp32, bf16 and fp16, and of Llama-3-8B's MLP weight [4096, 14336] in
+   bf16 (dequantized to bf16; beyond L2, so read cold): codes, scales and
+   values EQUAL to the plain versions' bit for bit, also at ties and
+   boundary quotients of the division (fp32, ``division_boundary_groups``)
+   and at every (amax, x) pair of bf16 and of fp16
+   (``every_pair_groups``); ``quantize.cu``'s planted
+   faults (the quotient as the product by the reciprocal, a lane left out
+   of each segment's max, a group's first vector scaled by the previous
+   group's scale) and scales shifted by one group must break the equality.
+   Times beside the plain versions', the bytes bound, ``F.layer_norm`` and
+   (dequantize) one ``torch.mul(out=)``. The reused
    paged and flash kernels once more at OPT-1.3B's shapes (MHA, 32 kv
    heads, hd 64, tables of 16 blocks; S = 2048).
    The flash kernels' bias mode against its plain pieces (same bf16
@@ -171,8 +179,10 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    OPT-1.3B's ``w_up`` and ``w_down`` quantized on the card (group 128),
    the ``weight_only_quant`` linear against the ``dense`` linear on
    [64, 2048] bf16 activations within ``MODULE_QUANT_TOL`` (shifted scales
-   must fail), the ``norm`` slot with ``kind="layer"``; quantize,
-   dequantize and LayerNorm launches equal to the calls made.
+   must fail), and on fp16 activations (``w_up`` quantized from fp16,
+   dequantized into fp16) against the dense fp16 linear at the same limit;
+   the ``norm`` slot with ``kind="layer"``; quantize, dequantize and
+   LayerNorm launches equal to the calls made (3, 3, 1).
 
 13. BLOOM-7b1 width training at 4 layers (depth cut from 30; 1.833 B
    parameters): bf16, AdamW (lr 3e-4, weight decay 0.1), clipping 1.0,
@@ -1848,22 +1858,107 @@ def check_equal(what: str, got, ref) -> float:
 
 
 OPT_W_UP = (2048, 8192)        # OPT-1.3B's w_up as the module system's x @ w holds it
+LLAMA_W_UP = (4096, 14336)     # Llama-3-8B's MLP weight: 176 MB of quantize traffic in
+                               # bf16, beyond the 50 MB L2, so read cold
 
 
-def quant_input(dtype, gen, dev):
-    """w_up-shaped values of three magnitudes by row; row 0 all zero; the
-    last 2048 elements hold 127 and exact .5 values over zeros, so every
-    group size gives that group scale 1 and the values are ties."""
+def quant_input(dtype, gen, dev, shape=OPT_W_UP):
+    """Values of three magnitudes by row; row 0 all zero; the last 2048
+    elements hold 127 and exact .5 values over zeros, so every group size
+    gives that group scale 1 and the values are ties."""
     import torch
 
-    x = torch.randn(OPT_W_UP, generator=gen, device=dev) * OPT_W_UP[0] ** -0.5
+    x = torch.randn(shape, generator=gen, device=dev) * shape[0] ** -0.5
     x *= torch.tensor([1e-3, 1.0, 50.0], device=dev)[
-        torch.randint(0, 3, (OPT_W_UP[0], 1), generator=gen, device=dev)]
+        torch.randint(0, 3, (shape[0], 1), generator=gen, device=dev)]
     x[0] = 0
     flat = x.view(-1)
     flat[-2048:] = 0
     flat[-8:] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5], device=dev)
     return x.to(dtype)
+
+
+def _faithful(x, s, q):
+    """Whether each fp32 ``q`` is RD(x / s) or RU(x / s), decided exactly:
+    ``s * q`` and ``s`` times ``q``'s neighbours are exact in fp64."""
+    s64, x64 = s.astype(np.float64), x.astype(np.float64)
+    above = s64 * q.astype(np.float64) > x64 * np.sign(s64)
+    inner = np.nextafter(q, np.where(above, -np.inf, np.inf).astype(np.float32))
+    return np.where(above, s64 * inner.astype(np.float64) <= x64,
+                    s64 * inner.astype(np.float64) >= x64) | (s64 * q.astype(np.float64) == x64)
+
+
+def division_boundary_groups(n_groups: int, group_size: int, seed: int = 0) -> np.ndarray:
+    """fp32 ``[n_groups, group_size]`` whose quotients ``x / scale`` reach
+    the hard cases of the quantize kernel's FMA division (``quantize.cu``,
+    "The division"); each group's first element sets its scale, random
+    values fill what the cases leave. By ``g % 4``: 0 and 1, values a few
+    ulps from ``(k + 1/2) scale`` for which the product by the fp32
+    reciprocal rounds to another code than the IEEE quotient; 2, a scale of
+    significand near 2 - 2^-23 and values whose product by the reciprocal is
+    not a faithful rounding of the quotient (half-integer neighbours first,
+    then the top of the binade); 3, a power-of-two scale and exact ties
+    ``(k + 1/2) scale``."""
+    rs = np.random.RandomState(seed)
+    inv127 = np.float32(1.0) / np.float32(127.0)
+    out = np.zeros((n_groups, group_size), np.float32)
+    ks = np.arange(-125, 126, dtype=np.float64) + 0.5
+    steps = np.arange(-6, 7, dtype=np.int32)     # ulps either side of (k + 1/2) scale
+    for g in range(n_groups):
+        if g % 4 == 3:
+            scale = np.float32(2.0 ** rs.randint(-20, 20))
+            amax = np.float32(127.0) * scale
+            cand = (rs.permutation(ks) * np.float64(scale)).astype(np.float32)
+        else:
+            if g % 4 == 2:
+                target = (2.0 - (2 * rs.randint(0, 32) + 1) * 2.0 ** -23) * 2.0 ** rs.randint(-20, 20)
+                amax = np.float32(127.0 * target)
+            else:
+                amax = np.float32(np.exp(rs.uniform(-20.0, 20.0)))
+            scale = amax * inv127
+            recip = np.float32(1.0) / scale
+            near = (ks * np.float64(scale)).astype(np.float32)
+            x = (near.view(np.int32)[:, None] + steps[None, :]).view(np.float32).ravel()
+            if g % 4 == 2:
+                top = (rs.uniform(0.5, 1.0, 4 * group_size) * amax).astype(np.float32)
+                top = top * rs.choice(np.float32([-1.0, 1.0]), top.size)
+                sc = np.full(x.size, scale, np.float32)
+                x = x[~_faithful(x, sc, x * recip)]
+                sc = np.full(top.size, scale, np.float32)
+                cand = np.concatenate([rs.permutation(x), top[~_faithful(top, sc, top * recip)]])
+            else:
+                cand = rs.permutation(x[np.rint(x / scale) != np.rint(x * recip)])
+        row = rs.uniform(-1.0, 1.0, group_size).astype(np.float32) * amax
+        n = min(len(cand), group_size - 1)
+        row[1:1 + n] = cand[:n]
+        row[0] = amax if g % 2 else -amax
+        out[g] = row
+    return out
+
+
+def every_pair_groups(dtype, group_size: int, dev, rows: int = 1 << 16):
+    """Groups that hold every pair (amax, x) of a 16-bit dtype (bf16, fp16)
+    once: amax each finite value > 0, x each finite value with |x| <= amax,
+    both signs. A group is amax, then ``(group_size - 1) // 2`` magnitudes
+    up to amax as +x, -x, then zeros. Yields ``[rows, group_size]`` tensors
+    on ``dev``, the last one shorter."""
+    import torch
+
+    n = 0x7F80 if dtype == torch.bfloat16 else 0x7C00          # the bits of +inf
+    mag = torch.arange(n, dtype=torch.int32, device=dev).to(torch.int16).view(dtype)
+    h = (group_size - 1) // 2
+    amax = torch.arange(1, n, device=dev)
+    per = (amax + h) // h                           # groups of amax: ceil((i + 1) / h)
+    row_amax = torch.repeat_interleave(amax, per)
+    row_part = torch.arange(row_amax.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(per, 0) - per, per)
+    pad = torch.zeros(group_size - 1 - 2 * h, dtype=dtype, device=dev)
+    for r0 in range(0, row_amax.numel(), rows):
+        ra, rp = row_amax[r0:r0 + rows, None], row_part[r0:r0 + rows, None]
+        j = rp * h + torch.arange(h, device=dev)
+        v = torch.where(j <= ra, mag[j.clamp(max=n - 1)], torch.zeros((), dtype=dtype, device=dev))
+        yield torch.cat([mag[ra], torch.stack([v, -v], -1).view(v.shape[0], 2 * h),
+                         pad.expand(v.shape[0], -1)], 1)
 
 
 def phase_ln_quant_kernels(seed: int, card: str):
@@ -1877,8 +1972,8 @@ def phase_ln_quant_kernels(seed: int, card: str):
     from deepspeed_tpu_torch.ops.norms import (
         layer_norm_cuda, layer_norm_planted_fault, layer_norm_torch)
     from deepspeed_tpu_torch.ops.quantization import (
-        dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
-        quantize_int8_torch)
+        dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda, quantize_int8_torch,
+        quantize_planted_fault)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 6)
@@ -1959,73 +2054,149 @@ def phase_ln_quant_kernels(seed: int, card: str):
                          "rows": rows}
 
     # ---- quantize / dequantize -------------------------------------------
-    n_el = OPT_W_UP[0] * OPT_W_UP[1]
+    def check_quant(x, gs, tag, outs):
+        """Codes, scales and each of ``outs``' values equal to the plain
+        versions'; the all-zero row and the ties; returns (q, scales)."""
+        q, sc = quantize_int8_cuda(x, gs)
+        torch.cuda.synchronize()
+        q_ref, sc_ref = quantize_int8_torch(x, gs)
+        q_errs.append(check_equal(f"quantize_int8 {tag} group {gs} codes", q, q_ref))
+        q_errs.append(check_equal(f"quantize_int8 {tag} group {gs} scales", sc, sc_ref))
+        del q_ref, sc_ref
+        if float(sc[0]) != 1.0 or bool(q[0].any()) or float(sc[-1]) != 1.0 \
+                or q.view(-1)[-8:].tolist() != [127, 0, 2, 2, 0, -2, -2, 4]:
+            raise AssertionError("quantize_int8: the all-zero group or the .5 ties "
+                                 f"came out wrong: {sc[0]}, {sc[-1]}, {q.view(-1)[-8:]}")
+        for odt in outs:
+            got = dequantize_int8_cuda(q, sc, gs, odt)
+            torch.cuda.synchronize()
+            dq_errs.append(check_equal(f"dequantize_int8 {tag} group {gs} -> {str(odt)[6:]}",
+                                       got, dequantize_int8_torch(q, sc, gs, odt)))
+        return q, sc
+
+    def time_quant(key, x, gs):
+        n_el, ng = x.numel(), x.numel() // gs
+        byt = n_el * x.element_size() + n_el + ng * 4
+        kq = measure(lambda: quantize_int8_cuda(x, gs), 100)
+        pq = measure(lambda: quantize_int8_torch(x, gs), 20)
+        timing[key] = {"ms": kq["ms"], "plain_ms": pq["ms"], "host_ms": kq["host_ms"],
+                       "plain_kernels": pq["kernels_per_call"], "bytes": byt,
+                       "bound_ms": max(byt / HBM_BYTES_PER_S, 4 * n_el / FP32_FLOPS) * 1e3}
+
+    def time_dequant(key, q, sc, gs, odt):
+        n_el, ng = q.numel(), q.numel() // gs
+        byt = n_el + ng * 4 + n_el * torch.empty(0, dtype=odt).element_size()
+        kd = measure(lambda: dequantize_int8_cuda(q, sc, gs, odt), 100)
+        pd = measure(lambda: dequantize_int8_torch(q, sc, gs, odt), 20)
+        # the library's one call: a broadcast multiply that promotes int8 x
+        # fp32 to fp32 and casts into ``out``
+        lib_out = torch.empty(ng, gs, dtype=odt, device=dev)
+        lib = lambda: torch.mul(q.view(ng, gs), sc[:, None], out=lib_out)  # noqa: E731
+        lib()
+        check_equal(f"torch.mul(out=) group {gs} -> {str(odt)[6:]} (library call)",
+                    lib_out.view(q.shape), dequantize_int8_torch(q, sc, gs, odt))
+        ld = measure(lib, 100)
+        timing[key] = {"ms": kd["ms"], "plain_ms": pd["ms"], "host_ms": kd["host_ms"],
+                       "library_ms": ld["ms"], "library_kernels": ld["kernels_per_call"],
+                       "plain_kernels": pd["kernels_per_call"], "bytes": byt,
+                       "bound_ms": max(byt / HBM_BYTES_PER_S, n_el / FP32_FLOPS) * 1e3}
+
+    def n_differ(got, ref) -> int:
+        torch.cuda.synchronize()
+        return int((got != ref).sum())
+
+    # OPT-1.3B's w_up in bf16, fp16 and fp32 at groups 2048 and 128, each
+    # dequantized to fp32, bf16 and fp16; all timed
     timing, q_errs, dq_errs = {}, [], []
-    for dtype in (torch.bfloat16, torch.float32):
+    quant_dtypes = (torch.bfloat16, torch.float16, torch.float32)
+    for dtype in quant_dtypes:
         x = quant_input(dtype, gen, dev)
         tag = str(dtype)[6:]
         for gs in (2048, 128):
-            q, sc = quantize_int8_cuda(x, gs)
-            torch.cuda.synchronize()
-            q_ref, sc_ref = quantize_int8_torch(x, gs)
-            q_errs.append(check_equal(f"quantize_int8 {tag} group {gs} codes", q, q_ref))
-            q_errs.append(check_equal(f"quantize_int8 {tag} group {gs} scales", sc, sc_ref))
-            if float(sc[0]) != 1.0 or bool(q[0].any()) or float(sc[-1]) != 1.0 \
-                    or q.view(-1)[-8:].tolist() != [127, 0, 2, 2, 0, -2, -2, 4]:
-                raise AssertionError("quantize_int8: the all-zero group or the .5 ties "
-                                     f"came out wrong: {sc[0]}, {sc[-1]}, {q.view(-1)[-8:]}")
-            for odt in (torch.float32, torch.bfloat16):
-                got = dequantize_int8_cuda(q, sc, gs, odt)
-                torch.cuda.synchronize()
-                dq_errs.append(check_equal(f"dequantize_int8 group {gs} -> {str(odt)[6:]}", got,
-                                           dequantize_int8_torch(q, sc, gs, odt)))
-            if dtype != torch.bfloat16:
-                continue
-            ng = n_el // gs
-            qb = n_el * 2 + n_el + ng * 4
-            kq = measure(lambda: quantize_int8_cuda(x, gs), 100)
-            pq = measure(lambda: quantize_int8_torch(x, gs), 20)
-            timing[f"quantize_g{gs}"] = {
-                "ms": kq["ms"], "plain_ms": pq["ms"], "host_ms": kq["host_ms"],
-                "plain_kernels": pq["kernels_per_call"], "bytes": qb,
-                "bound_ms": max(qb / HBM_BYTES_PER_S, 4 * n_el / FP32_FLOPS) * 1e3}
-            for odt in (torch.bfloat16, torch.float32):
-                db = n_el + ng * 4 + n_el * (2 if odt == torch.bfloat16 else 4)
-                kd = measure(lambda: dequantize_int8_cuda(q, sc, gs, odt), 100)
-                pd = measure(lambda: dequantize_int8_torch(q, sc, gs, odt), 20)
-                # the library's one call: a broadcast multiply that promotes
-                # int8 x fp32 to fp32 and casts into ``out``
-                lib_out = torch.empty(ng, gs, dtype=odt, device=dev)
-                lib = lambda: torch.mul(q.view(ng, gs), sc[:, None], out=lib_out)  # noqa: E731
-                lib()
-                check_equal(f"torch.mul(out=) group {gs} -> {str(odt)[6:]} (library call)",
-                            lib_out.view(OPT_W_UP), dequantize_int8_torch(q, sc, gs, odt))
-                ld = measure(lib, 100)
-                timing[f"dequantize_g{gs}_{str(odt)[6:]}"] = {
-                    "ms": kd["ms"], "plain_ms": pd["ms"], "host_ms": kd["host_ms"],
-                    "library_ms": ld["ms"], "library_kernels": ld["kernels_per_call"],
-                    "plain_kernels": pd["kernels_per_call"], "bytes": db,
-                    "bound_ms": max(db / HBM_BYTES_PER_S, n_el / FP32_FLOPS) * 1e3}
+            q, sc = check_quant(x, gs, tag, quant_dtypes)
+            time_quant(f"quantize_g{gs}_{tag}", x, gs)
+            if dtype == torch.bfloat16:
+                for odt in quant_dtypes:
+                    time_dequant(f"dequantize_g{gs}_{str(odt)[6:]}", q, sc, gs, odt)
+                if gs == 128:
+                    x_opt, q_opt, sc_opt = x, q, sc
+    # Llama-3-8B's MLP weight in bf16 (cold: beyond L2)
+    x = quant_input(torch.bfloat16, gen, dev, LLAMA_W_UP)
+    for gs in (2048, 128):
+        q, sc = check_quant(x, gs, "bfloat16 [4096 x 14336]", (torch.bfloat16,))
+        time_quant(f"llama_quantize_g{gs}_bfloat16", x, gs)
+        time_dequant(f"llama_dequantize_g{gs}_bfloat16", q, sc, gs, torch.bfloat16)
+    del x, q, sc
     for name, r in timing.items():
-        log(f"  {name} [2048 x 8192] bf16: device kernel {r['ms']*1e3:.1f} us "
-            f"({r['bytes'] / (r['ms'] * 1e-3) / 1e9:.0f} GB/s), plain {r['plain_ms']*1e3:.1f} us "
+        shape = "[4096 x 14336]" if name.startswith("llama") else "[2048 x 8192]"
+        log(f"  {name} {shape}: device kernel {r['ms']*1e3:.2f} us "
+            f"({r['bytes'] / (r['ms'] * 1e-3) / 1e9:.0f} GB/s, "
+            f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound), plain {r['plain_ms']*1e3:.1f} us "
             f"({r['plain_kernels']:.0f} kernels), "
             + (f"torch.mul(out=) {r['library_ms']*1e3:.1f} us "
                f"({r['library_kernels']:.0f} kernels), " if "library_ms" in r else "")
-            + f"bound {r['bound_ms']*1e3:.1f} us (bytes); "
+            + f"bound {r['bound_ms']*1e3:.2f} us (bytes); "
             f"host loop {r['host_ms']*1e3:.1f} us [{card}]")
+    log("  (back-to-back launches on one working set: the [2048 x 8192] cases (50 MB in bf16) "
+        "may partly hit in L2, so a reading above 100% of bound is L2's; [4096 x 14336] is "
+        "cold)")
     log("  quantize_int8: no single PyTorch call computes the per-group scale and the codes "
         "(amax, divide, round, clip), so it has no library time; dequantize_int8's is one "
         "broadcast torch.mul(codes, scales[:, None], out=)")
-    # planted fault: the scales shifted by one group must break the equality
-    bad = dequantize_int8_cuda(q, sc.roll(1), 128, torch.float32)
-    n_bad = int((bad != dequantize_int8_torch(q, sc, 128, torch.float32)).sum())
-    log(f"  dequantize_int8 planted fault (scales shifted by one group): {n_bad} of {n_el} "
-        f"elements differ (must be > 0)")
-    if n_bad == 0:
-        raise AssertionError("the equality check passes scales shifted by one group")
+
+    # planted faults: each must break the equality the sound kernels keep
+    faults = {}
+    xb = torch.from_numpy(division_boundary_groups(4096, 128, seed=seed)).to(dev)
+    qb_ref = quantize_int8_torch(xb, 128)[0]
+    q_errs.append(check_equal("quantize_int8 fp32 group 128 codes at ties and boundary "
+                              "quotients", quantize_int8_cuda(xb, 128)[0], qb_ref))
+    with quantize_planted_fault(1):
+        faults["1 (quotient as the product by the reciprocal; boundary quotients)"] = \
+            n_differ(quantize_int8_cuda(xb, 128)[0], qb_ref)
+        # informative: how often random values meet a boundary
+        random_fault1 = n_differ(quantize_int8_cuda(x_opt, 128)[0], q_opt)
+    # every (amax, x) pair of bf16 and of fp16, in groups of 2048: the FMA
+    # division's codes equal IEEE division's over the whole input domain
+    pairs = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        tag, n_groups, n_fault = str(dtype)[6:], 0, 0
+        for xg in every_pair_groups(dtype, 2048, dev):
+            q_ref, s_ref = quantize_int8_torch(xg, 2048)
+            q, sc = quantize_int8_cuda(xg, 2048)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, q_ref) and torch.equal(sc, s_ref)):
+                check_equal(f"quantize_int8 {tag} every (amax, x) pair, codes", q, q_ref)
+                check_equal(f"quantize_int8 {tag} every (amax, x) pair, scales", sc, s_ref)
+            with quantize_planted_fault(1):
+                n_fault += n_differ(quantize_int8_cuda(xg, 2048)[0], q_ref)
+            n_groups += xg.shape[0]
+        n_mag = 0x7F80 if dtype == torch.bfloat16 else 0x7C00   # finite values >= 0
+        pairs[tag] = {"pairs": n_mag ** 2 - 1, "groups": n_groups, "fault1_codes": n_fault}
+        log(f"  quantize_int8 {tag} every (amax, x) pair ({n_mag ** 2 - 1} in {n_groups} groups "
+            f"of 2048): codes and scales equal bit for bit; fault 1 changes {n_fault} codes")
+        faults[f"1 (the product by the reciprocal; every {tag} pair)"] = n_fault
+        del xg, q_ref, s_ref, q, sc
+    del xb, qb_ref
+    with quantize_planted_fault(2):
+        for gs in (128, 2048):
+            faults[f"2 (a lane left out of each segment's max; group {gs} scales)"] = \
+                n_differ(quantize_int8_cuda(x_opt, gs)[1], quantize_int8_torch(x_opt, gs)[1])
+    dq_ref = dequantize_int8_torch(q_opt, sc_opt, 128, torch.bfloat16)
+    with quantize_planted_fault(3):
+        faults["3 (each group's first vector by the previous group's scale)"] = \
+            n_differ(dequantize_int8_cuda(q_opt, sc_opt, 128, torch.bfloat16), dq_ref)
+    faults["scales shifted by one group"] = n_differ(
+        dequantize_int8_cuda(q_opt, sc_opt.roll(1), 128, torch.bfloat16), dq_ref)
+    for what, n_bad in faults.items():
+        log(f"  quantize.cu planted fault {what}: {n_bad} elements differ (must be > 0)")
+    log(f"  (fault 1 on the random [2048 x 8192] bf16 values at group 128: {random_fault1} of "
+        f"{x_opt.numel()} codes differ)")
+    for what, n_bad in faults.items():
+        if n_bad == 0:
+            raise AssertionError(f"the equality check passes planted fault {what}")
     out["quantize"] = {"max_abs_err": max(q_errs), "dequantize_max_abs_err": max(dq_errs),
-                       "timing": timing, "planted_fault_elements": n_bad}
+                       "timing": timing, "planted_faults": faults, "every_pair": pairs,
+                       "fault1_random_codes": random_fault1}
     return out
 
 
@@ -2099,7 +2270,8 @@ def phase_opt_shapes(seed: int, card: str):
 def phase_modules(seed: int, card: str):
     """The inference module system on the card: OPT-1.3B's w_up and w_down
     quantized through op ``quantize_int8``, the ``weight_only_quant`` linear
-    against the ``dense`` linear on [64, 2048] bf16 activations, and the
+    against the ``dense`` linear on [64, 2048] bf16 activations, w_up in
+    fp16 quantized and served the same way on fp16 activations, and the
     ``norm`` slot with ``kind="layer"``; launches equal to the calls made."""
     import torch
 
@@ -2131,11 +2303,15 @@ def phase_modules(seed: int, card: str):
     y = norm(x, ln_w, ln_b)
     mid_q = quant_up(y, q_up, s_up, b_up)
     out_q = quant_down(mid_q, q_down, s_down)
+    # fp16: w_up quantized from fp16, dequantized into fp16 by the linear
+    y16, w_up16, b_up16 = (t.to(torch.float16) for t in (y, w_up, b_up))
+    q_up16, s_up16 = quantize_int8(w_up16, gs)
+    mid_q16 = quant_up(y16, q_up16, s_up16, b_up16)
     torch.cuda.synchronize()
     launches = {"quantize_int8": quantize_int8_cuda.launches,
                 "dequantize_int8": dequantize_int8_cuda.launches,
                 "layer_norm": layer_norm_cuda.launches}
-    want = {"quantize_int8": 2, "dequantize_int8": 2, "layer_norm": 1}
+    want = {"quantize_int8": 3, "dequantize_int8": 3, "layer_norm": 1}
     log(f"  module system: launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"module-system launches {launches} != calls made {want}")
@@ -2146,20 +2322,29 @@ def phase_modules(seed: int, card: str):
     errs = {"up": check_close("weight_only_quant linear up+relu vs dense [64, 8192]",
                               mid_q, mid, MODULE_QUANT_TOL),
             "down": check_close("weight_only_quant up -> down vs dense [64, 2048]",
-                                out_q, out, MODULE_QUANT_TOL)}
+                                out_q, out, MODULE_QUANT_TOL),
+            "up fp16": check_close("weight_only_quant linear up+relu fp16 vs dense fp16 "
+                                   "[64, 8192]", mid_q16, dense_up(y16, w_up16, b_up16),
+                                   MODULE_QUANT_TOL)}
     bad = quant_down(mid_q, q_down, s_down.roll(1))
     fault_err, fault_rel = row_err(bad, out)
     log(f"  module planted fault (w_down's scales shifted by one group): row err/RMS="
         f"{fault_rel:.4f} (must exceed tol {MODULE_QUANT_TOL:g})")
     if fault_rel <= MODULE_QUANT_TOL:
         raise AssertionError("the quantized-linear limit passes shifted scales; too loose")
-    t_q = measure(lambda: quant_up(y, q_up, s_up, b_up), 50)
-    t_d = measure(lambda: dense_up(y, w_up, b_up), 50)
-    log(f"  up-projection [64, 2048] x [2048, 8192]: weight_only_quant {t_q['ms']*1e3:.1f} us "
-        f"(dequantize + matmul), dense {t_d['ms']*1e3:.1f} us [{card}]")
+    times = {}
+    for tag, args, dense_args in (("bf16", (y, q_up, s_up, b_up), (y, w_up, b_up)),
+                                  ("fp16", (y16, q_up16, s_up16, b_up16),
+                                   (y16, w_up16, b_up16))):
+        t_q = measure(lambda: quant_up(*args), 50)
+        t_d = measure(lambda: dense_up(*dense_args), 50)
+        times[tag] = {"quant_linear_ms": t_q["ms"], "dense_linear_ms": t_d["ms"]}
+        log(f"  up-projection [64, 2048] x [2048, 8192] {tag}: weight_only_quant "
+            f"{t_q['ms']*1e3:.1f} us (dequantize + matmul), dense {t_d['ms']*1e3:.1f} us "
+            f"[{card}]")
     return {"launches": launches, "tol": MODULE_QUANT_TOL,
             "row_err_over_rms": {k: r for k, (_, r) in errs.items()},
-            "planted_fault": fault_rel, "quant_linear_ms": t_q["ms"], "dense_linear_ms": t_d["ms"]}
+            "planted_fault": fault_rel, **times["bf16"], "fp16": times["fp16"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -3297,6 +3482,11 @@ def main() -> int:
                    "opt training": opt_train["launches"]["layer_norm"],
                    "module system": mods["launches"]["layer_norm"]}
     qt = kern["quantize"]["timing"]
+
+    def quant_entry(key):
+        return {"ms": qt[key]["ms"], "plain_ms": qt[key]["plain_ms"],
+                "bound_ms": qt[key]["bound_ms"], "bound_by": "bytes"}
+
     kernels += [
         {"name": "paged_decode_attention_int8", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/csrc/paged_sm90.cu",
@@ -3330,18 +3520,17 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/pallas/quantize.py:30",
          "launches": mods["launches"]["quantize_int8"],
          "max_abs_err": kern["quantize"]["max_abs_err"],
-         "ms": qt["quantize_g128"]["ms"], "plain_ms": qt["quantize_g128"]["plain_ms"],
-         "bound_ms": qt["quantize_g128"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         **quant_entry("quantize_g128_bfloat16"), "library_ms": None,
+         # other dtypes and group 2048 at OPT's w_up, and the cold Llama-3-8B shape
+         "cases": {k_: quant_entry(k_) for k_ in qt if "quantize_" in k_ and "dequant" not in k_}},
         {"name": "dequantize_int8", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/csrc/quantize.cu",
          "replaces": "deepspeed_tpu/ops/pallas/quantize.py:39",
          "launches": mods["launches"]["dequantize_int8"],
          "max_abs_err": kern["quantize"]["dequantize_max_abs_err"],
-         "ms": qt["dequantize_g128_bfloat16"]["ms"],
-         "plain_ms": qt["dequantize_g128_bfloat16"]["plain_ms"],
-         "bound_ms": qt["dequantize_g128_bfloat16"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": qt["dequantize_g128_bfloat16"]["library_ms"]},
+         **quant_entry("dequantize_g128_bfloat16"),
+         "library_ms": qt["dequantize_g128_bfloat16"]["library_ms"],
+         "cases": {k_: quant_entry(k_) for k_ in qt if "dequantize_" in k_}},
     ]
     kernels += bias_sparse_entries(kern, bloom_train, entry)
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,

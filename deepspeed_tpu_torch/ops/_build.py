@@ -43,10 +43,14 @@ SIGNATURES = {
     "dstt_layer_norm": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # planted fault of the LayerNorm kernel's next launches (tests): 0 none
     "dstt_layer_norm_plant": [_I],
-    # x, q, scales, n_groups, group_size, dtype of x, stream
+    # x, q, scales, n_groups, group_size, dtype of x (0 bf16, 1 f32, 2 f16),
+    # stream
     "dstt_quantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
     # q, scales, out, n_groups, group_size, dtype of out, stream
     "dstt_dequantize_int8": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    # planted fault of the quantize and dequantize kernels' next launches
+    # (tests): 0 none
+    "dstt_quantize_plant": [_I],
     # paged_sm90.cu: q, k_pool, v_pool, k_scale, v_scale, tables, ctx,
     # window_ptr, window, out, counters, partials, B, t, nh, nkv, hd, bs,
     # num_blocks, max_blocks, ng (0: bf16 pools), nsplit, scale, stream

@@ -18,7 +18,8 @@ input's device (``ops/registry.py``): the plain versions
 (:func:`quantize_int8_torch`, :func:`dequantize_int8_torch`) serve CPU
 tensors and are the oracle on the card; :func:`quantize_int8_cuda` and
 :func:`dequantize_int8_cuda` launch the hand-written kernels of
-``ops/csrc/quantize.cu`` and count their launches in ``.launches``. Their
+``ops/csrc/quantize.cu`` and count their launches in ``.launches``. Both
+take bf16, fp16 and fp32, as the Pallas kernels take any dtype. Their
 formula differs from the KV one: scale = max|g| * (1 / 127) — the fp32
 product XLA compiles the Pallas kernel's ``amax / 127.0`` to, written out so
 that the CPU, the card and the JAX package agree to the bit — and 1 for an
@@ -28,6 +29,7 @@ values bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -35,7 +37,8 @@ import torch
 from . import _build
 from .registry import op, register
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# dtype codes of quantize.cu (those of rms_norm.cu and layer_norm.cu)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 
 
 def group_quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,10 +125,10 @@ def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
 def quantize_int8_cuda(x: torch.Tensor, group_size: int = 2048
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Op ``quantize_int8`` on CUDA tensors: one launch of the quantize
-    kernel (bf16 or fp32 input)."""
+    kernel (bf16, fp16 or fp32 input)."""
     _check_cuda("quantize_int8_cuda", x.numel(), group_size, x)
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"quantize_int8_cuda takes bf16 or f32, got {x.dtype}")
+        raise ValueError(f"quantize_int8_cuda takes bf16, f16 or f32, got {x.dtype}")
     x2 = x.contiguous().view(-1, group_size)
     q = torch.empty(x2.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(x2.shape[0], dtype=torch.float32, device=x.device)
@@ -143,13 +146,13 @@ def quantize_int8_cuda(x: torch.Tensor, group_size: int = 2048
 def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
                          group_size: int = 2048, dtype=torch.float32) -> torch.Tensor:
     """Op ``dequantize_int8`` on CUDA tensors: one launch of the dequantize
-    kernel (int8 codes, fp32 scales; ``dtype`` fp32 or bf16)."""
+    kernel (int8 codes, fp32 scales; ``dtype`` fp32, bf16 or fp16)."""
     _check_cuda("dequantize_int8_cuda", q.numel(), group_size, q, scales)
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
         raise ValueError(f"dequantize_int8_cuda takes int8 codes and f32 scales, "
                          f"got {q.dtype} and {scales.dtype}")
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"dequantize_int8_cuda writes bf16 or f32, got {dtype}")
+        raise ValueError(f"dequantize_int8_cuda writes bf16, f16 or f32, got {dtype}")
     q2 = q.contiguous().view(-1, group_size)
     s = scales.contiguous()
     if s.shape != (q2.shape[0],):
@@ -167,6 +170,22 @@ def dequantize_int8_cuda(q: torch.Tensor, scales: torch.Tensor,
 
 quantize_int8_cuda.launches = 0
 dequantize_int8_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def quantize_planted_fault(fault: int):
+    """For the tests that show a check can fail: the quantize and dequantize
+    kernels' launches inside the block carry a planted fault. 1: quantize
+    takes each quotient as the product by the fp32 reciprocal; 2: the first
+    lane of each segment is left out of the group's max; 3: dequantize
+    scales each group's first vector by the previous group's scale."""
+    plant = _build.load().dstt_quantize_plant
+    plant(int(fault))
+    try:
+        yield
+    finally:
+        plant(0)
+
 
 quantize_int8 = op("quantize_int8")
 dequantize_int8 = op("dequantize_int8")

@@ -23,14 +23,23 @@ them:
   the bigbird layout at blocks 16 and 64;
 - ``blocksparse_attention`` forward and backward under autograd at that
   S 16384 and at S 4096 block 32 (every kernel of the step: the three
-  sparse kernels, delta, the casts).
+  sparse kernels, delta, the casts);
+- int8 quantize (``quantize_int8_cuda``) of OPT-1.3B's ``w_up`` [2048 x
+  8192] in bf16, fp16 and fp32 and of Llama-3-8B's MLP weight [4096 x
+  14336] in bf16, at groups 128 and 2048; dequantize
+  (``dequantize_int8_cuda``) of their codes to bf16, fp16 and fp32 (Llama:
+  bf16); the module system's ``weight_only_quant`` up-projection on [64,
+  2048] bf16 activations (dequantize + matmul); each kernel case with its
+  bytes bound. A wrapper that refuses a dtype (fp16 before it was taken)
+  records null.
 
     python3 scripts/norm_sparse_ab_timing.py --root PATH [--iters 100]
-        [--kinds norms,fwd,dq,dkv,step] [--plain]
+        [--kinds norms,fwd,dq,dkv,step,quant] [--plain]
 
 ``--kinds`` chooses what is timed: ``norms`` the LayerNorm and RMSNorm
 cases, ``fwd``, ``dq`` and ``dkv`` the block-sparse kernels, ``step``
-``blocksparse_attention`` forward and backward.
+``blocksparse_attention`` forward and backward, ``quant`` the int8
+quantize and dequantize kernels (not in the default).
 
 Beside the times, ``bound_us`` holds each sparse case's bound
 (``chip_smoke.py``'s ``sparse_work``: operations over the visible pairs
@@ -67,6 +76,8 @@ RMS_SHAPES = {"rms_1x4096": (1, 4096), "rms_64x4096": (64, 4096),
               "rms_4096x4096": (4096, 4096)}
 RMS_SHAPE_ROWS = (64, 256, 528, 1056, 2048, 4096)
 H, HKV, HD, BS = 32, 8, 128, 128
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+QUANT_SHAPES = {"opt": (2048, 8192), "llama": (4096, 14336)}
 
 
 def rms_thread_cap_variant(root: Path, threads: int):
@@ -92,6 +103,60 @@ def rms_thread_cap_variant(root: Path, threads: int):
     return lib
 
 
+def time_quant(gen, iters: int, us: dict, bound: dict) -> None:
+    """The ``quant`` kind (module docstring): device times into ``us``,
+    bytes bounds into ``bound``, both in microseconds."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import modules
+    from deepspeed_tpu_torch.ops import quantization as qz
+
+    dev = torch.device("cuda")
+    dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+    def case(name, fn, nbytes):
+        try:
+            fn()
+        except ValueError:             # a dtype the checkout's wrapper refuses
+            us[name] = None
+        else:
+            us[name] = device_us(fn, iters)
+        if nbytes:
+            bound[name] = nbytes / HBM_BYTES_PER_S * 1e6
+
+    for shape_name, shape in QUANT_SHAPES.items():
+        n = shape[0] * shape[1]
+        base = torch.randn(shape, generator=gen, device=dev) * 0.05
+        for tag, dtype in dtypes.items():
+            if shape_name == "llama" and dtype != torch.bfloat16:
+                continue
+            x = base.to(dtype)
+            for gs in (128, 2048):
+                case(f"quantize_{shape_name}_g{gs}_{tag}", lambda: qz.quantize_int8_cuda(x, gs),
+                     n * x.element_size() + n + n // gs * 4)
+                if dtype != torch.bfloat16:
+                    continue
+                q, sc = qz.quantize_int8_cuda(x, gs)
+                for otag, odt in dtypes.items():
+                    if shape_name == "llama" and odt != torch.bfloat16:
+                        continue
+                    case(f"dequantize_{shape_name}_g{gs}_{otag}",
+                         lambda: qz.dequantize_int8_cuda(q, sc, gs, odt),
+                         n + n // gs * 4 + n * torch.empty(0, dtype=odt).element_size())
+                del q, sc
+            del x
+        del base
+        torch.cuda.empty_cache()
+    # the module system's weight-only int8 up-projection (OPT-1.3B's w_up)
+    w = (torch.randn(QUANT_SHAPES["opt"], generator=gen, device=dev) * 2048 ** -0.5)
+    q, sc = qz.quantize_int8_cuda(w.to(torch.bfloat16), 128)
+    y = torch.randn(64, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    b = torch.zeros(8192, device=dev, dtype=torch.bfloat16)
+    lin = modules.registry.instantiate("linear", modules.LinearConfig(quant_bits=8,
+                                                                      activation="relu"))
+    case("quant_linear_up_64x2048_bf16", lambda: lin(y, q, sc, b), 0)
+
+
 def _sparse_work():
     """``sparse_work`` of the ``chip_smoke.py`` beside this script (the
     bounds are the same whichever checkout is timed)."""
@@ -109,8 +174,9 @@ def main() -> int:
     ap.add_argument("--root", required=True, help="checkout holding deepspeed_tpu_torch/")
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--kinds", default="norms,fwd,dq,dkv,step",
-                    help="what to time: norms, and the block-sparse fwd, dq, dkv and step "
-                         "(blocksparse_attention fwd + bwd)")
+                    help="what to time: norms, the block-sparse fwd, dq, dkv and step "
+                         "(blocksparse_attention fwd + bwd), and quant (int8 quantize and "
+                         "dequantize; not in the default)")
     ap.add_argument("--plain", action="store_true",
                     help="also time each sparse case's plain version and dense-masked SDPA")
     args = ap.parse_args()
@@ -171,6 +237,9 @@ def main() -> int:
             us[f"rms_{n}x4096_8x2"] = device_us(lambda: rms_norm_cuda(x, w, 1e-5), iters)
             us[f"rms_{n}x4096_16x1"] = device_us(cap512, iters)
 
+    if "quant" in kinds:
+        time_quant(gen, args.iters, us, bound)
+
     sparse_work = _sparse_work()
     builders = {"bigbird": lambda nb: (sa.bigbird_layout(nb, 3, 1, 2, seed=0, causal=True), True),
                 "fixed": lambda nb: (sa.fixed_layout(nb, 4, 4, causal=False), False),
@@ -179,6 +248,8 @@ def main() -> int:
     cases = [(16384, BS, "bigbird")] + [(4096, bs, name) for bs in (BS, 32)
                                          for name in builders] + \
         [(4096, 16, "bigbird"), (4096, 64, "bigbird")]
+    if not kinds & {"fwd", "dq", "dkv", "step"}:
+        cases = []
     for s, bs, name in cases:
         lay, causal = builders[name](s // bs)
         tag = f"s{s}_{name}" + ("" if bs == BS else f"_block{bs}")

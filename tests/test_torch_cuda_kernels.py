@@ -29,9 +29,11 @@ backward: the autograd function's grads against the plain version's, 1e-2
 in bf16 (one rounding step), 1e-5 in fp32. LayerNorm forward and backward:
 the same limits as RMSNorm, fp16 1e-3 (one fp16 rounding step of outputs
 of order 1); lane 31's share left out of the centred sum (its planted
-fault) must fail them. int8 quantize and dequantize: codes, scales and
-values EQUAL to the plain versions' (IEEE division, round half to even, one
-fp32 product), so no tolerance. The OPT-1.3B shapes of the paged and flash
+fault) must fail them. int8 quantize and dequantize (bf16, fp16, fp32):
+codes, scales and values EQUAL to the plain versions' (the IEEE quotient's
+codes, round half to even, one fp32 product), so no tolerance; the
+quantize kernel's corrected product at exact ties and boundary quotients, and
+each of ``quantize.cu``'s three planted faults breaking the equality. The OPT-1.3B shapes of the paged and flash
 kernels (MHA: g = 1, 32 kv heads, hd 64, S 2048) at the limits above.
 The one paged kernel (``paged_sm90.cu``) also at live lengths around its
 split boundaries, at Falcon-7B's shapes (71 query heads over one kv head:
@@ -78,6 +80,9 @@ among them) must fail at an ALiBi and a full-bias shape; and
 ``flash_bwd.cu``'s entry points refuse bf16 with a bias too.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -98,8 +103,8 @@ from deepspeed_tpu_torch.ops.paged_attention import (
     paged_decode_attention_torch, paged_planted_fault, paged_spec_verify_attention_cuda,
     paged_spec_verify_attention_torch)
 from deepspeed_tpu_torch.ops.quantization import (
-    dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda,
-    quantize_int8_torch)
+    dequantize_int8_cuda, dequantize_int8_torch, quantize_int8_cuda, quantize_int8_torch,
+    quantize_planted_fault)
 from deepspeed_tpu_torch.ops.sparse_attention import (
     MMA_ITEM_ROWS, SPARSE_SM90, bigbird_layout, blocksparse_attention, dkv_split_plan,
     fixed_layout, mma_items, sliding_window_layout, sparse_attention_planted_fault,
@@ -108,6 +113,12 @@ from deepspeed_tpu_torch.ops.sparse_attention import (
     sparse_sm90_planted_fault, sparse_source)
 
 pytestmark = pytest.mark.cuda
+
+# chip_smoke.py's inputs of the quantize kernel's division
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 DECODE_ROW_TOL = 0.06
@@ -1369,12 +1380,22 @@ def _quant_input(shape, dtype, device, group_size, seed=0):
     return torch.from_numpy(x).to(device, dtype)
 
 
-@pytest.mark.parametrize("group_size", [16, 64, 128, 2048, 24, 100])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# group sizes that reach each shape of quantize.cu's kernels: the vector
+# quantize kernel at segments narrower than a warp (16-256: 1-16 lanes), of
+# one warp of 1, 2 and 4 chunks a lane (512, 1024, 2048) and over 2 and 4
+# warps (4096, 8192: one exchange through shared memory); the warp kernel
+# (24 is a multiple of the fp32 vector only, 100 of neither); dequantize's
+# vector kernel by shift (powers of two), by division (24 at fp32) and its
+# scalar kernel (24 at bf16 / fp16, 100)
+QUANT_GROUPS = [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 24, 100]
+QUANT_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("group_size", QUANT_GROUPS)
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
 def test_quantize_kernel_equals_plain(cuda_device, group_size, dtype):
-    """Codes and scales equal the plain version's bit for bit: vector path
-    (16 .. 2048), scalar path (24 is a multiple of the fp32 vector only, 100
-    of neither)."""
+    """Codes and scales equal the plain version's bit for bit: vector
+    kernel (16 .. 8192), warp kernel (24, 100)."""
     rows = 48
     x = _quant_input((rows, group_size * 6), dtype, cuda_device, group_size, seed=group_size)
     before = quantize_int8_cuda.launches
@@ -1389,8 +1410,8 @@ def test_quantize_kernel_equals_plain(cuda_device, group_size, dtype):
     assert q.view(-1)[-8:].tolist() == [127, 0, 2, 2, 0, -2, -2, 4]
 
 
-@pytest.mark.parametrize("group_size", [16, 64, 128, 2048, 24, 100])
-@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group_size", QUANT_GROUPS)
+@pytest.mark.parametrize("out", QUANT_DTYPES)
 def test_dequantize_kernel_equals_plain(cuda_device, group_size, out):
     rs = np.random.RandomState(group_size)
     q = torch.from_numpy(rs.randint(-127, 128, (40, group_size * 5)).astype(np.int8)).to(cuda_device)
@@ -1403,7 +1424,59 @@ def test_dequantize_kernel_equals_plain(cuda_device, group_size, out):
     assert torch.equal(got, dequantize_int8_torch(q, s, group_size, out))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group_size", [16, 128, 512, 2048, 8192, 100])
+def test_quantize_exact_product_at_ties_and_boundaries(cuda_device, group_size):
+    """The vector kernel's division (the product by the reciprocal,
+    corrected twice by its residual) at exact ties, at quotients where the
+    uncorrected product rounds the other way and where it is not faithful
+    (``chip_smoke.division_boundary_groups``, fp32): codes equal the plain
+    version's; the uncorrected product (planted fault 1) must break the
+    equality."""
+    x = torch.from_numpy(smoke.division_boundary_groups(64, group_size, seed=group_size)
+                         ).to(cuda_device)
+    q_ref, s_ref = quantize_int8_torch(x, group_size)
+    q, s = quantize_int8_cuda(x, group_size)
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
+    with quantize_planted_fault(1):
+        bad, _ = quantize_int8_cuda(x, group_size)
+        torch.cuda.synchronize()
+    assert int((bad != q_ref).sum()) > 0
+
+
+@pytest.mark.parametrize("group_size", [16, 128, 2048, 8192, 100])
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
+def test_quantize_check_fails_a_lane_left_out_of_the_max(cuda_device, group_size, dtype):
+    """Planted fault 2 (one lane of each segment, each warp in the warp
+    kernel, left out of the group's max) must break the equality that the
+    sound kernel keeps on the same inputs."""
+    x = _quant_input((48, group_size * 6), dtype, cuda_device, group_size, seed=group_size + 1)
+    q_ref, s_ref = quantize_int8_torch(x, group_size)
+    q, s = quantize_int8_cuda(x, group_size)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    with quantize_planted_fault(2):
+        bad_q, bad_s = quantize_int8_cuda(x, group_size)
+        torch.cuda.synchronize()
+    assert int((bad_s != s_ref).sum()) > 0 and int((bad_q != q_ref).sum()) > 0
+
+
+@pytest.mark.parametrize("group_size", [16, 128, 2048, 24, 100])
+@pytest.mark.parametrize("out", QUANT_DTYPES)
+def test_dequantize_check_fails_the_previous_groups_scale(cuda_device, group_size, out):
+    """Planted fault 3 (each group's first vector scaled by the previous
+    group's scale) must break the equality, on both dequantize kernels."""
+    rs = np.random.RandomState(group_size + 2)
+    q = torch.from_numpy(rs.randint(-127, 128, (40, group_size * 5)).astype(np.int8)).to(cuda_device)
+    s = torch.from_numpy((rs.rand(200) * 0.05 + 0.01).astype(np.float32)).to(cuda_device)
+    ref = dequantize_int8_torch(q, s, group_size, out)
+    assert torch.equal(dequantize_int8_cuda(q, s, group_size, out), ref)
+    with quantize_planted_fault(3):
+        bad = dequantize_int8_cuda(q, s, group_size, out)
+        torch.cuda.synchronize()
+    assert int((bad != ref).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
 def test_quantize_kernels_at_opt_shapes(cuda_device, dtype):
     """OPT-1.3B's w_up [2048, 8192] at groups 2048 and 128, and any shape
     (3-d, empty): equality throughout, and the round trip within half a
@@ -1413,7 +1486,7 @@ def test_quantize_kernels_at_opt_shapes(cuda_device, dtype):
         q, s = quantize_int8_cuda(x, gs)
         q_ref, s_ref = quantize_int8_torch(x, gs)
         assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
-        for out in (torch.float32, torch.bfloat16):
+        for out in QUANT_DTYPES:
             assert torch.equal(dequantize_int8_cuda(q, s, gs, out),
                                dequantize_int8_torch(q, s, gs, out))
         back = dequantize_int8_cuda(q, s, gs)
@@ -1430,13 +1503,66 @@ def test_quantize_kernels_at_opt_shapes(cuda_device, dtype):
     assert (quantize_int8_cuda.launches, dequantize_int8_cuda.launches) == before
 
 
+@pytest.mark.parametrize("group_size", [128, 2048])
+def test_quantize_kernels_at_llama_shape(cuda_device, group_size):
+    """Llama-3-8B's MLP weight [4096, 14336] in bf16: codes, scales and the
+    bf16 and fp32 values equal the plain versions'."""
+    x = _quant_input((4096, 14336), torch.bfloat16, cuda_device, group_size, seed=8)
+    q, s = quantize_int8_cuda(x, group_size)
+    q_ref, s_ref = quantize_int8_torch(x, group_size)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    del x, q_ref
+    for out in (torch.bfloat16, torch.float32):
+        assert torch.equal(dequantize_int8_cuda(q, s, group_size, out),
+                           dequantize_int8_torch(q, s, group_size, out))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quantize_every_pair_of_a_16_bit_dtype(cuda_device, dtype):
+    """Every (amax, x) pair of bf16 and of fp16 (``chip_smoke.
+    every_pair_groups``, groups of 2048): the FMA division's codes and the
+    scales equal the plain version's over the whole input domain, and the
+    uncorrected product (planted fault 1) changes some."""
+    n_fault = 0
+    for x in smoke.every_pair_groups(dtype, 2048, cuda_device):
+        q_ref, s_ref = quantize_int8_torch(x, 2048)
+        q, s = quantize_int8_cuda(x, 2048)
+        assert torch.equal(s, s_ref) and torch.equal(q, q_ref)
+        with quantize_planted_fault(1):
+            n_fault += int((quantize_int8_cuda(x, 2048)[0] != q_ref).sum())
+    assert n_fault > 0
+
+
+@pytest.mark.parametrize("group_size", [16, 24, 64, 100, 128, 512, 1024, 2048, 4096, 8192,
+                                        16384, 32768])
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
+def test_quantize_kernel_writes_every_code_and_scale(cuda_device, group_size, dtype):
+    """The C entry over buffers filled with what it never writes (code
+    -128, NaN scales), at group sizes of every plan (segments of 1 to 256
+    lanes of 1 to 4 chunks; the warp kernel at 24, 100 and 32768) and a
+    group count that leaves the last block part empty: every code and scale
+    is written, and equals the plain version's."""
+    n_groups = 37
+    x = _quant_input((n_groups, group_size), dtype, cuda_device, group_size, seed=group_size)
+    q = torch.full(x.shape, -128, dtype=torch.int8, device=cuda_device)
+    s = torch.full((n_groups,), float("nan"), device=cuda_device)
+    code = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}[dtype]
+    assert _build.load().dstt_quantize_int8(x.data_ptr(), q.data_ptr(), s.data_ptr(), n_groups,
+                                            group_size, code,
+                                            torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    q_ref, s_ref = quantize_int8_torch(x, group_size)
+    assert int((q == -128).sum()) == 0 and not bool(s.isnan().any())
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
 def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(4, 256, device=cuda_device)
     q, s = quantize_int8_cuda(x, 128)
     with pytest.raises(ValueError, match="does not divide"):
         quantize_int8_cuda(x, 100)
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        quantize_int8_cuda(x.half(), 128)
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        quantize_int8_cuda(x.double(), 128)
     with pytest.raises(ValueError, match="aligned"):
         quantize_int8_cuda(torch.zeros(1025, device=cuda_device)[1:], 128)
     with pytest.raises(ValueError, match="int8 codes"):
@@ -1445,8 +1571,8 @@ def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         dequantize_int8_cuda(q, s.double(), 128)
     with pytest.raises(ValueError, match="scales shape"):
         dequantize_int8_cuda(q, s[:4], 128)
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        dequantize_int8_cuda(q, s, 128, torch.float16)
+    with pytest.raises(ValueError, match="bf16, f16 or f32"):
+        dequantize_int8_cuda(q, s, 128, torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         dequantize_int8_cuda(q, s.cpu(), 128)
     with pytest.raises(ValueError, match="CUDA"):
