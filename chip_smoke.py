@@ -121,8 +121,12 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    ``generate`` on 8 prompts of mixed lengths (one of length 1, one > 128),
    32 greedy tokens each. Launch counters are zeroed just before and read
    just after: RMSNorm must have launched 65 times per forward and paged
-   decode 32 times per decode step. Prints TTFT, decode tokens/s and peak
-   memory beside the card's name and power limit.
+   decode 32 times per decode step. Each decode step is one replay of the
+   engine's CUDA graph (captured in the warm-up): the wrappers count the
+   eager forwards (prefill), and the graph's launches are its kernel nodes
+   (``graph_kernels``, read from the graph itself) times the replays.
+   Prints TTFT, decode tokens/s and peak memory beside the card's name and
+   power limit.
 5. Speculative serving: Llama-3-8B (full width and depth, bf16 weights from
    the seed, 512 x 128-token blocks, 64 slots) through ``generate`` on 8
    prompts that repeat their own opening span, 32 greedy tokens each, in
@@ -131,7 +135,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    {enabled, group_size 128}``; (c) ``kv_quant`` alone. Counters zeroed
    before and read after each: RMSNorm 65 per forward, spec verify 32 per
    fused verify step (at least one), paged decode (bf16 or int8, by pool)
-   32 per plain decode step. Prints tokens per step, acceptance rate,
+   32 per plain decode step (graph replays, counted as in phase 4). Prints
+   tokens per step, acceptance rate,
    verify- and decode-step ms, TTFT, pool bytes, peak memory and a profile
    of 6 steps.
 6. Whole path against the plain path: the same width at 2 layers, one
@@ -206,6 +211,32 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    whose three kernels run ``sparse_attention.cu``, the grads held the same
    way.
 
+16. Engine v2's serving core at Llama-3-8B's full width and depth, every
+   engine on one set of bf16 weights (``phase_serving_core``): 8 prompts x
+   32 greedy tokens through the decode graph (64 slots; ``step_many`` 8
+   tokens a quantum, and single ``step()`` calls) identical to the eager
+   decode (its plain version: the same forward, not captured) in single
+   steps and in quanta; 4 sampled beside 4 greedy rows identical too; the
+   graph's kernel nodes (65 RMSNorm and 32 paged decode) times its
+   replays as its launches; the same identities for Llama-3-8B on int8
+   pools and with speculative decoding + fused verify, and for OPT-1.3B
+   (24 layers) on bf16 pools and in that spec mode (``graph_modes``);
+   eager ``step()``, graph ``step()`` and the graph quantum timed (wall,
+   device busy, idle share, kernels and host launches a token-step), the
+   profiler's RMSNorm and paged-decode records in each window equal to the
+   launches made there. Then, at
+   max_seq_len 2048 and 16 slots: the prefix cache on against off on 8
+   prompts sharing 1024 tokens (both split at 1024, so the prefix is one
+   chunk either way; the prefill tokens saved printed), split prefill
+   (256-token chunks) against one-shot, a fork (child's pending token
+   changed) against solo runs — tokens and K/V rows bit for bit, one
+   copy-on-write —, park / resume under churn against park / resume
+   without, a native export → import handoff resumed on a second engine
+   against the resume at the source, and speculative decoding with fused
+   verify over the shared prefix (prefix on against off) and over a forked
+   tail. A replay whose context-length buffer is not advanced, and skipped
+   copy-on-write copies, must each fail their check.
+
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -216,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -347,6 +379,8 @@ def _dev_us(evt) -> float:
 
 
 PROFILE_SESSIONS = 4       # of one window, 0.2 s apart, before giving up
+LEAD_IN = 256                  # spin kernels a profiler session starts with
+LEAD_IN_CYCLES = 20_000_000    # the first one's length (~10 ms)
 
 
 def profile_window(fn, undo=None):
@@ -354,38 +388,163 @@ def profile_window(fn, undo=None):
     s, kernels launched, [(kernel, device ms, count)] by device time). One
     stream, so busy time is the sum of the kernels' own times.
 
-    About 4 sessions in 1000 on this card come back without one kernel, in
+    Once a process has run a few phases of this script, CUPTI drops
+    records near the start of every session on this card, more as the
+    process ages: 2000 launches of one kernel read 1999 (with or without
+    50 ms of host sleep first; a fresh process reads 2000:
+    ``scripts/profiler_lead_in_check.py``), a spec serving
+    window lost both spin kernels put before it, and phase 16's 8-step
+    serving windows read 12419 kernels of the 12432 launched (519 RMSNorm
+    of 520). So each session opens with a lead-in of ``LEAD_IN`` spin
+    kernels (``torch.cuda._sleep``, the first ~10 ms long, then a sync)
+    that absorbs the loss, needs at least one of them recorded, and counts
+    nothing of it. About
+    4 sessions in 1000 on this card come back without one kernel, in
     bursts: the same window run again at once was still empty 10 times in
     22, and a third session 0.2 s later never (5400 sessions,
-    ``scripts/torch_profiler_trace_check.py``). So an empty session is
-    logged, ``undo`` (if given) takes back what ``fn`` must not do twice, and
-    the window runs again, ``PROFILE_SESSIONS`` times in all; then it raises.
-    No other clock ever stands in for a device time."""
+    ``scripts/torch_profiler_trace_check.py``). So a session without its
+    lead-in or without a kernel of ``fn`` is logged, ``undo`` (if given)
+    takes back what ``fn`` must not do twice, and the window runs again,
+    ``PROFILE_SESSIONS`` times in all; then it raises. No other clock ever
+    stands in for a device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    lead_in, evts = [], []
     for session in range(PROFILE_SESSIONS):
         if session:
-            log(f"  (torch.profiler session {session} of this window held no kernel; again)")
+            log(f"  (torch.profiler session {session} of this window held "
+                f"{sum(e.count for e in lead_in)} of {LEAD_IN} lead-in and "
+                f"{sum(e.count for e in evts)} other kernel records; again)")
             if undo is not None:
                 undo()
             time.sleep(0.2)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+            for _ in range(LEAD_IN - 1):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
-        if evts:
+        lead_in = [e for e in evts if "spin_kernel" in e.key]
+        evts = [e for e in evts if "spin_kernel" not in e.key]
+        if lead_in and evts:
             break
     else:
-        raise RuntimeError(f"torch.profiler recorded no device time in {PROFILE_SESSIONS} "
-                           "sessions (CUPTI saw no kernel); no device time can be reported")
+        raise RuntimeError(f"torch.profiler recorded no lead-in or no device time in "
+                           f"{PROFILE_SESSIONS} sessions; no device time can be reported")
     busy = sum(_dev_us(e) for e in evts) / 1e6
     top = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in evts),
                  key=lambda t: -t[1])
     return wall, busy, sum(e.count for e in evts), top
+
+
+def launch_calls(fn) -> dict:
+    """The host's launch calls in one run of ``fn``, from the CUDA runtime
+    and driver API events ``torch.profiler`` records: kernel launches,
+    graph launches, and copies / fills. Empty when the profiler recorded no
+    such event (the caller then reports them as not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"kernel": ("LaunchKernel",), "graph": ("GraphLaunch",),
+             "copy": ("Memcpy", "Memset")}
+    out = {k: 0 for k in kinds}
+    for e in prof.key_averages():
+        if e.key.startswith("cu"):
+            for k, marks in kinds.items():
+                if any(m in e.key for m in marks):
+                    out[k] += e.count
+    return out if any(out.values()) else {}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of the driver API (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(graph) -> list:
+    """The (mangled) names of the kernel nodes of a captured
+    ``torch.cuda.CUDAGraph`` (``keep_graph=True``), read from the graph
+    itself through the driver API: what every replay launches."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        err = getattr(cu, fn)(*args)
+        if err:
+            raise RuntimeError(f"{fn} failed with CUresult {err}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = _KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+        name = ctypes.c_char_p()
+        if p.func:
+            call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
+        names.append(name.value.decode())
+    return names
+
+
+# the hand-written kernels a decode graph can hold, by a piece of their
+# (mangled) names; the paged kernel is the int8 mode on int8 pools
+GRAPH_KERNEL_NAMES = {"rms_norm": "rms_norm_", "layer_norm": "layer_norm_",
+                      "paged_decode_attention": "paged_sm90_kernel"}
+
+
+def graph_per_replay(eng) -> dict:
+    """The hand-written kernels one replay of ``eng``'s decode graph
+    launches, from the graph's own kernel nodes (:func:`graph_kernels`)."""
+    if eng._graph is None:
+        raise AssertionError("the engine has not captured its decode graph")
+    names = graph_kernels(eng._graph)
+    per = {k: sum(piece in n for n in names) for k, piece in GRAPH_KERNEL_NAMES.items()}
+    per = {k: n for k, n in per.items() if n}
+    if eng._kvq_on and "paged_decode_attention" in per:
+        per["paged_decode_attention_int8"] = per.pop("paged_decode_attention")
+    return per
+
+
+def capture_decode_graph(eng, prompt) -> dict:
+    """Have ``eng`` capture its decode graph now (one sequence, one
+    ``step_many`` tick, then retired), outside any counted run: the capture's
+    two warm-up forwards launch through the wrappers and the captured one
+    moves their counts without a launch. → :func:`graph_per_replay`."""
+    uid = 1 << 30
+    eng.put(uid, prompt)
+    eng.step_many(1)
+    eng.finish(uid)
+    return graph_per_replay(eng)
+
+
+def with_replays(launches: dict, per_replay: dict, replays: int) -> dict:
+    """A counted run's launches: the wrappers' (eager forwards) plus the
+    decode graph's kernels times the replays made in that run."""
+    out = dict(launches)
+    for k, n in per_replay.items():
+        out[k] = out.get(k, 0) + n * replays
+    return out
 
 
 def measure(fn, iters: int) -> dict:
@@ -609,19 +768,24 @@ def phase_main_path(seed: int, max_new_tokens: int, card: str):
     rs = np.random.RandomState(seed)
     lengths = [1, 17, 64, 100, 129, 200, 333, 500]
     prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
-    # warm-up (cuBLAS handles, allocator) outside the counted run
+    # warm-up (cuBLAS handles, allocator, the decode graph's capture) outside
+    # the counted run
     eng.generate([prompts[0], prompts[2]], max_new_tokens=2)
+    per_replay = capture_decode_graph(eng, prompts[1])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng.forward_log.clear()
     rms_norm_cuda.launches = 0
     paged_decode_attention_cuda.launches = 0
+    replays0 = eng.graph_replays
     t_start = time.monotonic()
     outs = eng.generate(prompts, max_new_tokens=max_new_tokens)
     t_end = time.monotonic()
-    launches = {"rms_norm": rms_norm_cuda.launches,
-                "paged_decode_attention": paged_decode_attention_cuda.launches}
+    eager_launches = {"rms_norm": rms_norm_cuda.launches,
+                      "paged_decode_attention": paged_decode_attention_cuda.launches}
+    replays = eng.graph_replays - replays0
+    launches = with_replays(eager_launches, per_replay, replays)
     peak = torch.cuda.max_memory_allocated()
 
     assert len(outs) == len(prompts)
@@ -633,9 +797,11 @@ def phase_main_path(seed: int, max_new_tokens: int, card: str):
     per_fwd = 2 * cfg.num_layers + 1
     want = {"rms_norm": per_fwd * (n_prefill + n_decode),
             "paged_decode_attention": cfg.num_layers * n_decode}
-    log(f"  forwards: {n_prefill} prefill + {n_decode} decode; launches {launches}, "
-        f"expected {want}")
-    if launches != want or n_decode == 0:
+    log(f"  forwards: {n_prefill} prefill + {n_decode} decode ({replays} replays of the "
+        f"decode graph, whose kernel nodes hold {per_replay}); launches {launches} (by the "
+        f"wrappers {eager_launches}), expected {want}")
+    if launches != want or n_decode == 0 or replays != n_decode \
+            or eager_launches != {"rms_norm": per_fwd * n_prefill, "paged_decode_attention": 0}:
         raise AssertionError(f"kernel launch counts {launches} != expected {want}")
     first = next(e for e in eng.forward_log if e[0] == "prefill")
     ttft_ms = (first[3] - t_start) * 1e3
@@ -645,7 +811,8 @@ def phase_main_path(seed: int, max_new_tokens: int, card: str):
     res = {"ttft_ms": ttft_ms, "decode_tokens_per_s": dec_tokens / dec_s,
            "decode_step_ms": dec_s / len(dec) * 1e3,
            "prefill_ms": first[1] * 1e3, "e2e_s": t_end - t_start,
-           "peak_mem_bytes": peak, "launches": launches,
+           "peak_mem_bytes": peak, "launches": launches, "per_replay": per_replay,
+           "replays": replays,
            "n_prefill": n_prefill, "n_decode": n_decode,
            "prompt_lengths": lengths, "max_new_tokens": max_new_tokens,
            "num_layers": cfg.num_layers}
@@ -1088,16 +1255,20 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
         log(f"  {name}: pools {sorted(eng.cache)} {pool_bytes/1e9:.3f} GB, "
             f"set-up {time.perf_counter()-t0:.1f} s")
         eng.generate([prompts[0], prompts[4]], max_new_tokens=4)   # warm-up
+        per_replay = capture_decode_graph(eng, prompts[1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         eng.forward_log.clear()
         stats0 = dict(eng.spec_stats)
         for c in counters.values():
             c.launches = 0
+        replays0 = eng.graph_replays
         t_start = time.monotonic()
         outs = eng.generate(prompts, max_new_tokens=max_new_tokens)
         t_end = time.monotonic()
-        launches = {k: c.launches for k, c in counters.items()}
+        replays = eng.graph_replays - replays0
+        launches = with_replays({k: c.launches for k, c in counters.items()}, per_replay,
+                                replays)
         peak = torch.cuda.max_memory_allocated()
         stats = {k: v - stats0[k] for k, v in eng.spec_stats.items()}
         for o in outs:
@@ -1112,7 +1283,8 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
                 decode_key: cfg.num_layers * len(kinds["decode"]), other_key: 0,
                 "paged_spec_verify_attention": cfg.num_layers * len(kinds["verify"])}
         log(f"  {name}: forwards {len(kinds['prefill'])} prefill + {len(kinds['verify'])} "
-            f"verify + {len(kinds['decode'])} decode; launches {launches}, expected {want}; "
+            f"verify + {len(kinds['decode'])} decode ({replays} replays of the decode graph, "
+            f"whose kernel nodes hold {per_replay}); launches {launches}, expected {want}; "
             f"spec stats {stats}")
         if spec_on:
             # every verify step is a fused one, and the launches match the
@@ -1122,7 +1294,7 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
                 and len(kinds["decode"]) == stats["decode_steps"]
         else:
             ok = len(kinds["decode"]) >= 1 and not kinds["verify"]
-        if launches != want or not ok:
+        if launches != want or not ok or replays != len(kinds["decode"]):
             raise AssertionError(f"{name}: kernel launch counts {launches} != expected {want} "
                                  f"or step counts disagree (spec stats {stats})")
         first = kinds["prefill"][0]
@@ -1135,7 +1307,8 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
                                  if spec_on else 1.0),
              "acceptance_rate": (stats["accepted_tokens"] / max(stats["drafted_tokens"], 1)
                                  if spec_on else None),
-             "spec_stats": stats, "launches": launches, "pool_bytes": pool_bytes,
+             "spec_stats": stats, "launches": launches, "per_replay": per_replay,
+             "replays": replays, "pool_bytes": pool_bytes,
              "peak_mem_bytes": peak, "e2e_s": t_end - t_start,
              "generated_tokens_per_s": len(prompts) * max_new_tokens / (t_end - t_start)}
         fmt = lambda v, f: "n/a" if v is None else f % v  # noqa: E731
@@ -3253,6 +3426,503 @@ def bias_sparse_entries(kern: dict, bloom_train: dict, entry: dict) -> list:
     return kernels
 
 
+# --------------------------------------------------------------------------- #
+# the serving core (phase 16): Llama-3-8B at 32 layers through engine v2's
+# step_many (eager and as one CUDA graph), prefix cache, split prefill, fork,
+# park / resume and the KV handoff
+CORE_SHARED = 1024             # tokens of the prefix the core prompts share
+CORE_TAILS = (17, 40, 64, 90, 100, 3, 77, 128)
+CORE_K = 8                     # tokens a step_many quantum
+CORE_CTX = 2048                # max_seq_len of the core engines (tables of 16 blocks)
+
+
+def _stale_lengths(eng):
+    """Planted fault of the graph path: ticks feed the tokens back but
+    leave the context-length buffer, so every replay rewrites one position."""
+    def advance(nxt):
+        eng._dec.tokens[:, 0].copy_(nxt)
+    eng._advance = advance
+
+
+def _skip_cow(eng):
+    """Planted fault of the prefix path: copy-on-write copies are skipped."""
+    eng._copy_blocks = lambda pairs: None
+
+
+def kv_rows(eng, desc, upto=None):
+    """A sequence's K and V rows [L, positions, nkv, hd] through its table."""
+    import torch
+
+    n = desc.seen_tokens if upto is None else upto
+    bs = eng.state.block_size
+    table = torch.as_tensor(desc.blocks, device=eng.device)
+    out = []
+    for name in ("k", "v"):
+        g = eng.cache[name][:, table].transpose(2, 3)       # [L, mb, bs, nkv, hd]
+        out.append(g.reshape(g.shape[0], -1, *g.shape[3:])[:, :n])
+    return out
+
+
+def _fork_run(eng, prompt, inject: bool, steps: int = 6):
+    """put, one step, fork (or not), the child's pending token changed, then
+    ``steps`` steps; → (parent tokens, child tokens or None, parent, child)."""
+    f0 = eng.put(1, prompt)
+    f1 = eng.step()[1]
+    child = eng.fork(1, 2) if inject else None
+    if child is not None:
+        inj = (f1 + 1) % eng.family.cfg.vocab_size
+        child.last_token = inj
+        eng._slot_tokens[child.slot] = inj
+    outs = [eng.step() for _ in range(steps)]
+    par = [f0, f1] + [o[1] for o in outs]
+    chi = [o[2] for o in outs] if child is not None else None
+    return par, chi, eng.state.seqs[1], child
+
+
+def core_fork_check(fork_eng, ref, prompt) -> dict:
+    """The fork's parent and child against solo runs on ``ref``: identical
+    tokens and, bit for bit, identical K/V rows (decode-only paths: the same
+    kernels at the same shapes). One copy-on-write of the shared tail."""
+    import torch
+
+    cow0 = fork_eng.state.prefix_stats["cow_copies"]
+    par, chi, pd, cd = _fork_run(fork_eng, prompt, inject=True)
+    cows = fork_eng.state.prefix_stats["cow_copies"] - cow0
+    pk, pv = kv_rows(fork_eng, pd)
+    ck, cv = kv_rows(fork_eng, cd)
+    tail = pd.blocks[len(prompt) // fork_eng.state.block_size]
+    ctail = cd.blocks[len(prompt) // fork_eng.state.block_size]
+    # the solo parent, then the solo child (same put and step, the pending
+    # token changed after it)
+    rpar, _, rd, _ = _fork_run(ref, prompt, inject=False)
+    rk, rv = kv_rows(ref, rd)
+    ref.finish(1)
+    ref.put(1, prompt)
+    f1 = ref.step()[1]
+    d = ref.state.seqs[1]
+    d.last_token = (f1 + 1) % ref.family.cfg.vocab_size
+    ref._slot_tokens[d.slot] = d.last_token
+    rchi = [ref.step()[1] for _ in range(6)]
+    rck, rcv = kv_rows(ref, ref.state.seqs[1])
+    ref.finish(1)
+    fork_eng.finish(1)
+    fork_eng.finish(2)
+    res = {"cow_copies": cows, "private_tails": tail != ctail,
+           "parent_tokens": par == rpar, "child_tokens": chi == rchi,
+           "parent_kv": bool(torch.equal(pk, rk) and torch.equal(pv, rv)),
+           "child_kv": bool(torch.equal(ck, rck) and torch.equal(cv, rcv))}
+    if not all(res.values()) or cows != 1:
+        raise AssertionError(f"fork against solo runs: {res}")
+    return res
+
+
+def graph_modes(llama_params, llama_cfg, seed: int) -> dict:
+    """The decode graph against the eager decode (``_graph_on = False``, the
+    same forward over the same buffers) in every other family and mode whose
+    decodes it runs: Llama-3-8B on int8 pools and with speculative decoding
+    + fused verify on int8 pools (its plain decode steps), OPT-1.3B (24
+    layers, LayerNorm) on bf16 pools and the same speculative mode: 8
+    prompts x 32 greedy tokens through ``generate``, and two ``step_many``
+    quanta of 8 after the same admissions, identical. → {mode: result}."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import gpt, llama
+
+    opt_cfg = dataclasses.replace(gpt.GPTConfig.opt_1_3b(), activation="relu")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    opt_params = gpt.init(opt_cfg, gen, dtype=torch.bfloat16, device="cuda")
+    rs = np.random.RandomState(seed + 21)
+    out = {}
+    for label, family, cfg, params, extra in (
+            ("llama_int8", llama, llama_cfg, llama_params, INT8),
+            ("llama_spec_int8", llama, llama_cfg, llama_params, {**SPEC, **INT8}),
+            ("opt_bf16", gpt, opt_cfg, opt_params, {}),
+            ("opt_spec_int8", gpt, opt_cfg, opt_params, {**SPEC, **INT8})):
+        prompts = (spec_prompts(seed, cfg.vocab_size)[0] if "speculative" in extra else
+                   [rs.randint(0, cfg.vocab_size, n).astype(np.int32)
+                    for n in (1, 17, 64, 100, 129, 200, 333, 500)])
+        engines = []
+        for graph_on in (False, True):
+            eng = build_engine_v2(family, cfg, params, config=dict({
+                "dtype": "bfloat16", "prefill_bucket": 64,
+                "ragged": {"max_tracked_sequences": 64, "max_ragged_batch_size": 64,
+                           "memory_config_blocks": 160, "block_size": 128}}, **extra))
+            eng._graph_on = graph_on
+            engines.append(eng)
+        eager, graph = engines
+        want = eager.generate(prompts, max_new_tokens=MAX_NEW_TOKENS)
+        r = {"steps": graph.generate(prompts, max_new_tokens=MAX_NEW_TOKENS) == want}
+        # quanta of plain decode ticks (spec mode too: step_many does not
+        # draft), after the same admissions
+        quanta = []
+        for eng in engines:
+            eng.put_many(list(enumerate(prompts)))
+            quanta.append([eng.step_many(CORE_K) for _ in range(2)])
+            for uid in list(eng.state.seqs):
+                eng.finish(uid)
+        r["step_many"] = quanta[0] == quanta[1]
+        r["replays"] = graph.graph_replays
+        r["per_replay"] = graph_per_replay(graph)
+        expect = {"rms_norm" if family is llama else "layer_norm": 2 * cfg.num_layers + 1,
+                  "paged_decode_attention" + ("_int8" if "kv_quant" in extra else ""):
+                  cfg.num_layers}
+        log(f"  decode graph == eager decode, {label}: {r}")
+        if not (r["steps"] and r["step_many"]) or r["replays"] == 0 \
+                or r["per_replay"] != expect:
+            raise AssertionError(f"{label}: the decode graph's tokens differ from the eager "
+                                 f"decode's, it never replayed, or its kernel nodes are not "
+                                 f"{expect}: {r}")
+        out[label] = r
+        del engines, eager, graph
+        torch.cuda.empty_cache()
+    del opt_params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_core(seed: int, card: str) -> dict:
+    """Engine v2's serving core at Llama-3-8B's full width and depth, every
+    engine on one set of bf16 weights from the seed. Each check compares two
+    runs whose forwards have the same shapes, so their tokens (and K/V) must
+    agree bit for bit:
+
+    - the decode graph (``step_many`` quanta and single steps) against the
+      eager decode (8 prompts x 32 tokens, 64 slots; sampled rows too), and
+      in the other families and modes (:func:`graph_modes`); launches under
+      the graph (its kernel nodes x replays); eager step(), graph step() and
+      the graph quantum timed (wall, device busy, idle share, kernels a
+      token-step), the profiler's named records equal to the launches;
+    - the prefix cache on against off on 8 prompts sharing 1024 tokens (both
+      split at 1024, so the prefix is the same chunk either way);
+    - split prefill (256-token chunks) against one-shot prefill, which holds
+      only while a prefill row's result does not hang on the batch's shape
+      (the GEMMs' and the plain attention's), and the prefix cache on
+      against off with speculative decoding + fused verify (verify over
+      shared blocks; one-shot admissions, which rest on the same);
+    - a fork (shared partial tail, copy-on-write) against solo runs, plain
+      and in spec mode; park / resume under churn against park / resume
+      without; an export → import handoff resumed on a second engine against
+      the resume on the first.
+
+    Planted faults: a replay whose context-length buffer is not advanced,
+    and skipped copy-on-write copies, must each fail their check."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import SamplingParams, build_engine_v2
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_spec_verify_attention_cuda)
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    core_cfg = dataclasses.replace(cfg, max_seq_len=CORE_CTX)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    counters = {"rms_norm": rms_norm_cuda, "paged_decode_attention": paged_decode_attention_cuda,
+                "paged_spec_verify_attention": paged_spec_verify_attention_cuda}
+
+    def engine(c, slots, blocks, **conf):
+        return build_engine_v2(llama, c, params, config=dict({
+            "dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": slots, "max_ragged_batch_size": slots,
+                       "memory_config_blocks": blocks, "block_size": 128}}, **conf))
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    res = {"num_layers": cfg.num_layers, "k": CORE_K}
+    per_fwd = 2 * cfg.num_layers + 1
+
+    # -- (a) the decode graph against the eager decode -------------------- #
+    # the eager engine runs the graph's plain version: the same forward over
+    # the same static buffers, not captured
+    rs = np.random.RandomState(seed)
+    lengths = [1, 17, 64, 100, 129, 200, 333, 500]
+    prompts = [rs.randint(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+    eager = engine(cfg, 64, 160)
+    eager._graph_on = False
+    graph = engine(cfg, 64, 160)
+    eager.generate(prompts[:2], max_new_tokens=2)                      # warm-up
+    graph.generate(prompts[:2], max_new_tokens=2)
+    per_replay = graph_per_replay(graph)
+    log(f"  decode graph captured at 64 slots; its kernel nodes hold {per_replay} of the "
+        f"hand-written kernels")
+    if per_replay != {"rms_norm": per_fwd, "paged_decode_attention": cfg.num_layers}:
+        raise AssertionError(f"a replay launches {per_replay}, expected {per_fwd} RMSNorm "
+                             f"and {cfg.num_layers} paged decode")
+    want = eager.generate(prompts, max_new_tokens=MAX_NEW_TOKENS)
+    zero()
+    many = eager.generate(prompts, max_new_tokens=MAX_NEW_TOKENS, steps_per_sync=CORE_K)
+    eager_many_launches = counts()
+    zero()
+    replays0 = graph.graph_replays
+    graph.forward_log.clear()
+    got = graph.generate(prompts, max_new_tokens=MAX_NEW_TOKENS, steps_per_sync=CORE_K)
+    replays = graph.graph_replays - replays0
+    eager_side = counts()
+    n_prefill = sum(k == "prefill" for k, *_ in graph.forward_log)
+    graph_launches = with_replays(eager_side, per_replay, replays)
+    log(f"  graph run: {n_prefill} prefill forwards and {replays} replays; launches "
+        f"{graph_launches} (by the wrappers {eager_side})")
+    if eager_side != {"rms_norm": per_fwd * n_prefill, "paged_decode_attention": 0,
+                      "paged_spec_verify_attention": 0} or replays == 0:
+        raise AssertionError(f"graph run's eager launches {eager_side} ({n_prefill} prefills)")
+    steps = graph.generate(prompts, max_new_tokens=MAX_NEW_TOKENS)
+    # stochastic rows beside greedy ones: sampling runs outside the graph,
+    # from the same per-row generators, on the same logits
+    samp = SamplingParams(temperature=0.8, top_k=50)
+    sampled = []
+    for eng in (eager, graph):
+        eng.put_many([(200 + i, p) for i, p in enumerate(prompts[:4])], samp, seed=3)
+        eng.put_many([(300 + i, p) for i, p in enumerate(prompts[4:])], seed=3)
+        sampled.append([eng.step_many(4, seed=5 + i) for i in range(4)]
+                       + [eng.step(seed=21)])
+        for uid in list(eng.state.seqs):
+            eng.finish(uid)
+    ident = {"step_many_eager": many == want, "step_many_graph": got == want,
+             "step_graph": steps == want, "sampled_graph": sampled[0] == sampled[1]}
+    log(f"  8 prompts x {MAX_NEW_TOKENS} greedy tokens against eager single steps: eager "
+        f"step_many {ident['step_many_eager']}, graph step_many {ident['step_many_graph']}, "
+        f"graph steps {ident['step_graph']}; 4 sampled + 4 greedy rows, graph == eager "
+        f"{ident['sampled_graph']}")
+    if not all(ident.values()):
+        raise AssertionError(f"the decode graph's tokens differ from the eager decode's: {ident}")
+    res.update(identity=ident, per_replay=per_replay, graph_launches=graph_launches,
+               eager_launches=eager_side, eager_many_launches=eager_many_launches,
+               replays=replays)
+    # every other family and mode that decodes through the graph
+    res["modes"] = graph_modes(params, cfg, seed)
+
+    # where the time goes: 8 token-steps as eager step() calls, as graph
+    # step() calls and as one quantum of graph replays, over the same 8 live
+    # sequences; the hand-written kernels the profiler names in each window
+    # must be the launches made there, exactly
+    uids = list(range(100, 108))
+    timing = {}
+    want_named = {k: per_replay[k] * CORE_K for k in per_replay}
+    for name, eng, fn in (("eager_step", eager, lambda: [eager.step() for _ in range(CORE_K)]),
+                          ("graph_step", graph, lambda: [graph.step() for _ in range(CORE_K)]),
+                          ("graph_step_many", graph, lambda: graph.step_many(CORE_K))):
+        eng.put_many(list(zip(uids, prompts)))
+        fn()                                           # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / (2 * CORE_K)
+        wall, busy, n_k, top = profile_window(fn)
+        named = {"rms_norm": sum(c for k, _, c in top if "rms_norm_" in k),
+                 "paged_decode_attention": sum(c for k, _, c in top if "paged_sm90" in k)}
+        timing[name] = {"wall_ms": host_ms, "profiled_wall_ms": wall * 1e3 / CORE_K,
+                        "busy_ms": busy * 1e3 / CORE_K, "idle_share": 1 - busy / wall,
+                        "kernels_per_step": n_k / CORE_K, "named_kernels": named,
+                        "top": [(k, ms / CORE_K, c / CORE_K) for k, ms, c in top[:8]]}
+        calls = launch_calls(fn)
+        timing[name]["host_calls_per_step"] = {k: v / CORE_K for k, v in calls.items()}
+        for u in uids:
+            eng.finish(u)
+        t = timing[name]
+        log(f"  {name}: wall {t['wall_ms']:.2f} ms a token-step (profiled "
+            f"{t['profiled_wall_ms']:.2f}), device busy {t['busy_ms']:.2f} ms, idle "
+            f"{t['idle_share']:.1%}, {t['kernels_per_step']:.0f} kernels a step; by name "
+            f"{named}; host launch calls a step {t['host_calls_per_step'] or 'not measured'} "
+            f"[{card}]")
+        if named != want_named:
+            raise AssertionError(f"{name}: the profiler names {named} kernels, the launches "
+                                 f"were {want_named}")
+    res["timing"] = timing
+
+    # planted fault: the graph replays with the lengths never advanced
+    _stale_lengths(graph)
+    bad = graph.generate(prompts, max_new_tokens=MAX_NEW_TOKENS, steps_per_sync=CORE_K)
+    if bad == want:
+        raise AssertionError("graph replays with stale context lengths passed the check")
+    log("  planted fault (replays with the context-length buffer not advanced): "
+        "differs from single steps, as it must")
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    # -- (b) prefix cache on against off ---------------------------------- #
+    rs = np.random.RandomState(seed + 16)
+    shared = rs.randint(0, cfg.vocab_size, CORE_SHARED)
+    core_prompts = [np.concatenate([shared, rs.randint(0, cfg.vocab_size, n)]).astype(np.int32)
+                    for n in CORE_TAILS]
+    split1k = {"split_prefill_chunk": CORE_SHARED}
+    prefix = {"prefix_cache": {"enabled": True}}
+    off = engine(core_cfg, 16, 128, **split1k)
+    on = engine(core_cfg, 16, 128, **split1k, **prefix)
+    want = off.generate(core_prompts, max_new_tokens=MAX_NEW_TOKENS)
+    on.generate(core_prompts[:1], max_new_tokens=2)        # the shared blocks retained
+    saved0 = on.state.prefix_stats["prefill_tokens_saved"]
+    zero()
+    got = on.generate(core_prompts, max_new_tokens=MAX_NEW_TOKENS)
+    saved = on.state.prefix_stats["prefill_tokens_saved"] - saved0
+    res["prefix"] = {"identical": got == want, "prefill_tokens_saved": saved,
+                     "launches": counts(), "stats": dict(on.state.prefix_stats)}
+    log(f"  prefix cache on == off: {got == want}; prefill tokens saved {saved} of "
+        f"{sum(len(p) for p in core_prompts)} (8 x {CORE_SHARED} shared)")
+    if got != want or saved < len(core_prompts) * CORE_SHARED:
+        raise AssertionError(f"prefix cache: {res['prefix']}")
+    on.state.debug_check()
+
+    # -- (c) split prefill against one-shot ------------------------------- #
+    one = engine(core_cfg, 16, 128)
+    split = engine(core_cfg, 16, 128, split_prefill_chunk=CORE_SHARED // 4)
+    want1 = one.generate(core_prompts, max_new_tokens=MAX_NEW_TOKENS)
+    got1 = split.generate(core_prompts, max_new_tokens=MAX_NEW_TOKENS)
+    chunks = sum(k == "prefill_chunk" for k, *_ in split.forward_log)
+    agree = [sum(a == b for a, b in zip(x, y)) for x, y in zip(got1, want1)]
+    firsts = [x[0] == y[0] for x, y in zip(got1, want1)]
+    res["split"] = {"identical": got1 == want1, "chunks": chunks,
+                    "first_token_identical": firsts, "tokens_agreeing": agree,
+                    "split1k_identical": want == want1}
+    log(f"  split prefill ({CORE_SHARED // 4}) == one-shot: {got1 == want1} ({chunks} chunks; first tokens "
+        f"{sum(firsts)}/8, tokens agreeing {agree}); split 1024 == one-shot: {want == want1}")
+    if got1 != want1:
+        raise AssertionError(f"split prefill against one-shot: {res['split']}")
+
+    # -- (d) fork: the shared partial tail copied on write ---------------- #
+    fork_prompt = np.random.RandomState(seed + 17).randint(0, cfg.vocab_size, CORE_SHARED - 24)
+    res["fork"] = core_fork_check(one, split, fork_prompt)
+    log(f"  fork against solo runs: {res['fork']}")
+    # (another prompt: the sound run's blocks, freed in the same order, would
+    # hand the faulty run's copies their right contents)
+    _skip_cow(one)
+    try:
+        core_fork_check(one, split, fork_prompt[::-1].copy())
+    except AssertionError as e:
+        log(f"  planted fault (copy-on-write copies skipped): fails, as it must ({e})")
+    else:
+        raise AssertionError("a fork with its copy-on-write copies skipped passed the check")
+    for uid in list(one.state.seqs):
+        one.finish(uid)
+    del one
+
+    # -- (e) park / resume under churn, and the export → import handoff -- #
+    rs = np.random.RandomState(seed + 18)
+    q, churn, q2 = (rs.randint(0, cfg.vocab_size, n).astype(np.int32)
+                    for n in (CORE_SHARED - 24, CORE_SHARED // 3, CORE_SHARED - 24))
+    dst = engine(core_cfg, 16, 128, **prefix)
+
+    def park_cycle(eng, with_churn):
+        eng.put(1, q)
+        for _ in range(5):
+            eng.step()
+        parked = eng.park(1)
+        if with_churn:
+            eng.put(2, churn)
+            for _ in range(3):
+                eng.step()
+            eng.finish(2)
+        eng.resume(parked)
+        for _ in range(6):
+            eng.step()
+        return eng.finish(1)
+
+    a = park_cycle(on, True)
+    b = park_cycle(dst, False)
+    ref = engine(core_cfg, 16, 128)
+    ref.put(1, q)
+    for _ in range(12):
+        ref.step()
+    uninterrupted = ref.finish(1)
+    del ref
+    res["park_resume"] = {"identical": a == b,
+                          "agree_uninterrupted": sum(x == y for x, y in zip(a, uninterrupted))}
+    log(f"  park / resume under churn == without: {a == b}; tokens agreeing with the "
+        f"uninterrupted run {res['park_resume']['agree_uninterrupted']}/{len(a)}")
+    if a != b:
+        raise AssertionError(f"park / resume: {a} != {b}")
+
+    src = on
+    src.put(5, q2)
+    for _ in range(5):
+        src.step()
+    exp = src.export_kv_blocks(5, wire="native")
+    exp8 = src.export_kv_blocks(5, wire="int8", wire_group=64)
+    parked = src.park(5)
+    imp = dst.import_kv_blocks(exp["hashes"], exp["blocks"])
+    dst.resume(parked)
+    src.resume(parked)
+    for _ in range(6):
+        dst.step()
+        src.step()
+    d_toks, s_toks = dst.finish(5), src.finish(5)
+    res["handoff"] = {"identical": d_toks == s_toks, "import": imp,
+                      "blocks": len(exp["blocks"]), "wire_bytes": exp["wire_bytes"],
+                      "int8_wire_bytes": exp8["wire_bytes"],
+                      "bf16_equiv_bytes": exp8["bf16_equiv_bytes"]}
+    log(f"  handoff: {len(exp['blocks'])} blocks, native {exp['wire_bytes']/1e6:.1f} MB, "
+        f"int8 wire {exp8['wire_bytes']/1e6:.1f} MB; import {imp}; resumed == resumed at the "
+        f"source {d_toks == s_toks}")
+    if d_toks != s_toks or imp["imported"] != len(exp["blocks"]):
+        raise AssertionError(f"handoff: {res['handoff']}")
+    dst.state.debug_check()
+    src.state.debug_check()
+    del src, on, off, dst, split
+    torch.cuda.empty_cache()
+
+    # -- (f) spec verify over shared prefix blocks and forked tails ------- #
+    rs = np.random.RandomState(seed + 19)
+    spec_prompts_ = []
+    for n in CORE_TAILS:
+        span = rs.randint(0, cfg.vocab_size, max(2, n // 3))
+        spec_prompts_.append(np.concatenate([shared, np.tile(span, 3)]).astype(np.int32))
+    # not split: in spec mode a step verifies every live sequence when any
+    # drafts, so the rows a sequence's tokens come from hang on the others'
+    # schedule, and split admissions schedule differently with and without
+    # hits. Unsplit, both engines admit all 8 prompts in one burst; the
+    # prefill rows' independence of the batch's shape is what (c) shows.
+    s_off = engine(core_cfg, 16, 128, **SPEC)
+    s_on = engine(core_cfg, 16, 128, **SPEC, **prefix)
+    want = s_off.generate(spec_prompts_, max_new_tokens=MAX_NEW_TOKENS)
+    s_on.generate(spec_prompts_[:1], max_new_tokens=2)
+    zero()
+    stats0 = dict(s_on.spec_stats)
+    got = s_on.generate(spec_prompts_, max_new_tokens=MAX_NEW_TOKENS)
+    spec_launches = counts()
+    verify_steps = s_on.spec_stats["verify_steps"] - stats0["verify_steps"]
+    log(f"  spec + fused verify, prefix on == off: {got == want}; {verify_steps} verify "
+        f"steps, launches {spec_launches}")
+    if got != want or spec_launches["paged_spec_verify_attention"] != \
+            cfg.num_layers * verify_steps or verify_steps == 0:
+        raise AssertionError(f"spec over shared blocks: {got == want}, {spec_launches}")
+    # a fork in spec mode: verify rows over the shared tail, rollback into it
+    span = np.random.RandomState(seed + 20).randint(0, cfg.vocab_size, 50)
+    rep = np.tile(span, (CORE_SHARED - 24) // 50).astype(np.int32)
+    zero()
+    cow0 = s_on.state.prefix_stats["cow_copies"]
+    s_on.put(1, rep)
+    s_on.fork(1, 2)
+    par = [s_on.step() for _ in range(4)]
+    fork_launches = counts()
+    s_off.put(1, rep)
+    solo = [s_off.step() for _ in range(4)]
+    ok = [p[1] for p in par] == [s[1] for s in solo] and [p[2] for p in par] == [s[1] for s in solo]
+    res["spec"] = {"identical": got == want, "verify_steps": verify_steps,
+                   "launches": spec_launches, "fork_identical": ok,
+                   "fork_launches": fork_launches,
+                   "fork_cow_copies": s_on.state.prefix_stats["cow_copies"] - cow0}
+    log(f"  spec fork: parent and child == solo run {ok}; launches {fork_launches}, "
+        f"copies on write {res['spec']['fork_cow_copies']}")
+    if not ok or fork_launches["paged_spec_verify_attention"] == 0:
+        raise AssertionError(f"spec fork: {par} != {solo} or no verify step "
+                             f"({fork_launches})")
+    s_on.state.debug_check()
+    del s_on, s_off, params
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  serving core phase {res['seconds']:.1f} s [{card}]")
+    return res
+
+
 def main_step_inputs(prompt_lengths, generated: int, extra: int = 1, shape=None):
     """(context lengths, block tables) of a serving step over 64 slots: the
     first len(prompt_lengths) slots hold prompt_len + generated cached
@@ -3414,12 +4084,21 @@ def main() -> int:
         "blocksparse_attention)")
     entry = phase_entry_points(SEED, card)
 
+    log("== phase 16: serving core (Llama-3-8B, 32 layers: step_many as one CUDA graph, "
+        "prefix cache, split prefill, fork, park / resume, KV handoff)")
+    core = phase_serving_core(SEED, card)
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
+    # the serving paths decode through their graphs: each path's launches are
+    # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
+    core_graph = core["graph_launches"]
     rms_launches = {"serving": main_res["launches"]["rms_norm"],
-                    "training": train["launches"]["rms_norm"]}
+                    "training": train["launches"]["rms_norm"],
+                    "serving core (graph)": core_graph["rms_norm"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
     decode_launches = {"llama serving": main_res["launches"]["paged_decode_attention"],
-                       "opt serving": opt_l["bf16"]["paged_decode_attention"]}
+                       "opt serving": opt_l["bf16"]["paged_decode_attention"],
+                       "serving core (graph)": core_graph["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -3476,6 +4155,9 @@ def main() -> int:
     ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
                     for p in ("spec_bf16", "spec_int8")}
     ver_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_spec_verify_attention"]
+    ver_launches["serving core (shared and forked blocks)"] = (
+        core["spec"]["launches"]["paged_spec_verify_attention"]
+        + core["spec"]["fork_launches"]["paged_spec_verify_attention"])
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
@@ -3540,7 +4222,8 @@ def main() -> int:
               "opt_train_whole_path": opt_train_whole, "modules": mods,
               "main_path": main_res, "spec_serving": spec, "whole_path": whole,
               "whole_path_spec": whole_spec, "train": train,
-              "train_whole_path": train_whole, "total_s": time.perf_counter() - t_all}
+              "train_whole_path": train_whole, "serving_core": core,
+              "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)
         path.parent.mkdir(parents=True, exist_ok=True)

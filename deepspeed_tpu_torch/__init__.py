@@ -11,7 +11,11 @@ Ported so far:
 - paged serving of the Llama family through the v2 continuous-batching
   engine (:func:`build_engine_v2`), with the RMSNorm and paged-decode
   kernels; speculative decoding with fused verification (the spec-verify
-  kernel) and the int8 KV cache (the paged-decode kernel's int8 mode);
+  kernel) and the int8 KV cache (the paged-decode kernel's int8 mode); the
+  serving core: the prefix cache with copy-on-write, split prefill,
+  ``step_many``, park / resume, fork and the KV export / import handoff;
+  on a CUDA device every decode forward is a replay of one CUDA graph per
+  engine;
 - single-process training of the Llama family through :func:`initialize`
   → ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
   clipping, lr schedules), with the RMSNorm kernel and the flash-attention
@@ -29,7 +33,7 @@ Ported so far:
   dQ and dK/dV kernels.
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
-CUDA counterpart: eighteen kernel entries and seven planted-fault hooks in
+CUDA counterpart: eighteen kernel entries and eight planted-fault hooks in
 ten ``.cu`` sources (``ops/_build.py`` ``SIGNATURES``). The flash forward
 runs bf16 on TMA + ``wgmma``, ``ops/csrc/flash_fwd_sm90.cu``, and fp32 on
 ``ops/csrc/flash_fwd.cu``; the flash backward runs bf16, with or without a

@@ -4,8 +4,12 @@ imports nothing of the JAX package.
 
 Features that the port has not brought over yet raise
 ``NotImplementedError`` when enabled (:func:`check_ported`) rather than being
-ignored: ``prefix_cache``, ``split_prefill_chunk > 0``, ``quant``, ``tensor_parallel.tp_size > 1``,
-``trace``, ``compile_monitor`` and ``enable_cuda_graph``.
+ignored: ``prefix_cache.host_spill``, ``quant``, ``tensor_parallel.tp_size >
+1``, ``trace`` and ``compile_monitor``.
+
+``enable_cuda_graph`` is accepted and ignored, as in the JAX package (whose
+programs are compiled anyway): on a CUDA device the v2 engine always captures
+its decode forward once as a CUDA graph and replays it for every decode step.
 """
 
 from __future__ import annotations
@@ -33,9 +37,16 @@ class RaggedConfig:
 
 @dataclass
 class PrefixCacheConfig:
-    """Prefix-aware KV-cache reuse for the v2 paged engine (not ported)."""
+    """Prefix-aware KV-cache reuse for the v2 paged engine (default OFF):
+    admissions resolve shared prompt prefixes to existing KV blocks through
+    a chain-hash index and prefill from the first uncached token; retired
+    sequences' full blocks park in a retained LRU pool, evicted only under
+    allocation pressure. The host-spill tier is not ported."""
 
     enabled: bool = False
+    # retained-pool cap: -1 = bounded only by the block pool, 0 = share
+    # between live sequences but retain nothing after retire, > 0 = at most
+    # this many unreferenced blocks
     max_retained_blocks: int = -1
     host_spill: bool = False
     max_spilled_blocks: int = -1
@@ -102,9 +113,11 @@ class InferenceConfig:
     max_out_tokens: int = 1024           # dense KV-cache length budget (v1)
     min_out_tokens: int = 1
     replace_with_kernel_inject: bool = False  # kernels are always used on CUDA
-    enable_cuda_graph: bool = False
+    enable_cuda_graph: bool = False      # ignored: the v2 decode is a graph on CUDA
     max_batch_size: int = 8
     prefill_bucket: int = 64             # pad prompts to a multiple of this
+    # > 0: tokens per prefill chunk of a split admission (rounded up to
+    # prefill_bucket); one chunk advances per step() / step_many() call
     split_prefill_chunk: int = 0
     ragged: RaggedConfig = field(default_factory=RaggedConfig)
     quant: QuantConfig = field(default_factory=QuantConfig)
@@ -140,13 +153,12 @@ class InferenceConfig:
     def unported_features(self) -> List[str]:
         """Enabled features the port does not implement yet."""
         on = {
-            "prefix_cache": self.prefix_cache.enabled,
-            "split_prefill_chunk": self.split_prefill_chunk > 0,
+            "prefix_cache.host_spill": (self.prefix_cache.enabled
+                                        and self.prefix_cache.host_spill),
             "quant": self.quant.enabled,
             "tensor_parallel.tp_size": self.tensor_parallel.tp_size > 1,
             "trace": self.trace.enabled,
             "compile_monitor": self.compile_monitor.enabled,
-            "enable_cuda_graph": self.enable_cuda_graph,
         }
         return [name for name, enabled in on.items() if enabled]
 

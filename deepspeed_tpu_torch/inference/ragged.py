@@ -18,9 +18,8 @@ indexed blocks park in a retained LRU pool (refcount 0, off the free list)
 and are evicted back to the free list only under allocation pressure.
 Copy-on-write (``ensure_writable``) keeps appends into a shared block safe.
 ``truncate`` is the inverse of ``extend`` — KV rollback for speculative
-decoding. The port's engine does not turn the prefix cache or speculative
-decoding on yet; the bookkeeping is carried over whole so that the slices
-that do need no second copy.
+decoding. The host-spill hooks are carried over, but the port's engine does
+not wire a host pool yet.
 """
 
 from __future__ import annotations

@@ -255,6 +255,13 @@ def _workspace(dev, stream: int, counters: int, partials: int):
     return c, p
 
 
+def workspace_of(dev, stream: int):
+    """The (counters, partials) scratch that launches on ``stream`` use now,
+    or None before the first. A CUDA graph captured on that stream reads
+    these tensors at every replay, so its owner holds them."""
+    return _WORKSPACE.get((torch.device(dev).index, stream))
+
+
 @contextlib.contextmanager
 def paged_planted_fault(fault: int):
     """For the tests that show a check can fail: the paged kernel's

@@ -306,8 +306,9 @@ def check_compute_dtype(compute_dtype: Optional[torch.dtype],
                         device: torch.device) -> None:
     """Raise ``NotImplementedError`` for a compute dtype that the card path
     cannot run: fp16 on a CUDA device, where the flash-attention kernels
-    take bf16 and fp32 only (ROADMAP queue B.2; RMSNorm and LayerNorm take
-    fp16 already). On the CPU, fp16 runs the plain versions."""
+    take bf16 and fp32 only (ROADMAP queue B.2; RMSNorm, LayerNorm and the
+    int8 quantize and dequantize kernels take fp16 already). On the CPU,
+    fp16 runs the plain versions."""
     if compute_dtype == torch.float16 and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "an fp16 compute dtype has no CUDA kernel yet on the flash-attention "

@@ -86,6 +86,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu_torch.models.bloom import _alibi_bias
 from deepspeed_tpu_torch.ops import _build, get_op

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.comm import mesh as mesh_lib
 from deepspeed_tpu.inference import ragged as jragged
@@ -98,8 +99,10 @@ def test_put_step_finish_and_errors(tiny):
         eng.put_many([(12, p[0]), (13, p[0]), (14, p[0])])
     assert set(eng.state.seqs) == {11}
     eng.state.debug_check()
-    with pytest.raises(NotImplementedError):
-        eng.generate(p, max_new_tokens=2, steps_per_sync=4)
+    # steps_per_sync > 1 runs step_many: the same tokens as one step a sync
+    eng.finish(11)
+    assert eng.generate(p, max_new_tokens=5, steps_per_sync=4) == \
+        eng.generate(p, max_new_tokens=5)
 
 
 def test_stochastic_generate_is_seeded(tiny):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.ops import evoformer_attn as jevo
 from deepspeed_tpu_torch.ops import evoformer_attn as tevo

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.ops.pallas import flash_attention as jfa
 from deepspeed_tpu_torch.ops.attention import attention_torch

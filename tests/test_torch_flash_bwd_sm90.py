@@ -13,6 +13,7 @@ is read in place through its strides at any broadcast shape
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.flash_attention import (

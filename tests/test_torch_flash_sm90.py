@@ -10,6 +10,7 @@ itself runs only on the card (``tests/test_torch_cuda_kernels.py``).
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.flash_attention import HEAD_DIMS, tma_refusal

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.inference import modules as jm
 from deepspeed_tpu.ops.quantization import quantize_int8 as jquantize

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu_torch.inference import InferenceConfig, build_engine_v2
 import deepspeed_tpu_torch
@@ -151,13 +152,11 @@ def test_card_path_refuses_dtypes_without_a_kernel(dtype, monkeypatch):
 
 
 UNPORTED = {
-    "prefix_cache": {"prefix_cache": {"enabled": True}},
-    "split_prefill_chunk": {"split_prefill_chunk": 32},
+    "prefix_cache.host_spill": {"prefix_cache": {"enabled": True, "host_spill": True}},
     "quant": {"quant": {"enabled": True}},
     "tensor_parallel.tp_size": {"tensor_parallel": 2},
     "trace": {"trace": {"enabled": True}},
     "compile_monitor": {"compile_monitor": {"enabled": True}},
-    "enable_cuda_graph": {"enable_cuda_graph": True},
 }
 
 
@@ -171,14 +170,20 @@ def test_unported_feature_raises(feature):
 
 
 def test_ported_serving_features_build():
-    """``kv_quant`` and ``speculative`` (with ``fused_verify``) are ported:
-    enabling them builds an engine instead of raising."""
+    """``kv_quant``, ``speculative`` (with ``fused_verify``), the prefix cache,
+    split prefill and the CUDA-graph decode are ported: enabling them builds
+    an engine instead of raising."""
     cfg, params = _tiny_params()
     conf = {"dtype": "float32", "kv_quant": {"enabled": True},
-            "speculative": {"enabled": True, "fused_verify": True}}
+            "speculative": {"enabled": True, "fused_verify": True},
+            "prefix_cache": {"enabled": True}, "split_prefill_chunk": 32,
+            "enable_cuda_graph": True}
     assert InferenceConfig.from_dict(conf).unported_features() == []
     eng = build_engine_v2(llama, cfg, params, config=conf, device="cpu")
     assert eng.cache["k"].dtype == torch.int8 and eng._spec_fused
+    assert eng.state.prefix_cache
+    # no graph on the CPU: the decode forward runs eagerly over its buffers
+    assert not eng._graph_on
 
 
 def test_bloom_evoformer_and_blocksparse_default_to_the_gpu():

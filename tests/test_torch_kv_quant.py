@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.comm import mesh as mesh_lib
 from deepspeed_tpu.inference.config import InferenceConfig as JConfig

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.models import llama as jllama
 from deepspeed_tpu_torch.models import llama as tllama

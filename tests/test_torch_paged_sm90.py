@@ -17,6 +17,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu_torch.ops.paged_attention import (
     ROW_TILE, SUBTILE, paged_decode_attention_torch, paged_refusal,

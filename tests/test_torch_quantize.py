@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.ops.pallas.quantize import (dequantize_int8_pallas,
                                                quantize_int8_pallas)

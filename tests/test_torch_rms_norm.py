@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.ops.norms import rms_norm_xla
 from deepspeed_tpu.ops.pallas.norms import rms_norm_pallas

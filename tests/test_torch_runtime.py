@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 import deepspeed_tpu_torch
 from deepspeed_tpu.ops import optimizers as jopt

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu.ops.pallas import sparse_attention as jpsa
