@@ -236,6 +236,33 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    verify over the shared prefix (prefix on against off) and over a forked
    tail. A replay whose context-length buffer is not advanced, and skipped
    copy-on-write copies, must each fail their check.
+17. The serving fleet at Llama-3-8B's full width and depth
+   (``phase_serving_fleet``; ``max_seq_len`` 2048, 16 slots, blocks of
+   128, one set of bf16 weights): a seeded ``TrafficGenerator`` trace of
+   48 Poisson requests (prompts 64-1024 tokens, 16-128 generated,
+   priorities 0-2, a deadline on every third) on a 64-block pool below its
+   peak demand, with 256-token split prefill. (a) The trace through one
+   ``ServingScheduler`` at ``decode_quantum`` 8 on a fake clock, over the
+   decode graph and over the eager decode: streams, ``stats`` and the
+   decision log (admissions, parks, resumes, finishes) equal, every cache
+   invariant checked after every tick, every stream delivered exactly
+   once; admission blocks, preemptions, resumes and chunked admissions
+   counted and required; speculative decoding + fused verify on int8 pools
+   through a scheduler, graph against eager; a resume that re-emits its
+   stream's last token must fail the exactly-once check. (b) The trace in
+   real time with ``trace`` on: generated tokens/s, goodput, TTFT / ITL /
+   queue p50 and p99, the host ms of a tick outside the forwards, a
+   profiled window's idle share and bare ``step_many(8)`` on its batch
+   (nothing pass/fail but completion). (c) Two replicas behind a
+   ``ReplicaRouter`` with ``fleet`` on, fault-free and with replica 1
+   crashing: every stream complete exactly once, its tokens before the
+   crash equal to the fault-free run's, an unmoved stream whole, a moved
+   stream's rest equal to its history resumed on a fresh engine. (d) One
+   prefill and one decode replica on the native wire, bf16 and int8
+   pools: streams equal a hand-driven park → export → import → resume,
+   shared 1024-token prefixes deduplicated off the wire. In each part the
+   profiler's RMSNorm and paged-kernel records in a window equal the
+   launches; no tick, export or import fault that the phase did not inject.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -3923,6 +3950,761 @@ def phase_serving_core(seed: int, card: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# the serving fleet (phase 17): Llama-3-8B at 32 layers behind the port's
+# continuous-batching scheduler, replica router, fleet failover and
+# disaggregated prefill / decode
+FLEET_N = 48                   # requests in the seeded trace
+FLEET_RATE = 6.0               # Poisson arrivals a second
+FLEET_PROMPT = (64, 1024)      # prompt tokens, uniform
+FLEET_GEN = (16, 128)          # generated tokens, uniform
+FLEET_DEADLINE_MS = 20000.0    # the deadline of every third request (the rest: none)
+FLEET_CHUNK = 256              # split_prefill_chunk
+FLEET_BLOCKS = 65              # 64 usable blocks of 128 tokens, below the trace's peak demand
+FLEET_K = 8                    # decode_quantum
+FLEET_SLOTS = 16
+FLEET_TICK_S = 0.25            # fake-clock seconds a tick (parts a and c)
+FLEET_PREEMPT_EVERY = 15       # ticks between part a's explicit preemptions
+FLEET_WINDOW = 2               # ticks or router steps a profiled window of a part holds
+FLEET_C_REQUESTS = 12          # requests of part c (all submitted at once)
+FLEET_C_CRASH_AFTER = 2        # healthy ticks of replica 1 before it crashes
+FLEET_D_SHARED = 1024          # tokens of the prefix part d's prompts share
+FLEET_D_GEN = 32               # generated tokens of part d, cut from the trace's
+PAGED_KEYS = ("paged_decode_attention", "paged_decode_attention_int8",
+              "paged_spec_verify_attention")
+
+
+class FakeClock:
+    """A clock that moves only when told to (scheduler deadlines and queue
+    waits, ``FleetConfig.clock``), so every scheduling decision of a run is
+    a function of its inputs."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, seconds: float) -> None:
+        self.t += seconds
+
+
+def fleet_trace(S, vocab: int, seed: int) -> list:
+    """The phase's seeded trace as fresh ``(arrival s, Request)`` pairs: the
+    first ``FLEET_N`` Poisson arrivals of a ``TrafficGenerator``, priorities
+    0-2, a deadline on every third request."""
+    gen = S.TrafficGenerator(S.WorkloadConfig(
+        seed=seed, vocab_size=vocab, process="poisson", rate_rps=FLEET_RATE,
+        prompt_len=FLEET_PROMPT, gen_len=FLEET_GEN, priorities=(0, 1, 2)))
+    arr = gen.arrivals(10 * FLEET_N / FLEET_RATE)[:FLEET_N]
+    if len(arr) < FLEET_N:
+        raise AssertionError(f"the trace holds {len(arr)} arrivals, not {FLEET_N}")
+    for i, a in enumerate(arr):
+        if i % 3 == 0:
+            a.request.deadline_ms = FLEET_DEADLINE_MS
+    return [(a.t, a.request) for a in arr]
+
+
+def record_calls(eng):
+    """Log ``eng``'s admissions, split admissions, parks, resumes and
+    finishes in order (the decision log), and keep what each finish
+    returned (the engine's own generated tokens) → (log, {uid: tokens})."""
+    log, finished = [], {}
+    keys = {"put_many": lambda a, k: tuple(int(u) for u, _ in a[0]),
+            "put_split": lambda a, k: int(a[0]), "park": lambda a, k: int(a[0]),
+            "resume": lambda a, k: (int(a[0]["uid"]), bool(k.get("split", False))),
+            "finish": lambda a, k: int(a[0])}
+    for name, key in keys.items():
+        orig = getattr(eng, name)
+
+        def wrapped(*a, _orig=orig, _name=name, _key=key, **k):
+            log.append((_name, _key(a, k)))
+            out = _orig(*a, **k)
+            if _name == "finish":
+                finished[int(a[0])] = list(out)
+            return out
+
+        setattr(eng, name, wrapped)
+    return log, finished
+
+
+def count_blocked(sched) -> dict:
+    """Count the ticks whose admission left requests queued although a slot
+    was free: admission control held them back for KV blocks."""
+    stat = {"blocked_ticks": 0}
+    orig = sched._admit
+
+    def admit(now, seed):
+        n = orig(now, seed)
+        st = sched.engine.state
+        if sched.queue_depth and st.free_slots and \
+                len(sched._live) < (sched.cfg.max_live or st.max_sequences):
+            stat["blocked_ticks"] += 1
+        return n
+
+    sched._admit = admit
+    return stat
+
+
+def preempt_least_urgent(sched) -> None:
+    """Park the least urgent decoding request (highest priority number, then
+    latest deadline, then uid) through ``ServingScheduler.preempt``: the
+    path the preemption guard takes under decode growth, which this trace
+    never reaches (an admission reserves a decode block beyond the prompt,
+    and no generation here outgrows it)."""
+    seqs = sched.engine.state.seqs
+    live = [h for h in sched.handles.values()
+            if h.state == "running" and h.uid in seqs and not seqs[h.uid].prefilling]
+    if live:
+        h = max(live, key=lambda h: (h.request.priority, h._deadline_t, h.uid))
+        sched.preempt(h.uid)
+
+
+def reemit_last_token(eng):
+    """Planted fault of the scheduler path: a resume re-emits the last token
+    the stream already emitted before the new one (exactly-once broken)."""
+    orig = eng.resume
+
+    def resume(parked, *a, **k):
+        toks = orig(parked, *a, **k)
+        return parked["generated"][-1:] + toks
+    eng.resume = resume
+
+
+def exactly_once(handles, streams, finished) -> list:
+    """The requests whose stream is not delivered exactly once at full
+    length: state done, ``max_new_tokens`` tokens, the ``on_token`` stream
+    equal to the handle's tokens, and those equal to the tokens the engine
+    generated (what its ``finish`` returned)."""
+    bad = []
+    for h, s in zip(handles, streams):
+        gen = finished.get(h.uid, [])
+        if not (h.state == "done" and len(h.tokens) == h.request.max_new_tokens
+                and s == h.tokens and h.tokens == gen[:len(h.tokens)]):
+            bad.append(h.uid)
+    return bad
+
+
+class PathLaunches:
+    """The hand-written kernels' launches on a path since construction: the
+    wrappers' (eager forwards) plus each engine's decode-graph kernel nodes
+    times the replays it made. A CUDA engine must have captured its graph
+    first (:func:`capture_decode_graph`): the capture moves the wrappers'
+    counts without a launch."""
+
+    def __init__(self, counters: dict, engines):
+        self.counters = counters
+        self.engines = list(engines)
+        for e in self.engines:
+            if e._graph_on and e._graph is None:
+                raise AssertionError("count launches only after the decode graph's capture")
+        self.per = [graph_per_replay(e) if e._graph_on else {} for e in self.engines]
+        self.c0 = {k: c.launches for k, c in counters.items()}
+        self.r0 = [e.graph_replays for e in self.engines]
+
+    def read(self) -> dict:
+        out = {k: c.launches - self.c0[k] for k, c in self.counters.items()}
+        for e, per, r0 in zip(self.engines, self.per, self.r0):
+            out = with_replays(out, per, e.graph_replays - r0)
+        return out
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def checked_window(label: str, engines, counters: dict, fn, card: str) -> dict:
+    """``fn`` under the profiler: the RMSNorm and paged-kernel records it
+    names must equal the launches made in that session (decode, int8 decode
+    and spec verify share ``paged_sm90.cu``'s kernel), as phase 16 checks
+    them; → wall, busy, idle share, the session's launches and the
+    launches of every session run (``launches_total``).
+
+    CUPTI on this card has dropped records in the middle of a long window
+    late in the script (62593 of 64555 kernels, 79 of 2470 RMSNorm): such
+    a session is logged and the window runs again, ``PROFILE_SESSIONS``
+    times in all, then it raises. A launch count the kernels do not match
+    fails every session."""
+    got, total = {}, {}
+
+    def run():
+        pl = PathLaunches(counters, engines)
+        fn()
+        got.clear()
+        got.update(pl.read())
+        add_launches(total, got)
+
+    for session in range(PROFILE_SESSIONS):
+        wall, busy, n_k, top = profile_window(run)
+        named = {"rms_norm": sum(c for k, _, c in top if "rms_norm_" in k),
+                 "paged": sum(c for k, _, c in top if "paged_sm90" in k)}
+        want = {"rms_norm": got["rms_norm"], "paged": sum(got[k] for k in PAGED_KEYS)}
+        if named == want and want["rms_norm"]:
+            break
+        log(f"  {label}: the profiler names {named} kernels of {n_k} records, the launches "
+            f"were {want} (session {session + 1} of this window; again)")
+    else:
+        raise AssertionError(f"{label}: the profiler names {named} kernels, the launches "
+                             f"were {want}, in {PROFILE_SESSIONS} sessions")
+    res = {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall, "kernels": n_k,
+           "named": named, "launches": dict(got), "launches_total": total,
+           "sessions": session + 1}
+    log(f"  {label}: profiled window wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms (idle {res['idle_share']:.1%}), {n_k} kernels; by name "
+        f"{named}, launches {want} [{card}]")
+    return res
+
+
+class Replay:
+    """Open-loop replay of a trace on a fake clock: each :meth:`step` moves
+    the clock ``dt``, submits every arrival due and, while work is pending,
+    ticks once (``tick``: a scheduler's ``tick`` or a router's ``step``),
+    checking the caches' invariants after the tick when ``engines`` are
+    given."""
+
+    def __init__(self, submit, tick, pending, trace, clock, dt, engines=(), every=None):
+        self.submit, self.tick, self.pending = submit, tick, pending
+        self.trace, self.clock, self.dt = trace, clock, dt
+        self.engines = list(engines)
+        self.every = every                      # (n, fn): fn() after every n-th tick
+        self.i = self.ticks = 0
+        self.handles, self.streams = [], []
+
+    @property
+    def done(self) -> bool:
+        return self.i == len(self.trace) and not self.pending()
+
+    def step(self) -> None:
+        self.clock.advance(self.dt)
+        while self.i < len(self.trace) and self.trace[self.i][0] <= self.clock.t:
+            self.streams.append([])
+            self.handles.append(self.submit(self.trace[self.i][1],
+                                            on_token=self.streams[-1].append))
+            self.i += 1
+        if self.pending():
+            self.tick()
+            self.ticks += 1
+            if self.every and self.ticks % self.every[0] == 0:
+                self.every[1]()
+            for e in self.engines:
+                e.state.debug_check()
+                e.debug_check_cache()
+
+    def run(self, until_ticks=None, max_steps: int = 100000) -> None:
+        for _ in range(max_steps):
+            if self.done or (until_ticks is not None and self.ticks >= until_ticks):
+                return
+            self.step()
+        raise AssertionError("the replay did not drain")
+
+
+def fleet_engines(params, cfg, n: int, warm_prompt, graph=True, **conf) -> list:
+    """``n`` engines of Llama-3-8B at ``CORE_CTX``, 16 slots, blocks of 128,
+    each warmed and (on the graph) captured alike, so their states agree."""
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import llama
+
+    base = {"dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": FLEET_SLOTS,
+                       "max_ragged_batch_size": FLEET_SLOTS,
+                       "memory_config_blocks": conf.pop("blocks", FLEET_BLOCKS),
+                       "block_size": 128}}
+    out = []
+    for _ in range(n):
+        eng = build_engine_v2(llama, cfg, params, config=dict(base, **conf))
+        eng._graph_on = graph
+        if graph:
+            capture_decode_graph(eng, warm_prompt)
+        else:                                   # the same warm-up, uncaptured
+            eng.put(1 << 30, warm_prompt)
+            eng.step_many(1)
+            eng.finish(1 << 30)
+        out.append(eng)
+    return out
+
+
+def fleet_sched_run(S, eng, trace, counters, card, window: bool, fault=False) -> dict:
+    """One scheduler over ``eng`` replaying ``trace`` on the fake clock at
+    ``decode_quantum`` 8, every cache invariant checked after every tick;
+    a profiled window of ``FLEET_WINDOW`` ticks once 10 ticks have run."""
+    log_calls, finished = record_calls(eng)
+    if fault:
+        reemit_last_token(eng)
+    clock = FakeClock()
+    sched = S.ServingScheduler(eng, S.SchedulerConfig(decode_quantum=FLEET_K, clock=clock))
+    blocked = count_blocked(sched)
+    rp = Replay(sched.submit, sched.tick, lambda: sched.pending, trace, clock, FLEET_TICK_S,
+                engines=[eng], every=(FLEET_PREEMPT_EVERY, lambda: preempt_least_urgent(sched)))
+    pl = PathLaunches(counters, [eng])
+    t0 = time.perf_counter()
+    win = None
+    if window:
+        rp.run(until_ticks=10)
+        win = checked_window("a: scheduler over the decode graph", [eng], counters,
+                             lambda: [rp.step() for _ in range(FLEET_WINDOW)], card)
+    rp.run()
+    seconds = time.perf_counter() - t0
+    return {"streams": [list(h.tokens) for h in rp.handles],
+            "on_token": rp.streams, "stats": dict(sched.stats), "log": list(log_calls),
+            "states": [h.state for h in rp.handles], "ticks": rp.ticks,
+            "blocked_ticks": blocked["blocked_ticks"],
+            "not_exactly_once": exactly_once(rp.handles, rp.streams, finished),
+            "launches": pl.read(), "window": win, "seconds": seconds}
+
+
+def fleet_part_a(S, params, cfg, seed, counters, card) -> dict:
+    """Scheduler identity: the trace through one scheduler over the decode
+    graph and over the eager decode (the graph's plain version), equal in
+    streams, stats and decision log; then speculative decoding with fused
+    verify on int8 pools through a scheduler at quantum 1, graph against
+    eager; then the planted re-emit fault."""
+    import torch
+
+    vocab = cfg.vocab_size
+    warm = np.random.RandomState(seed + 30).randint(0, vocab, 70).astype(np.int32)
+    conf = {"prefix_cache": {"enabled": True}, "split_prefill_chunk": FLEET_CHUNK}
+    graph, = fleet_engines(params, cfg, 1, warm, **conf)
+    eager, = fleet_engines(params, cfg, 1, warm, graph=False, **conf)
+    runs = {"graph": fleet_sched_run(S, graph, fleet_trace(S, vocab, seed), counters, card,
+                                     window=True),
+            "eager": fleet_sched_run(S, eager, fleet_trace(S, vocab, seed), counters, card,
+                                     window=False)}
+    g, e = runs["graph"], runs["eager"]
+    s = g["stats"]
+    trace = fleet_trace(S, vocab, seed)
+    counts = {"requests": len(trace),
+              "prompt_tokens": sum(len(r.prompt) for _, r in trace),
+              "generated_tokens": sum(r.max_new_tokens for _, r in trace),
+              "with_deadline": sum(r.deadline_ms != float("inf") for _, r in trace),
+              "by_priority": [sum(r.priority == p for _, r in trace) for p in range(3)],
+              "arrival_span_s": trace[-1][0], "blocked_ticks": g["blocked_ticks"],
+              "preempted": s["preempted"], "resumed": s["resumed"],
+              "chunked_admissions": s["chunked_admissions"],
+              "split_resumes": sum(1 for c, k in g["log"] if c == "resume" and k[1]),
+              "ticks": g["ticks"]}
+    log(f"  trace: {counts['requests']} Poisson requests over {counts['arrival_span_s']:.2f} s, "
+        f"{counts['prompt_tokens']} prompt and {counts['generated_tokens']} generated tokens, "
+        f"{counts['with_deadline']} with a deadline, priorities {counts['by_priority']}; "
+        f"pool {FLEET_BLOCKS - 1} blocks of 128")
+    log(f"  a: {g['ticks']} ticks; admission held back in {counts['blocked_ticks']} ticks, "
+        f"{counts['preempted']} preemptions, {counts['resumed']} resumes "
+        f"({counts['split_resumes']} chunked), {counts['chunked_admissions']} chunked "
+        f"admissions; graph run {g['seconds']:.1f} s, eager run {e['seconds']:.1f} s [{card}]")
+    ident = {k: g[k] == e[k] for k in ("streams", "stats", "log", "states")}
+    log(f"  a: graph == eager: {ident}; exactly once: graph {not g['not_exactly_once']}, "
+        f"eager {not e['not_exactly_once']}")
+    if not all(ident.values()) or g["not_exactly_once"] or e["not_exactly_once"]:
+        raise AssertionError(f"scheduler over the graph against the eager decode: {ident}; "
+                             f"not exactly once: {g['not_exactly_once']} / "
+                             f"{e['not_exactly_once']}")
+    if not (counts["blocked_ticks"] and counts["preempted"] and counts["resumed"]
+            and counts["chunked_admissions"]):
+        raise AssertionError(f"the trace did not press the pool as it must: {counts}")
+    if set(g["states"]) != {"done"}:
+        raise AssertionError(f"requests not done: {g['states']}")
+    res = {"counts": counts, "identity": ident, "graph": g, "eager": e}
+
+    # the planted fault: a resume re-emits its stream's last token
+    sub = [(0.0, r) for _, r in fleet_trace(S, vocab, seed)[:16]]
+    bad = fleet_sched_run(S, graph, sub, counters, card, window=False, fault=True)
+    log(f"  a: planted fault (a resume re-emits the last token): {bad['stats']['resumed']} "
+        f"resumes, streams not exactly once {bad['not_exactly_once']}")
+    if not bad["stats"]["resumed"] or not bad["not_exactly_once"]:
+        raise AssertionError("the re-emitting resume passed the exactly-once check "
+                             f"({bad['stats']['resumed']} resumes)")
+    res["fault"] = {"resumed": bad["stats"]["resumed"],
+                    "not_exactly_once": bad["not_exactly_once"]}
+    del graph, eager
+    torch.cuda.empty_cache()
+
+    # speculative decoding + fused verify on int8 pools, through the
+    # scheduler at quantum 1: graph against eager
+    prompts, _ = spec_prompts(seed, vocab)
+    spec = {}
+    for name, graph_on in (("graph", True), ("eager", False)):
+        eng, = fleet_engines(params, cfg, 1, warm, graph=graph_on, blocks=129,
+                             **SPEC, **INT8)
+        log_calls, finished = record_calls(eng)
+        sched = S.ServingScheduler(eng, S.SchedulerConfig(clock=FakeClock()))
+        streams = [[] for _ in prompts]
+        hs = [sched.submit(S.Request(prompt=p.tolist(), max_new_tokens=MAX_NEW_TOKENS),
+                           on_token=streams[i].append) for i, p in enumerate(prompts)]
+        pl = PathLaunches(counters, [eng])
+        sched.tick()
+        win = checked_window(f"a: spec + fused verify, int8 pools, {name}", [eng], counters,
+                             lambda: [sched.tick() for _ in range(FLEET_WINDOW)], card) \
+            if graph_on else None
+        while sched.pending:
+            sched.tick()
+            eng.state.debug_check()
+            eng.debug_check_cache()
+        spec[name] = {"streams": [h.tokens for h in hs], "stats": dict(sched.stats),
+                      "log": list(log_calls), "spec_stats": dict(eng.spec_stats),
+                      "not_exactly_once": exactly_once(hs, streams, finished),
+                      "launches": pl.read(), "window": win}
+        del eng
+        torch.cuda.empty_cache()
+    sg, se = spec["graph"], spec["eager"]
+    ident = {k: sg[k] == se[k] for k in ("streams", "stats", "log", "spec_stats")}
+    log(f"  a: spec through the scheduler, graph == eager {ident}; verify steps "
+        f"{sg['spec_stats']['fused_verify_steps']}, launches {sg['launches']}")
+    if not all(ident.values()) or sg["not_exactly_once"] \
+            or not sg["launches"]["paged_spec_verify_attention"]:
+        raise AssertionError(f"spec through the scheduler: {ident}, {sg['launches']}, "
+                             f"not exactly once {sg['not_exactly_once']}")
+    res["spec"] = spec
+    res["launches"] = add_launches(dict(g["launches"]), sg["launches"])
+    return res
+
+
+def fleet_part_b(S, params, cfg, seed, counters, card) -> dict:
+    """The trace replayed in real time (the real clock, ``trace`` on):
+    throughput, goodput, latency percentiles, the host time of a tick
+    outside the engine's forwards; then a profiled window of a backlog's
+    ticks (idle share, launches against the profiler) and bare
+    ``step_many(8)`` on the batch it left."""
+    import torch
+
+    vocab = cfg.vocab_size
+    warm = np.random.RandomState(seed + 30).randint(0, vocab, 70).astype(np.int32)
+    eng, = fleet_engines(params, cfg, 1, warm, prefix_cache={"enabled": True},
+                         split_prefill_chunk=FLEET_CHUNK,
+                         trace={"enabled": True, "ring_size": 1 << 20,
+                                "dump_on_crash": False})
+    eng._lat = {k: [] for k in eng._lat}            # the warm-up's samples out
+    sched = S.ServingScheduler(eng, S.SchedulerConfig(decode_quantum=FLEET_K))
+    trace = fleet_trace(S, vocab, seed)
+    pl = PathLaunches(counters, [eng])
+    handles, ticks = [], []
+    i = 0
+    t0 = time.monotonic()
+    while i < len(trace) or sched.pending:
+        now = time.monotonic() - t0
+        while i < len(trace) and trace[i][0] <= now:
+            handles.append(sched.submit(trace[i][1]))
+            i += 1
+        if sched.pending:
+            f0 = len(eng.forward_log)
+            a = time.perf_counter()
+            sched.tick()
+            b = time.perf_counter()
+            ticks.append((b - a, sum(f[1] for f in eng.forward_log[f0:])))
+        else:
+            time.sleep(max(0.0, min(trace[i][0] - now, 0.01)))
+    wall = time.monotonic() - t0
+    launches = pl.read()
+    st = sched.stats
+    lat = eng.latency_summary()
+    qw = sched.queue_wait_summary()
+    dl = [h for h in handles if h.request.deadline_ms != float("inf")]
+    res = {"wall_s": wall, "ticks": len(ticks), "stats": dict(st),
+           "generated_tokens_per_s": st["tokens_emitted"] / wall,
+           "goodput_frac": st["slo_met"] / max(st["completed"], 1),
+           "deadline_met": sum(bool(h.slo_met) for h in dl), "deadline_requests": len(dl),
+           "goodput_rps": st["slo_met"] / wall,
+           "latency_ms": lat, "queue_wait_ms": qw,
+           "tick_ms_mean": sum(t for t, _ in ticks) / len(ticks) * 1e3,
+           "host_ms_per_tick": sum(t - f for t, f in ticks) / len(ticks) * 1e3,
+           "trace_events": len(eng.tracer)}
+    if st["completed"] != len(trace) or any(h.state != "done" for h in handles):
+        raise AssertionError(f"b: {st['completed']} of {len(trace)} requests completed")
+    pct = lambda d: f"p50 {d['p50']:.1f} / p99 {d['p99']:.1f} ms"  # noqa: E731
+    log(f"  b: real time, trace on: {wall:.2f} s, {len(ticks)} ticks, "
+        f"{res['generated_tokens_per_s']:.1f} generated tokens/s, goodput "
+        f"{res['goodput_frac']:.3f} of completions ({res['deadline_met']}/{len(dl)} deadlined "
+        f"within {FLEET_DEADLINE_MS:.0f} ms) [{card}]")
+    log(f"  b: TTFT {pct(lat['ttft_ms'])}, ITL {pct(lat['itl_ms'])}, engine queue "
+        f"{pct(lat['queue_ms'])}, scheduler queue wait {pct(qw)}, e2e {pct(lat['e2e_ms'])}; "
+        f"a tick {res['tick_ms_mean']:.2f} ms, of it {res['host_ms_per_tick']:.2f} ms host "
+        f"outside the forwards [{card}]")
+
+    # a backlog's ticks under the profiler, then bare step_many(8) on the
+    # batch they leave (no split prefill pending: pure decode)
+    pl = PathLaunches(counters, [eng])
+    for _, r in fleet_trace(S, vocab, seed + 1)[:FLEET_SLOTS]:
+        sched.submit(r)
+    for _ in range(2):
+        sched.tick()
+    win = checked_window("b: scheduler ticks over a backlog", [eng], counters,
+                         lambda: [sched.tick() for _ in range(FLEET_WINDOW)], card)
+    for _ in range(64):
+        if not eng._pending_prefill:
+            break
+        sched.tick()
+    add_launches(launches, pl.read())                  # bare step_many uncounted
+    # the batch the timing's 4 quanta fit in the pool: the longest go first
+    while eng.state.growth_blocks_short(n=4 * FLEET_K) > 0:
+        eng.finish(max(eng.state.seqs.values(), key=lambda d: d.seen_tokens).uid)
+    live = [d for d in eng.state.seqs.values() if not d.prefilling]
+    eng.step_many(FLEET_K)
+    a = time.perf_counter()
+    for _ in range(3):
+        eng.step_many(FLEET_K)
+    bare = (time.perf_counter() - a) * 1e3 / (3 * FLEET_K)
+    res.update(window=win, idle_share=win["idle_share"], bare_step_many_ms=bare,
+               bare_batch=len(live), window_tick_ms=win["wall_s"] * 1e3 / FLEET_WINDOW)
+    log(f"  b: profiled backlog window idle {win['idle_share']:.1%}, "
+        f"{res['window_tick_ms']:.1f} ms a tick; bare step_many(8) on its batch of "
+        f"{len(live)}: {bare:.2f} ms a token [{card}]")
+    for uid in list(eng.state.seqs):
+        eng.finish(uid)
+    res["launches"] = launches
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def fleet_part_c(S, faults, params, cfg, seed, counters, card) -> dict:
+    """Two replicas behind a router with ``fleet`` on: fault-free, then with
+    replica 1 crashing after two healthy ticks. Every stream completes
+    exactly once at full length; the tokens a stream had before the crash
+    equal the fault-free run's, as do the whole streams of the requests
+    the crash did not move; a moved stream's rest equals its history
+    parked and resumed on a fresh engine (the same forward shapes: a
+    re-prefill of a history need not agree bit for bit with the decode
+    that wrote it)."""
+    import torch
+
+    vocab = cfg.vocab_size
+    warm = np.random.RandomState(seed + 30).randint(0, vocab, 70).astype(np.int32)
+    engines = fleet_engines(params, cfg, 3, warm, blocks=257)
+    oracle = engines.pop()
+    clock = FakeClock()
+
+    def router():
+        scheds = [S.ServingScheduler(e, S.SchedulerConfig(decode_quantum=FLEET_K, clock=clock))
+                  for e in engines]
+        return S.ReplicaRouter(scheds, S.RouterConfig(fleet=S.FleetConfig(
+            enabled=True, failure_threshold=1, probe_backoff_ticks=10000, degrade=False,
+            clock=clock))), scheds
+
+    def requests():
+        return [r for _, r in fleet_trace(S, vocab, seed)[:FLEET_C_REQUESTS]]
+
+    pl = PathLaunches(counters, engines)
+    runs = {}
+    for name in ("fault_free", "crash"):
+        rt, scheds = router()
+        streams = [[] for _ in range(FLEET_C_REQUESTS)]
+        hs = [rt.submit(r, on_token=streams[k].append) for k, r in enumerate(requests())]
+        snap = {}
+        orig = rt.fail_over
+
+        def fail_over(idx, reason="replica fault", _orig=orig, _hs=hs, _snap=snap):
+            _snap.update(tokens=[list(h.tokens) for h in _hs],
+                         moved=[k for k, h in enumerate(_hs) if h.replica == idx and not h.done])
+            return _orig(idx, reason=reason)
+        rt.fail_over = fail_over
+        crash = contextlib.nullcontext({"crashes": 0}) if name == "fault_free" else \
+            faults.replica_crash(scheds[1], after_ticks=FLEET_C_CRASH_AFTER)
+        steps = 0
+        with crash as cs:
+            while rt.pending:
+                clock.advance(FLEET_TICK_S)
+                rt.step()
+                steps += 1
+                for e in engines:
+                    e.state.debug_check()
+        runs[name] = {"tokens": [list(h.tokens) for h in hs], "streams": streams,
+                      "states": [h.state for h in hs], "replicas": [h.replica for h in hs],
+                      "fleet_stats": dict(rt.fleet_stats), "stats": dict(rt.stats),
+                      "crashes": cs["crashes"], "snap": snap, "steps": steps,
+                      "max_new": [h.request.max_new_tokens for h in hs],
+                      "prompts": [list(h.request.prompt) for h in hs]}
+    ff, cr = runs["fault_free"], runs["crash"]
+    launches = pl.read()
+    moved, snap = cr["snap"].get("moved", []), cr["snap"].get("tokens", [])
+    checks = {
+        "all_done": set(ff["states"]) == set(cr["states"]) == {"done"},
+        "full_length": all(len(t) == n for t, n in zip(cr["tokens"], cr["max_new"])),
+        "exactly_once": cr["streams"] == cr["tokens"] and ff["streams"] == ff["tokens"],
+        "failed_over": cr["fleet_stats"]["failovers"] >= 1 and bool(moved),
+        "faults_injected_only": (ff["fleet_stats"]["tick_faults"] == 0
+                                 and cr["fleet_stats"]["tick_faults"] == cr["crashes"] >= 1),
+        "before_crash": all(s == f[:len(s)] for s, f in zip(snap, ff["tokens"])),
+        "unmoved": all(cr["tokens"][k] == ff["tokens"][k]
+                       for k in range(FLEET_C_REQUESTS) if k not in moved),
+    }
+    # the oracle of a moved stream's rest: its history parked and resumed
+    # on a fresh engine (one prefill each, as on the survivor), decoded in
+    # quanta of 8 (a decode row does not depend on the others)
+    uids = {5000 + k: k for k in moved}
+    for uid, k in uids.items():
+        oracle.resume({"uid": uid, "history": cr["prompts"][k] + snap[k],
+                       "generated": list(snap[k]), "prompt_len": len(cr["prompts"][k]),
+                       "sp": S.Request(prompt=[0]).sp})
+    while any(len(oracle.state.seqs[u].generated) < cr["max_new"][k] for u, k in uids.items()):
+        oracle.step_many(FLEET_K)
+    rest = [oracle.finish(u)[:cr["max_new"][k]] == cr["tokens"][k] for u, k in uids.items()]
+    checks["moved_rest"] = all(rest) and bool(rest)
+    differs = sum(cr["tokens"][k] != ff["tokens"][k] for k in moved)
+    log(f"  c: crash after {FLEET_C_CRASH_AFTER} healthy ticks of replica 1: "
+        f"{cr['fleet_stats']['failovers']} failover(s), {len(moved)} streams moved "
+        f"({differs} of them differ from the fault-free run after the crash), replayed "
+        f"{cr['fleet_stats']['replayed_tokens']} tokens; fleet stats {cr['fleet_stats']}")
+    log(f"  c: checks {checks} (before the crash: the fault-free run; unmoved streams: the "
+        f"fault-free run; a moved stream's rest: its history resumed on a fresh engine)")
+    if not all(checks.values()):
+        raise AssertionError(f"router failover: {checks}")
+    # a window of router steps over 4 of the requests, after their prefills
+    rt, _ = router()
+    pl = PathLaunches(counters, engines)
+    for r in requests()[:4]:
+        rt.submit(r)
+    rt.step()
+    win = checked_window("c: router steps, fleet on", engines, counters,
+                         lambda: [rt.step() for _ in range(FLEET_WINDOW)], card)
+    rt.run()
+    res = {"checks": checks, "moved": moved, "moved_differ": differs,
+           "fleet_stats": cr["fleet_stats"], "router_stats": cr["stats"],
+           "steps": {n: r["steps"] for n, r in runs.items()}, "window": win,
+           "launches": add_launches(launches, pl.read())}
+    del engines, oracle
+    torch.cuda.empty_cache()
+    return res
+
+
+def fleet_part_d(S, params, cfg, seed, counters, card) -> dict:
+    """One prefill and one decode replica, ``native`` wire, on bf16 pools and
+    on int8 pools: each request served alone through the router equals a
+    hand-driven pair of engines doing what the replicas do (prefill and one
+    quantum, park → ``export_kv_blocks`` → ``import_kv_blocks`` → resume,
+    then quanta); prompts sharing 1024 tokens ship only their novel
+    blocks."""
+    import torch
+
+    vocab = cfg.vocab_size
+    warm = np.random.RandomState(seed + 30).randint(0, vocab, 70).astype(np.int32)
+    rs = np.random.RandomState(seed + 31)
+    shared = rs.randint(0, vocab, FLEET_D_SHARED).tolist()
+    base = fleet_trace(S, vocab, seed)
+
+    def requests():
+        reqs = [r for _, r in base[:2]]
+        reqs += [S.Request(prompt=shared + r.prompt[:n], max_new_tokens=r.max_new_tokens)
+                 for (_, r), n in zip(base[2:5], (40, 90, 130))]
+        for r in reqs:
+            r.max_new_tokens = min(r.max_new_tokens, FLEET_D_GEN)
+            r.deadline_ms = float("inf")
+        return reqs
+
+    res = {}
+    launches = {}
+    for pool, extra in (("bf16", {}), ("int8", INT8)):
+        engines = fleet_engines(params, cfg, 4, warm, blocks=129,
+                                prefix_cache={"enabled": True}, **extra)
+        (p_eng, d_eng), (po, do) = engines[:2], engines[2:]
+        scheds = [S.ServingScheduler(e, S.SchedulerConfig(decode_quantum=FLEET_K))
+                  for e in (p_eng, d_eng)]
+        rt = S.ReplicaRouter(scheds, S.RouterConfig(disagg=S.DisaggConfig(
+            enabled=True, num_prefill=1, wire="native")))
+        pl = PathLaunches(counters, [p_eng, d_eng])
+        got, dedup = [], []
+        for r in requests():
+            d0 = rt.disagg_stats["dedup_blocks"]
+            h = rt.submit(r)
+            rt.run()
+            got.append(list(h.tokens))
+            dedup.append(rt.disagg_stats["dedup_blocks"] - d0)
+            for e in (p_eng, d_eng):
+                e.state.debug_check()
+                e.debug_check_cache()
+        add_launches(launches, pl.read())          # before the oracle's forwards
+        want = []
+        for k, r in enumerate(requests()):
+            uid = 7000 + k
+            toks = [po.put(uid, r.prompt)] + po.step_many(FLEET_K)[uid]
+            hashes = po.kv_chain_hashes(uid)
+            exp = po.export_kv_blocks(uid, skip=do.resident_prefix(hashes), wire="native")
+            parked = po.park(uid)
+            do.import_kv_blocks(exp["hashes"], exp["blocks"])
+            toks += do.resume(parked)
+            while len(toks) < r.max_new_tokens:
+                toks += do.step_many(FLEET_K)[uid]
+            do.finish(uid)
+            want.append(toks[:r.max_new_tokens])
+        st = dict(rt.disagg_stats)
+        checks = {"streams": got == want, "handoffs": st["handoffs"] == len(got),
+                  "dedup": all(n > 0 for n in dedup[3:]) and st["dedup_blocks"] > 0,
+                  "import_failures": st["import_failures"] == 0,
+                  "no_faults": rt.fleet_stats["tick_faults"] == 0}
+        log(f"  d ({pool} pools): streams == park → export → import → resume {checks['streams']}; "
+            f"{st['handoffs']} handoffs, {st['blocks_shipped']} blocks shipped, dedup blocks "
+            f"by request {dedup}; wire {st['wire_bytes'] / 1e6:.2f} MB against "
+            f"{st['bf16_equiv_bytes'] / 1e6:.2f} MB bf16-equivalent "
+            f"({st['wire_bytes'] / st['bf16_equiv_bytes']:.4f}); checks {checks}")
+        if not all(checks.values()):
+            raise AssertionError(f"disagg on {pool} pools: {checks}, {st}")
+        extra = requests()[1].prompt
+
+        def serve_one():
+            rt.submit(S.Request(prompt=list(extra), max_new_tokens=16))
+            rt.run()
+        win = checked_window(f"d: disagg router ({pool} pools)", [p_eng, d_eng], counters,
+                             serve_one, card)
+        add_launches(launches, win["launches_total"])
+        res[pool] = {"checks": checks, "disagg_stats": st, "dedup_by_request": dedup,
+                     "window": win}
+        del engines, p_eng, d_eng, po, do, scheds, rt
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    return res
+
+
+def phase_serving_fleet(seed: int, card: str) -> dict:
+    """The serving fleet at Llama-3-8B's full width and depth, every engine
+    on one set of bf16 weights from the seed, at ``CORE_CTX`` with 16 slots
+    and blocks of 128: (a) scheduler identity, graph against eager, and the
+    planted re-emit fault; (b) the trace in real time with tracing on;
+    (c) router failover; (d) disaggregated prefill / decode. Launches of
+    RMSNorm, paged decode (bf16, int8) and spec verify counted over the
+    parts' runs, and equal to the profiler's records in a window of each
+    part; no tick, export or import fault the phase did not inject."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import serving as S
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
+        paged_spec_verify_attention_cuda)
+    from deepspeed_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), max_seq_len=CORE_CTX)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    counters = {"rms_norm": rms_norm_cuda, "paged_decode_attention": paged_decode_attention_cuda,
+                "paged_decode_attention_int8": paged_decode_attention_int8_cuda,
+                "paged_spec_verify_attention": paged_spec_verify_attention_cuda}
+    res = {"num_layers": cfg.num_layers}
+    t0 = time.perf_counter()
+    res["a"] = fleet_part_a(S, params, cfg, seed, counters, card)
+    res["a"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = fleet_part_b(S, params, cfg, seed, counters, card)
+    res["b"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["c"] = fleet_part_c(S, faults, params, cfg, seed, counters, card)
+    res["c"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["d"] = fleet_part_d(S, params, cfg, seed, counters, card)
+    res["d"]["seconds"] = time.perf_counter() - t0
+    total = {}
+    for part in "abcd":
+        add_launches(total, res[part]["launches"])
+    res["launches"] = total
+    del params
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  serving fleet phase {res['seconds']:.1f} s (a {res['a']['seconds']:.1f}, "
+        f"b {res['b']['seconds']:.1f}, c {res['c']['seconds']:.1f}, "
+        f"d {res['d']['seconds']:.1f}); launches {total} [{card}]")
+    return res
+
+
 def main_step_inputs(prompt_lengths, generated: int, extra: int = 1, shape=None):
     """(context lengths, block tables) of a serving step over 64 slots: the
     first len(prompt_lengths) slots hold prompt_len + generated cached
@@ -4088,17 +4870,24 @@ def main() -> int:
         "prefix cache, split prefill, fork, park / resume, KV handoff)")
     core = phase_serving_core(SEED, card)
 
+    log("== phase 17: serving fleet (Llama-3-8B, 32 layers: continuous-batching scheduler, "
+        "router failover, disaggregated prefill / decode)")
+    fleet = phase_serving_fleet(SEED, card)
+    fleet_l = fleet["launches"]
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
     core_graph = core["graph_launches"]
     rms_launches = {"serving": main_res["launches"]["rms_norm"],
                     "training": train["launches"]["rms_norm"],
-                    "serving core (graph)": core_graph["rms_norm"]}
+                    "serving core (graph)": core_graph["rms_norm"],
+                    "serving fleet": fleet_l["rms_norm"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
     decode_launches = {"llama serving": main_res["launches"]["paged_decode_attention"],
                        "opt serving": opt_l["bf16"]["paged_decode_attention"],
-                       "serving core (graph)": core_graph["paged_decode_attention"]}
+                       "serving core (graph)": core_graph["paged_decode_attention"],
+                       "serving fleet": fleet_l["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -4152,12 +4941,14 @@ def main() -> int:
     int8_launches = {p: spec[p]["launches"]["paged_decode_attention_int8"]
                      for p in ("spec_int8", "int8")}
     int8_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_decode_attention_int8"]
+    int8_launches["serving fleet"] = fleet_l["paged_decode_attention_int8"]
     ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
                     for p in ("spec_bf16", "spec_int8")}
     ver_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_spec_verify_attention"]
     ver_launches["serving core (shared and forked blocks)"] = (
         core["spec"]["launches"]["paged_spec_verify_attention"]
         + core["spec"]["fork_launches"]["paged_spec_verify_attention"])
+    ver_launches["serving fleet"] = fleet_l["paged_spec_verify_attention"]
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
@@ -4222,7 +5013,7 @@ def main() -> int:
               "opt_train_whole_path": opt_train_whole, "modules": mods,
               "main_path": main_res, "spec_serving": spec, "whole_path": whole,
               "whole_path_spec": whole_spec, "train": train,
-              "train_whole_path": train_whole, "serving_core": core,
+              "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

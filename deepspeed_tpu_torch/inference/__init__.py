@@ -8,3 +8,7 @@ from .ragged import (BlockedAllocator, PrefixBlockIndex,  # noqa: F401
 from .engine_v2 import prompt_lookup_draft  # noqa: F401
 from .sampling import (SamplingParams, filter_logits,  # noqa: F401
                        filter_logits_batch, sample, sp_arrays)
+from .serving import (DisaggConfig, FleetConfig,  # noqa: F401
+                      ReplicaRouter, Request, RequestHandle, RouterConfig,
+                      SchedulerConfig, ServingScheduler, TrafficGenerator,
+                      WorkloadConfig)

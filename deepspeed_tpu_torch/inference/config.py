@@ -5,7 +5,8 @@ imports nothing of the JAX package.
 Features that the port has not brought over yet raise
 ``NotImplementedError`` when enabled (:func:`check_ported`) rather than being
 ignored: ``prefix_cache.host_spill``, ``quant``, ``tensor_parallel.tp_size >
-1``, ``trace`` and ``compile_monitor``.
+1`` and ``compile_monitor``. ``trace`` (request-lifecycle tracing and the
+latency percentiles, :class:`~..telemetry.trace.TraceConfig`) is ported.
 
 ``enable_cuda_graph`` is accepted and ignored, as in the JAX package (whose
 programs are compiled anyway): on a CUDA device the v2 engine always captures
@@ -16,6 +17,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+from ..telemetry.trace import TraceConfig
 
 
 @dataclass
@@ -86,16 +89,6 @@ class KVQuantConfig:
 
 
 @dataclass
-class TraceConfig:
-    """The ``telemetry.trace`` block (request-lifecycle tracing; not ported)."""
-
-    enabled: bool = False
-    ring_size: int = 4096
-    export_path: str = ""
-    dump_on_crash: bool = True
-
-
-@dataclass
 class CompileMonitorConfig:
     """The ``telemetry.compile`` block (recompilation sentinel; not ported)."""
 
@@ -157,7 +150,6 @@ class InferenceConfig:
                                         and self.prefix_cache.host_spill),
             "quant": self.quant.enabled,
             "tensor_parallel.tp_size": self.tensor_parallel.tp_size > 1,
-            "trace": self.trace.enabled,
             "compile_monitor": self.compile_monitor.enabled,
         }
         return [name for name, enabled in on.items() if enabled]

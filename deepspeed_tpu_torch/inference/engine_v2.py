@@ -32,7 +32,14 @@ The serving core, as in the JAX engine:
   ``import_kv_blocks``;
 - the checks and counters ``debug_check_cache``, ``prefix_cache_events``,
   ``kv_quant_events`` and ``spec_events`` (plain ``(name, value, step)``
-  lists; nothing publishes them yet).
+  lists; nothing publishes them yet);
+- the request-trace plane (``inference.trace``, default OFF): each request
+  is one trace of the engine's :class:`~..telemetry.trace.Tracer` (request
+  span, queue wait, prefill / chunk spans, first-token and per-token
+  instants, park / resume marks), with TTFT, inter-token latency, queue
+  time and end-to-end latency kept for :meth:`latency_summary`. The spans
+  are host events around the forwards, never inside a captured graph, and a
+  token's time is taken after the copy that brings it to the host.
 
 Speculative decoding (``inference.speculative``, default OFF): the
 prompt-lookup drafter (:func:`prompt_lookup_draft`) proposes up to k tokens
@@ -45,7 +52,7 @@ attention is the paged spec-verify kernel instead of the gathered-view
 prefill read. Quantized KV (``inference.kv_quant``, default OFF): int8 code
 pools with fp32 scales (``models/_paged.py``).
 
-Not ported: the prefix cache's host-spill tier and the tracing planes —
+Not ported: the prefix cache's host-spill tier and the compile monitor —
 enabling them raises (``config.check_ported``).
 """
 
@@ -62,6 +69,7 @@ import torch
 from ..models._paged import fused_verify_scope
 from ..ops import paged_attention
 from ..ops.quantization import kv_dequantize_int8, kv_quantize_int8
+from ..telemetry.trace import Tracer, percentiles
 from ..utils.logging import log_dist
 from .config import InferenceConfig
 from .engine import InferenceEngine, ModelFamily, _round_up
@@ -210,6 +218,16 @@ class InferenceEngineV2(InferenceEngine):
             "drafted_tokens": 0, "accepted_tokens": 0, "emitted_tokens": 0,
             "rolled_back_tokens": 0, "verify_positions": 0,
             "verify_capacity": 0, "fused_verify_steps": 0}
+        # request-lifecycle tracing and latency samples (default OFF: every
+        # hook below is a no-op and no timer starts)
+        self.tracer = Tracer(self.config.trace, name="serving")
+        self._trace_on = self.tracer.enabled
+        self._req: Dict[int, dict] = {}   # uid → open lifecycle record
+        # uid → a router's cross-replica trace handle (``trace_id``,
+        # ``parent_span``, ``replica``) that the uid's next admission joins
+        self._adopted: Dict[int, Any] = {}
+        self._lat: Dict[str, List[float]] = {
+            "ttft_ms": [], "itl_ms": [], "queue_ms": [], "e2e_ms": []}
         B = rc.max_tracked_sequences
         self._slot_tokens = np.zeros((B,), np.int32)
         self._slot_lens = np.zeros((B,), np.int32)
@@ -244,8 +262,121 @@ class InferenceEngineV2(InferenceEngine):
         log_dist(f"InferenceEngineV2: {rc.memory_config_blocks} blocks × "
                  f"{rc.block_size} tokens, {B} sequence slots on {self.device}, "
                  f"kv_quant={kvq_lbl}, prefix_cache={'on' if pc.enabled else 'off'}, "
-                 f"speculative={spec_lbl}, "
+                 f"speculative={spec_lbl}, trace={'on' if self._trace_on else 'off'}, "
                  f"cuda_graph={'on' if self._graph_on else 'off'}")
+
+    # ------------------------------------------------------------------ #
+    # request-lifecycle accounting: admit → queue wait → prefill (chunks) →
+    # per decode token → finish. Each request is one trace; TTFT, ITL, queue
+    # time and e2e latency accumulate for the SLO percentiles. Token times
+    # are host times after the tokens' copy to the host.
+    # ------------------------------------------------------------------ #
+    def adopt_trace(self, uid: int, ctx) -> None:
+        """Join a router's cross-replica trace: the next admission of
+        ``uid`` opens a ``replica_leg`` span under ``ctx.parent_span`` in
+        trace ``ctx.trace_id`` instead of minting a private trace. No-op
+        with tracing off."""
+        if self._trace_on and ctx is not None:
+            self._adopted[uid] = ctx
+
+    def release_trace(self, uid: int, reason: str = "rehome") -> None:
+        """This engine gives ``uid`` up (drain, failover, handoff): close its
+        open spans, recording no latency samples (the destination leg owns
+        the stream's latency). Tolerant of an absent record."""
+        rec = self._req_close(uid)
+        if rec is not None:
+            rec["span"].end(handoff=reason)
+
+    def _req_close(self, uid: int) -> Optional[dict]:
+        """Forget ``uid``'s adopted handle and pop its open record, ending
+        the queue span still open; → the record (None without one)."""
+        self._adopted.pop(uid, None)
+        rec = self._req.pop(uid, None)
+        if rec is not None and rec["queue"] is not None:
+            rec["queue"].end()
+        return rec
+
+    def _req_admit(self, uid: int, prompt_len: int, split: bool = False) -> None:
+        if not self._trace_on or uid in self._req:
+            return
+        now = time.monotonic_ns()
+        ctx = self._adopted.pop(uid, None)
+        if ctx is not None:
+            tid = ctx.trace_id
+            span = self.tracer.begin("replica_leg", cat="serving", trace=tid,
+                                     parent=ctx.parent_span, uid=uid,
+                                     prompt_tokens=prompt_len, split=split,
+                                     replica=ctx.replica)
+        else:
+            tid = self.tracer.new_trace(label=f"request:{uid}")
+            span = self.tracer.begin("request", cat="serving", trace=tid, uid=uid,
+                                     prompt_tokens=prompt_len, split=split)
+        queue = self.tracer.begin("queue_wait", cat="serving", trace=tid,
+                                  parent=span.span_id, uid=uid)
+        self._req[uid] = {"trace": tid, "span": span, "queue": queue,
+                          "t_admit": now, "last_ns": None, "first_done": False}
+
+    def _req_compute_begin(self, uid: int) -> None:
+        """The request's first forward is issued: its queue wait ends."""
+        rec = self._req.get(uid)
+        if rec is None or rec["queue"] is None:
+            return
+        rec["queue"].end()
+        rec["queue"] = None
+        self._lat["queue_ms"].append((time.monotonic_ns() - rec["t_admit"]) / 1e6)
+
+    def _req_first_token(self, uid: int, t_ns: int) -> None:
+        rec = self._req.get(uid)
+        if rec is None or rec["first_done"]:
+            return
+        if rec["queue"] is not None:   # fork children never prefill
+            rec["queue"].end()
+            rec["queue"] = None
+            self._lat["queue_ms"].append((t_ns - rec["t_admit"]) / 1e6)
+        rec["first_done"] = True
+        rec["last_ns"] = t_ns
+        self._lat["ttft_ms"].append((t_ns - rec["t_admit"]) / 1e6)
+        self.tracer.instant("first_token", cat="serving", trace=rec["trace"],
+                            parent=rec["span"].span_id, ts_ns=t_ns, uid=uid)
+
+    def _req_tokens(self, uid: int, k: int, t_ns: int) -> None:
+        """``k`` decode tokens of ``uid`` reached the host at ``t_ns`` (one
+        step or quantum): ITL per token = elapsed / k, the per-token
+        instants interpolated across the quantum."""
+        rec = self._req.get(uid)
+        if rec is None or k <= 0:
+            return
+        start = rec["last_ns"] if rec["last_ns"] is not None else rec["t_admit"]
+        per = (t_ns - start) / k
+        i0 = 0
+        if not rec["first_done"]:
+            self._req_first_token(uid, int(start + per))
+            i0 = 1
+        for i in range(i0, k):
+            self._lat["itl_ms"].append(per / 1e6)
+            self.tracer.instant("decode_token", cat="serving", trace=rec["trace"],
+                                parent=rec["span"].span_id,
+                                ts_ns=int(start + per * (i + 1)), uid=uid)
+        rec["last_ns"] = t_ns
+
+    def _req_finish(self, uid: int, **args) -> None:
+        rec = self._req_close(uid)
+        if rec is not None:
+            self._lat["e2e_ms"].append((time.monotonic_ns() - rec["t_admit"]) / 1e6)
+            rec["span"].end(**args)
+
+    def _req_drop(self, uid: int) -> None:
+        """An admission rolled back: close its spans without latency samples.
+        Tolerant of an absent record (tracing off opens none)."""
+        rec = self._req_close(uid)
+        if rec is not None:
+            rec["span"].end(cancelled=True)
+
+    def _trace_parent(self, uid: int) -> Tuple[Optional[int], Optional[int]]:
+        """(trace, parent span) of ``uid``'s open record, (None, None)
+        without one."""
+        rec = self._req.get(uid)
+        return (rec["trace"], rec["span"].span_id) if rec else (None, None)
 
     # ------------------------------------------------------------------ #
     def _tensor(self, a) -> torch.Tensor:
@@ -393,9 +524,11 @@ class InferenceEngineV2(InferenceEngine):
                 desc, hit = self.state.admit_prompt(uid, prompt)
                 entries.append((uid, prompt, desc))
                 cached.append(hit)
+                self._req_admit(uid, len(prompt))
         except (MemoryError, ValueError):
             for uid, _, _ in entries:
                 self.state.retire(uid)
+                self._req_drop(uid)
             raise
         return self._prefill_admitted(entries, [sp] * len(entries), seed,
                                       cached=cached)
@@ -428,6 +561,11 @@ class InferenceEngineV2(InferenceEngine):
             ctx[i] = cached[i]
             tables[i] = self.state.block_table(desc)
         valid = np.arange(pad_t)[None, :] < lengths[:, None]
+        if self._trace_on:
+            for uid, prompt, _ in entries:
+                self._req_admit(uid, len(prompt))   # generate() admits directly
+                self._req_compute_begin(uid)
+            t0_ns = time.monotonic_ns()
         t0 = time.perf_counter()
         with torch.no_grad():
             logits = self._forward(padded, tables, ctx, valid)
@@ -437,6 +575,10 @@ class InferenceEngineV2(InferenceEngine):
                                      [seed * 1_000_003 + uid for uid, _, _ in entries])
         t1 = time.perf_counter()
         self.forward_log.append(("prefill", t1 - t0, n, time.monotonic()))
+        if self._trace_on:
+            t1_ns = time.monotonic_ns()     # the tokens are on the host
+            self.tracer.complete("prefill_batch", t0_ns, t1_ns, cat="serving",
+                                 n=n, pad_t=pad_t)
         out: Dict[int, int] = {}
         for i, (uid, prompt, desc) in enumerate(entries):
             tok = int(toks[i])
@@ -446,6 +588,13 @@ class InferenceEngineV2(InferenceEngine):
             desc.generated.append(tok)
             self._activate(desc, tok, tables[i], sps[i])
             out[uid] = tok
+            if self._trace_on:
+                trace, parent = self._trace_parent(uid)
+                if trace is not None:
+                    self.tracer.complete("prefill", t0_ns, t1_ns, cat="serving",
+                                         trace=trace, parent=parent, uid=uid,
+                                         tokens=int(lengths[i]), cached=int(ctx[i]))
+                self._req_first_token(uid, t1_ns)
         return out
 
     def _activate(self, desc, tok: int, table: np.ndarray, sp: SamplingParams) -> None:
@@ -469,6 +618,7 @@ class InferenceEngineV2(InferenceEngine):
         starts at the first uncached token."""
         prompt = np.asarray(prompt_tokens, np.int32)
         desc, cached = self.state.admit_prompt(uid, prompt)
+        self._req_admit(uid, len(prompt), split=True)
         desc.seen_tokens = cached
         desc.prefilling = True
         self._pending_prefill[uid] = (prompt, sp)
@@ -492,6 +642,9 @@ class InferenceEngineV2(InferenceEngine):
         padded[0, :len(chunk)] = chunk
         table = self.state.block_table(desc)
         valid = np.arange(chunk_t)[None, :] < len(chunk)
+        if self._trace_on:
+            self._req_compute_begin(uid)   # the first chunk ends the queue wait
+            t0_ns = time.monotonic_ns()
         t0 = time.perf_counter()
         with torch.no_grad():
             logits = self._forward(padded, table[None], np.asarray([done], np.int32),
@@ -502,6 +655,16 @@ class InferenceEngineV2(InferenceEngine):
                                             [seed * 1_000_003 + uid])[0])
         self.forward_log.append(("prefill_chunk", time.perf_counter() - t0,
                                  int(final), time.monotonic()))
+        if self._trace_on:
+            # a final chunk ends after its token's copy to the host; an
+            # earlier one after its launches
+            t1_ns = time.monotonic_ns()
+            trace, parent = self._trace_parent(uid)
+            self.tracer.complete("prefill_chunk", t0_ns, t1_ns, cat="serving",
+                                 trace=trace, parent=parent, uid=uid,
+                                 tokens=len(chunk), ctx=done, final=final)
+            if final:
+                self._req_first_token(uid, t1_ns)
         desc.seen_tokens = done + len(chunk)
         self.state.mark_filled(desc)               # completed chunks → matchable
         if not final:
@@ -566,10 +729,15 @@ class InferenceEngineV2(InferenceEngine):
             self.spec_stats["step_seqs"] += len(live)
             self.spec_stats["emitted_tokens"] += len(live)
         self._reserve(live, 1)
+        t0_ns = time.monotonic_ns() if self._trace_on else 0
         t0 = time.perf_counter()
         nxt = self._decode_ticks(1, seed)[0]
         t1 = time.perf_counter()
         self.forward_log.append(("decode", t1 - t0, len(live), time.monotonic()))
+        if self._trace_on:
+            t1_ns = time.monotonic_ns()     # after the tokens' copy to the host
+            self.tracer.complete("decode_step", t0_ns, t1_ns, cat="serving",
+                                 batch=len(live))
         for d in live:
             tok = int(nxt[d.slot])
             d.tokens.append(d.last_token)  # the id whose KV this step wrote
@@ -580,6 +748,8 @@ class InferenceEngineV2(InferenceEngine):
             self._slot_lens[d.slot] = d.seen_tokens
             self.state.mark_filled(d)
             out[d.uid] = tok
+            if self._trace_on:
+                self._req_tokens(d.uid, 1, t1_ns)
         return {u: [t] for u, t in out.items()} if self._spec_on else out
 
     def step_many(self, k: int, sp: SamplingParams = _GREEDY,
@@ -604,10 +774,15 @@ class InferenceEngineV2(InferenceEngine):
         if k <= 0:
             return out
         self._reserve(live, k)
+        t0_ns = time.monotonic_ns() if self._trace_on else 0
         t0 = time.perf_counter()
         toks = self._decode_ticks(k, seed)
         t1 = time.perf_counter()
         self.forward_log.append(("decode_many", t1 - t0, k * len(live), time.monotonic()))
+        if self._trace_on:
+            t1_ns = time.monotonic_ns()     # after the quantum's copy to the host
+            self.tracer.complete("decode_quantum", t0_ns, t1_ns, cat="serving",
+                                 k=k, batch=len(live))
         for d in live:
             seq = [int(t) for t in toks[:, d.slot]]
             # KV writes this quantum: the previous last_token, then each
@@ -620,6 +795,8 @@ class InferenceEngineV2(InferenceEngine):
             self._slot_lens[d.slot] = d.seen_tokens
             self.state.mark_filled(d)
             out[d.uid] = seq
+            if self._trace_on:
+                self._req_tokens(d.uid, k, t1_ns)
         return out
 
     # ------------------------------------------------------------------ #
@@ -754,10 +931,17 @@ class InferenceEngineV2(InferenceEngine):
             tok_w[d.slot, 1:len(dr) + 1] = dr
             nvalid[d.slot] = 1 + len(dr)
             uids_arr[d.slot] = d.uid
+        t0_ns = time.monotonic_ns() if self._trace_on else 0
         t0 = time.perf_counter()
         with torch.no_grad():
             m, nxt = self._verify(tok_w, nvalid, dr_arr, uids_arr, seed)
         t1 = time.perf_counter()
+        if self._trace_on:
+            t1_ns = time.monotonic_ns()     # after the acceptance's copy to the host
+            self.tracer.complete(
+                "spec_verify", t0_ns, t1_ns, cat="serving", batch=len(live),
+                drafted=int(sum(len(v) for v in drafts.values())),
+                accepted=int(sum(min(int(m[d.slot]), len(drafts[d.uid])) for d in live)))
         out: Dict[int, List[int]] = {}
         for d in live:
             dr = drafts[d.uid]
@@ -784,6 +968,8 @@ class InferenceEngineV2(InferenceEngine):
             st["rolled_back_tokens"] += dl - mi
             st["verify_positions"] += dl + 1
             st["verify_capacity"] += kmax + 1
+            if self._trace_on:
+                self._req_tokens(d.uid, mi + 1, t1_ns)
         self.forward_log.append(("verify", t1 - t0,
                                  sum(len(v) for v in out.values()), time.monotonic()))
         return out
@@ -793,6 +979,7 @@ class InferenceEngineV2(InferenceEngine):
         (an in-flight split prefill is cancelled). An unknown or finished
         uid raises ``UnknownSequenceError``."""
         desc = self.state.lookup(uid)
+        self._req_finish(uid, generated=len(desc.generated))
         self._pending_prefill.pop(uid, None)
         self._clear_slot(desc.slot)
         self.state.retire(uid)
@@ -833,7 +1020,8 @@ class InferenceEngineV2(InferenceEngine):
         release its slot and KV blocks. With the prefix cache on, its full
         blocks park in the retained pool, so :meth:`resume` re-prefills only
         what eviction took in between; with it off, resume re-prefills the
-        whole history."""
+        whole history. The request's trace stays open; an instant marks the
+        park."""
         desc = self.state.lookup(uid)
         self._pending_prefill.pop(uid, None)   # mid-split park: chunks stop
         history = list(desc.tokens) if desc.prefilling \
@@ -844,6 +1032,10 @@ class InferenceEngineV2(InferenceEngine):
                   "sp": self._slot_sp[desc.slot]}
         self._clear_slot(desc.slot)
         self.state.retire(uid)
+        if self._trace_on:
+            trace, parent = self._trace_parent(uid)
+            self.tracer.instant("parked", cat="serving", trace=trace, parent=parent,
+                                uid=uid, kv_tokens=len(history))
         return parked
 
     def resume(self, parked: Dict[str, Any], seed: int = 0,
@@ -860,10 +1052,18 @@ class InferenceEngineV2(InferenceEngine):
         if split:
             self.put_split(uid, history, sp)
             self.state.seqs[uid].generated = list(parked["generated"])
+            self._resume_instant(uid, split=True)
             return []
         tok = self.put(uid, history, sp, seed=seed)
         self.state.seqs[uid].generated = list(parked["generated"]) + [tok]
+        self._resume_instant(uid, split=False)
         return [tok]
+
+    def _resume_instant(self, uid: int, split: bool) -> None:
+        if self._trace_on:
+            trace, parent = self._trace_parent(uid)
+            self.tracer.instant("resumed", cat="serving", trace=trace, parent=parent,
+                                uid=uid, split=split)
 
     def fork(self, uid: int, new_uid: int, sp: Optional[SamplingParams] = None):
         """Fork a live sequence: ``new_uid`` decodes from the same context
@@ -872,6 +1072,7 @@ class InferenceEngineV2(InferenceEngine):
         write). The child starts with an empty ``generated`` and, unless
         ``sp`` is given, the parent's sampling params."""
         desc = self.state.fork(uid, new_uid)
+        self._req_admit(new_uid, desc.seen_tokens)
         parent_slot = self.state.seqs[uid].slot
         self._activate(desc, desc.last_token, self.state.block_table(desc),
                        self._canon_sp(sp) if sp is not None
@@ -1086,6 +1287,33 @@ class InferenceEngineV2(InferenceEngine):
             s["verify_positions"] / s["verify_capacity"]
             if s["verify_capacity"] else 0.0)
         return [(f"Serving/spec/{k}", float(v), step) for k, v in sorted(vals.items())]
+
+    # ------------------------------------------------------------------ #
+    # latency SLOs: TTFT / inter-token latency / queue time / e2e, with
+    # p50 / p90 / p99; samples accumulate while tracing is on
+    # ------------------------------------------------------------------ #
+    def latency_summary(self) -> Dict[str, Dict[str, float]]:
+        """{metric: {"p50", "p90", "p99", "mean", "count"}} in ms."""
+        out: Dict[str, Dict[str, float]] = {}
+        for metric, vals in self._lat.items():
+            stats = percentiles(vals, (50, 90, 99))
+            stats["count"] = float(len(vals))
+            stats["mean"] = (sum(vals) / len(vals)) if vals else 0.0
+            out[metric] = stats
+        return out
+
+    def latency_events(self, step: int = 0):
+        """``Serving/latency/*``: the percentiles and counts of
+        :meth:`latency_summary`."""
+        events = []
+        for metric, stats in sorted(self.latency_summary().items()):
+            for key in ("p50", "p90", "p99", "count"):
+                events.append((f"Serving/latency/{metric}_{key}", float(stats[key]), step))
+        return events
+
+    def export_trace(self, path: str):
+        """Dump the flight recorder as Chrome-trace / Perfetto JSON."""
+        return self.tracer.export(path)
 
     # ------------------------------------------------------------------ #
     def generate(self, prompts, max_new_tokens: int = 64,

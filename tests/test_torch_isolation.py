@@ -133,7 +133,15 @@ def test_new_modules_are_covered_by_the_import_checks():
     mods = _port_modules()
     for name in ("deepspeed_tpu_torch.models.gpt", "deepspeed_tpu_torch.inference.modules",
                  "deepspeed_tpu_torch.models.bloom", "deepspeed_tpu_torch.ops.evoformer_attn",
-                 "deepspeed_tpu_torch.ops.sparse_attention"):
+                 "deepspeed_tpu_torch.ops.sparse_attention",
+                 "deepspeed_tpu_torch.telemetry.trace", "deepspeed_tpu_torch.telemetry.fleet",
+                 "deepspeed_tpu_torch.testing.faults", "deepspeed_tpu_torch.tuning",
+                 "deepspeed_tpu_torch.inference.serving",
+                 "deepspeed_tpu_torch.inference.serving.scheduler",
+                 "deepspeed_tpu_torch.inference.serving.router",
+                 "deepspeed_tpu_torch.inference.serving.fleet",
+                 "deepspeed_tpu_torch.inference.serving.disagg",
+                 "deepspeed_tpu_torch.inference.serving.workload"):
         assert name in mods
     # the module system resolves on CPU tensors without building anything
     norm = modules.registry.instantiate("norm", modules.NormConfig(kind="layer"))
@@ -155,7 +163,6 @@ UNPORTED = {
     "prefix_cache.host_spill": {"prefix_cache": {"enabled": True, "host_spill": True}},
     "quant": {"quant": {"enabled": True}},
     "tensor_parallel.tp_size": {"tensor_parallel": 2},
-    "trace": {"trace": {"enabled": True}},
     "compile_monitor": {"compile_monitor": {"enabled": True}},
 }
 
@@ -171,19 +178,31 @@ def test_unported_feature_raises(feature):
 
 def test_ported_serving_features_build():
     """``kv_quant``, ``speculative`` (with ``fused_verify``), the prefix cache,
-    split prefill and the CUDA-graph decode are ported: enabling them builds
-    an engine instead of raising."""
+    split prefill, ``trace`` and the CUDA-graph decode are ported: enabling
+    them builds an engine instead of raising."""
     cfg, params = _tiny_params()
     conf = {"dtype": "float32", "kv_quant": {"enabled": True},
             "speculative": {"enabled": True, "fused_verify": True},
             "prefix_cache": {"enabled": True}, "split_prefill_chunk": 32,
-            "enable_cuda_graph": True}
+            "enable_cuda_graph": True, "trace": {"enabled": True, "dump_on_crash": False}}
     assert InferenceConfig.from_dict(conf).unported_features() == []
     eng = build_engine_v2(llama, cfg, params, config=conf, device="cpu")
     assert eng.cache["k"].dtype == torch.int8 and eng._spec_fused
-    assert eng.state.prefix_cache
+    assert eng.state.prefix_cache and eng.tracer.enabled
     # no graph on the CPU: the decode forward runs eagerly over its buffers
     assert not eng._graph_on
+
+
+@pytest.mark.parametrize("block", ["serving.obs", "serving.tuning"])
+def test_unported_router_block_raises(block):
+    """The serving router's unported blocks parse and, enabled, raise when
+    the router is built (before any engine is touched)."""
+    from deepspeed_tpu_torch.inference import ReplicaRouter, RouterConfig
+
+    conf = RouterConfig.from_dict({block.split(".")[1]: {"enabled": True}})
+    assert conf.unported_features() == [block]
+    with pytest.raises(NotImplementedError, match=block):
+        ReplicaRouter([object()], conf)
 
 
 def test_bloom_evoformer_and_blocksparse_default_to_the_gpu():
