@@ -263,6 +263,22 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    shared 1024-token prefixes deduplicated off the wire. In each part the
    profiler's RMSNorm and paged-kernel records in a window equal the
    launches; no tick, export or import fault that the phase did not inject.
+18. Data-parallel training with ZeRO (``phase_zero``): a real NCCL process
+   group of world size 1 (``comm.init_distributed()``) and
+   ``comm.init_mesh({"data": 1})``, then phase 7's configuration (Llama-3-8B
+   width at 4 layers, bf16, GAS 2 of one 4096-token sequence,
+   ``TRAIN_STEPS`` steps) at ZeRO stages 0, 1, 2 and 3, one engine at a
+   time. With a process group every stage shards over ``data`` (one shard)
+   and runs its collectives through NCCL: stage 1 all-gathers each leaf's
+   bf16 copy a micro-batch, stages 2 and 3 also reduce-scatter each fp32
+   grad, stage 3 gathers a block's leaves when the forward enters it. Each
+   stage's losses and grad norms must equal stage 0's (whether bit for bit
+   is printed; otherwise within ``TRAIN_LOSS_RTOL``), its kernel launches
+   phase 7's, its loss fall; ``zero.Init`` at that width must equal the
+   unsharded init bit for bit; a planted fault (the reduce-scatter of every
+   [4096 x 4096] grad dropped, stage 2) must fail the check. Prints step
+   ms, peak GiB, the idle share of a profiled step and the collectives a
+   step (count and bytes by op, from ``comm.counts``) for each stage.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -276,6 +292,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1794,6 +1811,7 @@ PROFILE_GROUPS = [
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
     ("softmax_ce", ("softmax", "SoftMax", "nll_loss", "cross_entropy")),
     ("reduce", ("reduce_kernel",)),
+    ("nccl", ("nccl",)),
     ("copy_cast", ("copy_kernel", "direct_copy")),
     ("elementwise", ("elementwise_kernel",)),
 ]
@@ -1889,6 +1907,168 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     del eng
     torch.cuda.empty_cache()
     return res
+
+
+ZERO_STAGES = (0, 1, 2, 3)
+ZERO_FAULT_STEPS = 2
+
+
+@contextlib.contextmanager
+def fault_drop_reduce_scatter(shape=(4096, 4096)):
+    """The reduce-scatter of every grad of ``shape`` (wq and wo at
+    Llama-3-8B width) gives zeros: those leaves never learn."""
+    from deepspeed_tpu_torch.comm import comm
+
+    sound = comm.reduce_scatter
+
+    def faulty(x, *a, **kw):
+        out = sound(x, *a, **kw)
+        return out.zero_() if tuple(x.shape) == shape else out
+
+    comm.reduce_scatter = faulty
+    try:
+        yield
+    finally:
+        comm.reduce_scatter = sound
+
+
+def zero_train(seed: int, cfg, stage: int, batch, steps: int, counters=None):
+    """``steps`` of ``train_batch`` at ZeRO ``stage`` over the installed
+    mesh: (losses, grad norms, step seconds, collectives by op a step,
+    (bytes allocated before the engine, peak bytes), the engine)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama
+
+    conf = _train_config(seed, 2, True)
+    conf["zero_optimization"] = {"stage": stage}
+    gc.collect()                  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    eng, *_ = dst.initialize(model=llama.model_spec(cfg), config=conf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters or ():
+        c.launches = 0
+    comm.counts.reset()
+    losses, norms, step_s = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out.loss))
+        norms.append(float(out.grad_norm))
+    coll = {op: {k: v / steps for k, v in rec.items()} for op, rec in comm.counts.snapshot().items()}
+    return losses, norms, step_s, coll, (before, torch.cuda.max_memory_allocated()), eng
+
+
+def phase_zero(seed: int, card: str) -> dict:
+    """Phase 7's training at ZeRO stages 0-3 through a real NCCL process
+    group of world size 1, held to stage 0 (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda,
+                                                         flash_bwd_dq_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=4)
+    comm.init_distributed()
+    try:
+        mm = comm.init_mesh({"data": 1})
+        log(f"  process group: {dist.get_backend()}, world size {dist.get_world_size()}, "
+            f"mesh {mm.sizes}")
+        rs = np.random.RandomState(seed)
+        batch = {"tokens": rs.randint(0, cfg.vocab_size, (2, 4096 + 1)).astype(np.int32)}
+        kernels = {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
+                   "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda}
+        per_step = cfg.num_layers * 2
+        want = {k: (2 * cfg.num_layers + 1) * 2 * TRAIN_STEPS if k == "rms_norm"
+                else per_step * TRAIN_STEPS for k in kernels}
+        res, base = {}, None
+        for stage in ZERO_STAGES:
+            losses, norms, step_s, coll, (before, peak), eng = zero_train(
+                seed, cfg, stage, batch, TRAIN_STEPS, kernels.values())
+            launches = {k: c.launches for k, c in kernels.items()}
+            if launches != want:
+                raise AssertionError(f"ZeRO-{stage}: kernel launches {launches} != {want}")
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"ZeRO-{stage}: loss not finite and falling: {losses}")
+            wall, busy, n_k, top = profile_window(lambda: eng.train_batch(batch))
+            nccl_ms = sum(ms for k, ms, _ in top if "nccl" in k)
+            steady = step_s[1:]
+            r = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+                 "step_ms": sum(steady) / len(steady) * 1e3, "peak_bytes": peak,
+                 "allocated_before_bytes": before,
+                 "collectives_per_step": coll, "launches": launches,
+                 "sharded_leaves": len(eng._sharded), "leaves": len(eng.state.params),
+                 "profile": {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
+                             "idle_share": 1 - busy / wall, "kernels": n_k, "nccl_ms": nccl_ms}}
+            if base is None:
+                base = r
+            else:
+                r["bitwise_equal_stage0"] = losses == base["losses"] and norms == base["grad_norms"]
+                err = max(max(abs(a - b) / abs(b) for a, b in zip(losses, base["losses"])),
+                          max(abs(a - b) / abs(b) for a, b in zip(norms, base["grad_norms"])))
+                r["max_rel_err_stage0"] = err
+                if err > TRAIN_LOSS_RTOL:
+                    raise AssertionError(f"ZeRO-{stage} against ZeRO-0: losses {losses} / "
+                                         f"{base['losses']}, grad norms {norms} / "
+                                         f"{base['grad_norms']} (rel {err:.3g} > "
+                                         f"{TRAIN_LOSS_RTOL})")
+            log(f"  ZeRO-{stage}: losses {['%.4f' % l for l in losses]}, step "
+                f"{r['step_ms']:.1f} ms, peak {peak / 2**30:.2f} GiB ({before / 2**30:.2f} "
+                f"allocated before the engine), idle "
+                f"{r['profile']['idle_share']:.1%} (nccl {nccl_ms:.2f} ms of "
+                f"{busy * 1e3:.1f} busy), {r['sharded_leaves']}/{r['leaves']} leaves "
+                f"sharded" + ("" if stage == 0 else
+                              f", equal to ZeRO-0 bit for bit: {r['bitwise_equal_stage0']} "
+                              f"(max rel {r['max_rel_err_stage0']:.3g})") + f" [{card}]")
+            log("    collectives a step: " + ", ".join(
+                f"{op} {rec['count']:g} x, {rec['bytes'] / 2**20:.1f} MiB"
+                for op, rec in coll.items()))
+            res[stage] = r
+            del eng
+            torch.cuda.empty_cache()
+
+        # planted fault: the grads of every [4096 x 4096] leaf dropped
+        with fault_drop_reduce_scatter():
+            f_losses, f_norms, *_, eng = zero_train(seed, cfg, 2, batch, ZERO_FAULT_STEPS)
+        del eng
+        torch.cuda.empty_cache()
+        f_err = max(abs(a - b) / abs(b) for a, b in
+                    zip(f_losses + f_norms, base["losses"][:ZERO_FAULT_STEPS]
+                        + base["grad_norms"][:ZERO_FAULT_STEPS]))
+        log(f"  planted fault (reduce-scatter of [4096 x 4096] grads dropped, ZeRO-2): "
+            f"rel err {f_err:.3g} against {TRAIN_LOSS_RTOL}")
+        if f_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError("the dropped reduce-scatter passed the ZeRO check")
+
+        # zero.Init at that width: the shards gathered equal the unsharded init
+        gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+        shards = dst.zero.materialize_sharded(
+            lambda g, **kw: llama.init(cfg, g, **kw), gen(), llama.param_logical_axes(cfg),
+            mesh_mgr=mm)
+        full = llama.init(cfg, gen())
+        same = all(torch.equal(shards[k], full[k]) for k in full)
+        del shards, full
+        torch.cuda.empty_cache()
+        log(f"  zero.Init at Llama-3-8B width (4 layers) equal to the unsharded init: {same}")
+        if not same:
+            raise AssertionError("zero.Init differs from the unsharded init")
+    finally:
+        comm.set_mesh(None)
+        dist.destroy_process_group()
+    return {"stages": res, "fault_rel_err": f_err, "zero_init_equal": same,
+            "launches": {k: sum(r["launches"][k] for r in res.values()) for k in kernels},
+            "phase_s": time.perf_counter() - t_phase}
 
 
 @contextlib.contextmanager
@@ -4875,12 +5055,17 @@ def main() -> int:
     fleet = phase_serving_fleet(SEED, card)
     fleet_l = fleet["launches"]
 
+    log("== phase 18: data-parallel training with ZeRO stages 0-3 (NCCL, world size 1; "
+        "Llama-3-8B width, 4 layers)")
+    zero = phase_zero(SEED, card)
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
     core_graph = core["graph_launches"]
     rms_launches = {"serving": main_res["launches"]["rms_norm"],
                     "training": train["launches"]["rms_norm"],
+                    "zero training (stages 0-3)": zero["launches"]["rms_norm"],
                     "serving core (graph)": core_graph["rms_norm"],
                     "serving fleet": fleet_l["rms_norm"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
@@ -4926,9 +5111,11 @@ def main() -> int:
             "source": "deepspeed_tpu_torch/ops/csrc/"
                       + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd_sm90.cu"),
             "replaces": line,
-            "launches": train["launches"][name] + opt_train["launches"][name],
+            "launches": (train["launches"][name] + opt_train["launches"][name]
+                         + zero["launches"][name]),
             "launches_by_path": {"llama training": train["launches"][name],
-                                 "opt training": opt_train["launches"][name]},
+                                 "opt training": opt_train["launches"][name],
+                                 "zero training (stages 0-3)": zero["launches"][name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5014,6 +5201,7 @@ def main() -> int:
               "main_path": main_res, "spec_serving": spec, "whole_path": whole,
               "whole_path_spec": whole_spec, "train": train,
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
+              "zero": zero,
               "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

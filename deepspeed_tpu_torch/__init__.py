@@ -16,10 +16,14 @@ Ported so far:
   ``step_many``, park / resume, fork and the KV export / import handoff;
   on a CUDA device every decode forward is a replay of one CUDA graph per
   engine;
-- single-process training of the Llama family through :func:`initialize`
-  → ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
+- training of the Llama family through :func:`initialize` →
+  ``engine.train_batch`` (AdamW, bf16/fp16 with loss scaling, GAS,
   clipping, lr schedules), with the RMSNorm kernel and the flash-attention
-  forward, dQ and dK/dV kernels;
+  forward, dQ and dK/dV kernels; data parallel over ``torch.distributed``
+  (``comm.init_distributed``: NCCL on the card, gloo on the CPU when asked
+  for) with ZeRO stages 0-3 over the ``data`` axis (``comm``: collectives
+  by mesh axis name over a ``DeviceMesh``; ``runtime/partitioning.py``;
+  :data:`zero`: ``zero.Init``, ``GatheredParameters``);
 - the GPT-2/OPT family (``models/gpt.py``) through both entry points, with
   the LayerNorm kernel;
 - the inference module system (``inference/modules.py``), whose weight-only
@@ -48,7 +52,9 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 
 __version__ = "0.5.0"
 
+from . import comm  # noqa: F401
 from .inference import InferenceConfig, build_engine_v2  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401
+from .runtime import zero_init as zero  # noqa: F401  (zero.Init, GatheredParameters, ...)
 from .runtime.engine import (DeepSpeedTPUEngine, ModelSpec,  # noqa: F401
                              StepOutput, initialize)

@@ -39,6 +39,7 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import layer_norm
+from ..runtime.partitioning import LeafAxes, linear
 
 
 @dataclass(frozen=True)
@@ -101,6 +102,24 @@ def _layer_shapes(cfg: BloomConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
             "w_down": ((h, i), i), "b_down": ((h,), 0)}
 
 
+def param_logical_axes(cfg: BloomConfig) -> Dict[str, LeafAxes]:
+    """Logical axes of every parameter (JAX ``param_logical_axes``
+    :119), per layer and in the port's ``[out, in]`` layout."""
+    vec = lambda name: LeafAxes((name,))  # noqa: E731
+    per_layer = {"ln1_scale": vec("embed"), "ln1_bias": vec("embed"),
+                 "wq": linear("heads", "embed"), "wk": linear("heads", "embed"),
+                 "wv": linear("heads", "embed"), "bq": vec("heads"), "bk": vec("heads"),
+                 "bv": vec("heads"), "wo": linear("embed", "heads"), "bo": vec("embed"),
+                 "ln2_scale": vec("embed"), "ln2_bias": vec("embed"),
+                 "w_up": linear("mlp", "embed"), "b_up": vec("mlp"),
+                 "w_down": linear("embed", "mlp"), "b_down": vec("embed")}
+    axes = {"embed": LeafAxes(("vocab", "embed")), "embed_ln_scale": vec("embed"),
+            "embed_ln_bias": vec("embed"), "final_ln_scale": vec("embed"),
+            "final_ln_bias": vec("embed")}
+    return {name: axes[name] if name in axes else per_layer[name.rsplit(".", 1)[1]]
+            for name in param_shapes(cfg)}
+
+
 def param_shapes(cfg: BloomConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     """``state_dict`` name → (shape, fan_in) of every parameter; matrices in
     ``nn.Linear`` layout ``[out, in]``, vectors with fan_in 0 (LayerNorm
@@ -118,7 +137,7 @@ def param_shapes(cfg: BloomConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
 
 @torch.no_grad()
 def init(cfg: BloomConfig, generator: torch.Generator, dtype=torch.float32,
-         device=None) -> Dict[str, torch.Tensor]:
+         device=None, keep=None) -> Dict[str, torch.Tensor]:
     """Weights from ``generator`` with the JAX ``init``'s distribution:
     matrices and the embedding N(0, 1/fan_in), LayerNorm scales 1, biases 0.
     Drawn on the generator's device (fp32, then cast); kept there unless
@@ -136,6 +155,8 @@ def init(cfg: BloomConfig, generator: torch.Generator, dtype=torch.float32,
             out[name] = torch.ones(shape, dtype=dtype, device=device)
         else:
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        if keep is not None:     # as llama.init's keep
+            out[name] = keep(name, out[name])
     return out
 
 
@@ -204,10 +225,11 @@ def model_spec(cfg: BloomConfig, compute_dtype=torch.bfloat16):
 
     return ModelSpec(
         name="bloom",
-        init_fn=lambda gen: init(cfg, gen),
+        init_fn=lambda gen, **kw: init(cfg, gen, **kw),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
         compute_dtype=compute_dtype,
+        logical_axes=param_logical_axes(cfg),
     )
 
 

@@ -25,7 +25,7 @@ Supports GQA, RoPE, SwiGLU, RMSNorm, optional tied embeddings, QKV biases
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +35,7 @@ from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
+from ..runtime.partitioning import LeafAxes, linear
 from ._paged import (init_paged_pools, join_kv, layer_kv, paged_attention_step,
                      split_kv)
 
@@ -101,45 +102,63 @@ class LlamaConfig:
                    max_seq_len=4096, rope_theta=10000.0)
 
 
+def _layer_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
+    h, hd = cfg.hidden_size, cfg.head_size
+    nh, nkv, i = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    shapes = {"attn_norm": ((h,), 0), "wq": ((nh * hd, h), h), "wk": ((nkv * hd, h), h),
+              "wv": ((nkv * hd, h), h), "wo": ((h, nh * hd), nh * hd),
+              "mlp_norm": ((h,), 0), "w_gate": ((i, h), h), "w_up": ((i, h), h),
+              "w_down": ((h, i), i)}
+    if cfg.attention_bias:
+        shapes.update({"bq": ((nh * hd,), 0), "bk": ((nkv * hd,), 0),
+                       "bv": ((nkv * hd,), 0)})
+    if cfg.qk_norm:
+        shapes.update({"q_norm": ((hd,), 0), "k_norm": ((hd,), 0)})
+    return shapes
+
+
 def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:
     """``state_dict`` name → (shape, fan_in) of every parameter; matrices in
     ``nn.Linear`` layout ``[out, in]``, vectors with fan_in 0 (init to 1 or
     0, as in the JAX ``init``)."""
-    h, hd = cfg.hidden_size, cfg.head_size
-    nh, nkv, i, v = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size
+    h, v = cfg.hidden_size, cfg.vocab_size
     shapes = {"embed": ((v, h), h)}
     for l in range(cfg.num_layers):
-        p = f"layers.{l}."
-        shapes.update({
-            p + "attn_norm": ((h,), 0),
-            p + "wq": ((nh * hd, h), h),
-            p + "wk": ((nkv * hd, h), h),
-            p + "wv": ((nkv * hd, h), h),
-            p + "wo": ((h, nh * hd), nh * hd),
-            p + "mlp_norm": ((h,), 0),
-            p + "w_gate": ((i, h), h),
-            p + "w_up": ((i, h), h),
-            p + "w_down": ((h, i), i),
-        })
-        if cfg.attention_bias:
-            shapes.update({p + "bq": ((nh * hd,), 0), p + "bk": ((nkv * hd,), 0),
-                           p + "bv": ((nkv * hd,), 0)})
-        if cfg.qk_norm:
-            shapes.update({p + "q_norm": ((hd,), 0), p + "k_norm": ((hd,), 0)})
+        shapes.update({f"layers.{l}.{name}": spec
+                       for name, spec in _layer_shapes(cfg).items()})
     shapes["final_norm"] = ((h,), 0)
     if not cfg.tie_embeddings:
         shapes["lm_head"] = ((v, h), h)
     return shapes
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Dict[str, LeafAxes]:
+    """Logical axes of every parameter (JAX ``param_logical_axes`` :158),
+    for the partitioner (``runtime/partitioning.py``): per layer, and in the
+    port's ``[out, in]`` layout."""
+    per_layer = {"attn_norm": LeafAxes(("embed",)), "wq": linear("heads", "embed"),
+                 "wk": linear("kv_heads", "embed"), "wv": linear("kv_heads", "embed"),
+                 "wo": linear("embed", "heads"), "mlp_norm": LeafAxes(("embed",)),
+                 "w_gate": linear("mlp", "embed"), "w_up": linear("mlp", "embed"),
+                 "w_down": linear("embed", "mlp"), "bq": LeafAxes(("heads",)),
+                 "bk": LeafAxes(("kv_heads",)), "bv": LeafAxes(("kv_heads",)),
+                 "q_norm": LeafAxes((None,)), "k_norm": LeafAxes((None,))}
+    axes = {"embed": LeafAxes(("vocab", "embed")), "final_norm": LeafAxes(("embed",)),
+            "lm_head": linear("vocab", "embed")}
+    return {name: axes[name] if name in axes else per_layer[name.rsplit(".", 1)[1]]
+            for name in param_shapes(cfg)}
+
+
 @torch.no_grad()
 def init(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32,
-         device=None) -> Dict[str, torch.Tensor]:
+         device=None, keep=None) -> Dict[str, torch.Tensor]:
     """Weights from ``generator`` with the JAX ``init``'s distribution:
     matrices N(0, 1/fan_in), norms 1, biases 0. The draws are made on the
     generator's device (in fp32, then cast), and the weights stay there
     unless ``device`` says otherwise, so a CUDA generator builds an 8B model
-    on the card without a host copy."""
+    on the card without a host copy. ``keep(name, leaf)``, if given, is
+    applied to each leaf as it is drawn and its result kept (``zero.Init``
+    keeps a shard, so no whole model exists at once)."""
     gen_device = generator.device
     device = gen_device if device is None else device
     out: Dict[str, torch.Tensor] = {}
@@ -153,6 +172,8 @@ def init(cfg: LlamaConfig, generator: torch.Generator, dtype=torch.float32,
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
             out[name] = torch.ones(shape, dtype=dtype, device=device)
+        if keep is not None:
+            out[name] = keep(name, out[name])
     return out
 
 
@@ -281,13 +302,13 @@ class Llama(nn.Module):
 # full-sequence training forward (JAX ``apply`` / ``loss_fn``)
 # --------------------------------------------------------------------------- #
 def _block(cfg: LlamaConfig, x: torch.Tensor, p: Dict[str, torch.Tensor],
-           prefix: str, cos: torch.Tensor, sin: torch.Tensor,
+           cos: torch.Tensor, sin: torch.Tensor,
            positions: Optional[torch.Tensor]) -> torch.Tensor:
     """One transformer block (JAX ``_block`` with ``_qkv_proj``); x
-    [batch, seq, hidden] in the compute dtype."""
+    [batch, seq, hidden] and the block's leaves ``p`` in the compute dtype."""
     b, s, _ = x.shape
     nh, nkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_size, cfg.rms_norm_eps
-    w = lambda name: p.get(prefix + name)  # noqa: E731
+    w = p.get
     y = rms_norm(x, w("attn_norm"), eps)
     q = F.linear(y, w("wq"), w("bq")).view(b, s, nh, hd)
     k = F.linear(y, w("wk"), w("bk")).view(b, s, nkv, hd)
@@ -304,26 +325,28 @@ def _block(cfg: LlamaConfig, x: torch.Tensor, p: Dict[str, torch.Tensor],
     return x + F.linear(mlp, w("w_down"))
 
 
-def apply(cfg: LlamaConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
+def apply(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], tokens: torch.Tensor, *,
           positions: Optional[torch.Tensor] = None,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Causal forward over the whole sequence → logits [batch, seq, vocab]
-    fp32. ``params`` is a flat dict (:func:`param_shapes` names), cast to
+    fp32. ``params`` maps :func:`param_shapes` names to tensors, cast to
     ``compute_dtype`` here as the JAX ``apply`` casts its layers, so grads
-    of fp32 params flow back through the cast."""
+    of fp32 params flow back through the cast. A block's leaves are read
+    when the forward enters the block (ZeRO stage 3 gathers them then)."""
     cast = lambda t: t.to(compute_dtype)  # noqa: E731
-    p = {k: cast(v) for k, v in params.items() if k != "embed"}
     x = embedding_lookup(params["embed"], tokens, compute_dtype)
     cos, sin = rope_frequencies(cfg.head_size, cfg.max_seq_len, cfg.rope_theta,
                                 device=x.device)
+    names = tuple(_layer_shapes(cfg))
     for l in range(cfg.num_layers):
-        x = _block(cfg, x, p, f"layers.{l}.", cos, sin, positions)
-    x = rms_norm(x, p["final_norm"], cfg.rms_norm_eps)
-    head = cast(params["embed"]) if cfg.tie_embeddings else p["lm_head"]
-    return F.linear(x, head).float()
+        block = {name: cast(params[f"layers.{l}.{name}"]) for name in names}
+        x = _block(cfg, x, block, cos, sin, positions)
+    x = rms_norm(x, cast(params["final_norm"]), cfg.rms_norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return F.linear(x, cast(head)).float()
 
 
-def loss_fn(cfg: LlamaConfig, params: Dict[str, torch.Tensor],
+def loss_fn(cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
             batch: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy in fp32, mean over valid tokens. batch:
@@ -352,10 +375,11 @@ def model_spec(cfg: LlamaConfig, compute_dtype=torch.bfloat16):
 
     return ModelSpec(
         name="llama",
-        init_fn=lambda gen: init(cfg, gen),
+        init_fn=lambda gen, **kw: init(cfg, gen, **kw),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
         compute_dtype=compute_dtype,
+        logical_axes=param_logical_axes(cfg),
     )
 
 

@@ -870,11 +870,11 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
 
 def check_ported(cfg: DeepSpeedTPUConfig, world_size: int = 1) -> None:
     """Raise ``NotImplementedError`` naming every enabled block the port
-    does not implement yet, and for a world size above 1 (distributed
-    training and ZeRO sharding come with queue A.3)."""
+    does not implement yet. A world size above 1 is data parallel: every
+    rank on the ``data`` axis (ZeRO stages 0-3 shard over it); a mesh that
+    does not fill ``world_size`` raises ``ValueError``."""
     missing = unported_features(cfg)
-    if world_size > 1:
-        missing.append(f"world size {world_size} (distributed training)")
     if missing:
         raise NotImplementedError(
             f"not yet ported to deepspeed_tpu_torch: {', '.join(missing)}")
+    cfg.mesh.axis_sizes(world_size)

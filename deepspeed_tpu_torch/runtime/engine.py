@@ -1,33 +1,69 @@
-"""Training engine, single process — counterpart of
+"""Training engine, data parallel with ZeRO stages 0-3 — counterpart of
 ``deepspeed_tpu/runtime/engine.py`` (``ModelSpec`` :56, ``TrainState`` :89,
-``StepOutput`` :105, ``_loss`` :1134, ``_grads_one_micro`` :1143,
-``_accumulate`` :1258, ``_apply_update`` :1604, ``train_batch`` :1838,
+``StepOutput`` :105, ``_cast_gather`` :1020, ``_loss`` :1134,
+``_grads_one_micro`` :1143, ``_accumulate`` :1258, ``_apply_update``
+:1604, ``_shard_batch`` :1790, ``train_batch`` :1838,
 ``forward``/``backward``/``step`` :1906-1983, ``initialize`` :2170).
 
 Same step semantics as the JAX engine:
 
 - fp32 master params; each micro-batch casts them to the compute dtype
-  (bf16/fp16/fp32) inside the differentiated function, so grads reach the
-  masters in fp32 through the cast;
-- a global batch ``[gas * micro, ...]`` is split into ``gas`` micro-batches;
-  grads and losses are the mean over micro-batches;
+  (bf16/fp16/fp32), and grads reach the masters in fp32;
+- a global batch ``[gas * micro * dp, ...]`` is split into ``gas``
+  micro-batches, and rank r of the ``data`` axis takes its ``micro`` rows
+  of each (JAX ``BATCH_AXES`` order: micro-batch first, then rank); grads
+  and losses are the mean over micro-batches;
 - the update: overflow check on the (scaled) grads, unscale, global-norm
   clip ``min(1, clip / (norm + 1e-6))``, ``lr_scale = lr_t / base_lr`` with
   ``lr_t`` the schedule at ``state.step``, the optimizer step, and on
   overflow a skip that leaves params, optimizer state and step untouched
   while the fp16 scaler backs off.
 
+ZeRO over the ``data`` axis (JAX ``runtime/partitioning.py:1-23``; the
+sharded dim of each leaf from ``runtime/partitioning.py``):
+
+- stage 0: masters, AdamW moments and grads replicated; grads all-reduced
+  at the GAS boundary;
+- stage 1: masters and moments sharded; each micro-batch casts the shard
+  to the compute dtype and all-gathers that copy (JAX ``_cast_gather``);
+  grads accumulate whole on each rank and are all-reduced at the boundary,
+  where each rank keeps its shard and updates it;
+- stage 2: as stage 1, but each micro-batch's grads are reduce-scattered
+  into a sharded fp32 accumulator;
+- stage 3: parameters sharded at rest; a leaf is all-gathered (compute
+  dtype) when the model first reads it in a micro-batch, through
+  ``partitioning.GatherParam``, whose backward reduce-scatters the grad into
+  the fp32 shard's grad, reducing in fp32. Llama reads a block's leaves when
+  it enters the block. The gathered blocks stay alive for the backward (no
+  release and re-gather yet).
+
+The AdamW update runs unchanged on the shards, in place; it is elementwise,
+so a shard's update equals the same rows of the whole update.
+
+The reported loss, ``grad_norm``, overflow flag and aux are the global
+ones: the JAX loss is the token mean over the global micro-batch, so when
+``loss_fn`` returns ``aux["ntokens"]`` (every model family here but GPT,
+whose loss counts every token) the counts are all-reduced after the forward
+and each rank's loss is weighted by ``n_r / N`` before the backward, which
+gives JAX's grads also when ranks hold different numbers of valid tokens;
+without it each rank's loss is weighted ``1 / world``, so the result is
+the mean of the rank means. Float aux values are reduced with the same
+weights, integer ones summed.
+
+A single process that never called ``comm.init_distributed`` has a
+one-member ``data`` axis and no process group: every stage then runs with
+whole leaves and no collective, the arithmetic of the stage-0 step. With a
+process group, even of one rank, every stage shards over ``data`` and runs
+its collectives through the backend.
+
 PyTorch runs eagerly, so the step is Python over autograd rather than one
-compiled program; grads accumulate in the masters' ``.grad`` and the
-optimizer updates in place (see ``ops/optimizers.py``). The overflow check
-reads one boolean back to the host per step.
+compiled program. The overflow check reads one boolean back to the host per
+step.
 
 Not ported yet (their config blocks raise at :func:`initialize`, see
-``runtime/config.py``): distributed data parallelism and ZeRO sharding
-(stages 0-3 are accepted at world size 1, where a stage changes no
-arithmetic), offload and tiered memory, pipeline, sequence parallelism and
-tiled loss, remat, comms overlap, MoE, telemetry, tuning, watchdog,
-integrity, checkpoints, curriculum.
+``runtime/config.py``): the tensor, pipe, seq and expert axes, MiCS / hpZ,
+offload and tiered memory, quantized ZeRO collectives, remat, comms overlap,
+MoE, telemetry, tuning, watchdog, integrity, checkpoints, curriculum.
 """
 
 from __future__ import annotations
@@ -37,16 +73,22 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..comm import comm
+from ..comm.mesh import BATCH_AXES, ZERO_AXES, MeshManager, get_mesh, init_mesh
 from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from .config import DeepSpeedTPUConfig, check_ported, parse_config
 from .dataloader import DeepSpeedTPUDataLoader
 from .lr_schedules import LRScheduler, Schedule, get_schedule
+from .partitioning import (GatherOnUse, Partitioner, replicated_axes, shard, shard_dim,
+                           unshard)
 from .precision import (LossScaleState, PrecisionPolicy, grads_finite,
                         make_loss_scaler, scale_loss, update_loss_scale)
 from .utils import clip_grad_norm_, global_norm
+from .zero_init import draw, on_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,28 +96,25 @@ Params = Dict[str, torch.Tensor]
 @dataclass
 class ModelSpec:
     """What the engine needs from a user model: a loss function over a flat
-    dict of params, and the params themselves or a function that draws them
-    from a ``torch.Generator``."""
+    mapping of params, and the params themselves or a function that draws
+    them from a ``torch.Generator`` (taking ``keep=`` to shard them as they
+    are drawn, see ``runtime/zero_init.py``)."""
 
     loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
-    init_fn: Optional[Callable[[torch.Generator], Params]] = None
+    init_fn: Optional[Callable[..., Params]] = None
     params: Optional[Params] = None
     name: str = "model"
     # the dtype loss_fn computes in (None: not stated); initialize refuses
     # one that no CUDA kernel takes (check_compute_dtype)
     compute_dtype: Optional[torch.dtype] = None
-
-    def materialize(self, generator: torch.Generator) -> Params:
-        if self.params is not None:
-            return self.params
-        if self.init_fn is None:
-            raise ValueError("ModelSpec needs params or init_fn")
-        return self.init_fn(generator)
+    # leaf name -> partitioning.LeafAxes (None: ZeRO shards each leaf's
+    # largest divisible dim)
+    logical_axes: Optional[Dict[str, Any]] = None
 
 
 class TrainState(NamedTuple):
     step: int                  # optimizer steps taken (skipped ones excluded)
-    params: Params             # fp32 masters
+    params: Params             # fp32 masters: this rank's shards from stage 1
     opt_state: Any
     loss_scale: LossScaleState
     skipped_steps: int
@@ -97,13 +136,16 @@ class DeepSpeedTPUEngine:
     def __init__(self, model: ModelSpec, config: DeepSpeedTPUConfig,
                  device: torch.device, optimizer: Optional[Optimizer] = None,
                  lr_schedule: Optional[Schedule] = None,
-                 training_data=None, generator: Optional[torch.Generator] = None):
+                 training_data=None, generator: Optional[torch.Generator] = None,
+                 mesh_mgr: Optional[MeshManager] = None):
         self.model = model
         self.config = config
         self.device = device
         self.global_steps = 0
         self.training_dataloader = None
         self.precision = PrecisionPolicy.from_config(config)
+        self.mesh_mgr = mesh_mgr or MeshManager.from_sizes({"data": 1})
+        self.zero_stage = config.zero_config.stage
 
         if optimizer is None:
             optimizer = get_optimizer(config.optimizer.type or "adamw",
@@ -119,25 +161,57 @@ class DeepSpeedTPUEngine:
 
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(config.seed)
-        own = model.params is None   # drawn here: no caller holds these tensors
-        params = {}
-        for name, p in model.materialize(generator).items():
-            p = torch.as_tensor(p).detach()
-            if p.is_floating_point():
-                p = p.to(device=device, dtype=self.precision.param_dtype,
-                         copy=not own)
-            params[name] = p.to(device).requires_grad_(p.is_floating_point())
+        params = self._init_masters(model, generator)
         self.state = TrainState(
             step=0, params=params, opt_state=optimizer.init(params),
             loss_scale=make_loss_scaler(config.fp16, device), skipped_steps=0)
-        self._staged: List[Tuple[torch.Tensor, Dict[str, Any]]] = []
+        self._grad_acc: Params = {}    # stage 1: whole fp32 grads until the boundary
+        self._staged: List[Tuple[torch.Tensor, Dict[str, Any], Any]] = []
 
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
-        log_dist(f"engine ready: device={device} zero_stage="
-                 f"{config.zero_config.stage} dtype={config.compute_dtype} "
+        log_dist(f"engine ready: device={device} zero_stage={self.zero_stage} "
+                 f"dp={self.dp_world_size()} dtype={config.compute_dtype} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
-                 f"gas={self.gradient_accumulation_steps()}")
+                 f"gas={self.gradient_accumulation_steps()} "
+                 f"sharded leaves={len(self._sharded)}/{len(params)}")
+
+    def _init_masters(self, model: ModelSpec, generator: torch.Generator) -> Params:
+        """fp32 masters, this rank's shards of them from stage 1, drawn a leaf
+        at a time when the model has an ``init_fn``; also sets each master
+        leaf's sharded dim (``shard_dims``, None: whole)."""
+        mm = self.mesh_mgr
+        if model.params is not None:
+            shapes = {k: tuple(torch.as_tensor(p).shape) for k, p in model.params.items()}
+        elif model.init_fn is not None:
+            shapes = {k: tuple(t.shape) for k, t in on_device(model.init_fn, generator).items()}
+        else:
+            raise ValueError("ModelSpec needs params or init_fn")
+        axes = model.logical_axes or replicated_axes(shapes)
+        # with a process group, even of one rank, the stage shards over
+        # 'data' and runs its collectives; the masters' layout (sharded from
+        # stage 1) is also the grads' and, at stage 3, the params'
+        part = Partitioner(mm, self.zero_stage, keep_trivial=mm.device_mesh is not None)
+        self._axis = tuple(a for a in ZERO_AXES if mm.axis_size(a) > 1) or ("data",)
+        self.shard_dims = {k: shard_dim(s) for k, s in part.opt_state_specs(axes, shapes).items()}
+        self._sharded = frozenset(k for k, d in self.shard_dims.items() if d is not None)
+        n, index = mm.axis_size(self._axis), mm.axis_index(self._axis)
+        own = model.params is None   # drawn here: no caller holds these tensors
+
+        def keep(name: str, p) -> torch.Tensor:
+            p = torch.as_tensor(p).detach()
+            if not p.is_floating_point():
+                return p.to(self.device)
+            dim = self.shard_dims[name]
+            # a shard of a drawn leaf is copied, so the whole leaf is freed
+            p = shard(p, dim, index, n).to(device=self.device, dtype=self.precision.param_dtype,
+                                           copy=not own or dim is not None,
+                                           memory_format=torch.contiguous_format)
+            return p.requires_grad_()
+
+        if own:
+            return draw(model.init_fn, generator, keep)
+        return {k: keep(k, p) for k, p in model.params.items()}
 
     # ------------------------------------------------------------------ #
     # reference accessors
@@ -152,11 +226,24 @@ class DeepSpeedTPUEngine:
         return self.config.gradient_accumulation_steps
 
     def zero_optimization_stage(self) -> int:
-        return self.config.zero_config.stage
+        return self.zero_stage
+
+    def zero_optimization(self) -> bool:
+        return self.zero_stage > 0
+
+    def dp_world_size(self) -> int:
+        return self.mesh_mgr.dp_world_size
 
     @property
     def loss_scale(self) -> float:
         return float(self.state.loss_scale.scale)
+
+    def grad_accumulator(self) -> Params:
+        """The fp32 tensors this rank accumulates micro-batch grads in until
+        the GAS boundary: whole leaves at stages 0 and 1, shards at 2 and 3."""
+        if self.zero_stage == 1:
+            return dict(self._grad_acc)
+        return {k: p.grad for k, p in self.state.params.items() if p.grad is not None}
 
     # ------------------------------------------------------------------ #
     # the step
@@ -165,40 +252,137 @@ class DeepSpeedTPUEngine:
         return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
                 .to(self.device) for k, v in batch.items()}
 
+    def _rank_rows(self, micro: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global micro-batch (JAX ``_shard_batch``)."""
+        dp = self.mesh_mgr.dp_world_size
+        if dp == 1:
+            return micro
+        b = next(iter(micro.values())).shape[0]
+        if b % dp:
+            raise ValueError(f"micro-batch dim {b} not divisible by dp={dp}")
+        r, m = self.mesh_mgr.axis_index(BATCH_AXES), b // dp
+        return {k: v[r * m:(r + 1) * m] for k, v in micro.items()}
+
+    def _compute_params(self):
+        """The compute-dtype params the model reads in one micro-batch."""
+        params, dtype = self.state.params, self.precision.compute_dtype
+        if self.zero_stage == 0:
+            return self.precision.cast_to_compute(params)
+        if self.zero_stage == 3:
+            return GatherOnUse(params, self.shard_dims, self._axis, self.mesh_mgr, dtype)
+        with torch.no_grad():   # stages 1-2: whole leaves whose grads _reduce_micro takes
+            return {k: unshard(p.to(dtype), self.shard_dims[k], self._axis, self.mesh_mgr)
+                    .detach().requires_grad_() if p.is_floating_point() else p
+                    for k, p in params.items()}
+
+    def _rank_weight(self, aux: Dict[str, Any]):
+        """This rank's weight in the global micro-batch loss: ``n_r / N``
+        with the valid-token counts of ``aux["ntokens"]``, else ``1 / dp``."""
+        n = aux.get("ntokens") if isinstance(aux, dict) else None
+        if n is None:
+            return 1.0 / self.mesh_mgr.dp_world_size
+        n = torch.as_tensor(n, device=self.device)
+        total = comm.all_reduce(n.to(torch.int64), self._axis, mesh=self.mesh_mgr)
+        return n.float() / total.clamp(min=1).float()
+
     def _grads_one_micro(self, batch: Dict[str, torch.Tensor]
-                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Forward and backward of one micro-batch: the grads of the scaled
-        loss ADD into the masters' ``.grad``; returns the unscaled loss."""
-        compute = self.precision.cast_to_compute(self.state.params)
+                         ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
+        """Forward and backward of this rank's rows of one micro-batch: the
+        grads of the scaled, weighted loss ADD into the stage's accumulator.
+        Returns (this rank's weighted loss, its aux, its weight)."""
+        compute = self._compute_params()
         out = self.model.loss_fn(compute, batch)
         loss, aux = out if isinstance(out, tuple) else (out, {})
-        loss = loss.float()
+        weight = self._rank_weight(aux)
+        loss = loss.float() * weight
         scale_loss(loss, self.state.loss_scale).backward()
-        return loss.detach(), aux
+        if self.zero_stage in (1, 2):
+            self._reduce_micro(compute)
+        return loss.detach(), aux, weight
+
+    def _reduce_micro(self, compute: Params) -> None:
+        """Stages 1-2: move the whole compute leaves' grads, in fp32, into the
+        accumulator: whole (stage 1) or reduce-scattered (stage 2)."""
+        masters = self.state.params
+        for k, c in compute.items():
+            if not c.is_floating_point() or c.grad is None:
+                continue
+            g = c.grad.float()
+            if self.zero_stage == 1:
+                acc = self._grad_acc.get(k)
+                self._grad_acc[k] = g if acc is None else acc.add_(g)
+                continue
+            dim = self.shard_dims[k]
+            g = (comm.all_reduce(g, self._axis, mesh=self.mesh_mgr) if dim is None else
+                 comm.reduce_scatter(g, self._axis, scatter_axis=dim, mesh=self.mesh_mgr))
+            m = masters[k]
+            m.grad = g if m.grad is None else m.grad.add_(g)
+
+    def _reduce_boundary(self) -> None:
+        """At the GAS boundary: stage 0 all-reduces the whole grads, stage 1
+        all-reduces its accumulator and keeps this rank's shard of it."""
+        masters, mm, axis = self.state.params, self.mesh_mgr, self._axis
+        if self.zero_stage == 0:
+            for p in masters.values():
+                if p.grad is not None:
+                    p.grad = comm.all_reduce(p.grad, axis, mesh=mm)
+        elif self.zero_stage == 1:
+            n, index = mm.axis_size(axis), mm.axis_index(axis)
+            for k, acc in self._grad_acc.items():
+                masters[k].grad = shard(comm.all_reduce(acc, axis, mesh=mm),
+                                        self.shard_dims[k], index, n)
+            self._grad_acc = {}
 
     def _zero_grads(self) -> None:
         for p in self.state.params.values():
             p.grad = None
+        self._grad_acc = {}
 
     def _grads(self) -> Params:
         params = self.state.params
         return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                 for k, p in params.items() if p.requires_grad}
 
+    def _global_loss(self, losses: List[torch.Tensor]) -> torch.Tensor:
+        """Mean over micro-batches of the ranks' weighted losses summed."""
+        return comm.all_reduce(torch.stack(losses), self._axis, mesh=self.mesh_mgr).mean()
+
+    def _reduce_aux(self, auxes: List[Dict[str, Any]], weights: List[Any]) -> Dict[str, Any]:
+        """Aux over ranks (floats weighted as the loss, counts summed), then
+        over micro-batches (floats the mean, counts the sum), as the JAX
+        engine reduces its aux."""
+        if not auxes or not auxes[0]:
+            return {}
+        w = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                         for x in weights])
+        out = {}
+        for k in auxes[0]:
+            vals = torch.stack([torch.as_tensor(a[k]) for a in auxes]).to(self.device)
+            if vals.is_floating_point():
+                vals = vals.float() * w.reshape((-1,) + (1,) * (vals.dim() - 1))
+                out[k] = comm.all_reduce(vals, self._axis, mesh=self.mesh_mgr).mean()
+            else:
+                out[k] = comm.all_reduce(vals, self._axis, mesh=self.mesh_mgr).sum()
+        return out
+
     def _apply_update(self, grads: Params, loss: torch.Tensor,
                       aux: Optional[Dict[str, Any]] = None) -> StepOutput:
         """JAX ``_apply_update``: grads are the mean micro-batch grads of the
-        scaled loss, modified in place here."""
+        scaled loss (this rank's shards from stage 1), modified in place."""
         cfg, state = self.config, self.state
-        finite = bool(grads_finite(grads.values()))
+        # from stage 1 each rank holds shards: flag and norm are agreed over data
+        axis = self._axis if self.zero_stage >= 1 else None
+        mm, sharded = self.mesh_mgr, self._sharded
+        finite = bool(grads_finite(grads.values(), axis, mm))
         inv = 1.0 / state.loss_scale.scale
         with torch.no_grad():
             for g in grads.values():
                 g.mul_(inv)
             if cfg.gradient_clipping and cfg.gradient_clipping > 0:
-                grads, grad_norm = clip_grad_norm_(grads, cfg.gradient_clipping)
+                grads, grad_norm = clip_grad_norm_(grads, cfg.gradient_clipping,
+                                                   sharded=sharded, axis=axis, mesh=mm)
             else:
-                grad_norm = global_norm(grads)
+                grad_norm = global_norm(grads, sharded, axis, mm)
         lr_t = float(self.lr_schedule(state.step))
         lr_scale = lr_t / self.base_lr
         params, opt_state = state.params, state.opt_state
@@ -215,33 +399,38 @@ class DeepSpeedTPUEngine:
                           aux={} if aux is None else aux)
 
     def _split_micro(self, batch) -> List[Dict[str, torch.Tensor]]:
+        """This rank's rows of each of the ``gas`` micro-batches."""
         gas = self.gradient_accumulation_steps()
         batch = self._to_device(batch)
         b = next(iter(batch.values())).shape[0]
         if b % gas:
             raise ValueError(f"batch dim {b} not divisible by gas={gas}")
-        return [{k: v[i * (b // gas):(i + 1) * (b // gas)] for k, v in batch.items()}
-                for i in range(gas)]
+        return [self._rank_rows({k: v[i * (b // gas):(i + 1) * (b // gas)]
+                                 for k, v in batch.items()}) for i in range(gas)]
+
+    def _finish_step(self, staged) -> StepOutput:
+        """The GAS boundary: reduce, average over the staged micro-batches,
+        update."""
+        n = len(staged)
+        self._reduce_boundary()
+        grads = self._grads()
+        if n > 1:
+            with torch.no_grad():
+                for g in grads.values():
+                    g.div_(n)
+        losses, auxes, weights = zip(*staged)
+        out = self._apply_update(grads, self._global_loss(list(losses)),
+                                 self._reduce_aux(list(auxes), list(weights)))
+        self.global_steps += 1
+        self.lr_scheduler.last_step = self.global_steps
+        return out
 
     def train_batch(self, batch) -> StepOutput:
         """One optimizer step from one global batch (all GAS micro-batches
-        stacked in the leading dim)."""
+        stacked in the leading dim, every rank given the same batch)."""
         self._zero_grads()
-        losses, auxes = [], []
-        for micro in self._split_micro(batch):
-            loss, aux = self._grads_one_micro(micro)
-            losses.append(loss)
-            auxes.append(aux)
-        gas = len(losses)
-        grads = self._grads()
-        if gas > 1:
-            with torch.no_grad():
-                for g in grads.values():
-                    g.div_(gas)
-        out = self._apply_update(grads, torch.stack(losses).mean(),
-                                 _mean_aux(auxes))
-        self.global_steps += 1
-        self.lr_scheduler.last_step = self.global_steps
+        staged = [self._grads_one_micro(micro) for micro in self._split_micro(batch)]
+        out = self._finish_step(staged)
         if self.config.steps_per_print and \
                 self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps} loss={float(out.loss):.4f} "
@@ -253,13 +442,14 @@ class DeepSpeedTPUEngine:
     # forward/backward/step (DeepSpeedEngine API parity)
     # ------------------------------------------------------------------ #
     def forward(self, batch) -> torch.Tensor:
-        """Loss and grads of one micro-batch (the JAX engine computes them
-        together); the grads are staged for :meth:`backward`."""
+        """Loss and grads of one global micro-batch (the JAX engine computes
+        them together); the grads are staged for :meth:`step`. Returns the
+        global loss."""
         if not self._staged:
             self._zero_grads()
-        loss, aux = self._grads_one_micro(self._to_device(batch))
-        self._staged.append((loss, aux))
-        return loss
+        staged = self._grads_one_micro(self._rank_rows(self._to_device(batch)))
+        self._staged.append(staged)
+        return comm.all_reduce(staged[0], self._axis, mesh=self.mesh_mgr)
 
     def backward(self, loss=None) -> torch.Tensor:
         """A no-op returning the staged loss: :meth:`forward` already
@@ -273,33 +463,13 @@ class DeepSpeedTPUEngine:
         """Apply the optimizer step at the GAS boundary (no-op otherwise)."""
         if not self.is_gradient_accumulation_boundary():
             return None
-        n = len(self._staged)
-        grads = self._grads()
-        with torch.no_grad():
-            for g in grads.values():
-                g.div_(n)
-        loss = torch.stack([l for l, _ in self._staged]).mean()
-        out = self._apply_update(grads, loss, _mean_aux([a for _, a in self._staged]))
+        out = self._finish_step(self._staged)
         self._staged.clear()
-        self.global_steps += 1
-        self.lr_scheduler.last_step = self.global_steps
         return out
 
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None):
         return DeepSpeedTPUDataLoader(dataset,
                                       batch_size=batch_size or self.train_batch_size())
-
-
-def _mean_aux(auxes: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Mean over micro-batches for floating values, sum otherwise (token
-    counts), as the JAX engine reduces its aux."""
-    if not auxes or not auxes[0]:
-        return {}
-    out = {}
-    for k in auxes[0]:
-        vals = torch.stack([torch.as_tensor(a[k]) for a in auxes])
-        out[k] = vals.float().mean() if vals.is_floating_point() else vals.sum()
-    return out
 
 
 def check_compute_dtype(compute_dtype: Optional[torch.dtype],
@@ -315,16 +485,30 @@ def check_compute_dtype(compute_dtype: Optional[torch.dtype],
             "path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
 
 
+def _training_mesh(cfg: DeepSpeedTPUConfig, world: int) -> MeshManager:
+    """The ``data`` mesh over the process group (the installed one when its
+    sizes match), or one of sizes alone in a single process without one."""
+    sizes = cfg.mesh.axis_sizes(world)
+    if not dist.is_initialized():
+        return MeshManager.from_sizes(sizes)
+    mm = get_mesh()
+    full = MeshManager.from_sizes(sizes).sizes
+    return mm if mm.sizes == full and mm.device_mesh is not None else init_mesh(sizes)
+
+
 def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
                model_parameters=None, training_data=None, lr_scheduler=None,
                config=None, config_params=None, device="cuda",
-               generator: Optional[torch.Generator] = None, **kwargs):
+               generator: Optional[torch.Generator] = None,
+               mesh_mgr: Optional[MeshManager] = None, **kwargs):
     """Returns ``(engine, optimizer, training_dataloader, lr_scheduler)`` —
     the reference's 4-tuple. Runs on the GPU unless ``device="cpu"``; raises
     ``RuntimeError`` when no GPU is present, and ``NotImplementedError``
-    for config blocks the port does not implement yet, a distributed
-    world size above 1, or a model that computes in fp16 on the GPU
-    (:func:`check_compute_dtype`)."""
+    for config blocks the port does not implement yet or a model that
+    computes in fp16 on the GPU (:func:`check_compute_dtype`). Over a
+    process group (``comm.init_distributed``) the engine is data parallel
+    over every rank; its mesh is ``mesh_mgr`` or a ``data`` mesh over the
+    group."""
     if config is None:
         config = config_params
     if config is None and args is not None:
@@ -332,13 +516,14 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
     if not isinstance(model, ModelSpec):
         raise TypeError(f"model must be a ModelSpec, got {type(model)}")
     device = resolve_device(device)
-    world = 1
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        world = torch.distributed.get_world_size()
+    world = comm.get_world_size()
+    if dist.is_initialized() and dist.get_backend() == "nccl" and device.type != "cuda":
+        raise ValueError("an NCCL process group needs device='cuda'")
     cfg = parse_config(config, world_size=world)
     check_ported(cfg, world_size=world)
     check_compute_dtype(model.compute_dtype, device)
     engine = DeepSpeedTPUEngine(model=model, config=cfg, device=device,
                                 optimizer=optimizer, lr_schedule=lr_scheduler,
-                                training_data=training_data, generator=generator)
+                                training_data=training_data, generator=generator,
+                                mesh_mgr=mesh_mgr or _training_mesh(cfg, world))
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler

@@ -1,6 +1,6 @@
 """Mixed precision: dtype policy and dynamic loss scaling — counterpart of
 ``deepspeed_tpu/runtime/precision.py`` (``PrecisionPolicy`` :26,
-``LossScaleState`` :48 … ``update_loss_scale`` :94).
+``LossScaleState`` :48 … ``update_loss_scale`` :94, ``grads_finite`` :79).
 
 The scaler is a small state of 0-d tensors updated by plain tensor functions,
 as in the JAX package: with fp16 the scale halves on overflow (not below
@@ -11,9 +11,12 @@ bf16 or fp32 it is pinned to 1 and never changes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, NamedTuple
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
+
+from ..comm import comm
+from ..comm.mesh import AxisName, MeshManager
 
 
 @dataclass(frozen=True)
@@ -76,12 +79,18 @@ def scale_loss(loss: torch.Tensor, state: LossScaleState) -> torch.Tensor:
     return loss * state.scale.to(loss.dtype)
 
 
-def grads_finite(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """0-d bool: every element of every grad is finite."""
+def grads_finite(grads: Iterable[torch.Tensor], axis: Optional[AxisName] = None,
+                 mesh: Optional[MeshManager] = None) -> torch.Tensor:
+    """0-d bool: every element of every grad is finite — on every rank of
+    ``axis`` when it is given (each rank holding its shards of the grads),
+    else on this rank."""
     flags = [torch.isfinite(g).all() for g in grads]
     if not flags:
         return torch.tensor(True)
-    return torch.stack(flags).all()
+    finite = torch.stack(flags).all()
+    if axis is not None:
+        finite = comm.all_reduce(finite.to(torch.int32), axis, "min", mesh=mesh).bool()
+    return finite
 
 
 def update_loss_scale(state: LossScaleState, finite: torch.Tensor) -> LossScaleState:

@@ -141,7 +141,10 @@ def test_new_modules_are_covered_by_the_import_checks():
                  "deepspeed_tpu_torch.inference.serving.router",
                  "deepspeed_tpu_torch.inference.serving.fleet",
                  "deepspeed_tpu_torch.inference.serving.disagg",
-                 "deepspeed_tpu_torch.inference.serving.workload"):
+                 "deepspeed_tpu_torch.inference.serving.workload",
+                 "deepspeed_tpu_torch.comm", "deepspeed_tpu_torch.comm.comm",
+                 "deepspeed_tpu_torch.comm.mesh", "deepspeed_tpu_torch.runtime.partitioning",
+                 "deepspeed_tpu_torch.runtime.zero_init"):
         assert name in mods
     # the module system resolves on CPU tensors without building anything
     norm = modules.registry.instantiate("norm", modules.NormConfig(kind="layer"))
@@ -231,3 +234,35 @@ def test_bloom_evoformer_and_blocksparse_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         blocksparse_attention(q, q, q, lay, 16)
     assert blocksparse_attention(q, q, q, lay, 16, use_kernel=False).shape == q.shape
+
+
+def test_init_distributed_defaults_to_nccl_and_gloo_only_when_asked():
+    """``comm.init_distributed()`` takes NCCL on the card and raises without
+    a GPU instead of falling back; ``dist_backend="gloo"`` runs on the CPU
+    (a one-rank group on a free local port). In a subprocess, so no process
+    group outlives the check."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    code = ("import torch.distributed as dist\n"
+            "from deepspeed_tpu_torch import comm\n"
+            "try:\n"
+            "    comm.init_distributed()\n"
+            "    raise SystemExit('nccl on a box without a GPU did not raise')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'gloo' in str(e) and not dist.is_initialized(), e\n"
+            "comm.init_distributed(dist_backend='gloo')\n"
+            "assert dist.get_backend() == 'gloo' and comm.get_world_size() == 1\n"
+            "mm = comm.get_mesh()\n"
+            "assert mm.device_mesh is not None and mm.dp_world_size == 1\n"
+            "import torch\n"
+            "assert comm.all_reduce(torch.ones(2), 'data').tolist() == [1.0, 1.0]\n"
+            "assert comm.counts.snapshot() == {'all_reduce_sum': {'count': 1, 'bytes': 8}}\n"
+            "dist.destroy_process_group()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "DSTPU_COORDINATOR",
+                "DSTPU_NUM_PROCESSES", "DSTPU_PROCESS_ID"):
+        env.pop(var, None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

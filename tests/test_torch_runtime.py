@@ -128,11 +128,29 @@ def test_initialize_refuses_unported_blocks(block):
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_zero_stages_accepted_at_world_size_one(stage):
+    """Every ZeRO stage builds at world size 1, and a world size of 2, all
+    of it on the ``data`` axis, is accepted too (data parallelism is
+    ported; the multi-rank arithmetic is held to JAX in
+    ``test_torch_zero_stages.py``)."""
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=_spec(), config={"zero_optimization": {"stage": stage}}, device="cpu")
-    assert eng.zero_optimization_stage() == stage
-    with pytest.raises(NotImplementedError, match="world size 2"):
-        tcfg.check_ported(eng.config, world_size=2)
+    assert eng.zero_optimization_stage() == stage and eng.dp_world_size() == 1
+    assert eng.zero_optimization() == (stage > 0)
+    conf = {"train_batch_size": 4, "zero_optimization": {"stage": stage}}
+    cfg = tcfg.parse_config(conf, world_size=2)
+    tcfg.check_ported(cfg, world_size=2)
+    assert cfg.train_micro_batch_size_per_gpu == 2 and cfg.mesh.axis_sizes(2)["data"] == 2
+
+
+@pytest.mark.parametrize("block", [
+    {"mesh": {"tensor": 2}}, {"mesh": {"pipe": 2}}, {"mesh": {"seq": 2}},
+    {"mesh": {"expert": 2}}, {"zero_optimization": {"zero_hpz_partition_size": 2}},
+    {"zero_optimization": {"mics_shard_size": 2}},
+])
+def test_world_size_two_refuses_axes_other_than_data(block):
+    cfg = tcfg.parse_config(block, world_size=2, resolve_batch=False)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tcfg.check_ported(cfg, world_size=2)
 
 
 def test_initialize_runs_on_the_gpu_by_default(monkeypatch):
