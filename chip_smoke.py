@@ -279,6 +279,28 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    [4096 x 4096] grad dropped, stage 2) must fail the check. Prints step
    ms, peak GiB, the idle share of a profiled step and the collectives a
    step (count and bytes by op, from ``comm.counts``) for each stage.
+19. Training checkpoints (``phase_checkpoint``): first the machine under
+   ``build/`` (free disk, an fsync'd write and a warm read of 2 GiB, free
+   host RAM; too little disk for the phase's three tags fails it), then
+   phase 18's configuration at ``CKPT_LAYERS`` layer(s) at ZeRO-3 over a
+   real NCCL group of world size 1. (a) ``CKPT_STEPS`` steps, a regular
+   (``default`` engine) and a universal tag, ``CKPT_STEPS`` more steps: the
+   uninterrupted run. (b) An engine drawn from another seed loads the
+   regular tag and (c) another the universal tag: the state at the load,
+   the losses and grad norms of the same steps and the masters and moments
+   after them must equal (a)'s bit for bit, the flash forward / dQ / dK-dV
+   and RMSNorm launches phase 18's counts a step, the steady step ms within
+   ``CKPT_STEP_TOL`` of (a)'s, and the peak device memory during a load at
+   most its level before plus the largest leaf. (d) The async engine saves,
+   a ``train_batch`` runs before the write is durable, ``commit``; the tag
+   loads back to the state at the save bit for bit. (e) Planted faults: the
+   async tag's state file truncated (``faults.corrupt_file``) — the load
+   walks back to the regular tag, and with that gone the truncated tag
+   named explicitly raises ``RuntimeError``; one bit of one ``nu`` element
+   flipped after a load — the continuation differs. Prints GB written,
+   save s and GB/s, manifest (sha256) s, load s, async blocking against
+   durable s, device GiB before, at peak and after each load, and step ms
+   before and after the resume. The phase removes its directory at its end.
 
 The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
 launches on the main paths, times, bound, max error); the last line is
@@ -294,6 +316,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2069,6 +2092,275 @@ def phase_zero(seed: int, card: str) -> dict:
     return {"stages": res, "fault_rel_err": f_err, "zero_init_equal": same,
             "launches": {k: sum(r["launches"][k] for r in res.values()) for k in kernels},
             "phase_s": time.perf_counter() - t_phase}
+
+
+CKPT_LAYERS = 1            # Llama-3-8B width at 1 layer (PERF.md section 4: the depth and why)
+CKPT_STEPS = 3             # steps before the save, and after each resume
+CKPT_TIMED = 4             # more steps timed after each resume (steady ms: the median)
+CKPT_STEP_TOL = 0.03       # a resumed step's ms against the step before the save
+CKPT_DIR = REPO / "build" / "ckpt_smoke"
+
+
+def machine_io(root: Path, probe_gib: int = 2) -> dict:
+    """Free disk under ``root``, a write (fsync'd) and a read of a
+    ``probe_gib`` GiB file there, and the host's free RAM. The read comes
+    from the page cache the write filled: a warm read."""
+    import shutil
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    block = np.random.default_rng(0).integers(0, 255, 64 << 20, dtype=np.uint8).tobytes()
+    probe = root / "io_probe.bin"
+    t0 = time.perf_counter()
+    with open(probe, "wb") as f:
+        for _ in range(probe_gib * 16):
+            f.write(block)
+        f.flush()
+        os.fsync(f.fileno())
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(probe, "rb") as f:
+        while f.read(64 << 20):
+            pass
+    read_s = time.perf_counter() - t0
+    probe.unlink()
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            mem[k] = int(v.split()[0]) * 1024
+    gib = probe_gib * 2**30
+    return {"free_disk_bytes": free, "write_gb_s": gib / write_s / 1e9,
+            "read_warm_gb_s": gib / read_s / 1e9, "ram_available_bytes": mem["MemAvailable"],
+            "ram_total_bytes": mem["MemTotal"]}
+
+
+def state_digests(eng) -> dict:
+    """The int64 sum of each master's and moment's bits (as int32): equal
+    for equal states, changed by any one flipped bit."""
+    import torch
+
+    st = eng.state
+    out = {}
+    for group, tensors in (("params", st.params), ("mu", st.opt_state.mu),
+                           ("nu", st.opt_state.nu)):
+        for k, t in tensors.items():
+            out[f"{group}/{k}"] = int(t.detach().view(torch.int32).sum(dtype=torch.int64))
+    return out
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, into: list):
+    """Record the seconds of each call of ``module.name``."""
+    sound = getattr(module, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return sound(*a, **kw)
+        finally:
+            into.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield into
+    finally:
+        setattr(module, name, sound)
+
+
+def phase_checkpoint(seed: int, card: str, layers: int = CKPT_LAYERS) -> dict:
+    """Training checkpoints at Llama-3-8B width through a real NCCL group of
+    world size 1 at ZeRO stage 3 (see the module docstring)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda,
+                                                         flash_bwd_dq_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+    from deepspeed_tpu_torch.runtime.checkpoint import saver as saver_mod
+    from deepspeed_tpu_torch.runtime.checkpoint import universal as universal_mod
+    from deepspeed_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=layers)
+    io = machine_io(CKPT_DIR)
+    state_bytes = cfg.num_params * 12            # fp32 masters, mu, nu
+    need = 3 * state_bytes + (8 << 30)           # regular, universal, async tags
+    log(f"  machine: {io['free_disk_bytes'] / 1e9:.1f} GB free under build/, write "
+        f"{io['write_gb_s']:.2f} GB/s (fsync'd), read {io['read_warm_gb_s']:.2f} GB/s "
+        f"(warm), host RAM {io['ram_available_bytes'] / 2**30:.1f} of "
+        f"{io['ram_total_bytes'] / 2**30:.1f} GiB available; a tag of {layers} layer(s) "
+        f"{state_bytes / 1e9:.2f} GB, the phase needs {need / 1e9:.1f} GB [{card}]")
+    if io["free_disk_bytes"] < need:
+        raise RuntimeError(f"phase 19 needs {need / 1e9:.1f} GB of disk under {CKPT_DIR}, "
+                           f"{io['free_disk_bytes'] / 1e9:.1f} GB free")
+    reg, uni = str(CKPT_DIR / "regular"), str(CKPT_DIR / "universal")
+    kernels = {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda}
+    # phase 18's counts a step (2 micro-batches)
+    per_step = {k: (2 * layers + 1) * 2 if k == "rms_norm" else layers * 2 for k in kernels}
+    rs = np.random.RandomState(seed + 19)
+    batches = [{"tokens": rs.randint(0, cfg.vocab_size, (2, 4096 + 1)).astype(np.int32)}
+               for _ in range(2 * CKPT_STEPS + 1)]
+    largest = max(int(np.prod(s)) for s, _ in llama.param_shapes(cfg).values()) * 4
+    res = {"layers": layers, "params": cfg.num_params, "machine": io,
+           "largest_leaf_bytes": largest}
+
+    def engine(seed_, ckpt_engine="default"):
+        conf = _train_config(seed_, 2, True)
+        conf["zero_optimization"] = {"stage": 3}
+        conf["checkpoint"] = {"engine": ckpt_engine}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dst.initialize(model=llama.model_spec(cfg), config=conf)[0]
+
+    def steps(eng, bs, count=False):
+        for c in kernels.values():
+            c.launches = 0
+        out, step_s = [], []
+        for b in bs:
+            t0 = time.perf_counter()
+            o = eng.train_batch(b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            out.append((float(o.loss), float(o.grad_norm)))
+        launches = {k: c.launches for k, c in kernels.items()}
+        want = {k: n * len(bs) for k, n in per_step.items()}
+        if count and launches != want:
+            raise AssertionError(f"kernel launches {launches} != {want}")
+        return out, step_s, launches
+
+    def load(eng, fn, *a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        path, _ = fn(*a, **kw)
+        torch.cuda.synchronize()
+        r = {"path": path, "load_s": time.perf_counter() - t0,
+             "before_gib": before / 2**30, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "after_gib": torch.cuda.memory_allocated() / 2**30}
+        if r["peak_gib"] * 2**30 > before + largest:
+            raise AssertionError(f"peak device memory during the load {r['peak_gib']:.2f} GiB > "
+                                 f"{before / 2**30:.2f} before + the largest leaf "
+                                 f"{largest / 2**30:.2f}")
+        return r
+
+    def same(what, got, want):
+        if got != want:
+            raise AssertionError(f"{what}: the resumed run differs from the uninterrupted one")
+
+    comm.init_distributed()
+    try:
+        comm.init_mesh({"data": 1})
+        # (a) the uninterrupted run, both tags at step CKPT_STEPS
+        eng = engine(seed)
+        head, head_s, _ = steps(eng, batches[:CKPT_STEPS])
+        manifests = []
+        with timed_calls(saver_mod, "write_manifest", manifests):
+            t0 = time.perf_counter()
+            eng.save_checkpoint(reg, tag="s3")
+            save_reg_s = time.perf_counter() - t0
+        with timed_calls(universal_mod, "write_manifest", manifests):
+            t0 = time.perf_counter()
+            eng.save_universal_checkpoint(uni, tag="u3")
+            save_uni_s = time.perf_counter() - t0
+        at_save = state_digests(eng)
+        ref, ref_s, _ = steps(eng, batches[CKPT_STEPS:2 * CKPT_STEPS], count=True)
+        ref_digests = state_digests(eng)
+        del eng
+        tag_bytes = {name: sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                               os.walk(os.path.join(root, tag)) for f in fs)
+                     for name, root, tag in (("regular", reg, "s3"), ("universal", uni, "u3"))}
+        step_ms = float(np.median(head_s[1:] + ref_s)) * 1e3
+        res["a"] = {"losses": [r[0] for r in head + ref], "grad_norms": [r[1] for r in head + ref],
+                    "step_ms": step_ms, "step_s": head_s + ref_s, "tag_bytes": tag_bytes,
+                    "save_s": {"regular": save_reg_s, "universal": save_uni_s},
+                    "manifest_s": {"regular": manifests[0], "universal": manifests[1]}}
+        for name, s_ in (("regular", save_reg_s), ("universal", save_uni_s)):
+            log(f"  (a) {name} save at step {CKPT_STEPS}: {tag_bytes[name] / 1e9:.2f} GB in "
+                f"{s_:.1f} s ({tag_bytes[name] / s_ / 1e9:.2f} GB/s), manifest (sha256) "
+                f"{res['a']['manifest_s'][name]:.1f} s [{card}]")
+        log(f"  (a) uninterrupted: losses {['%.4f' % r[0] for r in head + ref]}, step "
+            f"{step_ms:.1f} ms [{card}]")
+
+        # (b), (c) resume each tag on an engine drawn from another seed
+        for key, fn_name, path in (("b", "load_checkpoint", reg), ("c", "load_universal_checkpoint", uni)):
+            eng = engine(seed + 1, ckpt_engine="async" if key == "c" else "default")
+            r = load(eng, getattr(eng, fn_name), path)
+            same(f"({key}) the state at load", state_digests(eng), at_save)
+            got, got_s, launches = steps(eng, batches[CKPT_STEPS:2 * CKPT_STEPS], count=True)
+            same(f"({key}) losses and grad norms", got, ref)
+            same(f"({key}) masters and moments after {CKPT_STEPS} steps", state_digests(eng),
+                 ref_digests)
+            _, more_s, _ = steps(eng, batches[CKPT_STEPS:CKPT_STEPS + CKPT_TIMED])
+            resumed_ms = float(np.median(got_s[1:] + more_s)) * 1e3
+            r.update(step_ms=resumed_ms, launches=launches, step_s=got_s + more_s,
+                     step_rel=resumed_ms / step_ms - 1)
+            if abs(r["step_rel"]) > CKPT_STEP_TOL:
+                raise AssertionError(f"({key}) resumed step {resumed_ms:.1f} ms against "
+                                     f"{step_ms:.1f} before the save")
+            res[key] = r
+            log(f"  ({key}) {fn_name}: {r['load_s']:.1f} s; device GiB before / peak / after "
+                f"{r['before_gib']:.2f} / {r['peak_gib']:.2f} / {r['after_gib']:.2f}; "
+                f"{CKPT_STEPS} steps bit for bit, launches {launches}, step {resumed_ms:.1f} ms "
+                f"({r['step_rel']:+.1%}) [{card}]")
+            if key == "b":
+                del eng
+
+        # (d) the async engine: train_batch before the write is durable
+        at_async = state_digests(eng)
+        t0 = time.perf_counter()
+        eng.save_checkpoint(reg, tag="async")
+        block_s = time.perf_counter() - t0
+        eng.train_batch(batches[-1])            # updates the saved tensors in place
+        eng.checkpoint_engine.commit("async")
+        durable_s = time.perf_counter() - t0
+        r = load(eng, eng.load_checkpoint, reg, tag="async")
+        same("(d) the async tag", state_digests(eng), at_async)
+        r.update(block_s=block_s, durable_s=durable_s)
+        res["d"] = r
+        log(f"  (d) async save: blocks {block_s:.1f} s, durable after {durable_s:.1f} s (a "
+            f"train_batch in between); loaded back bit for bit in {r['load_s']:.1f} s [{card}]")
+
+        # (e) planted faults: a truncated state file, then one flipped bit of nu
+        victim = faults.corrupt_file(os.path.join(reg, "async"), filename="state.r0.bin")
+        r = load(eng, eng.load_checkpoint, reg)
+        if not r["path"].endswith("s3"):
+            raise AssertionError(f"(e) the truncated tag was not walked back from: {r['path']}")
+        same("(e) the walked-back state", state_digests(eng), at_save)
+        nu = eng.state.opt_state.nu["layers.0.wq"]
+        with torch.no_grad():
+            nu.view(torch.int32).view(-1)[nu.numel() // 3] ^= 1 << 22   # a mantissa bit
+        flipped, _, _ = steps(eng, batches[CKPT_STEPS:2 * CKPT_STEPS])
+        flip_caught = state_digests(eng) != ref_digests
+        if not flip_caught:
+            raise AssertionError("(e) one flipped bit of nu left the continuation unchanged")
+        shutil.rmtree(os.path.join(reg, "s3"))
+        try:
+            eng.load_checkpoint(reg, tag="async")
+            raise AssertionError("(e) the truncated tag named explicitly loaded")
+        except RuntimeError as e:
+            explicit = str(e)
+        eng.destroy()
+        del eng
+        res["e"] = {"truncated": os.path.relpath(victim, CKPT_DIR), "walk_back": r,
+                    "flip_losses": [x[0] for x in flipped], "explicit_error": explicit}
+        log(f"  (e) truncated {res['e']['truncated']}: walked back to s3 in {r['load_s']:.1f} s; "
+            f"named explicitly: RuntimeError; one flipped nu bit: the continuation differs "
+            f"(losses {['%.4f' % x[0] for x in flipped]}) [{card}]")
+    finally:
+        comm.set_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    res["launches"] = {k: res["b"]["launches"][k] + res["c"]["launches"][k] for k in kernels}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
 
 
 @contextlib.contextmanager
@@ -5059,6 +5351,10 @@ def main() -> int:
         "Llama-3-8B width, 4 layers)")
     zero = phase_zero(SEED, card)
 
+    log(f"== phase 19: training checkpoints (NCCL, world size 1, ZeRO-3; Llama-3-8B width, "
+        f"{CKPT_LAYERS} layer(s): regular, universal and async tags, resumes, planted faults)")
+    ckpt = phase_checkpoint(SEED, card)
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
@@ -5066,6 +5362,7 @@ def main() -> int:
     rms_launches = {"serving": main_res["launches"]["rms_norm"],
                     "training": train["launches"]["rms_norm"],
                     "zero training (stages 0-3)": zero["launches"]["rms_norm"],
+                    "checkpoint resumes": ckpt["launches"]["rms_norm"],
                     "serving core (graph)": core_graph["rms_norm"],
                     "serving fleet": fleet_l["rms_norm"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
@@ -5112,10 +5409,11 @@ def main() -> int:
                       + ("flash_fwd_sm90.cu" if key == "fwd" else "flash_bwd_sm90.cu"),
             "replaces": line,
             "launches": (train["launches"][name] + opt_train["launches"][name]
-                         + zero["launches"][name]),
+                         + zero["launches"][name] + ckpt["launches"][name]),
             "launches_by_path": {"llama training": train["launches"][name],
                                  "opt training": opt_train["launches"][name],
-                                 "zero training (stages 0-3)": zero["launches"][name]},
+                                 "zero training (stages 0-3)": zero["launches"][name],
+                                 "checkpoint resumes": ckpt["launches"][name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5201,7 +5499,7 @@ def main() -> int:
               "main_path": main_res, "spec_serving": spec, "whole_path": whole,
               "whole_path_spec": whole_spec, "train": train,
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
-              "zero": zero,
+              "zero": zero, "checkpoint": ckpt,
               "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

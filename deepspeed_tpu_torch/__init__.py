@@ -23,7 +23,12 @@ Ported so far:
   (``comm.init_distributed``: NCCL on the card, gloo on the CPU when asked
   for) with ZeRO stages 0-3 over the ``data`` axis (``comm``: collectives
   by mesh axis name over a ``DeviceMesh``; ``runtime/partitioning.py``;
-  :data:`zero`: ``zero.Init``, ``GatheredParameters``);
+  :data:`zero`: ``zero.Init``, ``GatheredParameters``); training
+  checkpoints (``runtime/checkpoint/``: the two-phase commit, the
+  ``default`` / ``fast`` / ``async`` engines, a regular format any world
+  size and ZeRO stage resumes, universal fragments the JAX package reads
+  too, ``zero_to_fp32``) and the rest of the engine's API (``eval_batch``,
+  ``set_lr``, ``compile``, ``destroy``, the accessors);
 - the GPT-2/OPT family (``models/gpt.py``) through both entry points, with
   the LayerNorm kernel;
 - the inference module system (``inference/modules.py``), whose weight-only

@@ -230,6 +230,7 @@ def model_spec(cfg: BloomConfig, compute_dtype=torch.bfloat16):
                                               compute_dtype=compute_dtype),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
+        config=cfg,
     )
 
 

@@ -370,4 +370,5 @@ def model_spec(cfg: GPTConfig, compute_dtype=torch.bfloat16):
                                               compute_dtype=compute_dtype),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
+        config=cfg,
     )

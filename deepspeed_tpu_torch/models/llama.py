@@ -380,6 +380,7 @@ def model_spec(cfg: LlamaConfig, compute_dtype=torch.bfloat16):
                                               compute_dtype=compute_dtype),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
+        config=cfg,
     )
 
 

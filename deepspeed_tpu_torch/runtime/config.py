@@ -10,8 +10,7 @@ raise ``NotImplementedError`` when enabled, at ``initialize``
 (:func:`check_ported`): offload, pipeline, sequence parallelism and the
 ``sequence`` block, activation checkpointing, ``comms_overlap``, MoE, tensor
 parallelism, telemetry, profiler, tuning, watchdog, reliability, memory
-tiers, ``aio``, non-default checkpoint engines, ``param_groups``, ZeRO++ and
-MiCS. ZeRO stages 0-3 are accepted at world size 1, where a stage changes no
+tiers, ``aio``, ``param_groups``, ZeRO++ and MiCS. ZeRO stages 0-3 are accepted at world size 1, where a stage changes no
 arithmetic; a world size above 1 raises.
 """
 
@@ -858,7 +857,6 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
         "reliability.integrity": cfg.reliability.integrity.enabled,
         "memory.tiering": cfg.memory.tiering.enabled,
         "aio": "aio" in cfg.raw,
-        "checkpoint.engine": cfg.checkpoint.engine != "default",
         "wall_clock_breakdown": cfg.wall_clock_breakdown,
         "monitors": any(m.enabled for m in (cfg.tensorboard, cfg.wandb,
                                             cfg.comet, cfg.csv_monitor,

@@ -3,7 +3,9 @@
 ``StepOutput`` :105, ``_cast_gather`` :1020, ``_loss`` :1134,
 ``_grads_one_micro`` :1143, ``_accumulate`` :1258, ``_apply_update``
 :1604, ``_shard_batch`` :1790, ``train_batch`` :1838,
-``forward``/``backward``/``step`` :1906-1983, ``initialize`` :2170).
+``forward``/``backward``/``step`` :1906-1983, the accessors :898-993,
+``eval_batch`` :2014, ``compile`` :2035, ``no_sync`` :2071, the checkpoint
+methods :2093-2123, ``destroy`` :2140, ``initialize`` :2170).
 
 Same step semantics as the JAX engine:
 
@@ -58,16 +60,25 @@ its collectives through the backend.
 
 PyTorch runs eagerly, so the step is Python over autograd rather than one
 compiled program. The overflow check reads one boolean back to the host per
-step.
+step. :meth:`DeepSpeedTPUEngine.compile` builds every CUDA kernel the step
+launches, so the first ``train_batch`` pays no build.
+
+Checkpoints (``runtime/checkpoint/``): :meth:`save_checkpoint` /
+:meth:`load_checkpoint` write and read the port's regular format (any world
+size and ZeRO stage loads any other), :meth:`save_universal_checkpoint` /
+:meth:`load_universal_checkpoint` the fragments the JAX package reads too;
+``checkpoint.engine`` is ``default``, ``fast`` or ``async``. Loads copy into
+the engine's tensors in place.
 
 Not ported yet (their config blocks raise at :func:`initialize`, see
 ``runtime/config.py``): the tensor, pipe, seq and expert axes, MiCS / hpZ,
 offload and tiered memory, quantized ZeRO collectives, remat, comms overlap,
-MoE, telemetry, tuning, watchdog, integrity, checkpoints, curriculum.
+MoE, telemetry, tuning, watchdog, integrity, curriculum.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -79,10 +90,10 @@ from ..comm import comm
 from ..comm.mesh import BATCH_AXES, ZERO_AXES, MeshManager, get_mesh, init_mesh
 from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.device import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from .config import DeepSpeedTPUConfig, check_ported, parse_config
 from .dataloader import DeepSpeedTPUDataLoader
-from .lr_schedules import LRScheduler, Schedule, get_schedule
+from .lr_schedules import LRScheduler, Schedule, constant, get_schedule
 from .partitioning import (GatherOnUse, Partitioner, replicated_axes, shard, shard_dim,
                            unshard)
 from .precision import (LossScaleState, PrecisionPolicy, grads_finite,
@@ -110,6 +121,9 @@ class ModelSpec:
     # leaf name -> partitioning.LeafAxes (None: ZeRO shards each leaf's
     # largest divisible dim)
     logical_axes: Optional[Dict[str, Any]] = None
+    # the family's config (LlamaConfig, GPTConfig, BloomConfig): universal
+    # checkpoints then write the JAX tree's names and layout
+    config: Optional[Any] = None
 
 
 class TrainState(NamedTuple):
@@ -142,7 +156,13 @@ class DeepSpeedTPUEngine:
         self.config = config
         self.device = device
         self.global_steps = 0
+        self.micro_steps = 0       # micro-batches through backward() (JAX counts the same)
+        self.global_tokens = 0     # token count of every batch through train_batch
         self.training_dataloader = None
+        self.checkpoint_engine = None   # built at the first save or load
+        self.reliability_counts: Dict[str, int] = {}   # "Reliability/<event>" -> count
+        self._last_grad_norm = 0.0
+        self._is_compiled = False
         self.precision = PrecisionPolicy.from_config(config)
         self.mesh_mgr = mesh_mgr or MeshManager.from_sizes({"data": 1})
         self.zero_stage = config.zero_config.stage
@@ -237,6 +257,58 @@ class DeepSpeedTPUEngine:
     @property
     def loss_scale(self) -> float:
         return float(self.state.loss_scale.scale)
+
+    def get_lr(self) -> List[float]:
+        return [float(self.lr_schedule(self.global_steps))]
+
+    def get_global_grad_norm(self) -> float:
+        """The grad norm of the last optimizer step (after unscaling, before
+        clipping); 0.0 before the first."""
+        return float(self._last_grad_norm)
+
+    def get_batch_info(self) -> Tuple[int, int, int]:
+        """(train_batch_size, micro_batch_per_gpu, gradient_accumulation)."""
+        return (self.train_batch_size(), self.train_micro_batch_size_per_gpu(),
+                self.gradient_accumulation_steps())
+
+    @property
+    def global_samples(self) -> int:
+        return self.global_steps * self.train_batch_size()
+
+    def bfloat16_enabled(self) -> bool:
+        return self.config.bf16.enabled
+
+    def fp16_enabled(self) -> bool:
+        return self.config.fp16.enabled
+
+    def gradient_clipping_value(self) -> float:
+        return float(self.config.gradient_clipping or 0.0)
+
+    def steps_per_print(self) -> int:
+        return self.config.steps_per_print
+
+    def wall_clock_breakdown(self) -> bool:
+        return bool(self.config.wall_clock_breakdown)
+
+    @property
+    def module(self) -> ModelSpec:
+        """The user model (the reference returns the wrapped nn.Module)."""
+        return self.model
+
+    def set_lr(self, lr: float) -> None:
+        """Pin the LR to a constant from the next step on. ``base_lr`` stays
+        the optimizer's: the step scales the optimizer's own lr by
+        ``schedule(t) / base_lr``, so resetting it here would cancel the
+        scale and keep the old rate."""
+        self.lr_schedule = constant(float(lr))
+        self.lr_scheduler = LRScheduler(self.lr_schedule)
+
+    def get_mom(self) -> List[float]:
+        b = self.optimizer.hyperparams.get("betas", (0.9, 0.999))
+        return [float(b[0] if isinstance(b, (tuple, list)) else b)]
+
+    def mp_world_size(self) -> int:
+        return self.mesh_mgr.tp_world_size
 
     def grad_accumulator(self) -> Params:
         """The fp32 tensors this rank accumulates micro-batch grads in until
@@ -422,15 +494,20 @@ class DeepSpeedTPUEngine:
         out = self._apply_update(grads, self._global_loss(list(losses)),
                                  self._reduce_aux(list(auxes), list(weights)))
         self.global_steps += 1
-        self.lr_scheduler.last_step = self.global_steps
+        self._last_grad_norm = out.grad_norm
         return out
 
     def train_batch(self, batch) -> StepOutput:
         """One optimizer step from one global batch (all GAS micro-batches
         stacked in the leading dim, every rank given the same batch)."""
+        self.global_tokens += _count_batch_tokens(batch)
         self._zero_grads()
         staged = [self._grads_one_micro(micro) for micro in self._split_micro(batch)]
         out = self._finish_step(staged)
+        # train_batch alone moves the scheduler's counter, as in the JAX
+        # engine (its step() leaves it)
+        self.lr_scheduler.last_step = self.global_steps
+        self._is_compiled = True
         if self.config.steps_per_print and \
                 self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps} loss={float(out.loss):.4f} "
@@ -452,8 +529,10 @@ class DeepSpeedTPUEngine:
         return comm.all_reduce(staged[0], self._axis, mesh=self.mesh_mgr)
 
     def backward(self, loss=None) -> torch.Tensor:
-        """A no-op returning the staged loss: :meth:`forward` already
-        accumulated the micro-batch's grads."""
+        """Returns the staged loss: :meth:`forward` already accumulated the
+        micro-batch's grads. Counts the micro-step, as the JAX engine's
+        ``backward`` does."""
+        self.micro_steps += 1
         return self._staged[-1][0]
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -465,11 +544,118 @@ class DeepSpeedTPUEngine:
             return None
         out = self._finish_step(self._staged)
         self._staged.clear()
+        # commit any in-flight async checkpoint at the boundary (reference
+        # decoupled-engine commit, runtime/engine.py:2797)
+        ce = self.checkpoint_engine
+        if ce is not None and getattr(ce, "_pending", None):
+            ce.wait_all()
         return out
+
+    def reset_accumulation(self) -> None:
+        """Drop a partial gradient-accumulation window (the staged
+        micro-batches and their grads)."""
+        self._staged.clear()
+        self._zero_grads()
+
+    # ------------------------------------------------------------------ #
+    # eval / compile / no_sync
+    # ------------------------------------------------------------------ #
+    def eval_batch(self, batch) -> torch.Tensor:
+        """The loss of one global micro-batch, without grads: this rank's
+        rows through the model (stage 3 gathers each leaf as the model
+        reads it), weighted and summed over ranks as :meth:`forward`'s."""
+        with torch.no_grad():
+            micro = self._rank_rows(self._to_device(batch))
+            out = self.model.loss_fn(self._compute_params(), micro)
+            loss, aux = out if isinstance(out, tuple) else (out, {})
+            loss = loss.float() * self._rank_weight(aux)
+            return comm.all_reduce(loss, self._axis, mesh=self.mesh_mgr)
+
+    def __call__(self, batch) -> torch.Tensor:
+        return self.forward(batch)
+
+    def compile(self, example_batch=None, backend: Optional[str] = None,
+                **kw) -> "DeepSpeedTPUEngine":
+        """Build every CUDA kernel the step launches (``ops/_build.py``: one
+        ``nvcc`` a source, all at once), so the first ``train_batch`` pays
+        no build. The step stays eager: nothing is traced and
+        ``torch.compile`` is not called. On the CPU there is nothing to
+        build."""
+        if self.device.type == "cuda":
+            from ..ops import _build
+
+            _build.load()
+        self._is_compiled = True
+        return self
+
+    @property
+    def is_compiled(self) -> bool:
+        return self._is_compiled
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        """Reference ``no_sync`` disables the grad all-reduce between
+        accumulation steps; here the reduction already happens where the
+        stage needs it, so this is a no-op kept for API parity (as in the
+        JAX engine)."""
+        yield
+
+    # ------------------------------------------------------------------ #
+    # checkpoints (runtime/checkpoint/)
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None, **kw) -> str:
+        from .checkpoint.saver import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state or {})
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_universal: Optional[bool] = None, **kw):
+        from .checkpoint.saver import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag, load_universal=load_universal)
+
+    def save_universal_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                                  client_state: Optional[dict] = None,
+                                  reason: Optional[str] = None) -> str:
+        from .checkpoint.universal import save_universal_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state, reason=reason)
+
+    def load_universal_checkpoint(self, load_dir: str, tag: Optional[str] = None):
+        from .checkpoint.universal import load_universal_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag)
+
+    def destroy(self) -> None:
+        """Drain pending async checkpoint writes, so process exit cannot
+        truncate an in-flight save. A failed background save is logged and
+        raised: it was never published, and ``latest`` still names the
+        previous good tag. Safe to call more than once."""
+        ce = self.checkpoint_engine
+        if ce is None:
+            return
+        try:
+            ce.wait_all()
+        except Exception as e:
+            logger.error(f"async checkpoint write failed during shutdown: {e}")
+            raise
 
     def deepspeed_io(self, dataset, batch_size: Optional[int] = None):
         return DeepSpeedTPUDataLoader(dataset,
                                       batch_size=batch_size or self.train_batch_size())
+
+
+def _count_batch_tokens(batch) -> int:
+    """Tokens in one global batch: the size of its ``tokens`` leaf, else
+    the leading dim of its first leaf (JAX ``_count_batch_tokens``)."""
+    if isinstance(batch, dict) and "tokens" in batch:
+        return int(np.prod(np.shape(batch["tokens"])))
+    leaves = list(batch.values()) if isinstance(batch, dict) else [batch]
+    if leaves:
+        shape = np.shape(leaves[0])
+        return int(shape[0]) if shape else 1
+    return 0
 
 
 def check_compute_dtype(compute_dtype: Optional[torch.dtype],

@@ -14,13 +14,29 @@
   under seeded randomized crash/hang injection and returns every handle so
   the caller can assert zero lost requests and token-exact failover.
 
-The checkpoint, preemption, host-loss, non-finite and bit-flip injectors of
-the JAX module wait for the port's checkpointing and integrity planes.
+The checkpoint injectors, copied too, attack the two-phase commit of
+``runtime/checkpoint/`` (each patches one checkpoint engine's or the
+fragment writer's ``save`` and restores it on exit, through
+:func:`patch_attr`):
+
+- :class:`SimulatedCrash` — process death (a ``BaseException`` no retry
+  loop swallows);
+- :func:`io_errors` — the first ``fail_times`` calls raise ``OSError``;
+- :func:`crash_after_save` — the write lands, then the process dies before
+  the commit;
+- :func:`truncated_write` — the write lands torn, then the process dies;
+- :func:`corrupt_file` / :func:`corrupt_fragment` — a committed tag's file
+  truncated afterwards;
+- :func:`write_delay` — every save stalls (inside the async writer thread).
+
+The preemption, host-loss, non-finite and bit-flip injectors of the JAX
+module wait for the port's reliability and integrity planes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Iterator, Optional
 
@@ -196,3 +212,188 @@ def chaos_soak(router, requests, seed: int = 0, submits_per_step: int = 2,
         router.step()
         extra += 1
     return {"handles": handles, "faults": faults, "steps": steps + extra}
+
+
+# --------------------------------------------------------------------------- #
+# checkpoint faults
+# --------------------------------------------------------------------------- #
+class SimulatedCrash(BaseException):
+    """Emulates sudden process death mid-operation. Deliberately a
+    ``BaseException``: no retry loop or ``except Exception`` recovery path
+    may swallow it — exactly like a real SIGKILL."""
+
+
+def _dump_flight_recorders(reason: str) -> None:
+    """Injected crashes dump every live flight recorder before the process
+    'dies' — the same trace artifact a real crash leaves behind (see
+    ``telemetry/trace.py``). Best-effort: tracing must never change what a
+    fault test observes."""
+    try:
+        from ..telemetry.trace import dump_all
+
+        dump_all(reason)
+    except Exception:
+        pass
+
+
+def _save_host(ce):
+    """The object whose ``save`` actually touches disk: the inner engine for
+    the decoupled/async wrapper, the engine itself otherwise."""
+    return getattr(ce, "inner", None) or ce
+
+
+_MISSING = object()
+
+
+def patch_attr(obj, name: str, replacement):
+    """Install ``obj.name = replacement`` and return an ``undo()`` that
+    restores the EXACT prior state: when the original lived on the class
+    (the usual bound-method case) the shadowing instance attribute is
+    removed again, instead of pinning a stale bound method onto the
+    instance forever. Every injector here unwinds through this, so a test
+    that raises mid-fault leaves the patched object indistinguishable from
+    one that was never touched (the regression tests in
+    ``tests/test_torch_checkpoint_faults.py`` assert exactly that)."""
+    prior = obj.__dict__.get(name, _MISSING) if hasattr(obj, "__dict__") \
+        else getattr(obj, name, _MISSING)
+    setattr(obj, name, replacement)
+
+    def undo():
+        if prior is _MISSING:
+            try:
+                delattr(obj, name)
+            except AttributeError:
+                pass
+        else:
+            setattr(obj, name, prior)
+
+    return undo
+
+
+@contextlib.contextmanager
+def io_errors(ce, fail_times: int = 1, op: str = "save",
+              exc_factory=None) -> Iterator[dict]:
+    """First ``fail_times`` calls of ``ce.<op>`` raise ``OSError``; later
+    calls pass through. Yields a dict with ``calls``/``failures`` counters
+    so tests can assert the retry policy's exact behavior."""
+    target = getattr(ce, op)
+    state = {"calls": 0, "failures": 0}
+
+    def flaky(*args, **kwargs):
+        state["calls"] += 1
+        if state["failures"] < fail_times:
+            state["failures"] += 1
+            raise (exc_factory() if exc_factory is not None
+                   else OSError(f"injected transient I/O error "
+                                f"#{state['failures']}"))
+        return target(*args, **kwargs)
+
+    undo = patch_attr(ce, op, flaky)
+    try:
+        yield state
+    finally:
+        undo()
+
+
+@contextlib.contextmanager
+def crash_after_save(ce) -> Iterator[None]:
+    """The state write completes, then :class:`SimulatedCrash` — the process
+    dies BETWEEN save and commit. ``on_durable`` (the saver's
+    manifest/publish/latest phase) is never invoked, so a crash-consistent
+    saver must leave ``latest`` on the previous good tag."""
+    orig = ce.save
+
+    def dying(tree, path, on_durable=None, **kw):
+        orig(tree, path, **kw)
+        _dump_flight_recorders("fault_crash_after_save")
+        raise SimulatedCrash(f"simulated crash after write of {path}")
+
+    undo = patch_attr(ce, "save", dying)
+    try:
+        yield
+    finally:
+        undo()
+
+
+@contextlib.contextmanager
+def truncated_write(ce, keep_bytes: int = 64,
+                    filename: Optional[str] = None) -> Iterator[None]:
+    """The write lands torn — after the inner save returns, the largest file
+    under the save path (or ``filename``) is truncated to ``keep_bytes`` and
+    the process dies (:class:`SimulatedCrash`). No commit/publish happens."""
+    orig = ce.save
+
+    def torn(tree, path, on_durable=None, **kw):
+        orig(tree, path, **kw)
+        corrupt_file(path, keep_bytes=keep_bytes, filename=filename)
+        _dump_flight_recorders("fault_truncated_write")
+        raise SimulatedCrash(f"simulated crash mid-write of {path}")
+
+    undo = patch_attr(ce, "save", torn)
+    try:
+        yield
+    finally:
+        undo()
+
+
+def corrupt_file(root: str, keep_bytes: int = 64,
+                 filename: Optional[str] = None) -> str:
+    """Truncate one file under ``root`` (the largest, or the one named
+    ``filename``) to ``keep_bytes`` — post-hoc corruption of a committed
+    checkpoint that manifest verification must flag. Returns the path."""
+    victim, size = None, -1
+    for dirpath, _dirnames, filenames in os.walk(root):
+        for fn in filenames:
+            full = os.path.join(dirpath, fn)
+            if filename is not None:
+                if fn == filename:
+                    victim = full
+                    break
+            elif os.path.getsize(full) > size:
+                victim, size = full, os.path.getsize(full)
+        if filename is not None and victim is not None:
+            break
+    if victim is None:
+        raise FileNotFoundError(
+            f"no file{f' named {filename}' if filename else ''} under {root}")
+    with open(victim, "r+b") as f:
+        f.truncate(keep_bytes)
+    return victim
+
+
+@contextlib.contextmanager
+def write_delay(ce, seconds: float) -> Iterator[None]:
+    """Every save stalls ``seconds`` before touching disk. For the async
+    engine the delay runs inside the writer THREAD (the inner engine is
+    patched), widening the window between a save's return and its commit."""
+    host = _save_host(ce)
+    orig = host.save
+
+    def slow(tree, path, **kw):
+        time.sleep(seconds)
+        return orig(tree, path, **kw)
+
+    undo = patch_attr(host, "save", slow)
+    try:
+        yield
+    finally:
+        undo()
+
+
+def corrupt_fragment(universal_dir: str, name: Optional[str] = None,
+                     keep_bytes: int = 16) -> str:
+    """Truncate one fp32 fragment of a COMMITTED universal checkpoint tag
+    (the named ``param/<name>`` fragment, or the largest one) — post-hoc bit
+    rot that the verified elastic load must convert into a walk-back, never
+    a resume from torn state. Returns the path of the corrupted file."""
+    root = os.path.join(universal_dir, "param")
+    if not os.path.isdir(root):
+        root = universal_dir
+    if name is not None:
+        target = os.path.join(root, name, "fp32.npy")
+        if not os.path.exists(target):
+            raise FileNotFoundError(f"no fragment named {name} under {root}")
+        with open(target, "r+b") as f:
+            f.truncate(keep_bytes)
+        return target
+    return corrupt_file(root, keep_bytes=keep_bytes, filename="fp32.npy")

@@ -21,6 +21,21 @@ step, and each stage after the first must equal the first within
 ``--rtol`` (printed: whether bit for bit). The last line is one JSON object
 of all of it; ``--out`` also writes it to a file.
 
+``--ckpt`` runs the checkpoint leg instead of the stages: ZeRO-3 at world
+``W``, ``--steps`` steps, a regular and a universal tag (under
+``build/ckpt_nccl``), ``--steps`` more steps — the uninterrupted run; then
+the same steps four ways from a fresh engine (drawn from another seed):
+from the regular tag at ZeRO-3 (bit for bit), from the regular tag at
+ZeRO-1 and from the universal tag at ZeRO-2 (within ``--rtol``), all at
+world ``W``; and, once the group is gone, on rank 0 alone from the
+universal tag at ZeRO-0 (GAS ``W x --gas``, the same global batch; within
+``--rtol``). Each load's peak device memory on each rank must stay within
+its level before plus the largest leaf. Prints save and load seconds and
+every rank's device GiB before, at peak and after each load.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        scripts/zero_nccl_check.py --ckpt --steps 3
+
 ``--tiny --backend gloo --device cpu`` rehearses the same code on the CPU
 (tiny Llama, plain versions, no profile).
 """
@@ -29,6 +44,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -51,6 +67,7 @@ def main() -> int:
     ap.add_argument("--backend", default="nccl")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--ckpt", action="store_true", help="the checkpoint leg instead")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -94,6 +111,8 @@ def main() -> int:
                                   (args.gas * world, seq + 1)).astype(np.int32)}
     kernels = {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
                "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda}
+    if args.ckpt:
+        return checkpoint_leg(args, cfg, seq, card)
     want = {k: args.steps * args.gas * (2 * cfg.num_layers + 1 if k == "rms_norm"
                                          else cfg.num_layers) for k in kernels}
     res, base = {}, None
@@ -174,6 +193,126 @@ def main() -> int:
     dist.destroy_process_group()
     if rank == 0:
         summary = {"world": world, "layers": cfg.num_layers, "card": card, "stages": res}
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(summary, indent=1))
+        print(json.dumps(summary), flush=True)
+    return 0
+
+
+def checkpoint_leg(args, cfg, seq: int, card: str) -> int:
+    """See the module docstring (``--ckpt``)."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime.zero_init import GatheredParameters
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    cuda = args.device == "cuda"
+    root = REPO / "build" / "ckpt_nccl"
+    reg, uni = str(root / "regular"), str(root / "universal")
+    rs = np.random.RandomState(args.seed + 19)
+    batches = [{"tokens": rs.randint(0, cfg.vocab_size, (args.gas * world, seq + 1))
+                .astype(np.int32)} for _ in range(2 * args.steps)]
+    largest = max(int(np.prod(s)) for s, _ in llama.param_shapes(cfg).values()) * 4
+    if rank == 0:
+        root.mkdir(parents=True, exist_ok=True)
+        need = 2 * cfg.num_params * 12 + (4 << 30)
+        free = shutil.disk_usage(root).free
+        cs.log(f"checkpoint leg: {free / 1e9:.1f} GB free under build/, two tags of "
+               f"{cfg.num_params * 12 / 1e9:.2f} GB [{card}]")
+        if free < need:
+            raise RuntimeError(f"the checkpoint leg needs {need / 1e9:.1f} GB, {free / 1e9:.1f} free")
+
+    def engine(stage, seed, gas=args.gas, dp=world):
+        conf = cs._train_config(seed, gas, True)
+        conf["train_batch_size"] = gas * dp
+        conf["zero_optimization"] = {"stage": stage}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        return dst.initialize(model=llama.model_spec(cfg), config=conf, device=args.device)[0]
+
+    def run(eng, bs):
+        outs = [eng.train_batch(b) for b in bs]
+        return [float(o.loss) for o in outs], [float(o.grad_norm) for o in outs]
+
+    def load(eng, fn, path):
+        if cuda:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(path)
+        if cuda:
+            torch.cuda.synchronize()
+        r = {"load_s": time.perf_counter() - t0}
+        if cuda:
+            r.update(before_gib=before / 2**30,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     after_gib=torch.cuda.memory_allocated() / 2**30)
+            if r["peak_gib"] * 2**30 > before + largest:
+                raise AssertionError(f"rank {rank}: peak {r['peak_gib']:.2f} GiB during the load "
+                                     f"> {r['before_gib']:.2f} before + the largest leaf")
+        return r
+
+    def held(what, got, ref, exact):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[0] + got[1], ref[0] + ref[1]))
+        if (got != ref) if exact else rel > args.rtol:
+            raise AssertionError(f"{what}: {got} against {ref} (max rel {rel:.3g})")
+        return {"losses": got[0], "grad_norms": got[1], "bitwise": got == ref, "max_rel": rel}
+
+    res = {}
+    eng = engine(3, args.seed)
+    run(eng, batches[:args.steps])
+    t0 = time.perf_counter()
+    eng.save_checkpoint(reg, tag="reg")
+    res["save_regular_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.save_universal_checkpoint(uni, tag="uni")
+    res["save_universal_s"] = time.perf_counter() - t0
+    ref = run(eng, batches[args.steps:])
+    with GatheredParameters(eng.state.params, eng.shard_dims, mesh_mgr=eng.mesh_mgr) as full:
+        ref_wq = full["layers.0.wq"].float().cpu()
+    del eng
+    res["uninterrupted"] = {"losses": ref[0], "grad_norms": ref[1]}
+    for name, stage, fn_name, path, exact in (
+            ("regular, ZeRO-3", 3, "load_checkpoint", reg, True),
+            ("regular, ZeRO-1", 1, "load_checkpoint", reg, False),
+            ("universal, ZeRO-2", 2, "load_universal_checkpoint", uni, False)):
+        eng = engine(stage, args.seed + 1)
+        r = load(eng, getattr(eng, fn_name), path)
+        r.update(held(f"resume from the {name} tag at world {world}",
+                      run(eng, batches[args.steps:]), ref, exact))
+        r["by_rank"] = comm.all_gather_object({k: r.get(k) for k in
+                                               ("load_s", "before_gib", "peak_gib", "after_gib")})
+        res[name] = r
+        del eng
+        if rank == 0:
+            cs.log(f"  {name} at world {world}: load {r['load_s']:.1f} s, device GiB before / peak"
+                   f" / after by rank {[(q['before_gib'], q['peak_gib'], q['after_gib']) for q in r['by_rank']]}"
+                   f", bit for bit {r['bitwise']} (max rel {r['max_rel']:.3g}) [{card}]")
+    comm.set_mesh(None)
+    dist.destroy_process_group()
+    if rank == 0:
+        # one process, no group: the universal tag at ZeRO-0, all W x GAS
+        # micro-batches of the same global batch on this card
+        eng = engine(0, args.seed + 1, gas=args.gas * world, dp=1)
+        r = load(eng, eng.load_universal_checkpoint, uni)
+        r.update(held("resume from the universal tag at world 1", run(eng, batches[args.steps:]),
+                      ref, False))
+        wq = eng.state.params["layers.0.wq"].detach().float().cpu()
+        r["wq_max_abs_diff"] = float((wq - ref_wq).abs().max())
+        res["universal, world 1, ZeRO-0"] = r
+        del eng
+        cs.log(f"  universal at world 1, ZeRO-0: load {r['load_s']:.1f} s, max rel "
+               f"{r['max_rel']:.3g}, layers.0.wq max |diff| {r['wq_max_abs_diff']:.3g} [{card}]")
+        shutil.rmtree(root, ignore_errors=True)
+        summary = {"world": world, "layers": cfg.num_layers, "card": card, "checkpoint": res}
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(summary, indent=1))

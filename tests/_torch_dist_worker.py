@@ -244,7 +244,68 @@ def scenario_zero_init(job, rank, world):
     return out
 
 
-SCENARIOS = {"train": scenario_train, "comm": scenario_comm, "zero_init": scenario_zero_init}
+def scenario_ckpt(job, rank, world):
+    """Checkpoints across topologies. ``mode == "save"``: train
+    ``job["before"]`` steps from the job's weights, save a regular and a
+    universal tag into ``job["dir"]``, train the rest (the uninterrupted
+    run, ``run/*``), then resume each tag at this topology on an engine
+    drawn from another seed and train the same rest (``reg/*``,
+    ``uni/*``). ``mode == "load"``: only the resumes of ``job["resumes"]``
+    (``[kind, config]`` pairs). Records losses, grad norms and the final
+    masters gathered whole."""
+    import dataclasses
+
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.runtime.zero_init import GatheredParameters
+
+    family, cfg_type = _family(job["family"])
+    cfg = cfg_type(**job["cfg"])
+    data = np.load(job["npz"])
+    params = {k[len("param/"):]: torch.from_numpy(data[k]) for k in data if k.startswith("param/")}
+    batches = [{"tokens": data[f"batch/{i}/tokens"]} for i in range(job["steps"])]
+    spec = family.model_spec(cfg, compute_dtype=torch.float32)
+    out = {}
+
+    def run(name, eng, rest):
+        outs = [eng.train_batch(b) for b in rest]
+        out[f"{name}/losses"] = np.array([float(o.loss) for o in outs])
+        out[f"{name}/grad_norm"] = np.array([float(o.grad_norm) for o in outs])
+        out[f"{name}/step"] = np.array([eng.state.step, eng.global_steps])
+        with GatheredParameters(eng.state.params, eng.shard_dims, mesh_mgr=eng.mesh_mgr) as full:
+            for k, t in full.items():
+                out[f"{name}/param/{k}"] = t.numpy()
+
+    def resume(kind, config):
+        conf = dict(config, seed=config.get("seed", 0) + 7)
+        eng, *_ = dst.initialize(model=spec, config=conf, device="cpu")
+        if kind == "reg":
+            path, _ = eng.load_checkpoint(job["dir"], tag="reg")
+        else:
+            path, _ = eng.load_universal_checkpoint(job["dir"], tag="uni")
+        assert path is not None and eng.global_steps == job["before"], (path, eng.global_steps)
+        run(kind, eng, batches[job["before"]:])
+
+    if job["mode"] == "save":
+        eng, *_ = dst.initialize(model=dataclasses.replace(spec, params=params, init_fn=None),
+                                 config=job["config"], device="cpu")
+        for b in batches[:job["before"]]:
+            eng.train_batch(b)
+        eng.save_checkpoint(job["dir"], tag="reg")
+        eng.save_universal_checkpoint(job["dir"], tag="uni")
+        run("run", eng, batches[job["before"]:])
+        del eng
+        for kind in ("reg", "uni"):
+            resume(kind, job["config"])
+    else:
+        for kind, config in job["resumes"]:
+            resume(kind, config)
+    return out
+
+
+SCENARIOS = {"train": scenario_train, "comm": scenario_comm, "zero_init": scenario_zero_init,
+             "ckpt": scenario_ckpt}
 
 
 def main():

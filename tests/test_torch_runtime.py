@@ -117,7 +117,7 @@ def _spec():
     {"reliability": {"integrity": {"enabled": True}}},
     {"memory": {"tiering": {"enabled": True}}},
     {"aio": {"block_size": 4096}},
-    {"checkpoint": {"engine": "async"}},
+    {"watchdog": {"enabled": True}},
     {"optimizer": {"type": "adamw", "param_groups": [{"pattern": "norm",
                                                       "weight_decay": 0.0}]}},
 ])
