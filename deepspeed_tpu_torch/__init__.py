@@ -31,6 +31,13 @@ Ported so far:
   ``set_lr``, ``compile``, ``destroy``, the accessors);
 - the GPT-2/OPT family (``models/gpt.py``) through both entry points, with
   the LayerNorm kernel;
+- activation checkpointing (``runtime/activation_checkpointing``: the JAX
+  package's remat policies over ``torch.utils.checkpoint``, a family's
+  ``remat`` / ``remat_policy``, ZeRO-3 re-gathering a block in the
+  recompute) and the tiled logits + loss head (``sequence/tiled.py``,
+  ``sequence.tiled_loss``); the v1 inference engine, :func:`init_inference`
+  (a dense KV cache, chunked greedy or sampled decode, weight-only int8,
+  packed int4 and fp8, weights from a training checkpoint);
 - the inference module system (``inference/modules.py``), whose weight-only
   int8 linear runs the int8 quantize and dequantize kernels;
 - the BLOOM family (``models/bloom.py``) through :func:`initialize`, its
@@ -58,7 +65,7 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 __version__ = "0.5.0"
 
 from . import comm  # noqa: F401
-from .inference import InferenceConfig, build_engine_v2  # noqa: F401
+from .inference import InferenceConfig, build_engine_v2, init_inference  # noqa: F401
 from .runtime.config import DeepSpeedTPUConfig, parse_config  # noqa: F401
 from .runtime import zero_init as zero  # noqa: F401  (zero.Init, GatheredParameters, ...)
 from .runtime.engine import (DeepSpeedTPUEngine, ModelSpec,  # noqa: F401

@@ -320,7 +320,8 @@ def init_distributed(dist_backend: str = "nccl",
     """Create the default process group (reference ``comm.init_distributed``).
 
     The rendezvous is ``coordinator_address`` or ``DSTPU_COORDINATOR``
-    (``host:port``), else torchrun's ``MASTER_ADDR`` / ``MASTER_PORT``; the
+    (``host:port``, or a ``file://`` path that the ranks of one host share
+    and no other job uses), else torchrun's ``MASTER_ADDR`` / ``MASTER_PORT``; the
     world size ``num_processes``, ``DSTPU_NUM_PROCESSES`` or ``WORLD_SIZE``
     (1 by default, on a free local port); the rank :func:`resolve_process_id`.
     The backend is NCCL, with this rank on ``cuda:LOCAL_RANK`` (or the rank
@@ -340,7 +341,7 @@ def init_distributed(dist_backend: str = "nccl",
     rank = resolve_process_id() if process_id is None else int(process_id)
     coordinator = coordinator_address or env.get("DSTPU_COORDINATOR")
     if coordinator:
-        init_method = f"tcp://{coordinator}"
+        init_method = coordinator if coordinator.startswith("file://") else f"tcp://{coordinator}"
     elif env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
         init_method = "env://"
     elif world == 1:

@@ -4,9 +4,11 @@ imports nothing of the JAX package.
 
 Features that the port has not brought over yet raise
 ``NotImplementedError`` when enabled (:func:`check_ported`) rather than being
-ignored: ``prefix_cache.host_spill``, ``quant``, ``tensor_parallel.tp_size >
-1`` and ``compile_monitor``. ``trace`` (request-lifecycle tracing and the
-latency percentiles, :class:`~..telemetry.trace.TraceConfig`) is ported.
+ignored: ``prefix_cache.host_spill``, ``tensor_parallel.tp_size > 1``,
+``compile_monitor``, and ``quant`` on the v2 engine (the v1 engine,
+``init_inference``, serves int8, packed int4 and fp8 weights). ``trace``
+(request-lifecycle tracing and the latency percentiles,
+:class:`~..telemetry.trace.TraceConfig`) is ported.
 
 ``enable_cuda_graph`` is accepted and ignored, as in the JAX package (whose
 programs are compiled anyway): on a CUDA device the v2 engine always captures
@@ -70,7 +72,9 @@ class SpeculativeConfig:
 
 @dataclass
 class QuantConfig:
-    """Weight quantization for inference (not ported)."""
+    """Weight-only quantization for the v1 engine: ``bits`` 8 (int8) or 4
+    (packed int4), or ``dtype`` ``"fp8"`` (float8_e4m3fn); a scale per row
+    (ported for v1, refused by v2)."""
 
     enabled: bool = False
     bits: int = 8
@@ -143,22 +147,23 @@ class InferenceConfig:
                    trace=TraceConfig(**trace),
                    compile_monitor=CompileMonitorConfig(**cmon), **known)
 
-    def unported_features(self) -> List[str]:
-        """Enabled features the port does not implement yet."""
+    def unported_features(self, engine: str = "v2") -> List[str]:
+        """Enabled features the port does not implement yet for ``engine``
+        (``"v2"``, or ``"v1"``, which serves ``quant``)."""
         on = {
             "prefix_cache.host_spill": (self.prefix_cache.enabled
                                         and self.prefix_cache.host_spill),
-            "quant": self.quant.enabled,
+            "quant": self.quant.enabled and engine == "v2",
             "tensor_parallel.tp_size": self.tensor_parallel.tp_size > 1,
             "compile_monitor": self.compile_monitor.enabled,
         }
         return [name for name, enabled in on.items() if enabled]
 
 
-def check_ported(config: InferenceConfig) -> None:
+def check_ported(config: InferenceConfig, engine: str = "v2") -> None:
     """Raise ``NotImplementedError`` naming every enabled feature the port
-    does not implement yet."""
-    missing = config.unported_features()
+    does not implement yet for ``engine``."""
+    missing = config.unported_features(engine)
     if missing:
         raise NotImplementedError(
             f"not yet ported to deepspeed_tpu_torch: {', '.join(missing)}")

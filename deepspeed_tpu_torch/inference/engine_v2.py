@@ -71,7 +71,7 @@ from ..ops import paged_attention
 from ..ops.quantization import kv_dequantize_int8, kv_quantize_int8
 from ..telemetry.trace import Tracer, percentiles
 from ..utils.logging import log_dist
-from .config import InferenceConfig
+from .config import InferenceConfig, check_ported
 from .engine import InferenceEngine, ModelFamily, _round_up
 from .ragged import StateManager, UnknownSequenceError  # noqa: F401 (re-export)
 from .sampling import SamplingParams, filter_logits_batch, sample, sp_arrays
@@ -164,9 +164,27 @@ class InferenceEngineV2(InferenceEngine):
     """put()/step() continuous batching; ``generate`` drains a prompt list
     through the scheduler."""
 
+    def _check(self) -> None:
+        check_ported(self.config, self._engine)
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            # the paged-decode kernel takes bf16 q and pools only; refuse
+            # here rather than at the first decode step
+            raise ValueError(f"inference dtype {self.config.dtype!r} has no CUDA "
+                             "kernel yet; the card path serves bfloat16")
+        if self.family.build is None:
+            raise ValueError(f"family {self.family.name!r} has no paged path")
+
+    _engine = "v2"
+
     def __init__(self, family: ModelFamily, params: Mapping[str, Any],
                  config: Optional[InferenceConfig] = None, device="cuda"):
         super().__init__(family, params, config, device)
+        # the family's paged module over the weights the base loaded (the
+        # module's parameters are those tensors, not copies)
+        with torch.device("meta"):
+            model = family.build(family.cfg)
+        model.load_state_dict(self.params, strict=True, assign=True)
+        self.model = model.eval().requires_grad_(False)
         rc = self.config.ragged
         pc = self.config.prefix_cache
         max_blocks_per_seq = max(

@@ -1,7 +1,8 @@
 """BLOOM family (ALiBi, LayerNorm, biases everywhere, tied head) —
 counterpart of ``deepspeed_tpu/models/bloom.py`` (``BloomConfig`` :38,
 ``alibi_slopes`` :64, ``_alibi_bias`` :77, ``init`` :85, ``_block`` :142,
-``apply`` :190, ``loss_fn`` :270, ``model_spec`` :303).
+``_head_split`` :171, ``apply`` :190, ``init_cache`` … ``apply_cached``
+:214-268, ``loss_fn`` :270, ``tiled_loss_fn`` :286, ``model_spec`` :303).
 
 BLOOM's differences from the GPT/Llama families, kept as the JAX package
 has them:
@@ -21,9 +22,11 @@ has them:
 ``layers.<i>.wq`` for ``layers/wq[i]``, every matrix in ``nn.Linear``
 layout ``[out, in]``, ``models/convert.py``), wrapped for the engine by
 :func:`model_spec`. :class:`Bloom` is the same model as an ``nn.Module``
-whose ``forward`` is :func:`apply` over its own parameters. The v1 dense
-cache (``init_cache`` / ``apply_cached``), the tiled loss and the logical
-axes are not ported yet.
+whose ``forward`` is :func:`apply` over its own parameters.
+:func:`apply_cached` serves over the dense cache of :func:`init_cache` (the
+v1 engine), the ALiBi bias built once over the cache length for every
+layer; its attention is masked, so plain attention. BLOOM has no remat in
+the JAX package, and none here.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import layer_norm
 from ..runtime.partitioning import LeafAxes, linear
+from .llama import _write_cache, cache_mask
 
 
 @dataclass(frozen=True)
@@ -179,24 +183,37 @@ def _block(cfg: BloomConfig, x: torch.Tensor, w: Callable[[str], torch.Tensor],
     return x + F.linear(u, w("w_down")) + w("b_down")
 
 
+def _head_split(cfg: BloomConfig, p, x: torch.Tensor):
+    """Final LayerNorm and the tied unembedding ``embed`` without the logits
+    matmul (JAX ``_head_split``)."""
+    x = layer_norm(x, p["final_ln_scale"], p["final_ln_bias"], cfg.layer_norm_eps)
+    return x, p["embed"]
+
+
+def _embed(cfg: BloomConfig, p, tokens, compute_dtype):
+    x = embedding_lookup(p["embed"], tokens, compute_dtype)
+    return layer_norm(x, p["embed_ln_scale"], p["embed_ln_bias"], cfg.layer_norm_eps)
+
+
 def apply(cfg: BloomConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
           positions: Optional[torch.Tensor] = None,
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
     """Causal forward over the whole sequence → logits [batch, seq, vocab]
-    fp32. Every leaf is cast to ``compute_dtype`` here, as the JAX ``apply``
-    casts its layers, so grads of fp32 params flow back through the cast.
+    fp32; with ``return_hidden`` the :func:`_head_split` pair. Every leaf
+    is cast to ``compute_dtype`` here, as the JAX ``apply`` casts its
+    layers, so grads of fp32 params flow back through the cast.
     ``positions`` is accepted and ignored: ALiBi carries position in the
     logits bias."""
     del positions
     p = {k: v.to(compute_dtype) for k, v in params.items()}
-    x = embedding_lookup(p["embed"], tokens, compute_dtype)
-    eps = cfg.layer_norm_eps
-    x = layer_norm(x, p["embed_ln_scale"], p["embed_ln_bias"], eps)
+    x = _embed(cfg, p, tokens, compute_dtype)
     bias = _alibi_bias(cfg.num_heads, tokens.shape[1], tokens.device)
     for l in range(cfg.num_layers):
         x = _block(cfg, x, lambda name, _pre=f"layers.{l}.": p[_pre + name], bias)
-    x = layer_norm(x, p["final_ln_scale"], p["final_ln_bias"], eps)
-    return F.linear(x, p["embed"]).float()
+    x, head = _head_split(cfg, p, x)
+    if return_hidden:
+        return x, head
+    return F.linear(x, head).float()
 
 
 def loss_fn(cfg: BloomConfig, params: Dict[str, torch.Tensor],
@@ -218,6 +235,78 @@ def loss_fn(cfg: BloomConfig, params: Dict[str, torch.Tensor],
     return loss, {"loss": loss.detach(), "ntokens": n}
 
 
+def tiled_loss_fn(cfg: BloomConfig, params: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
+                  shards: int = 8) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` with the unembedding and the cross-entropy fused a
+    sequence tile at a time (``sequence.tiled_loss``)."""
+    from ..sequence.tiled import tiled_fused_logits_loss
+
+    tokens = batch["tokens"]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    labels = torch.as_tensor(labels, device=inputs.device).long()
+    hidden, head = apply(cfg, params, inputs, compute_dtype=compute_dtype,
+                         return_hidden=True)
+    loss = tiled_fused_logits_loss(hidden, head, labels, shards=shards)
+    return loss, {"loss": loss.detach(), "ntokens": (labels != -100).sum()}
+
+
+# --------------------------------------------------------------------------- #
+# v1 dense-cache serving (JAX ``init_cache`` … ``apply_cached``)
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: BloomConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Dense KV cache ``{"k", "v"}``: [layers, batch, max_len, heads,
+    head_dim] zeros on ``device`` (the GPU unless the caller passes
+    ``device="cpu"``)."""
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_logical_axes(cfg: BloomConfig) -> Dict[str, LeafAxes]:
+    spec = LeafAxes(("layers", None, None, "heads", None))
+    return {"k": spec, "v": spec}
+
+
+def apply_cached(cfg: BloomConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], cache_len: torch.Tensor, *,
+                 compute_dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward with the dense KV cache (JAX ``apply_cached``): tokens
+    [b, t]; cache_len [b] (or a scalar). The ALiBi bias over the cache
+    length is built once, outside the layer loop. Returns (logits fp32,
+    cache), the cache written in place."""
+    b, t = tokens.shape
+    nh, hd, eps = cfg.num_heads, cfg.head_size, cfg.layer_norm_eps
+    cache_len = torch.as_tensor(cache_len, device=tokens.device).long().expand(b)
+    top = {k: params[k].to(compute_dtype)
+           for k in ("embed", "embed_ln_scale", "embed_ln_bias",
+                     "final_ln_scale", "final_ln_bias")}
+    x = _embed(cfg, top, tokens, compute_dtype)
+    S = cache["k"].shape[2]
+    bias = _alibi_bias(nh, S, tokens.device)
+    mask = cache_mask(cache_len, t, S)
+    for l in range(cfg.num_layers):
+        pre = f"layers.{l}."
+        p = {name: params[pre + name].to(compute_dtype) for name in _layer_shapes(cfg)}
+        k_c, v_c = cache["k"][l], cache["v"][l]
+        y = layer_norm(x, p["ln1_scale"], p["ln1_bias"], eps)
+        q = F.linear(y, p["wq"], p["bq"]).reshape(b, t, nh, hd)
+        _write_cache(k_c, F.linear(y, p["wk"], p["bk"]).reshape(b, t, nh, hd), cache_len)
+        _write_cache(v_c, F.linear(y, p["wv"], p["bv"]).reshape(b, t, nh, hd), cache_len)
+        attn = attention(q, k_c, v_c, causal=False, bias=bias, mask=mask)
+        x = x + F.linear(attn.reshape(b, t, nh * hd), p["wo"]) + p["bo"]
+        y = layer_norm(x, p["ln2_scale"], p["ln2_bias"], eps)
+        u = F.gelu(F.linear(y, p["w_up"], p["b_up"]), approximate="tanh")
+        x = x + F.linear(u, p["w_down"]) + p["b_down"]
+    x, head = _head_split(cfg, top, x)
+    return F.linear(x, head).float(), cache
+
+
 def model_spec(cfg: BloomConfig, compute_dtype=torch.bfloat16):
     """The engine-facing ModelSpec for this config (JAX ``model_spec``);
     ``init_fn`` draws the weights from a ``torch.Generator``."""
@@ -228,6 +317,8 @@ def model_spec(cfg: BloomConfig, compute_dtype=torch.bfloat16):
         init_fn=lambda gen, **kw: init(cfg, gen, **kw),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
+        tiled_loss_fn=lambda params, batch, shards=8: tiled_loss_fn(
+            cfg, params, batch, compute_dtype=compute_dtype, shards=shards),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
         config=cfg,

@@ -1,15 +1,20 @@
 """GPT-2/OPT-family model (learned positions, LayerNorm, GELU or ReLU MLP,
 MHA) — counterpart of ``deepspeed_tpu/models/gpt.py`` (``GPTConfig`` :39,
-``init`` :88, ``_block`` :176, ``apply`` :231, ``init_paged_cache`` :303,
-``apply_paged`` :327, ``loss_fn`` :360, ``model_spec`` :385).
+``init`` :88, ``_attn`` :141, ``_block`` :176, ``_head_split`` :214,
+``apply`` :231, ``init_cache`` … ``apply_cached`` :267-300,
+``init_paged_cache`` :303, ``apply_paged`` :327, ``loss_fn`` :360,
+``tiled_loss_fn`` :370, ``model_spec`` :385).
 
-Two entry points over one set of parameters, as in ``models/llama.py``:
+Three entry points over one set of parameters, as in ``models/llama.py``:
 
-- training: :func:`apply` / :func:`loss_fn`, pure functions over a flat
-  param dict, wrapped for the engine by :func:`model_spec`. Attention is op
-  ``attention``: the flash kernels on CUDA tensors, plain attention on CPU
-  tensors.
-- serving: the ``nn.Module`` :class:`GPT`, whose ``forward`` is
+- training: :func:`apply` / :func:`loss_fn` / :func:`tiled_loss_fn`, pure
+  functions over a flat param dict, wrapped for the engine by
+  :func:`model_spec`. Attention is op ``attention``: the flash kernels on
+  CUDA tensors, plain attention on CPU tensors. ``cfg.remat`` checkpoints
+  each block, which reads its leaves inside the checkpointed function.
+- v1 serving: :func:`apply_cached` over the dense cache of
+  :func:`init_cache` (masked, so plain attention).
+- v2 serving: the ``nn.Module`` :class:`GPT`, whose ``forward`` is
   ``apply_paged`` over the paged KV cache.
 
 Both run one block function (:func:`_block`, the JAX ``_block`` with its
@@ -22,8 +27,7 @@ projections, MLP and lm-head stay ``torch.matmul`` as the JAX package leaves
 them to XLA.
 
 Covers GPT-2, OPT (pre-LN) and, with ``post_ln=True``, the original post-LN
-ordering. The v1 dense cache (``init_cache`` / ``apply_cached``), the tiled
-loss, remat and the logical axes are not ported yet.
+ordering.
 """
 
 from __future__ import annotations
@@ -39,9 +43,15 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import layer_norm
+from ..runtime.activation_checkpointing import checkpointing as ac
+from ..runtime.activation_checkpointing.checkpointing import checkpoint_name
 from ..runtime.partitioning import LeafAxes, linear
 from ._paged import (init_paged_pools, join_kv, layer_kv, paged_attention_step,
                      split_kv)
+from .llama import _write_cache, cache_mask, remat_policy
+
+# the checkpoint names the training block attaches
+CHECKPOINT_NAMES_EMITTED = ("qkv_proj", "attn_mix", "attn_out", "mlp_up", "mlp_out")
 
 
 @dataclass(frozen=True)
@@ -56,6 +66,8 @@ class GPTConfig:
     tie_embeddings: bool = True
     post_ln: bool = False     # True = original transformer/BLOOM ordering
     activation: str = "gelu"  # "gelu" (GPT-2) | "relu" (OPT)
+    remat: bool = False
+    remat_policy: str = "none"  # none | full | dots | any registry policy
 
     def __post_init__(self):
         if self.activation not in ("gelu", "relu"):
@@ -184,7 +196,7 @@ def _qkv(cfg: GPTConfig, y: torch.Tensor, w: Callable[[str], torch.Tensor]):
     """The fused projection split q | k | v along the output dim, each
     [b, t, nh, hd]."""
     b, t, _ = y.shape
-    q, k, v = F.linear(y, w("wqkv"), w("bqkv")).chunk(3, dim=-1)
+    q, k, v = checkpoint_name(F.linear(y, w("wqkv"), w("bqkv")), "qkv_proj").chunk(3, dim=-1)
     shape = (b, t, cfg.num_heads, cfg.head_size)
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
@@ -194,26 +206,35 @@ def _block(cfg: GPTConfig, x: torch.Tensor, w: Callable[[str], torch.Tensor],
     """One block (JAX ``_block``). ``w(name)`` hands out this layer's
     parameters; ``attn_call(y)`` is the QKV projection, the attention (dense
     or paged) and the output projection. ``b_down`` is added after the
-    residual sum, as in the JAX block."""
+    residual sum, as in the JAX block; the checkpoint names sit where the
+    JAX block puts them."""
     eps = cfg.layer_norm_eps
     if cfg.post_ln:
-        x = layer_norm(x + attn_call(x), w("ln1_scale"), w("ln1_bias"), eps)
-        up = F.linear(x, w("w_up"), w("b_up"))
-        m = F.linear(_act(cfg, up), w("w_down")) + w("b_down")
+        a = checkpoint_name(attn_call(x), "attn_out")
+        x = layer_norm(x + a, w("ln1_scale"), w("ln1_bias"), eps)
+        up = checkpoint_name(F.linear(x, w("w_up"), w("b_up")), "mlp_up")
+        m = checkpoint_name(F.linear(_act(cfg, up), w("w_down")), "mlp_out") + w("b_down")
         return layer_norm(x + m, w("ln2_scale"), w("ln2_bias"), eps)
     y = layer_norm(x, w("ln1_scale"), w("ln1_bias"), eps)
-    x = x + attn_call(y)
+    x = x + checkpoint_name(attn_call(y), "attn_out")
     y = layer_norm(x, w("ln2_scale"), w("ln2_bias"), eps)
-    up = F.linear(y, w("w_up"), w("b_up"))
-    return x + F.linear(_act(cfg, up), w("w_down")) + w("b_down")
+    up = checkpoint_name(F.linear(y, w("w_up"), w("b_up")), "mlp_up")
+    return x + checkpoint_name(F.linear(_act(cfg, up), w("w_down")), "mlp_out") + w("b_down")
+
+
+def _head_split(cfg: GPTConfig, x: torch.Tensor, w: Callable[[str], torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final LayerNorm and the unembedding ``[vocab, hidden]`` (``embed``
+    when tied) without the logits matmul (JAX ``_head_split``)."""
+    x = layer_norm(x, w("final_ln_scale"), w("final_ln_bias"), cfg.layer_norm_eps)
+    return x, w("embed") if cfg.tie_embeddings else w("lm_head")
 
 
 def _head(cfg: GPTConfig, x: torch.Tensor, w: Callable[[str], torch.Tensor]
           ) -> torch.Tensor:
-    """Final LayerNorm and the unembedding (``embed.T`` when tied) → fp32
-    logits."""
-    x = layer_norm(x, w("final_ln_scale"), w("final_ln_bias"), cfg.layer_norm_eps)
-    return F.linear(x, w("embed") if cfg.tie_embeddings else w("lm_head")).float()
+    """Final LayerNorm and the unembedding → fp32 logits."""
+    x, head = _head_split(cfg, x, w)
+    return F.linear(x, head).float()
 
 
 # --------------------------------------------------------------------------- #
@@ -317,32 +338,57 @@ def apply_paged(cfg: GPTConfig, model: GPT, tokens: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # full-sequence training forward (JAX ``apply`` / ``loss_fn``)
 # --------------------------------------------------------------------------- #
+def _top_leaves(cfg: GPTConfig, params: Dict[str, torch.Tensor], compute_dtype):
+    """The leaves outside the blocks, cast to ``compute_dtype`` (the table
+    whole only where the tied head needs it as a matrix)."""
+    names = ["pos_embed", "final_ln_scale", "final_ln_bias"]
+    names.append("embed" if cfg.tie_embeddings else "lm_head")
+    return {k: params[k].to(compute_dtype) for k in names}
+
+
+def _block_leaves(cfg: GPTConfig, params: Dict[str, torch.Tensor], l: int, compute_dtype):
+    """Layer ``l``'s leaves, read and cast when the block is entered."""
+    pre = f"layers.{l}."
+    return {name: params[pre + name].to(compute_dtype) for name in _layer_shapes(cfg)}
+
+
+def _embed(cfg: GPTConfig, params, top, tokens, positions, compute_dtype):
+    table = top["embed"] if cfg.tie_embeddings else params["embed"]
+    return embedding_lookup(table, tokens, compute_dtype) + top["pos_embed"][positions.long()]
+
+
 def apply(cfg: GPTConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
           positions: Optional[torch.Tensor] = None,
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
     """Causal forward over the whole sequence → logits [batch, seq, vocab]
-    fp32. ``params`` is a flat dict (:func:`param_shapes` names); every
-    leaf, LayerNorm scales and biases included, is cast to ``compute_dtype``
-    here as the JAX ``apply`` casts its layers, so grads of fp32 params flow
-    back through the cast. ``positions`` default to ``arange(seq)``."""
+    fp32; with ``return_hidden`` the :func:`_head_split` pair. ``params`` is
+    a flat dict (:func:`param_shapes` names); every leaf, LayerNorm scales
+    and biases included, is cast to ``compute_dtype`` as the JAX ``apply``
+    casts its layers, so grads of fp32 params flow back through the cast; a
+    block's leaves when the block is entered (inside the checkpointed block
+    under ``cfg.remat``). ``positions`` default to ``arange(seq)``."""
     b, t = tokens.shape
     if positions is None:
         positions = torch.arange(t, device=tokens.device)[None, :]
-    # the table is cast whole only where the tied head needs it as a matrix
-    p = {k: v.to(compute_dtype) for k, v in params.items()
-         if k != "embed" or cfg.tie_embeddings}
-    x = embedding_lookup(p.get("embed", params["embed"]), tokens, compute_dtype) \
-        + p["pos_embed"][positions.long()]
-    for l in range(cfg.num_layers):
-        w = lambda name, _pre=f"layers.{l}.": p[_pre + name]  # noqa: E731
+    top = _top_leaves(cfg, params, compute_dtype)
+    x = _embed(cfg, params, top, tokens, positions, compute_dtype)
 
-        def attn_call(y, w=w):
+    def block(x, l):
+        w = _block_leaves(cfg, params, l, compute_dtype).__getitem__
+
+        def attn_call(y):
             q, k, v = _qkv(cfg, y, w)
-            out = attention(q, k, v, causal=True)
+            out = checkpoint_name(attention(q, k, v, causal=True), "attn_mix")
             return F.linear(out.reshape(y.shape), w("wo"), w("bo"))
 
-        x = _block(cfg, x, w, attn_call)
-    return _head(cfg, x, p.__getitem__)
+        return _block(cfg, x, w, attn_call)
+
+    policy = remat_policy(cfg.remat_policy)
+    for l in range(cfg.num_layers):
+        x = ac.checkpoint(block, x, l, policy=policy) if cfg.remat else block(x, l)
+    if return_hidden:
+        return _head_split(cfg, x, top.__getitem__)
+    return _head(cfg, x, top.__getitem__)
 
 
 def loss_fn(cfg: GPTConfig, params: Dict[str, torch.Tensor],
@@ -358,6 +404,21 @@ def loss_fn(cfg: GPTConfig, params: Dict[str, torch.Tensor],
     return loss, {"loss": loss.detach()}
 
 
+def tiled_loss_fn(cfg: GPTConfig, params: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
+                  shards: int = 8) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` with the unembedding and the cross-entropy fused a
+    sequence tile at a time (``sequence.tiled_loss``)."""
+    from ..sequence.tiled import tiled_fused_logits_loss
+
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    hidden, head = apply(cfg, params, inputs, compute_dtype=compute_dtype,
+                         return_hidden=True)
+    loss = tiled_fused_logits_loss(hidden, head, labels, shards=shards)
+    return loss, {"loss": loss.detach()}
+
+
 def model_spec(cfg: GPTConfig, compute_dtype=torch.bfloat16):
     """The engine-facing ModelSpec for this config (JAX ``model_spec``);
     ``init_fn`` draws the weights from a ``torch.Generator``."""
@@ -368,7 +429,58 @@ def model_spec(cfg: GPTConfig, compute_dtype=torch.bfloat16):
         init_fn=lambda gen, **kw: init(cfg, gen, **kw),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
+        tiled_loss_fn=lambda params, batch, shards=8: tiled_loss_fn(
+            cfg, params, batch, compute_dtype=compute_dtype, shards=shards),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
         config=cfg,
     )
+
+
+# --------------------------------------------------------------------------- #
+# v1 dense-cache serving (JAX ``init_cache`` … ``apply_cached``)
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: GPTConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Dense KV cache ``{"k", "v"}``: [layers, batch, max_len, heads,
+    head_dim] zeros on ``device`` (the GPU unless the caller passes
+    ``device="cpu"``)."""
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_logical_axes(cfg: GPTConfig) -> Dict[str, LeafAxes]:
+    spec = LeafAxes(("layers", None, None, "heads", None))
+    return {"k": spec, "v": spec}
+
+
+def apply_cached(cfg: GPTConfig, params: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], cache_len: torch.Tensor, *,
+                 compute_dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward with the dense KV cache (JAX ``apply_cached``): tokens
+    [b, t]; cache_len [b] (or a scalar). The learned positions are clamped
+    to ``max_seq_len - 1`` for the table lookup only. Returns (logits fp32,
+    cache), the cache written in place."""
+    b, t = tokens.shape
+    cache_len = torch.as_tensor(cache_len, device=tokens.device).long().expand(b)
+    positions = (cache_len[:, None] + torch.arange(t, device=tokens.device)[None, :]) \
+        .clamp(max=cfg.max_seq_len - 1)
+    top = _top_leaves(cfg, params, compute_dtype)
+    x = _embed(cfg, params, top, tokens, positions, compute_dtype)
+    S = cache["k"].shape[2]
+    mask = cache_mask(cache_len, t, S)
+    for l in range(cfg.num_layers):
+        w = _block_leaves(cfg, params, l, compute_dtype).__getitem__
+        k_cache, v_cache = cache["k"][l], cache["v"][l]
+
+        def attn_call(y, w=w, k_cache=k_cache, v_cache=v_cache):
+            q, k, v = _qkv(cfg, y, w)
+            _write_cache(k_cache, k, cache_len)
+            _write_cache(v_cache, v, cache_len)
+            out = attention(q, k_cache, v_cache, causal=False, mask=mask)
+            return F.linear(out.reshape(y.shape), w("wo"), w("bo"))
+
+        x = _block(cfg, x, w, attn_call)
+    return _head(cfg, x, top.__getitem__), cache

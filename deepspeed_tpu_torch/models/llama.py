@@ -1,14 +1,25 @@
 """Llama-family model — counterpart of ``deepspeed_tpu/models/llama.py``
-(``LlamaConfig`` :49, ``init`` :121, ``apply`` :381, ``loss_fn`` :727,
-``model_spec`` :627, ``init_paged_cache`` :550, ``apply_paged`` :590).
+(``LlamaConfig`` :49, ``init`` :121, ``_block`` :330, ``_head_split`` :363,
+``apply`` :381, ``init_cache`` … ``apply_cached`` :459-542,
+``init_paged_cache`` :550, ``apply_paged`` :590, ``model_spec`` :627,
+``loss_fn`` :727, ``tiled_loss_fn`` :746).
 
-Two entry points over one set of parameters:
+Three entry points over one set of parameters:
 
-- training: :func:`apply` / :func:`loss_fn`, pure functions over a flat
-  param dict (the JAX ``apply`` over its pytree), wrapped for the engine by
-  :func:`model_spec`. Attention is op ``attention``: the flash kernels
-  (``ops/csrc/flash_*.cu``) on CUDA tensors, plain attention on CPU tensors.
-- serving: the ``nn.Module`` :class:`Llama`, whose ``forward`` is
+- training: :func:`apply` / :func:`loss_fn` / :func:`tiled_loss_fn`, pure
+  functions over a flat param dict (the JAX ``apply`` over its pytree),
+  wrapped for the engine by :func:`model_spec`. Attention is op
+  ``attention``: the flash kernels (``ops/csrc/flash_*.cu``) on CUDA
+  tensors, plain attention on CPU tensors. With ``cfg.remat`` each block
+  runs under ``runtime/activation_checkpointing``'s ``checkpoint`` and reads
+  its leaves inside it, so ZeRO stage 3 gathers them again in the recompute
+  rather than keeping them; the block marks the values the name policies
+  save (:data:`CHECKPOINT_NAMES_EMITTED`).
+- v1 serving: :func:`apply_cached` over the dense KV cache of
+  :func:`init_cache` (the v1 engine, ``inference/engine.py``); its
+  attention is masked, so plain attention, as the JAX package hands every
+  masked call to XLA.
+- v2 serving: the ``nn.Module`` :class:`Llama`, whose ``forward`` is
   ``apply_paged`` over the paged KV cache.
 
 Parameter names follow the JAX tree with the leading layer dim unstacked
@@ -35,9 +46,23 @@ from ..ops.attention import attention
 from ..ops.embedding import embedding_lookup
 from ..ops.norms import rms_norm
 from ..ops.rotary import apply_rotary, rope_frequencies
+from ..runtime.activation_checkpointing import checkpointing as ac
+from ..runtime.activation_checkpointing.checkpointing import checkpoint_name
 from ..runtime.partitioning import LeafAxes, linear
 from ._paged import (init_paged_pools, join_kv, layer_kv, paged_attention_step,
                      split_kv)
+
+# the checkpoint names the training block attaches (the name policies'
+# saveables; a test holds every name a policy saves to this list)
+CHECKPOINT_NAMES_EMITTED = ("qkv_proj", "attn_mix", "attn_out",
+                            "mlp_gate", "mlp_up", "mlp_out")
+
+# cfg.remat_policy -> the registry policy that wraps each block (JAX :423)
+_REMAT_NAMES = {"none": "full", "full": "full", "dots": "dots_saveable"}
+
+
+def remat_policy(remat_policy: str) -> str:
+    return _REMAT_NAMES.get(remat_policy, remat_policy)
 
 
 @dataclass(frozen=True)
@@ -55,6 +80,8 @@ class LlamaConfig:
     tie_embeddings: bool = False
     attention_bias: bool = False  # QKV biases (Qwen2; HF attention_bias flag)
     qk_norm: bool = False         # per-head RMSNorm on q/k pre-rotary (Qwen3)
+    remat: bool = False           # checkpoint each training block
+    remat_policy: str = "none"    # none | full | dots | any registry policy
 
     @property
     def head_size(self) -> int:
@@ -301,49 +328,100 @@ class Llama(nn.Module):
 # --------------------------------------------------------------------------- #
 # full-sequence training forward (JAX ``apply`` / ``loss_fn``)
 # --------------------------------------------------------------------------- #
+def _qkv_proj(cfg: LlamaConfig, y: torch.Tensor, w) -> Tuple[torch.Tensor, ...]:
+    """QKV projections (JAX ``_qkv_proj``), each marked ``qkv_proj``, as
+    [b, s, heads, hd]; Qwen3's per-head q/k RMSNorm after them."""
+    b, s, _ = y.shape
+    nh, nkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_size, cfg.rms_norm_eps
+    q = checkpoint_name(F.linear(y, w("wq"), w("bq")), "qkv_proj").view(b, s, nh, hd)
+    k = checkpoint_name(F.linear(y, w("wk"), w("bk")), "qkv_proj").view(b, s, nkv, hd)
+    v = checkpoint_name(F.linear(y, w("wv"), w("bv")), "qkv_proj").view(b, s, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, w("q_norm"), eps)
+        k = rms_norm(k, w("k_norm"), eps)
+    return q, k, v
+
+
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, w) -> torch.Tensor:
+    y = rms_norm(x, w("mlp_norm"), cfg.rms_norm_eps)
+    gate = F.silu(checkpoint_name(F.linear(y, w("w_gate")), "mlp_gate"))
+    up = checkpoint_name(F.linear(y, w("w_up")), "mlp_up")
+    return x + checkpoint_name(F.linear(gate * up, w("w_down")), "mlp_out")
+
+
 def _block(cfg: LlamaConfig, x: torch.Tensor, p: Dict[str, torch.Tensor],
            cos: torch.Tensor, sin: torch.Tensor,
            positions: Optional[torch.Tensor]) -> torch.Tensor:
     """One transformer block (JAX ``_block`` with ``_qkv_proj``); x
-    [batch, seq, hidden] and the block's leaves ``p`` in the compute dtype."""
+    [batch, seq, hidden] and the block's leaves ``p`` in the compute dtype.
+    The checkpoint names sit where the JAX block puts them."""
     b, s, _ = x.shape
-    nh, nkv, hd, eps = cfg.num_heads, cfg.num_kv_heads, cfg.head_size, cfg.rms_norm_eps
+    nh, hd = cfg.num_heads, cfg.head_size
     w = p.get
-    y = rms_norm(x, w("attn_norm"), eps)
-    q = F.linear(y, w("wq"), w("bq")).view(b, s, nh, hd)
-    k = F.linear(y, w("wk"), w("bk")).view(b, s, nkv, hd)
-    v = F.linear(y, w("wv"), w("bv")).view(b, s, nkv, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, w("q_norm"), eps)
-        k = rms_norm(k, w("k_norm"), eps)
+    y = rms_norm(x, w("attn_norm"), cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(cfg, y, w)
     q = apply_rotary(q, cos, sin, positions)
     k = apply_rotary(k, cos, sin, positions)
-    attn = attention(q, k, v, causal=True)
-    x = x + F.linear(attn.reshape(b, s, nh * hd), w("wo"))
-    y = rms_norm(x, w("mlp_norm"), eps)
-    mlp = F.silu(F.linear(y, w("w_gate"))) * F.linear(y, w("w_up"))
-    return x + F.linear(mlp, w("w_down"))
+    attn = checkpoint_name(attention(q, k, v, causal=True), "attn_mix")
+    x = x + checkpoint_name(F.linear(attn.reshape(b, s, nh * hd), w("wo")), "attn_out")
+    return _mlp(cfg, x, w)
+
+
+def _block_leaves(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], l: int,
+                  compute_dtype) -> Dict[str, torch.Tensor]:
+    """Layer ``l``'s leaves, read (ZeRO stage 3: gathered; the v1 engine:
+    dequantized) and cast to ``compute_dtype`` when the block is entered."""
+    pre = f"layers.{l}."
+    return {name: params[pre + name].to(compute_dtype) for name in _layer_shapes(cfg)}
+
+
+def _head_split(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final norm and the unembedding ``[vocab, hidden]`` without the logits
+    matmul (JAX ``_head_split``), the pair the tiled loss head takes."""
+    x = rms_norm(x, params["final_norm"].to(compute_dtype), cfg.rms_norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return x, head.to(compute_dtype)
+
+
+def _head(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], x: torch.Tensor,
+          compute_dtype) -> torch.Tensor:
+    x, head = _head_split(cfg, params, x, compute_dtype)
+    return F.linear(x, head).float()
 
 
 def apply(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], tokens: torch.Tensor, *,
           positions: Optional[torch.Tensor] = None,
-          compute_dtype=torch.bfloat16) -> torch.Tensor:
+          compute_dtype=torch.bfloat16, return_hidden: bool = False):
     """Causal forward over the whole sequence → logits [batch, seq, vocab]
-    fp32. ``params`` maps :func:`param_shapes` names to tensors, cast to
+    fp32; with ``return_hidden`` the :func:`_head_split` pair instead.
+    ``params`` maps :func:`param_shapes` names to tensors, cast to
     ``compute_dtype`` here as the JAX ``apply`` casts its layers, so grads
     of fp32 params flow back through the cast. A block's leaves are read
-    when the forward enters the block (ZeRO stage 3 gathers them then)."""
-    cast = lambda t: t.to(compute_dtype)  # noqa: E731
+    when the forward enters the block (ZeRO stage 3 gathers them then);
+    with ``cfg.remat`` that read is inside the checkpointed block, under the
+    policy of ``cfg.remat_policy`` (JAX :417-425)."""
     x = embedding_lookup(params["embed"], tokens, compute_dtype)
     cos, sin = rope_frequencies(cfg.head_size, cfg.max_seq_len, cfg.rope_theta,
                                 device=x.device)
-    names = tuple(_layer_shapes(cfg))
+
+    def block(x, l):
+        return _block(cfg, x, _block_leaves(cfg, params, l, compute_dtype), cos, sin,
+                      positions)
+
+    policy = remat_policy(cfg.remat_policy)
     for l in range(cfg.num_layers):
-        block = {name: cast(params[f"layers.{l}.{name}"]) for name in names}
-        x = _block(cfg, x, block, cos, sin, positions)
-    x = rms_norm(x, cast(params["final_norm"]), cfg.rms_norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return F.linear(x, cast(head)).float()
+        x = ac.checkpoint(block, x, l, policy=policy) if cfg.remat else block(x, l)
+    if return_hidden:
+        return _head_split(cfg, params, x, compute_dtype)
+    return _head(cfg, params, x, compute_dtype)
+
+
+def _split_batch(batch: Dict[str, torch.Tensor]):
+    tokens = batch["tokens"]
+    if "labels" in batch:
+        return tokens, batch["labels"].long()
+    return tokens[:, :-1], tokens[:, 1:].long()
 
 
 def loss_fn(cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
@@ -352,13 +430,8 @@ def loss_fn(cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
     """Next-token cross-entropy in fp32, mean over valid tokens. batch:
     ``{"tokens": [b, s+1]}`` or ``{"tokens": [b, s], "labels": [b, s]}``
     with -100 = ignore."""
-    tokens = batch["tokens"]
-    if "labels" in batch:
-        inputs, labels = tokens, batch["labels"]
-    else:
-        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    inputs, labels = _split_batch(batch)
     logits = apply(cfg, params, inputs, compute_dtype=compute_dtype)
-    labels = labels.long()
     valid = labels != -100
     token_loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                  labels.reshape(-1), ignore_index=-100,
@@ -366,6 +439,21 @@ def loss_fn(cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
     ntokens = valid.sum()
     loss = token_loss / torch.clamp(ntokens, min=1)
     return loss, {"loss": loss.detach(), "ntokens": ntokens}
+
+
+def tiled_loss_fn(cfg: LlamaConfig, params: Mapping[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], *, compute_dtype=torch.bfloat16,
+                  shards: int = 8) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`loss_fn` with the unembedding and the cross-entropy fused a
+    sequence tile at a time (``sequence.tiled_loss``): the [B, S, V] logits
+    never exist, one [B, S/shards, V] tile at a time does."""
+    from ..sequence.tiled import tiled_fused_logits_loss
+
+    inputs, labels = _split_batch(batch)
+    hidden, head = apply(cfg, params, inputs, compute_dtype=compute_dtype,
+                         return_hidden=True)
+    loss = tiled_fused_logits_loss(hidden, head, labels, shards=shards)
+    return loss, {"loss": loss.detach(), "ntokens": (labels != -100).sum()}
 
 
 def model_spec(cfg: LlamaConfig, compute_dtype=torch.bfloat16):
@@ -378,10 +466,92 @@ def model_spec(cfg: LlamaConfig, compute_dtype=torch.bfloat16):
         init_fn=lambda gen, **kw: init(cfg, gen, **kw),
         loss_fn=lambda params, batch: loss_fn(cfg, params, batch,
                                               compute_dtype=compute_dtype),
+        tiled_loss_fn=lambda params, batch, shards=8: tiled_loss_fn(
+            cfg, params, batch, compute_dtype=compute_dtype, shards=shards),
         compute_dtype=compute_dtype,
         logical_axes=param_logical_axes(cfg),
         config=cfg,
     )
+
+
+# --------------------------------------------------------------------------- #
+# v1 dense-cache serving (JAX ``init_cache`` … ``apply_cached``)
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, torch.Tensor]:
+    """Dense KV cache ``{"k", "v"}``: [layers, batch, max_len, kv_heads,
+    head_dim] zeros on ``device`` (the GPU unless the caller passes
+    ``device="cpu"``)."""
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_logical_axes(cfg: LlamaConfig) -> Dict[str, LeafAxes]:
+    spec = LeafAxes(("layers", None, None, "kv_heads", None))
+    return {"k": spec, "v": spec}
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor,
+                 starts: torch.Tensor) -> torch.Tensor:
+    """Write new K/V rows into the cache at per-sequence offsets, in place
+    (JAX ``_write_cache``; a start past ``S - t`` is clamped, as
+    ``dynamic_update_slice`` clamps it). cache [b, S, kv, hd], new
+    [b, t, kv, hd], starts [b]."""
+    b, t = new.shape[:2]
+    start = starts.long().clamp(min=0, max=cache.shape[1] - t)
+    rows = start[:, None] + torch.arange(t, device=cache.device)[None, :]
+    cache[torch.arange(b, device=cache.device)[:, None], rows] = new.to(cache.dtype)
+    return cache
+
+
+def cache_mask(cache_len: torch.Tensor, t: int, S: int) -> torch.Tensor:
+    """[b, 1, t, S]: kv slot j is visible to query i (absolute position
+    ``cache_len + i``) iff j <= cache_len + i."""
+    dev = cache_len.device
+    q_abs = cache_len.long()[:, None, None, None] + torch.arange(t, device=dev)[None, None, :, None]
+    return torch.arange(S, device=dev)[None, None, None, :] <= q_abs
+
+
+def _block_cached(cfg: LlamaConfig, x: torch.Tensor, p: Dict[str, torch.Tensor],
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  cache_len: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """One block that writes its K/V into the layer's cache (in place) and
+    attends over it (JAX ``_block_cached``). x [b, t, h]; cache_len [b]."""
+    b, t, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.head_size
+    w = p.get
+    y = rms_norm(x, w("attn_norm"), cfg.rms_norm_eps)
+    q, k, v = _qkv_proj(cfg, y, w)
+    q = apply_rotary(q, cos, sin, positions)
+    k = apply_rotary(k, cos, sin, positions)
+    _write_cache(k_cache, k, cache_len)
+    _write_cache(v_cache, v, cache_len)
+    mask = cache_mask(cache_len, t, k_cache.shape[1])
+    attn = attention(q, k_cache, v_cache, causal=False, mask=mask)
+    x = x + F.linear(attn.reshape(b, t, nh * hd), w("wo"))
+    return _mlp(cfg, x, w)
+
+
+def apply_cached(cfg: LlamaConfig, params: Mapping[str, torch.Tensor], tokens: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], cache_len: torch.Tensor, *,
+                 compute_dtype=torch.bfloat16
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward with the dense KV cache (prefill when ``cache_len`` is 0,
+    decode otherwise; JAX ``apply_cached``). tokens [b, t]; cache_len [b]
+    (or a scalar) valid cache slots per sequence. Returns (logits
+    [b, t, vocab] fp32, cache), the cache written in place."""
+    b, t = tokens.shape
+    cache_len = torch.as_tensor(cache_len, device=tokens.device).long().expand(b)
+    x = embedding_lookup(params["embed"], tokens, compute_dtype)
+    cos, sin = rope_frequencies(cfg.head_size, cfg.max_seq_len, cfg.rope_theta,
+                                device=x.device)
+    positions = cache_len[:, None] + torch.arange(t, device=x.device)[None, :]
+    for l in range(cfg.num_layers):
+        x = _block_cached(cfg, x, _block_leaves(cfg, params, l, compute_dtype),
+                          cache["k"][l], cache["v"][l], cache_len, cos, sin, positions)
+    return _head(cfg, params, x, compute_dtype), cache
 
 
 def build(cfg: LlamaConfig) -> Llama:

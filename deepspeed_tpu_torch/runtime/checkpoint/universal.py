@@ -368,14 +368,35 @@ def save_universal(leaves: Dict[str, Part], out_dir: str, *, opt_step: Optional[
     return final
 
 
-def load_universal(universal_dir: str, engine) -> Dict:
-    """Map the fp32 fragments under ``universal_dir`` onto the engine's
-    CURRENT topology, in place; returns the fragments' ``meta.json``."""
+def _universal_root(universal_dir: str) -> str:
+    """The fragments' root: ``universal_dir`` itself, or its ``universal``
+    subdirectory when that is where the fragments are."""
     root = universal_dir
     if os.path.basename(root) != UNIVERSAL_DIR and \
             not os.path.isdir(os.path.join(root, "param")) and \
             os.path.isdir(os.path.join(root, UNIVERSAL_DIR)):
         root = os.path.join(root, UNIVERSAL_DIR)
+    return root
+
+
+def read_universal_params(universal_dir: str, model_config: Any) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``model_config``'s family, whole, in the port's
+    names and layout, from the param fragments under ``universal_dir`` (the
+    port's or the JAX engine's: one layout) — fp32 host tensors."""
+    root = os.path.join(_universal_root(universal_dir), "param")
+    shapes = {k: tuple(s) for k, (s, _) in _param_shapes(model_config).items()}
+    out = {}
+    for name, lm in fragment_map(shapes, model_config).items():
+        arr = _read_region(root, lm, Part(None, shapes[name], None))
+        t = torch.from_numpy(np.ascontiguousarray(arr.T if lm.transpose else arr))
+        out[name] = t
+    return out
+
+
+def load_universal(universal_dir: str, engine) -> Dict:
+    """Map the fp32 fragments under ``universal_dir`` onto the engine's
+    CURRENT topology, in place; returns the fragments' ``meta.json``."""
+    root = _universal_root(universal_dir)
     opt_step = _load_fragments(root, engine)
     if opt_step is not None:
         engine.state = engine.state._replace(

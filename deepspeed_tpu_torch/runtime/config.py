@@ -838,13 +838,8 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
                     for a in ("tensor", "pipe", "seq", "expert")),
         "tensor_parallel": cfg.tensor_parallel.autotp_size > 1,
         "sequence_parallel_size": cfg.sequence_parallel_size > 1,
-        "sequence.tiled_loss": cfg.sequence.tiled_loss,
         "sequence.ring": (cfg.sequence.ring.layout != "contiguous"
                           or cfg.sequence.ring.overlap),
-        "activation_checkpointing":
-            (cfg.activation_checkpointing.policy != "none"
-             or cfg.activation_checkpointing.cpu_checkpointing
-             or cfg.activation_checkpointing.partition_activations),
         "comms_overlap": cfg.comms_overlap.enabled,
         "comms_logger": cfg.comms_logger.enabled,
         "moe": cfg.moe.enabled or cfg.moe.expert_parallel_size > 1,

@@ -36,8 +36,10 @@ sharded dim of each leaf from ``runtime/partitioning.py``):
   dtype) when the model first reads it in a micro-batch, through
   ``partitioning.GatherParam``, whose backward reduce-scatters the grad into
   the fp32 shard's grad, reducing in fp32. Llama reads a block's leaves when
-  it enters the block. The gathered blocks stay alive for the backward (no
-  release and re-gather yet).
+  it enters the block. The gathered blocks stay alive for the backward,
+  except under a family's ``remat``, where a block reads its leaves inside
+  the checkpointed function: the gather is not kept, and the recompute
+  gathers the block again.
 
 The AdamW update runs unchanged on the shards, in place; it is elementwise,
 so a shard's update equals the same rows of the whole update.
@@ -72,8 +74,12 @@ the engine's tensors in place.
 
 Not ported yet (their config blocks raise at :func:`initialize`, see
 ``runtime/config.py``): the tensor, pipe, seq and expert axes, MiCS / hpZ,
-offload and tiered memory, quantized ZeRO collectives, remat, comms overlap,
+offload and tiered memory, quantized ZeRO collectives, comms overlap,
 MoE, telemetry, tuning, watchdog, integrity, curriculum.
+
+``activation_checkpointing`` sets the default policy of
+``activation_checkpointing.checkpoint()``; ``sequence.tiled_loss`` routes
+the loss through the model's ``tiled_loss_fn``.
 """
 
 from __future__ import annotations
@@ -124,6 +130,10 @@ class ModelSpec:
     # the family's config (LlamaConfig, GPTConfig, BloomConfig): universal
     # checkpoints then write the JAX tree's names and layout
     config: Optional[Any] = None
+    # optional fused unembedding + cross-entropy: (params, batch, *, shards)
+    # -> (loss, aux), never holding the [B, S, V] logits; the loss when
+    # config.sequence.tiled_loss is on (sequence/tiled.py)
+    tiled_loss_fn: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
 
 
 class TrainState(NamedTuple):
@@ -190,6 +200,21 @@ class DeepSpeedTPUEngine:
 
         if training_data is not None:
             self.training_dataloader = self.deepspeed_io(training_data)
+        # the config's remat policy becomes the process-wide default of
+        # activation_checkpointing.checkpoint() (JAX :492-499); a family's
+        # blocks are rematerialized by its own cfg.remat alone
+        ac = config.activation_checkpointing
+        if ac.policy != "none" or ac.cpu_checkpointing:
+            from .activation_checkpointing import checkpointing as _ac
+
+            _ac.configure(deepspeed_config=config)
+        if config.sequence.tiled_loss:
+            if model.tiled_loss_fn is None:
+                log_dist("sequence.tiled_loss: ON but the model spec has no "
+                         "tiled_loss_fn — using the dense loss_fn")
+            else:
+                log_dist("sequence.tiled_loss: fused unembedding + CE "
+                         f"(shards={config.sequence.tiled_loss_shards})")
         log_dist(f"engine ready: device={device} zero_stage={self.zero_stage} "
                  f"dp={self.dp_world_size()} dtype={config.compute_dtype} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
@@ -357,13 +382,22 @@ class DeepSpeedTPUEngine:
         total = comm.all_reduce(n.to(torch.int64), self._axis, mesh=self.mesh_mgr)
         return n.float() / total.clamp(min=1).float()
 
+    def _raw_loss(self, compute, batch):
+        """The model's loss on the compute params: through ``tiled_loss_fn``
+        when ``sequence.tiled_loss`` is on and the model has one (JAX
+        ``_raw_loss``), else ``loss_fn``."""
+        seq = self.config.sequence
+        if seq.tiled_loss and self.model.tiled_loss_fn is not None:
+            return self.model.tiled_loss_fn(compute, batch, shards=seq.tiled_loss_shards)
+        return self.model.loss_fn(compute, batch)
+
     def _grads_one_micro(self, batch: Dict[str, torch.Tensor]
                          ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
         """Forward and backward of this rank's rows of one micro-batch: the
         grads of the scaled, weighted loss ADD into the stage's accumulator.
         Returns (this rank's weighted loss, its aux, its weight)."""
         compute = self._compute_params()
-        out = self.model.loss_fn(compute, batch)
+        out = self._raw_loss(compute, batch)
         loss, aux = out if isinstance(out, tuple) else (out, {})
         weight = self._rank_weight(aux)
         loss = loss.float() * weight
@@ -566,7 +600,7 @@ class DeepSpeedTPUEngine:
         reads it), weighted and summed over ranks as :meth:`forward`'s."""
         with torch.no_grad():
             micro = self._rank_rows(self._to_device(batch))
-            out = self.model.loss_fn(self._compute_params(), micro)
+            out = self._raw_loss(self._compute_params(), micro)
             loss, aux = out if isinstance(out, tuple) else (out, {})
             loss = loss.float() * self._rank_weight(aux)
             return comm.all_reduce(loss, self._axis, mesh=self.mesh_mgr)

@@ -39,6 +39,7 @@ import torch
 
 from ..comm import comm
 from ..comm.mesh import ZERO_AXES, AxisName, MeshManager
+from .activation_checkpointing.checkpointing import in_checkpoint
 
 # default logical-axis → mesh-axis rules (t5x style)
 DEFAULT_RULES: Dict[str, Optional[str]] = {
@@ -221,7 +222,10 @@ class GatherOnUse(Mapping):
     """A param mapping for one micro-batch at stage 3: reading a leaf runs
     :class:`GatherParam` on its shard (once; later reads reuse the gathered
     tensor), so a model that reads a block's leaves when it enters the block
-    gathers one block at a time."""
+    gathers one block at a time. A read inside a checkpointed function
+    (``activation_checkpointing.in_checkpoint``) gathers every time and
+    keeps nothing: the gathered block then dies with the block's forward,
+    and the recompute gathers it again."""
 
     def __init__(self, masters: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
                  axis: AxisName, mesh: MeshManager, dtype: torch.dtype):
@@ -229,12 +233,18 @@ class GatherOnUse(Mapping):
         self._axis, self._mesh, self._dtype = axis, mesh, dtype
         self._gathered: Dict[str, torch.Tensor] = {}
 
+    def _gather(self, name: str) -> torch.Tensor:
+        m = self._masters[name]
+        if not m.is_floating_point():
+            return m
+        return GatherParam.apply(m, self._dims[name], self._axis, self._mesh, self._dtype)
+
     def __getitem__(self, name: str) -> torch.Tensor:
-        if name not in self._gathered:
-            m = self._masters[name]
-            self._gathered[name] = (GatherParam.apply(m, self._dims[name], self._axis,
-                                                      self._mesh, self._dtype)
-                                    if m.is_floating_point() else m)
+        if name in self._gathered:
+            return self._gathered[name]
+        if in_checkpoint():
+            return self._gather(name)
+        self._gathered[name] = self._gather(name)
         return self._gathered[name]
 
     def __iter__(self):

@@ -36,6 +36,16 @@ every rank's device GiB before, at peak and after each load.
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         scripts/zero_nccl_check.py --ckpt --steps 3
 
+``--remat POLICY`` checkpoints every block under that policy of
+``runtime/activation_checkpointing`` (the family's ``remat``): at ZeRO-3 a
+block then gathers its leaves inside the checkpointed function, so the
+gathered block does not outlive its forward and the recompute gathers it
+again; the flash forward and RMSNorm launch counts then include the
+recompute (``chip_smoke.remat_launches``).
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        scripts/zero_nccl_check.py --layers 32 --stages 3 --steps 3 --remat full
+
 ``--tiny --backend gloo --device cpu`` rehearses the same code on the CPU
 (tiny Llama, plain versions, no profile).
 """
@@ -68,6 +78,7 @@ def main() -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--ckpt", action="store_true", help="the checkpoint leg instead")
+    ap.add_argument("--remat", default="none", help="remat policy of every block")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -106,6 +117,7 @@ def main() -> int:
     else:
         cfg, seq = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
                                        num_layers=args.layers), args.seq
+    cfg = dataclasses.replace(cfg, remat=args.remat != "none", remat_policy=args.remat)
     rs = np.random.RandomState(args.seed)
     batch = {"tokens": rs.randint(0, cfg.vocab_size,
                                   (args.gas * world, seq + 1)).astype(np.int32)}
@@ -113,8 +125,7 @@ def main() -> int:
                "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda}
     if args.ckpt:
         return checkpoint_leg(args, cfg, seq, card)
-    want = {k: args.steps * args.gas * (2 * cfg.num_layers + 1 if k == "rms_norm"
-                                         else cfg.num_layers) for k in kernels}
+    want = cs.remat_launches(cfg.num_layers, args.remat, args.steps * args.gas)
     res, base = {}, None
     for stage in (int(s) for s in args.stages.split(",")):
         conf = cs._train_config(args.seed, args.gas, True)
@@ -192,7 +203,8 @@ def main() -> int:
     comm.set_mesh(None)
     dist.destroy_process_group()
     if rank == 0:
-        summary = {"world": world, "layers": cfg.num_layers, "card": card, "stages": res}
+        summary = {"world": world, "layers": cfg.num_layers, "remat": args.remat, "card": card,
+                   "stages": res}
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(summary, indent=1))

@@ -1,8 +1,13 @@
 """Multi-rank scenarios of the PyTorch port on the CPU: :func:`spawn` starts
-``world`` ranks of this module as subprocesses over a gloo process group on
-a free local port, and collects what each rank wrote.
+``world`` ranks of this module as subprocesses over a gloo process group,
+and collects what each rank wrote.
 
-A rank runs ``python _torch_dist_worker.py JOB RANK WORLD PORT``: it pins
+The ranks meet through a ``file://`` store in the job's directory, a name
+no other spawn uses, not through a TCP port: a port that the spawner found
+free could be taken by another process before rank 0 bound it, and under
+``pytest -n`` many jobs spawn ranks at once.
+
+A rank runs ``python _torch_dist_worker.py JOB RANK WORLD STORE``: it pins
 torch to one thread, joins the group through
 ``comm.init_distributed(dist_backend="gloo", ...)`` with a collective
 timeout under a minute, runs the job's scenario (``SCENARIOS``) and writes
@@ -14,7 +19,6 @@ at most that long.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -26,12 +30,6 @@ REPO = Path(__file__).resolve().parents[1]
 GLOO_TIMEOUT_S = 45
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def spawn(job: dict, world: int, tmp_path, timeout: float = 120.0) -> list:
     """Run ``job`` on ``world`` ranks; returns each rank's arrays (a dict
     per rank, rank order). Raises with the ranks' output on a failure or a
@@ -40,7 +38,7 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = 120.0) -> list:
     job = dict(job, out=str(tmp))
     job_file = tmp / "job.json"
     job_file.write_text(json.dumps(job))
-    port = free_port()
+    store = f"file://{tmp.resolve() / f'store.{os.getpid()}.{time.monotonic_ns()}'}"
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     logs, procs = [], []
     for r in range(world):
@@ -48,7 +46,7 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = 120.0) -> list:
         logs.append(log)
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), str(job_file), str(r),
-             str(world), str(port)], cwd=str(REPO), env=env, stdout=log,
+             str(world), store], cwd=str(REPO), env=env, stdout=log,
             stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
     try:
@@ -309,14 +307,14 @@ SCENARIOS = {"train": scenario_train, "comm": scenario_comm, "zero_init": scenar
 
 
 def main():
-    job_file, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    job_file, rank, world, store = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     import torch
 
     torch.set_num_threads(1)
     from deepspeed_tpu_torch import comm
 
     job = json.loads(Path(job_file).read_text())
-    comm.init_distributed(dist_backend="gloo", coordinator_address=f"localhost:{port}",
+    comm.init_distributed(dist_backend="gloo", coordinator_address=store,
                           num_processes=world, process_id=rank, timeout=GLOO_TIMEOUT_S)
     try:
         out = SCENARIOS[job["scenario"]](job, rank, world)

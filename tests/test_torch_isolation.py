@@ -266,3 +266,28 @@ def test_init_distributed_defaults_to_nccl_and_gloo_only_when_asked():
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+
+
+def test_init_inference_defaults_to_the_gpu_and_refuses_what_is_not_ported():
+    """``init_inference`` runs on the card unless the CPU is asked for; on
+    the v1 engine ``quant`` builds (int8, packed int4, fp8), while tensor
+    parallelism still raises, and v2 keeps refusing ``quant``."""
+    from deepspeed_tpu_torch import init_inference
+
+    cfg, params = _tiny_params()
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_inference(llama, model_cfg=cfg, params=params, config={"dtype": "float32"})
+    for quant in ({"enabled": True}, {"enabled": True, "bits": 4},
+                  {"enabled": True, "dtype": "fp8"}):
+        conf = {"dtype": "float32", "quant": quant}
+        assert InferenceConfig.from_dict(conf).unported_features("v1") == []
+        eng = init_inference(llama, model_cfg=cfg, params=params, config=conf, device="cpu")
+        assert eng.weight_bytes() < sum(t.numel() * 4 for t in params.values())
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        init_inference(llama, model_cfg=cfg, params=params, device="cpu",
+                       config={"dtype": "float32", "tensor_parallel": {"tp_size": 2}})
+    with pytest.raises(NotImplementedError, match="quant"):
+        build_engine_v2(llama, cfg, params, device="cpu",
+                        config={"dtype": "float32", "quant": {"enabled": True}})

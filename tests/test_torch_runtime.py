@@ -107,8 +107,8 @@ def _spec():
 @pytest.mark.parametrize("block", [
     {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
     {"pipeline": {"stages": 2}},
-    {"sequence": {"tiled_loss": True}},
-    {"activation_checkpointing": {"policy": "full"}},
+    {"sequence": {"ring": {"overlap": True}}},
+    {"comms_logger": {"enabled": True}},
     {"comms_overlap": {"enabled": True}},
     {"moe": {"enabled": True}},
     {"tensor_parallel": {"autotp_size": 2}},
