@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # Llama-3-8B, OPT-1.3B, BLOOM-7b1, MSA shapes
+    python3 chip_smoke.py            # Llama-3-8B, OPT-1.3B, BLOOM-7b1, EXAONE-4.0-32B, MSA shapes
 
 Phases (any failure raises and the script exits nonzero; nothing is caught):
 
@@ -334,12 +334,59 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    over the same weights dequantized once (one row's scale of
    ``layers.0.wq`` doubled, planted, must break it); at ``QUANT_DEPTH``
    layers the logits against bf16 weights within ``QUANT_VS_BF16_TOL``
-   (``tests/test_torch_quant_limits.py``'s CPU simulation).
+   (``tests/test_torch_quant_limits.py``'s CPU simulation). Where a row's v1
+   and v2 streams part, its top-two logit gap in v1, in v2 (the decode
+   graph's output) and in the fp32 forward, over the row's RMS, and the fp32
+   margin between the two tokens against the bf16 error (``v1_v2_parting``:
+   beyond it one side is wrong, within it a near-tie). Then BLOOM-7b1 (30
+   layers) with int8 weights (``bloom_v1_peak``): v1 ``forward``'s peak above
+   the weights when ``apply`` reads a block's leaves at the block against
+   every leaf dequantized first; the logits equal, the peak lower.
+22. The optimizer set (``phase_optimizers``) at phase 7's configuration:
+   the multi-tensor AdamW (phase 7's run) against its per-leaf loop
+   (``loop_adamw``): losses equal or within ``TRAIN_LOSS_RTOL``, step ms,
+   elementwise ms of a profiled step, peak at most the loop's plus one
+   ``CHUNK_BYTES``; each of ``OPTIMIZER_CASES`` (AdamW, AdamW with a
+   no-decay group, Lion, LAMB, Adagrad, SGD with Nesterov momentum, Muon,
+   1-bit Adam, 1-bit LAMB, 0/1 Adam; the 1-bit ones past their warmup from
+   step 2) for ``OPT_STEPS`` steps, the update of step ``OPT_CHECK_STEP``
+   held leaf by leaf to the same update computed in float64 on the card from
+   the same params, grads and state (``reference_update``, the JAX update
+   per JAX leaf; snapshots in a pinned host arena) within ``OPT_CHECK_TOL``
+   relative Frobenius; planted faults (the card's beta1 0.8 in LAMB, Muon's
+   scale in the port's ``[out, in]`` orientation) must fail it; LAMB and
+   Muon at ZeRO stages 0-3 over NCCL at world size 1, each stage's losses,
+   grad norms and params bit for bit stage 0's. Flash and RMSNorm launches
+   a step as phase 7's.
+23. EXAONE-4.0-32B (``phase_exaone4``; published widths: hidden 5120, MLP
+   27392, 40 / 8 heads of 128, vocab 102400, window 4096 on the LLL of each
+   LLLG period, untied head; plain RoPE at theta 1e6, since neither package
+   implements its llama3 ``rope_scaling``; random bf16 weights from the
+   seed). (a) Training at 4 layers (LLLG, 2.98 B parameters): bf16, AdamW
+   with the no-decay group, GAS 2 of one 2048-token sequence,
+   ``EXA_TRAIN_STEPS`` steps; RMSNorm 17 launches a forward, no flash kernel
+   (the hybrid attention is masked, so plain, as in the JAX package); the
+   loss finite and falling. (b) Phase 8's card-vs-CPU check at those 4
+   layers (S 256); RoPE on the global layers (planted) must fail it. (c)
+   Serving at all 64 layers (64.0 GB of weights, shared by every engine):
+   8 prompts (``EXA_LENGTHS``: two of 5120 tokens, so that decodes read past
+   the 4096 window, split into 512-token prefill chunks) x 32 greedy tokens
+   through v2 on bf16 pools (the decode graph) and with speculative
+   decoding + fused verify on int8 pools (self-repeating prompts), launches
+   held to the engines' step counts (RMSNorm 257 a forward; 64 paged
+   decodes a step, every one ``paged_sm90.cu`` with its layer's window);
+   then v1 (each 5120-token prompt alone, the rest together), and how many
+   rows v1 and v2 agree on. (d) At 4 layers: v1's prefill logits on a
+   5120-token prompt, and every token of v1, v2 and v2 spec + int8 against
+   the fp32 forward of the same weights, within ``V1_NOISE_RATIO`` times the
+   bf16 forward's own error; a late cache write (planted) must fail it.
 
-The line before the last is ``{"kernels": [...]}`` (one entry per kernel:
-launches on the main paths, times, bound, max error); the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-``--details PATH`` also writes every measurement as JSON to PATH.
+The last three lines: ``{"profile_sessions": {...}}`` (the sessions each
+checked profiler window of phases 16 and 17 took), ``{"kernels": [...]}``
+(one entry per kernel: launches on the main paths, times, bound, max
+error) and ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}``. ``--details PATH`` also writes every measurement as JSON
+to PATH.
 """
 
 from __future__ import annotations
@@ -1312,14 +1359,19 @@ INT8 = {"kv_quant": {"enabled": True, "group_size": 128}}
 
 
 def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, cfg=None,
-                       norm: str = "rms_norm", engines=None):
+                       norm: str = "rms_norm", engines=None, params=None,
+                       norms_per_layer: int = 2, base_conf=None, warm=None):
     """A model at full width and depth through ``generate`` in several
     engines in turn, each ``(name, extra config, prompts)``; launch counts
     held to the engine's own step counts. By default Llama-3-8B with
     speculative decoding and fused verification on bf16 pools, the same on
     int8 pools, and int8 pools alone (whose every step is an int8 decode),
     all on self-repeating prompts. ``norm`` names the family's norm op (one
-    launch per norm, 2 per layer and a final one)."""
+    launch per norm, ``norms_per_layer`` per layer and a final one).
+    ``params``: the bf16 weights (drawn from the seed when None, and then
+    freed at the end); ``base_conf``: the engines' config before each one's
+    extra; ``warm``: the warm-up and profiled prompts (by default the
+    first, second and fifth)."""
     import torch
 
     from deepspeed_tpu_torch.inference import build_engine_v2
@@ -1331,8 +1383,14 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
 
     family = family or llama
     cfg = cfg or llama.LlamaConfig.llama3_8b()
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = family.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    own = params is None
+    if own:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = family.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    if base_conf is None:
+        base_conf = {"dtype": "bfloat16", "prefill_bucket": 64,
+                     "ragged": {"max_tracked_sequences": 64, "max_ragged_batch_size": 64,
+                                "memory_config_blocks": 512, "block_size": 128}}
     if engines is None:
         prompts, _ = spec_prompts(seed, cfg.vocab_size)
         engines = (("spec_bf16", SPEC, prompts), ("spec_int8", {**SPEC, **INT8}, prompts),
@@ -1347,16 +1405,14 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
     for name, extra, prompts in engines:
         lengths = [len(p) for p in prompts]
         t0 = time.perf_counter()
-        eng = build_engine_v2(family, cfg, params, config=dict({
-            "dtype": "bfloat16", "prefill_bucket": 64,
-            "ragged": {"max_tracked_sequences": 64, "max_ragged_batch_size": 64,
-                       "memory_config_blocks": 512, "block_size": 128}}, **extra))
+        eng = build_engine_v2(family, cfg, params, config=dict(base_conf, **extra))
         torch.cuda.synchronize()
         pool_bytes = sum(x.numel() * x.element_size() for x in eng.cache.values())
         log(f"  {name}: pools {sorted(eng.cache)} {pool_bytes/1e9:.3f} GB, "
             f"set-up {time.perf_counter()-t0:.1f} s")
-        eng.generate([prompts[0], prompts[4]], max_new_tokens=4)   # warm-up
-        per_replay = capture_decode_graph(eng, prompts[1])
+        w = warm or (prompts[0], prompts[1], prompts[4])
+        eng.generate([w[0], w[2]], max_new_tokens=4)   # warm-up
+        per_replay = capture_decode_graph(eng, w[1])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         eng.forward_log.clear()
@@ -1375,15 +1431,16 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
         for o in outs:
             assert len(o) == max_new_tokens and all(0 <= x < cfg.vocab_size for x in o), o
         kinds = {k: [e for e in eng.forward_log if e[0] == k]
-                 for k in ("prefill", "decode", "verify")}
+                 for k in ("prefill", "prefill_chunk", "decode", "verify")}
         n_fwd = sum(len(v) for v in kinds.values())
         quant, spec_on = "kv_quant" in extra, "speculative" in extra
         decode_key = "paged_decode_attention_int8" if quant else "paged_decode_attention"
         other_key = "paged_decode_attention" if quant else "paged_decode_attention_int8"
-        want = {norm: (2 * cfg.num_layers + 1) * n_fwd, other_norm: 0,
+        want = {norm: (norms_per_layer * cfg.num_layers + 1) * n_fwd, other_norm: 0,
                 decode_key: cfg.num_layers * len(kinds["decode"]), other_key: 0,
                 "paged_spec_verify_attention": cfg.num_layers * len(kinds["verify"])}
-        log(f"  {name}: forwards {len(kinds['prefill'])} prefill + {len(kinds['verify'])} "
+        log(f"  {name}: forwards {len(kinds['prefill'])} prefill + "
+            f"{len(kinds['prefill_chunk'])} prefill chunks + {len(kinds['verify'])} "
             f"verify + {len(kinds['decode'])} decode ({replays} replays of the decode graph, "
             f"whose kernel nodes hold {per_replay}); launches {launches}, expected {want}; "
             f"spec stats {stats}")
@@ -1411,7 +1468,11 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
              "spec_stats": stats, "launches": launches, "per_replay": per_replay,
              "replays": replays, "pool_bytes": pool_bytes,
              "peak_mem_bytes": peak, "e2e_s": t_end - t_start,
-             "generated_tokens_per_s": len(prompts) * max_new_tokens / (t_end - t_start)}
+             "generated_tokens_per_s": len(prompts) * max_new_tokens / (t_end - t_start),
+             "outs": outs}
+        if kinds["prefill_chunk"]:
+            # the split prompts' first token comes with their last chunk
+            r["ttft_split_ms"] = (kinds["prefill_chunk"][-1][3] - t_start) * 1e3
         fmt = lambda v, f: "n/a" if v is None else f % v  # noqa: E731
         log(f"  {name}: TTFT {r['ttft_ms']:.1f} ms, {r['tokens_per_step']:.3f} tokens per "
             f"sequence-step, acceptance {fmt(r['acceptance_rate'], '%.3f')} "
@@ -1423,8 +1484,9 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
 
         # where the time goes: the burst's prefill and 6 steps under the
         # profiler (device-busy vs wall time), after the counted run
-        uids = list(range(1000, 1000 + len(prompts)))
-        eng.put_many(list(zip(uids, prompts)))
+        prof_prompts = list(w) if warm else prompts
+        uids = list(range(1000, 1000 + len(prof_prompts)))
+        eng.put_many(list(zip(uids, prof_prompts)))
         wall, busy, n_k, top = profile_window(lambda: [eng.step() for _ in range(6)])
         r["profile_steps"] = {"wall_ms_per_step": wall * 1e3 / 6,
                               "busy_ms_per_step": busy * 1e3 / 6,
@@ -1445,7 +1507,8 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
         res["pool_ratio_int8_to_bf16"] = \
             res["spec_int8"]["pool_bytes"] / res["spec_bf16"]["pool_bytes"]
         log(f"  int8 pools {res['pool_ratio_int8_to_bf16']:.4f} x the bf16 pools' bytes")
-    del params
+    if own:
+        del params
     torch.cuda.empty_cache()
     return res
 
@@ -1870,6 +1933,7 @@ PROFILE_GROUPS = [
     ("reduce", ("reduce_kernel",)),
     ("nccl", ("nccl",)),
     ("copy_cast", ("copy_kernel", "direct_copy")),
+    ("foreach", ("multi_tensor_apply_kernel",)),     # torch._foreach_* (the optimizers)
     ("elementwise", ("elementwise_kernel",)),
 ]
 
@@ -2451,8 +2515,8 @@ def fault_zero_alibi():
 
 def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-width",
                       fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL,
-                      against: dict = None, leaf_tol: dict = None):
-    """1 layer at full width (Llama-3-8B by default), S = 256: one step's
+                      against: dict = None, leaf_tol: dict = None, layers: int = 1):
+    """``layers`` layer(s) at full width (Llama-3-8B by default), S = 256: one step's
     loss and every leaf's gradient, card (kernels, bf16) against CPU (plain,
     fp32), each leaf's error over its reference norm within ``grad_tol``
     (``leaf_tol`` names leaves held at limits of their own; ``against`` maps
@@ -2465,7 +2529,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     from deepspeed_tpu_torch.models import llama
 
     family = family or llama
-    cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama3_8b(), num_layers=1)
+    cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama3_8b(), num_layers=layers)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     masters = family.init(cfg, gen)          # fp32, on the card
     rs = np.random.RandomState(seed + 2)
@@ -2477,6 +2541,10 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
             model=dst.ModelSpec(params=params, loss_fn=lambda p, b: family.loss_fn(
                 cfg, p, b, compute_dtype=torch.bfloat16 if bf16 else torch.float32)),
             config=_train_config(seed, 1, bf16), device=device)
+        # the engine copied the leaves: drop the given ones (host memory at
+        # EXAONE-4's width)
+        params.clear()
+        eng.model.params = None
         loss = float(eng.forward(batch))
         grads = {k: p.grad.float().cpu() for k, p in eng.state.params.items()}
         del eng, params
@@ -2511,7 +2579,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     worst = worst_of(rel)
     ok = loss_rel <= TRAIN_LOSS_RTOL and rel[worst] <= tol[worst] and \
         all(np.isfinite(list(rel.values())))
-    log(f"  1-layer {label} step, card (bf16, kernels) vs CPU (fp32, plain): loss "
+    log(f"  {layers}-layer {label} step, card (bf16, kernels) vs CPU (fp32, plain): loss "
         f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_RTOL:g}); "
         f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {tol[worst]:g}) "
         f"{'ok' if ok else 'FAIL'}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
@@ -5582,6 +5650,71 @@ def v1_times(eng, prompts, lengths, new: int) -> dict:
             "peak_gib": (eng.weight_bytes() + torch.cuda.max_memory_allocated() - before) / 2**30}
 
 
+def _top2(z) -> tuple:
+    """(argmax, second token, (top1 - top2) / row RMS) of one logits row."""
+    top = z.float().topk(2)
+    rms = float(z.float().pow(2).mean().sqrt())
+    return int(top.indices[0]), int(top.indices[1]), float(top.values[0] - top.values[1]) / rms
+
+
+def v1_v2_parting(cfg, eng, prompts, lengths, v1_outs, v2_outs, leave, v2_ticks,
+                  noise: float) -> dict:
+    """At the step where a row's v1 and v2 streams part: the top-two logit
+    gap of v1 (its dense-cache decode), of v2 (the paged kernel's decode
+    step, recorded from the graph's output) and of the fp32 forward of the
+    same weights, each over its row's RMS, and the fp32 forward's margin
+    between the two tokens chosen. A margin wider than the bf16 path's own
+    error (``noise``) would be a fault of the side whose token has the lower
+    fp32 logit; within it the rows part on a near-tie."""
+    import torch
+
+    from deepspeed_tpu_torch.models import llama
+
+    want = {i: j for i, j in enumerate(leave) if j is not None}
+    v1_rows = {}
+    sound = eng._apply_cached
+    calls = []
+
+    def recorded(tokens, cache, cache_len):
+        logits, cache = sound(tokens, cache, cache_len)
+        step = len(calls)
+        calls.append(None)
+        for i, j in want.items():
+            if j == step:
+                pos = int(lengths[i]) - 1 if step == 0 else 0
+                v1_rows[i] = logits[i, pos].float().clone()
+        return logits, cache
+
+    eng._apply_cached = recorded
+    again = eng.generate(prompts, prompt_lengths=lengths, max_new_tokens=MAX_NEW_TOKENS)
+    eng._apply_cached = sound
+    out = {"noise": noise, "rows": {}}
+    for i, j in want.items():
+        seq = np.concatenate([prompts[i, :lengths[i]], np.asarray(v1_outs[i][:j], np.int64)])
+        with torch.inference_mode():
+            z32 = llama.apply(cfg, eng.weights(), eng._tensor(seq[None]),
+                              compute_dtype=torch.float32)[0, -1]
+        t1, t2 = int(v1_outs[i][j]), int(v2_outs[i][j])
+        rms32 = float(z32.pow(2).mean().sqrt())
+        row = {"step": j, "v1_token": t1, "v2_token": t2,
+               "fp32": _top2(z32), "fp32_margin_v1_minus_v2": float(z32[t1] - z32[t2]) / rms32,
+               "v1": _top2(v1_rows[i]) if i in v1_rows else None,
+               "v2": _top2(v2_ticks[j - 1][i]) if 0 < j <= len(v2_ticks) else None}
+        row["v2_slot_is_row"] = row["v2"] is not None and row["v2"][0] == t2
+        row["verdict"] = ("near-tie" if abs(row["fp32_margin_v1_minus_v2"]) <= noise else
+                          ("v2 wrong" if row["fp32_margin_v1_minus_v2"] > 0 else "v1 wrong"))
+        out["rows"][i] = row
+        log(f"  row {i} parts at step {j}: v1 picks {t1}, v2 {t2}; top-two gap / RMS v1 "
+            f"{row['v1'][2] if row['v1'] else float('nan'):.4f}, v2 "
+            f"{row['v2'][2] if row['v2'] else float('nan'):.4f}, fp32 {row['fp32'][2]:.4f} "
+            f"(fp32 argmax {row['fp32'][0]}); fp32 margin of v1's token over v2's "
+            f"{row['fp32_margin_v1_minus_v2']:+.4f} against the bf16 error {noise:.4f}: "
+            f"{row['verdict']}")
+    out["v1_repeat_equal"] = [list(map(int, r)) for r in again] == \
+        [list(map(int, r)) for r in v1_outs]
+    return out
+
+
 def phase_init_inference(seed: int, card: str) -> dict:
     """``init_inference`` on Llama-3-8B (32 layers, bf16 weights from the
     seed), its streams against the no-cache forward, its weights at rest as
@@ -5665,13 +5798,25 @@ def phase_init_inference(seed: int, card: str) -> dict:
     v2 = build_engine_v2(llama, cfg, params, config={
         **conf, "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
                            "memory_config_blocks": 64, "block_size": 128}})
+    v2_ticks = []
+    sound_decode = v2._decode_forward
+
+    def recorded_decode():
+        logits, amax = sound_decode()
+        v2_ticks.append(logits.float().clone())
+        return logits, amax
+
+    v2._decode_forward = recorded_decode
     v2_outs = v2.generate([prompts[i, :n_] for i, n_ in enumerate(lengths)],
                           max_new_tokens=MAX_NEW_TOKENS)
+    v2._decode_forward = sound_decode
     leave = [next((j for j, (a, b) in enumerate(zip(free[i], v2_outs[i])) if a != b), None)
              for i in range(len(prompts))]
     log(f"  v1 against v2 greedy streams: first differing step by row {leave} "
         f"(None: the same {MAX_NEW_TOKENS} tokens)")
-    del v2
+    parting = v1_v2_parting(cfg, eng, prompts, lengths, free, v2_outs, leave, v2_ticks,
+                            noise)
+    del v2, v2_ticks
     torch.cuda.empty_cache()
 
     quant, prefill_bf16 = {}, v1_prefill_logits(eng, prompts, lengths)[0]
@@ -5730,7 +5875,888 @@ def phase_init_inference(seed: int, card: str) -> dict:
     return {"launches": launches, "generate_s": gen_s, "peak_gib": peak, "eos_step": first,
             "prefill_err": pre_err, "bf16_noise": noise, "paths_direct": direct[1], "tol": tol, "argmax_match": [match, n], "worst_gap": worst,
             "planted_fault_gap": worst_bad, "times": times, "quant": quant,
-            "v1_v2_first_difference": leave}
+            "v1_v2_first_difference": leave, "v1_v2_parting": parting}
+
+
+# --------------------------------------------------------------------------- #
+# phase 22: the optimizer set
+# --------------------------------------------------------------------------- #
+OPT_STEPS = 3              # steps of each optimizer's run
+OPT_CHECK_STEP = 2         # the step whose update is held to float64
+OPT_CHECK_TOL = 1e-5       # per leaf: ||p_card - p_f64||_F / ||p_f64||_F
+OPT_ZERO_STEPS = 2         # steps of each ZeRO stage's LAMB and Muon run
+NO_DECAY = [{"pattern": "(norm|bias)", "weight_decay": 0.0}]
+OPTIMIZER_CASES = {        # the runs of phase 22 (and zero_nccl_check.py --optimizer)
+    "adamw": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
+    "adamw_groups": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1},
+                     "param_groups": NO_DECAY},
+    "lion": {"type": "lion", "params": {"lr": 3e-5, "weight_decay": 0.1}},
+    "lamb": {"type": "lamb", "params": {"lr": 3e-3, "weight_decay": 0.01}},
+    "adagrad": {"type": "adagrad", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+    "sgd": {"type": "sgd", "params": {"lr": 1.0, "momentum": 0.9, "nesterov": True,
+                                      "weight_decay": 1e-4}},
+    "muon": {"type": "muon", "params": {"lr": 0.02, "weight_decay": 0.01}},
+    "onebitadam": {"type": "onebitadam", "params": {"lr": 1e-4, "freeze_step": 1,
+                                                    "weight_decay": 0.01}},
+    "onebitlamb": {"type": "onebitlamb", "params": {"lr": 3e-3, "freeze_step": 1,
+                                                    "weight_decay": 0.01}},
+    "zerooneadam": {"type": "zerooneadam", "params": {"lr": 1e-4, "var_freeze_step": 1,
+                                                      "weight_decay": 0.01}},
+}
+
+
+def loop_adamw(lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1):
+    """The multi-tensor AdamW's plain version: the per-leaf loop of
+    ``ops/optimizers.py`` as it stood before the foreach update, about ten
+    elementwise launches and one leaf's temporaries at a time."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.optimizers import AdamState, Optimizer
+
+    b1, b2 = betas
+
+    def init(params):
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        return AdamState(0, {k: z(p) for k, p in params.items()},
+                         {k: z(p) for k, p in params.items()})
+
+    def update(params, grads, state, lr_scale=1.0):
+        step = state.step + 1
+        c1, c2 = 1 - b1 ** float(step), 1 - b2 ** float(step)
+        alpha = lr * float(lr_scale)
+        with torch.no_grad():
+            for name, p in params.items():
+                g = grads[name].float()
+                m, v = state.mu[name], state.nu[name]
+                m.mul_(b1).add_(g, alpha=1 - b1)
+                v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                step_val = (m / c1).div_((v / c2).sqrt_().add_(eps))
+                if weight_decay:
+                    step_val.add_(p.float(), alpha=weight_decay)
+                p.sub_(step_val.mul_(alpha).to(p.dtype))
+        return params, AdamState(step, state.mu, state.nu)
+
+    return Optimizer("adamw", init, update,
+                     dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+
+class HostArena:
+    """One page-locked host buffer, reused: the snapshots of the checked
+    step. ``close`` gives the memory back to the host (96 GiB, which phase
+    23's CPU reference needs): PyTorch's pinned-memory cache keeps freed
+    blocks, so it is emptied, or, where torch cannot empty it, the buffer
+    is a plain one registered with ``cudaHostRegister``."""
+
+    def __init__(self, nbytes: int):
+        import torch
+
+        self.off = 0
+        # PyTorch's pinned allocation is faster (8 s against 19 s for 38.8 GB
+        # on the H100 machine, PR 21 runs 1-2) where its cache can be emptied
+        self.cached = torch.cuda.is_available() and hasattr(torch._C, "_host_emptyCache")
+        self.registered = torch.cuda.is_available() and not self.cached
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.cached)
+        if self.registered:
+            err = torch.cuda.cudart().cudaHostRegister(self.buf.data_ptr(), nbytes, 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister failed: {err}")
+
+    def close(self):
+        import torch
+
+        if self.registered:
+            torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+            self.registered = False
+        self.buf = None
+        if self.cached:
+            torch._C._host_emptyCache()
+
+    def reset(self):
+        self.off = 0
+
+    def put(self, t):
+        n = t.numel() * t.element_size()
+        if self.off + n > self.buf.numel():
+            raise MemoryError("host arena too small for the snapshot")
+        dst = self.buf[self.off:self.off + n].view(t.dtype).view(t.shape)
+        dst.copy_(t, non_blocking=True)
+        self.off += -(-n // 512) * 512
+        return dst
+
+
+class SnapshotOptimizer:
+    """Wraps an engine's optimizer: before the update of step ``at`` it
+    copies the params, grads and every state tensor to the host arena (the
+    inputs of the float64 reference), then runs the update unchanged."""
+
+    def __init__(self, eng, arena, at: int):
+        from deepspeed_tpu_torch.ops.optimizers import Optimizer
+
+        self.inner, self.arena, self.at, self.calls, self.snap = eng.optimizer, arena, at, 0, None
+        opt = self.inner
+
+        def update(params, grads, state, lr_scale=1.0, layout=None):
+            import torch
+
+            from deepspeed_tpu_torch.ops.optimizers import state_scalars, state_tensors
+
+            self.calls += 1
+            if self.calls == self.at:
+                arena.reset()
+                self.snap = {
+                    "params": {k: arena.put(v.detach()) for k, v in params.items()},
+                    "grads": {k: arena.put(v) for k, v in grads.items()},
+                    "state": {path: {k: arena.put(v) for k, v in ts.items()}
+                              for path, ts in state_tensors(state).items()},
+                    "scalars": state_scalars(state), "lr_scale": float(lr_scale)}
+                torch.cuda.synchronize()
+            return opt.update(params, grads, state, lr_scale=lr_scale, layout=layout)
+
+        eng.optimizer = Optimizer(opt.name, opt.init, update, opt.hyperparams)
+
+
+def _ns64(x, steps=5):
+    """Newton-Schulz in float64 (the JAX formulation)."""
+    import torch
+
+    a, b, c = 3.4445, -4.7750, 2.0315
+    x = x / (torch.linalg.vector_norm(x) + 1e-7)
+    tr = x.shape[0] > x.shape[1]
+    if tr:
+        x = x.T
+    for _ in range(steps):
+        xxt = x @ x.T
+        x = a * x + (b * xxt + c * xxt @ xxt) @ x
+    return x.T if tr else x
+
+
+def reference_update(kind: str, hp: dict, names, layout, snap, dev) -> dict:
+    """The JAX update of one JAX leaf (its port leaves ``names``, in layer
+    order) in float64 on the card from the snapshot: new params by name.
+    ``kind`` is the optimizer's type; ``snap`` the host copies of params,
+    grads and state before the update (one group's state, by field)."""
+    import torch
+
+    f64 = lambda t: t.to(dev, non_blocking=True).double()  # noqa: E731
+    p = {n: f64(snap["params"][n]) for n in names}
+    g = {n: f64(snap["grads"][n]) for n in names}
+    st = {f: {n: f64(ts[n]) for n in names} for f, ts in snap["state"].items()}
+    step = snap["scalars"]["step"] + 1
+    lr = hp["lr"] * snap["lr_scale"]
+    wd = hp.get("weight_decay", 0.0)
+    b1, b2 = hp.get("betas", (0.9, 0.999))
+    out = {}
+
+    def adam_dir(n, c1, c2, eps, mu="mu", nu="nu"):
+        m = b1 * st[mu][n] + (1 - b1) * g[n]
+        v = b2 * st[nu][n] + (1 - b2) * g[n] ** 2
+        return (m / c1) / (torch.sqrt(v / c2) + eps)
+
+    def trust(us, lo=0.01, hi=10.0):
+        w = torch.sqrt(sum((p[n] ** 2).sum() for n in names))
+        u = torch.sqrt(sum((us[n] ** 2).sum() for n in names))
+        return torch.where((w > 0) & (u > 0), torch.clamp(w / u, lo, hi), torch.ones_like(w))
+
+    def compressed(n_list, mu="mu"):
+        # the sign from g + e as the card rounds it (fp32), the scale in float64
+        corr32 = {n: (snap["grads"][n].to(dev).float() + snap["state"]["error"][n].to(dev))
+                  for n in n_list}
+        total = sum(c.double().abs().sum() for c in corr32.values())
+        count = sum(c.numel() for c in corr32.values())
+        scale = total / count
+        return {n: torch.where(corr32[n] >= 0, 1.0, -1.0).double() * scale for n in n_list}
+
+    if kind in ("adam", "adamw"):
+        c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+        for n in names:
+            out[n] = p[n] - lr * (adam_dir(n, c1, c2, hp.get("eps", 1e-8)) + wd * p[n])
+    elif kind == "lion":
+        b1, b2 = hp.get("betas", (0.9, 0.99))
+        for n in names:
+            out[n] = p[n] - lr * (torch.sign(b1 * st["mu"][n] + (1 - b1) * g[n]) + wd * p[n])
+    elif kind == "lamb":
+        c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+        u = {n: adam_dir(n, c1, c2, hp.get("eps", 1e-6)) + wd * p[n] for n in names}
+        t = trust(u)
+        out = {n: p[n] - lr * t * u[n] for n in names}
+    elif kind == "adagrad":
+        for n in names:
+            gn = g[n] + wd * p[n]
+            acc = st["accum"][n] + gn ** 2
+            out[n] = p[n] - lr * gn / (torch.sqrt(acc) + hp.get("eps", 1e-10))
+    elif kind == "sgd":
+        mom = hp.get("momentum", 0.0)
+        for n in names:
+            gn = g[n] + wd * p[n]
+            m = mom * st["mu"][n] + gn
+            out[n] = p[n] - lr * ((gn + mom * m) if hp.get("nesterov") else m)
+    elif kind == "muon":
+        lo = layout.of(names[0])
+        nd = p[names[0]].dim() + (lo.layer is not None)
+        if nd in (2, 3):
+            ms = {n: hp.get("momentum", 0.95) * st["mu"][n] + g[n] for n in names}
+            if nd == 3:
+                groups = [([n], False) for n in names]
+            else:
+                groups = [(names, lo.layer is not None)]
+            for members, stacked in groups:
+                if stacked:
+                    o = _ns64(torch.stack([ms[n] for n in members]))
+                else:
+                    x = ms[members[0]]
+                    o = _ns64(x.T if lo.transpose else x)
+                scale = max(1.0, o.shape[-2] / o.shape[-1]) ** 0.5
+                for i, n in enumerate(members):
+                    oi = o[i] if stacked else (o.T if lo.transpose else o)
+                    out[n] = p[n] - lr * scale * oi - lr * wd * p[n]
+        else:
+            c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+            for n in names:
+                out[n] = p[n] - 3e-4 * snap["lr_scale"] * (
+                    adam_dir(n, c1, c2, 1e-8, "fb_state.mu", "fb_state.nu") + wd * p[n])
+    elif kind in ("onebitadam", "zerooneadam"):
+        gc_ = compressed(names)
+        for n in names:
+            m = b1 * st["mu"][n] + (1 - b1) * gc_[n]
+            out[n] = p[n] - lr * (m / (torch.sqrt(st["nu"][n]) + hp.get("eps", 1e-8))
+                                  + wd * p[n])
+    elif kind == "onebitlamb":
+        gc_ = compressed(names)
+        u = {n: (b1 * st["mu"][n] + (1 - b1) * gc_[n])
+             / (torch.sqrt(st["nu"][n]) + hp.get("eps", 1e-6)) + wd * p[n] for n in names}
+        t = trust(u)
+        out = {n: p[n] - lr * t * u[n] for n in names}
+    else:
+        raise ValueError(kind)
+    return out
+
+
+def check_against_f64(eng, kind: str, snap: dict, hp_of, what: str, layout) -> dict:
+    """Every leaf of ``eng`` after the snapshotted update against the
+    float64 update of the same params, grads and state: (leaf -> relative
+    Frobenius error), raising above ``OPT_CHECK_TOL``. ``hp_of(name)`` gives
+    a leaf's hyperparameters and its group's state paths prefix."""
+    import torch
+
+    dev = eng.device
+    rel = {}
+    by_group = {}
+    for n in eng.state.params:
+        by_group.setdefault(hp_of(n)[1], []).append(n)
+    for prefix, members in by_group.items():
+        hp = hp_of(members[0])[0]
+        state = {f[len(prefix):]: ts for f, ts in snap["state"].items() if f.startswith(prefix)}
+        scalars = {k[len(prefix):]: v for k, v in snap["scalars"].items() if k.startswith(prefix)}
+        gsnap = dict(snap, state=state, scalars=scalars)
+        for path, names in layout.paths(members).items():
+            ref = reference_update(kind, hp, names, layout, gsnap, dev)
+            for n in names:
+                got = eng.state.params[n].detach().double()
+                rel[n] = float((got - ref[n]).norm() / ref[n].norm().clamp_min(1e-30))
+            del ref
+    worst = max(rel, key=rel.get)
+    log(f"  {what}: step {OPT_CHECK_STEP}'s update against float64, worst leaf {worst} "
+        f"{rel[worst]:.2e} (tol {OPT_CHECK_TOL:g})")
+    torch.cuda.empty_cache()
+    return rel
+
+
+def _hp_of(case: dict):
+    """A function giving each leaf's (hyperparameters, state-path prefix)."""
+    import re
+
+    from deepspeed_tpu_torch.models.convert import jax_leaf
+    from deepspeed_tpu_torch.ops.optimizers import get_optimizer
+
+    def hp(params):
+        # the factory's defaults, then what the config sets (the hyperparams
+        # of some optimizers leave out weight_decay or nesterov)
+        return {**get_optimizer(case["type"], **params).hyperparams, **params}
+
+    base = hp(case["params"])
+    groups = case.get("param_groups")
+    if not groups:
+        return lambda n: (base, "")
+    hps = [hp({**case["params"], **{k: v for k, v in g.items() if k != "pattern"}})
+           for g in groups + [{}]]
+
+    def of(n):
+        path = jax_leaf(n)[0]
+        i = next((i for i, g in enumerate(groups) if re.search(g["pattern"], path)),
+                 len(groups))
+        return hps[i], f"{i}."
+    return of
+
+
+def opt_run(seed: int, cfg, case: dict, batch, steps: int, arena=None, optimizer=None,
+            counters=(), check=True, stage=0, label="", ref_case=None, ref_layout=None):
+    """``steps`` of ``train_batch`` with optimizer ``case`` (a config block)
+    at ZeRO ``stage``; with ``check``, the update of step OPT_CHECK_STEP
+    held to float64 (the reference's hyperparameters from ``ref_case``, its
+    layout ``ref_layout``: by default the run's own): (losses, grad norms,
+    step seconds, peak bytes, leaf errors, the engine)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import llama
+
+    conf = _train_config(seed, 2, True)
+    conf["optimizer"] = case
+    conf["zero_optimization"] = {"stage": stage}
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, *_ = dst.initialize(model=llama.model_spec(cfg), config=conf, optimizer=optimizer)
+    snap = SnapshotOptimizer(eng, arena, OPT_CHECK_STEP) if check else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    losses, norms, step_s, peaks = [], [], [], []
+    rel = {}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out.loss))
+        norms.append(float(out.grad_norm))
+        if check and i + 1 == OPT_CHECK_STEP:
+            peaks.append(torch.cuda.max_memory_allocated())
+            ref_case = ref_case or case
+            rel = check_against_f64(eng, ref_case["type"], snap.snap, _hp_of(ref_case),
+                                    label or case["type"], ref_layout or eng.layout)
+            torch.cuda.reset_peak_memory_stats()
+    peaks.append(torch.cuda.max_memory_allocated())
+    return losses, norms, step_s, max(peaks), rel, eng
+
+
+@contextlib.contextmanager
+def fault_wrong_beta1(case: dict):
+    """The card's optimizer built with beta1 0.8 instead of the config's."""
+    params = dict(case["params"])
+    params["betas"] = (0.8, params.get("betas", (0.9, 0.999))[1])
+    yield dict(case, params=params), "the card's beta1 0.8 (the reference's 0.9)"
+
+
+@contextlib.contextmanager
+def fault_muon_port_orientation():
+    """Muon's layout without the transposes: the scale taken from the port's
+    [out, in] leaves (w_gate: sqrt(3.5) instead of 1)."""
+    from deepspeed_tpu_torch.ops import optimizers as topt
+
+    sound = topt.Layout.for_model.__func__
+
+    def faulty(cls, *a, **kw):
+        lay = sound(cls, *a, **kw)
+        lay.leaves = {k: v._replace(transpose=False) for k, v in lay.leaves.items()}
+        return lay
+
+    topt.Layout.for_model = classmethod(faulty)
+    try:
+        yield "Muon's scale from the port's [out, in] orientation"
+    finally:
+        topt.Layout.for_model = classmethod(sound)
+
+
+def phase_optimizers(seed: int, card: str, train: dict) -> dict:
+    """Phase 7's configuration under every optimizer (module docstring,
+    phase 22)."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import optimizers as topt
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda,
+                                                         flash_bwd_dq_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=4)
+    rs = np.random.RandomState(seed)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (2, 4096 + 1)).astype(np.int32)}
+    kernels = {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
+               "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda}
+    total = {k: 0 for k in kernels}
+    per_step = {k: (2 * cfg.num_layers + 1) * 2 if k == "rms_norm" else cfg.num_layers * 2
+                for k in kernels}
+
+    def count(steps, what):
+        got = {k: c.launches for k, c in kernels.items()}
+        check_launches(what, got, {k: n * steps for k, n in per_step.items()})
+        for k in total:
+            total[k] += got[k]
+
+    res = {"chunk_bytes": topt.CHUNK_BYTES}
+    # (a) the multi-tensor AdamW (phase 7's run) against its per-leaf loop
+    losses, norms, step_s, peak, _, eng = opt_run(
+        seed, cfg, OPTIMIZER_CASES["adamw"], batch, TRAIN_STEPS, optimizer=loop_adamw(),
+        counters=kernels.values(), check=False)
+    count(TRAIN_STEPS, "AdamW per-leaf loop")
+    wall, busy, n_k, top = profile_window(lambda: eng.train_batch(batch))
+    groups = {}
+    for k, ms, c in top:
+        gname = next((g for g, keys in PROFILE_GROUPS if any(x in k for x in keys)), "other")
+        groups[gname] = groups.get(gname, 0.0) + ms
+    del eng
+    loop = {"losses": losses, "step_ms": sum(step_s[1:]) / len(step_s[1:]) * 1e3,
+            "peak_bytes": peak, "elementwise_ms": groups.get("elementwise", 0.0),
+            "busy_ms": busy * 1e3, "kernels": n_k, "by_group_ms": groups}
+    fe = {"losses": train["losses"], "step_ms": train["step_ms"],
+          "peak_bytes": train["peak_mem_bytes"],
+          "elementwise_ms": train["profile"]["by_group_ms"].get("elementwise", 0.0),
+          "foreach_ms": train["profile"]["by_group_ms"].get("foreach", 0.0),
+          "busy_ms": train["profile"]["busy_ms"], "kernels": train["profile"]["kernels"]}
+    same = fe["losses"] == loop["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(fe["losses"], loop["losses"]))
+    log(f"  AdamW multi-tensor (phase 7): step {fe['step_ms']:.1f} ms, elementwise "
+        f"{fe['elementwise_ms']:.1f} ms + foreach {fe['foreach_ms']:.1f} ms, {fe['kernels']} "
+        f"kernels, peak "
+        f"{fe['peak_bytes'] / 2**30:.2f} GiB; per-leaf loop: step {loop['step_ms']:.1f} ms, "
+        f"elementwise {loop['elementwise_ms']:.1f} ms, {n_k} kernels, peak "
+        f"{loop['peak_bytes'] / 2**30:.2f} GiB (PR 12: 289.7 / 139.6 ms, 41.66 GiB); losses "
+        f"{'bit for bit' if same else f'within {err:.2e}'} [{card}]")
+    if err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"multi-tensor AdamW losses {fe['losses']} against the loop's "
+                             f"{loop['losses']}")
+    if fe["peak_bytes"] > loop["peak_bytes"] + topt.CHUNK_BYTES:
+        raise AssertionError(f"multi-tensor AdamW peak {fe['peak_bytes']} above the loop's "
+                             f"{loop['peak_bytes']} + one chunk")
+    res["adamw"] = {"multi_tensor": fe, "loop": loop, "losses_bitwise": same,
+                    "losses_rel_err": err}
+
+    # (b) every optimizer, 3 steps, the second step's update against float64
+    # the snapshot: params, grads and up to three state tensors a leaf (fp32)
+    nbytes = int(sum(int(np.prod(s)) for s, _ in llama.param_shapes(cfg).values()) * 4 * 5.05)
+    t0 = time.perf_counter()
+    arena = HostArena(nbytes)
+    log(f"  pinned host arena {nbytes / 1e9:.1f} GB in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for name, case in OPTIMIZER_CASES.items():
+        losses, norms, step_s, peak, rel, eng = opt_run(
+            seed, cfg, case, batch, OPT_STEPS, arena=arena, counters=kernels.values(),
+            label=name)
+        count(OPT_STEPS, name)
+        del eng
+        worst = max(rel, key=rel.get)
+        # the step after the checked one: the checked step also copies the
+        # snapshot to the host
+        runs[name] = {"losses": losses, "grad_norms": norms, "step_s": step_s,
+                      "step_ms": step_s[OPT_CHECK_STEP] * 1e3,
+                      "peak_bytes": peak, "worst_leaf": worst, "worst_rel": rel[worst]}
+        log(f"  {name}: losses {['%.4f' % l for l in losses]}, step "
+            f"{runs[name]['step_ms']:.1f} ms, peak {peak / 2**30:.2f} GiB [{card}]")
+        if rel[worst] > OPT_CHECK_TOL or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: leaf {worst} {rel[worst]:.3g} from float64 "
+                                 f"(losses {losses})")
+    res["runs"] = runs
+
+    # (c) planted faults: a wrong beta1 (LAMB), Muon's scale in the port's orientation
+    sound_layout = topt.Layout.for_model(cfg, llama.param_shapes(cfg))
+    faults = {}
+    with fault_wrong_beta1(OPTIMIZER_CASES["lamb"]) as (bad_case, what):
+        *_, rel, eng = opt_run(seed, cfg, bad_case, batch, OPT_CHECK_STEP, arena=arena,
+                               label=f"planted fault ({what})",
+                               ref_case=OPTIMIZER_CASES["lamb"])
+        del eng
+    faults["wrong_beta1"] = max(rel.values())
+    with fault_muon_port_orientation() as what:
+        *_, rel, eng = opt_run(seed, cfg, OPTIMIZER_CASES["muon"], batch, OPT_CHECK_STEP,
+                               arena=arena, label=f"planted fault ({what})",
+                               ref_layout=sound_layout)
+        del eng
+    faults["muon_orientation"] = max(rel.values())
+    for k, v in faults.items():
+        if v <= OPT_CHECK_TOL:
+            raise AssertionError(f"the float64 check passes a planted fault ({k}: {v:.3g})")
+    res["planted_faults"] = faults
+    arena.close()
+    del arena
+    gc.collect()
+
+    # (d) LAMB and Muon at ZeRO stages 1-3 against stage 0, NCCL world 1
+    comm.init_distributed()
+    zero = {}
+    try:
+        comm.init_mesh({"data": 1})
+        for name in ("lamb", "muon"):
+            base = None
+            for stage in ZERO_STAGES:
+                losses, norms, step_s, peak, _, eng = opt_run(
+                    seed, cfg, OPTIMIZER_CASES[name], batch, OPT_ZERO_STEPS,
+                    counters=kernels.values(), check=False, stage=stage)
+                count(OPT_ZERO_STEPS, f"{name} ZeRO-{stage}")
+                state = {k: v.detach().clone() for k, v in eng.state.params.items()} \
+                    if stage == 0 else None
+                same = stage == 0 or (losses == base["losses"] and norms == base["norms"] and
+                                      all(torch.equal(eng.state.params[k], base["params"][k])
+                                          for k in base["params"]))
+                del eng
+                if stage == 0:
+                    base = {"losses": losses, "norms": norms, "params": state}
+                zero[f"{name}_s{stage}"] = {"losses": losses, "grad_norms": norms,
+                                            "step_ms": sum(step_s[1:]) / len(step_s[1:]) * 1e3,
+                                            "peak_bytes": peak, "bitwise_stage0": same}
+                log(f"  {name} ZeRO-{stage}: losses {['%.4f' % l for l in losses]}, step "
+                    f"{zero[f'{name}_s{stage}']['step_ms']:.1f} ms, peak {peak / 2**30:.2f} GiB, "
+                    f"bit for bit against ZeRO-0 (losses, grad norms, params): {same} [{card}]")
+                if not same:
+                    raise AssertionError(f"{name} at ZeRO-{stage} differs from ZeRO-0")
+            del base
+            torch.cuda.empty_cache()
+    finally:
+        comm.set_mesh(None)
+        dist.destroy_process_group()
+    res["zero"] = zero
+    res["launches"] = total
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 22: {res['phase_s']:.1f} s; launches {total}")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 23: EXAONE-4.0-32B
+# --------------------------------------------------------------------------- #
+EXA_TRAIN_LAYERS = 4           # one LLLG period: 3 sliding layers and a global one
+EXA_TRAIN_SEQ = 2048           # plain attention keeps fp32 scores and probabilities
+EXA_TRAIN_STEPS = 3
+EXA_MAX_SEQ = 5248             # 41 blocks of 128: the 5120-token prompts and 32 tokens
+EXA_LENGTHS = (5120, 64, 200, 5120, 333, 512, 777, 1024)
+EXA_SPLIT = 512                # split_prefill_chunk: bounds a prefill's fp32 scores
+EXA_BLOCKS = 160               # pool blocks of 128 (the 8 prompts need ~115)
+EXA_CHECK_LAYERS = 4           # the fp32-reference checks: one LLLG period
+
+
+def exaone_cfg(layers=None):
+    from deepspeed_tpu_torch.models import exaone4
+
+    cfg = exaone4.Exaone4Config.exaone4_32b(max_seq_len=EXA_MAX_SEQ)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def exaone_prompts(seed: int, vocab: int):
+    rs = np.random.RandomState(seed + 23)
+    return [rs.randint(0, vocab, n).astype(np.int32) for n in EXA_LENGTHS]
+
+
+@contextlib.contextmanager
+def fault_rope_on_global():
+    """RoPE on EXAONE-4's global layers too (they have none)."""
+    from deepspeed_tpu_torch.models import exaone4
+
+    sound = exaone4.layer_scalars
+    exaone4.layer_scalars = lambda cfg: [(w, True) for w, _ in sound(cfg)]
+    try:
+        yield "RoPE applied on the global layers"
+    finally:
+        exaone4.layer_scalars = sound
+
+
+@contextlib.contextmanager
+def fault_exaone_cache_write_late():
+    """Every K/V row of the dense cache lands one slot late."""
+    from deepspeed_tpu_torch.models import exaone4
+
+    sound = exaone4._write_cache
+    exaone4._write_cache = lambda cache, new, starts: sound(cache, new, starts + 1)
+    try:
+        yield "each K/V row written one cache slot late"
+    finally:
+        exaone4._write_cache = sound
+
+
+def v1_groups(eng, prompts, new: int, eos=None):
+    """v1 ``generate`` over ``prompts`` a group at a time (each long prompt
+    alone, the rest together: a batch's dense plain-attention prefill holds
+    fp32 scores of its longest row for every row) → one stream a prompt."""
+    long_ = [i for i, p in enumerate(prompts) if len(p) > 2048]
+    short = [i for i in range(len(prompts)) if i not in long_]
+    outs = {}
+    for group in [[i] for i in long_] + [short]:
+        t = max(len(prompts[i]) for i in group)
+        batch = np.zeros((len(group), t), np.int32)
+        for j, i in enumerate(group):
+            batch[j, :len(prompts[i])] = prompts[i]
+        got = eng.generate(batch, prompt_lengths=np.array([len(prompts[i]) for i in group]),
+                           max_new_tokens=new, eos_token_id=eos)
+        for j, i in enumerate(group):
+            outs[i] = [int(x) for x in got[j]]
+    return [outs[i] for i in range(len(prompts))]
+
+
+def fp32_gaps(family, cfg, params, prompts, outs) -> tuple:
+    """Each generated token against the fp32 forward of the same weights
+    over its row's prompt and the tokens before it: (argmax matches, tokens,
+    largest (max logit - the token's logit) / row RMS)."""
+    import torch
+
+    match, n, worst = 0, 0, 0.0
+    for p, toks in zip(prompts, outs):
+        seq = torch.as_tensor(np.concatenate([p, np.asarray(toks[:-1], np.int32)]),
+                              device="cuda")[None]
+        with torch.inference_mode():
+            z = family.apply(cfg, params, seq, compute_dtype=torch.float32)[0, len(p) - 1:]
+        rms = z.pow(2).mean(-1).sqrt()
+        t = torch.as_tensor(toks, device=z.device)
+        gap = (z.max(-1).values - z.gather(-1, t[:, None])[:, 0]) / rms
+        match += int((z.argmax(-1) == t).sum())
+        n += len(toks)
+        worst = max(worst, float(gap.max()))
+        del z
+    return match, n, worst
+
+
+def phase_exaone4(seed: int, card: str) -> dict:
+    """EXAONE-4.0-32B (module docstring, phase 23)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import exaone4
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda,
+                                                         flash_bwd_dq_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) training at 4 layers, AdamW with the no-decay group
+    cfg4 = exaone_cfg(EXA_TRAIN_LAYERS)
+    conf = _train_config(seed, 2, True)
+    conf["optimizer"] = OPTIMIZER_CASES["adamw_groups"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng, *_ = dst.initialize(model=exaone4.model_spec(cfg4), config=conf)
+    n_params = sum(p.numel() for p in eng.state.params.values())
+    pattern = "".join("L" if t == "sliding_attention" else "G"
+                      for t in cfg4.resolved_layer_types())
+    log(f"  training engine: {cfg4.num_layers} layers ({pattern}) at EXAONE-4.0-32B width, "
+        f"{n_params / 1e9:.3f} B params, set-up {time.perf_counter() - t0:.1f} s")
+    rs = np.random.RandomState(seed)
+    batch = {"tokens": rs.randint(0, cfg4.vocab_size, (2, EXA_TRAIN_SEQ + 1)).astype(np.int32)}
+    kernels = {"rms_norm": rms_norm_cuda, "flash_fwd": flash_fwd_cuda,
+               "flash_bwd_dq": flash_bwd_dq_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in kernels.values():
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(EXA_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = eng.train_batch(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out.loss))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.launches for k, c in kernels.items()}
+    per_fwd = 4 * cfg4.num_layers + 1
+    check_launches("EXAONE-4 training (the hybrid attention is masked: plain, no flash)",
+                   launches, {"rms_norm": per_fwd * 2 * EXA_TRAIN_STEPS, "flash_fwd": 0,
+                              "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"EXAONE-4 training loss not finite and falling: {losses}")
+    res["train"] = {"losses": losses, "step_s": step_s,
+                    "step_ms": sum(step_s[1:]) / len(step_s[1:]) * 1e3, "peak_bytes": peak,
+                    "launches": launches, "rms_norm_per_step": launches["rms_norm"] //
+                    EXA_TRAIN_STEPS, "n_params": n_params}
+    log(f"  losses {['%.4f' % l for l in losses]}, step {res['train']['step_ms']:.1f} ms, "
+        f"RMSNorm {res['train']['rms_norm_per_step']} a step, peak {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) one step card (bf16) against CPU (fp32) at 4 layers, S 256
+    res["train_whole_path"] = phase_train_whole(
+        seed, card, family=exaone4, cfg=cfg4, label="EXAONE-4.0-32B-width",
+        fault=fault_rope_on_global, layers=EXA_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) serving at full depth: one set of bf16 weights, v2 and v1
+    cfg = exaone_cfg()
+    t0 = time.perf_counter()
+    params = exaone4.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                          dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"  serving weights: {cfg.num_layers} layers, {cfg.num_params / 1e9:.2f} B params, "
+        f"{wbytes / 1e9:.2f} GB bf16 in {time.perf_counter() - t0:.1f} s; RoPE plain at "
+        f"theta {cfg.rope_theta:g} (the published llama3 rope_scaling is implemented by "
+        f"neither package)")
+    prompts = exaone_prompts(seed, cfg.vocab_size)
+    sp = [np.concatenate([s, s, s])[:len(p)] for p, s in
+          ((p, p[:len(p) // 3 + 1]) for p in prompts)]
+    base = {"dtype": "bfloat16", "prefill_bucket": 64, "split_prefill_chunk": EXA_SPLIT,
+            "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
+                       "memory_config_blocks": EXA_BLOCKS, "block_size": 128}}
+    warm = (prompts[1], prompts[2], prompts[4])
+    serve = phase_spec_serving(
+        seed, MAX_NEW_TOKENS, card, family=exaone4, cfg=cfg, params=params,
+        norms_per_layer=4, base_conf=base, warm=warm,
+        engines=(("bf16", {}, prompts), ("spec_int8", {**SPEC, **INT8}, sp)))
+    res["serving"] = serve
+    v2_outs = serve["bf16"]["outs"]
+    for name in ("bf16", "spec_int8"):
+        w = serve[name]["per_replay"]
+        if w.get("paged_decode_attention", w.get("paged_decode_attention_int8")) != \
+                cfg.num_layers:
+            raise AssertionError(f"{name}: a decode replay launches {w}, not "
+                                 f"{cfg.num_layers} paged decodes")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    v1 = dst.init_inference(exaone4, model_cfg=cfg, params=params,
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    v1.generate(np.asarray(prompts[1])[None], max_new_tokens=2)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rms_norm_cuda.launches = 0
+    v1_outs = v1_groups(v1, prompts, MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    v1_launches = rms_norm_cuda.launches
+    check_launches("v1 generate (3 groups)", {"rms_norm": v1_launches},
+                   {"rms_norm": (4 * cfg.num_layers + 1) * MAX_NEW_TOKENS * 3})
+    leave = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(v1_outs, v2_outs)]
+    res["v1"] = {"generate_s": v1_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": {"rms_norm": v1_launches}, "outs": v1_outs,
+                 "v1_v2_first_difference": leave,
+                 "agree_rows": sum(x is None for x in leave)}
+    log(f"  v1 bf16 (3 groups): {v1_s:.1f} s, peak {res['v1']['peak_bytes'] / 2**30:.2f} GiB; "
+        f"v1 against v2 at {cfg.num_layers} layers: {res['v1']['agree_rows']} of "
+        f"{len(prompts)} rows the same {MAX_NEW_TOKENS} tokens, first differing step by row "
+        f"{leave} [{card}]")
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) at 4 layers (LLLG) against the fp32 forward of the same weights
+    small = dataclasses.replace(cfg, num_layers=EXA_CHECK_LAYERS)
+    sp4 = {k: v for k, v in params.items()
+           if not k.startswith("layers.") or int(k.split(".")[1]) < EXA_CHECK_LAYERS}
+    long_ = torch.as_tensor(prompts[0], device="cuda")[None]
+    with torch.inference_mode():
+        z32 = exaone4.apply(small, sp4, long_, compute_dtype=torch.float32)
+        z16 = exaone4.apply(small, sp4, long_, compute_dtype=torch.bfloat16)
+    noise = row_err(z16, z32)[1]
+    tol = V1_NOISE_RATIO * noise
+    del z16
+    log(f"  {EXA_CHECK_LAYERS} layers: the bf16 no-cache forward against fp32 on the "
+        f"{len(prompts[0])}-token prompt {noise:.4f} of a row's RMS; limit {tol:.4f}")
+    v1s = dst.init_inference(exaone4, model_cfg=small, params=sp4,
+                             config={"dtype": "bfloat16", "prefill_bucket": 64})
+    pre, _ = v1_prefill_logits(v1s, np.asarray(prompts[0])[None],
+                               np.array([len(prompts[0])], np.int32))
+    pre_err = check_close(f"v1 prefill logits ({len(prompts[0])} tokens, {EXA_CHECK_LAYERS} "
+                          f"layers) against the fp32 forward", pre[:, :len(prompts[0])],
+                          z32, tol)[1]
+    del pre, z32
+    checks = {}
+    for name, outs in (("v1", v1_groups(v1s, prompts, MAX_NEW_TOKENS)),):
+        checks[name] = fp32_gaps(exaone4, small, sp4, prompts, outs)
+    with fault_exaone_cache_write_late() as what:
+        bad = v1_groups(v1s, prompts[1:3], 8)
+    bad_gap = fp32_gaps(exaone4, small, sp4, prompts[1:3], bad)[2]
+    del v1s
+    torch.cuda.empty_cache()
+    for extra_name, extra in (("v2 bf16", {}), ("v2 spec + fused verify, int8 pools",
+                                                 {**SPEC, **INT8})):
+        e2 = build_engine_v2(exaone4, small, sp4, config=dict(base, **extra))
+        checks[extra_name] = fp32_gaps(exaone4, small, sp4, prompts,
+                                       e2.generate(prompts, max_new_tokens=MAX_NEW_TOKENS))
+        del e2
+        torch.cuda.empty_cache()
+    for name, (m, n, worst) in checks.items():
+        log(f"  {name} at {EXA_CHECK_LAYERS} layers: {m}/{n} tokens the fp32 argmax, largest "
+            f"gap {worst:.4f} of the row's RMS (limit {tol:.4f})")
+        if worst > tol:
+            raise AssertionError(f"{name}: a generated token is {worst} row RMS below the "
+                                 f"fp32 argmax")
+    log(f"  planted fault ({what}): largest gap {bad_gap:.4f} (must exceed {tol:.4f})")
+    if bad_gap <= tol:
+        raise AssertionError(f"the EXAONE-4 stream check passes a planted fault ({what})")
+    res["check"] = {"noise": noise, "tol": tol, "prefill_err": pre_err,
+                    "streams": {k: {"argmax": [m, n], "worst_gap": w}
+                                for k, (m, n, w) in checks.items()},
+                    "planted_fault_gap": bad_gap}
+    del params, sp4
+    gc.collect()
+    torch.cuda.empty_cache()
+    l2 = serve["bf16"]["launches"]
+    l8 = serve["spec_int8"]["launches"]
+    res["launches"] = {
+        "rms_norm_training": launches["rms_norm"],
+        "rms_norm_serving": l2["rms_norm"] + l8["rms_norm"] + v1_launches,
+        "paged_decode_attention": l2["paged_decode_attention"],
+        "paged_decode_attention_int8": l8["paged_decode_attention_int8"],
+        "paged_spec_verify_attention": l8["paged_spec_verify_attention"]}
+    res["weight_bytes"] = wbytes
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 23: {res['phase_s']:.1f} s")
+    return res
+
+
+def bloom_v1_peak(seed: int, card: str) -> dict:
+    """v1 ``forward`` on BLOOM-7b1 (30 layers) with int8 weights at rest:
+    the peak device memory of the family's ``apply`` reading each block's
+    leaves at the block (a block dequantized at a time) against the same
+    forward over every leaf dequantized first (how ``apply`` read them
+    before: a bf16 copy of the whole model); the logits must be equal."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import bloom
+
+    cfg = bloom.BloomConfig.bloom_7b1()
+    params = bloom.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        dtype=torch.bfloat16, device="cuda")
+    eng = dst.init_inference(bloom, model_cfg=cfg, params=params,
+                             config={"dtype": "bfloat16", "quant": {"enabled": True, "bits": 8}})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = np.random.RandomState(seed + 3).randint(0, cfg.vocab_size, (1, 512))
+    base = torch.cuda.memory_allocated()
+    peaks, logits = {}, {}
+    for name, fn in (("whole model first", lambda: bloom.apply(
+                          cfg, dict(eng.weights()), eng._tensor(tokens),
+                          compute_dtype=torch.bfloat16)),
+                     ("a block at a time", lambda: eng.forward(tokens))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            logits[name] = fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    same = bool(torch.equal(*logits.values()))
+    res = {"weight_bytes": eng.weight_bytes(), "peak_above_weights_bytes": peaks,
+           "logits_equal": same}
+    log(f"  BLOOM-7b1 int8 v1 forward (1 x 512 tokens): weights {eng.weight_bytes() / 1e9:.2f} "
+        f"GB; peak above them: every leaf dequantized first "
+        f"{peaks['whole model first'] / 2**30:.2f} GiB, a block at a time "
+        f"{peaks['a block at a time'] / 2**30:.2f} GiB; logits equal: {same} [{card}]")
+    if not same or not peaks["a block at a time"] < peaks["whole model first"]:
+        raise AssertionError("BLOOM's per-block read did not lower the peak, or changed the "
+                             "logits")
+    del eng, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_sessions(detail, path: str = "") -> dict:
+    """Each ``sessions`` count in ``detail`` by its dotted path: the
+    profiler sessions a checked window took (phases 16 and 17)."""
+    out = {}
+    if isinstance(detail, dict):
+        for k, v in detail.items():
+            sub = f"{path}.{k}" if path else str(k)
+            if k == "sessions" and isinstance(v, int):
+                out[path] = v
+            else:
+                out.update(profile_sessions(v, sub))
+    return out
 
 
 def main_step_inputs(prompt_lengths, generated: int, extra: int = 1, shape=None):
@@ -5918,6 +6944,17 @@ def main() -> int:
     log("== phase 21: init_inference (Llama-3-8B, 32 layers: dense KV cache, int8 / int4 / "
         "fp8 weights)")
     v1 = phase_init_inference(SEED, card)
+    log("== phase 21 (BLOOM): v1 forward of BLOOM-7b1 with int8 weights, a block at a time")
+    bloom_peak = bloom_v1_peak(SEED, card)
+
+    log("== phase 22: the optimizer set (Llama-3-8B width, 4 layers: multi-tensor AdamW "
+        "against its loop, every optimizer against float64, LAMB and Muon at ZeRO 0-3)")
+    optim = phase_optimizers(SEED, card, train)
+
+    log("== phase 23: EXAONE-4.0-32B (4-layer training; 64-layer serving through v2 and v1, "
+        "the windowed paged decode)")
+    exa = phase_exaone4(SEED, card)
+    exa_l = exa["launches"]
 
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
@@ -5930,12 +6967,16 @@ def main() -> int:
                     "serving core (graph)": core_graph["rms_norm"],
                     "serving fleet": fleet_l["rms_norm"],
                     "remat training": remat["launches"]["rms_norm"],
-                    "v1 serving": v1["launches"]["rms_norm"]}
+                    "v1 serving": v1["launches"]["rms_norm"],
+                    "optimizer training": optim["launches"]["rms_norm"],
+                    "exaone4 training": exa_l["rms_norm_training"],
+                    "exaone4 serving": exa_l["rms_norm_serving"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
     decode_launches = {"llama serving": main_res["launches"]["paged_decode_attention"],
                        "opt serving": opt_l["bf16"]["paged_decode_attention"],
                        "serving core (graph)": core_graph["paged_decode_attention"],
-                       "serving fleet": fleet_l["paged_decode_attention"]}
+                       "serving fleet": fleet_l["paged_decode_attention"],
+                       "exaone4 serving": exa_l["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -5976,12 +7017,15 @@ def main() -> int:
             "replaces": line,
             "launches": (train["launches"][name] + opt_train["launches"][name]
                          + zero["launches"][name] + ckpt["launches"][name]
-                         + remat["launches"][name]),
+                         + remat["launches"][name] + optim["launches"][name]),
             "launches_by_path": {"llama training": train["launches"][name],
                                  "opt training": opt_train["launches"][name],
                                  "zero training (stages 0-3)": zero["launches"][name],
                                  "checkpoint resumes": ckpt["launches"][name],
-                                 "remat training": remat["launches"][name]},
+                                 "remat training": remat["launches"][name],
+                                 "optimizer training": optim["launches"][name],
+                                 # hybrid attention is masked: plain, as in JAX
+                                 "exaone4 training": exa["train"]["launches"][name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5995,6 +7039,7 @@ def main() -> int:
                      for p in ("spec_int8", "int8")}
     int8_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_decode_attention_int8"]
     int8_launches["serving fleet"] = fleet_l["paged_decode_attention_int8"]
+    int8_launches["exaone4 serving"] = exa_l["paged_decode_attention_int8"]
     ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
                     for p in ("spec_bf16", "spec_int8")}
     ver_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_spec_verify_attention"]
@@ -6002,6 +7047,7 @@ def main() -> int:
         core["spec"]["launches"]["paged_spec_verify_attention"]
         + core["spec"]["fork_launches"]["paged_spec_verify_attention"])
     ver_launches["serving fleet"] = fleet_l["paged_spec_verify_attention"]
+    ver_launches["exaone4 serving"] = exa_l["paged_spec_verify_attention"]
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
@@ -6068,12 +7114,16 @@ def main() -> int:
               "whole_path_spec": whole_spec, "train": train,
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "zero": zero, "checkpoint": ckpt, "remat": remat, "init_inference": v1,
+              "bloom_v1_peak": bloom_peak, "optimizers": optim, "exaone4": exa,
               "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(detail, indent=1, default=str))
     log(f"  total {detail['total_s']:.1f} s")
+    # every checked profiler window's sessions (1: its first session held every
+    # record), where the tail of the output shows it
+    print(json.dumps({"profile_sessions": profile_sessions(detail)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -199,18 +199,25 @@ def apply(cfg: BloomConfig, params: Dict[str, torch.Tensor], tokens: torch.Tenso
           positions: Optional[torch.Tensor] = None,
           compute_dtype=torch.bfloat16, return_hidden: bool = False):
     """Causal forward over the whole sequence → logits [batch, seq, vocab]
-    fp32; with ``return_hidden`` the :func:`_head_split` pair. Every leaf
-    is cast to ``compute_dtype`` here, as the JAX ``apply`` casts its
-    layers, so grads of fp32 params flow back through the cast.
-    ``positions`` is accepted and ignored: ALiBi carries position in the
-    logits bias."""
+    fp32; with ``return_hidden`` the :func:`_head_split` pair. Leaves are
+    cast to ``compute_dtype`` here, as the JAX ``apply`` casts its layers,
+    so grads of fp32 params flow back through the cast; a block's leaves are
+    read when the forward enters the block (ZeRO stage 3 gathers them then,
+    and v1 dequantizes one block at a time), as Llama's ``apply`` reads
+    them. ``positions`` is accepted and ignored: ALiBi carries position in
+    the logits bias."""
     del positions
-    p = {k: v.to(compute_dtype) for k, v in params.items()}
-    x = _embed(cfg, p, tokens, compute_dtype)
+    top = {k: params[k].to(compute_dtype) for k in ("embed", "embed_ln_scale", "embed_ln_bias")}
+    x = _embed(cfg, top, tokens, compute_dtype)
     bias = _alibi_bias(cfg.num_heads, tokens.shape[1], tokens.device)
     for l in range(cfg.num_layers):
-        x = _block(cfg, x, lambda name, _pre=f"layers.{l}.": p[_pre + name], bias)
-    x, head = _head_split(cfg, p, x)
+        pre = f"layers.{l}."
+        p = {name: params[pre + name].to(compute_dtype) for name in _layer_shapes(cfg)}
+        x = _block(cfg, x, p.__getitem__, bias)
+        del p
+    final = {k: params[k].to(compute_dtype) for k in ("final_ln_scale", "final_ln_bias")}
+    final["embed"] = top["embed"]
+    x, head = _head_split(cfg, final, x)
     if return_hidden:
         return x, head
     return F.linear(x, head).float()

@@ -35,16 +35,25 @@ BLOOM: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_up`` and ``w_down`` are
 transposed; ``embed`` (also the tied head), ``embed_ln_*``, ``final_ln_*``,
 the LayerNorm scales and biases and ``bq`` / ``bk`` / ``bv`` / ``bo`` /
 ``b_up`` / ``b_down`` go across as they are.
+
+EXAONE-4: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``,
+``w_down`` and ``lm_head`` are transposed, as Llama's; ``q_norm`` /
+``k_norm`` ``[L, hd]``, ``post_attn_norm`` / ``post_mlp_norm`` ``[L, h]``,
+``embed`` and ``final_norm`` go across as they are.
+
+:func:`jax_leaf` is the table the optimizers' layout seam reads
+(``ops/optimizers.py`` :class:`Layout`): where each port leaf lives in the
+JAX tree, for every family.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import bloom, gpt, llama
+from . import bloom, exaone4, gpt, llama
 
 # matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
 # (every family's names: no other leaf of any shares one)
@@ -55,10 +64,29 @@ TRANSPOSED = frozenset({"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
 def _param_shapes(cfg: Any):
     """The config's family's ``param_shapes(cfg)``."""
     for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig),
-                             (bloom, bloom.BloomConfig)):
+                             (bloom, bloom.BloomConfig),
+                             (exaone4, exaone4.Exaone4Config)):
         if isinstance(cfg, cfg_type):
             return family.param_shapes(cfg)
     raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
+
+
+def jax_leaf(name: str) -> Tuple[str, Optional[int], bool]:
+    """Where port leaf ``name`` lives in the JAX tree: (the JAX path,
+    '/'-joined as JAX ``utils/tree.py`` joins it, ``layers/wq``; the index
+    along its stacked layer dim, None when not stacked; whether the port
+    keeps it transposed). The same rule for every family of the port."""
+    base = name.rsplit(".", 1)[-1]
+    transposed = base in TRANSPOSED
+    if name.startswith("layers."):
+        _, layer, leaf = name.split(".", 2)
+        return f"layers/{leaf}", int(layer), transposed
+    return name, None, transposed
+
+
+def jax_leaves(cfg: Any) -> Dict[str, Tuple[str, Optional[int], bool]]:
+    """:func:`jax_leaf` of every parameter of ``cfg``'s family."""
+    return {name: jax_leaf(name) for name in _param_shapes(cfg)}
 
 
 def _to_torch(a: Any) -> torch.Tensor:
@@ -70,7 +98,7 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama``, ``gpt`` or ``bloom`` params (numpy leaves) → the port's
+    """JAX ``llama``, ``gpt``, ``bloom`` or ``exaone4`` params (numpy leaves) → the port's
     ``state_dict``. Raises if the tree does not hold exactly the config's
     parameters."""
     want = _param_shapes(cfg)

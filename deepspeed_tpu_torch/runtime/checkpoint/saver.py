@@ -4,7 +4,9 @@
 :259), with the same protocol.
 
 Format: a tag directory with the engine's whole ``TrainState`` — the fp32
-masters, the AdamW state (step, mu, nu), the seven ``LossScaleState``
+masters, the optimizer's state (every tensor by its state path, ``mu/<leaf>``,
+``fb_state.nu/<leaf>``, ``0.mu/<leaf>``; its steps in the header), the
+seven ``LossScaleState``
 leaves, ``step`` and ``skipped_steps`` — written by the configured
 :class:`~.engines.CheckpointEngine` under ``state/`` (each rank its own
 parts, in the port's names and ``[out, in]`` layout; see ``engines.py``),
@@ -44,6 +46,7 @@ import torch
 
 from ... import __version__
 from ...comm import comm
+from ...ops.optimizers import state_scalars, state_tensors, with_scalars
 from ...telemetry.trace import NULL_TRACER
 from ...utils.logging import log_dist, logger
 from .engines import (CheckpointEngine, Part, SavedState, StateTree,
@@ -137,23 +140,17 @@ def _leaf_part(engine, name: str, t: torch.Tensor) -> Part:
     return Part(t, tuple(shape), dim, index * t.shape[dim])
 
 
-def _opt_trees(engine):
-    opt = engine.state.opt_state
-    if not (hasattr(opt, "mu") and hasattr(opt, "nu") and hasattr(opt, "step")):
-        raise NotImplementedError(f"checkpoints hold AdamW's state; {engine.optimizer.name} "
-                                  f"is not ported")
-    return opt
-
-
 def state_leaves(engine, writer_only: bool = False) -> Dict[str, Part]:
-    """The masters and both moments as this rank's parts, named
-    ``params/<leaf>``, ``mu/<leaf>`` and ``nu/<leaf>``. ``writer_only``
-    leaves out the replicated leaves on ranks other than 0 (each element is
-    written once)."""
-    opt = _opt_trees(engine)
+    """The masters and every tensor of the optimizer state as this rank's
+    parts, named ``params/<leaf>`` and ``<state path>/<leaf>`` with the JAX
+    state tree's dotted paths (AdamW's ``mu`` and ``nu``, Muon's ``mu`` and
+    ``fb_state.mu``, a grouped optimizer's ``0.mu``; ``ops/optimizers.py``
+    ``state_tensors``). ``writer_only`` leaves out the replicated leaves on
+    ranks other than 0 (each element is written once)."""
     rank0 = comm.get_rank() == 0
     out: Dict[str, Part] = {}
-    for group, tensors in (("params", engine.state.params), ("mu", opt.mu), ("nu", opt.nu)):
+    groups = [("params", engine.state.params)] + list(state_tensors(engine.state.opt_state).items())
+    for group, tensors in groups:
         for name, t in tensors.items():
             part = _leaf_part(engine, name, t)
             if writer_only and part.dim is None and not rank0:
@@ -164,12 +161,15 @@ def state_leaves(engine, writer_only: bool = False) -> Dict[str, Part]:
 
 def state_header(engine) -> Dict[str, Any]:
     """The train state's scalars, as JSON: the loss scaler's fields by
-    name with their values, and the model's family config."""
+    name with their values, the optimizer state's integers by path
+    (``opt_scalars``; ``opt_step`` its top-level step), and the model's
+    family config."""
     from .universal import model_config_to_json
 
     st = engine.state
+    scalars = state_scalars(st.opt_state)
     return {"step": int(st.step), "skipped_steps": int(st.skipped_steps),
-            "opt_step": int(_opt_trees(engine).step),
+            "opt_step": scalars.get("step"), "opt_scalars": scalars,
             "loss_scale": {f: getattr(st.loss_scale, f).item()
                            for f in st.loss_scale._fields},
             # lets ds_to_universal write the JAX layout offline
@@ -177,7 +177,7 @@ def state_header(engine) -> Dict[str, Any]:
 
 
 def restore_header(engine, header: Dict[str, Any]) -> None:
-    """Set the engine's step, skip count, optimizer step and loss scaler
+    """Set the engine's step, skip count, optimizer steps and loss scaler
     from a saved header."""
     st = engine.state
     ls = st.loss_scale
@@ -185,11 +185,11 @@ def restore_header(engine, header: Dict[str, Any]) -> None:
     new_ls = ls._replace(**{f: torch.tensor(saved[f], dtype=getattr(ls, f).dtype,
                                             device=getattr(ls, f).device)
                             for f in ls._fields if f in saved})
-    opt = _opt_trees(engine)._replace(step=int(header.get("opt_step", 0)))
+    scalars = header.get("opt_scalars") or {"step": int(header.get("opt_step", 0))}
     engine.state = st._replace(
         step=int(header.get("step", 0)),
         skipped_steps=int(header.get("skipped_steps", 0)),
-        loss_scale=new_ls, opt_state=opt)
+        loss_scale=new_ls, opt_state=with_scalars(st.opt_state, scalars))
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,

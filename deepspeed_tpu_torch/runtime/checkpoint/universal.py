@@ -15,6 +15,12 @@ Layout (the JAX package's, file for file)::
         optim/nu.<name>/fp32.npy      (its second moment)
         optim/step/fp32.npy           (AdamW's step, int32)
 
+and so for every optimizer's state, under the JAX state tree's paths: Lion's
+``mu``, Adagrad's ``accum``, Muon's ``mu`` with ``fb_state.{step,mu,nu}``,
+the 1-bit ``mu`` / ``nu`` / ``error``; a grouped optimizer's
+``<g>.step`` and ``<g>.mu.<i>``, ``i`` the JAX leaf's place in group
+``g``'s list (``ops/optimizers.py`` ``grouped_optimizer``).
+
 When the engine's ``ModelSpec`` carries its family's ``config`` (every
 family's ``model_spec(cfg)`` sets it), ``<name>`` and the array are the JAX
 tree's: the layer leaves stacked along a leading ``L`` dim
@@ -58,6 +64,7 @@ from .engines import Part, _host_array, _safe
 from .manifest import (_fsync_path, _sha256_many, fsync_tree, multihost_barrier,
                        publish_dir, tag_candidates, verify_manifest, with_io_retries,
                        write_latest, write_manifest)
+from ...ops.optimizers import state_scalars, state_tensors, with_scalars
 from .saver import _reliability, read_state_tree, resolve_tag, state_leaves
 
 UNIVERSAL_DIR = "universal"
@@ -219,30 +226,59 @@ class _FragmentWriter:
 FRAGMENT_WRITER = _FragmentWriter()
 
 
-def fragment_trees(leaves: Dict[str, Part], opt_step: Optional[int],
-                   model_config: Any = None) -> Tuple[Dict[str, Fragment], Dict[str, Fragment]]:
+def _optim_names(group: str, names: List[str], fmap: Dict[str, LeafMap]) -> Dict[str, str]:
+    """Port leaf -> its fragment in state dict ``group`` (a dotted state
+    path): ``<group>.<JAX leaf>``; in a grouped optimizer's state (a path
+    under a group index, JAX ``grouped_optimizer``), whose leaves are a
+    list, ``<group>.<index of the JAX leaf in the group, JAX flatten
+    order>``."""
+    if group.split(".", 1)[0].isdigit():
+        order = sorted({fmap[n].fragment for n in names}, key=_path_order)
+        return {n: f"{group}.{order.index(fmap[n].fragment)}" for n in names}
+    return {n: f"{group}.{fmap[n].fragment}" for n in names}
+
+
+def fragment_trees(leaves: Dict[str, Part], opt_scalars: Optional[Dict[str, int]],
+                   model_config: Any = None,
+                   groups: Optional[Dict[str, List[str]]] = None
+                   ) -> Tuple[Dict[str, Fragment], Dict[str, Fragment]]:
     """(param fragments, optim fragments) of this rank's parts, named
-    ``params/<leaf>``, ``mu/<leaf>`` and ``nu/<leaf>``."""
+    ``params/<leaf>`` and ``<state path>/<leaf>``. ``opt_scalars``: the
+    optimizer state's integers by path (None: no optimizer state);
+    ``groups``: every port leaf of each state dict (default: the parts')."""
     shapes = {k.split("/", 1)[1]: p.shape for k, p in leaves.items() if k.startswith("params/")}
     fmap = fragment_map(shapes, model_config)
     f32 = np.dtype(np.float32)
     param = {lm.fragment: Fragment(lm.shape, f32, []) for lm in fmap.values()}
     optim: Dict[str, Fragment] = {}
-    if opt_step is not None:
-        optim["step"] = Fragment((), np.dtype(np.int32),
-                                 [(LeafMap("step", (), None, False),
-                                   Part(np.asarray(opt_step, np.int32), (), None, 0))])
-        for group in ("mu", "nu"):
-            for lm in fmap.values():
-                optim[f"{group}.{lm.fragment}"] = Fragment(lm.shape, f32, [])
+    if opt_scalars is None:
+        return param, optim
+    for path, value in opt_scalars.items():
+        optim[path] = Fragment((), np.dtype(np.int32),
+                               [(LeafMap(path, (), None, False),
+                                 Part(np.asarray(value, np.int32), (), None, 0))])
+    if groups is None:
+        groups = {}
+        for key in leaves:
+            group, name = key.split("/", 1)
+            if group != "params":
+                groups.setdefault(group, []).append(name)
+    names = {g: _optim_names(g, ns, fmap) for g, ns in groups.items()}
+    for g, ns in groups.items():
+        for n in ns:
+            optim[names[g][n]] = Fragment(fmap[n].shape, f32, [])
     for key, part in leaves.items():
         group, name = key.split("/", 1)
         lm = fmap[name]
         if group == "params":
             param[lm.fragment].writes.append((lm, part))
-        elif opt_step is not None:
-            optim[f"{group}.{lm.fragment}"].writes.append((lm, part))
+        else:
+            optim[names[group][name]].writes.append((lm, part))
     return param, optim
+
+
+def _engine_groups(engine) -> Dict[str, List[str]]:
+    return {g: list(ts) for g, ts in state_tensors(engine.state.opt_state).items()}
 
 
 def _read_region(root: str, lm: LeafMap, part: Part) -> np.ndarray:
@@ -281,26 +317,33 @@ def _copy_in(part: Part, arr: np.ndarray, transpose: bool, what: str) -> None:
         dst.copy_(src)
 
 
-def _load_fragments(root: str, engine) -> Optional[int]:
+def _load_fragments(root: str, engine) -> Optional[Dict[str, int]]:
     """Copy the param (and, when present, optim) fragments under ``root``
-    into the engine's tensors in place; returns the saved optimizer step
-    (None without optim fragments)."""
+    into the engine's tensors in place; returns the saved optimizer state's
+    integers by path (None without optim fragments)."""
     leaves = state_leaves(engine)
     shapes = {k.split("/", 1)[1]: p.shape for k, p in leaves.items() if k.startswith("params/")}
     fmap = fragment_map(shapes, getattr(engine.model, "config", None))
     optim_root = os.path.join(root, "optim")
     has_optim = os.path.isdir(optim_root)
+    names = {g: _optim_names(g, ns, fmap) for g, ns in _engine_groups(engine).items()}
     for key, part in leaves.items():
         group, name = key.split("/", 1)
         lm = fmap[name]
         if group == "params":
             _copy_in(part, _read_region(os.path.join(root, "param"), lm, part), lm.transpose, key)
         elif has_optim:
-            _copy_in(part, _read_region(optim_root, lm._replace(fragment=f"{group}.{lm.fragment}"),
+            _copy_in(part, _read_region(optim_root, lm._replace(fragment=names[group][name]),
                                         part), lm.transpose, key)
     if not has_optim:
         return None
-    return int(np.load(os.path.join(optim_root, "step", FRAGMENT_FILE)))
+    out = {}
+    for path in state_scalars(engine.state.opt_state):
+        fn = os.path.join(optim_root, _safe(path), FRAGMENT_FILE)
+        if not os.path.exists(fn):
+            raise FileNotFoundError(f"universal checkpoint missing fragment {path}")
+        out[path] = int(np.load(fn))
+    return out
 
 
 def derive_host_rng(seed: int, step: int, process_index: int,
@@ -320,11 +363,13 @@ def derive_host_rng(seed: int, step: int, process_index: int,
 # --------------------------------------------------------------------------- #
 # fragment trees alone (offline conversion)
 # --------------------------------------------------------------------------- #
-def save_universal(leaves: Dict[str, Part], out_dir: str, *, opt_step: Optional[int] = None,
+def save_universal(leaves: Dict[str, Part], out_dir: str, *,
+                   opt_scalars: Optional[Dict[str, int]] = None,
                    meta: Optional[Dict] = None, subdir: bool = True,
                    model_config: Any = None) -> str:
-    """Write a state (``params/<leaf>``, ``mu/<leaf>``, ``nu/<leaf>``
-    parts; ``opt_step`` with the moments) as a universal checkpoint.
+    """Write a state (``params/<leaf>`` and ``<state path>/<leaf>`` parts;
+    ``opt_scalars`` the optimizer state's integers by path) as a universal
+    checkpoint.
     Atomic: writes to a temp dir then renames; rank 0 owns the temp dir and
     the rename, every rank writes its own regions. A failure GCs the temp
     dir."""
@@ -342,7 +387,7 @@ def save_universal(leaves: Dict[str, Part], out_dir: str, *, opt_step: Optional[
         os.makedirs(tmp, exist_ok=True)
     multihost_barrier(f"universal_stage:{os.path.basename(final)}")
     try:
-        param, optim = fragment_trees(leaves, opt_step, model_config)
+        param, optim = fragment_trees(leaves, opt_scalars, model_config)
         index = {"param": FRAGMENT_WRITER.save(param, os.path.join(tmp, "param"))}
         if optim:
             index["optim"] = FRAGMENT_WRITER.save(optim, os.path.join(tmp, "optim"))
@@ -397,10 +442,10 @@ def load_universal(universal_dir: str, engine) -> Dict:
     """Map the fp32 fragments under ``universal_dir`` onto the engine's
     CURRENT topology, in place; returns the fragments' ``meta.json``."""
     root = _universal_root(universal_dir)
-    opt_step = _load_fragments(root, engine)
-    if opt_step is not None:
+    scalars = _load_fragments(root, engine)
+    if scalars is not None:
         engine.state = engine.state._replace(
-            opt_state=engine.state.opt_state._replace(step=opt_step))
+            opt_state=with_scalars(engine.state.opt_state, scalars))
     meta: Dict = {}
     mp = os.path.join(root, "meta.json")
     if os.path.exists(mp):
@@ -436,8 +481,8 @@ def save_universal_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 
     state = engine.state
     param_tree, optim_tree = fragment_trees(
-        state_leaves(engine, writer_only=True), int(state.opt_state.step),
-        getattr(engine.model, "config", None))
+        state_leaves(engine, writer_only=True), state_scalars(state.opt_state),
+        getattr(engine.model, "config", None), _engine_groups(engine))
     mm = engine.mesh_mgr
     meta: Dict[str, Any] = {
         "format": UNIVERSAL_FORMAT,
@@ -578,7 +623,7 @@ def load_universal_checkpoint(engine, load_dir: str,
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
 
-    opt_step = with_io_retries(
+    scalars = with_io_retries(
         lambda: _load_fragments(path, engine),
         retries=int(getattr(cfg, "io_retries", 0) or 0),
         backoff_s=float(getattr(cfg, "io_backoff_s", 0.5)),
@@ -593,7 +638,7 @@ def load_universal_checkpoint(engine, load_dir: str,
         ls = ls._replace(**{f: torch.tensor(v, dtype=getattr(ls, f).dtype,
                                             device=getattr(ls, f).device)
                             for f, v in zip(ls._fields, ls_vals)})
-    opt = st.opt_state if opt_step is None else st.opt_state._replace(step=opt_step)
+    opt = st.opt_state if scalars is None else with_scalars(st.opt_state, scalars)
     # the reference sets state.step to global_steps (JAX universal.py:642)
     engine.state = st._replace(step=gstep, opt_state=opt, loss_scale=ls,
                                skipped_steps=int(meta.get("skipped_steps", 0)))
@@ -644,6 +689,12 @@ def model_config_from_json(doc: Optional[Dict[str, Any]]) -> Any:
     return types[doc["type"]](**doc["fields"])
 
 
+def _saved_scalars(header: Dict) -> Optional[Dict[str, int]]:
+    if header.get("opt_scalars") is not None:
+        return header["opt_scalars"]
+    return None if header.get("opt_step") is None else {"step": int(header["opt_step"])}
+
+
 def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
                     out_dir: Optional[str] = None) -> str:
     """Offline converter (reference ``ds_to_universal.py`` CLI): a regular
@@ -663,7 +714,7 @@ def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
     # contract: fragments land at --output_folder, not a subdir of it)
     return save_universal(
         leaves, out_dir or os.path.join(ckpt_dir, tag),
-        opt_step=saved.header.get("opt_step"), meta=meta, subdir=out_dir is None,
+        opt_scalars=_saved_scalars(saved.header), meta=meta, subdir=out_dir is None,
         model_config=model_config_from_json(saved.header.get("model_config")))
 
 

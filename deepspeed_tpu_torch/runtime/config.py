@@ -10,7 +10,7 @@ raise ``NotImplementedError`` when enabled, at ``initialize``
 (:func:`check_ported`): offload, pipeline, sequence parallelism and the
 ``sequence`` block, activation checkpointing, ``comms_overlap``, MoE, tensor
 parallelism, telemetry, profiler, tuning, watchdog, reliability, memory
-tiers, ``aio``, ``param_groups``, ZeRO++ and MiCS. ZeRO stages 0-3 are accepted at world size 1, where a stage changes no
+tiers, ``aio``, ZeRO++ and MiCS. ZeRO stages 0-3 are accepted at world size 1, where a stage changes no
 arithmetic; a world size above 1 raises.
 """
 
@@ -832,7 +832,6 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
         "zero_optimization.zero_hpz_partition_size":
             zc.zero_hpz_partition_size > 1,
         "zero_optimization.mics_shard_size": zc.mics_shard_size > 1,
-        "optimizer.param_groups": bool(cfg.optimizer.param_groups),
         "pipeline": cfg.pipeline.stages > 1,
         "mesh": any(int(getattr(cfg.mesh, a)) > 1
                     for a in ("tensor", "pipe", "seq", "expert")),

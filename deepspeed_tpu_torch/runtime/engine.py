@@ -41,8 +41,13 @@ sharded dim of each leaf from ``runtime/partitioning.py``):
   the checkpointed function: the gather is not kept, and the recompute
   gathers the block again.
 
-The AdamW update runs unchanged on the shards, in place; it is elementwise,
-so a shard's update equals the same rows of the whole update.
+The optimizer updates the shards in place. An elementwise one (AdamW,
+Lion, Adagrad, SGD) needs nothing more; LAMB, Muon and the 1-bit
+optimizers reduce over a whole JAX leaf, and take their reductions over
+the layers and the data axis through the engine's ``layout``
+(``ops/optimizers.py`` :class:`Layout`, built from the family's
+``models/convert.py`` table and ``shard_dims``). ``optimizer.param_groups``
+builds a grouped optimizer whose patterns match the JAX paths.
 
 The reported loss, ``grad_norm``, overflow flag and aux are the global
 ones: the JAX loss is the token mean over the global micro-batch, so when
@@ -85,6 +90,7 @@ the loss through the model's ``tiled_loss_fn``.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -94,7 +100,8 @@ import torch.distributed as dist
 
 from ..comm import comm
 from ..comm.mesh import BATCH_AXES, ZERO_AXES, MeshManager, get_mesh, init_mesh
-from ..ops.optimizers import Optimizer, get_optimizer
+from ..models.convert import jax_leaf
+from ..ops.optimizers import Layout, Optimizer, get_optimizer, grouped_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
 from .config import DeepSpeedTPUConfig, check_ported, parse_config
@@ -177,10 +184,30 @@ class DeepSpeedTPUEngine:
         self.mesh_mgr = mesh_mgr or MeshManager.from_sizes({"data": 1})
         self.zero_stage = config.zero_config.stage
 
-        if optimizer is None:
+        # a config with param_groups builds its optimizer once the masters
+        # exist (the groups match leaf paths); a passed optimizer wins, with
+        # the JAX engine's warning (JAX runtime/engine.py:163-197)
+        groups = config.optimizer.param_groups
+        if optimizer is not None and groups:
+            logger.warning("optimizer.param_groups in the config are IGNORED because an "
+                           "optimizer object was passed to initialize()")
+        self._grouped_ctor = None
+        if optimizer is None and not groups:
             optimizer = get_optimizer(config.optimizer.type or "adamw",
                                       **config.optimizer.params)
+
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(config.seed)
+        params = self._init_masters(model, generator)
+        paths = ({k: jax_leaf(k)[0] for k in params} if model.config is not None else None)
+        if optimizer is None:
+            self._grouped_ctor = (config.optimizer.type or "adamw", [dict(g) for g in groups],
+                                  dict(config.optimizer.params), paths)
+            optimizer = grouped_optimizer(config.optimizer.type or "adamw", params, groups,
+                                          leaf_paths=paths, **config.optimizer.params)
         self.optimizer = optimizer
+        self.layout = Layout.for_model(model.config, params, self.shard_dims,
+                                       self._axis, self.mesh_mgr)
         self.base_lr = float(optimizer.hyperparams.get("lr", 1.0)) or 1.0
         if lr_schedule is None:
             lr_schedule = get_schedule(config.scheduler.type,
@@ -188,10 +215,6 @@ class DeepSpeedTPUEngine:
                                        base_lr=self.base_lr)
         self.lr_schedule = lr_schedule
         self.lr_scheduler = LRScheduler(lr_schedule)
-
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(config.seed)
-        params = self._init_masters(model, generator)
         self.state = TrainState(
             step=0, params=params, opt_state=optimizer.init(params),
             loss_scale=make_loss_scaler(config.fp16, device), skipped_steps=0)
@@ -327,6 +350,14 @@ class DeepSpeedTPUEngine:
         scale and keep the old rate."""
         self.lr_schedule = constant(float(lr))
         self.lr_scheduler = LRScheduler(self.lr_schedule)
+        if self._grouped_ctor is not None:
+            # per-group lrs become one: the grouped optimizer is rebuilt with
+            # every group pinned to lr (JAX :955-980); its state carries over
+            name, groups, kwargs, paths = self._grouped_ctor
+            groups = [{k: v for k, v in g.items() if k != "lr"} for g in groups]
+            self.optimizer = grouped_optimizer(name, self.state.params, groups,
+                                               leaf_paths=paths, **{**kwargs, "lr": float(lr)})
+            self.base_lr = float(lr) or 1.0
 
     def get_mom(self) -> List[float]:
         b = self.optimizer.hyperparams.get("betas", (0.9, 0.999))
@@ -494,7 +525,7 @@ class DeepSpeedTPUEngine:
         params, opt_state = state.params, state.opt_state
         if finite:
             params, opt_state = self.optimizer.update(params, grads, opt_state,
-                                                      lr_scale=lr_scale)
+                                                      lr_scale=lr_scale, **self._layout_kw())
         new_scale = update_loss_scale(state.loss_scale, torch.tensor(finite))
         self.state = TrainState(step=state.step + int(finite), params=params,
                                 opt_state=opt_state, loss_scale=new_scale,
@@ -503,6 +534,12 @@ class DeepSpeedTPUEngine:
         return StepOutput(loss=loss, grad_norm=grad_norm, lr=lr_t,
                           loss_scale=new_scale.scale, overflow=not finite,
                           aux={} if aux is None else aux)
+
+    def _layout_kw(self) -> Dict[str, Any]:
+        """``layout=`` for an optimizer whose update takes it (every one of
+        ``ops/optimizers.py``; a caller's own may not)."""
+        params = inspect.signature(self.optimizer.update).parameters
+        return {"layout": self.layout} if "layout" in params else {}
 
     def _split_micro(self, batch) -> List[Dict[str, torch.Tensor]]:
         """This rank's rows of each of the ``gas`` micro-batches."""

@@ -46,6 +46,15 @@ recompute (``chip_smoke.remat_launches``).
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         scripts/zero_nccl_check.py --layers 32 --stages 3 --steps 3 --remat full
 
+``--optimizer NAME`` trains with ``chip_smoke.OPTIMIZER_CASES[NAME]``
+instead of AdamW: LAMB, Muon and the 1-bit optimizers reduce over whole
+JAX leaves through the engine's layout (all-reduces of their sums, Muon's
+all-gather of each momentum leaf), so every stage must still equal the
+first within ``--rtol``.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        scripts/zero_nccl_check.py --optimizer muon --stages 0,3 --steps 3
+
 ``--tiny --backend gloo --device cpu`` rehearses the same code on the CPU
 (tiny Llama, plain versions, no profile).
 """
@@ -79,6 +88,8 @@ def main() -> int:
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--ckpt", action="store_true", help="the checkpoint leg instead")
     ap.add_argument("--remat", default="none", help="remat policy of every block")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="a name of chip_smoke.OPTIMIZER_CASES (lamb, muon, onebitadam, ...)")
     ap.add_argument("--out")
     args = ap.parse_args()
 
@@ -131,6 +142,7 @@ def main() -> int:
         conf = cs._train_config(args.seed, args.gas, True)
         conf["train_batch_size"] = args.gas * world
         conf["zero_optimization"] = {"stage": stage}
+        conf["optimizer"] = cs.OPTIMIZER_CASES[args.optimizer]
         t0 = time.perf_counter()
         eng, *_ = dst.initialize(model=llama.model_spec(cfg), config=conf, device=args.device)
         setup_s = time.perf_counter() - t0

@@ -82,9 +82,13 @@ def _family(name):
 
 
 def _state_bytes(eng) -> int:
-    """Bytes of this rank's persistent train state: masters and moments."""
-    opt = eng.state.opt_state
-    leaves = list(eng.state.params.values()) + list(opt.mu.values()) + list(opt.nu.values())
+    """Bytes of this rank's persistent train state: masters and every
+    tensor of the optimizer state."""
+    from deepspeed_tpu_torch.ops.optimizers import state_tensors
+
+    leaves = list(eng.state.params.values())
+    for tensors in state_tensors(eng.state.opt_state).values():
+        leaves += list(tensors.values())
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
@@ -110,7 +114,7 @@ def scenario_train(job, rank, world):
         batches = [{k.split("/", 2)[2]: data[k] for k in data if k.startswith(f"{pre}/{i}/")}
                    for i in range(run["steps"])]
         spec = dst.ModelSpec(
-            params=params, logical_axes=family.param_logical_axes(cfg),
+            params=params, logical_axes=family.param_logical_axes(cfg), config=cfg,
             loss_fn=lambda p, b: family.loss_fn(cfg, p, b, compute_dtype=torch.float32))
         eng, *_ = dst.initialize(model=spec, config=conf, device="cpu")
         out[f"{name}/state_bytes"] = np.int64(_state_bytes(eng))

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -291,3 +292,37 @@ def test_init_inference_defaults_to_the_gpu_and_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="quant"):
         build_engine_v2(llama, cfg, params, device="cpu",
                         config={"dtype": "float32", "quant": {"enabled": True}})
+
+
+def test_v1_refuses_fp16_on_the_card_at_build(monkeypatch):
+    """v1's no-cache forward reaches the flash kernels, which take bf16 and
+    fp32: an fp16 ``dtype`` on CUDA raises ``NotImplementedError`` when the
+    engine is built (as ``initialize`` and v2 refuse it), before any weight
+    lands on the card; fp16 on the CPU keeps working."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import exaone4
+
+    cfg, params = _tiny_params()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(NotImplementedError, match="float16"):
+        init_inference(llama, model_cfg=cfg, params=params, config={"dtype": "float16"},
+                       device="cuda")
+    monkeypatch.undo()
+    eng = init_inference(llama, model_cfg=cfg, params=params, config={"dtype": "float16"},
+                         device="cpu")
+    out = eng.generate(np.ones((1, 4), np.int32), max_new_tokens=2)
+    assert out.shape == (1, 2)
+    assert eng.params["embed"].dtype == torch.float16
+    # the new modules are covered by the import checks, and EXAONE-4's entry
+    # points default to the card
+    mods = _port_modules()
+    for name in ("deepspeed_tpu_torch.models.exaone4", "deepspeed_tpu_torch.ops.onebit",
+                 "deepspeed_tpu_torch.comm.compressed"):
+        assert name in mods
+    ecfg = exaone4.Exaone4Config.tiny()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            exaone4.init_paged_cache(ecfg, 4, 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            deepspeed_tpu_torch.initialize(model=exaone4.model_spec(ecfg), config={})

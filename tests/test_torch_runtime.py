@@ -118,8 +118,7 @@ def _spec():
     {"memory": {"tiering": {"enabled": True}}},
     {"aio": {"block_size": 4096}},
     {"watchdog": {"enabled": True}},
-    {"optimizer": {"type": "adamw", "param_groups": [{"pattern": "norm",
-                                                      "weight_decay": 0.0}]}},
+    {"flops_profiler": {"enabled": True}},
 ])
 def test_initialize_refuses_unported_blocks(block):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -157,8 +156,8 @@ def test_initialize_runs_on_the_gpu_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         deepspeed_tpu_torch.initialize(model=_spec(), config={})
-    with pytest.raises(NotImplementedError, match="queue A.6"):
-        topt.get_optimizer("lamb", lr=1e-3)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        topt.get_optimizer("nosuch", lr=1e-3)
 
 
 def _tree(rs):

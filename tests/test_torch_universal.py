@@ -22,6 +22,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -176,3 +177,60 @@ def test_fragments_are_byte_identical_to_jax(tmp_path):
     assert meta_j.keys() == meta_t.keys()
     for k in meta_j.keys() - {"config", "topology"}:
         assert meta_t[k] == meta_j[k], k
+
+
+OTHER_OPTIMIZERS = {
+    "lion": {"type": "lion", "params": {"lr": 1e-4, "weight_decay": 0.1}},
+    "muon": {"type": "muon", "params": {"lr": 0.02, "weight_decay": 0.01}},
+    "grouped_adamw": {"type": "adamw", "params": {"lr": 1e-3, "weight_decay": 0.1},
+                      "param_groups": [{"pattern": "(norm|bias)", "weight_decay": 0.0},
+                                       {"pattern": "layers/w_(up|down)", "lr": 3e-3}]},
+}
+
+
+def _engines_for(opt, params_np):
+    config = dict(CONFIG, optimizer=OTHER_OPTIMIZERS[opt])
+    eng_j, *_ = deepspeed_tpu.initialize(
+        model=JaxModelSpec(params=jax.tree.map(jnp.asarray, params_np),
+                           loss_fn=lambda p, b: jl.loss_fn(CFG_J, p, b,
+                                                           compute_dtype=jnp.float32)),
+        config=config, devices=jax.devices()[:1])
+    spec = tl.model_spec(CFG_T, compute_dtype=torch.float32)
+    spec.params, spec.init_fn = from_jax_params(CFG_T, params_np), None
+    eng_t, *_ = deepspeed_tpu_torch.initialize(model=spec, config=config, device="cpu")
+    return eng_j, eng_t
+
+
+@pytest.mark.parametrize("opt", sorted(OTHER_OPTIMIZERS))
+def test_other_optimizer_tags_move_between_packages(tmp_path, opt):
+    """Lion, Muon (its ``fb_state``) and a grouped AdamW (``<g>.mu.<i>``):
+    a JAX tag continues in the port and a port tag in JAX, at the
+    tolerances above; the port rewrites JAX's fragments byte for byte."""
+    p0 = _np(jl.init(CFG_J, jax.random.PRNGKey(0)))
+    p1 = _np(jl.init(CFG_J, jax.random.PRNGKey(1)))
+    eng_j, eng_t = _engines_for(opt, p0)
+    for b in BATCHES[:3]:
+        eng_j.train_batch(b)
+    pj = eng_j.save_universal_checkpoint(str(tmp_path / "jax"), tag="u3")
+    losses_j, norms_j = _continue(eng_j, BATCHES[3:])
+    eng_t2 = _engines_for(opt, p1)[1]
+    eng_t2.load_universal_checkpoint(str(tmp_path / "jax"))
+    pt = eng_t2.save_universal_checkpoint(str(tmp_path / "port"), tag="u3")
+    files = _files(pj)
+    assert files == _files(pt)
+    fragments = [f for f in files if f.endswith("fp32.npy")]
+    for f in fragments:
+        with open(os.path.join(pj, f), "rb") as a, open(os.path.join(pt, f), "rb") as b:
+            assert a.read() == b.read(), f
+    losses_t, norms_t = _continue(eng_t2, BATCHES[3:])
+    _hold(eng_t2, losses_t, norms_t, losses_j, norms_j, eng_j.state.params)
+
+    # and back: the port's run from p0, its tag into a JAX engine from p1
+    for b in BATCHES[:3]:
+        eng_t.train_batch(b)
+    eng_t.save_universal_checkpoint(str(tmp_path / "back"), tag="p3")
+    losses_t, norms_t = _continue(eng_t, BATCHES[3:])
+    eng_j2 = _engines_for(opt, p1)[0]
+    eng_j2.load_universal_checkpoint(str(tmp_path / "back"))
+    losses_j, norms_j = _continue(eng_j2, BATCHES[3:])
+    _hold(eng_t, losses_t, norms_t, losses_j, norms_j, eng_j2.state.params)
