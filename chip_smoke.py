@@ -236,7 +236,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    verify over the shared prefix (prefix on against off) and over a forked
    tail. A replay whose context-length buffer is not advanced, and skipped
    copy-on-write copies, must each fail their check.
-17. The serving fleet at Llama-3-8B's full width and depth
+17. The serving fleet at Llama-3-8B's full width and ``FLEET_LAYERS`` (16)
+   of its 32 layers (cut from 32 for the smoke's time)
    (``phase_serving_fleet``; ``max_seq_len`` 2048, 16 slots, blocks of
    128, one set of bf16 weights): a seeded ``TrafficGenerator`` trace of
    48 Poisson requests (prompts 64-1024 tokens, 16-128 generated,
@@ -368,7 +369,9 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    (the hybrid attention is masked, so plain, as in the JAX package); the
    loss finite and falling. (b) Phase 8's card-vs-CPU check at those 4
    layers (S 256); RoPE on the global layers (planted) must fail it. (c)
-   Serving at all 64 layers (64.0 GB of weights, shared by every engine):
+   Serving at ``EXA_SERVE_LAYERS`` (16) of the 64 layers (four LLLG
+   periods, 16.0 GB of weights, shared by every engine; cut from 64 for the
+   smoke's time):
    8 prompts (``EXA_LENGTHS``: two of 5120 tokens, so that decodes read past
    the 4096 window, split into 512-token prefill chunks) x 32 greedy tokens
    through v2 on bf16 pools (the decode graph) and with speculative
@@ -380,6 +383,37 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    5120-token prompt, and every token of v1, v2 and v2 spec + int8 against
    the fp32 forward of the same weights, within ``V1_NOISE_RATIO`` times the
    bf16 forward's own error; a late cache write (planted) must fail it.
+24. Mixtral-8x7B (``phase_mixtral``; ``MixtralConfig()``'s widths: vocab
+   32000, hidden 4096, 8 experts of 14336, top 2, 32 / 8 heads of 128;
+   random bf16 weights from the seed). (a) Training at ``MIX_TRAIN_LAYERS``
+   (2) layers (3.17 B parameters) through phase 7's ``phase_train``: bf16,
+   AdamW, GAS 2 of one 4096-token sequence, 6 steps, the einsum dispatch at
+   capacity factor 1.25; RMSNorm 5 a forward, the three flash kernels one a
+   layer a micro-batch; ``lm_loss`` and ``aux_loss`` printed. (b) Phase 8's
+   card-vs-CPU step at those 2 layers (S 128, for the CPU's time), the CPU
+   routing each (token, level) to the expert the card chose (bf16 router
+   logits flip near-ties, and a flipped route moves its token's whole
+   gradient: without it the step read 0.21-0.43 a leaf on the H100), with
+   the share the CPU's own gating would have chosen otherwise printed; the
+   card's gates left unrenormalized (planted) must fail it. (c) Serving at
+   ``MIX_SERVE_LAYERS`` (16) of the 32 layers (46.9 GB of weights; 32
+   layers' 93 GB fit no card), shared by every engine: the 8 self-repeating
+   prompts x 32 greedy tokens through v2 on bf16 pools (the decode graph),
+   with speculative decoding + fused verify, and on int8 pools; RMSNorm 33
+   a forward, 16 paged launches a replay; the decode step against its
+   weight-bytes bound (every expert is read: the no-drop routing gives
+   every slot a place); then v1, and where each row's v1 and v2 streams
+   part, ``v1_v2_parting``'s fp32 margin. (d) The einsum and compact
+   dispatches of one layer at (c)'s prefill burst (no-drop: C = T) within
+   ``DISPATCH_TOL``, each one's ms and the combine tensor's bytes; then at
+   ``MIX_CHECK_LAYERS`` (2) every token of v1, v2 and v2 spec + int8 (v2 on
+   its eager decode, the graph's plain version) against the fp32 forward at
+   ``V1_NOISE_RATIO`` x the bf16 forward's error, the fp32 forward routing
+   each position as the engine's forwards did (``v1_routes`` /
+   ``v2_routes``: without it a route flipped on a near-tie read 4.3 row RMS
+   on the H100, above any fault); the gates left unrenormalized must fail
+   it. The 16-layer bf16 error behind the parting rule is measured with the
+   same routes (``routed_noise``).
 
 The last three lines: ``{"profile_sessions": {...}}`` (the sessions each
 checked profiler window of phases 16 and 17 took), ``{"kernels": [...]}``
@@ -1908,7 +1942,10 @@ def train_flops(cfg, seq: int, sequences: int) -> float:
     """Model FLOPs of one training step: 6 per matmul parameter per token,
     and 3x the forward attention products (QK^T, PV) over causal pairs."""
     h, i, v, hd = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_size
-    if hasattr(cfg, "num_kv_heads"):     # Llama: GQA projections, gated MLP
+    if hasattr(cfg, "num_experts"):      # Mixtral: GQA, top_k of the SwiGLU experts, router
+        per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + \
+            cfg.top_k * 3 * h * i + h * cfg.num_experts
+    elif hasattr(cfg, "num_kv_heads"):   # Llama: GQA projections, gated MLP
         per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + 3 * h * i
     else:                                # GPT-2/OPT: MHA, two-matrix MLP
         per_layer = 4 * h * h + 2 * h * i
@@ -1978,13 +2015,16 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
              "flash_bwd_dkv_bias": flash_bwd_dkv_bias_cuda}
     for c in (*flash.values(), *norms.values()):
         c.launches = 0
-    losses, step_s = [], []
+    losses, step_s, metrics = [], [], {}
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         out = eng.train_batch(batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out.loss))
+        for m in ("lm_loss", "aux_loss"):       # a MoE family's two parts of the loss
+            if m in out.aux:
+                metrics.setdefault(m, []).append(float(out.aux[m]))
     launches = {**{k: c.launches for k, c in flash.items()},
                 **{k: c.launches for k, c in norms.items()}}
     peak = torch.cuda.max_memory_allocated()
@@ -2005,7 +2045,9 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
            "tokens_per_s": gas * micro * seq / (step_ms / 1e3), "model_flops_per_step": flops,
            "model_tflops": flops / (step_ms / 1e3) / 1e12, "peak_mem_bytes": peak,
            "launches": launches, "num_layers": cfg.num_layers, "seq": seq, "gas": gas,
-           "micro": micro, "n_params": n_params}
+           "micro": micro, "n_params": n_params, "metrics": metrics}
+    if metrics:
+        log("  " + ", ".join(f"{m} {['%.4f' % x for x in v]}" for m, v in metrics.items()))
     res["mfu"] = res["model_tflops"] * 1e12 / BF16_FLOPS
     log(f"  step {step_ms:.1f} ms (steps 2-{TRAIN_STEPS}; first {step_s[0]*1e3:.1f} ms), "
         f"{res['tokens_per_s']:.0f} tokens/s, model {res['model_tflops']:.1f} TFLOP/s "
@@ -2515,8 +2557,9 @@ def fault_zero_alibi():
 
 def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-width",
                       fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL,
-                      against: dict = None, leaf_tol: dict = None, layers: int = 1):
-    """``layers`` layer(s) at full width (Llama-3-8B by default), S = 256: one step's
+                      against: dict = None, leaf_tol: dict = None, layers: int = 1,
+                      seq: int = 256):
+    """``layers`` layer(s) at full width (Llama-3-8B by default), S = ``seq``: one step's
     loss and every leaf's gradient, card (kernels, bf16) against CPU (plain,
     fp32), each leaf's error over its reference norm within ``grad_tol``
     (``leaf_tol`` names leaves held at limits of their own; ``against`` maps
@@ -2533,7 +2576,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     masters = family.init(cfg, gen)          # fp32, on the card
     rs = np.random.RandomState(seed + 2)
-    batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, 257)).astype(np.int32)}
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)}
 
     def step(device, bf16):
         params = {k: v.to(device) for k, v in masters.items()}
@@ -4534,9 +4577,10 @@ def phase_serving_core(seed: int, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# the serving fleet (phase 17): Llama-3-8B at 32 layers behind the port's
+# the serving fleet (phase 17): Llama-3-8B at FLEET_LAYERS behind the port's
 # continuous-batching scheduler, replica router, fleet failover and
 # disaggregated prefill / decode
+FLEET_LAYERS = 16              # Llama-3-8B's depth here (cut from 32 for the smoke's time)
 FLEET_N = 48                   # requests in the seeded trace
 FLEET_RATE = 6.0               # Poisson arrivals a second
 FLEET_PROMPT = (64, 1024)      # prompt tokens, uniform
@@ -5256,7 +5300,8 @@ def phase_serving_fleet(seed: int, card: str) -> dict:
     from deepspeed_tpu_torch.testing import faults
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), max_seq_len=CORE_CTX)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), max_seq_len=CORE_CTX,
+                              num_layers=FLEET_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = llama.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
     counters = {"rms_norm": rms_norm_cuda, "paged_decode_attention": paged_decode_attention_cuda,
@@ -5657,19 +5702,27 @@ def _top2(z) -> tuple:
     return int(top.indices[0]), int(top.indices[1]), float(top.values[0] - top.values[1]) / rms
 
 
+def logits_of(out):
+    """A family's ``apply`` output as logits (a MoE family's is (logits, aux))."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def v1_v2_parting(cfg, eng, prompts, lengths, v1_outs, v2_outs, leave, v2_ticks,
-                  noise: float) -> dict:
+                  noise: float, family=None, beyond: str = None) -> dict:
     """At the step where a row's v1 and v2 streams part: the top-two logit
     gap of v1 (its dense-cache decode), of v2 (the paged kernel's decode
     step, recorded from the graph's output) and of the fp32 forward of the
     same weights, each over its row's RMS, and the fp32 forward's margin
     between the two tokens chosen. A margin wider than the bf16 path's own
     error (``noise``) would be a fault of the side whose token has the lower
-    fp32 logit; within it the rows part on a near-tie."""
+    fp32 logit; within it the rows part on a near-tie. ``beyond`` names
+    the verdict beyond it instead (a MoE family: a route that flipped on a
+    near-tie earlier in the row moves its tokens wholesale)."""
     import torch
 
     from deepspeed_tpu_torch.models import llama
 
+    family = family or llama
     want = {i: j for i, j in enumerate(leave) if j is not None}
     v1_rows = {}
     sound = eng._apply_cached
@@ -5692,8 +5745,8 @@ def v1_v2_parting(cfg, eng, prompts, lengths, v1_outs, v2_outs, leave, v2_ticks,
     for i, j in want.items():
         seq = np.concatenate([prompts[i, :lengths[i]], np.asarray(v1_outs[i][:j], np.int64)])
         with torch.inference_mode():
-            z32 = llama.apply(cfg, eng.weights(), eng._tensor(seq[None]),
-                              compute_dtype=torch.float32)[0, -1]
+            z32 = logits_of(family.apply(cfg, eng.weights(), eng._tensor(seq[None]),
+                                         compute_dtype=torch.float32))[0, -1]
         t1, t2 = int(v1_outs[i][j]), int(v2_outs[i][j])
         rms32 = float(z32.pow(2).mean().sqrt())
         row = {"step": j, "v1_token": t1, "v2_token": t2,
@@ -5702,7 +5755,8 @@ def v1_v2_parting(cfg, eng, prompts, lengths, v1_outs, v2_outs, leave, v2_ticks,
                "v2": _top2(v2_ticks[j - 1][i]) if 0 < j <= len(v2_ticks) else None}
         row["v2_slot_is_row"] = row["v2"] is not None and row["v2"][0] == t2
         row["verdict"] = ("near-tie" if abs(row["fp32_margin_v1_minus_v2"]) <= noise else
-                          ("v2 wrong" if row["fp32_margin_v1_minus_v2"] > 0 else "v1 wrong"))
+                          beyond or ("v2 wrong" if row["fp32_margin_v1_minus_v2"] > 0
+                                     else "v1 wrong"))
         out["rows"][i] = row
         log(f"  row {i} parts at step {j}: v1 picks {t1}, v2 {t2}; top-two gap / RMS v1 "
             f"{row['v1'][2] if row['v1'] else float('nan'):.4f}, v2 "
@@ -6425,6 +6479,7 @@ EXA_LENGTHS = (5120, 64, 200, 5120, 333, 512, 777, 1024)
 EXA_SPLIT = 512                # split_prefill_chunk: bounds a prefill's fp32 scores
 EXA_BLOCKS = 160               # pool blocks of 128 (the 8 prompts need ~115)
 EXA_CHECK_LAYERS = 4           # the fp32-reference checks: one LLLG period
+EXA_SERVE_LAYERS = 16          # serving depth, 4 LLLG periods (cut from 64: the smoke's time)
 
 
 def exaone_cfg(layers=None):
@@ -6484,18 +6539,23 @@ def v1_groups(eng, prompts, new: int, eos=None):
     return [outs[i] for i in range(len(prompts))]
 
 
-def fp32_gaps(family, cfg, params, prompts, outs) -> tuple:
+def fp32_gaps(family, cfg, params, prompts, outs, routes=None, keys=None) -> tuple:
     """Each generated token against the fp32 forward of the same weights
     over its row's prompt and the tokens before it: (argmax matches, tokens,
-    largest (max logit - the token's logit) / row RMS)."""
+    largest (max logit - the token's logit) / row RMS). With ``routes`` (a
+    MoE family's :class:`PositionRoutes`, ``keys[i]`` prompt i's key) the
+    fp32 forward routes every position as the serving run did."""
     import torch
 
     match, n, worst = 0, 0, 0.0
-    for p, toks in zip(prompts, outs):
+    for i, (p, toks) in enumerate(zip(prompts, outs)):
         seq = torch.as_tensor(np.concatenate([p, np.asarray(toks[:-1], np.int32)]),
-                              device="cuda")[None]
-        with torch.inference_mode():
-            z = family.apply(cfg, params, seq, compute_dtype=torch.float32)[0, len(p) - 1:]
+                              device=params["embed"].device)[None]
+        replay = (routes_replayed(routes.of(keys[i], seq.shape[1])) if routes is not None
+                  else contextlib.nullcontext())
+        with torch.inference_mode(), replay:
+            z = logits_of(family.apply(cfg, params, seq,
+                                       compute_dtype=torch.float32))[0, len(p) - 1:]
         rms = z.pow(2).mean(-1).sqrt()
         t = torch.as_tensor(toks, device=z.device)
         gap = (z.max(-1).values - z.gather(-1, t[:, None])[:, 0]) / rms
@@ -6572,8 +6632,8 @@ def phase_exaone4(seed: int, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) serving at full depth: one set of bf16 weights, v2 and v1
-    cfg = exaone_cfg()
+    # (c) serving at EXA_SERVE_LAYERS: one set of bf16 weights, v2 and v1
+    cfg = exaone_cfg(EXA_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = exaone4.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
                           dtype=torch.bfloat16, device="cuda")
@@ -6698,6 +6758,410 @@ def phase_exaone4(seed: int, card: str) -> dict:
     return res
 
 
+MIX_TRAIN_LAYERS = 2           # Mixtral-8x7B width: 3.17 B parameters, fp32 masters + AdamW
+MIX_SERVE_LAYERS = 16          # 46.9 GB of bf16 weights: 32 layers' 93 GB fit no card
+MIX_CHECK_LAYERS = 2           # the fp32-reference checks
+MIX_SEQ = 4096                 # tokens a training micro-batch
+MIX_CHECK_SEQ = 128            # tokens of the card-vs-CPU step (256 in phase 8: the CPU's time)
+# the einsum and compact dispatches of one layer against each other: the
+# same expert products in bf16, summed in another order (one rounding step
+# of |y| < 8 is <= 0.031, as RMS_TOL reads it)
+DISPATCH_TOL = RMS_TOL
+
+
+def mixtral_cfg(layers: int):
+    from deepspeed_tpu_torch.models import mixtral
+
+    return dataclasses.replace(mixtral.MixtralConfig(), num_layers=layers)
+
+
+@contextlib.contextmanager
+def card_routes_on_cpu():
+    """The CPU's gating routes as the card's did: its i-th top-k takes the
+    experts of the card's i-th (on the CPU's own fp32 probabilities), since
+    the top-k of bf16 router logits flips near-ties and a flipped route
+    moves its token's whole gradient (module docstring, phase 24 b). Yields
+    the share of (token, level) routes each CPU gating would have chosen
+    otherwise, by call."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    sound, card, flipped = sharded_moe.top_k, [], []
+
+    def routed(probs, k):
+        vals, idx = sound(probs, k)
+        if probs.is_cuda:
+            card.append(idx.cpu())
+            return vals, idx
+        theirs = card[len(flipped)]
+        flipped.append(float((idx != theirs).float().mean()))
+        return probs.gather(-1, theirs), theirs
+
+    sharded_moe.top_k = routed
+    try:
+        yield flipped
+    finally:
+        sharded_moe.top_k = sound
+
+
+@contextlib.contextmanager
+def fault_unnormalized_gates():
+    """Planted: the card's gating keeps the raw top-k probabilities (the
+    renormalization left out), the CPU's stays sound."""
+    from deepspeed_tpu_torch.moe import layer
+
+    sound = layer.top_k_gating_compact
+
+    def faulty(logits, *a, **kw):
+        if logits.is_cuda:
+            kw["norm_topk"] = False
+        return sound(logits, *a, **kw)
+
+    layer.top_k_gating_compact = faulty
+    try:
+        yield "top-k gates left unrenormalized on the card"
+    finally:
+        layer.top_k_gating_compact = sound
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Every gating's experts ([T, k], in call order) while the context is
+    open."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    sound, tape = sharded_moe.top_k, []
+
+    def recording(probs, k):
+        vals, idx = sound(probs, k)
+        tape.append(idx.detach().cpu())
+        return vals, idx
+
+    sharded_moe.top_k = recording
+    try:
+        yield tape
+    finally:
+        sharded_moe.top_k = sound
+
+
+@contextlib.contextmanager
+def routes_replayed(tape):
+    """Each gating takes the next experts of ``tape`` (on its own
+    probabilities) instead of its own top-k."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    sound, it = sharded_moe.top_k, iter(tape)
+
+    def replaying(probs, k):
+        idx = next(it).to(probs.device)
+        return probs.gather(-1, idx), idx
+
+    sharded_moe.top_k = replaying
+    try:
+        yield
+    finally:
+        sharded_moe.top_k = sound
+
+
+def routed_noise(family, cfg, params, toks) -> float:
+    """The bf16 forward's largest row error over the row's RMS against the
+    fp32 forward that routes every token as the bf16 one did (a route that
+    flips on a near-tie moves its token wholesale, which is no arithmetic
+    error)."""
+    import torch
+
+    with torch.inference_mode():
+        with routes_recorded() as tape:
+            z16 = logits_of(family.apply(cfg, params, toks, compute_dtype=torch.bfloat16))
+        with routes_replayed(tape):
+            z32 = logits_of(family.apply(cfg, params, toks, compute_dtype=torch.float32))
+    return row_err(z16, z32)[1]
+
+
+class PositionRoutes:
+    """The experts each forward of a serving run gave each (sequence,
+    position), the last forward's winning (a position a rolled-back verify
+    wrote is written again), per layer. A sequence is keyed by its first
+    KV block (v2) or its batch row (v1)."""
+
+    def __init__(self, layers: int):
+        self.layers, self.map, self.first_keys = layers, {}, None
+
+    def add(self, entries, keys, ctx, valid) -> None:
+        t = valid.shape[1]
+        for l, idx in enumerate(entries):
+            idx = idx.view(len(keys), t, -1)
+            for r, key in enumerate(keys):
+                if key is None:
+                    continue
+                for j in np.nonzero(valid[r])[0]:
+                    self.map[(key, int(ctx[r]) + int(j), l)] = idx[r, j]
+        if self.first_keys is None:
+            self.first_keys = keys
+
+    def of(self, key, n: int) -> list:
+        """Per layer, the [n, k] experts of positions 0..n-1 of ``key``."""
+        import torch
+
+        return [torch.stack([self.map[(key, p, l)] for p in range(n)])
+                for l in range(self.layers)]
+
+
+@contextlib.contextmanager
+def v2_routes(eng, layers: int):
+    """Every paged forward of a v2 engine (prefill, eager decode, verify)
+    with the experts it routed each (sequence, position) to; the first
+    forward's rows (the admission burst) give the prompts' keys."""
+    import torch
+
+    sound, pr = eng._forward, PositionRoutes(layers)
+
+    def host(x):
+        return torch.as_tensor(x).cpu().numpy()
+
+    def recorded(tokens, tables, ctx, valid):
+        tb, c, v = host(tables), host(ctx), host(valid).astype(bool)
+        with routes_recorded() as tape:
+            out = sound(tokens, tables, ctx, valid)
+        keys = [int(k) if k else None for k in tb[:, 0]]
+        pr.add(tape[-layers:], keys, c, v)
+        return out
+
+    eng._forward = recorded
+    try:
+        yield pr
+    finally:
+        eng._forward = sound
+
+
+@contextlib.contextmanager
+def v1_routes(eng, layers: int):
+    """The same for a v1 engine's dense-cache forwards (rows: the batch)."""
+    import torch
+
+    sound, pr = eng._apply_cached, PositionRoutes(layers)
+
+    def recorded(tokens, cache, cache_len):
+        b, t = tokens.shape
+        c = torch.as_tensor(cache_len).expand(b).cpu().numpy()
+        with routes_recorded() as tape:
+            out = sound(tokens, cache, cache_len)
+        pr.add(tape[-layers:], list(range(b)), c, np.ones((b, t), bool))
+        return out
+
+    eng._apply_cached = recorded
+    try:
+        yield pr
+    finally:
+        eng._apply_cached = sound
+
+
+def phase_mixtral(seed: int, card: str) -> dict:
+    """Mixtral-8x7B (module docstring, phase 24)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import mixtral
+    from deepspeed_tpu_torch.moe.layer import MoELayer
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    t_phase = time.perf_counter()
+    res = {}
+    # (a) training at 2 layers through train_batch (einsum dispatch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train"] = phase_train(seed, card, family=mixtral, cfg=mixtral_cfg(MIX_TRAIN_LAYERS),
+                               label="Mixtral-8x7B", seq=MIX_SEQ, gas=2, micro=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one step card (bf16) against CPU (fp32) at 2 layers, S 256, the
+    # CPU routing each token as the card did
+    with card_routes_on_cpu() as flipped:
+        res["train_whole_path"] = phase_train_whole(
+            seed, card, family=mixtral, cfg=mixtral_cfg(MIX_TRAIN_LAYERS),
+            label="Mixtral-8x7B-width", fault=fault_unnormalized_gates,
+            layers=MIX_TRAIN_LAYERS, seq=MIX_CHECK_SEQ)
+    res["train_whole_path"]["route_difference_by_layer"] = flipped
+    log(f"  routes (token, level) the CPU's own fp32 gating would choose otherwise than the "
+        f"card's bf16 one, by layer: {['%.4f' % d for d in flipped]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) serving at MIX_SERVE_LAYERS: one set of bf16 weights, v2 and v1
+    cfg = mixtral_cfg(MIX_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = mixtral.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                          dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  serving weights: {cfg.num_layers} layers, {cfg.num_params / 1e9:.2f} B params, "
+        f"{wbytes / 1e9:.2f} GB bf16 in {time.perf_counter() - t0:.1f} s; a decode step "
+        f"reads every expert (no-drop routing of every slot): bound {bound_ms:.2f} ms")
+    prompts, lengths = spec_prompts(seed, cfg.vocab_size)
+    serve = phase_spec_serving(
+        seed, MAX_NEW_TOKENS, card, family=mixtral, cfg=cfg, params=params,
+        engines=(("bf16", {}, prompts), ("spec", SPEC, prompts), ("int8", INT8, prompts)))
+    res["serving"] = serve
+    for name in ("bf16", "spec", "int8"):
+        w = serve[name]["per_replay"]
+        if w.get("paged_decode_attention", w.get("paged_decode_attention_int8")) != \
+                cfg.num_layers:
+            raise AssertionError(f"{name}: a decode replay launches {w}, not "
+                                 f"{cfg.num_layers} paged decodes")
+    busy = serve["bf16"]["profile_steps"]["busy_ms_per_step"]
+    res["decode"] = {"step_ms": serve["bf16"]["decode_step_ms"], "busy_ms": busy,
+                     "bound_ms": bound_ms, "weight_bytes": wbytes}
+    log(f"  bf16 decode step {serve['bf16']['decode_step_ms']:.2f} ms (device busy "
+        f"{busy:.2f} ms) against the weight-bytes bound {bound_ms:.2f} ms [{card}]")
+
+    # v1 on the same weights; where its stream parts from v2's bf16 one, the
+    # fp32 margin between the two tokens against the bf16 error (phase 21)
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1 = dst.init_inference(mixtral, model_cfg=cfg, params=params,
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    padded = np.zeros((len(prompts), max(lengths)), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    lens = np.array(lengths, np.int32)
+    v1.generate(padded[:2], prompt_lengths=lens[:2], max_new_tokens=2)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rms_norm_cuda.launches = 0
+    t0 = time.perf_counter()
+    v1_outs = [list(map(int, r)) for r in
+               v1.generate(padded, prompt_lengths=lens, max_new_tokens=MAX_NEW_TOKENS)]
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    v1_launches = rms_norm_cuda.launches
+    check_launches("v1 generate", {"rms_norm": v1_launches},
+                   {"rms_norm": (2 * cfg.num_layers + 1) * MAX_NEW_TOKENS})
+    v2_outs = [list(map(int, r)) for r in serve["bf16"]["outs"]]
+    leave = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(v1_outs, v2_outs)]
+    nodrop = dataclasses.replace(cfg, drop_tokens=False)      # the serving routing
+    noise16 = routed_noise(mixtral, nodrop, params, v1._tensor(padded[:2, :128].astype(np.int64)))
+    parting = v1_v2_parting(nodrop, v1, padded, lens, v1_outs, v2_outs, leave, [], noise16,
+                            family=mixtral, beyond="beyond the bf16 error: a route flip "
+                            "earlier in the row, or a fault")
+    res["v1"] = {"generate_s": v1_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": {"rms_norm": v1_launches}, "outs": v1_outs,
+                 "v1_v2_first_difference": leave, "agree_rows": sum(x is None for x in leave),
+                 "bf16_noise": noise16, "v1_v2_parting": parting}
+    log(f"  v1 bf16: {v1_s:.1f} s for 8 x {MAX_NEW_TOKENS} tokens, peak "
+        f"{res['v1']['peak_bytes'] / 2**30:.2f} GiB; v1 against v2 at {cfg.num_layers} layers: "
+        f"{res['v1']['agree_rows']} of {len(prompts)} rows the same, first differing step by "
+        f"row {leave} (bf16 error of the forward {noise16:.4f}) [{card}]")
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the two dispatches at (c)'s prefill shape: layer 0's bank, the
+    # burst's tokens (8 prompts padded to a multiple of 64, every row routed)
+    pad_t = -(-max(lengths) // 64) * 64
+    moe = {k[len("layers.0.moe."):]: v for k, v in params.items()
+           if k.startswith("layers.0.moe.")}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    x = torch.randn((len(prompts), pad_t, cfg.hidden_size), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+    layers = {d: MoELayer(cfg.num_experts, cfg.top_k, drop_tokens=False, dispatch=d)
+              for d in ("einsum", "compact")}
+    with torch.inference_mode():
+        outs = {d: lay(moe, x)[0] for d, lay in layers.items()}
+        times = {d: time_ms(lambda lay=lay: lay(moe, x), 5, warmup=2)
+                 for d, lay in layers.items()}
+    err = check_close("compact dispatch against einsum (no-drop, prefill burst)",
+                      outs["compact"], outs["einsum"], DISPATCH_TOL)[1]
+    C = T                                      # no-drop capacity: every slot fits
+    res["dispatch"] = {"tokens": T, "capacity": C, "row_err": err, "tol": DISPATCH_TOL,
+                       "ms": times, "combine_bytes": T * cfg.num_experts * C * 4,
+                       "table_bytes": cfg.num_experts * C * (8 + 4),
+                       "expert_rows": cfg.num_experts * C, "routed_rows": cfg.top_k * T}
+    d = res["dispatch"]
+    log(f"  dispatch at {T} tokens (no-drop, C = {C}): einsum {times['einsum']:.2f} ms, "
+        f"compact {times['compact']:.2f} ms; combine tensor {d['combine_bytes'] / 1e6:.1f} MB "
+        f"against {d['table_bytes'] / 1e6:.2f} MB of token tables; the bank multiplies "
+        f"{d['expert_rows']} rows for {d['routed_rows']} routed ones [{card}]")
+    del outs, x, moe
+
+    # at MIX_CHECK_LAYERS: every token of v1, v2 and v2 spec + int8 against
+    # the fp32 forward of the same weights routing each position as the
+    # engine did, at V1_NOISE_RATIO x the bf16 forward's own error (v2 with
+    # the decode graph's plain version, the eager decode, whose forwards
+    # can be recorded); the card's gates left unrenormalized must fail it
+    small = dataclasses.replace(nodrop, num_layers=MIX_CHECK_LAYERS)
+    sp = {k: v for k, v in params.items()
+          if not k.startswith("layers.") or int(k.split(".")[1]) < MIX_CHECK_LAYERS}
+    noise = routed_noise(mixtral, small, sp,
+                         torch.as_tensor(prompts[-1], device="cuda")[None].long())
+    tol = V1_NOISE_RATIO * noise
+    log(f"  {MIX_CHECK_LAYERS} layers: the bf16 forward against fp32 (the same routes) on "
+        f"the {len(prompts[-1])}-token prompt {noise:.4f} of a row's RMS; limit {tol:.4f}")
+    v1s = dst.init_inference(mixtral, model_cfg=small, params=sp,
+                             config={"dtype": "bfloat16", "prefill_bucket": 64})
+    checks = {}
+    with v1_routes(v1s, MIX_CHECK_LAYERS) as routes:
+        outs = [list(map(int, r)) for r in v1s.generate(padded, prompt_lengths=lens,
+                                                         max_new_tokens=MAX_NEW_TOKENS)]
+    checks["v1"] = fp32_gaps(mixtral, small, sp, prompts, outs, routes,
+                               list(range(len(prompts))))
+    with fault_unnormalized_gates() as what, v1_routes(v1s, MIX_CHECK_LAYERS) as routes:
+        bad = [list(map(int, r)) for r in v1s.generate(padded[:3], prompt_lengths=lens[:3],
+                                                        max_new_tokens=8)]
+    bad_gap = fp32_gaps(mixtral, small, sp, prompts[:3], bad, routes, [0, 1, 2])[2]
+    del v1s
+    torch.cuda.empty_cache()
+    base = {"dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
+                       "memory_config_blocks": 64, "block_size": 128}}
+    for extra_name, extra in (("v2 bf16", {}), ("v2 spec + fused verify, int8 pools",
+                                                 {**SPEC, **INT8})):
+        e2 = build_engine_v2(mixtral, small, sp, config=dict(base, **extra))
+        e2._graph_on = False
+        with v2_routes(e2, MIX_CHECK_LAYERS) as routes:
+            outs = [list(map(int, o)) for o in e2.generate(prompts,
+                                                            max_new_tokens=MAX_NEW_TOKENS)]
+        checks[extra_name] = fp32_gaps(mixtral, small, sp, prompts, outs, routes,
+                                         routes.first_keys[:len(prompts)])
+        del e2
+        torch.cuda.empty_cache()
+    for name, (m, n, worst) in checks.items():
+        log(f"  {name} at {MIX_CHECK_LAYERS} layers: {m}/{n} tokens the fp32 argmax, largest "
+            f"gap {worst:.4f} of the row's RMS (limit {tol:.4f})")
+        if worst > tol:
+            raise AssertionError(f"{name}: a generated token is {worst} row RMS below the "
+                                 f"fp32 argmax")
+    log(f"  planted fault ({what}): largest gap {bad_gap:.4f} (must exceed {tol:.4f})")
+    if bad_gap <= tol:
+        raise AssertionError(f"the Mixtral stream check passes a planted fault ({what})")
+    res["check"] = {"noise": noise, "tol": tol,
+                    "streams": {k: {"argmax": [m, n], "worst_gap": w}
+                                for k, (m, n, w) in checks.items()},
+                    "planted_fault_gap": bad_gap}
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = res["train"]["launches"]
+    res["launches"] = {
+        "rms_norm_training": tr["rms_norm"],
+        "rms_norm_serving": sum(serve[n]["launches"]["rms_norm"] for n in ("bf16", "spec", "int8"))
+        + v1_launches,
+        "flash_fwd": tr["flash_fwd"], "flash_bwd_dq": tr["flash_bwd_dq"],
+        "flash_bwd_dkv": tr["flash_bwd_dkv"],
+        "paged_decode_attention": serve["bf16"]["launches"]["paged_decode_attention"]
+        + serve["spec"]["launches"]["paged_decode_attention"],
+        "paged_decode_attention_int8": serve["int8"]["launches"]["paged_decode_attention_int8"],
+        "paged_spec_verify_attention": serve["spec"]["launches"]["paged_spec_verify_attention"]}
+    res["weight_bytes"] = wbytes
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {res['launches']}")
+    log(f"  phase 24: {res['phase_s']:.1f} s")
+    return res
+
+
 def bloom_v1_peak(seed: int, card: str) -> dict:
     """v1 ``forward`` on BLOOM-7b1 (30 layers) with int8 weights at rest:
     the peak device memory of the family's ``apply`` reading each block's
@@ -6798,14 +7262,19 @@ def main() -> int:
         return 1
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
+    marks = {}      # phase banner -> seconds since the start, for "phase_start_s"
 
-    log("== phase 1: device")
+    def log_phase(msg: str) -> None:
+        marks[msg.split(":")[0].lstrip("= ")] = round(time.perf_counter() - t_all, 1)
+        log(msg)
+
+    log_phase("== phase 1: device")
     card = card_line()
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s), python {sys.version.split()[0]}")
 
-    log("== phase 2: build")
+    log_phase("== phase 2: build")
     from deepspeed_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -6813,7 +7282,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"  built {[s.name for s in _build.sources()]} in {build_s:.1f} s")
 
-    log("== phase 3: kernels against their plain versions")
+    log_phase("== phase 3: kernels against their plain versions")
     kern, decode_case = phase_kernels(SEED, card)
     kern["flash"] = phase_flash(SEED, card)
     kern["rows"], rows_case = phase_rows_kernels(SEED, card)
@@ -6823,7 +7292,7 @@ def main() -> int:
     kern["flash_bias"] = phase_bias_kernels(SEED, card)
     kern["sparse"] = phase_sparse_kernels(SEED, card)
 
-    log("== phase 4: main path (Llama-3-8B shapes through generate)")
+    log_phase("== phase 4: main path (Llama-3-8B shapes through generate)")
     main_res = phase_main_path(SEED, MAX_NEW_TOKENS, card)
 
     # the paged-decode inputs of the main path's last decode step: the 8
@@ -6834,8 +7303,8 @@ def main() -> int:
                             "main-path last step")
     kern["paged_decode"]["cases"]["main_path"] = main_case
 
-    log("== phase 5: speculative serving (Llama-3-8B through generate; fused verify on "
-        "bf16 and int8 pools, and int8 pools alone)")
+    log_phase("== phase 5: speculative serving (Llama-3-8B through generate; fused verify on "
+              "bf16 and int8 pools, and int8 pools alone)")
     spec = phase_spec_serving(SEED, MAX_NEW_TOKENS, card)
     # the new kernels' inputs late in that run: the 8 slots at
     # prompt_len + max_new_tokens - t (verify, t = k + 1 rows) or - 2
@@ -6851,21 +7320,21 @@ def main() -> int:
     kern["rows"]["timing"]["decode_int8_main_path"] = rows_case(
         "decode", 1, dec_ctx, dec_tables, "paged_decode int8 main-path step")
 
-    log("== phase 6: whole path on the card against the plain path on the CPU")
+    log_phase("== phase 6: whole path on the card against the plain path on the CPU")
     whole = phase_whole_path(SEED, card)
     whole_spec = phase_whole_path_spec(SEED, card)
 
-    log("== phase 7: training main path (Llama-3-8B width, 4 layers, through train_batch)")
+    log_phase("== phase 7: training main path (Llama-3-8B width, 4 layers, through train_batch)")
     train = phase_train(SEED, card)
 
-    log("== phase 8: whole training step on the card against the plain path on the CPU")
+    log_phase("== phase 8: whole training step on the card against the plain path on the CPU")
     train_whole = phase_train_whole(SEED, card)
 
     from deepspeed_tpu_torch.models import gpt
 
     opt_cfg = dataclasses.replace(gpt.GPTConfig.opt_1_3b(), activation="relu")
-    log("== phase 9: OPT-1.3B serving (24 layers through generate; bf16 pools, then "
-        "speculative + fused verify on int8 pools)")
+    log_phase("== phase 9: OPT-1.3B serving (24 layers through generate; bf16 pools, then "
+              "speculative + fused verify on int8 pools)")
     rs = np.random.RandomState(SEED + 10)
     opt_prompts = [rs.randint(0, opt_cfg.vocab_size, n).astype(np.int32)
                    for n in (1, 17, 64, 100, 129, 333, 700, 1900)]
@@ -6883,12 +7352,12 @@ def main() -> int:
                          MAX_NEW_TOKENS - SPEC_K - 1, extra=SPEC_K + 1, shape=OPT_ROWS_SHAPE))
     kern["opt_paged"] = opt_paged
 
-    log("== phase 10: OPT-1.3B training (24 layers through train_batch)")
+    log_phase("== phase 10: OPT-1.3B training (24 layers through train_batch)")
     opt_train = phase_train(SEED, card, family=gpt, cfg=opt_cfg, label="OPT-1.3B",
                             seq=2048, gas=2, micro=OPT_MICRO, norm="layer_norm")
 
-    log("== phase 11: OPT-1.3B width, whole paths on the card against the plain paths "
-        "on the CPU")
+    log_phase("== phase 11: OPT-1.3B width, whole paths on the card against the plain paths "
+              "on the CPU")
     opt_whole = phase_whole_path(SEED, card, family=gpt, cfg=opt_cfg, label="OPT-1.3B-width")
     opt_train_whole = {
         act: phase_train_whole(
@@ -6896,65 +7365,73 @@ def main() -> int:
             label=f"OPT-1.3B-width ({act})", fault=fault_zero_ln_db, grad_tol=tol)
         for act, tol in (("relu", TRAIN_GRAD_RTOL_RELU), ("gelu", TRAIN_GRAD_RTOL))}
 
-    log("== phase 12: inference module system (weight-only int8 linear, LayerNorm slot)")
+    log_phase("== phase 12: inference module system (weight-only int8 linear, LayerNorm slot)")
     mods = phase_modules(SEED, card)
 
     from deepspeed_tpu_torch.models import bloom
 
     bloom_cfg = dataclasses.replace(bloom.BloomConfig.bloom_7b1(), num_layers=4)
-    log("== phase 13: BLOOM-7b1 width training (4 layers through train_batch, ALiBi through "
-        "the flash kernels' bias mode)")
+    log_phase("== phase 13: BLOOM-7b1 width training (4 layers through train_batch, ALiBi through "
+              "the flash kernels' bias mode)")
     bloom_train = phase_train(SEED, card, family=bloom, cfg=bloom_cfg, label="BLOOM-7b1",
                               seq=BLOOM_S, gas=2, micro=BLOOM_MICRO, norm="layer_norm",
                               bias_mode=True, norms_per_layer_extra=2)
 
-    log("== phase 14: BLOOM-7b1 width, whole training step on the card against the plain "
-        "path on the CPU")
+    log_phase("== phase 14: BLOOM-7b1 width, whole training step on the card against the plain "
+              "path on the CPU")
     bloom_whole = phase_train_whole(SEED, card, family=bloom, cfg=bloom.BloomConfig.bloom_7b1(),
                                     label="BLOOM-7b1-width",
                                     fault=(fault_zero_alibi, fault_zero_ln_db),
                                     against=TRAIN_GRAD_AGAINST_BLOOM,
                                     leaf_tol=TRAIN_LEAF_TOL_BLOOM)
 
-    log("== phase 15: attention entry points under autograd (msa_row_attention, "
-        "blocksparse_attention)")
+    log_phase("== phase 15: attention entry points under autograd (msa_row_attention, "
+              "blocksparse_attention)")
     entry = phase_entry_points(SEED, card)
 
-    log("== phase 16: serving core (Llama-3-8B, 32 layers: step_many as one CUDA graph, "
-        "prefix cache, split prefill, fork, park / resume, KV handoff)")
+    log_phase("== phase 16: serving core (Llama-3-8B, 32 layers: step_many as one CUDA graph, "
+              "prefix cache, split prefill, fork, park / resume, KV handoff)")
     core = phase_serving_core(SEED, card)
 
-    log("== phase 17: serving fleet (Llama-3-8B, 32 layers: continuous-batching scheduler, "
-        "router failover, disaggregated prefill / decode)")
+    log_phase(f"== phase 17: serving fleet (Llama-3-8B, {FLEET_LAYERS} layers: continuous-batching "
+              "scheduler, router failover, disaggregated prefill / decode)")
     fleet = phase_serving_fleet(SEED, card)
     fleet_l = fleet["launches"]
 
-    log("== phase 18: data-parallel training with ZeRO stages 0-3 (NCCL, world size 1; "
-        "Llama-3-8B width, 4 layers)")
+    log_phase("== phase 18: data-parallel training with ZeRO stages 0-3 (NCCL, world size 1; "
+              "Llama-3-8B width, 4 layers)")
     zero = phase_zero(SEED, card)
 
-    log(f"== phase 19: training checkpoints (NCCL, world size 1, ZeRO-3; Llama-3-8B width, "
-        f"{CKPT_LAYERS} layer(s): regular, universal and async tags, resumes, planted faults)")
+    log_phase(f"== phase 19: training checkpoints (NCCL, world size 1, ZeRO-3; Llama-3-8B "
+              f"width, {CKPT_LAYERS} layer(s): regular, universal and async tags, resumes, "
+              "planted faults)")
     ckpt = phase_checkpoint(SEED, card)
 
-    log("== phase 20: activation checkpointing and the tiled loss head (Llama-3-8B width, "
-        "4 layers: remat policies, one long sequence)")
+    log_phase("== phase 20: activation checkpointing and the tiled loss head (Llama-3-8B width, "
+              "4 layers: remat policies, one long sequence)")
     remat = phase_remat(SEED, card)
 
-    log("== phase 21: init_inference (Llama-3-8B, 32 layers: dense KV cache, int8 / int4 / "
-        "fp8 weights)")
+    log_phase("== phase 21: init_inference (Llama-3-8B, 32 layers: dense KV cache, int8 / int4 / "
+              "fp8 weights)")
     v1 = phase_init_inference(SEED, card)
-    log("== phase 21 (BLOOM): v1 forward of BLOOM-7b1 with int8 weights, a block at a time")
+    log_phase("== phase 21 (BLOOM): v1 forward of BLOOM-7b1 with int8 weights, a block at a time")
     bloom_peak = bloom_v1_peak(SEED, card)
 
-    log("== phase 22: the optimizer set (Llama-3-8B width, 4 layers: multi-tensor AdamW "
-        "against its loop, every optimizer against float64, LAMB and Muon at ZeRO 0-3)")
+    log_phase("== phase 22: the optimizer set (Llama-3-8B width, 4 layers: multi-tensor AdamW "
+              "against its loop, every optimizer against float64, LAMB and Muon at ZeRO 0-3)")
     optim = phase_optimizers(SEED, card, train)
 
-    log("== phase 23: EXAONE-4.0-32B (4-layer training; 64-layer serving through v2 and v1, "
-        "the windowed paged decode)")
+    log_phase(f"== phase 23: EXAONE-4.0-32B (4-layer training; {EXA_SERVE_LAYERS}-layer serving "
+              "through v2 and v1, "
+              "the windowed paged decode)")
     exa = phase_exaone4(SEED, card)
     exa_l = exa["launches"]
+
+    log_phase(f"== phase 24: Mixtral-8x7B ({MIX_TRAIN_LAYERS}-layer training; "
+              f"{MIX_SERVE_LAYERS}-layer serving through v2 and v1; the einsum and compact "
+              "dispatches)")
+    mix = phase_mixtral(SEED, card)
+    mix_l = mix["launches"]
 
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
@@ -6970,13 +7447,16 @@ def main() -> int:
                     "v1 serving": v1["launches"]["rms_norm"],
                     "optimizer training": optim["launches"]["rms_norm"],
                     "exaone4 training": exa_l["rms_norm_training"],
-                    "exaone4 serving": exa_l["rms_norm_serving"]}
+                    "exaone4 serving": exa_l["rms_norm_serving"],
+                    "mixtral training": mix_l["rms_norm_training"],
+                    "mixtral serving": mix_l["rms_norm_serving"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
     decode_launches = {"llama serving": main_res["launches"]["paged_decode_attention"],
                        "opt serving": opt_l["bf16"]["paged_decode_attention"],
                        "serving core (graph)": core_graph["paged_decode_attention"],
                        "serving fleet": fleet_l["paged_decode_attention"],
-                       "exaone4 serving": exa_l["paged_decode_attention"]}
+                       "exaone4 serving": exa_l["paged_decode_attention"],
+                       "mixtral serving": mix_l["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -7017,7 +7497,8 @@ def main() -> int:
             "replaces": line,
             "launches": (train["launches"][name] + opt_train["launches"][name]
                          + zero["launches"][name] + ckpt["launches"][name]
-                         + remat["launches"][name] + optim["launches"][name]),
+                         + remat["launches"][name] + optim["launches"][name]
+                         + mix_l[name]),
             "launches_by_path": {"llama training": train["launches"][name],
                                  "opt training": opt_train["launches"][name],
                                  "zero training (stages 0-3)": zero["launches"][name],
@@ -7025,7 +7506,8 @@ def main() -> int:
                                  "remat training": remat["launches"][name],
                                  "optimizer training": optim["launches"][name],
                                  # hybrid attention is masked: plain, as in JAX
-                                 "exaone4 training": exa["train"]["launches"][name]},
+                                 "exaone4 training": exa["train"]["launches"][name],
+                                 "mixtral training": mix_l[name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -7040,6 +7522,7 @@ def main() -> int:
     int8_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_decode_attention_int8"]
     int8_launches["serving fleet"] = fleet_l["paged_decode_attention_int8"]
     int8_launches["exaone4 serving"] = exa_l["paged_decode_attention_int8"]
+    int8_launches["mixtral serving"] = mix_l["paged_decode_attention_int8"]
     ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
                     for p in ("spec_bf16", "spec_int8")}
     ver_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_spec_verify_attention"]
@@ -7048,6 +7531,7 @@ def main() -> int:
         + core["spec"]["fork_launches"]["paged_spec_verify_attention"])
     ver_launches["serving fleet"] = fleet_l["paged_spec_verify_attention"]
     ver_launches["exaone4 serving"] = exa_l["paged_spec_verify_attention"]
+    ver_launches["mixtral serving"] = mix_l["paged_spec_verify_attention"]
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
@@ -7115,12 +7599,13 @@ def main() -> int:
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "zero": zero, "checkpoint": ckpt, "remat": remat, "init_inference": v1,
               "bloom_v1_peak": bloom_peak, "optimizers": optim, "exaone4": exa,
-              "total_s": time.perf_counter() - t_all}
+              "mixtral": mix,
+              "phase_start_s": marks, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(detail, indent=1, default=str))
-    log(f"  total {detail['total_s']:.1f} s")
+    log(f"  total {detail['total_s']:.1f} s; phases start at (s) {marks}")
     # every checked profiler window's sessions (1: its first session held every
     # record), where the tail of the output shows it
     print(json.dumps({"profile_sessions": profile_sessions(detail)}), flush=True)

@@ -46,7 +46,11 @@ Ported so far:
   ``msa_row_attention``, ``msa_column_attention``) over the bias mode, and
   block-sparse attention (``ops/sparse_attention.py``:
   ``blocksparse_attention`` and its layouts) over the block-sparse forward,
-  dQ and dK/dV kernels.
+  dQ and dK/dV kernels;
+- the optimizer set and param groups, and the EXAONE-4 family;
+- Mixtral and the MoE layer (``models/mixtral.py``, ``moe/``) through
+  training, v1 and engine v2, with expert parallelism over the ``expert``
+  mesh axis (``moe.expert_parallel_size``).
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
 CUDA counterpart: eighteen kernel entries and eight planted-fault hooks in

@@ -15,7 +15,7 @@ Weight-only quantization (``inference.quant``): every float leaf of two or
 more dims in the JAX package's tree (there a layer's leaves are stacked, so
 a layer's norms and biases too) rests on the device quantized with a scale
 per row of the JAX layout (its last dim; the port keeps the ``x @ W`` matrices
-transposed, ``models/convert.py`` ``TRANSPOSED``, so their rows run along
+transposed, ``models/convert.py`` ``is_transposed``, so their rows run along
 dim 0 here): int8 ``{q, scale}``, packed int4 ``{q4, scale}`` (two nibbles a
 byte along that dim; an odd one falls back to int8) or fp8
 ``{f8, scale}`` (``float8_e4m3fn``, ``scale = amax / 448``). The family
@@ -40,7 +40,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.convert import TRANSPOSED
+from ..models.convert import is_transposed
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from .config import InferenceConfig, check_ported
@@ -73,7 +73,15 @@ class ModelFamily:
     @classmethod
     def from_module(cls, module, cfg) -> "ModelFamily":
         get = lambda name: getattr(module, name, None)  # noqa: E731
-        return cls(cfg=cfg, apply_fn=get("apply"), apply_cached=get("apply_cached"),
+        apply_fn = get("apply")
+
+        def apply_logits(*a, **kw):
+            out = apply_fn(*a, **kw)
+            # MoE families return (logits, aux_loss); inference wants logits
+            return out[0] if isinstance(out, tuple) else out
+
+        return cls(cfg=cfg, apply_fn=apply_logits if apply_fn is not None else None,
+                   apply_cached=get("apply_cached"),
                    init_cache=get("init_cache"), build=get("build"),
                    apply_paged=get("apply_paged"), init_paged_cache=get("init_paged_cache"),
                    name=getattr(module, "__name__", "model").rsplit(".", 1)[-1])
@@ -96,7 +104,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def _row_dim(name: str) -> int:
     """The dim a leaf's quantization rows run along: the JAX layout's last
     dim, which is dim 0 of a transposed matrix here."""
-    return 0 if name.rsplit(".", 1)[-1] in TRANSPOSED else -1
+    return 0 if is_transposed(name) else -1
 
 
 def quantize_leaf(name: str, leaf: torch.Tensor, bits: int = 8, fp8: bool = False

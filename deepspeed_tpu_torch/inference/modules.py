@@ -10,8 +10,8 @@ same engine code serves CPU tests and the card. The ``weight_only_quant``
 linear dequantizes through op ``dequantize_int8`` (``ops/csrc/quantize.cu``
 on the card), straight into the activations' dtype.
 
-The ``moe`` slot's implementation (``top_k_gating``) is not ported yet:
-instantiating it raises ``NotImplementedError``.
+The ``moe`` slot is ``moe/sharded_moe.py``'s ``top_k_gating`` at the
+config's ``top_k``.
 """
 
 from __future__ import annotations
@@ -260,6 +260,9 @@ def _unembed_tiled(cfg: UnembedConfig):
 
 @registry.register("moe", "dense_dispatch")
 def _moe(cfg: MoEConfig):
-    raise NotImplementedError(
-        "the moe slot's top_k_gating (moe/sharded_moe.py) is not ported yet: "
-        "ROADMAP.md queue A.7")
+    """The dense [T, E, C] gating of ``moe/sharded_moe.py`` at ``k = top_k``."""
+    from functools import partial
+
+    from ..moe.sharded_moe import top_k_gating
+
+    return partial(top_k_gating, k=cfg.top_k)

@@ -41,6 +41,20 @@ EXAONE-4: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``,
 ``k_norm`` ``[L, hd]``, ``post_attn_norm`` / ``post_mlp_norm`` ``[L, h]``,
 ``embed`` and ``final_norm`` go across as they are.
 
+Mixtral (and its Qwen2-MoE options): the attention leaves as Llama's
+(``wq``, ``wk``, ``wv``, ``wo`` and ``lm_head`` transposed; the norms and
+``bq`` / ``bk`` / ``bv`` as they are); the MoE block, the nested
+``layers/moe`` dict, goes across as it is, its matrices kept ``x @ W``:
+
+=====================  =============  ============================
+JAX leaf               JAX shape      port entry
+=====================  =============  ============================
+layers/moe/router      [L, h, E]      layers.<i>.moe.router, as is
+layers/moe/w_gate, up  [L, E, h, i]   layers.<i>.moe.w_gate / w_up
+layers/moe/w_down      [L, E, i, h]   layers.<i>.moe.w_down
+layers/moe/shared_*    [L, h, si] …   layers.<i>.moe.shared_*, as is
+=====================  =============  ============================
+
 :func:`jax_leaf` is the table the optimizers' layout seam reads
 (``ops/optimizers.py`` :class:`Layout`): where each port leaf lives in the
 JAX tree, for every family.
@@ -53,19 +67,29 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from . import bloom, exaone4, gpt, llama
+from . import bloom, exaone4, gpt, llama, mixtral
 
 # matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
-# (every family's names: no other leaf of any shares one)
+# (every family's names: no other leaf of any shares one outside a MoE
+# block, whose leaves keep the JAX layout, see :func:`is_transposed`)
 TRANSPOSED = frozenset({"wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up",
                         "w_down", "lm_head"})
+MOE = "moe"   # the nested dict of a Mixtral layer's MoE leaves
+
+
+def is_transposed(name: str) -> bool:
+    """Whether the port keeps leaf ``name`` transposed against the JAX tree:
+    a :data:`TRANSPOSED` matrix outside a MoE block."""
+    parts = name.split(".")
+    return parts[-1] in TRANSPOSED and MOE not in parts[:-1]
 
 
 def _param_shapes(cfg: Any):
     """The config's family's ``param_shapes(cfg)``."""
     for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig),
                              (bloom, bloom.BloomConfig),
-                             (exaone4, exaone4.Exaone4Config)):
+                             (exaone4, exaone4.Exaone4Config),
+                             (mixtral, mixtral.MixtralConfig)):
         if isinstance(cfg, cfg_type):
             return family.param_shapes(cfg)
     raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
@@ -75,12 +99,12 @@ def jax_leaf(name: str) -> Tuple[str, Optional[int], bool]:
     """Where port leaf ``name`` lives in the JAX tree: (the JAX path,
     '/'-joined as JAX ``utils/tree.py`` joins it, ``layers/wq``; the index
     along its stacked layer dim, None when not stacked; whether the port
-    keeps it transposed). The same rule for every family of the port."""
-    base = name.rsplit(".", 1)[-1]
-    transposed = base in TRANSPOSED
+    keeps it transposed). The same rule for every family of the port; a
+    nested leaf (``layers.<i>.moe.w_gate``) is ``layers/moe/w_gate``."""
+    transposed = is_transposed(name)
     if name.startswith("layers."):
         _, layer, leaf = name.split(".", 2)
-        return f"layers/{leaf}", int(layer), transposed
+        return "layers/" + leaf.replace(".", "/"), int(layer), transposed
     return name, None, transposed
 
 
@@ -98,7 +122,8 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama``, ``gpt``, ``bloom`` or ``exaone4`` params (numpy leaves) → the port's
+    """JAX ``llama``, ``gpt``, ``bloom``, ``exaone4`` or ``mixtral`` params
+    (numpy leaves, a MoE layer's nested ``moe`` dict too) → the port's
     ``state_dict``. Raises if the tree does not hold exactly the config's
     parameters."""
     want = _param_shapes(cfg)
@@ -109,14 +134,20 @@ def from_jax_params(cfg: Any,
             continue
         t = _to_torch(leaf)
         out[name] = t.t().contiguous() if name in TRANSPOSED else t
-    for name, stacked in layers.items():
+    flat = {}
+    for name, leaf in layers.items():
+        if isinstance(leaf, Mapping):
+            flat.update({f"{name}.{k}": v for k, v in leaf.items()})
+        else:
+            flat[name] = leaf
+    for name, stacked in flat.items():
         stacked = _to_torch(stacked)
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"layers/{name} stacks {stacked.shape[0]} layers, "
                              f"config has {cfg.num_layers}")
         for l in range(cfg.num_layers):
             t = stacked[l]
-            out[f"layers.{l}.{name}"] = (t.t() if name in TRANSPOSED else t).contiguous()
+            out[f"layers.{l}.{name}"] = (t.t() if is_transposed(name) else t).contiguous()
     if set(out) != set(want):
         raise ValueError(f"param tree does not match the config: missing "
                          f"{sorted(set(want) - set(out))}, unexpected "
@@ -144,7 +175,7 @@ def to_jax_params(cfg: Any,
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        t = t.t() if name.rsplit(".", 1)[-1] in TRANSPOSED else t
+        t = t.t() if is_transposed(name) else t
         return t.contiguous().numpy()
 
     out: Dict[str, Any] = {}
@@ -156,5 +187,12 @@ def to_jax_params(cfg: Any,
                 np_leaf(name, state[name])
         else:
             out[name] = np_leaf(name, state[name])
-    out["layers"] = {leaf: np.stack(ls) for leaf, ls in per_layer.items()}
+    layers: Dict[str, Any] = {}
+    for leaf, ls in per_layer.items():
+        *outer, last = leaf.split(".")
+        d = layers
+        for k in outer:
+            d = d.setdefault(k, {})
+        d[last] = np.stack(ls)
+    out["layers"] = layers
     return out

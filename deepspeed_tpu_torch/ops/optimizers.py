@@ -67,13 +67,16 @@ class Optimizer(NamedTuple):
 class LeafLayout(NamedTuple):
     """One port leaf's place in its JAX leaf: the JAX path ('/'-joined),
     the index along the JAX leaf's stacked layer dim (None: not stacked),
-    whether the port keeps it transposed, and the dim sharded over the data
-    axis (None: whole on every rank)."""
+    whether the port keeps it transposed, the dim split over the ranks
+    (None: whole on every rank) and the axes of that split, row-major in
+    their order (None: the layout's data axis; an expert bank's are
+    ``expert`` and its replicas)."""
 
     path: str
     layer: Optional[int] = None
     transpose: bool = False
     shard_dim: Optional[int] = None
+    axes: Any = None
 
 
 class Layout:
@@ -87,25 +90,31 @@ class Layout:
 
     @classmethod
     def for_model(cls, model_config: Any, names, shard_dims: Optional[Dict] = None,
-                  axis: Any = None, mesh: Any = None) -> "Layout":
+                  axis: Any = None, mesh: Any = None,
+                  axes: Optional[Dict] = None) -> "Layout":
         """The layout of a model's leaves: with a family's config, the JAX
         tree's places (``models/convert.py`` ``jax_leaf``); each leaf's
-        sharded dim from ``shard_dims`` (the engine's)."""
+        sharded dim from ``shard_dims`` and its split's axes from ``axes``
+        (the engine's)."""
         from ..models.convert import jax_leaf
 
-        shard_dims = shard_dims or {}
+        shard_dims, axes = shard_dims or {}, axes or {}
         leaves = {}
         for n in names:
             path, layer, t = jax_leaf(n) if model_config is not None else (n, None, False)
-            leaves[n] = LeafLayout(path, layer, t, shard_dims.get(n))
+            leaves[n] = LeafLayout(path, layer, t, shard_dims.get(n), axes.get(n))
         sharded = any(v.shard_dim is not None for v in leaves.values())
         return cls(leaves, axis if sharded else None, mesh)
 
     def of(self, name: str) -> LeafLayout:
         return self.leaves.get(name) or LeafLayout(name)
 
-    def _size(self) -> int:
-        return 1 if self.axis is None else self.mesh.axis_size(self.axis)
+    def _axis_of(self, name: str) -> Any:
+        return self.of(name).axes or self.axis
+
+    def _size(self, name: str) -> int:
+        axis = self._axis_of(name)
+        return 1 if axis is None else self.mesh.axis_size(axis)
 
     def jax_ndim(self, name: str, t: torch.Tensor) -> int:
         return t.dim() + (self.of(name).layer is not None)
@@ -123,35 +132,43 @@ class Layout:
         sums in one all-reduce)."""
         sums = {path: torch.stack([values[n] for n in names]).sum()
                 for path, names in self.paths(values).items()}
-        sharded = [p for p, names in self.paths(values).items()
-                   if self.of(names[0]).shard_dim is not None]
-        if sharded and self.axis is not None:
+        by_axis: Dict[Tuple[str, ...], List[str]] = {}   # one all-reduce an axis group
+        for p, names in self.paths(values).items():
+            axis = self._axis_of(names[0])
+            if self.of(names[0]).shard_dim is not None and axis is not None:
+                from ..comm.mesh import MESH_AXES
+
+                key = tuple(a for a in MESH_AXES if a in ((axis,) if isinstance(axis, str)
+                                                          else tuple(axis)))
+                by_axis.setdefault(key, []).append(p)
+        if by_axis:
             from ..comm import comm
 
-            total = comm.all_reduce(torch.stack([sums[p] for p in sharded]), self.axis,
-                                    mesh=self.mesh)
-            sums.update(zip(sharded, total.unbind(0)))
+            for axis, sharded in by_axis.items():
+                total = comm.all_reduce(torch.stack([sums[p] for p in sharded]), axis,
+                                        mesh=self.mesh)
+                sums.update(zip(sharded, total.unbind(0)))
         return sums
 
     def numel(self, name: str, t: torch.Tensor) -> int:
         """Elements of the whole port leaf whose part ``t`` is."""
-        return t.numel() * (self._size() if self.of(name).shard_dim is not None else 1)
+        return t.numel() * (self._size(name) if self.of(name).shard_dim is not None else 1)
 
     def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        dim = self.of(name).shard_dim
-        if dim is None or self.axis is None:
+        dim, axis = self.of(name).shard_dim, self._axis_of(name)
+        if dim is None or axis is None:
             return t
-        from ..runtime.partitioning import unshard
+        from ..runtime.partitioning import unshard_parts
 
-        return unshard(t, dim, self.axis, self.mesh)
+        return unshard_parts(t, dim, (axis,) if isinstance(axis, str) else axis, self.mesh)
 
     def own(self, name: str, whole: torch.Tensor) -> torch.Tensor:
-        dim = self.of(name).shard_dim
-        if dim is None or self.axis is None:
+        dim, axis = self.of(name).shard_dim, self._axis_of(name)
+        if dim is None or axis is None:
             return whole
         from ..runtime.partitioning import shard
 
-        return shard(whole, dim, self.mesh.axis_index(self.axis), self._size())
+        return shard(whole, dim, self.mesh.axis_index(axis), self._size(name))
 
 
 _NO_LAYOUT = Layout()

@@ -131,10 +131,9 @@ def _engine_for(engine) -> CheckpointEngine:
 
 def _leaf_part(engine, name: str, t: torch.Tensor) -> Part:
     """This rank's part of master (or moment) leaf ``name``."""
-    dim = engine.shard_dims.get(name)
+    dim, n, index = engine.part_of(name)
     if dim is None:
         return Part(t, tuple(t.shape), None, 0)
-    n, index = engine.mesh_mgr.axis_size(engine._axis), engine.mesh_mgr.axis_index(engine._axis)
     shape = list(t.shape)
     shape[dim] *= n
     return Part(t, tuple(shape), dim, index * t.shape[dim])

@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from ...comm import comm
-from ...models.convert import TRANSPOSED, _param_shapes
+from ...models.convert import _param_shapes, is_transposed
 from ...utils.logging import log_dist, logger
 from .engines import Part, _host_array, _safe
 from .manifest import (_fsync_path, _sha256_many, fsync_tree, multihost_barrier,
@@ -118,8 +118,7 @@ def fragment_map(shapes: Dict[str, Tuple[int, ...]],
     n_layers = model_config.num_layers
     out = {}
     for name, shape in want.items():
-        base = name.rsplit(".", 1)[-1]
-        t = base in TRANSPOSED and len(shape) == 2
+        t = is_transposed(name) and len(shape) == 2
         fshape = tuple(reversed(shape)) if t else shape
         if name.startswith("layers."):
             _, layer, leaf = name.split(".", 2)
@@ -683,9 +682,10 @@ def model_config_to_json(cfg: Any) -> Optional[Dict[str, Any]]:
 def model_config_from_json(doc: Optional[Dict[str, Any]]) -> Any:
     if not doc:
         return None
-    from ...models import bloom, gpt, llama
+    from ...models import bloom, exaone4, gpt, llama, mixtral
 
-    types = {c.__name__: c for c in (llama.LlamaConfig, gpt.GPTConfig, bloom.BloomConfig)}
+    types = {c.__name__: c for c in (llama.LlamaConfig, gpt.GPTConfig, bloom.BloomConfig,
+                                     exaone4.Exaone4Config, mixtral.MixtralConfig)}
     return types[doc["type"]](**doc["fields"])
 
 

@@ -8,10 +8,12 @@ micro_batch * gradient_accumulation_steps * dp_world``.
 Blocks the port has not brought over yet parse as in the JAX package but
 raise ``NotImplementedError`` when enabled, at ``initialize``
 (:func:`check_ported`): offload, pipeline, sequence parallelism and the
-``sequence`` block, activation checkpointing, ``comms_overlap``, MoE, tensor
-parallelism, telemetry, profiler, tuning, watchdog, reliability, memory
-tiers, ``aio``, ZeRO++ and MiCS. ZeRO stages 0-3 are accepted at world size 1, where a stage changes no
-arithmetic; a world size above 1 raises.
+ring ``sequence`` options, ``comms_overlap``, tensor parallelism,
+telemetry, profiler, tuning, watchdog, reliability, memory tiers, ``aio``,
+ZeRO++ and MiCS; a ``mesh`` with a ``tensor``, ``pipe`` or ``seq`` axis
+above 1. The ``moe`` block and the ``expert`` axis are accepted
+(``moe.expert_parallel_size`` becomes the ``expert`` axis when no ``mesh``
+is given, ``runtime/engine.py`` ``mesh_sizes``).
 """
 
 from __future__ import annotations
@@ -833,15 +835,13 @@ def unported_features(cfg: DeepSpeedTPUConfig) -> List[str]:
             zc.zero_hpz_partition_size > 1,
         "zero_optimization.mics_shard_size": zc.mics_shard_size > 1,
         "pipeline": cfg.pipeline.stages > 1,
-        "mesh": any(int(getattr(cfg.mesh, a)) > 1
-                    for a in ("tensor", "pipe", "seq", "expert")),
+        "mesh": any(int(getattr(cfg.mesh, a)) > 1 for a in ("tensor", "pipe", "seq")),
         "tensor_parallel": cfg.tensor_parallel.autotp_size > 1,
         "sequence_parallel_size": cfg.sequence_parallel_size > 1,
         "sequence.ring": (cfg.sequence.ring.layout != "contiguous"
                           or cfg.sequence.ring.overlap),
         "comms_overlap": cfg.comms_overlap.enabled,
         "comms_logger": cfg.comms_logger.enabled,
-        "moe": cfg.moe.enabled or cfg.moe.expert_parallel_size > 1,
         "telemetry": (tel.trace.enabled or tel.compile.enabled
                       or tel.anomaly.enabled),
         "profiler": cfg.profiler.enabled,

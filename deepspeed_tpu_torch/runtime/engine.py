@@ -77,10 +77,20 @@ size and ZeRO stage loads any other), :meth:`save_universal_checkpoint` /
 ``checkpoint.engine`` is ``default``, ``fast`` or ``async``. Loads copy into
 the engine's tensors in place.
 
+Expert parallelism (JAX ``runtime/engine.py:2215-2250``): the mesh takes
+``moe.expert_parallel_size`` as its ``expert`` axis when ``mesh`` is not
+given, and the batch splits over ``data`` and ``expert``. A MoE bank
+(``expert`` logical dim) is split over ``expert`` at every stage, each
+rank holding its own experts, and ZeRO splits it further over its replicas
+where it divides (``runtime/partitioning.py`` :class:`Split`). Its
+gradient reduces over the replica axes only; every other leaf's over
+``data`` and ``expert``. The MoE layer exchanges the dispatched tokens by
+``all_to_all`` over ``expert`` (``moe/layer.py``).
+
 Not ported yet (their config blocks raise at :func:`initialize`, see
-``runtime/config.py``): the tensor, pipe, seq and expert axes, MiCS / hpZ,
+``runtime/config.py``): the tensor, pipe and seq axes, MiCS / hpZ,
 offload and tiered memory, quantized ZeRO collectives, comms overlap,
-MoE, telemetry, tuning, watchdog, integrity, curriculum.
+telemetry, tuning, watchdog, integrity, curriculum.
 
 ``activation_checkpointing`` sets the default policy of
 ``activation_checkpointing.checkpoint()``; ``sequence.tiled_loss`` routes
@@ -107,8 +117,8 @@ from ..utils.logging import log_dist, logger
 from .config import DeepSpeedTPUConfig, check_ported, parse_config
 from .dataloader import DeepSpeedTPUDataLoader
 from .lr_schedules import LRScheduler, Schedule, constant, get_schedule
-from .partitioning import (GatherOnUse, Partitioner, replicated_axes, shard, shard_dim,
-                           unshard)
+from .partitioning import (GatherOnUse, Partitioner, Split, leaf_split, replicated_axes,
+                           shard, unshard)
 from .precision import (LossScaleState, PrecisionPolicy, grads_finite,
                         make_loss_scaler, scale_loss, update_loss_scale)
 from .utils import clip_grad_norm_, global_norm
@@ -207,7 +217,8 @@ class DeepSpeedTPUEngine:
                                           leaf_paths=paths, **config.optimizer.params)
         self.optimizer = optimizer
         self.layout = Layout.for_model(model.config, params, self.shard_dims,
-                                       self._axis, self.mesh_mgr)
+                                       self._axis, self.mesh_mgr,
+                                       axes={k: s.axes for k, s in self.splits.items()})
         self.base_lr = float(optimizer.hyperparams.get("lr", 1.0)) or 1.0
         if lr_schedule is None:
             lr_schedule = get_schedule(config.scheduler.type,
@@ -261,16 +272,25 @@ class DeepSpeedTPUEngine:
         # stage 1) is also the grads' and, at stage 3, the params'
         part = Partitioner(mm, self.zero_stage, keep_trivial=mm.device_mesh is not None)
         self._axis = tuple(a for a in ZERO_AXES if mm.axis_size(a) > 1) or ("data",)
-        self.shard_dims = {k: shard_dim(s) for k, s in part.opt_state_specs(axes, shapes).items()}
+        ep = mm.axis_size("expert")
+        self.splits: Dict[str, Split] = {
+            k: leaf_split(s, axes[k], self._axis, ep)
+            for k, s in part.opt_state_specs(axes, shapes).items()}
+        self.shard_dims = {k: s.dim for k, s in self.splits.items()}
         self._sharded = frozenset(k for k, d in self.shard_dims.items() if d is not None)
-        n, index = mm.axis_size(self._axis), mm.axis_index(self._axis)
+        self._expert_parallel = ep > 1
+        # the leaves this rank counts in the grad norm: its parts of split
+        # leaves, once across their replicas (a whole leaf: rank 0's)
+        self._counted = frozenset(
+            k for k, s in self.splits.items() if s.dim is not None and all(
+                mm.axis_index(a) == 0 for a in self._axis if a not in s.axes))
         own = model.params is None   # drawn here: no caller holds these tensors
 
         def keep(name: str, p) -> torch.Tensor:
             p = torch.as_tensor(p).detach()
             if not p.is_floating_point():
                 return p.to(self.device)
-            dim = self.shard_dims[name]
+            dim, n, index = self.part_of(name)
             # a shard of a drawn leaf is copied, so the whole leaf is freed
             p = shard(p, dim, index, n).to(device=self.device, dtype=self.precision.param_dtype,
                                            copy=not own or dim is not None,
@@ -280,6 +300,13 @@ class DeepSpeedTPUEngine:
         if own:
             return draw(model.init_fn, generator, keep)
         return {k: keep(k, p) for k, p in model.params.items()}
+
+    def part_of(self, name: str) -> Tuple[Optional[int], int, int]:
+        """(split dim, number of parts, this rank's part) of master ``name``."""
+        s, mm = self.splits[name], self.mesh_mgr
+        if s.dim is None:
+            return None, 1, 0
+        return s.dim, mm.axis_size(s.axes), mm.axis_index(s.axes)
 
     # ------------------------------------------------------------------ #
     # reference accessors
@@ -396,10 +423,12 @@ class DeepSpeedTPUEngine:
         params, dtype = self.state.params, self.precision.compute_dtype
         if self.zero_stage == 0:
             return self.precision.cast_to_compute(params)
+        sp = self.splits
         if self.zero_stage == 3:
-            return GatherOnUse(params, self.shard_dims, self._axis, self.mesh_mgr, dtype)
+            return GatherOnUse(params, {k: s.zero_dim for k, s in sp.items()}, self._axis,
+                               self.mesh_mgr, dtype, axes={k: s.zero_axis for k, s in sp.items()})
         with torch.no_grad():   # stages 1-2: whole leaves whose grads _reduce_micro takes
-            return {k: unshard(p.to(dtype), self.shard_dims[k], self._axis, self.mesh_mgr)
+            return {k: unshard(p.to(dtype), sp[k].zero_dim, sp[k].zero_axis, self.mesh_mgr)
                     .detach().requires_grad_() if p.is_floating_point() else p
                     for k, p in params.items()}
 
@@ -449,25 +478,31 @@ class DeepSpeedTPUEngine:
                 acc = self._grad_acc.get(k)
                 self._grad_acc[k] = g if acc is None else acc.add_(g)
                 continue
-            dim = self.shard_dims[k]
-            g = (comm.all_reduce(g, self._axis, mesh=self.mesh_mgr) if dim is None else
-                 comm.reduce_scatter(g, self._axis, scatter_axis=dim, mesh=self.mesh_mgr))
+            s = self.splits[k]
+            if s.zero_axis is not None:
+                g = (comm.all_reduce(g, s.zero_axis, mesh=self.mesh_mgr) if s.zero_dim is None
+                     else comm.reduce_scatter(g, s.zero_axis, scatter_axis=s.zero_dim,
+                                              mesh=self.mesh_mgr))
             m = masters[k]
             m.grad = g if m.grad is None else m.grad.add_(g)
 
     def _reduce_boundary(self) -> None:
         """At the GAS boundary: stage 0 all-reduces the whole grads, stage 1
         all-reduces its accumulator and keeps this rank's shard of it."""
-        masters, mm, axis = self.state.params, self.mesh_mgr, self._axis
+        masters, mm = self.state.params, self.mesh_mgr
         if self.zero_stage == 0:
-            for p in masters.values():
-                if p.grad is not None:
+            for k, p in masters.items():
+                axis = self.splits[k].zero_axis
+                if p.grad is not None and axis is not None:
                     p.grad = comm.all_reduce(p.grad, axis, mesh=mm)
         elif self.zero_stage == 1:
-            n, index = mm.axis_size(axis), mm.axis_index(axis)
             for k, acc in self._grad_acc.items():
-                masters[k].grad = shard(comm.all_reduce(acc, axis, mesh=mm),
-                                        self.shard_dims[k], index, n)
+                s = self.splits[k]
+                if s.zero_axis is not None:
+                    acc = comm.all_reduce(acc, s.zero_axis, mesh=mm)
+                    acc = shard(acc, s.zero_dim, mm.axis_index(s.zero_axis),
+                                mm.axis_size(s.zero_axis))
+                masters[k].grad = acc
             self._grad_acc = {}
 
     def _zero_grads(self) -> None:
@@ -507,9 +542,10 @@ class DeepSpeedTPUEngine:
         """JAX ``_apply_update``: grads are the mean micro-batch grads of the
         scaled loss (this rank's shards from stage 1), modified in place."""
         cfg, state = self.config, self.state
-        # from stage 1 each rank holds shards: flag and norm are agreed over data
-        axis = self._axis if self.zero_stage >= 1 else None
-        mm, sharded = self.mesh_mgr, self._sharded
+        # from stage 1 (and with expert parallelism, at every stage) each rank
+        # holds parts: flag and norm are agreed over the batch axes
+        axis = self._axis if self.zero_stage >= 1 or self._expert_parallel else None
+        mm, sharded = self.mesh_mgr, self._counted
         finite = bool(grads_finite(grads.values(), axis, mm))
         inv = 1.0 / state.loss_scale.scale
         with torch.no_grad():
@@ -742,10 +778,22 @@ def check_compute_dtype(compute_dtype: Optional[torch.dtype],
             "path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
 
 
+def mesh_sizes(cfg: DeepSpeedTPUConfig, world: int) -> Dict[str, int]:
+    """The config's ``mesh``, or when none is given the ``expert`` axis of
+    ``moe.expert_parallel_size`` and ``data`` over the rest (JAX
+    ``initialize``, ``runtime/engine.py:2215-2225``)."""
+    ep = int(cfg.moe.expert_parallel_size or 1)
+    if cfg.raw.get("mesh") or ep == 1:
+        return cfg.mesh.axis_sizes(world)
+    if world % ep:
+        raise ValueError(f"device count {world} not divisible by expert_parallel_size {ep}")
+    return {"data": world // ep, "expert": ep}
+
+
 def _training_mesh(cfg: DeepSpeedTPUConfig, world: int) -> MeshManager:
-    """The ``data`` mesh over the process group (the installed one when its
-    sizes match), or one of sizes alone in a single process without one."""
-    sizes = cfg.mesh.axis_sizes(world)
+    """The mesh over the process group (the installed one when its sizes
+    match), or one of sizes alone in a single process without one."""
+    sizes = mesh_sizes(cfg, world)
     if not dist.is_initialized():
         return MeshManager.from_sizes(sizes)
     mm = get_mesh()

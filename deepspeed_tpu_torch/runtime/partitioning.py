@@ -20,6 +20,14 @@ dims and give the order of the JAX layout's dims for the tie. JAX shards
 the stacked ``layers`` dim only when no other dim divides; the port has no
 such dim, so those leaves stay replicated here.
 
+Expert parallelism: a leaf with an ``expert`` logical dim (a MoE bank) is
+split over the ``expert`` mesh axis along that dim at every stage, and
+ZeRO's other axes split the same dim further where each rank's experts
+divide over them (``("expert", "data")``: expert-major parts), so a leaf
+has one split dim, the one a checkpoint's parts name; where they do not
+divide, the bank stays whole across its replicas. Its gradient reduces
+over the replica axes only (:class:`Split`).
+
 Tensor, pipeline, hpZ and MiCS rules are not ported (ROADMAP A.7, A.10): a
 mesh with a ``tensor``, ``pipe`` or ``zero_shard`` axis above 1 is refused.
 
@@ -107,6 +115,44 @@ def shard_dim(spec: Spec) -> Optional[int]:
     return next((i for i, e in enumerate(spec) if isinstance(e, tuple)), None)
 
 
+class Split(NamedTuple):
+    """How a master leaf lies over the ranks: split along ``dim`` into the
+    parts of ``axes`` (row-major over them, in that order; None: whole on
+    every rank), ZeRO's share of it along ``zero_dim`` over ``zero_axis``
+    (None: not ZeRO-sharded), and ``zero_axis`` the replicas its gradient
+    reduces over (None: the leaf has none)."""
+
+    dim: Optional[int]
+    axes: Optional[Tuple[str, ...]]
+    zero_dim: Optional[int]
+    zero_axis: Optional[Tuple[str, ...]]
+
+
+def leaf_split(spec: Spec, axes, zero_axis: Tuple[str, ...], ep: int) -> Split:
+    """The :class:`Split` of a leaf with ``spec`` and logical ``axes``;
+    ``zero_axis`` the engine's ZeRO group, ``ep`` the expert axis's size."""
+    names = _leaf(axes).names
+    if ep > 1 and "expert" in names:
+        i = names.index("expert")
+        parts = spec[i] if isinstance(spec[i], tuple) else (spec[i],)
+        replicas = tuple(a for a in zero_axis if a != "expert") or None
+        return Split(i, parts, i if len(parts) > 1 else None, replicas)
+    d = shard_dim(spec)
+    return Split(d, tuple(zero_axis) if d is not None else None, d, tuple(zero_axis))
+
+
+def unshard_parts(t: torch.Tensor, dim: Optional[int], axes: Optional[Sequence[str]],
+                  mesh: Optional[MeshManager] = None) -> torch.Tensor:
+    """The whole leaf from parts split row-major over ``axes`` (in the
+    given order, which need not be the mesh's): gathered over the last
+    axis first."""
+    if dim is None or not axes:
+        return t
+    for a in reversed(tuple(axes)):
+        t = comm.all_gather(t, a, gather_axis=dim, mesh=mesh)
+    return t
+
+
 class Partitioner:
     """Param / grad / optimizer-state specs of a model over ``mesh_mgr``.
 
@@ -140,14 +186,28 @@ class Partitioner:
 
     def _specs(self, logical_axes, shapes, shard_extra: bool) -> Dict[str, Spec]:
         out = {}
+        ep = self.mm.axis_size("expert")
         for name, shape in shapes.items():
             axes = _leaf(logical_axes[name])
             spec = logical_to_spec(axes.names, self.rules)
-            if shard_extra:
+            if shard_extra and ep > 1 and "expert" in spec:
+                spec = self._add_zero_to_experts(spec, tuple(shape), ep)
+            elif shard_extra:
                 spec = _add_zero_axes(spec, axes, tuple(shape), self.axis_sizes,
                                       self.zero_axes)
             out[name] = spec
         return out
+
+    def _add_zero_to_experts(self, spec: Spec, shape: Tuple[int, ...], ep: int) -> Spec:
+        """An expert leaf's ZeRO axes split its expert dim further, expert
+        first, when a rank's experts divide over them (module docstring)."""
+        i = spec.index("expert")
+        rest = tuple(a for a in self.zero_axes if a != "expert")
+        if not rest or (shape[i] // ep) % math.prod(self.axis_sizes[a] for a in rest):
+            return spec
+        entries = list(spec)
+        entries[i] = ("expert",) + rest
+        return tuple(entries)
 
     def param_specs(self, logical_axes, shapes) -> Dict[str, Spec]:
         """Compute-layout specs: ZeRO-sharded at stage 3 (gathered at use)."""
@@ -211,6 +271,8 @@ class GatherParam(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         g = grad.float()
+        if ctx.axis is None:
+            return g, None, None, None, None
         if ctx.dim is None:
             g = comm.all_reduce(g, ctx.axis, mesh=ctx.mesh)
         else:
@@ -228,16 +290,19 @@ class GatherOnUse(Mapping):
     and the recompute gathers it again."""
 
     def __init__(self, masters: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
-                 axis: AxisName, mesh: MeshManager, dtype: torch.dtype):
+                 axis: AxisName, mesh: MeshManager, dtype: torch.dtype,
+                 axes: Optional[Dict[str, Optional[AxisName]]] = None):
         self._masters, self._dims = masters, dims
         self._axis, self._mesh, self._dtype = axis, mesh, dtype
+        self._axes = axes or {}     # a leaf's own ZeRO axis (an expert bank's replicas)
         self._gathered: Dict[str, torch.Tensor] = {}
 
     def _gather(self, name: str) -> torch.Tensor:
         m = self._masters[name]
         if not m.is_floating_point():
             return m
-        return GatherParam.apply(m, self._dims[name], self._axis, self._mesh, self._dtype)
+        axis = self._axes[name] if name in self._axes else self._axis
+        return GatherParam.apply(m, self._dims[name], axis, self._mesh, self._dtype)
 
     def __getitem__(self, name: str) -> torch.Tensor:
         if name in self._gathered:

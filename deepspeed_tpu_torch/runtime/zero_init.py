@@ -25,7 +25,7 @@ import torch
 from ..comm import comm
 from ..comm.mesh import MeshManager, get_mesh
 from ..utils.logging import log_dist
-from .partitioning import Partitioner, replicated_axes, shard, shard_dim, unshard
+from .partitioning import Partitioner, replicated_axes, shard, shard_dim, unshard_parts
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,14 +104,18 @@ class Init(contextlib.AbstractContextManager):
 @contextlib.contextmanager
 def GatheredParameters(params: Params, dims: Optional[Dict[str, Optional[int]]] = None,
                        modifier_rank: Optional[int] = None,
-                       mesh_mgr: Optional[MeshManager] = None):
+                       mesh_mgr: Optional[MeshManager] = None,
+                       axes: Optional[Dict[str, Any]] = None):
     """The whole leaves of sharded ``params`` (``dims``: each leaf's sharded
-    dim, None or absent for a whole leaf), for the body of the ``with``.
-    With ``modifier_rank``, that rank's edits to the whole leaves are
-    broadcast on exit and written back into every rank's shards."""
+    dim, None or absent for a whole leaf), for the body of the ``with``;
+    ``axes``: each leaf's parts' axes (an engine's ``splits``), ``data``
+    where absent. With ``modifier_rank``, that rank's edits to the whole
+    leaves are broadcast on exit and written back into every rank's shards
+    (``data`` splits only)."""
     mesh_mgr = mesh_mgr or get_mesh()
-    dims = dims or {}
-    full = {k: unshard(p.detach(), dims.get(k), "data", mesh_mgr).clone()
+    dims, axes = dims or {}, axes or {}
+    full = {k: unshard_parts(p.detach(), dims.get(k), axes.get(k) or ("data",),
+                             mesh_mgr).clone()
             for k, p in params.items()}
     yield full
     if modifier_rank is None:

@@ -75,10 +75,20 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = 120.0) -> list:
 # scenarios (run inside a rank)
 # --------------------------------------------------------------------------- #
 def _family(name):
-    from deepspeed_tpu_torch.models import bloom, gpt, llama
+    from deepspeed_tpu_torch.models import bloom, gpt, llama, mixtral
 
     return {"llama": (llama, llama.LlamaConfig), "gpt": (gpt, gpt.GPTConfig),
-            "bloom": (bloom, bloom.BloomConfig)}[name]
+            "bloom": (bloom, bloom.BloomConfig),
+            "mixtral": (mixtral, mixtral.MixtralConfig)}[name]
+
+
+def _gathered(eng):
+    """The engine's masters gathered whole (an expert bank over its
+    ``expert`` and replica parts)."""
+    from deepspeed_tpu_torch.runtime.zero_init import GatheredParameters
+
+    return GatheredParameters(eng.state.params, eng.shard_dims, mesh_mgr=eng.mesh_mgr,
+                              axes={k: s.axes for k, s in eng.splits.items()})
 
 
 def _state_bytes(eng) -> int:
@@ -100,7 +110,6 @@ def scenario_train(job, rank, world):
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.comm import comm
-    from deepspeed_tpu_torch.runtime.zero_init import GatheredParameters
 
     family, cfg_type = _family(job["family"])
     cfg = cfg_type(**job["cfg"])
@@ -128,7 +137,9 @@ def scenario_train(job, rank, world):
             out[f"{name}/acc_bytes"] = np.int64(sum(t.numel() * t.element_size()
                                                     for t in acc.values()))
             eng._staged.clear()
-        losses, norms, ntok = [], [], []
+        for k in job.get("local_shapes", ()):
+            out[f"{name}/local_shape/{k}"] = np.array(eng.state.params[k].shape)
+        losses, norms, ntok, metrics = [], [], [], {}
         gas = eng.gradient_accumulation_steps()
         for i, batch in enumerate(batches):
             comm.counts.reset()
@@ -143,6 +154,9 @@ def scenario_train(job, rank, world):
             losses.append(float(o.loss))
             norms.append(float(o.grad_norm))
             ntok.append(int(o.aux.get("ntokens", -1)))
+            for m in ("lm_loss", "aux_loss"):
+                if m in o.aux:
+                    metrics.setdefault(m, []).append(float(o.aux[m]))
             assert not o.overflow
             if i == 0:
                 for op, rec in comm.counts.snapshot().items():
@@ -150,7 +164,8 @@ def scenario_train(job, rank, world):
         out[f"{name}/losses"] = np.array(losses)
         out[f"{name}/grad_norm"] = np.array(norms)
         out[f"{name}/ntokens"] = np.array(ntok)
-        with GatheredParameters(eng.state.params, eng.shard_dims, mesh_mgr=eng.mesh_mgr) as full:
+        out.update({f"{name}/{m}": np.array(v) for m, v in metrics.items()})
+        with _gathered(eng) as full:
             for k, t in full.items():
                 out[f"{name}/param/{k}"] = t.numpy()
         del eng
@@ -260,7 +275,6 @@ def scenario_ckpt(job, rank, world):
     import torch
 
     import deepspeed_tpu_torch as dst
-    from deepspeed_tpu_torch.runtime.zero_init import GatheredParameters
 
     family, cfg_type = _family(job["family"])
     cfg = cfg_type(**job["cfg"])
@@ -275,7 +289,7 @@ def scenario_ckpt(job, rank, world):
         out[f"{name}/losses"] = np.array([float(o.loss) for o in outs])
         out[f"{name}/grad_norm"] = np.array([float(o.grad_norm) for o in outs])
         out[f"{name}/step"] = np.array([eng.state.step, eng.global_steps])
-        with GatheredParameters(eng.state.params, eng.shard_dims, mesh_mgr=eng.mesh_mgr) as full:
+        with _gathered(eng) as full:
             for k, t in full.items():
                 out[f"{name}/param/{k}"] = t.numpy()
 
@@ -298,8 +312,8 @@ def scenario_ckpt(job, rank, world):
         eng.save_universal_checkpoint(job["dir"], tag="uni")
         run("run", eng, batches[job["before"]:])
         del eng
-        for kind in ("reg", "uni"):
-            resume(kind, job["config"])
+        for kind, config in job.get("resumes") or [(k, job["config"]) for k in ("reg", "uni")]:
+            resume(kind, config)
     else:
         for kind, config in job["resumes"]:
             resume(kind, config)

@@ -6,7 +6,8 @@ the implementation the JAX registry picks (by name, through the table
 below), and the callables compute the same values on the same numpy inputs
 (fp32 on the CPU, 1e-5: the same arithmetic in another summation order). The
 quantized linear dequantizes the same codes with the same scales, so it is
-held to the JAX one at 1e-5 too. The ``moe`` slot is not ported and raises.
+held to the JAX one at 1e-5 too. The ``moe`` slot's gating is held to JAX's
+``top_k_gating``.
 """
 
 import jax
@@ -219,10 +220,23 @@ def test_quant_linear_limit_separates_sound_from_faulty():
     assert faulty > 5 * CHIP_LIMIT
 
 
-def test_moe_slot_is_not_ported():
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_slot_matches_jax(top_k):
+    """The ``moe`` slot is JAX's ``top_k_gating`` at ``k = top_k``: the
+    same combine weights, dispatch mask, aux loss and probabilities, with
+    drops at capacity factor 0.5."""
     assert tm.registry.implementations("moe") == ["dense_dispatch"]
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tm.registry.instantiate("moe", tm.MoEConfig(num_experts=4))
+    logits = np.random.RandomState(top_k).randn(24, 4).astype(np.float32)
+    cfg_kw = {"num_experts": 4, "top_k": top_k}
+    gate_t = tm.registry.instantiate("moe", tm.MoEConfig(**cfg_kw))
+    gate_j = jm.registry.instantiate("moe", jm.MoEConfig(**cfg_kw))
+    got = gate_t(torch.from_numpy(logits), capacity_factor=0.5)
+    want = gate_j(jnp.asarray(logits), capacity_factor=0.5)
+    assert got.combine_weights.shape == want.combine_weights.shape
+    assert not np.asarray(want.dispatch_mask).any(axis=(1, 2)).all()   # some dropped
+    for name in ("combine_weights", "dispatch_mask", "aux_loss", "router_probs"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   rtol=1e-5, atol=1e-7, err_msg=name)
 
 
 def test_no_impl_raises():

@@ -110,7 +110,7 @@ def _spec():
     {"sequence": {"ring": {"overlap": True}}},
     {"comms_logger": {"enabled": True}},
     {"comms_overlap": {"enabled": True}},
-    {"moe": {"enabled": True}},
+    {"profiler": {"enabled": True}},
     {"tensor_parallel": {"autotp_size": 2}},
     {"telemetry": {"trace": {"enabled": True}}},
     {"tuning": {"enabled": True}},
@@ -143,7 +143,7 @@ def test_zero_stages_accepted_at_world_size_one(stage):
 
 @pytest.mark.parametrize("block", [
     {"mesh": {"tensor": 2}}, {"mesh": {"pipe": 2}}, {"mesh": {"seq": 2}},
-    {"mesh": {"expert": 2}}, {"zero_optimization": {"zero_hpz_partition_size": 2}},
+    {"sequence_parallel_size": 2}, {"zero_optimization": {"zero_hpz_partition_size": 2}},
     {"zero_optimization": {"mics_shard_size": 2}},
 ])
 def test_world_size_two_refuses_axes_other_than_data(block):
