@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # Llama-3-8B, OPT-1.3B, BLOOM-7b1, EXAONE-4.0-32B, MSA shapes
+    python3 chip_smoke.py   # Llama-3-8B, OPT-1.3B, BLOOM-7b1, EXAONE-4.0-32B, Mixtral-8x7B,
+                            # Falcon-7B, GPT-NeoX-20B, GPT-J-6B, MSA shapes
 
 Phases (any failure raises and the script exits nonzero; nothing is caught):
 
@@ -146,8 +147,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    4 tokens and 2 decode steps, compared the same way.
 7. Training main path: ``initialize(model=llama.model_spec(Llama-3-8B at
    4 layers))`` with bf16, AdamW (lr 3e-4, weight decay 0.1), clipping 1.0,
-   ZeRO 0, batch 2 as 2 micro-batches of one 4096-token sequence; 6
-   ``train_batch`` steps on one fixed batch. Launch counters are zeroed
+   ZeRO 0, batch 2 as 2 micro-batches of one 4096-token sequence;
+   ``TRAIN_STEPS`` (4) ``train_batch`` steps on one fixed batch. Launch counters are zeroed
    just before and read just after: per step 8 launches of each flash
    kernel (4 layers x 2 micro-batches) and 18 of RMSNorm (9 per forward);
    the loss must be finite and fall. Prints step ms, tokens/s, model
@@ -196,7 +197,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    bias-mode flash kernel (ALiBi), 0 of the no-bias ones, 20 of LayerNorm,
    0 of RMSNorm; the loss must be finite and fall. Prints what phase 7
    prints.
-14. BLOOM-7b1 width at 1 layer, S = 256: phase 8's check, with ``bk``
+14. BLOOM-7b1 width at 1 layer, S = ``BLOOM_CHECK_SEQ`` (128, cut from
+   256 for the CPU's time): phase 8's check, with ``bk``
    (zero gradient in exact arithmetic) held against ``bq``'s reference norm
    and ``final_ln_bias`` (a nearly cancelling gradient) at its own limit
    (``TRAIN_GRAD_AGAINST_BLOOM``, ``TRAIN_LEAF_TOL_BLOOM``); ALiBi zeroed,
@@ -236,7 +238,7 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    verify over the shared prefix (prefix on against off) and over a forked
    tail. A replay whose context-length buffer is not advanced, and skipped
    copy-on-write copies, must each fail their check.
-17. The serving fleet at Llama-3-8B's full width and ``FLEET_LAYERS`` (16)
+17. The serving fleet at Llama-3-8B's full width and ``FLEET_LAYERS`` (4)
    of its 32 layers (cut from 32 for the smoke's time)
    (``phase_serving_fleet``; ``max_seq_len`` 2048, 16 slots, blocks of
    128, one set of bf16 weights): a seeded ``TrafficGenerator`` trace of
@@ -368,9 +370,10 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    ``EXA_TRAIN_STEPS`` steps; RMSNorm 17 launches a forward, no flash kernel
    (the hybrid attention is masked, so plain, as in the JAX package); the
    loss finite and falling. (b) Phase 8's card-vs-CPU check at those 4
-   layers (S 256); RoPE on the global layers (planted) must fail it. (c)
-   Serving at ``EXA_SERVE_LAYERS`` (16) of the 64 layers (four LLLG
-   periods, 16.0 GB of weights, shared by every engine; cut from 64 for the
+   layers (S ``EXA_CHECK_SEQ``, 128, cut from 256); RoPE on the global
+   layers (planted) must fail it. (c)
+   Serving at ``EXA_SERVE_LAYERS`` (8) of the 64 layers (two LLLG
+   periods, 9.8 GB of weights, shared by every engine; cut from 64 for the
    smoke's time):
    8 prompts (``EXA_LENGTHS``: two of 5120 tokens, so that decodes read past
    the 4096 window, split into 512-token prefill chunks) x 32 greedy tokens
@@ -387,7 +390,7 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    32000, hidden 4096, 8 experts of 14336, top 2, 32 / 8 heads of 128;
    random bf16 weights from the seed). (a) Training at ``MIX_TRAIN_LAYERS``
    (2) layers (3.17 B parameters) through phase 7's ``phase_train``: bf16,
-   AdamW, GAS 2 of one 4096-token sequence, 6 steps, the einsum dispatch at
+   AdamW, GAS 2 of one 4096-token sequence, 4 steps, the einsum dispatch at
    capacity factor 1.25; RMSNorm 5 a forward, the three flash kernels one a
    layer a micro-batch; ``lm_loss`` and ``aux_loss`` printed. (b) Phase 8's
    card-vs-CPU step at those 2 layers (S 128, for the CPU's time), the CPU
@@ -396,24 +399,54 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    gradient: without it the step read 0.21-0.43 a leaf on the H100), with
    the share the CPU's own gating would have chosen otherwise printed; the
    card's gates left unrenormalized (planted) must fail it. (c) Serving at
-   ``MIX_SERVE_LAYERS`` (16) of the 32 layers (46.9 GB of weights; 32
-   layers' 93 GB fit no card), shared by every engine: the 8 self-repeating
-   prompts x 32 greedy tokens through v2 on bf16 pools (the decode graph),
-   with speculative decoding + fused verify, and on int8 pools; RMSNorm 33
-   a forward, 16 paged launches a replay; the decode step against its
-   weight-bytes bound (every expert is read: the no-drop routing gives
-   every slot a place); then v1, and where each row's v1 and v2 streams
-   part, ``v1_v2_parting``'s fp32 margin. (d) The einsum and compact
-   dispatches of one layer at (c)'s prefill burst (no-drop: C = T) within
-   ``DISPATCH_TOL``, each one's ms and the combine tensor's bytes; then at
-   ``MIX_CHECK_LAYERS`` (2) every token of v1, v2 and v2 spec + int8 (v2 on
-   its eager decode, the graph's plain version) against the fp32 forward at
-   ``V1_NOISE_RATIO`` x the bf16 forward's error, the fp32 forward routing
-   each position as the engine's forwards did (``v1_routes`` /
-   ``v2_routes``: without it a route flipped on a near-tie read 4.3 row RMS
-   on the H100, above any fault); the gates left unrenormalized must fail
-   it. The 16-layer bf16 error behind the parting rule is measured with the
+   ``MIX_SERVE_LAYERS`` (8) of the 32 layers (23.5 GB of weights; 32
+   layers' 93 GB fit no card; cut from 16 for the smoke's time), shared by
+   every engine: the 8 self-repeating prompts x 32 greedy tokens through v2
+   on bf16 pools (the decode graph), with speculative decoding + fused
+   verify, and on int8 pools; RMSNorm 17 a forward, 8 paged launches a replay; the decode step
+   against its weight-bytes bound (every expert is read: the no-drop
+   routing gives every slot a place); then v1, and where each row's v1 and
+   v2 streams part, ``v1_v2_parting``'s fp32 margin. (d) The einsum and
+   compact dispatches of one layer at (c)'s prefill burst (no-drop: C = T)
+   within ``DISPATCH_TOL``, each one's ms and the combine tensor's bytes;
+   then at ``MIX_CHECK_LAYERS`` (2) every token of v1, v2 and v2 spec + int8
+   (v2 on its eager decode, the graph's plain version) against the fp32
+   forward at ``V1_NOISE_RATIO`` x the bf16 forward's error, the fp32
+   forward routing each position as the engine's forwards did
+   (``v1_routes`` / ``v2_routes``: without it a route flipped on a near-tie
+   read 4.3 row RMS on the H100, above any fault); the gates left
+   unrenormalized must fail it. The serving depth's bf16 error behind the
+   parting rule is measured with the
    same routes (``routed_noise``).
+25. Falcon-7B (``FalconConfig()``: 71 query heads over ONE kv head, hd 64,
+   the parallel block, the tied head) and GPT-NeoX-20B (``GPTNeoXConfig()``:
+   64 heads of 96, partial rotary over 24 dims, biases, two LayerNorms)
+   (``phase_falcon_neox``). The kernels first (``p25_kernels``): the flash
+   forward, dQ and dK/dV at hd 96 (GPT-NeoX-20B's 64/64 heads, S 2048 causal
+   and S 1000 under a window of 256; bf16 and fp32) against their plain
+   pieces within ``FLASH_TOL``, the bf16 kernels' five planted faults
+   failing at hd 96, the flash backward at Falcon-7B's 71 over 1 heads (S
+   2048), LayerNorm at [4096 x 4544] and [4096 x 6144]; each timed beside
+   its bound, the plain version and SDPA / ``F.layer_norm`` (SDPA at the MQA
+   shape with ``enable_gqa``, or K/V widened by ``repeat_interleave`` where
+   PyTorch lacks it: the log says which). Then for each family (a) training
+   at ``P25_TRAIN_LAYERS`` (4) of 32 / 44 layers, GAS 2 of one 2048-token
+   sequence, ``P25_TRAIN_STEPS`` (3) steps, the flash and LayerNorm launches
+   asserted (Falcon: one LayerNorm a block and a final one); (b) one step
+   card (bf16) against CPU (fp32) at ``P25_CHECK_LAYERS`` (2) layers, S 128,
+   at the training limits, dV of kv head 0 and LayerNorm's db zeroed each
+   failing it. (c) Falcon-7B serving at all 32 layers (13.8 GB) on one set
+   of weights: v2 on bf16 pools and v2 spec + fused verify on int8 pools (32
+   paged launches a decode replay), the decode step against its weight-bytes
+   bound, v1 (33 LayerNorms a forward) and the v1 / v2 partings; (d) at 2
+   layers every token of v1, v2 and v2 spec + int8 within ``V1_NOISE_RATIO``
+   x the bf16 forward's own error from fp32, a late cache write planted and
+   failing. GPT-NeoX-20B v1 at all 44 layers (41.1 GB): prefill, 8 prompts x
+   32 greedy tokens and the decode step, no flash launch (v1's reads are
+   masked); its 2-layer tokens against fp32, rotary on pairs planted.
+   GPT-J-6B (``gptj_6b``, hd 256) v1 at ``GPTJ_LAYERS`` (4) of 28: no flash
+   launch, its tokens against the dense-cache fp32 forward (plain
+   attention: no flash kernel takes hd 256), rotary on halves planted.
 
 The last three lines: ``{"profile_sessions": {...}}`` (the sessions each
 checked profiler window of phases 16 and 17 took), ``{"kernels": [...]}``
@@ -482,7 +515,7 @@ TRAIN_GRAD_RTOL = 0.05     # per leaf, ||card - cpu||_F / ||cpu||_F
 # tests/test_torch_gpt.py, test_train_limits_separate_sound_from_faulty);
 # LayerNorm's db zeroed reads 1.0
 TRAIN_GRAD_RTOL_RELU = 0.15
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4            # cut from 6 for the smoke's time
 OPT_MICRO = 4                  # 2048-token sequences per OPT-1.3B micro-batch
 SEED = 0                       # weights, prompts and kernel inputs
 MAX_NEW_TOKENS = 32
@@ -518,6 +551,10 @@ TRAIN_GRAD_AGAINST_BLOOM = {"layers.0.bk": "layers.0.bq"}
 TRAIN_LEAF_TOL_BLOOM = {"final_ln_bias": 0.15}
 GRAD_ZERO_SHARE = 1e-4
 BLOOM_MICRO = 2                # 2048-token sequences per BLOOM-7b1 micro-batch
+# tokens of BLOOM's card-vs-CPU step (phase 14; cut from 256 for the CPU's
+# time): at S 128 the CPU simulation of tests/test_torch_bloom.py's limits
+# reads final_ln_bias 0.024-0.029 and ALiBi zeroed 0.78-0.81
+BLOOM_CHECK_SEQ = 128
 # the attention entry points (phase 15) against a reference on the same
 # inputs, relative Frobenius: bf16 kernels against the fp32 einsum path, or
 # against the dense-masked SDPA (CPU simulation of the former at 16 MSA
@@ -1709,17 +1746,17 @@ FLASH_CASES = [   # name, Sq, Skv, kv heads, causal, q_offset, window
 H, HD = 32, 128
 
 
-def flash_work(sq, skv, hkv, causal, q_offset, window, b=1, hd=HD) -> dict:
+def flash_work(sq, skv, hkv, causal, q_offset, window, b=1, hd=HD, h=H) -> dict:
     """Visible (q, k) pairs of the case and, per kernel, the operations its
     products need (2 * hd per pair and product: forward QK^T and PV; dQ
     three products; dK/dV four) and the bytes it must move (each input
     read once, each output written once; bf16 tensors, fp32 lse/delta)."""
     from deepspeed_tpu_torch.ops.flash_attention import _visible
 
-    pairs = int(_visible(sq, skv, causal, q_offset, window, "cpu").sum()) * b * H
-    q_bytes = b * sq * H * hd * 2
+    pairs = int(_visible(sq, skv, causal, q_offset, window, "cpu").sum()) * b * h
+    q_bytes = b * sq * h * hd * 2
     kv_bytes = b * skv * hkv * hd * 2
-    row_bytes = b * H * sq * 4
+    row_bytes = b * h * sq * 4
     return {"pairs": pairs,
             "fwd": {"flops": 4 * hd * pairs, "bytes": 2 * q_bytes + 2 * kv_bytes + row_bytes},
             "dq": {"flops": 6 * hd * pairs, "bytes": 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes},
@@ -1767,13 +1804,14 @@ def _time_flash(q, k, v, do, kw, work) -> dict:
              "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, **kw), 3)}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     dot = do.transpose(1, 2)
-    gqa = {}
+    gqa, gqa_form = {}, None
     if kt.shape[1] != qt.shape[1]:
         try:     # the yardstick's own GQA option (PyTorch >= 2.5); else widened K/V
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            gqa = {"enable_gqa": True}
+            gqa, gqa_form = {"enable_gqa": True}, "enable_gqa"
         except TypeError:
             kt, vt = (x.repeat_interleave(qt.shape[1] // kt.shape[1], dim=1) for x in (kt, vt))
+            gqa_form = "repeat_interleave"
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
@@ -1793,7 +1831,7 @@ def _time_flash(q, k, v, do, kw, work) -> dict:
                      "plain_ms": plain[plain_key]["ms"], "library_ms": lib,
                      "bound_ms": max(t_ops, t_bytes) * 1e3,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                     "flops": w["flops"], "bytes": w["bytes"]}
+                     "flops": w["flops"], "bytes": w["bytes"], "sdpa_gqa": gqa_form}
     return rows
 
 
@@ -1942,12 +1980,14 @@ def train_flops(cfg, seq: int, sequences: int) -> float:
     """Model FLOPs of one training step: 6 per matmul parameter per token,
     and 3x the forward attention products (QK^T, PV) over causal pairs."""
     h, i, v, hd = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.head_size
-    if hasattr(cfg, "num_experts"):      # Mixtral: GQA, top_k of the SwiGLU experts, router
+    if hasattr(cfg, "parallel_attn"):    # Falcon: MQA / GQA projections, two-matrix MLP
+        per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + 2 * h * i
+    elif hasattr(cfg, "num_experts"):    # Mixtral: GQA, top_k of the SwiGLU experts, router
         per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + \
             cfg.top_k * 3 * h * i + h * cfg.num_experts
     elif hasattr(cfg, "num_kv_heads"):   # Llama: GQA projections, gated MLP
         per_layer = h * cfg.num_heads * hd * 2 + 2 * h * cfg.num_kv_heads * hd + 3 * h * i
-    else:                                # GPT-2/OPT: MHA, two-matrix MLP
+    else:                                # GPT-2/OPT, GPT-NeoX: MHA, two-matrix MLP
         per_layer = 4 * h * h + 2 * h * i
     matmul_params = cfg.num_layers * per_layer + v * h
     attn = 3 * 4 * hd * cfg.num_heads * seq * (seq + 1) // 2 * cfg.num_layers
@@ -1977,13 +2017,15 @@ PROFILE_GROUPS = [
 
 def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
                 seq: int = 4096, gas: int = 2, micro: int = 1, norm: str = "rms_norm",
-                bias_mode: bool = False, norms_per_layer_extra: int = 1):
-    """``initialize(model=family.model_spec(cfg))`` and TRAIN_STEPS steps of
+                bias_mode: bool = False, norms_per_layer_extra: int = 1,
+                norms_per_layer: int = 2, steps: int = TRAIN_STEPS):
+    """``initialize(model=family.model_spec(cfg))`` and ``steps`` steps of
     ``train_batch`` on one fixed batch of ``gas`` micro-batches of ``micro``
     sequences; by default Llama-3-8B width at 4 layers. ``norm`` names the
-    family's norm op, launched 2 per layer plus ``norms_per_layer_extra`` per
-    forward; ``bias_mode``: attention runs the flash kernels' bias mode
-    (ALiBi), and the no-bias flash kernels must not launch."""
+    family's norm op, launched ``norms_per_layer`` per layer plus
+    ``norms_per_layer_extra`` per forward; ``bias_mode``: attention runs the
+    flash kernels' bias mode (ALiBi), and the no-bias flash kernels must not
+    launch."""
     import torch
 
     import deepspeed_tpu_torch as dst
@@ -2016,7 +2058,7 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     for c in (*flash.values(), *norms.values()):
         c.launches = 0
     losses, step_s, metrics = [], [], {}
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         out = eng.train_batch(batch)
         torch.cuda.synchronize()
@@ -2029,9 +2071,9 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
                 **{k: c.launches for k, c in norms.items()}}
     peak = torch.cuda.max_memory_allocated()
     per_step = cfg.num_layers * gas
-    want = {k: (per_step * TRAIN_STEPS if k.endswith("_bias") == bias_mode else 0)
+    want = {k: (per_step * steps if k.endswith("_bias") == bias_mode else 0)
             for k in flash}
-    want.update({norm: (2 * cfg.num_layers + norms_per_layer_extra) * gas * TRAIN_STEPS,
+    want.update({norm: (norms_per_layer * cfg.num_layers + norms_per_layer_extra) * gas * steps,
                  other_norm: 0})
     log(f"  losses {['%.4f' % l for l in losses]}; launches {launches}, expected {want}")
     if launches != want:
@@ -2049,7 +2091,7 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     if metrics:
         log("  " + ", ".join(f"{m} {['%.4f' % x for x in v]}" for m, v in metrics.items()))
     res["mfu"] = res["model_tflops"] * 1e12 / BF16_FLOPS
-    log(f"  step {step_ms:.1f} ms (steps 2-{TRAIN_STEPS}; first {step_s[0]*1e3:.1f} ms), "
+    log(f"  step {step_ms:.1f} ms (steps 2-{steps}; first {step_s[0]*1e3:.1f} ms), "
         f"{res['tokens_per_s']:.0f} tokens/s, model {res['model_tflops']:.1f} TFLOP/s "
         f"= {res['mfu']:.1%} of 989, peak mem {peak/2**30:.2f} GiB [{card}]")
 
@@ -4580,7 +4622,7 @@ def phase_serving_core(seed: int, card: str) -> dict:
 # the serving fleet (phase 17): Llama-3-8B at FLEET_LAYERS behind the port's
 # continuous-batching scheduler, replica router, fleet failover and
 # disaggregated prefill / decode
-FLEET_LAYERS = 16              # Llama-3-8B's depth here (cut from 32 for the smoke's time)
+FLEET_LAYERS = 4               # Llama-3-8B's depth here (cut from 32 for the smoke's time)
 FLEET_N = 48                   # requests in the seeded trace
 FLEET_RATE = 6.0               # Poisson arrivals a second
 FLEET_PROMPT = (64, 1024)      # prompt tokens, uniform
@@ -6479,7 +6521,10 @@ EXA_LENGTHS = (5120, 64, 200, 5120, 333, 512, 777, 1024)
 EXA_SPLIT = 512                # split_prefill_chunk: bounds a prefill's fp32 scores
 EXA_BLOCKS = 160               # pool blocks of 128 (the 8 prompts need ~115)
 EXA_CHECK_LAYERS = 4           # the fp32-reference checks: one LLLG period
-EXA_SERVE_LAYERS = 16          # serving depth, 4 LLLG periods (cut from 64: the smoke's time)
+EXA_CHECK_SEQ = 128            # the card-vs-CPU step's tokens (cut from 256 for the CPU's
+                               # time; its worst leaf read 0.0284 at 128 on the H100, 0.0279
+                               # at 256)
+EXA_SERVE_LAYERS = 8           # serving depth, 2 LLLG periods (cut from 64: the smoke's time)
 
 
 def exaone_cfg(layers=None):
@@ -6539,12 +6584,20 @@ def v1_groups(eng, prompts, new: int, eos=None):
     return [outs[i] for i in range(len(prompts))]
 
 
-def fp32_gaps(family, cfg, params, prompts, outs, routes=None, keys=None) -> tuple:
+def layers_of(params, n: int) -> dict:
+    """A flat param dict's leaves of its first ``n`` layers and the rest."""
+    return {k: v for k, v in params.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+
+
+def fp32_gaps(family, cfg, params, prompts, outs, routes=None, keys=None,
+              forward=None) -> tuple:
     """Each generated token against the fp32 forward of the same weights
     over its row's prompt and the tokens before it: (argmax matches, tokens,
     largest (max logit - the token's logit) / row RMS). With ``routes`` (a
     MoE family's :class:`PositionRoutes`, ``keys[i]`` prompt i's key) the
-    fp32 forward routes every position as the serving run did."""
+    fp32 forward routes every position as the serving run did; ``forward``
+    (tokens [1, s] -> logits) replaces ``family.apply`` in fp32."""
     import torch
 
     match, n, worst = 0, 0, 0.0
@@ -6554,8 +6607,8 @@ def fp32_gaps(family, cfg, params, prompts, outs, routes=None, keys=None) -> tup
         replay = (routes_replayed(routes.of(keys[i], seq.shape[1])) if routes is not None
                   else contextlib.nullcontext())
         with torch.inference_mode(), replay:
-            z = logits_of(family.apply(cfg, params, seq,
-                                       compute_dtype=torch.float32))[0, len(p) - 1:]
+            z = (forward(seq) if forward is not None else logits_of(family.apply(
+                cfg, params, seq, compute_dtype=torch.float32)))[0, len(p) - 1:]
         rms = z.pow(2).mean(-1).sqrt()
         t = torch.as_tensor(toks, device=z.device)
         gap = (z.max(-1).values - z.gather(-1, t[:, None])[:, 0]) / rms
@@ -6625,10 +6678,10 @@ def phase_exaone4(seed: int, card: str) -> dict:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) one step card (bf16) against CPU (fp32) at 4 layers, S 256
+    # (b) one step card (bf16) against CPU (fp32) at 4 layers, S EXA_CHECK_SEQ
     res["train_whole_path"] = phase_train_whole(
         seed, card, family=exaone4, cfg=cfg4, label="EXAONE-4.0-32B-width",
-        fault=fault_rope_on_global, layers=EXA_TRAIN_LAYERS)
+        fault=fault_rope_on_global, layers=EXA_TRAIN_LAYERS, seq=EXA_CHECK_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6694,8 +6747,7 @@ def phase_exaone4(seed: int, card: str) -> dict:
 
     # (d) at 4 layers (LLLG) against the fp32 forward of the same weights
     small = dataclasses.replace(cfg, num_layers=EXA_CHECK_LAYERS)
-    sp4 = {k: v for k, v in params.items()
-           if not k.startswith("layers.") or int(k.split(".")[1]) < EXA_CHECK_LAYERS}
+    sp4 = layers_of(params, EXA_CHECK_LAYERS)
     long_ = torch.as_tensor(prompts[0], device="cuda")[None]
     with torch.inference_mode():
         z32 = exaone4.apply(small, sp4, long_, compute_dtype=torch.float32)
@@ -6759,7 +6811,8 @@ def phase_exaone4(seed: int, card: str) -> dict:
 
 
 MIX_TRAIN_LAYERS = 2           # Mixtral-8x7B width: 3.17 B parameters, fp32 masters + AdamW
-MIX_SERVE_LAYERS = 16          # 46.9 GB of bf16 weights: 32 layers' 93 GB fit no card
+MIX_SERVE_LAYERS = 8           # 23.5 GB of bf16 weights (32 layers' 93 GB fit no card;
+                               # cut from 16 for the smoke's time)
 MIX_CHECK_LAYERS = 2           # the fp32-reference checks
 MIX_SEQ = 4096                 # tokens a training micro-batch
 MIX_CHECK_SEQ = 128            # tokens of the card-vs-CPU step (256 in phase 8: the CPU's time)
@@ -7093,8 +7146,7 @@ def phase_mixtral(seed: int, card: str) -> dict:
     # the decode graph's plain version, the eager decode, whose forwards
     # can be recorded); the card's gates left unrenormalized must fail it
     small = dataclasses.replace(nodrop, num_layers=MIX_CHECK_LAYERS)
-    sp = {k: v for k, v in params.items()
-          if not k.startswith("layers.") or int(k.split(".")[1]) < MIX_CHECK_LAYERS}
+    sp = layers_of(params, MIX_CHECK_LAYERS)
     noise = routed_noise(mixtral, small, sp,
                          torch.as_tensor(prompts[-1], device="cuda")[None].long())
     tol = V1_NOISE_RATIO * noise
@@ -7159,6 +7211,420 @@ def phase_mixtral(seed: int, card: str) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"  launches {res['launches']}")
     log(f"  phase 24: {res['phase_s']:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 25: Falcon-7B, GPT-NeoX-20B (head dim 96) and GPT-J-6B
+# --------------------------------------------------------------------------- #
+P25_TRAIN_LAYERS = 4     # Falcon-7B (of 32) and GPT-NeoX-20B (of 44) in training: the fp32
+                         # masters + AdamW of 1.12 / 2.43 B params, and the smoke's time
+P25_CHECK_LAYERS = 2     # the card-vs-CPU steps and the fp32-reference stream checks
+P25_SEQ = 2048           # tokens a training micro-batch (both families' max_seq_len)
+P25_CHECK_SEQ = 128      # tokens of the card-vs-CPU steps
+P25_TRAIN_STEPS = 3
+GPTJ_LAYERS = 4          # GPT-J-6B's v1 depth (of 28)
+NEOX_KERNEL_CASES = [    # GPT-NeoX-20B's attention: 64/64 heads of 96
+    ("causal S=2048", 2048, None), ("window 256 S=1000", 1000, 256)]
+FALCON_ATTN = (2048, 71, 1, 64)    # Falcon-7B's attention: S, query heads, kv heads, hd
+
+
+def p25_kernels(gen, card: str) -> dict:
+    """The flash kernels at hd 96 (GPT-NeoX-20B's shape, bf16 and fp32) and
+    at Falcon-7B's 71 query heads over one kv head, each against its plain
+    pieces; the bf16 kernels' planted faults at hd 96; LayerNorm at
+    Falcon-7B's and GPT-NeoX-20B's widths. Times beside their bounds, the
+    plain versions and the PyTorch call that computes the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_torch, flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault)
+    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda, layer_norm_torch
+
+    out = {"neox": {}, "tol": FLASH_TOL, "floor": FLASH_FLOOR}
+
+    def pieces(label, q, k, v, do, kw):
+        o, lse = flash_fwd_cuda(q, k, v, **kw)
+        o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+        errs = {"o": check_close(f"flash fwd {label} o", o, o_ref, FLASH_TOL["o"],
+                                 floor=FLASH_FLOOR["o"])}
+        if not bool(((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()).all()):
+            raise AssertionError(f"flash fwd {label}: lse disagrees with the plain version")
+        ref = dict(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, **kw)))
+        errs.update(_check_pieces(f"flash bwd pieces {label}",
+                                  _bwd_pieces(q, k, v, do, o, lse, kw), ref, ("dq", "dk", "dv")))
+        return errs, (o, lse, o_ref, ref)
+
+    h, hd = 64, 96
+    for name, s, window in NEOX_KERNEL_CASES:
+        kw = dict(causal=True, window=window)
+        for dtype in (torch.bfloat16, torch.float32):
+            label = f"hd 96 [{s} x 64/64 heads] {name} {str(dtype)[6:]}"
+            q, k, v, do = (torch.randn(1, s, h, hd, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            errs, (o, lse, o_ref, ref) = pieces(label, q, k, v, do, kw)
+            out["neox"][label] = _pieces_result(errs)
+            if dtype == torch.bfloat16 and window is None:
+                faults = {}
+                for fault, what in ((1, "ring stage read one step late"),
+                                    (2, "last kv tile of the causal band dropped")):
+                    with sm90_planted_fault(fault):
+                        o_bad, _ = flash_fwd_cuda(q, k, v, **kw)
+                        torch.cuda.synchronize()
+                    faults[what] = _fault_must_fail(f"hd 96 {what}", o_bad, o_ref, "o")
+                for fault, what, keys in BWD_FAULTS:
+                    with sm90_planted_fault(fault, "bwd"):
+                        bad = _bwd_pieces(q, k, v, do, o, lse, kw)
+                    faults[what] = [_fault_must_fail(f"hd 96 {what}, {key}", bad[key], ref[key],
+                                                     key) for key in keys]
+                out["planted_faults_hd96"] = faults
+                work = flash_work(s, s, h, True, 0, None, hd=hd, h=h)
+                out["timing"] = _time_flash(q, k, v, do, kw, work)
+                out["pairs"] = work["pairs"]
+                _log_times(f"hd 96 [{s} x 64/64 heads] causal", out["timing"], card)
+            del q, k, v, do, o, lse, o_ref, ref
+            torch.cuda.empty_cache()
+
+    # Falcon-7B: dK/dV sums all 71 query heads into the one kv head
+    s, h, hkv, hd = FALCON_ATTN
+    label = f"Falcon-7B [{s} x {h}/{hkv} heads, hd {hd}] causal"
+    q, do = (torch.randn(1, s, h, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, s, hkv, hd, generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    kw = {"causal": True}
+    errs, _ = pieces(label, q, k, v, do, kw)
+    work = flash_work(s, s, hkv, True, 0, None, hd=hd, h=h)
+    out["falcon"] = {**_pieces_result(errs), "pairs": work["pairs"],
+                     "timing": _time_flash(q, k, v, do, kw, work)}
+    _log_times(label, out["falcon"]["timing"], card)
+    log(f"  (SDPA at this shape: {out['falcon']['timing']['fwd']['sdpa_gqa']})")
+    log(f"  dK/dV at {label}: {-(-s // 128)} work items of 128 kv rows, each walking all {h} "
+        f"query heads; it reads {work['dkv']['bytes'] / 1e6:.1f} MB (q and dO once: "
+        f"{2 * s * h * hd * 2 / 1e6:.1f} MB) [{card}]")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    out["layer_norm"] = {}
+    for d in (4544, 6144):
+        x = (torch.randn(4096, d, generator=gen, device="cuda") * 3).bfloat16()
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        b = (0.2 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+        err = check_close(f"layer_norm [4096 x {d}] bf16", layer_norm_cuda(x, w, b, 1e-5),
+                          layer_norm_torch(x, w, b, 1e-5), RMS_TOL)
+        nbytes = 2 * x.numel() * 2 + 2 * d * 2
+        r = {"max_abs_err": err[0], "row_err_over_rms": err[1],
+             "ms": measure(lambda: layer_norm_cuda(x, w, b, 1e-5), 20)["ms"],
+             "plain_ms": measure(lambda: layer_norm_torch(x, w, b, 1e-5), 20)["ms"],
+             "library_ms": measure(lambda: F.layer_norm(x, (d,), w, b, 1e-5), 20)["ms"],
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": nbytes}
+        out["layer_norm"][d] = r
+        log(f"  layer_norm [4096 x {d}] bf16: device kernel {r['ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us (bytes), plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"F.layer_norm {r['library_ms'] * 1e3:.2f} us [{card}]")
+        del x, w, b
+    return out
+
+
+@contextlib.contextmanager
+def fault_falcon_cache_write_late():
+    """Every K/V row of Falcon's v1 lands one cache slot after its position."""
+    from deepspeed_tpu_torch.models import falcon
+
+    sound = falcon._write_cache
+    falcon._write_cache = lambda cache, new, starts: sound(cache, new, starts + 1)
+    try:
+        yield "each K/V row written one cache slot late"
+    finally:
+        falcon._write_cache = sound
+
+
+@contextlib.contextmanager
+def fault_rotary(**change):
+    """GPT-NeoX / GPT-J's rotary with its arguments changed:
+    ``interleaved=True`` rotates pairs of adjacent dims (not GPT-NeoX's split
+    halves), ``interleaved=False`` split halves (not GPT-J's pairs)."""
+    from deepspeed_tpu_torch.models import gptneox
+
+    sound = gptneox.apply_rotary_partial
+    gptneox.apply_rotary_partial = lambda *a, **kw: sound(*a, **{**kw, **change})
+    try:
+        yield f"rotary with {change}"
+    finally:
+        gptneox.apply_rotary_partial = sound
+
+
+def fp32_stream_check(label: str, family, cfg, params, prompts, outs_by_engine: dict, fault,
+                 forward=None) -> dict:
+    """Every token of each engine's streams (``outs_by_engine``: name ->
+    streams) against the fp32 forward of the same weights within
+    ``V1_NOISE_RATIO`` x the bf16 forward's own error from it on the longest
+    prompt; ``fault`` = (name, streams made under a planted fault, its
+    prompts) must exceed that. ``forward`` (tokens -> logits, compute
+    dtype) replaces ``family.apply`` for both."""
+    import torch
+
+    fwd = forward or (lambda t, dt: family.apply(cfg, params, t, compute_dtype=dt))
+    long_ = torch.as_tensor(max(prompts, key=len), device="cuda")[None].long()
+    with torch.inference_mode():
+        noise = row_err(fwd(long_, torch.bfloat16), fwd(long_, torch.float32))[1]
+    tol = V1_NOISE_RATIO * noise
+    log(f"  {label}: the bf16 forward against fp32 on the {long_.shape[1]}-token prompt "
+        f"{noise:.4f} of a row's RMS; limit {tol:.4f}")
+    f32 = lambda seq: fwd(seq.long(), torch.float32)  # noqa: E731
+    checks = {name: fp32_gaps(family, cfg, params, prompts, outs, forward=f32)
+              for name, outs in outs_by_engine.items()}
+    for name, (m, n, worst) in checks.items():
+        log(f"  {name}: {m}/{n} tokens the fp32 argmax, largest gap {worst:.4f} of the row's "
+            f"RMS (limit {tol:.4f})")
+        if worst > tol:
+            raise AssertionError(f"{label} {name}: a generated token is {worst} row RMS below "
+                                 f"the fp32 argmax")
+    what, bad, bad_prompts = fault
+    bad_gap = fp32_gaps(family, cfg, params, bad_prompts, bad, forward=f32)[2]
+    log(f"  planted fault ({what}): largest gap {bad_gap:.4f} (must exceed {tol:.4f})")
+    if bad_gap <= tol:
+        raise AssertionError(f"the {label} stream check passes a planted fault ({what})")
+    return {"noise": noise, "tol": tol, "planted_fault_gap": bad_gap,
+            "streams": {k: {"argmax": [m, n], "worst_gap": w}
+                        for k, (m, n, w) in checks.items()}}
+
+
+def _v1_generate(v1, prompts, new: int):
+    padded = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    return [list(map(int, r)) for r in v1.generate(padded, prompt_lengths=lens,
+                                                      max_new_tokens=new)], padded, lens
+
+
+def phase_falcon_neox(seed: int, card: str) -> dict:
+    """Falcon-7B, GPT-NeoX-20B and GPT-J-6B (module docstring, phase 25)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import falcon, gptneox
+    from deepspeed_tpu_torch.ops.flash_attention import flash_fwd_cuda
+    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    res = {"kernels": p25_kernels(gen, card)}
+    fcfg, ncfg = falcon.FalconConfig(), gptneox.GPTNeoXConfig()
+    for key, fam, cfg, label in (("falcon", falcon, fcfg, "Falcon-7B"),
+                                 ("neox", gptneox, ncfg, "GPT-NeoX-20B")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (a) training at P25_TRAIN_LAYERS, (b) one step card against CPU
+        per_layer = 1 if fam is falcon else 2      # classic Falcon: one LayerNorm a block
+        r = {"train": phase_train(
+            seed, card, family=fam, cfg=dataclasses.replace(cfg, num_layers=P25_TRAIN_LAYERS),
+            label=label, seq=P25_SEQ, gas=2, micro=1, norm="layer_norm",
+            norms_per_layer=per_layer, steps=P25_TRAIN_STEPS)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["train_whole_path"] = phase_train_whole(
+            seed, card, family=fam, cfg=cfg, label=f"{label}-width",
+            fault=(fault_zero_dv_head, fault_zero_ln_db), layers=P25_CHECK_LAYERS,
+            seq=P25_CHECK_SEQ)
+        res[key] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) Falcon-7B serving at all 32 layers: v2 bf16, v2 spec + fused verify
+    # on int8 pools, and v1, on one set of bf16 weights
+    t0 = time.perf_counter()
+    params = falcon.init(fcfg, torch.Generator(device="cuda").manual_seed(seed),
+                         dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  Falcon-7B serving weights: {fcfg.num_layers} layers, {fcfg.num_params / 1e9:.2f} B "
+        f"params, {wbytes / 1e9:.2f} GB bf16 in {time.perf_counter() - t0:.1f} s; a decode "
+        f"step's weight-bytes bound {bound_ms:.2f} ms")
+    prompts, lengths = spec_prompts(seed, fcfg.vocab_size)
+    base = {"dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
+                       "memory_config_blocks": 64, "block_size": 128}}
+    serve = phase_spec_serving(
+        seed, MAX_NEW_TOKENS, card, family=falcon, cfg=fcfg, params=params, norm="layer_norm",
+        norms_per_layer=1, base_conf=base,
+        engines=(("bf16", {}, prompts), ("spec_int8", {**SPEC, **INT8}, prompts)))
+    for name in ("bf16", "spec_int8"):
+        w = serve[name]["per_replay"]
+        if w.get("paged_decode_attention", w.get("paged_decode_attention_int8")) != \
+                fcfg.num_layers:
+            raise AssertionError(f"Falcon {name}: a decode replay launches {w}, not "
+                                 f"{fcfg.num_layers} paged decodes")
+    busy = serve["bf16"]["profile_steps"]["busy_ms_per_step"]
+    res["falcon"]["serving"] = serve
+    res["falcon"]["decode"] = {"step_ms": serve["bf16"]["decode_step_ms"], "busy_ms": busy,
+                               "bound_ms": bound_ms, "weight_bytes": wbytes,
+                               "per_replay": serve["bf16"]["per_replay"]}
+    log(f"  Falcon-7B bf16 decode step {serve['bf16']['decode_step_ms']:.2f} ms (device busy "
+        f"{busy:.2f} ms) against the weight-bytes bound {bound_ms:.2f} ms; a replay launches "
+        f"{serve['bf16']['per_replay']} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1 = dst.init_inference(falcon, model_cfg=fcfg, params=params,
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    _v1_generate(v1, prompts[:2], 2)                                     # warm-up
+    torch.cuda.synchronize()
+    layer_norm_cuda.launches = 0
+    t0 = time.perf_counter()
+    v1_outs, padded, lens = _v1_generate(v1, prompts, MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    v1_ln = layer_norm_cuda.launches
+    check_launches("Falcon v1 generate", {"layer_norm": v1_ln},
+                   {"layer_norm": (fcfg.num_layers + 1) * MAX_NEW_TOKENS})
+    v2_outs = [list(map(int, r)) for r in serve["bf16"]["outs"]]
+    leave = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(v1_outs, v2_outs)]
+    long_ = torch.as_tensor(prompts[-1], device="cuda")[None].long()
+    with torch.inference_mode():
+        noise32 = row_err(falcon.apply(fcfg, params, long_, compute_dtype=torch.bfloat16),
+                          falcon.apply(fcfg, params, long_, compute_dtype=torch.float32))[1]
+    parting = v1_v2_parting(fcfg, v1, padded, lens, v1_outs, v2_outs, leave, [], noise32,
+                            family=falcon)
+    res["falcon"]["v1"] = {"generate_s": v1_s, "launches": {"layer_norm": v1_ln},
+                           "outs": v1_outs, "v1_v2_first_difference": leave,
+                           "agree_rows": sum(x is None for x in leave), "bf16_noise": noise32,
+                           "v1_v2_parting": parting}
+    log(f"  Falcon-7B v1 bf16: {v1_s:.1f} s for 8 x {MAX_NEW_TOKENS} tokens; v1 against v2 at "
+        f"{fcfg.num_layers} layers: {res['falcon']['v1']['agree_rows']} of {len(prompts)} rows "
+        f"the same, first differing step by row {leave} (bf16 error {noise32:.4f}) [{card}]")
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) at P25_CHECK_LAYERS: every token of v1, v2 and v2 spec + int8
+    # against the fp32 forward
+    small = dataclasses.replace(fcfg, num_layers=P25_CHECK_LAYERS)
+    sp = layers_of(params, P25_CHECK_LAYERS)
+    v1s = dst.init_inference(falcon, model_cfg=small, params=sp,
+                             config={"dtype": "bfloat16", "prefill_bucket": 64})
+    outs = {"v1": _v1_generate(v1s, prompts, MAX_NEW_TOKENS)[0]}
+    with fault_falcon_cache_write_late() as what:
+        bad = _v1_generate(v1s, prompts[:3], 8)[0]
+    del v1s
+    for name, extra in (("v2 bf16", {}), ("v2 spec + fused verify, int8 pools",
+                                          {**SPEC, **INT8})):
+        e2 = build_engine_v2(falcon, small, sp, config=dict(base, **extra))
+        outs[name] = [list(map(int, o)) for o in e2.generate(prompts,
+                                                              max_new_tokens=MAX_NEW_TOKENS)]
+        del e2
+        torch.cuda.empty_cache()
+    res["falcon"]["check"] = fp32_stream_check(f"Falcon-7B at {P25_CHECK_LAYERS} layers", falcon,
+                                          small, sp, prompts, outs, (what, bad, prompts[:3]))
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-NeoX-20B v1 at all 44 layers: prefill, 8 prompts x 32 greedy tokens
+    t0 = time.perf_counter()
+    params = gptneox.init(ncfg, torch.Generator(device="cuda").manual_seed(seed),
+                          dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"  GPT-NeoX-20B serving weights: {ncfg.num_layers} layers, "
+        f"{ncfg.num_params / 1e9:.2f} B params, {wbytes / 1e9:.2f} GB bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    v1 = dst.init_inference(gptneox, model_cfg=ncfg, params=params,
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    vp, vl = v1_prompts(seed, ncfg.vocab_size)
+    v1.generate(vp[:2], prompt_lengths=vl[:2], max_new_tokens=2)         # warm-up
+    layer_norm_cuda.launches = flash_fwd_cuda.launches = 0
+    times = v1_times(v1, vp, vl, MAX_NEW_TOKENS)
+    neox_outs = v1.generate(vp, prompt_lengths=vl, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    neox_ln = layer_norm_cuda.launches
+    check_launches("GPT-NeoX-20B v1 (two generates of 1 and 32 tokens, then 32)",
+                   {"layer_norm": neox_ln, "flash_fwd": flash_fwd_cuda.launches},
+                   {"layer_norm": (2 * ncfg.num_layers + 1) * (1 + 2 * MAX_NEW_TOKENS),
+                    "flash_fwd": 0})
+    if not all(0 <= int(t) < ncfg.vocab_size for row in neox_outs for t in row):
+        raise AssertionError("GPT-NeoX-20B v1 generated a token outside the vocabulary")
+    res["neox"]["v1"] = {**times, "weight_bytes": wbytes,
+                         "decode_bound_ms": wbytes / HBM_BYTES_PER_S * 1e3,
+                         "launches": {"layer_norm": neox_ln}}
+    log(f"  GPT-NeoX-20B v1 bf16 ({ncfg.num_layers} layers, 8 prompts of {vl.tolist()}): prefill "
+        f"{times['prefill_ms']:.1f} ms, decode step {times['decode_step_ms']:.2f} ms against "
+        f"the weight-bytes bound {res['neox']['v1']['decode_bound_ms']:.2f} ms, peak "
+        f"{times['peak_gib']:.2f} GiB [{card}]")
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(ncfg, num_layers=P25_CHECK_LAYERS)
+    sp = layers_of(params, P25_CHECK_LAYERS)
+    del params
+    nprompts = [vp[i, :vl[i]] for i in range(len(vl))]
+    v1s = dst.init_inference(gptneox, model_cfg=small, params=sp,
+                             config={"dtype": "bfloat16", "prefill_bucket": 64})
+    outs = {"v1": _v1_generate(v1s, nprompts, MAX_NEW_TOKENS)[0]}
+    with fault_rotary(interleaved=True) as what:
+        bad = _v1_generate(v1s, nprompts[1:4], 8)[0]
+    res["neox"]["check"] = fp32_stream_check(f"GPT-NeoX-20B at {P25_CHECK_LAYERS} layers", gptneox,
+                                        small, sp, nprompts, outs, (what, bad, nprompts[1:4]))
+    del v1s, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # GPT-J-6B v1 at GPTJ_LAYERS: interleaved rotary, the shared LayerNorm,
+    # the head bias; hd 256 takes no flash kernel, and v1's reads are plain
+    jcfg = dataclasses.replace(gptneox.GPTNeoXConfig.gptj_6b(), num_layers=GPTJ_LAYERS)
+    params = gptneox.init(jcfg, torch.Generator(device="cuda").manual_seed(seed),
+                          dtype=torch.bfloat16, device="cuda")
+    v1 = dst.init_inference(gptneox, model_cfg=jcfg, params=params,
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    jprompts = [vp[i, :vl[i]] for i in range(len(vl))]
+    _v1_generate(v1, jprompts[:2], 2)                                    # warm-up
+    layer_norm_cuda.launches = flash_fwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    outs = {"v1": _v1_generate(v1, jprompts, MAX_NEW_TOKENS)[0]}
+    torch.cuda.synchronize()
+    gptj_s = time.perf_counter() - t0
+    gptj_ln = layer_norm_cuda.launches
+    check_launches("GPT-J-6B v1 generate (hd 256: no flash launch)",
+                   {"layer_norm": gptj_ln, "flash_fwd": flash_fwd_cuda.launches},
+                   {"layer_norm": (jcfg.num_layers + 1) * MAX_NEW_TOKENS, "flash_fwd": 0})
+    with fault_rotary(interleaved=False) as what:
+        bad = _v1_generate(v1, jprompts[1:4], 8)[0]
+
+    def dense_forward(tokens, dtype):
+        """The fp32 (or bf16) forward through the dense-cache path from an
+        empty cache: causal, plain attention (no flash kernel takes hd 256)."""
+        cache = gptneox.init_cache(jcfg, 1, tokens.shape[1], dtype=dtype)
+        return gptneox.apply_cached(jcfg, params, tokens, cache, 0, compute_dtype=dtype)[0]
+
+    res["gptj"] = {"generate_s": gptj_s, "launches": {"layer_norm": gptj_ln, "flash_fwd": 0},
+                   "check": fp32_stream_check(f"GPT-J-6B at {GPTJ_LAYERS} layers", gptneox, jcfg,
+                                         params, jprompts, outs, (what, bad, jprompts[1:4]),
+                                         forward=dense_forward)}
+    log(f"  GPT-J-6B v1 bf16 ({GPTJ_LAYERS} layers): {gptj_s:.1f} s for 8 x {MAX_NEW_TOKENS} "
+        f"tokens, no flash launch [{card}]")
+    del v1, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ft, nt = res["falcon"]["train"]["launches"], res["neox"]["train"]["launches"]
+    res["launches"] = {
+        **{k: {"falcon training": ft[k], "gpt-neox training (hd 96)": nt[k]}
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+        "layer_norm": {"falcon training": ft["layer_norm"], "gpt-neox training": nt["layer_norm"],
+                       "falcon serving": serve["bf16"]["launches"]["layer_norm"]
+                       + serve["spec_int8"]["launches"]["layer_norm"] + v1_ln,
+                       "gpt-neox / gpt-j v1": neox_ln + gptj_ln},
+        "paged_decode_attention": serve["bf16"]["launches"]["paged_decode_attention"],
+        "paged_decode_attention_int8":
+            serve["spec_int8"]["launches"]["paged_decode_attention_int8"],
+        "paged_spec_verify_attention":
+            serve["spec_int8"]["launches"]["paged_spec_verify_attention"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {res['launches']}")
+    log(f"  phase 25: {res['phase_s']:.1f} s")
     return res
 
 
@@ -7383,7 +7849,7 @@ def main() -> int:
                                     label="BLOOM-7b1-width",
                                     fault=(fault_zero_alibi, fault_zero_ln_db),
                                     against=TRAIN_GRAD_AGAINST_BLOOM,
-                                    leaf_tol=TRAIN_LEAF_TOL_BLOOM)
+                                    leaf_tol=TRAIN_LEAF_TOL_BLOOM, seq=BLOOM_CHECK_SEQ)
 
     log_phase("== phase 15: attention entry points under autograd (msa_row_attention, "
               "blocksparse_attention)")
@@ -7433,6 +7899,11 @@ def main() -> int:
     mix = phase_mixtral(SEED, card)
     mix_l = mix["launches"]
 
+    log_phase("== phase 25: Falcon-7B (MQA: 4-layer training, 32-layer serving through v2 and "
+              "v1) and GPT-NeoX-20B (hd 96: 4-layer training, 44-layer v1), GPT-J-6B v1")
+    p25 = phase_falcon_neox(SEED, card)
+    p25_l = p25["launches"]
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
@@ -7456,7 +7927,8 @@ def main() -> int:
                        "serving core (graph)": core_graph["paged_decode_attention"],
                        "serving fleet": fleet_l["paged_decode_attention"],
                        "exaone4 serving": exa_l["paged_decode_attention"],
-                       "mixtral serving": mix_l["paged_decode_attention"]}
+                       "mixtral serving": mix_l["paged_decode_attention"],
+                       "falcon serving": p25_l["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -7498,7 +7970,7 @@ def main() -> int:
             "launches": (train["launches"][name] + opt_train["launches"][name]
                          + zero["launches"][name] + ckpt["launches"][name]
                          + remat["launches"][name] + optim["launches"][name]
-                         + mix_l[name]),
+                         + mix_l[name] + sum(p25_l[name].values())),
             "launches_by_path": {"llama training": train["launches"][name],
                                  "opt training": opt_train["launches"][name],
                                  "zero training (stages 0-3)": zero["launches"][name],
@@ -7507,13 +7979,17 @@ def main() -> int:
                                  "optimizer training": optim["launches"][name],
                                  # hybrid attention is masked: plain, as in JAX
                                  "exaone4 training": exa["train"]["launches"][name],
-                                 "mixtral training": mix_l[name]},
+                                 "mixtral training": mix_l[name], **p25_l[name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            # the same kernel at OPT-1.3B's training shape
-            "opt": {k_: flash["opt"]["timing"][key][k_] for k_ in
-                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            # the same kernel at OPT-1.3B's training shape, at GPT-NeoX-20B's
+            # (hd 96) and at Falcon-7B's (71 query heads over one kv head)
+            **{sub: {k_: t[key][k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")}
+               for sub, t in (("opt", flash["opt"]["timing"]),
+                              ("hd96", p25["kernels"]["timing"]),
+                              ("falcon", p25["kernels"]["falcon"]["timing"]))}})
     rows_t = kern["rows"]["timing"]
     dec8, ver8, ver16 = (rows_t["decode_int8_main_path"], rows_t["verify_int8_main_path"],
                          rows_t["verify_bf16_main_path"])
@@ -7523,6 +7999,7 @@ def main() -> int:
     int8_launches["serving fleet"] = fleet_l["paged_decode_attention_int8"]
     int8_launches["exaone4 serving"] = exa_l["paged_decode_attention_int8"]
     int8_launches["mixtral serving"] = mix_l["paged_decode_attention_int8"]
+    int8_launches["falcon serving"] = p25_l["paged_decode_attention_int8"]
     ver_launches = {p: spec[p]["launches"]["paged_spec_verify_attention"]
                     for p in ("spec_bf16", "spec_int8")}
     ver_launches["opt spec_int8"] = opt_l["spec_int8"]["paged_spec_verify_attention"]
@@ -7532,11 +8009,12 @@ def main() -> int:
     ver_launches["serving fleet"] = fleet_l["paged_spec_verify_attention"]
     ver_launches["exaone4 serving"] = exa_l["paged_spec_verify_attention"]
     ver_launches["mixtral serving"] = mix_l["paged_spec_verify_attention"]
+    ver_launches["falcon serving"] = p25_l["paged_spec_verify_attention"]
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
                    "opt training": opt_train["launches"]["layer_norm"],
-                   "module system": mods["launches"]["layer_norm"]}
+                   "module system": mods["launches"]["layer_norm"], **p25_l["layer_norm"]}
     qt = kern["quantize"]["timing"]
 
     def quant_entry(key):
@@ -7570,7 +8048,10 @@ def main() -> int:
          "launches": sum(ln_launches.values()), "launches_by_path": ln_launches,
          "max_abs_err": kern["layer_norm"]["max_abs_err"],
          "ms": ln["ms"], "plain_ms": ln["plain_ms"], "bound_ms": ln["bound_ms"],
-         "bound_by": "bytes", "library_ms": ln["library_ms"]},
+         "bound_by": "bytes", "library_ms": ln["library_ms"],
+         # at [4096 x 4544] (Falcon-7B) and [4096 x 6144] (GPT-NeoX-20B)
+         **{f"d{d}": {k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for d, r in p25["kernels"]["layer_norm"].items()}},
         {"name": "quantize_int8", "route": "cuda",
          "source": "deepspeed_tpu_torch/ops/csrc/quantize.cu",
          "replaces": "deepspeed_tpu/ops/pallas/quantize.py:30",
@@ -7599,7 +8080,7 @@ def main() -> int:
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "zero": zero, "checkpoint": ckpt, "remat": remat, "init_inference": v1,
               "bloom_v1_peak": bloom_peak, "optimizers": optim, "exaone4": exa,
-              "mixtral": mix,
+              "mixtral": mix, "falcon_neox": p25,
               "phase_start_s": marks, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

@@ -171,8 +171,11 @@ class InferenceEngineV2(InferenceEngine):
             # here rather than at the first decode step
             raise ValueError(f"inference dtype {self.config.dtype!r} has no CUDA "
                              "kernel yet; the card path serves bfloat16")
-        if self.family.build is None:
-            raise ValueError(f"family {self.family.name!r} has no paged path")
+        if self.family.apply_paged is None or self.family.build is None:
+            # JAX ``build_hf_engine``'s refusal (inference/engine_v2.py:1832-1838)
+            raise ValueError(
+                f"family '{self.family.name}' has no paged decode path (apply_paged) — use "
+                f"init_inference (v1 KV-cache engine) for this model")
 
     _engine = "v2"
 

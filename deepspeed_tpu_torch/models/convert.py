@@ -55,6 +55,17 @@ layers/moe/w_down      [L, E, i, h]   layers.<i>.moe.w_down
 layers/moe/shared_*    [L, h, si] …   layers.<i>.moe.shared_*, as is
 =====================  =============  ============================
 
+Falcon: ``layers/wq``, ``wk``, ``wv`` (``[L, h, nkv*hd]``: one kv head
+in Falcon-7B), ``wo``, ``w_up``, ``w_down`` and ``lm_head`` (untied only:
+the tied head is ``embed``, and there is no ``lm_head`` leaf) are
+transposed; ``embed`` and the LayerNorm scales and biases (``ln_attn_*``,
+``ln_mlp_*``, ``final_ln_*``) go across as they are.
+
+GPT-NeoX / GPT-J: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_up``,
+``w_down`` and ``lm_head`` are transposed; ``embed``, the LayerNorm scales
+and biases, ``bq`` / ``bk`` / ``bv`` / ``bo`` / ``b_up`` / ``b_down`` and
+``lm_head_bias`` go across as they are.
+
 :func:`jax_leaf` is the table the optimizers' layout seam reads
 (``ops/optimizers.py`` :class:`Layout`): where each port leaf lives in the
 JAX tree, for every family.
@@ -67,7 +78,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from . import bloom, exaone4, gpt, llama, mixtral
+from . import bloom, exaone4, falcon, gpt, gptneox, llama, mixtral
 
 # matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
 # (every family's names: no other leaf of any shares one outside a MoE
@@ -89,7 +100,9 @@ def _param_shapes(cfg: Any):
     for family, cfg_type in ((llama, llama.LlamaConfig), (gpt, gpt.GPTConfig),
                              (bloom, bloom.BloomConfig),
                              (exaone4, exaone4.Exaone4Config),
-                             (mixtral, mixtral.MixtralConfig)):
+                             (mixtral, mixtral.MixtralConfig),
+                             (falcon, falcon.FalconConfig),
+                             (gptneox, gptneox.GPTNeoXConfig)):
         if isinstance(cfg, cfg_type):
             return family.param_shapes(cfg)
     raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
@@ -122,7 +135,8 @@ def _to_torch(a: Any) -> torch.Tensor:
 
 def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama``, ``gpt``, ``bloom``, ``exaone4`` or ``mixtral`` params
+    """JAX ``llama``, ``gpt``, ``bloom``, ``exaone4``, ``mixtral``, ``falcon`` or
+    ``gptneox`` params
     (numpy leaves, a MoE layer's nested ``moe`` dict too) → the port's
     ``state_dict``. Raises if the tree does not hold exactly the config's
     parameters."""

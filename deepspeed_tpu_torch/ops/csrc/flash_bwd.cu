@@ -259,6 +259,7 @@ cudaError_t launch_dkv(const Args& a, const Bias& bb, cudaStream_t stream) {
 template <bool DQ, typename T, bool BIAS>
 cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
   if (D == 128) return DQ ? launch_dq<T, 128, BIAS>(a, bb, s) : launch_dkv<T, 128, BIAS>(a, bb, s);
+  if (D == 96) return DQ ? launch_dq<T, 96, BIAS>(a, bb, s) : launch_dkv<T, 96, BIAS>(a, bb, s);
   if (D == 64) return DQ ? launch_dq<T, 64, BIAS>(a, bb, s) : launch_dkv<T, 64, BIAS>(a, bb, s);
   if (D == 32) return DQ ? launch_dq<T, 32, BIAS>(a, bb, s) : launch_dkv<T, 32, BIAS>(a, bb, s);
   return cudaErrorInvalidValue;

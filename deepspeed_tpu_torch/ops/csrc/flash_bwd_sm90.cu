@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), bf16, hd 32 / 64 / 128, with
+// Flash-attention backward for Hopper (sm_90a), bf16, hd 32 / 64 / 96 / 128, with
 // and without a bias: dQ (and dbias) and dK/dV on TMA loads into an mbarrier
 // ring, wgmma products, warp specialisation. fp32 stays on flash_bwd.cu.
 //
@@ -89,6 +89,11 @@
 //   dK/dV: K + V 4 * 128 * D bytes, plus 4 stages x (Q + dO 4 * 64 * D, lse
 //          and delta 512 B); D = 128: 64 + 4 x 32.5 = 194 KB; D = 64: 32 + 4 x
 //          16.5 = 98 KB; D = 32: 16 + 4 x 8.5 = 50 KB.
+// D = 96 (GPT-NeoX-20B) runs the D = 128 tiles (Cfg::DT), as the forward
+// does: the maps span the tensors' 96 columns and TMA zero-fills columns
+// 96-127 of each tile without reading them; S and dP walk the 6 k16 steps
+// of the real columns, dQ, dK and dV run at N = 128 over zero columns (a
+// third more MMA on those three products), and the stores keep columns < 96.
 // As in the forward: the producer branch ends in `if (consumer) {...} else
 // {...}` (setmaxnreg), every wgmma is issued under tile-index conditions
 // only (ptxas serialises wgmma after a branch it cannot prove uniform, C7520),
@@ -119,13 +124,14 @@ constexpr int STAGES = 4;
 // blocks of [rows, CB], each row RB bytes.
 template <int D>
 struct Cfg {
-  static constexpr int CB = D < 64 ? D : 64;        // columns of one swizzled block
+  static constexpr int DT = D == 96 ? 128 : D;      // columns of a tile (D = 96: zero-filled)
+  static constexpr int CB = DT < 64 ? DT : 64;      // columns of one swizzled block
   static constexpr int RB = CB * 2;                 // its row bytes
-  static constexpr int NCB = D / CB;                // column blocks of a tile
+  static constexpr int NCB = DT / CB;               // column blocks of a tile
   static constexpr int SWZ = RB;                    // 128-byte (64-byte at D = 32) swizzle
   static constexpr int SBO = 8 * RB;                // stride of 8-row groups
-  static constexpr int ITEM_BYTES = BM * D * 2;     // Q or dO (dQ), K or V (dK/dV)
-  static constexpr int TILE_BYTES = BT * D * 2;     // one ring tile
+  static constexpr int ITEM_BYTES = BM * DT * 2;    // Q or dO (dQ), K or V (dK/dV)
+  static constexpr int TILE_BYTES = BT * DT * 2;    // one ring tile
   static constexpr int ROW_BYTES = 2 * BT * 4;      // a dK/dV tile's lse and delta
   static constexpr size_t DQ_SMEM =
       1024 + 2 * ITEM_BYTES + (size_t)STAGES * 2 * TILE_BYTES + 8 * (2 + 2 * STAGES);
@@ -174,8 +180,8 @@ __device__ __forceinline__ void issue_ss(float (&acc)[BT / 2], uint32_t sa, uint
 // acc += A B: A (64 x BT, bf16) in registers, k16 step kt in a[4 kt .. +3];
 // B the [BT, D] ring tile at sb read MN-major.
 template <int D>
-__device__ __forceinline__ void issue_rs(float (&acc)[D / 2], const uint32_t (&a)[BT / 4],
-                                         uint32_t sb) {
+__device__ __forceinline__ void issue_rs(float (&acc)[Cfg<D>::DT / 2],
+                                         const uint32_t (&a)[BT / 4], uint32_t sb) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kt = 0; kt < BT / 16; ++kt)
@@ -189,12 +195,12 @@ __device__ __forceinline__ void pack(uint32_t (&pa)[N / 2], const float (&v)[N])
   for (int j = 0; j < N / 2; ++j) pa[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
 }
 
-// This thread's rows r0 and r0 + 8 of an accumulator (D / 2 registers) as
+// This thread's rows r0 and r0 + 8 of an accumulator (DT / 2 registers) as
 // bf16 rows of `first` (row stride `stride` elements), rows at or past n_rows
-// not written.
+// and columns at or past D not written.
 template <int D>
-__device__ __forceinline__ void store_acc(const float (&v)[D / 2], int t, int r0, int n_rows,
-                                          __nv_bfloat16* first, size_t stride) {
+__device__ __forceinline__ void store_acc(const float (&v)[Cfg<D>::DT / 2], int t, int r0,
+                                          int n_rows, __nv_bfloat16* first, size_t stride) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
@@ -445,9 +451,9 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
     float* dbias = BIAS && bb.dbias ? bb.dbias + bh * a.Sq * a.Skv : nullptr;
     if (BIAS && item.n_tiles > 0 && bv_item != n)
       dq_bias_tile(bv, a, bb, item.b, item.h, rlo, item.t_lo * BT, bias_vec, t, plant);
-    float dq[D / 2];
+    float dq[C::DT / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < C::DT / 2; ++i) dq[i] = 0.f;
     uint32_t da[BT / 4];   // dS(i-1) as bf16, the A operand: k16 step kt in da[4 kt .. +3]
     int prev = 0, prev_read = 0;   // the previous tile's stage, and the one its K is read from
 
@@ -767,9 +773,9 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
     const DkvItem item(item_of(n), a, plant);
     const int klo = item.k0 + cw * WG;            // first kv row here
     const int kr0 = klo + acc_row(t, 0);          // this thread's kv rows kr0, kr0 + 8
-    float dk[D / 2], dv[D / 2];
+    float dk[C::DT / 2], dv[C::DT / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < C::DT / 2; ++i) dk[i] = dv[i] = 0.f;
 
     if (BIAS && kAhead && !per_kv && item.n_tiles > 0 && heads > 0 && bv_item != n)
       dkv_bias_tile(bv, a, bb, item.b, item.hk * g, klo, item.t_lo * BT, t, plant);
@@ -980,6 +986,9 @@ cudaError_t launch_any(const Args& a, const Bias& bb, int D, cudaStream_t s) {
   if (D == 128)
     return DQ ? (bias ? launch_dq<128, true>(a, bb, s) : launch_dq<128, false>(a, bb, s))
               : (bias ? launch_dkv<128, true>(a, bb, s) : launch_dkv<128, false>(a, bb, s));
+  if (D == 96)
+    return DQ ? (bias ? launch_dq<96, true>(a, bb, s) : launch_dq<96, false>(a, bb, s))
+              : (bias ? launch_dkv<96, true>(a, bb, s) : launch_dkv<96, false>(a, bb, s));
   if (D == 64)
     return DQ ? (bias ? launch_dq<64, true>(a, bb, s) : launch_dq<64, false>(a, bb, s))
               : (bias ? launch_dkv<64, true>(a, bb, s) : launch_dkv<64, false>(a, bb, s));
@@ -991,7 +1000,7 @@ cudaError_t launch_any(const Args& a, const Bias& bb, int D, cudaStream_t s) {
 // dO at the 16-byte alignment TMA needs (the wrapper checks it first and
 // raises).
 cudaError_t check_inputs(const Args& a, int D) {
-  if (bad_shape(a.H, a.Hkv, a.Skv) || (D != 32 && D != 64 && D != 128))
+  if (bad_shape(a.H, a.Hkv, a.Skv) || (D != 32 && D != 64 && D != 96 && D != 128))
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
        reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dout)) % 16)
@@ -1044,7 +1053,7 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
 
 // bf16 dq [B, Sq, H, D] from q, k, v, dout [B, S, *, D] (dense, 16-byte
 // aligned), lse and delta [B * H, Sq] fp32 (lse in base e, as the forward
-// writes it). D: 32, 64 or 128.
+// writes it). D: 32, 64, 96 or 128.
 extern "C" int dstt_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* delta,
                                       void* dq, int B, int H, int Hkv, int Sq, int Skv, int D,

@@ -162,6 +162,7 @@ cudaError_t launch(const Args& a, const Bias& bb, cudaStream_t stream) {
 template <typename T, bool BIAS>
 cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
   if (D == 128) return launch<T, 128, BIAS>(a, bb, s);
+  if (D == 96) return launch<T, 96, BIAS>(a, bb, s);
   if (D == 64) return launch<T, 64, BIAS>(a, bb, s);
   if (D == 32) return launch<T, 32, BIAS>(a, bb, s);
   return cudaErrorInvalidValue;
@@ -174,7 +175,7 @@ cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, cudaStream_t s)
 }
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] -> o [B, Sq, H, D], lse [B * H, Sq] fp32.
-// dtype: 0 bf16 (flash_fwd_sm90.cu), 1 fp32 (here). D: 32, 64 or 128.
+// dtype: 0 bf16 (flash_fwd_sm90.cu), 1 fp32 (here). D: 32, 64, 96 or 128.
 // window <= 0: none. bias: null (none) or a bf16 (bias_f32 0) / fp32 (1)
 // bias read at b * sb + h * sh + q * sq + kv * sk elements.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, hd 32 / 64 / 128:
+// Flash-attention forward for Hopper (sm_90a), bf16, hd 32 / 64 / 96 / 128:
 // TMA loads into an mbarrier ring, wgmma products, warp specialisation.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (:284,
@@ -46,6 +46,12 @@
 // D = 128: 32 + 3 x 64 = 224 KB; D = 64: 16 + 4 x 32 = 144 KB; D = 32:
 // 8 + 4 x 16 = 72 KB (plus 1 KB of alignment slack and the barriers), all
 // under the 227 KB a block may hold; one block per SM (registers).
+// D = 96 (GPT-NeoX-20B) runs the D = 128 tiles (Cfg::DT): the maps span the
+// tensor's 96 columns, so TMA fills columns 96-127 of each tile with zeros
+// without reading them. S = Q K^T walks only the 6 k16 steps of the real
+// columns; O += P V runs at N = 128 over V's zero columns (a third more MMA
+// on that product) and the epilogue stores columns < 96. wgmma n96 would
+// spend none, at the cost of three 32-column blocks and new wrappers.
 // The bias is read in place through its four strides (flash_common.cuh's
 // rule): on a masked tile at each visible score, on an unmasked one as
 // 8-byte pairs where the kv stride is 1, issued before the S product at
@@ -67,13 +73,14 @@ constexpr int kThreads90 = 3 * 128;   // producer + two consumer warpgroups
 
 template <int D>
 struct Cfg {
-  static constexpr int CB = D < 64 ? D : 64;          // columns of one swizzled block
+  static constexpr int DT = D == 96 ? 128 : D;        // columns of a tile (D = 96: zero-filled)
+  static constexpr int CB = DT < 64 ? DT : 64;        // columns of one swizzled block
   static constexpr int RB = CB * 2;                   // its row bytes
-  static constexpr int NCB = D / CB;                  // column blocks of a tile
+  static constexpr int NCB = DT / CB;                 // column blocks of a tile
   static constexpr int SWZ = RB;                      // 128-byte (64-byte at D = 32) swizzle
   static constexpr int SBO = 8 * RB;                  // stride of 8-row groups
-  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BKV * D * 2;
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int Q_BYTES = BQ * DT * 2, KV_BYTES = BKV * DT * 2;
+  static constexpr int STAGES = DT == 128 ? 3 : 4;
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + BAR_BYTES;
 };
@@ -282,15 +289,15 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* tm
 // O += P V for one kv tile: P (this warpgroup's 64 rows x BKV, bf16) in
 // registers, V at sv read as the transposed B operand.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[BKV / 4],
-                                         uint32_t sv) {
+__device__ __forceinline__ void issue_pv(float (&o)[Cfg<D>::DT / 2],
+                                         const uint32_t (&pa)[BKV / 4], uint32_t sv) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kt = 0; kt < BKV / 16; ++kt) {
     const uint64_t dv = smem_desc(sv + kt * 16 * C::RB, BKV * C::RB, C::SBO, C::SWZ);
-    if constexpr (D == 128)
+    if constexpr (C::DT == 128)
       wgmma_rs_n128(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
-    else if constexpr (D == 64)
+    else if constexpr (C::DT == 64)
       wgmma_rs_n64(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
     else
       wgmma_rs_n32(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
@@ -322,9 +329,9 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
     const Item item(item_of(n), a, plant);
     const int b = item.b, h = item.h, rlo = item.q0 + cw * WG_ROWS;   // first row here
     const int r0 = rlo + acc_row(t, 0);                   // this thread's rows r0, r0 + 8
-    float o[D / 2];
+    float o[C::DT / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < C::DT / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     long long roff[2];   // the bias's element offset of this thread's two rows
 #pragma unroll
@@ -381,7 +388,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
       __syncwarp();
       if (i > 0 && lane == 0) mbar_arrive(sm.empty(prev));
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < C::DT / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 #pragma unroll
       for (int j = 0; j < BKV / 4; ++j) pa[j] = pack_bf16(sacc[2 * j], sacc[2 * j + 1]);
       prev = s;
@@ -486,6 +493,7 @@ cudaError_t launch_sm90(const Args& a, const Bias& bb, cudaStream_t stream) {
 template <bool BIAS>
 cudaError_t launch_sm90_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
   if (D == 128) return launch_sm90<128, BIAS>(a, bb, s);
+  if (D == 96) return launch_sm90<96, BIAS>(a, bb, s);
   if (D == 64) return launch_sm90<64, BIAS>(a, bb, s);
   if (D == 32) return launch_sm90<32, BIAS>(a, bb, s);
   return cudaErrorInvalidValue;

@@ -66,7 +66,7 @@ from .attention import NEG_INF, attention_torch, widen_kv
 from .registry import register
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)   # 96 (GPT-NeoX-20B) runs the 128-column tiles
 
 
 def _visible(sq: int, skv: int, causal: bool, q_offset: int,

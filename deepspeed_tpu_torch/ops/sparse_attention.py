@@ -47,9 +47,11 @@ import torch
 
 from . import _build
 from .attention import attention_torch
-from .flash_attention import _DTYPE_CODE, HEAD_DIMS, _bwd_plain_f32, _fwd_plain, tma_check
+from .flash_attention import _DTYPE_CODE, _bwd_plain_f32, _fwd_plain, tma_check
 from .paged_attention import _workspace
 
+# head dims of the block-sparse kernels (the flash kernels also take 96: ROADMAP B.1)
+SPARSE_HEAD_DIMS = (32, 64, 128)
 BLOCK_SIZES = (16, 32, 64, 128)
 SPARSE_SM90, SPARSE_MMA = "sparse_sm90.cu", "sparse_attention.cu"
 SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's q or kv rows
@@ -195,8 +197,8 @@ def sparse_source(dtype: torch.dtype, block: int, d: int) -> str:
     shape, not a fallback."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"block-sparse attention takes bf16 or fp32, not {dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"block-sparse attention takes head dim in {HEAD_DIMS}, not {d}")
+    if d not in SPARSE_HEAD_DIMS:
+        raise ValueError(f"block-sparse attention takes head dim in {SPARSE_HEAD_DIMS}, not {d}")
     if block not in BLOCK_SIZES:
         raise ValueError(f"block-sparse attention: block size {block} not in {BLOCK_SIZES}")
     return SPARSE_SM90 if dtype == torch.bfloat16 and block == SM90_BLOCK else SPARSE_MMA
@@ -408,9 +410,9 @@ def _kernel_args(name: str, q, k, v, layout, block_size, causal, scale, *rest):
                          f"v {tuple(v.shape)} are not [B, S, H, D] / [B, S, Hkv, D]")
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    if k.shape[:2] != (b, s) or k.shape[3] != d or d not in HEAD_DIMS or h % hkv:
+    if k.shape[:2] != (b, s) or k.shape[3] != d or d not in SPARSE_HEAD_DIMS or h % hkv:
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)} (head dim in {HEAD_DIMS}, H % Hkv == 0, "
+                         f"k {tuple(k.shape)} (head dim in {SPARSE_HEAD_DIMS}, H % Hkv == 0, "
                          f"one sequence length)")
     if block_size not in BLOCK_SIZES:
         raise ValueError(f"{name}: block size {block_size} not in {BLOCK_SIZES}")

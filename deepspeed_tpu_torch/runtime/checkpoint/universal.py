@@ -682,10 +682,11 @@ def model_config_to_json(cfg: Any) -> Optional[Dict[str, Any]]:
 def model_config_from_json(doc: Optional[Dict[str, Any]]) -> Any:
     if not doc:
         return None
-    from ...models import bloom, exaone4, gpt, llama, mixtral
+    from ...models import bloom, exaone4, falcon, gpt, gptneox, llama, mixtral
 
     types = {c.__name__: c for c in (llama.LlamaConfig, gpt.GPTConfig, bloom.BloomConfig,
-                                     exaone4.Exaone4Config, mixtral.MixtralConfig)}
+                                     exaone4.Exaone4Config, mixtral.MixtralConfig,
+                                     falcon.FalconConfig, gptneox.GPTNeoXConfig)}
     return types[doc["type"]](**doc["fields"])
 
 

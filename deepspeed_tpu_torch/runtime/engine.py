@@ -111,6 +111,7 @@ import torch.distributed as dist
 from ..comm import comm
 from ..comm.mesh import BATCH_AXES, ZERO_AXES, MeshManager, get_mesh, init_mesh
 from ..models.convert import jax_leaf
+from ..ops.flash_attention import HEAD_DIMS
 from ..ops.optimizers import Layout, Optimizer, get_optimizer, grouped_optimizer
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist, logger
@@ -778,6 +779,19 @@ def check_compute_dtype(compute_dtype: Optional[torch.dtype],
             "path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
 
 
+def check_head_dim(model_cfg: Any, device: torch.device) -> None:
+    """Raise ``NotImplementedError`` at build time for a family whose head
+    dim the flash-attention kernels do not take (``ops/flash_attention.py``
+    ``HEAD_DIMS``) on a CUDA device, rather than at the first step: GPT-J-6B
+    (hd 256) is that case (ROADMAP queue B.1). On the CPU every head dim
+    runs the plain version."""
+    hd = getattr(model_cfg, "head_size", None)
+    if hd is not None and hd not in HEAD_DIMS and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"head dim {hd} has no CUDA kernel yet on the flash-attention path (the "
+            f"kernels take {HEAD_DIMS}; ROADMAP queue B.1): train on device='cpu'")
+
+
 def mesh_sizes(cfg: DeepSpeedTPUConfig, world: int) -> Dict[str, int]:
     """The config's ``mesh``, or when none is given the ``expert`` axis of
     ``moe.expert_parallel_size`` and ``data`` over the rest (JAX
@@ -810,7 +824,8 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
     the reference's 4-tuple. Runs on the GPU unless ``device="cpu"``; raises
     ``RuntimeError`` when no GPU is present, and ``NotImplementedError``
     for config blocks the port does not implement yet or a model that
-    computes in fp16 on the GPU (:func:`check_compute_dtype`). Over a
+    computes in fp16 on the GPU (:func:`check_compute_dtype`) or whose head
+    dim no flash kernel takes there (:func:`check_head_dim`). Over a
     process group (``comm.init_distributed``) the engine is data parallel
     over every rank; its mesh is ``mesh_mgr`` or a ``data`` mesh over the
     group."""
@@ -827,6 +842,7 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
     cfg = parse_config(config, world_size=world)
     check_ported(cfg, world_size=world)
     check_compute_dtype(model.compute_dtype, device)
+    check_head_dim(model.config, device)
     engine = DeepSpeedTPUEngine(model=model, config=cfg, device=device,
                                 optimizer=optimizer, lr_schedule=lr_scheduler,
                                 training_data=training_data, generator=generator,

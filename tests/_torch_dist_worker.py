@@ -75,11 +75,12 @@ def spawn(job: dict, world: int, tmp_path, timeout: float = 120.0) -> list:
 # scenarios (run inside a rank)
 # --------------------------------------------------------------------------- #
 def _family(name):
-    from deepspeed_tpu_torch.models import bloom, gpt, llama, mixtral
+    from deepspeed_tpu_torch.models import bloom, falcon, gpt, llama, mixtral
 
     return {"llama": (llama, llama.LlamaConfig), "gpt": (gpt, gpt.GPTConfig),
             "bloom": (bloom, bloom.BloomConfig),
-            "mixtral": (mixtral, mixtral.MixtralConfig)}[name]
+            "mixtral": (mixtral, mixtral.MixtralConfig),
+            "falcon": (falcon, falcon.FalconConfig)}[name]
 
 
 def _gathered(eng):

@@ -30,12 +30,18 @@ BASE = {"dtype": "float32", "prefill_bucket": 16,
 class Pair:
     """Tiny Llama (max_seq_len 128) weights and engine builders for both
     packages: ``jax(**conf)`` / ``port(**conf)`` merge ``conf`` into
-    :data:`BASE` (a ``ragged`` dict merges key by key)."""
+    :data:`BASE` (a ``ragged`` dict merges key by key). Another family:
+    its two modules (``jmod``, ``tmod``), the name of its config class and
+    the ``tiny`` fields to change; ``params`` (numpy leaves) replace the
+    JAX ``init``'s."""
 
-    def __init__(self):
-        self.jcfg = jllama.LlamaConfig.tiny(max_seq_len=128)
-        self.tcfg = tllama.LlamaConfig.tiny(max_seq_len=128)
-        self.params = jax.tree.map(np.asarray, jllama.init(self.jcfg, jax.random.PRNGKey(0)))
+    def __init__(self, jmod=jllama, tmod=tllama, config="LlamaConfig", params=None,
+                 **cfg_kw):
+        self.jmod, self.tmod = jmod, tmod
+        self.jcfg = getattr(jmod, config).tiny(max_seq_len=128, **cfg_kw)
+        self.tcfg = getattr(tmod, config).tiny(max_seq_len=128, **cfg_kw)
+        self.params = params if params is not None else \
+            jax.tree.map(np.asarray, jmod.init(self.jcfg, jax.random.PRNGKey(0)))
         self.sd = from_jax_params(self.tcfg, self.params)
         self.vocab = self.tcfg.vocab_size
 
@@ -49,14 +55,14 @@ class Pair:
 
     def jax(self, **conf) -> JEngine:
         mesh_lib.set_mesh(None)
-        jcfg = self.jcfg
-        return JEngine(JFamily.from_module(jllama, jcfg), self.params,
+        jm = self.jmod
+        return JEngine(JFamily.from_module(jm, self.jcfg), self.params,
                        JConfig.from_dict(self.config(**conf)),
-                       init_paged_cache=partial(jllama.init_paged_cache, dtype=jnp.float32),
-                       apply_paged=partial(jllama.apply_paged, compute_dtype=jnp.float32))
+                       init_paged_cache=partial(jm.init_paged_cache, dtype=jnp.float32),
+                       apply_paged=partial(jm.apply_paged, compute_dtype=jnp.float32))
 
     def port(self, **conf):
-        return build_engine_v2(tllama, self.tcfg, self.sd, config=self.config(**conf),
+        return build_engine_v2(self.tmod, self.tcfg, self.sd, config=self.config(**conf),
                                device="cpu")
 
     def prompts(self, lengths, seed=0):

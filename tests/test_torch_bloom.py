@@ -229,7 +229,8 @@ def leaf_rel(g, ref, against=None):
 
 def test_train_limits_separate_sound_from_faulty(monkeypatch):
     """The simulation behind those limits for this family, on the CPU at a
-    reduced width (1 layer, hidden 512, 8 heads of 64, vocab 8192, S 256):
+    reduced width (1 layer, hidden 512, 8 heads of 64, vocab 8192, S 128,
+    the smoke's ``BLOOM_CHECK_SEQ``; 256 until its card-vs-CPU step was cut):
     see :func:`_limits_sim`."""
     _limits_sim(monkeypatch, 8192)
 
@@ -256,7 +257,7 @@ def _limits_sim(monkeypatch, vocab):
     planted fault of the smoke) reads above 0.6 on the attention leaves,
     and LayerNorm's db zeroed (the other) reads 1.0 on the LayerNorm
     biases."""
-    batch = {"tokens": np.random.RandomState(0).randint(0, vocab, (1, 257)).astype(np.int32)}
+    batch = {"tokens": np.random.RandomState(0).randint(0, vocab, (1, 129)).astype(np.int32)}
     cfg = tbloom.BloomConfig(vocab_size=vocab, hidden_size=512, num_layers=1, num_heads=8,
                              max_seq_len=512)
     masters = tbloom.init(cfg, torch.Generator().manual_seed(0))

@@ -317,6 +317,10 @@ FLASH_CASES = [
     (2, 70, 130, 2, 2, 64, False, 0, None),      # non-causal, tails on both sides
     (1, 64, 300, 4, 2, 128, True, 100, None),    # kv rows no query sees: dk = dv = 0
     (1, 192, 192, 4, 1, 64, True, 0, 3),         # narrow window: three keys a row
+    (2, 200, 200, 4, 4, 96, True, 0, None),      # hd 96 (the 128-column tiles, zero-filled)
+    (1, 37, 300, 4, 2, 96, True, 263, None),     # hd 96: q_offset, Sq != Skv
+    (1, 256, 256, 8, 2, 96, True, 0, 50),        # hd 96: sliding window
+    (2, 70, 130, 2, 1, 96, False, 0, None),      # hd 96: non-causal, tails on both sides
 ]
 
 
@@ -435,9 +439,10 @@ def test_flash_check_fails_a_swapped_k_tile(cuda_device):
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q, k, v, _ = flash_inputs((1, 8, 8, 2, 2, 64, True, 0, None), torch.bfloat16,
                               cuda_device)
-    q96, k96, v96, _ = flash_inputs((1, 8, 8, 2, 2, 96), torch.bfloat16, cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_fwd_cuda(q96, k96, v96)
+    for d in (48, 256):      # hd 96 is taken since the GPT-NeoX slice (ROADMAP B.1)
+        qd, kd, vd, _ = flash_inputs((1, 8, 8, 2, 2, d), torch.bfloat16, cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_fwd_cuda(qd, kd, vd)
     with pytest.raises(ValueError, match="dtypes"):
         flash_fwd_cuda(q, k.float(), v)
     with pytest.raises(ValueError, match="window"):
@@ -465,6 +470,88 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert_flash_close(out, attention_torch(q, k, v, bias=bias, window=4), 1e-6)
 
 
+# GPT-NeoX-20B's attention: 64 heads of 96, S 2048 causal and S 1000 under a
+# window (chip_smoke.py phase 25 checks the same)
+NEOX_CASES = [(2048, True, None), (1000, True, 256)]   # S, causal, window
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", NEOX_CASES)
+def test_flash_hd96_at_neox_shapes(cuda_device, case, dtype):
+    s, causal, window = case
+    q, k, v, do = flash_inputs((1, s, s, 64, 64, 96), dtype, cuda_device, seed=s)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+    assert_flash_close(o, o_ref, FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(64, s)
+    got = (flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw),
+           *flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
+    for g, ref in zip(got, flash_bwd_torch(q, k, v, o, lse, do, **kw)):
+        assert g.shape == ref.shape and g.dtype == dtype
+        assert_flash_close(g, ref, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("kind,fault,keys", [("fwd", 1, (0,)), ("fwd", 2, (0,)),
+                                             ("bwd", 1, (1, 2)), ("bwd", 2, (1, 3)),
+                                             ("bwd", 3, (2, 3))])
+def test_sm90_hd96_check_fails_a_planted_fault(cuda_device, kind, fault, keys):
+    """The bf16 kernels' planted faults fail at hd 96 too (o, dq, dk, dv:
+    the outputs each must break), on a GQA shape (16 over 4 heads, S 1024)
+    so that the group's last query head is one of four."""
+    case = (1, 1024, 1024, 16, 4, 96, True, 0, None)
+    q, k, v, do = flash_inputs(case, torch.bfloat16, cuda_device, seed=fault)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v)
+    refs = (o_ref, *flash_bwd_torch(q, k, v, o_ref, lse_ref, do))
+    o, _, grads = _sm90_backward(q, k, v, do, dict(causal=True))
+    for got, ref in zip((o, *grads), refs):
+        assert_flash_close(got, ref, FLASH_TOL[torch.bfloat16])
+    with sm90_planted_fault(fault, kind):
+        o_bad, _, bad = _sm90_backward(q, k, v, do, dict(causal=True))
+    for i in keys:
+        with pytest.raises(AssertionError, match="row err"):
+            assert_flash_close((o_bad, *bad)[i], refs[i], FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_backward_at_falcon_shape(cuda_device):
+    """Falcon-7B's attention: 71 query heads over ONE kv head, hd 64, S
+    2048 causal; dK/dV sums all 71 heads into the narrow kv head."""
+    _sm90_backward_close(cuda_device, (1, 2048, 2048, 71, 1, 64, True, 0, None), seed=71)
+
+
+def test_sparse_entry_still_refuses_hd96(cuda_device):
+    """The block-sparse kernels were not extended with the flash kernels:
+    hd 96 stays refused by their own head dims (ROADMAP B.1)."""
+    q = torch.zeros(1, 256, 2, 96, dtype=torch.bfloat16, device=cuda_device)
+    for bs in (128, 32):
+        with pytest.raises(ValueError, match="head dim"):
+            sparse_source(torch.bfloat16, bs, 96)
+        with pytest.raises(ValueError, match="head dim"):
+            blocksparse_attention(q, q, q, np.ones((256 // bs, 256 // bs), bool), bs)
+
+
+def test_v1_no_cache_forward_at_hd256_raises(cuda_device):
+    """GPT-J's head dim 256 has no flash kernel: v1 serves it (its cached
+    reads are masked, so plain attention), but its no-cache forward raises
+    the wrapper's ValueError, as it did before the family existed."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import gptneox
+
+    cfg = gptneox.GPTNeoXConfig.tiny(hidden_size=512, num_heads=2, rotary_dim=64,
+                                     rotary_interleaved=True, shared_ln=True)
+    params = gptneox.init(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                          dtype=torch.bfloat16)
+    eng = init_inference(gptneox, model_cfg=cfg, params=params,
+                         config={"dtype": "bfloat16", "prefill_bucket": 8})
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    before = flash_fwd_cuda.launches
+    out = eng.generate(prompts, max_new_tokens=4)
+    assert out.shape == (2, 4) and flash_fwd_cuda.launches == before
+    with pytest.raises(ValueError, match="head dim"):
+        eng.forward(prompts)
+
+
 # --------------------------------------------------------------------------- #
 # the bf16 forward on TMA + wgmma (ops/csrc/flash_fwd_sm90.cu)
 # --------------------------------------------------------------------------- #
@@ -490,7 +577,7 @@ def _sm90_forward_close(device, case, seed, bias=None):
     return o, lse, o_ref, lse_ref
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("s", [1, 127, 129, 200, 4096])
 @pytest.mark.parametrize("causal", [True, False])
 def test_sm90_forward_lengths(cuda_device, d, s, causal):
@@ -500,7 +587,7 @@ def test_sm90_forward_lengths(cuda_device, d, s, causal):
 
 
 @pytest.mark.parametrize("sq,skv", [(1, 4096), (127, 200), (129, 4096), (200, 129), (1, 127)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_sm90_forward_unequal_lengths(cuda_device, sq, skv, d):
     """Sq != Skv, non-causal (every pair visible) and causal as a continued
     prefill (q row 0 at position Skv - Sq, where that is >= 0)."""
@@ -511,14 +598,14 @@ def test_sm90_forward_unequal_lengths(cuda_device, sq, skv, d):
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_sm90_forward_gqa(cuda_device, g, d):
     """GQA read in place: query head h reads kv head h // g."""
     _sm90_forward_close(cuda_device, (2, 300, 300, 8, 8 // g, d, True, 0, None), seed=g * d)
 
 
 @pytest.mark.parametrize("window", [1, 3, 100, 1024])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 96, 128])
 def test_sm90_forward_window(cuda_device, window, d):
     """The causal window: kv tiles before the band are not loaded, tiles
     across its edge are masked."""
@@ -551,7 +638,7 @@ def test_sm90_forward_bias_strides(cuda_device, form, bias_dtype, d, causal, skv
                         seed=d, bias=bias.to(cuda_device, bias_dtype))
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_sm90_forward_rows_that_see_no_key(cuda_device, d):
     """No bias: q rows past the window's reach see no key and get o = 0,
     lse = -1e30 (the TPU kernel's ``_finish``)."""
@@ -661,7 +748,7 @@ def _sm90_backward_close(device, case, seed, one_key=False):
     return grads, refs
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("s", [1, 127, 129, 200, 4096])
 @pytest.mark.parametrize("causal", [True, False])
 def test_sm90_backward_lengths(cuda_device, d, s, causal):
@@ -673,7 +760,7 @@ def test_sm90_backward_lengths(cuda_device, d, s, causal):
 
 
 @pytest.mark.parametrize("sq,skv", [(1, 4096), (127, 200), (129, 4096), (200, 129), (1, 127)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 def test_sm90_backward_unequal_lengths(cuda_device, sq, skv, d):
     """Sq != Skv, non-causal, and causal as a continued prefill (q row 0 at
     position Skv - Sq, where that is >= 0): kv rows before the first q
@@ -685,7 +772,7 @@ def test_sm90_backward_unequal_lengths(cuda_device, sq, skv, d):
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_sm90_backward_gqa(cuda_device, g, d):
     """GQA read in place; dK/dV narrow, each kv head summing its g query
     heads in registers."""
@@ -693,7 +780,7 @@ def test_sm90_backward_gqa(cuda_device, g, d):
 
 
 @pytest.mark.parametrize("window", [1, 3, 100, 1024])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 96, 128])
 def test_sm90_backward_window(cuda_device, window, d):
     """The causal window: tiles outside the band are not loaded, tiles
     across its edge are masked. A window of 1: each query sees itself."""
@@ -703,7 +790,7 @@ def test_sm90_backward_window(cuda_device, window, d):
                          seed=window * d, one_key=window == 1)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_sm90_backward_rows_that_see_no_key(cuda_device, d):
     """q rows past the window's reach see no key (lse = -1e30): their dq is
     exactly 0, and kv rows no query sees get dk = dv = 0."""
@@ -852,7 +939,7 @@ def test_sm90_bias_backward_strides(cuda_device, d, causal, sq, skv, bias_dtype,
                      bias, seed=d, need_dbias=need_dbias)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("sq,skv,causal", [(127, 127, True), (129, 129, False), (64, 300, True),
                                            (300, 64, False), (1000, 1000, True),
                                            (37, 4096, True)])
@@ -867,7 +954,7 @@ def test_sm90_bias_backward_lengths(cuda_device, d, sq, skv, causal):
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 def test_sm90_bias_backward_gqa(cuda_device, g, d):
     """GQA with a bias: each query head reads its own bias slice, and each
     kv head's dK/dV sums its g query heads in registers."""
@@ -1294,6 +1381,26 @@ def test_layer_norm_kernel_matches_plain(cuda_device, rows, d, dtype, with_bias)
     tol = RMS_TOL[dtype]
     torch.testing.assert_close(got.float(), layer_norm_torch(x, w, b, 1e-5).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [4544, 6144, 4096])
+def test_layer_norm_at_model_widths(cuda_device, d):
+    """Falcon-7B's (4544), GPT-NeoX-20B's (6144) and GPT-J-6B's (4096)
+    widths at 4096 rows, bf16: forward against the plain version and the
+    kernel's backward against ``layer_norm_bwd``."""
+    x, w, b = _ln_inputs(4096, d, torch.bfloat16, cuda_device)
+    before = layer_norm_cuda.launches
+    got = layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert layer_norm_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), layer_norm_torch(x, w, b, 1e-5).float(),
+                               rtol=RMS_TOL[torch.bfloat16], atol=RMS_TOL[torch.bfloat16])
+    dy = torch.randn(4096, d, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(d)).bfloat16()
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    layer_norm(*leaves, 1e-5).backward(dy)
+    for leaf, ref in zip(leaves, layer_norm_bwd(x, w, dy, 1e-5)):
+        torch.testing.assert_close(leaf.grad.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_layer_norm_kernel_large_mean(cuda_device):
@@ -1867,8 +1974,10 @@ def test_bias_and_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda_devic
     lay = np.ones((2, 2), bool)
     with pytest.raises(ValueError, match="head dim"):
         sparse_fwd_cuda(q, k, v, lay, 48)
+    # the flash bias mode takes hd 96 since the GPT-NeoX slice; 256 it refuses
+    q256, k256, v256, _ = flash_inputs((1, 96, 96, 2, 2, 256), torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="head dim"):
-        flash_fwd_bias_cuda(q, k, v, torch.zeros(2, 1, 96, device=cuda_device))
+        flash_fwd_bias_cuda(q256, k256, v256, torch.zeros(2, 1, 96, device=cuda_device))
     q, k, v, do = flash_inputs((1, 96, 96, 2, 2, 64), torch.bfloat16, cuda_device)
     with pytest.raises(ValueError, match="block size 48"):
         sparse_fwd_cuda(q, k, v, lay, 48)

@@ -20,7 +20,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     BWD_MMA, BWD_SM90, HEAD_DIMS, _bias_args, _sm90, bwd_source, tma_check)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("dtype,has_bias,source", [
     (torch.bfloat16, False, "flash_bwd_sm90.cu"),
     (torch.bfloat16, True, "flash_bwd_sm90.cu"),
@@ -35,7 +35,7 @@ def test_routing_table(d, dtype, has_bias, source):
 
 
 @pytest.mark.parametrize("has_bias", [False, True])
-@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("d", [16, 48, 256])
 def test_an_unsupported_head_dim_raises(d, has_bias):
     assert d not in HEAD_DIMS
     with pytest.raises(ValueError, match="head dim"):

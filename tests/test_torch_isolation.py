@@ -145,7 +145,8 @@ def test_new_modules_are_covered_by_the_import_checks():
                  "deepspeed_tpu_torch.inference.serving.workload",
                  "deepspeed_tpu_torch.comm", "deepspeed_tpu_torch.comm.comm",
                  "deepspeed_tpu_torch.comm.mesh", "deepspeed_tpu_torch.runtime.partitioning",
-                 "deepspeed_tpu_torch.runtime.zero_init"):
+                 "deepspeed_tpu_torch.runtime.zero_init", "deepspeed_tpu_torch.models.falcon",
+                 "deepspeed_tpu_torch.models.gptneox", "deepspeed_tpu_torch.ops.rotary"):
         assert name in mods
     # the module system resolves on CPU tensors without building anything
     norm = modules.registry.instantiate("norm", modules.NormConfig(kind="layer"))
@@ -235,6 +236,32 @@ def test_bloom_evoformer_and_blocksparse_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         blocksparse_attention(q, q, q, lay, 16)
     assert blocksparse_attention(q, q, q, lay, 16, use_kernel=False).shape == q.shape
+
+
+def test_falcon_and_gptneox_entry_points_default_to_the_gpu():
+    """Falcon's and GPT-NeoX's trainers, v1 and Falcon's v2 engine and
+    pools run on the card unless the CPU is asked for."""
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.models import falcon, gptneox
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a GPU")
+    conf = {"train_batch_size": 1, "steps_per_print": 0}
+    for fam, cfg in ((falcon, falcon.FalconConfig.tiny()),
+                     (gptneox, gptneox.GPTNeoXConfig.tiny())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            deepspeed_tpu_torch.initialize(model=fam.model_spec(cfg), config=conf)
+        params = fam.init(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_inference(fam, model_cfg=cfg, params=params)
+    cfg = falcon.FalconConfig.tiny()
+    params = falcon.init(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine_v2(falcon, cfg, params, config={"dtype": "float32"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        falcon.init_paged_cache(cfg, 4, 8)
+    eng = build_engine_v2(falcon, cfg, params, config={"dtype": "float32"}, device="cpu")
+    assert eng.model.embed.device.type == "cpu"
 
 
 def test_init_distributed_defaults_to_nccl_and_gloo_only_when_asked():
