@@ -372,8 +372,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    loss finite and falling. (b) Phase 8's card-vs-CPU check at those 4
    layers (S ``EXA_CHECK_SEQ``, 128, cut from 256); RoPE on the global
    layers (planted) must fail it. (c)
-   Serving at ``EXA_SERVE_LAYERS`` (8) of the 64 layers (two LLLG
-   periods, 9.8 GB of weights, shared by every engine; cut from 64 for the
+   Serving at ``EXA_SERVE_LAYERS`` (4) of the 64 layers (one LLLG
+   period, shared by every engine; cut from 64 to 16, 8 and 4 for the
    smoke's time):
    8 prompts (``EXA_LENGTHS``: two of 5120 tokens, so that decodes read past
    the 4096 window, split into 512-token prefill chunks) x 32 greedy tokens
@@ -399,8 +399,8 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    gradient: without it the step read 0.21-0.43 a leaf on the H100), with
    the share the CPU's own gating would have chosen otherwise printed; the
    card's gates left unrenormalized (planted) must fail it. (c) Serving at
-   ``MIX_SERVE_LAYERS`` (8) of the 32 layers (23.5 GB of weights; 32
-   layers' 93 GB fit no card; cut from 16 for the smoke's time), shared by
+   ``MIX_SERVE_LAYERS`` (4) of the 32 layers (11.8 GB of weights; 32
+   layers' 93 GB fit no card; cut from 16 to 8 and 4 for the smoke's time), shared by
    every engine: the 8 self-repeating prompts x 32 greedy tokens through v2
    on bf16 pools (the decode graph), with speculative decoding + fused
    verify, and on int8 pools; RMSNorm 17 a forward, 8 paged launches a replay; the decode step
@@ -447,6 +447,36 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    GPT-J-6B (``gptj_6b``, hd 256) v1 at ``GPTJ_LAYERS`` (4) of 28: no flash
    launch, its tokens against the dense-cache fp32 forward (plain
    attention: no flash kernel takes hd 256), rotary on halves planted.
+26. fp16 on the card (``phase_fp16``): the fp16 instantiations of the
+   flash forward, dQ and dK/dV against their plain pieces in fp16 within
+   ``FP16_PIECES_TOL`` at Llama-3-8B's S 4096 causal 32/8 hd 128, under a
+   window of 1024 and at q_offset 3584, at OPT-1.3B's hd 64 and
+   GPT-NeoX-20B's hd 96, and the ALiBi bias mode at BLOOM-7b1's shape; the
+   forward's two, the backward's three and the bias mode's fourth planted
+   faults failing; a planted overflow (dO near fp16's top) giving inf / nan
+   in the same grad elements as the plain version; the Llama-3-8B and
+   BLOOM cases timed beside their bound, the plain pieces and SDPA in fp16
+   (``enable_gqa`` at GQA, a float mask with ALiBi). The paged kernel in fp16 at the Llama serving shape:
+   decode and verify over fp16 pools and int8 pools (ng 1 and 4), two calls
+   bit-identical, its three planted faults and a wrong table entry failing,
+   timed at the serving prompts' step. Op ``attention`` with ALiBi under
+   autograd in fp16 (the bias kernels' path). Training under DeepSpeed's
+   fp16 block (``FP16_BLOCK``): phase 7's Llama-3-8B width at 4 layers
+   through ``train_batch`` (the loss scale printed after each step); a
+   2-layer step card (fp16) against CPU (fp32) within ``FP16_LOSS_RTOL`` /
+   ``FP16_GRAD_RTOL`` (``tests/test_torch_fp16_limits.py``), dV of kv head 0
+   zeroed failing; an overflow drill from 2^32 on a narrow 2-layer Llama,
+   card against CPU (skipped steps leave every param and optimizer tensor
+   bit for bit, the scale sequences equal to within one step of where each
+   stops skipping); ZeRO-3 equal to stage 0 bit for bit at 2 layers over an
+   NCCL group of world size 1. Serving Llama-3-8B at 32 layers (16 GB of
+   fp16 weights): v2 graph decode on fp16 pools, on int8 pools and under
+   spec + fused verify (launches held to the engine's step counts), the
+   decode step against its weight-bytes bound; v1 in fp16 (its no-cache
+   forward on the fp16 flash kernel), v1 against v2 equal on half the rows
+   or more with every parting a near-tie; at 2 layers every token of v1 and
+   the three v2 engines within ``V1_NOISE_RATIO`` x the fp16 forward's own
+   error from fp32, a late cache write planted and failing.
 
 The last three lines: ``{"profile_sessions": {...}}`` (the sessions each
 checked profiler window of phases 16 and 17 took), ``{"kernels": [...]}``
@@ -1968,9 +1998,11 @@ def flash_opt_shape(gen, card: str) -> dict:
     return {"timing": rows, "pairs": work["pairs"], **_pieces_result(errs)}
 
 
-def _train_config(seed: int, gas: int, bf16: bool, micro: int = 1) -> dict:
+def _train_config(seed: int, gas: int, bf16: bool, micro: int = 1, fp16=None) -> dict:
+    """The smoke's training config; ``fp16`` (a DeepSpeed ``fp16`` block)
+    replaces bf16 with it."""
     return {"train_batch_size": gas * micro, "gradient_accumulation_steps": gas,
-            "bf16": {"enabled": bf16},
+            "bf16": {"enabled": bf16 and not fp16}, "fp16": fp16 or {"enabled": False},
             "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.1}},
             "gradient_clipping": 1.0, "zero_optimization": {"stage": 0},
             "seed": seed, "steps_per_print": 0}
@@ -2018,14 +2050,16 @@ PROFILE_GROUPS = [
 def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
                 seq: int = 4096, gas: int = 2, micro: int = 1, norm: str = "rms_norm",
                 bias_mode: bool = False, norms_per_layer_extra: int = 1,
-                norms_per_layer: int = 2, steps: int = TRAIN_STEPS):
+                norms_per_layer: int = 2, steps: int = TRAIN_STEPS, fp16=None):
     """``initialize(model=family.model_spec(cfg))`` and ``steps`` steps of
     ``train_batch`` on one fixed batch of ``gas`` micro-batches of ``micro``
     sequences; by default Llama-3-8B width at 4 layers. ``norm`` names the
     family's norm op, launched ``norms_per_layer`` per layer plus
     ``norms_per_layer_extra`` per forward; ``bias_mode``: attention runs the
     flash kernels' bias mode (ALiBi), and the no-bias flash kernels must not
-    launch."""
+    launch. ``fp16``: a DeepSpeed ``fp16`` block, the model computing in
+    fp16 under its dynamic loss scale (each step's scale and overflow
+    kept)."""
     import torch
 
     import deepspeed_tpu_torch as dst
@@ -2038,8 +2072,9 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     family = family or llama
     cfg = cfg or dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=4)
     t0 = time.perf_counter()
-    eng, *_ = dst.initialize(model=family.model_spec(cfg),
-                             config=_train_config(seed, gas, True, micro))
+    spec = (family.model_spec(cfg, compute_dtype=torch.float16) if fp16
+            else family.model_spec(cfg))
+    eng, *_ = dst.initialize(model=spec, config=_train_config(seed, gas, True, micro, fp16))
     n_params = sum(p.numel() for p in eng.state.params.values())
     log(f"  engine: {cfg.num_layers} layers at {label} width, {n_params/1e9:.3f} B params "
         f"(fp32 masters + AdamW), {gas} micro-batches of {micro} x {seq} tokens, "
@@ -2057,13 +2092,14 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
              "flash_bwd_dkv_bias": flash_bwd_dkv_bias_cuda}
     for c in (*flash.values(), *norms.values()):
         c.launches = 0
-    losses, step_s, metrics = [], [], {}
+    losses, step_s, metrics, scales = [], [], {}, []
     for _ in range(steps):
         t0 = time.perf_counter()
         out = eng.train_batch(batch)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out.loss))
+        scales.append((float(out.loss_scale), bool(out.overflow)))
         for m in ("lm_loss", "aux_loss"):       # a MoE family's two parts of the loss
             if m in out.aux:
                 metrics.setdefault(m, []).append(float(out.aux[m]))
@@ -2076,6 +2112,9 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
     want.update({norm: (norms_per_layer * cfg.num_layers + norms_per_layer_extra) * gas * steps,
                  other_norm: 0})
     log(f"  losses {['%.4f' % l for l in losses]}; launches {launches}, expected {want}")
+    if fp16:
+        log("  loss scale after each step (overflow): "
+            + ", ".join(f"{sc:g} ({'skipped' if o else 'applied'})" for sc, o in scales))
     if launches != want:
         raise AssertionError(f"kernel launch counts {launches} != expected {want}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2087,7 +2126,7 @@ def phase_train(seed: int, card: str, family=None, cfg=None, label="Llama-3-8B",
            "tokens_per_s": gas * micro * seq / (step_ms / 1e3), "model_flops_per_step": flops,
            "model_tflops": flops / (step_ms / 1e3) / 1e12, "peak_mem_bytes": peak,
            "launches": launches, "num_layers": cfg.num_layers, "seq": seq, "gas": gas,
-           "micro": micro, "n_params": n_params, "metrics": metrics}
+           "micro": micro, "n_params": n_params, "metrics": metrics, "loss_scales": scales}
     if metrics:
         log("  " + ", ".join(f"{m} {['%.4f' % x for x in v]}" for m, v in metrics.items()))
     res["mfu"] = res["model_tflops"] * 1e12 / BF16_FLOPS
@@ -2137,22 +2176,24 @@ def fault_drop_reduce_scatter(shape=(4096, 4096)):
         comm.reduce_scatter = sound
 
 
-def zero_train(seed: int, cfg, stage: int, batch, steps: int, counters=None):
+def zero_train(seed: int, cfg, stage: int, batch, steps: int, counters=None, fp16=None):
     """``steps`` of ``train_batch`` at ZeRO ``stage`` over the installed
     mesh: (losses, grad norms, step seconds, collectives by op a step,
-    (bytes allocated before the engine, peak bytes), the engine)."""
+    (bytes allocated before the engine, peak bytes), the engine). ``fp16``:
+    a DeepSpeed ``fp16`` block, the model computing in fp16."""
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models import llama
 
-    conf = _train_config(seed, 2, True)
+    conf = _train_config(seed, 2, True, fp16=fp16)
     conf["zero_optimization"] = {"stage": stage}
     gc.collect()                  # what earlier phases left in reference cycles
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
-    eng, *_ = dst.initialize(model=llama.model_spec(cfg), config=conf)
+    spec = llama.model_spec(cfg, compute_dtype=torch.float16) if fp16 else llama.model_spec(cfg)
+    eng, *_ = dst.initialize(model=spec, config=conf)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters or ():
@@ -2600,14 +2641,17 @@ def fault_zero_alibi():
 def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-width",
                       fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL,
                       against: dict = None, leaf_tol: dict = None, layers: int = 1,
-                      seq: int = 256):
+                      seq: int = 256, fp16=None, loss_tol: float = TRAIN_LOSS_RTOL):
     """``layers`` layer(s) at full width (Llama-3-8B by default), S = ``seq``: one step's
     loss and every leaf's gradient, card (kernels, bf16) against CPU (plain,
     fp32), each leaf's error over its reference norm within ``grad_tol``
     (``leaf_tol`` names leaves held at limits of their own; ``against`` maps
     a leaf whose reference gradient is zero in exact arithmetic to the leaf
     whose reference norm it is measured against); each planted ``fault``
-    (one context manager, or a tuple of them) must fail the same check."""
+    (one context manager, or a tuple of them) must fail the same check.
+    ``fp16``: the card computes in fp16 under this DeepSpeed ``fp16`` block,
+    its grads unscaled by the loss scale before the compare; ``loss_tol``
+    the loss's limit."""
     import torch
 
     import deepspeed_tpu_torch as dst
@@ -2620,18 +2664,25 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     rs = np.random.RandomState(seed + 2)
     batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)}
 
+    low = torch.float16 if fp16 else torch.bfloat16
+    low_name = "fp16" if fp16 else "bf16"
+
     def step(device, bf16):
         params = {k: v.to(device) for k, v in masters.items()}
         eng, *_ = dst.initialize(
             model=dst.ModelSpec(params=params, loss_fn=lambda p, b: family.loss_fn(
-                cfg, p, b, compute_dtype=torch.bfloat16 if bf16 else torch.float32)),
-            config=_train_config(seed, 1, bf16), device=device)
+                cfg, p, b, compute_dtype=low if bf16 else torch.float32)),
+            config=_train_config(seed, 1, bf16, fp16=fp16 if bf16 else None), device=device)
         # the engine copied the leaves: drop the given ones (host memory at
         # EXAONE-4's width)
         params.clear()
         eng.model.params = None
         loss = float(eng.forward(batch))
-        grads = {k: p.grad.float().cpu() for k, p in eng.state.params.items()}
+        inv = 1.0 / eng.loss_scale
+        # the grads stay where the step ran (compare holds the card's to the
+        # CPU's on the card), unscaled where a loss scale ran
+        grads = {k: p.grad.float() if inv == 1.0 else p.grad.float() * inv
+                 for k, p in eng.state.params.items()}
         del eng, params
         return loss, grads
 
@@ -2652,20 +2703,27 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
             raise AssertionError(f"{k}'s reference gradient is not zero; hold it against "
                                  "its own norm")
 
+    # the CPU's grads go to the card a leaf at a time, for their norms once
+    # and for each card step's distances: passes over GBs of fp32 grads take
+    # seconds on the host and milliseconds on the card
+    ref_norm = {k: float(v.to("cuda").norm()) for k, v in g_cpu.items()}
+
     def compare(grads):
-        return {k: float((grads[k] - g_cpu[k]).norm()) /
-                max(float(g_cpu[against.get(k, k)].norm()), 1e-30) for k in g_cpu}
+        return {k: float((grads[k] - g_cpu[k].to(grads[k].device)).norm()) /
+                max(ref_norm[against.get(k, k)], 1e-30) for k in g_cpu}
 
     def worst_of(rel):
         return max(rel, key=lambda k: rel[k] / tol[k])
 
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     rel = compare(g_gpu)
+    del g_gpu
+    torch.cuda.empty_cache()
     worst = worst_of(rel)
-    ok = loss_rel <= TRAIN_LOSS_RTOL and rel[worst] <= tol[worst] and \
+    ok = loss_rel <= loss_tol and rel[worst] <= tol[worst] and \
         all(np.isfinite(list(rel.values())))
-    log(f"  {layers}-layer {label} step, card (bf16, kernels) vs CPU (fp32, plain): loss "
-        f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_RTOL:g}); "
+    log(f"  {layers}-layer {label} step, card ({low_name}, kernels) vs CPU (fp32, plain): loss "
+        f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {loss_tol:g}); "
         f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {tol[worst]:g}) "
         f"{'ok' if ok else 'FAIL'}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
     for k in sorted(rel):
@@ -2680,6 +2738,8 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
         with fault_cm() as what:
             _, g_bad = step("cuda", True)
         rel_bad = compare(g_bad)
+        del g_bad
+        torch.cuda.empty_cache()
         worst_bad = worst_of(rel_bad)
         log(f"  planted fault ({what}): worst leaf {worst_bad} "
             f"{rel_bad[worst_bad]:.4f} (must exceed tol {tol[worst_bad]:g})")
@@ -2690,7 +2750,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     del masters
     torch.cuda.empty_cache()
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
-            "grad_rel": rel, "loss_tol": TRAIN_LOSS_RTOL, "grad_tol": grad_tol,
+            "grad_rel": rel, "loss_tol": loss_tol, "grad_tol": grad_tol,
             "leaf_tol": leaf_tol, "against": against,
             "planted_fault": faults[0], "planted_faults": faults,
             "card_s": gpu_s, "cpu_s": cpu_s}
@@ -5804,7 +5864,8 @@ def v1_v2_parting(cfg, eng, prompts, lengths, v1_outs, v2_outs, leave, v2_ticks,
             f"{row['v1'][2] if row['v1'] else float('nan'):.4f}, v2 "
             f"{row['v2'][2] if row['v2'] else float('nan'):.4f}, fp32 {row['fp32'][2]:.4f} "
             f"(fp32 argmax {row['fp32'][0]}); fp32 margin of v1's token over v2's "
-            f"{row['fp32_margin_v1_minus_v2']:+.4f} against the bf16 error {noise:.4f}: "
+            f"{row['fp32_margin_v1_minus_v2']:+.4f} against the 16-bit path's error "
+            f"{noise:.4f}: "
             f"{row['verdict']}")
     out["v1_repeat_equal"] = [list(map(int, r)) for r in again] == \
         [list(map(int, r)) for r in v1_outs]
@@ -6524,7 +6585,8 @@ EXA_CHECK_LAYERS = 4           # the fp32-reference checks: one LLLG period
 EXA_CHECK_SEQ = 128            # the card-vs-CPU step's tokens (cut from 256 for the CPU's
                                # time; its worst leaf read 0.0284 at 128 on the H100, 0.0279
                                # at 256)
-EXA_SERVE_LAYERS = 8           # serving depth, 2 LLLG periods (cut from 64: the smoke's time)
+EXA_SERVE_LAYERS = 4           # serving depth, one LLLG period (64 -> 16 -> 8 -> 4 for the
+                               # smoke's time)
 
 
 def exaone_cfg(layers=None):
@@ -6811,8 +6873,8 @@ def phase_exaone4(seed: int, card: str) -> dict:
 
 
 MIX_TRAIN_LAYERS = 2           # Mixtral-8x7B width: 3.17 B parameters, fp32 masters + AdamW
-MIX_SERVE_LAYERS = 8           # 23.5 GB of bf16 weights (32 layers' 93 GB fit no card;
-                               # cut from 16 for the smoke's time)
+MIX_SERVE_LAYERS = 4           # 11.8 GB of bf16 weights (32 layers' 93 GB fit no card;
+                               # 16 -> 8 -> 4 for the smoke's time)
 MIX_CHECK_LAYERS = 2           # the fp32-reference checks
 MIX_SEQ = 4096                 # tokens a training micro-batch
 MIX_CHECK_SEQ = 128            # tokens of the card-vs-CPU step (256 in phase 8: the CPU's time)
@@ -7355,21 +7417,24 @@ def fault_rotary(**change):
 
 
 def fp32_stream_check(label: str, family, cfg, params, prompts, outs_by_engine: dict, fault,
-                 forward=None) -> dict:
+                 forward=None, low=None) -> dict:
     """Every token of each engine's streams (``outs_by_engine``: name ->
     streams) against the fp32 forward of the same weights within
     ``V1_NOISE_RATIO`` x the bf16 forward's own error from it on the longest
     prompt; ``fault`` = (name, streams made under a planted fault, its
     prompts) must exceed that. ``forward`` (tokens -> logits, compute
-    dtype) replaces ``family.apply`` for both."""
+    dtype) replaces ``family.apply`` for both; ``low``: the engines'
+    compute dtype (bf16 unless given)."""
     import torch
 
+    low = low or torch.bfloat16
     fwd = forward or (lambda t, dt: family.apply(cfg, params, t, compute_dtype=dt))
     long_ = torch.as_tensor(max(prompts, key=len), device="cuda")[None].long()
     with torch.inference_mode():
-        noise = row_err(fwd(long_, torch.bfloat16), fwd(long_, torch.float32))[1]
+        noise = row_err(fwd(long_, low), fwd(long_, torch.float32))[1]
     tol = V1_NOISE_RATIO * noise
-    log(f"  {label}: the bf16 forward against fp32 on the {long_.shape[1]}-token prompt "
+    log(f"  {label}: the {str(low).split('.')[-1]} forward against fp32 on the "
+        f"{long_.shape[1]}-token prompt "
         f"{noise:.4f} of a row's RMS; limit {tol:.4f}")
     f32 = lambda seq: fwd(seq.long(), torch.float32)  # noqa: E731
     checks = {name: fp32_gaps(family, cfg, params, prompts, outs, forward=f32)
@@ -7675,6 +7740,643 @@ def bloom_v1_peak(seed: int, card: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 26: fp16 on the card
+# --------------------------------------------------------------------------- #
+# DeepSpeed's documented fp16 block (dynamic loss scale from 2^16)
+FP16_BLOCK = {"enabled": True, "loss_scale": 0, "initial_scale_power": 16,
+              "loss_scale_window": 1000, "hysteresis": 2, "min_loss_scale": 1}
+# a 16-bit kernel against its plain version in fp16 (the same rounding
+# points): each row's largest error over its RMS (floored at 1% of the
+# output's), tests/test_torch_cuda_kernels.py's FLASH_TOL_FP16; the paged
+# kernel at its own ROWS_TOL
+FP16_PIECES_TOL = 0.02
+FP16_PIECES_FLOOR = 0.01
+# the card's fp16 step against the CPU's fp32 one (tests/test_torch_fp16_limits.py)
+FP16_LOSS_RTOL = 5e-4
+FP16_GRAD_RTOL = 0.012
+FP16_CHECK_LAYERS = 2          # the card-vs-CPU step and the fp32-reference stream checks
+FP16_CHECK_SEQ = 128
+FP16_DRILL_POWER = 32          # the overflow drill's initial_scale_power
+FP16_DRILL_STEPS = 24          # at most, until two steps in a row apply
+FP16_ZERO_LAYERS = 2           # ZeRO-3 against stage 0 under fp16 (phase 18 holds bf16 at 4)
+FP16_ZERO_STEPS = 2
+# label, (B, Sq, Skv, H, Hkv, hd), kw, timed (at Llama-3-8B's shape only: the
+# other shapes' fp16 times track their bf16 ones: PERF.md section 6)
+FP16_FLASH_CASES = [
+    ("Llama-3-8B S=4096 causal 32/8", (1, 4096, 4096, 32, 8, 128), {"causal": True}, True),
+    ("window 1024 S=4096", (1, 4096, 4096, 32, 8, 128), {"causal": True, "window": 1024}, False),
+    ("Sq=512 Skv=4096 q_offset=3584", (1, 512, 4096, 32, 8, 128),
+     {"causal": True, "q_offset": 3584}, False),
+    ("OPT-1.3B 4x2048 32/32 hd 64", (OPT_MICRO, 2048, 2048, 32, 32, 64), {"causal": True}, False),
+    ("GPT-NeoX-20B 2048 64/64 hd 96", (1, 2048, 2048, 64, 64, 96), {"causal": True}, False),
+]
+
+
+FP16_BIAS_LABEL = "BLOOM-7b1 ALiBi 2x2048 32 heads"
+
+
+def _f16_randn(gen, *shape):
+    import torch
+
+    return torch.randn(*shape, generator=gen, device="cuda").to(torch.float16)
+
+
+def _f16_fault(what: str, got, ref) -> dict:
+    """A planted fault must fail the fp16 check: a row beyond its limit, or
+    a value that is not finite."""
+    import torch
+
+    err, rel = row_err(got, ref, floor=FP16_PIECES_FLOOR)
+    finite = bool(torch.isfinite(got.float()).all())
+    log(f"  planted fault ({what}): max_abs_err={err:.3e}, row err/RMS={rel:.4f}, finite "
+        f"{finite} (must exceed tol {FP16_PIECES_TOL:g} or not be finite)")
+    if rel <= FP16_PIECES_TOL and finite:
+        raise AssertionError(f"the fp16 check passes a planted fault ({what}); too loose")
+    return {"what": what, "row_err_over_rms": rel, "finite": finite}
+
+
+def p26_flash(gen, card: str) -> dict:
+    """The fp16 flash forward, dQ and dK/dV against their plain pieces in
+    fp16 in every mode the training paths take, the ALiBi bias mode at
+    BLOOM-7b1's shape, each kernel's planted faults and a planted overflow;
+    times beside the bound, the plain pieces and SDPA in fp16."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models.bloom import _alibi_bias
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bias_cuda, flash_bwd_dq_bias_cuda, flash_bwd_torch, flash_fwd_bias_cuda,
+        flash_fwd_cuda, flash_fwd_torch, sm90_planted_fault)
+
+    res = {"tol": FP16_PIECES_TOL, "floor": FP16_PIECES_FLOOR, "cases": {}, "timing": {},
+           "planted_faults": {}}
+    errs_all = {k: 0.0 for k in ("o", "dq", "dk", "dv", "dbias")}
+
+    def check(label, got, ref, keys):
+        out = {}
+        for key in keys:
+            out[key] = check_close(f"fp16 flash {label} {key}", got[key], ref[key],
+                                   FP16_PIECES_TOL, floor=FP16_PIECES_FLOOR)
+            errs_all[key] = max(errs_all[key], out[key][0])
+        return out
+
+    for label, (b, sq, skv, h, hkv, hd), kw, timed in FP16_FLASH_CASES:
+        q, do = (_f16_randn(gen, b, sq, h, hd) for _ in range(2))
+        k, v = (_f16_randn(gen, b, skv, hkv, hd) for _ in range(2))
+        o, lse = flash_fwd_cuda(q, k, v, **kw)
+        ref = {"o": flash_fwd_torch(q, k, v, **kw)[0]}
+        ref.update(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, **kw)))
+        got = {"o": o, **_bwd_pieces(q, k, v, do, o, lse, kw)}
+        if o.dtype != torch.float16 or any(got[x].dtype != torch.float16 for x in got):
+            raise AssertionError(f"fp16 flash {label}: outputs are not fp16")
+        res["cases"][label] = _pieces_result(check(label, got, ref, ("o", "dq", "dk", "dv")))
+        if label == FP16_FLASH_CASES[0][0]:
+            for fault, what in ((1, "ring stage read one step late"),
+                                (2, "last kv tile of the causal band dropped")):
+                with sm90_planted_fault(fault):
+                    o_bad, _ = flash_fwd_cuda(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                res["planted_faults"][f"fwd {fault}"] = _f16_fault(f"fp16 fwd: {what}", o_bad,
+                                                                  ref["o"])
+            for fault, what, keys in BWD_FAULTS:
+                with sm90_planted_fault(fault, "bwd"):
+                    bad = _bwd_pieces(q, k, v, do, o, lse, kw)
+                res["planted_faults"][f"bwd {fault}"] = [
+                    _f16_fault(f"fp16 bwd: {what}, {key}", bad[key], ref[key]) for key in keys]
+                del bad
+        del ref, got
+        if timed:
+            work = flash_work(sq, skv, hkv, True, 0, None, b=b, hd=hd, h=h)
+            res["timing"][label] = _time_flash(q, k, v, do, kw, work)
+            _log_times(f"fp16 {label}", res["timing"][label], card)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    # the planted overflow: tiny q and k make p flat (1 / the keys a row
+    # sees), v x 300 and dO x 3e3 make dp - delta ~1e7, so dS passes 65504
+    # on the rows that see few keys while every finite output stays far
+    # below it; rounded to fp16 (no saturation) that dS is inf in the
+    # kernels as in the plain version, so dq and dk hold inf / nan in the
+    # same elements (the finite rows agree), and dv stays finite and agrees
+    b, s, h, hkv, hd = 1, 2048, 32, 8, 128
+    q = (torch.randn(b, s, h, hd, generator=gen, device="cuda") * 1e-3).half()
+    k = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda") * 1e-3).half()
+    v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda") * 300).half()
+    do = (torch.randn(b, s, h, hd, generator=gen, device="cuda") * 3e3).half()
+    o, lse = flash_fwd_cuda(q, k, v)
+    got = _bwd_pieces(q, k, v, do, o, lse, {"causal": True})
+    ref = dict(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do)))
+    over = {}
+    for key in ("dq", "dk", "dv"):
+        bad_got, bad_ref = ~torch.isfinite(got[key].float()), ~torch.isfinite(ref[key].float())
+        same = bool(torch.equal(bad_got, bad_ref))
+        rows = ~bad_ref.any(-1)
+        share = float(bad_ref.float().mean())
+        rel = row_err(got[key][rows], ref[key][rows], floor=FP16_PIECES_FLOOR)[1] \
+            if bool(rows.any()) else float("nan")
+        over[key] = {"nonfinite_share": share, "same_elements": same, "finite_rows_err": rel}
+        log(f"  fp16 planted overflow (q, k x 1e-3, v x 300, dO x 3e3): {key} non-finite in "
+            f"{share:.4%} of its elements, the same elements as the plain version's: {same}; "
+            f"finite rows err/RMS {rel:.4f}")
+        want_some = key != "dv"
+        if not same or (0 < share < 1) != want_some or (share > 0) != want_some \
+                or not rel <= FP16_PIECES_TOL:
+            raise AssertionError(f"fp16 overflow: {key} does not overflow where the plain "
+                                 "version does")
+    res["planted_overflow"] = over
+    del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
+
+    # the ALiBi bias mode at BLOOM-7b1's shape, fp16 inputs, fp32 bias
+    b, s, h, hd = BLOOM_B, BLOOM_S, BLOOM_H, HD
+    q, k, v, do = (_f16_randn(gen, b, s, h, hd) for _ in range(4))
+    alibi = _alibi_bias(h, s, "cuda")
+    kw = {"causal": True}
+    (o, lse, delta), got = _bias_pieces(q, k, v, do, alibi, kw, False)
+    ref = {"o": flash_fwd_torch(q, k, v, bias=alibi, **kw)[0]}
+    ref.update(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, bias=alibi, **kw)))
+    label = FP16_BIAS_LABEL
+    res["cases"][label] = _pieces_result(check(label, got, ref, ("o", "dq", "dk", "dv")))
+    with sm90_planted_fault(4, "bwd"):
+        bad = _bias_pieces(q, k, v, do, alibi, kw, False)[1]
+    res["planted_faults"]["bwd 4"] = [
+        _f16_fault(f"fp16 bias bwd: the bias read one kv tile off, {key}", bad[key], ref[key])
+        for key in ("dq", "dk")]
+    del bad, ref, got
+    pairs = b * h * s * (s + 1) // 2
+    work = bias_work(b, h, s, s, hd, pairs, alibi.numel() * 4)
+    t = {"fwd": measure(lambda: flash_fwd_bias_cuda(q, k, v, alibi, **kw), 10),
+         "dq": measure(lambda: flash_bwd_dq_bias_cuda(q, k, v, do, lse, delta, alibi, **kw), 10),
+         "dkv": measure(lambda: flash_bwd_dkv_bias_cuda(q, k, v, do, lse, delta, alibi, **kw),
+                        10)}
+    plain = {"fwd": measure(lambda: flash_fwd_torch(q, k, v, bias=alibi, **kw), 3)["ms"],
+             "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, bias=alibi, **kw),
+                            3)["ms"]}
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    fmask = (alibi[None] + torch.zeros(1, h, s, s, device="cuda")).masked_fill(
+        ~causal, float("-inf")).to(torch.float16)
+
+    def sdpa_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, attn_mask=fmask).backward(dot)
+
+    lib_fwd = measure(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=fmask),
+                      10)["ms"]
+    lib_bwd = measure(sdpa_fwd_bwd, 5)["ms"] - lib_fwd
+    rows = {}
+    for key, plain_key, lib in (("fwd", "fwd", lib_fwd), ("dq", "bwd", lib_bwd),
+                                ("dkv", "bwd", lib_bwd)):
+        rows[key] = {"ms": t[key]["ms"], "plain_ms": plain[plain_key], "library_ms": lib,
+                     "bound_ms": work[key][0], "bound_by": work[key][1]}
+        log(f"  fp16 flash bias {key} {label}: device kernel {rows[key]['ms']*1e3:.1f} us, "
+            f"bound {rows[key]['bound_ms']*1e3:.1f} us ({rows[key]['bound_by']}), plain "
+            f"{rows[key]['plain_ms']*1e3:.1f} us, SDPA float mask {lib*1e3:.1f} us [{card}]")
+    res["timing"][label] = rows
+    del q, k, v, do, o, lse, delta, qt, kt, vt, dot, fmask
+    torch.cuda.empty_cache()
+    res["max_abs_err"] = errs_all
+    return res
+
+
+def p26_paged(gen, card: str, serve_lengths) -> dict:
+    """fp16 q through ``paged_sm90.cu`` at the Llama-3-8B serving shape:
+    decode and verify over fp16 pools and over int8 pools (ng 1 and 4, where
+    code x scale rounds to fp16), against the plain versions in fp16; its
+    planted faults and one wrong table entry; times at the main path's step
+    (the phase's serving prompts), beside the bound."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_int8_cuda,
+        paged_decode_attention_torch, paged_planted_fault, paged_spec_verify_attention_cuda,
+        paged_spec_verify_attention_torch)
+    from deepspeed_tpu_torch.ops.quantization import kv_quantize_int8
+
+    S = ROWS_SHAPE
+    B, nh, nkv, hd, bs = S["B"], S["nh"], S["nkv"], S["hd"], S["bs"]
+    nblocks, max_blocks, t = S["nblocks"], S["max_blocks"], SPEC_K + 1
+    cap = max_blocks * bs
+    kf = torch.randn(nblocks, nkv, bs, hd, generator=gen, device="cuda")
+    vf = torch.randn(nblocks, nkv, bs, hd, generator=gen, device="cuda")
+    pools = {0: (kf.half(), vf.half(), {})}
+    for ng in (1, 4):
+        kc, ks = kv_quantize_int8(kf, hd // ng)
+        vc, vs = kv_quantize_int8(vf, hd // ng)
+        pools[ng] = (kc, vc, {"k_scale": ks, "v_scale": vs})
+    del kf, vf
+    q1 = _f16_randn(gen, B, nh, hd)
+    qt = _f16_randn(gen, B, t, nh, hd)
+    rs = np.random.RandomState(26)
+    tables_np = rs.randint(1, nblocks, (B, max_blocks)).astype(np.int32)
+    ctx_np = np.concatenate([[0, bs - t, bs, 2 * bs - 1, cap - t],
+                             rs.randint(0, cap - t + 1, B - 5)]).astype(np.int32)
+    tables_np[0] = 0
+    tables = torch.from_numpy(tables_np).cuda()
+    ctx = torch.from_numpy(ctx_np).cuda()
+
+    def decode(ng, tb=tables, c=ctx):
+        kp, vp, sc = pools[ng]
+        fn = paged_decode_attention_int8_cuda if ng else paged_decode_attention_cuda
+        return (fn(q1, kp, vp, tb, c, **sc), paged_decode_attention_torch(q1, kp, vp, tb, c, **sc))
+
+    def verify(ng, tb=tables, c=ctx):
+        kp, vp, sc = pools[ng]
+        return (paged_spec_verify_attention_cuda(qt, kp, vp, tb, c, **sc),
+                paged_spec_verify_attention_torch(qt, kp, vp, tb, c, **sc))
+
+    res = {"tol": ROWS_TOL, "max_abs_err": {}, "planted_faults": {}, "timing": {}}
+    for kind, fn in (("decode", decode), ("verify", verify)):
+        errs = []
+        for ng in (0, 1, 4):
+            got, ref = fn(ng)
+            torch.cuda.synchronize()
+            if got.dtype != torch.float16:
+                raise AssertionError(f"fp16 paged {kind}: output {got.dtype}")
+            pool = f"int8 ng={ng}" if ng else "fp16"
+            errs.append(check_close(f"fp16 paged {kind} over {pool} pools, B={B}", got, ref,
+                                    ROWS_TOL)[0])
+            again = fn(ng)[0]
+            if not torch.equal(got, again):
+                raise AssertionError(f"fp16 paged {kind} {pool}: two calls differ")
+        res["max_abs_err"][kind] = max(errs)
+    for fault, what, kind, ng in ((1, "the merge drops each sequence's last split", "decode", 0),
+                                  (2, "a ring stage read before its copy lands", "verify", 4),
+                                  (3, "the K scale left out at ng = 1", "decode", 1)):
+        fn = decode if kind == "decode" else verify
+        ref = fn(ng)[1]
+        with paged_planted_fault(fault):
+            bad = fn(ng)[0]
+            torch.cuda.synchronize()
+        err, rel = row_err(bad, ref)
+        log(f"  fp16 paged planted fault {fault} ({what}; {kind}): row err/RMS {rel:.4f} (must "
+            f"exceed tol {ROWS_TOL:g})")
+        if rel <= ROWS_TOL:
+            raise AssertionError(f"the fp16 paged check passes planted fault {fault}")
+        res["planted_faults"][fault] = rel
+    row = int(np.argmax(ctx_np))
+    bad_np = tables_np.copy()
+    bad_np[row, max_blocks // 2] = bad_np[row, max_blocks // 2] % (nblocks - 1) + 1
+    got = verify(0, tb=torch.from_numpy(bad_np).cuda())[0]
+    rel = row_err(got[row], verify(0)[1][row])[1]
+    log(f"  fp16 paged verify, one wrong table entry on the longest row: row err/RMS {rel:.4f} "
+        f"(must exceed {ROWS_TOL:g})")
+    if rel <= ROWS_TOL:
+        raise AssertionError("the fp16 paged check passes a wrong table entry")
+    res["planted_faults"]["table"] = rel
+
+    def time_case(key, kind, ng, c_np, tb_np):
+        c, tb = torch.from_numpy(c_np.astype(np.int32)).cuda(), torch.from_numpy(tb_np).cuda()
+        kp, vp, sc = pools[ng]
+        if kind == "decode":
+            fn = paged_decode_attention_int8_cuda if ng else paged_decode_attention_cuda
+            kern = lambda: fn(q1, kp, vp, tb, c, **sc)  # noqa: E731
+            plain = lambda: paged_decode_attention_torch(q1, kp, vp, tb, c, **sc)  # noqa: E731
+        else:
+            kern = lambda: paged_spec_verify_attention_cuda(qt, kp, vp, tb, c, **sc)  # noqa: E731
+            plain = lambda: paged_spec_verify_attention_torch(qt, kp, vp, tb, c, **sc)  # noqa: E731
+        w = rows_work(c_np, 1 if kind == "decode" else t, ng)
+        kt_, pt = measure(kern, 100), measure(plain, 3)
+        res["timing"][key] = {"ms": kt_["ms"], "plain_ms": pt["ms"], "library_ms": None,
+                              "bound_ms": w["bound_ms"], "bound_by": "bytes",
+                              "bytes": w["bytes"], "live_tokens": w["live_tokens"]}
+        log(f"  fp16 {key}: device kernel {kt_['ms']*1e3:.1f} us, plain {pt['ms']*1e3:.1f} us, "
+            f"bound {w['bound_ms']*1e3:.1f} us ({w['live_tokens']} live positions) [{card}]")
+
+    dec_c, dec_t = main_step_inputs(serve_lengths, MAX_NEW_TOKENS - 2)
+    ver_c, ver_t = main_step_inputs(serve_lengths, MAX_NEW_TOKENS - SPEC_K - 1, extra=SPEC_K + 1)
+    time_case("decode_fp16_main_path", "decode", 0, dec_c, dec_t)
+    time_case("decode_int8_main_path", "decode", 1, dec_c, dec_t)
+    time_case("verify_fp16_main_path", "verify", 0, ver_c, ver_t)
+    del pools, q1, qt
+    torch.cuda.empty_cache()
+    return res
+
+
+def fp16_drill(seed: int, card: str) -> dict:
+    """The overflow drill: a narrow 2-layer Llama at hd 128 (the flash
+    kernels' fp16 path; hidden 256, vocabulary 1024, 32 tokens, so that its
+    CPU twin's fp16 steps run in seconds: at hidden 512, vocabulary 8192 and
+    64 tokens they took a minute on the card's host), from
+    ``initial_scale_power`` FP16_DRILL_POWER, on the card and the same
+    config on the CPU (plain pieces), until two steps in a row apply.
+    Each skipped step must leave every param and optimizer-state tensor bit
+    for bit; the two scale sequences must be equal up to where each stops
+    skipping, and those points at most one step apart."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=1024, hidden_size=256, intermediate_size=512,
+                            num_layers=2, num_heads=2, num_kv_heads=1, max_seq_len=64)
+    masters = llama.init(cfg, torch.Generator().manual_seed(seed + 26))
+    rs = np.random.RandomState(seed + 26)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, 33)).astype(np.int32)}
+    block = dict(FP16_BLOCK, initial_scale_power=FP16_DRILL_POWER)
+
+    def state_of(eng):
+        out = {f"p.{k}": v.detach().clone() for k, v in eng.state.params.items()}
+        for k, v in _flat_state(eng.state.opt_state).items():
+            out[f"s.{k}"] = v.clone()
+        return out
+
+    def run(device):
+        eng, *_ = dst.initialize(
+            model=dst.ModelSpec(params={k: v.to(device) for k, v in masters.items()},
+                                loss_fn=lambda p, b: llama.loss_fn(
+                                    cfg, p, b, compute_dtype=torch.float16)),
+            config=_train_config(seed, 1, True, fp16=block), device=device)
+        scales, kept, applied = [], True, 0
+        for _ in range(FP16_DRILL_STEPS):
+            before = state_of(eng)
+            out = eng.train_batch(batch)
+            scales.append((float(out.loss_scale), bool(out.overflow)))
+            if out.overflow:
+                after = state_of(eng)
+                kept = kept and all(torch.equal(before[k], after[k]) for k in before)
+                applied = 0
+            else:
+                applied += 1
+                if applied == 2:
+                    break
+        del eng
+        return scales, kept
+
+    card_scales, card_kept = run("cuda")
+    cpu_scales, cpu_kept = run("cpu")
+    stop = [next((i for i, (_, o) in enumerate(sc) if not o), None)
+            for sc in (card_scales, cpu_scales)]
+    n = min(x for x in stop if x is not None) if None not in stop else 0
+    same = [a[0] for a in card_scales[:n]] == [a[0] for a in cpu_scales[:n]]
+    log(f"  overflow drill from 2^{FP16_DRILL_POWER}: card scales {[s for s, _ in card_scales]} "
+        f"(first applied step {stop[0]}), CPU {[s for s, _ in cpu_scales]} (first applied "
+        f"{stop[1]}); skipped steps left params and optimizer state bit for bit: card "
+        f"{card_kept}, CPU {cpu_kept}")
+    if None in stop or abs(stop[0] - stop[1]) > 1 or not same or not (card_kept and cpu_kept) \
+            or stop[0] == 0:
+        raise AssertionError("the fp16 overflow drill: scales or skipped steps disagree")
+    return {"card": card_scales, "cpu": cpu_scales, "first_applied": stop,
+            "skips_kept_state": card_kept and cpu_kept}
+
+
+def _flat_state(tree, prefix="") -> dict:
+    """The tensors of an optimizer state (nested dicts / lists / tuples of
+    tensors) by dotted path."""
+    import torch
+
+    out = {}
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}.{k}" if prefix else str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_state(v, f"{prefix}.{i}" if prefix else str(i)))
+    elif hasattr(tree, "__dict__"):
+        out.update(_flat_state(vars(tree), prefix))
+    return out
+
+
+def fp16_zero(seed: int, card: str) -> dict:
+    """ZeRO-3 against stage 0 under the fp16 block through a real NCCL group
+    of world size 1, at FP16_ZERO_LAYERS: losses, grad norms and scales bit
+    for bit (phase 18 holds bf16)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=FP16_ZERO_LAYERS)
+    rs = np.random.RandomState(seed)
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (2, 4096 + 1)).astype(np.int32)}
+    comm.init_distributed()
+    out = {}
+    try:
+        comm.init_mesh({"data": 1})
+        for stage in (0, 3):
+            losses, norms, step_s, _, (_, peak), eng = zero_train(
+                seed, cfg, stage, batch, FP16_ZERO_STEPS, fp16=FP16_BLOCK)
+            out[stage] = {"losses": losses, "grad_norms": norms, "scale": eng.loss_scale,
+                          "peak_bytes": peak}
+            del eng
+    finally:
+        comm.set_mesh(None)
+        dist.destroy_process_group()
+    same = out[3]["losses"] == out[0]["losses"] and out[3]["grad_norms"] == out[0]["grad_norms"] \
+        and out[3]["scale"] == out[0]["scale"]
+    log(f"  fp16 ZeRO-3 against ZeRO-0 ({FP16_ZERO_LAYERS} layers, NCCL world 1): losses "
+        f"{out[3]['losses']} / {out[0]['losses']}, scale {out[3]['scale']:g} / "
+        f"{out[0]['scale']:g}: bit for bit {same}")
+    if not same:
+        raise AssertionError("fp16 ZeRO-3 differs from stage 0")
+    return {"stages": out, "bitwise_equal": same}
+
+
+def phase_fp16(seed: int, card: str) -> dict:
+    """fp16 on the card (module docstring, phase 26)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import build_engine_v2
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops.attention import attention
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_bias_cuda, flash_bwd_dq_bias_cuda, flash_fwd_bias_cuda, flash_fwd_cuda)
+    from deepspeed_tpu_torch.models.bloom import _alibi_bias
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 26)
+    cfg = llama.LlamaConfig.llama3_8b()
+    prompts, lengths = spec_prompts(seed, cfg.vocab_size)
+    marks = [("start", t_phase)]
+
+    def mark(part):
+        marks.append((part, time.perf_counter()))
+
+    res = {"flash": p26_flash(gen, card)}
+    mark("flash kernels")
+    res["paged"] = p26_paged(gen, card, lengths)
+    mark("paged kernel")
+    t_kern = time.perf_counter() - t_phase
+
+    # (a) the bias mode through op attention under autograd in fp16 (BLOOM's
+    # ALiBi): the path whose launches the kernels line counts for rows 3a-5a
+    bias_k = {"flash_fwd_bias": flash_fwd_bias_cuda, "flash_bwd_dq_bias": flash_bwd_dq_bias_cuda,
+              "flash_bwd_dkv_bias": flash_bwd_dkv_bias_cuda}
+    for c in bias_k.values():
+        c.launches = 0
+    q, k, v = (_f16_randn(gen, BLOOM_B, BLOOM_S, BLOOM_H, HD).requires_grad_() for _ in range(3))
+    o = attention(q, k, v, causal=True, bias=_alibi_bias(BLOOM_H, BLOOM_S, "cuda"))
+    o.float().pow(2).mean().backward()
+    torch.cuda.synchronize()
+    res["bias_entry"] = {"launches": {n: c.launches for n, c in bias_k.items()},
+                         "grads_finite": all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))}
+    check_launches("fp16 op attention with ALiBi under autograd", res["bias_entry"]["launches"],
+                   {n: 1 for n in bias_k})
+    del q, k, v, o
+    torch.cuda.empty_cache()
+    mark("bias entry")
+
+    # (b) training: phase 7's configuration under DeepSpeed's fp16 block
+    res["train"] = phase_train(seed, card, label="Llama-3-8B fp16", fp16=FP16_BLOCK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("training")
+    res["train_whole_path"] = phase_train_whole(
+        seed, card, label="8B-width fp16", layers=FP16_CHECK_LAYERS, seq=FP16_CHECK_SEQ,
+        fp16=FP16_BLOCK, grad_tol=FP16_GRAD_RTOL, loss_tol=FP16_LOSS_RTOL)
+    mark("card vs CPU step")
+    res["drill"] = fp16_drill(seed, card)
+    mark("overflow drill")
+    res["zero"] = fp16_zero(seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("ZeRO-3")
+
+    # (c) serving Llama-3-8B at 32 layers in fp16: v2 on fp16 pools, on int8
+    # pools and under spec + fused verify (graph decode), then v1
+    t0 = time.perf_counter()
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        dtype=torch.float16, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.values())
+    bound_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  Llama-3-8B fp16 serving weights: {wbytes / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s; a decode step's weight-bytes bound {bound_ms:.2f} ms")
+    base = {"dtype": "float16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
+                       "memory_config_blocks": 64, "block_size": 128}}
+    serve = phase_spec_serving(
+        seed, MAX_NEW_TOKENS, card, cfg=cfg, params=params, base_conf=base,
+        engines=(("fp16", {}, prompts), ("int8", INT8, prompts), ("spec_fp16", SPEC, prompts)))
+    res["serving"] = serve
+    mark("v2 serving")
+    busy = serve["fp16"]["profile_steps"]["busy_ms_per_step"]
+    log(f"  Llama-3-8B fp16 decode step {serve['fp16']['decode_step_ms']:.2f} ms (device busy "
+        f"{busy:.2f} ms) against the weight-bytes bound {bound_ms:.2f} ms; a replay launches "
+        f"{serve['fp16']['per_replay']} [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1 = dst.init_inference(llama, model_cfg=cfg, params=params,
+                            config={"dtype": "float16", "prefill_bucket": 64})
+    _v1_generate(v1, prompts[:2], 2)                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v1_outs, padded, lens = _v1_generate(v1, prompts, MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    # the no-cache forward runs the fp16 flash forward (v1's dense-cache
+    # prefill and decode read the cache with plain masked attention, as in JAX)
+    flash_fwd_cuda.launches = 0
+    match, n_tok, worst = stream_check(v1, padded, lens, v1_outs)
+    v1_flash = flash_fwd_cuda.launches
+    check_launches("v1 fp16 no-cache forwards", {"flash_fwd": v1_flash},
+                   {"flash_fwd": cfg.num_layers * len(prompts)})
+    v2_outs = [list(map(int, r)) for r in serve["fp16"]["outs"]]
+    leave = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(v1_outs, v2_outs)]
+    long_ = torch.as_tensor(prompts[-1], device="cuda")[None].long()
+    with torch.inference_mode():
+        noise16 = row_err(llama.apply(cfg, params, long_, compute_dtype=torch.float16),
+                          llama.apply(cfg, params, long_, compute_dtype=torch.float32))[1]
+    parting = v1_v2_parting(cfg, v1, padded, lens, v1_outs, v2_outs, leave, [], noise16)
+    agree = sum(x is None for x in leave)
+    verdicts = [r["verdict"] for r in parting["rows"].values()]
+    log(f"  Llama-3-8B v1 fp16: {v1_s:.1f} s for 8 x {MAX_NEW_TOKENS} tokens; its tokens against "
+        f"its no-cache forward: {match}/{n_tok} the argmax, largest gap {worst:.4f}; v1 against "
+        f"v2 at {cfg.num_layers} layers: {agree} of {len(prompts)} rows the same, first "
+        f"differing step by row {leave}, partings {verdicts} (fp16 error {noise16:.4f}) [{card}]")
+    if 2 * agree < len(prompts) or any(v != "near-tie" for v in verdicts):
+        raise AssertionError("fp16 v1 and v2 part beyond the near-tie rule")
+    res["v1"] = {"generate_s": v1_s, "launches": {"flash_fwd": v1_flash}, "outs": v1_outs,
+                 "v1_v2_first_difference": leave, "agree_rows": agree, "fp16_noise": noise16,
+                 "v1_v2_parting": parting, "argmax_match": [match, n_tok], "worst_gap": worst}
+    del v1
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("v1 serving")
+
+    # (d) at FP16_CHECK_LAYERS: every token of v1, v2 (fp16 and int8 pools,
+    # spec + fused verify) against the fp32 forward of the same fp16 weights
+    small = dataclasses.replace(cfg, num_layers=FP16_CHECK_LAYERS)
+    sp = layers_of(params, FP16_CHECK_LAYERS)
+    v1s = dst.init_inference(llama, model_cfg=small, params=sp,
+                             config={"dtype": "float16", "prefill_bucket": 64})
+    outs = {"v1": _v1_generate(v1s, prompts, MAX_NEW_TOKENS)[0]}
+    with fault_cache_write_late() as what:
+        bad = _v1_generate(v1s, prompts[:3], 8)[0]
+    del v1s
+    for name, extra in (("v2 fp16", {}), ("v2 int8 pools", INT8),
+                        ("v2 spec + fused verify", SPEC)):
+        e2 = build_engine_v2(llama, small, sp, config=dict(base, **extra))
+        outs[name] = [list(map(int, o)) for o in e2.generate(prompts,
+                                                              max_new_tokens=MAX_NEW_TOKENS)]
+        del e2
+        torch.cuda.empty_cache()
+    res["check"] = fp32_stream_check(f"Llama-3-8B fp16 at {FP16_CHECK_LAYERS} layers", llama,
+                                     small, sp, prompts, outs, (what, bad, prompts[:3]),
+                                     low=torch.float16)
+    del params, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("2-layer token checks")
+    res["part_s"] = {part: round(t - marks[i][1], 1) for i, (part, t) in enumerate(marks[1:])}
+
+    tl = res["train"]["launches"]
+    res["launches"] = {
+        **{k: {"llama fp16 training": tl[k]}
+           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+        **{k: {"op attention fp16 (ALiBi)": n} for k, n in res["bias_entry"]["launches"].items()},
+        "paged_decode_attention": {"llama fp16 serving":
+                                   serve["fp16"]["launches"]["paged_decode_attention"]
+                                   + serve["spec_fp16"]["launches"]["paged_decode_attention"]},
+        "paged_decode_attention_int8": {"llama fp16 serving (int8 pools)":
+                                        serve["int8"]["launches"]["paged_decode_attention_int8"]},
+        "paged_spec_verify_attention": {"llama fp16 serving (spec)":
+                                        serve["spec_fp16"]["launches"]
+                                        ["paged_spec_verify_attention"]}}
+    res["launches"]["flash_fwd"]["llama fp16 v1 no-cache forwards"] = v1_flash
+    for k, by_path in res["launches"].items():
+        if not sum(by_path.values()):
+            raise AssertionError(f"fp16 phase: {k} was never launched on its path")
+    res["kernels_s"] = t_kern
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {res['launches']}")
+    log(f"  phase 26: {res['phase_s']:.1f} s (kernel checks {t_kern:.1f} s); by part "
+        f"{res['part_s']}")
+    return res
+
+
+def fp16_subentries(kernels: list, f16: dict) -> None:
+    """Each 16-bit kernel's fp16 instantiation (phase 26) as the ``fp16``
+    sub-entry of its row of the ``kernels`` line: its launches on the fp16
+    paths, its largest error against the plain version and its times at
+    Llama-3-8B's shapes (the bias mode at BLOOM-7b1's)."""
+    fl, pg, err = f16["flash"], f16["paged"], f16["flash"]["max_abs_err"]
+    main, bias = fl["timing"][FP16_FLASH_CASES[0][0]], fl["timing"][FP16_BIAS_LABEL]
+    rows = {"paged_decode_attention": (pg["timing"]["decode_fp16_main_path"],
+                                       pg["max_abs_err"]["decode"]),
+            "paged_decode_attention_int8": (pg["timing"]["decode_int8_main_path"],
+                                            pg["max_abs_err"]["decode"]),
+            "paged_spec_verify_attention": (pg["timing"]["verify_fp16_main_path"],
+                                            pg["max_abs_err"]["verify"]),
+            "flash_fwd": (main["fwd"], err["o"]), "flash_bwd_dq": (main["dq"], err["dq"]),
+            "flash_bwd_dkv": (main["dkv"], max(err["dk"], err["dv"])),
+            "flash_fwd_bias": (bias["fwd"], err["o"]),
+            "flash_bwd_dq_bias": (bias["dq"], err["dq"]),
+            "flash_bwd_dkv_bias": (bias["dkv"], max(err["dk"], err["dv"]))}
+    for k in kernels:
+        if k["name"] in rows:
+            t, e = rows[k["name"]]
+            by_path = f16["launches"][k["name"]]
+            k["fp16"] = {"launches": sum(by_path.values()), "launches_by_path": by_path,
+                         "max_abs_err": e, **{x: t[x] for x in ("ms", "plain_ms", "bound_ms",
+                                                                 "bound_by", "library_ms")}}
+
+
 def profile_sessions(detail, path: str = "") -> dict:
     """Each ``sessions`` count in ``detail`` by its dotted path: the
     profiler sessions a checked window took (phases 16 and 17)."""
@@ -7904,6 +8606,11 @@ def main() -> int:
     p25 = phase_falcon_neox(SEED, card)
     p25_l = p25["launches"]
 
+    log_phase("== phase 26: fp16 on the card (the flash and paged kernels in fp16; Llama-3-8B "
+              "under DeepSpeed's fp16 block: 4-layer training, 32-layer serving through v2 and "
+              "v1)")
+    f16 = phase_fp16(SEED, card)
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
@@ -8070,6 +8777,7 @@ def main() -> int:
          "cases": {k_: quant_entry(k_) for k_ in qt if "dequantize_" in k_}},
     ]
     kernels += bias_sparse_entries(kern, bloom_train, entry)
+    fp16_subentries(kernels, f16)
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,
               "bloom_train": bloom_train, "bloom_train_whole_path": bloom_whole,
               "entry_points": entry,
@@ -8080,7 +8788,7 @@ def main() -> int:
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "zero": zero, "checkpoint": ckpt, "remat": remat, "init_inference": v1,
               "bloom_v1_peak": bloom_peak, "optimizers": optim, "exaone4": exa,
-              "mixtral": mix, "falcon_neox": p25,
+              "mixtral": mix, "falcon_neox": p25, "fp16": f16,
               "phase_start_s": marks, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

@@ -220,12 +220,6 @@ class InferenceEngine:
 
     def _check(self) -> None:
         check_ported(self.config, self._engine)
-        if self.dtype == torch.float16 and self.device.type == "cuda":
-            # the flash kernels of v1's no-cache forward take bf16 and fp32:
-            # refuse at build, as initialize and v2 do, not at the first forward
-            raise NotImplementedError(
-                "inference dtype float16 has no CUDA kernel yet on the flash-attention "
-                "path (ROADMAP queue B.2): serve in bfloat16, or pass device='cpu'")
         if self.family.apply_cached is None or self.family.init_cache is None:
             raise ValueError(f"family {self.family.name!r} has no dense-cache path "
                              "(apply_cached / init_cache)")

@@ -166,11 +166,13 @@ class InferenceEngineV2(InferenceEngine):
 
     def _check(self) -> None:
         check_ported(self.config, self._engine)
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            # the paged-decode kernel takes bf16 q and pools only; refuse
-            # here rather than at the first decode step
+        if self.device.type == "cuda" and self.dtype not in paged_attention.KERNEL_DTYPES:
+            # the paged-decode kernel takes bf16 and fp16 q and pools (fp32
+            # pools: ROADMAP queue B.2); refuse here rather than at the first
+            # decode step
             raise ValueError(f"inference dtype {self.config.dtype!r} has no CUDA "
-                             "kernel yet; the card path serves bfloat16")
+                             "kernel yet (the paged kernel has no fp32 pools: ROADMAP "
+                             "queue B.2); the card path serves bfloat16 or float16")
         if self.family.apply_paged is None or self.family.build is None:
             # JAX ``build_hf_engine``'s refusal (inference/engine_v2.py:1832-1838)
             raise ValueError(

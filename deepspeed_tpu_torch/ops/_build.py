@@ -53,29 +53,30 @@ SIGNATURES = {
     "dstt_quantize_plant": [_I],
     # paged_sm90.cu: q, k_pool, v_pool, k_scale, v_scale, tables, ctx,
     # window_ptr, window, out, counters, partials, B, t, nh, nkv, hd, bs,
-    # num_blocks, max_blocks, ng (0: bf16 pools), nsplit, scale, stream
-    "dstt_paged_attention": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 10 + [_F, _VP],
+    # num_blocks, max_blocks, ng (0: 16-bit pools), nsplit, dtype (0 bf16, 2
+    # f16), scale, stream
+    "dstt_paged_attention": [_VP] * 8 + [_I] + [_VP] * 3 + [_I] * 11 + [_F, _VP],
     # planted fault of the paged kernel's next launches (tests): 0 none
     "dstt_paged_sm90_plant": [_I],
     # q, k, v, o, lse, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
-    # scale, dtype, bias, stream
+    # scale, dtype (0 bf16, 1 f32, 2 f16), bias, stream
     "dstt_flash_fwd": [_VP] * 5 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
-    # planted fault of the bf16 forward's next launches (tests): 0 none
+    # planted fault of the 16-bit forward's next launches (tests): 0 none
     "dstt_flash_fwd_sm90_plant": [_I],
     # q, k, v, dout, lse, delta, dq, (B .. window as above), scale, dtype,
     # bias, dbias, stream
     "dstt_flash_bwd_dq": [_VP] * 7 + [_I] * 9 + [_F, _I] + _BIAS + [_VP, _VP],
     # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, bias, stream
     "dstt_flash_bwd_dkv": [_VP] * 8 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
-    # bf16 without a bias (flash_bwd_sm90.cu): q, k, v, dout, lse, delta, dq,
-    # (B .. window), scale, stream
-    "dstt_flash_bwd_dq_sm90": [_VP] * 7 + [_I] * 9 + [_F, _VP],
-    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, stream
-    "dstt_flash_bwd_dkv_sm90": [_VP] * 8 + [_I] * 9 + [_F, _VP],
+    # bf16 and f16 without a bias (flash_bwd_sm90.cu): q, k, v, dout, lse,
+    # delta, dq, (B .. window), scale, dtype (0 bf16, 2 f16), stream
+    "dstt_flash_bwd_dq_sm90": [_VP] * 7 + [_I] * 9 + [_F, _I, _VP],
+    # q, k, v, dout, lse, delta, dk, dv, (B .. window), scale, dtype, stream
+    "dstt_flash_bwd_dkv_sm90": [_VP] * 8 + [_I] * 9 + [_F, _I, _VP],
     # their bias mode (flash_bwd_sm90.cu): the same, then bias, dbias (dQ), stream
-    "dstt_flash_bwd_dq_bias_sm90": [_VP] * 7 + [_I] * 9 + [_F] + _BIAS + [_VP, _VP],
-    "dstt_flash_bwd_dkv_bias_sm90": [_VP] * 8 + [_I] * 9 + [_F] + _BIAS + [_VP],
-    # planted fault of both bf16 backward kernels' next launches (tests): 0 none
+    "dstt_flash_bwd_dq_bias_sm90": [_VP] * 7 + [_I] * 9 + [_F, _I] + _BIAS + [_VP, _VP],
+    "dstt_flash_bwd_dkv_bias_sm90": [_VP] * 8 + [_I] * 9 + [_F, _I] + _BIAS + [_VP],
+    # planted fault of both 16-bit backward kernels' next launches (tests): 0 none
     "dstt_flash_bwd_sm90_plant": [_I],
     # q, k, v, o, lse, idx, cnt, items, max_a, n_items, heads_per_item, B,
     # H, Hkv, S, D, block, causal, scale, dtype, stream

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bf16, hd 32 / 64 / 96 / 128, with
+// Flash-attention backward for Hopper (sm_90a), bf16 and fp16 (the element
+// type T, hopper_types.cuh), hd 32 / 64 / 96 / 128, with
 // and without a bias: dQ (and dbias) and dK/dV on TMA loads into an mbarrier
 // ring, wgmma products, warp specialisation. fp32 stays on flash_bwd.cu.
 //
@@ -8,15 +9,15 @@
 // driven by `_flash_b` :787). The same functions as flash_bwd.cu: p is
 // recomputed from the forward's saved lse, p = exp(scale * q k^T - lse) (0
 // where masked; lse in base 2 here), dp = dO v^T, ds = p * (dp - delta) *
-// scale rounded to bf16, with delta = rowsum(dO * O) computed by the caller;
-// dq = ds k, dv = p^T dO (p rounded to bf16), dk = ds^T q. Accumulation in
+// scale rounded to T, with delta = rowsum(dO * O) computed by the caller;
+// dq = ds k, dv = p^T dO (p rounded to T), dk = ds^T q. Accumulation in
 // fp32, one cast at the end. Masks: causal with q_offset, a static causal
 // window, the q and kv tails. A row that sees no key (lse = -1e30) has every
 // score masked, so its p and its grads are 0. Under GQA, K / V are read in
 // place and each kv head's dK / dV sums its g query heads in registers:
 // NARROW, deterministic, no atomics and no widen-then-sum.
 //
-// Bias mode (BIAS): the additive bias (bf16 or fp32) joins the recomputed
+// Bias mode (BIAS): the additive bias (of T, or fp32) joins the recomputed
 // logits as in the forward's bias mode (:481-482, :557-558), in natural
 // units with the lse the bias-mode forward writes: p = 2^((scale * s + bias
 // - lse) log2 e), so a query whose every key carries -1e30 gets p = 1 on
@@ -25,7 +26,7 @@
 // 0, as a kernel parameter of its own (never in Args: flash_common.cuh).
 // - dQ reads the 32 values of a thread's 2 rows x 16 column pairs of the
 //   next kv tile while this tile's dP and dQ products run: as 8-byte (fp32)
-//   or 4-byte (bf16) pairs where the kv stride is 1, one 32-byte sector per
+//   or 4-byte (16-bit) pairs where the kv stride is 1, one 32-byte sector per
 //   4 lanes of a row; per visible score (-inf elsewhere, so p = 0 with no
 //   mask pass) on tiles that the causal band or a tail crosses. Given a
 //   dbias pointer it stores dbias = p (dp - delta), unscaled, in fp32 from
@@ -64,7 +65,7 @@
 //   through the ring over the kv tiles the causal band or window can see.
 //   Per kv tile and consumer: S = Q K^T and dP = dO V^T, each D / 16 wgmma
 //   m64n64k16 from shared memory; then dQ += dS K of the previous tile (K
-//   read MN-major, dS packed to bf16 in registers as the A operand) runs on
+//   read MN-major, dS packed to T in registers as the A operand) runs on
 //   the tensor cores while p and ds of this tile are computed on the
 //   accumulators (the element mask only on tiles that cross the diagonal,
 //   the window edge or a tail). lse and delta of the thread's two rows sit
@@ -76,7 +77,7 @@
 //   rows, with the tile's lse and delta staged beside them by the producer
 //   warp's ordinary loads (TMA's 16-byte stride rule fails on [B * H, Sq]
 //   fp32 when Sq % 4 != 0). Per q tile and consumer: S^T = K Q^T and dP^T =
-//   V dO^T (wgmma m64n64k16 from shared memory); p^T to bf16 in registers
+//   V dO^T (wgmma m64n64k16 from shared memory); p^T to T in registers
 //   is the A operand of dV += P^T dO, issued before ds^T is computed, and
 //   ds^T that of dK += dS^T Q (dO and Q read MN-major). dK and dV stay in
 //   registers across all g heads; the epilogue stores them, rows past Skv
@@ -103,6 +104,7 @@
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
+#include "hopper_types.cuh"
 
 namespace dstt_flash {
 
@@ -120,7 +122,7 @@ constexpr int kConsumerWarps = 8;
 constexpr int kThreadsBwd = 3 * 128;   // producer + two consumer warpgroups
 constexpr int STAGES = 4;
 
-// The forward's swizzled layout: a tile of [rows, D] bf16 is D / CB column
+// The forward's swizzled layout: a tile of [rows, D] 16-bit values is D / CB column
 // blocks of [rows, CB], each row RB bytes.
 template <int D>
 struct Cfg {
@@ -154,62 +156,64 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 }
 
 // The RS wgmma m64nDk16 (A in registers, B MN-major) by accumulator size.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n32(d, a[0], a[1], a[2], a[3], db, 1);
+  Elem<T>::rs_n32(d, a[0], a[1], a[2], a[3], db, 1);
 }
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n64(d, a[0], a[1], a[2], a[3], db, 1);
+  Elem<T>::rs_n64(d, a[0], a[1], a[2], a[3], db, 1);
 }
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
-  wgmma_rs_n128(d, a[0], a[1], a[2], a[3], db, 1);
+  Elem<T>::rs_n128(d, a[0], a[1], a[2], a[3], db, 1);
 }
 
 // acc = A B^T over D (64 x 64): A's 64 rows of an item tile at sa, B a ring
 // tile at sb, both K-major.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_ss(float (&acc)[BT / 2], uint32_t sa, uint32_t sb) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int cb = kk * 16 / C::CB, in_row = (kk * 16 % C::CB) * 2;
-    wgmma_ss_n64(acc, smem_desc(sa + cb * BM * C::RB + in_row, 16, C::SBO, C::SWZ),
+    Elem<T>::ss_n64(acc, smem_desc(sa + cb * BM * C::RB + in_row, 16, C::SBO, C::SWZ),
                  smem_desc(sb + cb * BT * C::RB + in_row, 16, C::SBO, C::SWZ), kk > 0);
   }
 }
 
-// acc += A B: A (64 x BT, bf16) in registers, k16 step kt in a[4 kt .. +3];
+// acc += A B: A (64 x BT, of T) in registers, k16 step kt in a[4 kt .. +3];
 // B the [BT, D] ring tile at sb read MN-major.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_rs(float (&acc)[Cfg<D>::DT / 2],
                                          const uint32_t (&a)[BT / 4], uint32_t sb) {
   using C = Cfg<D>;
 #pragma unroll
   for (int kt = 0; kt < BT / 16; ++kt)
-    wgmma_rs(acc, &a[4 * kt], smem_desc(sb + kt * 16 * C::RB, BT * C::RB, C::SBO, C::SWZ));
+    wgmma_rs<T>(acc, &a[4 * kt], smem_desc(sb + kt * 16 * C::RB, BT * C::RB, C::SBO, C::SWZ));
 }
 
-// An accumulator's values as bf16 pairs: the A operand of the next product.
-template <int N>
+// An accumulator's values as pairs of T: the A operand of the next product.
+template <typename T, int N>
 __device__ __forceinline__ void pack(uint32_t (&pa)[N / 2], const float (&v)[N]) {
 #pragma unroll
-  for (int j = 0; j < N / 2; ++j) pa[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+  for (int j = 0; j < N / 2; ++j) pa[j] = Elem<T>::pack(v[2 * j], v[2 * j + 1]);
 }
 
 // This thread's rows r0 and r0 + 8 of an accumulator (DT / 2 registers) as
-// bf16 rows of `first` (row stride `stride` elements), rows at or past n_rows
-// and columns at or past D not written.
-template <int D>
+// rows of T of `first` (row stride `stride` elements), rows at or past
+// n_rows and columns at or past D not written.
+template <typename T, int D>
 __device__ __forceinline__ void store_acc(const float (&v)[Cfg<D>::DT / 2], int t, int r0,
-                                          int n_rows, __nv_bfloat16* first, size_t stride) {
+                                          int n_rows, T* first, size_t stride) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= n_rows) continue;
-    __nv_bfloat16* out = first + (size_t)row * stride;
+    T* out = first + (size_t)row * stride;
 #pragma unroll
     for (int i = 2 * r; i < D / 2; i += 4)   // registers i, i + 1 of this row
-      *reinterpret_cast<__nv_bfloat162*>(out + acc_col(t, i)) =
-          __floats2bfloat162_rn(v[i], v[i + 1]);
+      Elem<T>::store2(out + acc_col(t, i), v[i], v[i + 1]);
   }
 }
 
@@ -230,9 +234,10 @@ __device__ __forceinline__ int bias_kv(const Args& a, int j, int plant) {
 // The bias at (batch b, head h, q row, kv row), or -inf where that score is
 // not visible: p = 2^((scale s + bias - lse) log2 e) is then 0 there with
 // no mask of its own.
+template <typename T>
 __device__ __forceinline__ float bias_or_inf(const Args& a, const Bias& bb, int b, int h,
                                              int qrow, int kvrow, int plant) {
-  return visible(a, qrow, kvrow) ? bias_at(bb, b, h, qrow, bias_kv(a, kvrow, plant))
+  return visible(a, qrow, kvrow) ? bias_at_t<T>(bb, b, h, qrow, bias_kv(a, kvrow, plant))
                                  : -INFINITY;
 }
 
@@ -282,6 +287,7 @@ __device__ __forceinline__ bool dq_masked(const Args& a, int rlo, int j0) {
 // mask touches reads pairs as one load where `vec` (kv stride 1, even
 // offsets, an aligned base); a masked one each visible score, -inf
 // elsewhere.
+template <typename T>
 __device__ __forceinline__ void dq_bias_tile(float (&bv)[BT / 2], const Args& a, const Bias& bb,
                                              int b, int h, int rlo, int j0, bool vec, int t,
                                              int plant) {
@@ -300,11 +306,10 @@ __device__ __forceinline__ void dq_bias_tile(float (&bv)[BT / 2], const Args& a,
         bv[i + 1] = x.y;
       }
     } else {
-      const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(bb.ptr);
+      const T* p = static_cast<const T*>(bb.ptr);
 #pragma unroll
       for (int i = 0; i < BT / 2; i += 2) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            p + roff[(i >> 1) & 1] + c0 + 8 * (i >> 2)));
+        const float2 x = Elem<T>::load2(p + roff[(i >> 1) & 1] + c0 + 8 * (i >> 2));
         bv[i] = x.x;
         bv[i + 1] = x.y;
       }
@@ -312,7 +317,7 @@ __device__ __forceinline__ void dq_bias_tile(float (&bv)[BT / 2], const Args& a,
   } else {
 #pragma unroll
     for (int e = 0; e < BT / 2; ++e)
-      bv[e] = bias_or_inf(a, bb, b, h, r0 + 8 * ((e >> 1) & 1), j0 + acc_col(t, e), plant);
+      bv[e] = bias_or_inf<T>(a, bb, b, h, r0 + 8 * ((e >> 1) & 1), j0 + acc_col(t, e), plant);
   }
 }
 
@@ -423,7 +428,7 @@ __device__ __forceinline__ void dq_produce(const DqSmem<D>& sm, const CUtensorMa
 // Bias mode: p takes the tile's bias from bv, which then loads the next
 // tile's (the next item's first, after an item's last) under the dP and dQ
 // products; dbias is stored once ds is known.
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, const Bias& bb,
                                            bool bias_vec, int cw, int plant) {
   using C = Cfg<D>;
@@ -450,11 +455,11 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
     }
     float* dbias = BIAS && bb.dbias ? bb.dbias + bh * a.Sq * a.Skv : nullptr;
     if (BIAS && item.n_tiles > 0 && bv_item != n)
-      dq_bias_tile(bv, a, bb, item.b, item.h, rlo, item.t_lo * BT, bias_vec, t, plant);
+      dq_bias_tile<T>(bv, a, bb, item.b, item.h, rlo, item.t_lo * BT, bias_vec, t, plant);
     float dq[C::DT / 2];
 #pragma unroll
     for (int i = 0; i < C::DT / 2; ++i) dq[i] = 0.f;
-    uint32_t da[BT / 4];   // dS(i-1) as bf16, the A operand: k16 step kt in da[4 kt .. +3]
+    uint32_t da[BT / 4];   // dS(i-1) as T, the A operand: k16 step kt in da[4 kt .. +3]
     int prev = 0, prev_read = 0;   // the previous tile's stage, and the one its K is read from
 
     mbar_wait(sm.q_full, n & 1);
@@ -467,11 +472,11 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
 
       float sacc[BT / 2], dpacc[BT / 2];
       wgmma_fence();
-      issue_ss<D>(sacc, sQw, sm.k(sr));
+      issue_ss<T, D>(sacc, sQw, sm.k(sr));
       wgmma_commit();
-      issue_ss<D>(dpacc, sdOw, sm.v(sr));
+      issue_ss<T, D>(dpacc, sdOw, sm.v(sr));
       wgmma_commit();
-      if (i > 0) issue_rs<D>(dq, da, sm.k(prev_read));
+      if (i > 0) issue_rs<T, D>(dq, da, sm.k(prev_read));
       wgmma_commit();
 
       wgmma_wait<2>();   // S(i) is done
@@ -495,7 +500,7 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
             bv_item = n + 1;
           }
         }
-        if (next) dq_bias_tile(bv, a, bb, nb, nh, nr, nj, bias_vec, t, plant);
+        if (next) dq_bias_tile<T>(bv, a, bb, nb, nh, nr, nj, bias_vec, t, plant);
       } else if (mask) {
 #pragma unroll
         for (int e = 0; e < BT / 2; ++e) {
@@ -528,7 +533,7 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
       fence_regs(da);
       __syncwarp();
       if (i > 0 && lane == 0) mbar_arrive(sm.empty(prev));
-      pack<BT / 2>(da, dpacc);   // ds rounded to bf16, as on the TPU
+      pack<T, BT / 2>(da, dpacc);   // ds rounded to T, as on the TPU
       prev = s;
       prev_read = sr;
     }
@@ -536,7 +541,7 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
     if (lane == 0) mbar_arrive(sm.q_empty);   // every S and dP of this item has read Q, dO
     if (item.n_tiles > 0) {
       wgmma_fence();
-      issue_rs<D>(dq, da, sm.k(prev_read));
+      issue_rs<T, D>(dq, da, sm.k(prev_read));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -545,17 +550,17 @@ __device__ __forceinline__ void dq_consume(const DqSmem<D>& sm, const Args& a, c
       if (lane == 0) mbar_arrive(sm.empty(prev));
     }
     const size_t qstride = (size_t)a.H * D;   // dq [B, Sq, H, D]
-    store_acc<D>(dq, t, r0, a.Sq,
-                 static_cast<__nv_bfloat16*>(a.dq) + (size_t)item.b * a.Sq * qstride +
-                     (size_t)item.h * D,
-                 qstride);
+    store_acc<T, D>(dq, t, r0, a.Sq,
+                    static_cast<T*>(a.dq) + (size_t)item.b * a.Sq * qstride +
+                        (size_t)item.h * D,
+                    qstride);
     if (dbias)   // the kv tiles the band skips
       dbias_zeros(a, dbias, rlo, item.t_lo * BT,
                   min(a.Skv, (item.t_lo + item.n_tiles) * BT), t);
   }
 }
 
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kThreadsBwd, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_do,
@@ -580,7 +585,7 @@ __global__ void __launch_bounds__(kThreadsBwd, 1)
     // the warpgroup index broadcast from lane 0: branches on it are then
     // uniform to ptxas, which keeps the wgmma after them asynchronous
     const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
-    dq_consume<D, BIAS>(sm, a, bb, bias_vec != 0, cw, plant);
+    dq_consume<T, D, BIAS>(sm, a, bb, bias_vec != 0, cw, plant);
   } else {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) dq_produce<D>(sm, &tm_q, &tm_do, &tm_k, &tm_v, a, plant);
@@ -645,6 +650,7 @@ __device__ __forceinline__ void dkv_bias_walk(float (&bv)[BT / 2], const T* p, l
   }
 }
 
+template <typename T>
 __device__ __forceinline__ void dkv_bias_tile(float (&bv)[BT / 2], const Args& a, const Bias& bb,
                                               int b, int hq, int klo, int i0, int t, int plant) {
   const int kr0 = klo + acc_row(t, 0);
@@ -655,11 +661,12 @@ __device__ __forceinline__ void dkv_bias_tile(float (&bv)[BT / 2], const Args& a
     if (bb.f32)
       dkv_bias_walk(bv, static_cast<const float*>(bb.ptr), o0, o1, bb.sq);
     else
-      dkv_bias_walk(bv, static_cast<const __nv_bfloat16*>(bb.ptr), o0, o1, bb.sq);
+      dkv_bias_walk(bv, static_cast<const T*>(bb.ptr), o0, o1, bb.sq);
   } else {
 #pragma unroll
     for (int e = 0; e < BT / 2; ++e)
-      bv[e] = bias_or_inf(a, bb, b, hq, i0 + acc_col(t, e), kr0 + 8 * ((e >> 1) & 1), plant);
+      bv[e] = bias_or_inf<T>(a, bb, b, hq, i0 + acc_col(t, e), kr0 + 8 * ((e >> 1) & 1),
+                             plant);
   }
 }
 
@@ -754,7 +761,7 @@ __device__ __forceinline__ void dkv_produce(const DkvSmem<D>& sm, const CUtensor
 // Bias mode: a bias with q stride 0 is read as bk, two values per query
 // head; any other from bv, loaded a tile ahead under the tile's products
 // at D <= 64, or per score at D = 128 where the registers are not there.
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a, const Bias& bb,
                                             int cw, int plant) {
   using C = Cfg<D>;
@@ -778,7 +785,7 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
     for (int i = 0; i < C::DT / 2; ++i) dk[i] = dv[i] = 0.f;
 
     if (BIAS && kAhead && !per_kv && item.n_tiles > 0 && heads > 0 && bv_item != n)
-      dkv_bias_tile(bv, a, bb, item.b, item.hk * g, klo, item.t_lo * BT, t, plant);
+      dkv_bias_tile<T>(bv, a, bb, item.b, item.hk * g, klo, item.t_lo * BT, t, plant);
 
     mbar_wait(sm.kv_full, n & 1);
     for (int j = 0; j < dkv_heads(a, plant); ++j) {
@@ -788,7 +795,7 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int kv = kr0 + 8 * r;
-          bk[r] = kv < a.Skv ? bias_at(bb, item.b, hq, 0, bias_kv(a, kv, plant)) : 0.f;
+          bk[r] = kv < a.Skv ? bias_at_t<T>(bb, item.b, hq, 0, bias_kv(a, kv, plant)) : 0.f;
         }
       }
       for (int i = 0; i < item.n_tiles; ++i, ++it) {
@@ -800,9 +807,9 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
 
         float st[BT / 2], dpt[BT / 2];   // [kv row][q col]
         wgmma_fence();
-        issue_ss<D>(st, sKw, sm.q(sr));
+        issue_ss<T, D>(st, sKw, sm.q(sr));
         wgmma_commit();
-        issue_ss<D>(dpt, sVw, sm.dout(sr));
+        issue_ss<T, D>(dpt, sVw, sm.dout(sr));
         wgmma_commit();
 
         const float* lse2 = sm.lse(sr);
@@ -846,14 +853,14 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
                 }
               }
             }
-            if (next) dkv_bias_tile(bv, a, bb, nb, nh, nk, ni, t, plant);
+            if (next) dkv_bias_tile<T>(bv, a, bb, nb, nh, nk, ni, t, plant);
           } else {
 #pragma unroll
             for (int e = 0; e < BT / 2; ++e) {
               const int col = acc_col(t, e);
               st[e] = p_biased(st[e], a.scale,
-                               bias_or_inf(a, bb, item.b, hq, i0 + col, kr0 + 8 * ((e >> 1) & 1),
-                                           plant),
+                               bias_or_inf<T>(a, bb, item.b, hq, i0 + col,
+                                              kr0 + 8 * ((e >> 1) & 1), plant),
                                lse2[col]);
             }
           }
@@ -869,10 +876,10 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
 #pragma unroll
           for (int e = 0; e < BT / 2; ++e) st[e] = exp2_ftz(fmaf(st[e], sl2, -lse2[acc_col(t, e)]));
         }
-        uint32_t pa[BT / 4];   // p^T rounded to bf16: the A operand of dV += P^T dO
-        pack<BT / 2>(pa, st);
+        uint32_t pa[BT / 4];   // p^T rounded to T: the A operand of dV += P^T dO
+        pack<T, BT / 2>(pa, st);
         wgmma_fence();
-        issue_rs<D>(dv, pa, sm.dout(sr));
+        issue_rs<T, D>(dv, pa, sm.dout(sr));
         wgmma_commit();
 
         wgmma_wait<1>();   // dP^T is done; dV may still run
@@ -880,10 +887,10 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
 #pragma unroll
         for (int e = 0; e < BT / 2; ++e)
           dpt[e] = st[e] * (dpt[e] - dlt[acc_col(t, e)]) * a.scale;
-        uint32_t sa[BT / 4];   // ds^T rounded to bf16: the A operand of dK += dS^T Q
-        pack<BT / 2>(sa, dpt);
+        uint32_t sa[BT / 4];   // ds^T rounded to T: the A operand of dK += dS^T Q
+        pack<T, BT / 2>(sa, dpt);
         wgmma_fence();
-        issue_rs<D>(dk, sa, sm.q(sr));
+        issue_rs<T, D>(dk, sa, sm.q(sr));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv);
@@ -898,12 +905,12 @@ __device__ __forceinline__ void dkv_consume(const DkvSmem<D>& sm, const Args& a,
     if (lane == 0) mbar_arrive(sm.kv_empty);   // every S^T and dP^T of this item is done
     const size_t kstride = (size_t)a.Hkv * D;   // dk, dv [B, Skv, Hkv, D]
     const size_t first = (size_t)item.b * a.Skv * kstride + (size_t)item.hk * D;
-    store_acc<D>(dk, t, kr0, a.Skv, static_cast<__nv_bfloat16*>(a.dk) + first, kstride);
-    store_acc<D>(dv, t, kr0, a.Skv, static_cast<__nv_bfloat16*>(a.dv) + first, kstride);
+    store_acc<T, D>(dk, t, kr0, a.Skv, static_cast<T*>(a.dk) + first, kstride);
+    store_acc<T, D>(dv, t, kr0, a.Skv, static_cast<T*>(a.dv) + first, kstride);
   }
 }
 
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kThreadsBwd, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_do,
@@ -926,7 +933,7 @@ __global__ void __launch_bounds__(kThreadsBwd, 1)
   if (threadIdx.x >= 128) {
     setmaxnreg_inc<240>();
     const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
-    dkv_consume<D, BIAS>(sm, a, bb, cw, plant);
+    dkv_consume<T, D, BIAS>(sm, a, bb, cw, plant);
   } else {
     setmaxnreg_dec<24>();
     if (threadIdx.x < 32) dkv_produce<D, BIAS>(sm, &tm_q, &tm_do, &tm_k, &tm_v, a, plant);
@@ -942,58 +949,65 @@ cudaError_t grid_of(long long items, int* grid) {
   return err;
 }
 
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 cudaError_t launch_dq(const Args& a, const Bias& bb, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t err = bhsd_map(&tq, a.q, a.B, a.Sq, a.H, D, BM, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tdo, a.dout, a.B, a.Sq, a.H, D, BM, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BT, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BT, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_sm90_kernel<D, BIAS>, C::DQ_SMEM);
+  cudaError_t err = Elem<T>::map(&tq, a.q, a.B, a.Sq, a.H, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tdo, a.dout, a.B, a.Sq, a.H, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_sm90_kernel<T, D, BIAS>, C::DQ_SMEM);
   int grid = 0;
   if (err == cudaSuccess) err = grid_of((long long)((a.Sq + BM - 1) / BM) * a.B * a.H, &grid);
   if (err != cudaSuccess) return err;
   // bias pairs as one load: kv stride 1, even offsets, an aligned base
   const int bias_vec = bb.sk == 1 && bb.sb % 2 == 0 && bb.sh % 2 == 0 && bb.sq % 2 == 0 &&
                        reinterpret_cast<uintptr_t>(bb.ptr) % (bb.f32 ? 8 : 4) == 0;
-  flash_bwd_dq_sm90_kernel<D, BIAS><<<grid, kThreadsBwd, C::DQ_SMEM, stream>>>(
+  flash_bwd_dq_sm90_kernel<T, D, BIAS><<<grid, kThreadsBwd, C::DQ_SMEM, stream>>>(
       tq, tdo, tk, tv, a, g_plant, bb, bias_vec);
   return cudaGetLastError();
 }
 
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 cudaError_t launch_dkv(const Args& a, const Bias& bb, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t err = bhsd_map(&tq, a.q, a.B, a.Sq, a.H, D, BT, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tdo, a.dout, a.B, a.Sq, a.H, D, BT, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BM, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BM, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkv_sm90_kernel<D, BIAS>, C::DKV_SMEM);
+  cudaError_t err = Elem<T>::map(&tq, a.q, a.B, a.Sq, a.H, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tdo, a.dout, a.B, a.Sq, a.H, D, BT, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BM, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkv_sm90_kernel<T, D, BIAS>, C::DKV_SMEM);
   int grid = 0;
   if (err == cudaSuccess) err = grid_of((long long)((a.Skv + BM - 1) / BM) * a.B * a.Hkv, &grid);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_sm90_kernel<D, BIAS><<<grid, kThreadsBwd, C::DKV_SMEM, stream>>>(
+  flash_bwd_dkv_sm90_kernel<T, D, BIAS><<<grid, kThreadsBwd, C::DKV_SMEM, stream>>>(
       tq, tdo, tk, tv, a, g_plant, bb);
   return cudaGetLastError();
 }
 
 // launch_dq or launch_dkv at head dim D, with or without a bias (bb.ptr)
-template <bool DQ>
-cudaError_t launch_any(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+template <typename T, bool DQ, int D>
+cudaError_t launch_at(const Args& a, const Bias& bb, cudaStream_t s) {
   const bool bias = bb.ptr != nullptr;
-  if (D == 128)
-    return DQ ? (bias ? launch_dq<128, true>(a, bb, s) : launch_dq<128, false>(a, bb, s))
-              : (bias ? launch_dkv<128, true>(a, bb, s) : launch_dkv<128, false>(a, bb, s));
-  if (D == 96)
-    return DQ ? (bias ? launch_dq<96, true>(a, bb, s) : launch_dq<96, false>(a, bb, s))
-              : (bias ? launch_dkv<96, true>(a, bb, s) : launch_dkv<96, false>(a, bb, s));
-  if (D == 64)
-    return DQ ? (bias ? launch_dq<64, true>(a, bb, s) : launch_dq<64, false>(a, bb, s))
-              : (bias ? launch_dkv<64, true>(a, bb, s) : launch_dkv<64, false>(a, bb, s));
-  return DQ ? (bias ? launch_dq<32, true>(a, bb, s) : launch_dq<32, false>(a, bb, s))
-            : (bias ? launch_dkv<32, true>(a, bb, s) : launch_dkv<32, false>(a, bb, s));
+  return DQ ? (bias ? launch_dq<T, D, true>(a, bb, s) : launch_dq<T, D, false>(a, bb, s))
+            : (bias ? launch_dkv<T, D, true>(a, bb, s) : launch_dkv<T, D, false>(a, bb, s));
+}
+
+template <typename T, bool DQ>
+cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+  if (D == 128) return launch_at<T, DQ, 128>(a, bb, s);
+  if (D == 96) return launch_at<T, DQ, 96>(a, bb, s);
+  if (D == 64) return launch_at<T, DQ, 64>(a, bb, s);
+  return launch_at<T, DQ, 32>(a, bb, s);
+}
+
+// ... and of element type dtype (0 bf16, 2 fp16)
+template <bool DQ>
+cudaError_t launch_any(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_d<__nv_bfloat16, DQ>(a, bb, D, s);
+  if (dtype == 2) return launch_d<__half, DQ>(a, bb, D, s);
+  return cudaErrorInvalidValue;
 }
 
 // Checks shared by both entry points: a valid head layout, and q, k, v and
@@ -1017,7 +1031,7 @@ cudaError_t check_inputs(const Args& a, int D) {
 static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dq, int B, int H, int Hkv, int Sq,
                   int Skv, int D, int q_offset, int causal, int window, float scale,
-                  const dstt_flash::Bias& bb, void* stream) {
+                  int dtype, const dstt_flash::Bias& bb, void* stream) {
   using namespace dstt_flash;
   if (B == 0 || Sq == 0) return 0;
   Args a = bwd_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
@@ -1025,14 +1039,14 @@ static int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   a.dq = dq;
   cudaError_t err = check_inputs(a, D);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_any<true>(a, bb, D, static_cast<cudaStream_t>(stream));
+  return (int)launch_any<true>(a, bb, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // dk, dv from the inputs (Skv = 0: nothing to write; Sq = 0: zeros).
 static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dk, void* dv, int B, int H,
                    int Hkv, int Sq, int Skv, int D, int q_offset, int causal, int window,
-                   float scale, const dstt_flash::Bias& bb, void* stream) {
+                   float scale, int dtype, const dstt_flash::Bias& bb, void* stream) {
   using namespace dstt_flash;
   if (B == 0 || Skv == 0) return 0;
   Args a = bwd_args(q, k, v, dout, lse, delta, B, H, Hkv, Sq, Skv, q_offset, causal, window,
@@ -1041,6 +1055,7 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
   a.dv = dv;
   cudaError_t err = check_inputs(a, D);
   if (err != cudaSuccess) return (int)err;
+  if (dtype != 0 && dtype != 2) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0) {   // nothing to sum: a tensor map cannot span 0 rows
     const size_t bytes = (size_t)B * Skv * Hkv * D * 2;
@@ -1048,48 +1063,48 @@ static int bwd_dkv(const void* q, const void* k, const void* v, const void* dout
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, s);
     return (int)err;
   }
-  return (int)launch_any<false>(a, bb, D, s);
+  return (int)launch_any<false>(a, bb, D, dtype, s);
 }
 
-// bf16 dq [B, Sq, H, D] from q, k, v, dout [B, S, *, D] (dense, 16-byte
-// aligned), lse and delta [B * H, Sq] fp32 (lse in base e, as the forward
-// writes it). D: 32, 64, 96 or 128.
+// dq [B, Sq, H, D] of q's type (dtype 0 bf16, 2 fp16) from q, k, v, dout
+// [B, S, *, D] (dense, 16-byte aligned), lse and delta [B * H, Sq] fp32 (lse
+// in base e, as the forward writes it). D: 32, 64, 96 or 128.
 extern "C" int dstt_flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                       const void* dout, const float* lse, const float* delta,
                                       void* dq, int B, int H, int Hkv, int Sq, int Skv, int D,
                                       int q_offset, int causal, int window, float scale,
-                                      void* stream) {
+                                      int dtype, void* stream) {
   return bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
-                scale, dstt_flash::Bias{}, stream);
+                scale, dtype, dstt_flash::Bias{}, stream);
 }
 
-// bf16 dk, dv [B, Skv, Hkv, D] (narrow) from the same inputs. No query row
+// dk, dv [B, Skv, Hkv, D] (narrow) from the same inputs. No query row
 // (Sq = 0): zeros.
 extern "C" int dstt_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                                        const void* dout, const float* lse, const float* delta,
                                        void* dk, void* dv, int B, int H, int Hkv, int Sq,
                                        int Skv, int D, int q_offset, int causal, int window,
-                                       float scale, void* stream) {
+                                       float scale, int dtype, void* stream) {
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Skv, D, q_offset, causal,
-                 window, scale, dstt_flash::Bias{}, stream);
+                 window, scale, dtype, dstt_flash::Bias{}, stream);
 }
 
 // The bias mode of dstt_flash_bwd_dq_sm90: bias (not null unless there is
-// nothing to compute: a bias of no element may have none; bf16 or fp32 by
-// bias_f32) broadcastable to [B, H, Sq, Skv], read through its element
+// nothing to compute: a bias of no element may have none; of q's type or
+// fp32 by bias_f32) broadcastable to [B, H, Sq, Skv], read through its element
 // strides sb, sh, sq, sk (any may be 0); dbias (may be null) fp32 [B, H,
 // Sq, Skv], every element written; lse as the bias-mode forward writes it.
 extern "C" int dstt_flash_bwd_dq_bias_sm90(const void* q, const void* k, const void* v,
                                            const void* dout, const float* lse,
                                            const float* delta, void* dq, int B, int H, int Hkv,
                                            int Sq, int Skv, int D, int q_offset, int causal,
-                                           int window, float scale, const void* bias,
-                                           long long sb, long long sh, long long sq,
-                                           long long sk, int bias_f32, float* dbias,
-                                           void* stream) {
+                                           int window, float scale, int dtype,
+                                           const void* bias, long long sb, long long sh,
+                                           long long sq, long long sk, int bias_f32,
+                                           float* dbias, void* stream) {
   if (bias == nullptr && B > 0 && Sq > 0) return (int)cudaErrorInvalidValue;
   return bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Skv, D, q_offset, causal, window,
-                scale, dstt_flash::Bias{bias, sb, sh, sq, sk, bias_f32, dbias}, stream);
+                scale, dtype, dstt_flash::Bias{bias, sb, sh, sq, sk, bias_f32, dbias}, stream);
 }
 
 // The bias mode of dstt_flash_bwd_dkv_sm90 (the bias as above).
@@ -1098,13 +1113,13 @@ extern "C" int dstt_flash_bwd_dkv_bias_sm90(const void* q, const void* k, const 
                                             const float* delta, void* dk, void* dv, int B,
                                             int H, int Hkv, int Sq, int Skv, int D,
                                             int q_offset, int causal, int window, float scale,
-                                            const void* bias, long long sb, long long sh,
-                                            long long sq, long long sk, int bias_f32,
-                                            void* stream) {
+                                            int dtype, const void* bias, long long sb,
+                                            long long sh, long long sq, long long sk,
+                                            int bias_f32, void* stream) {
   if (bias == nullptr && B > 0 && Sq > 0 && Skv > 0) return (int)cudaErrorInvalidValue;
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Skv, D, q_offset, causal,
-                 window, scale, dstt_flash::Bias{bias, sb, sh, sq, sk, bias_f32, nullptr},
-                 stream);
+                 window, scale, dtype,
+                 dstt_flash::Bias{bias, sb, sh, sq, sk, bias_f32, nullptr}, stream);
 }
 
 // Plants a fault in the next launches of both kernels (tests only): 1 reads

@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 inputs. bf16 goes to
-// flash_fwd_sm90.cu (TMA + wgmma); dstt_flash_fwd below routes by dtype.
+// Flash-attention forward for Hopper (sm_90a), fp32 inputs. bf16 and fp16 go
+// to flash_fwd_sm90.cu (TMA + wgmma); dstt_flash_fwd below routes by dtype.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (:284,
 // pallas_call at :426, driven by `_flash_fwd` :361; op `attention`). Same
@@ -171,13 +171,14 @@ cudaError_t launch_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
 }  // namespace
 
 namespace dstt_flash {
-cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, cudaStream_t s);
+cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s);
 }
 
 // q [B, Sq, H, D], k/v [B, Skv, Hkv, D] -> o [B, Sq, H, D], lse [B * H, Sq] fp32.
-// dtype: 0 bf16 (flash_fwd_sm90.cu), 1 fp32 (here). D: 32, 64, 96 or 128.
-// window <= 0: none. bias: null (none) or a bf16 (bias_f32 0) / fp32 (1)
-// bias read at b * sb + h * sh + q * sq + kv * sk elements.
+// dtype: 0 bf16, 2 fp16 (flash_fwd_sm90.cu), 1 fp32 (here). D: 32, 64, 96
+// or 128. window <= 0: none. bias: null (none) or a 16-bit (bias_f32 0: of
+// q's type with bf16 / fp16 q, bf16 with fp32 q) or fp32 (1) bias read at
+// b * sb + h * sh + q * sq + kv * sk elements.
 extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Hkv, int Sq, int Skv, int D, int q_offset,
                               int causal, int window, float scale, int dtype, const void* bias,
@@ -191,7 +192,7 @@ extern "C" int dstt_flash_fwd(const void* q, const void* k, const void* v, void*
   a.q_offset = q_offset; a.causal = causal; a.window = window; a.scale = scale;
   const Bias bb{bias, sb, sh, sq, sk, bias_f32, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dstt_flash::flash_fwd_sm90(a, bb, D, s);
+  if (dtype == 0 || dtype == 2) return (int)dstt_flash::flash_fwd_sm90(a, bb, D, dtype, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)(bias ? launch_d<float, true>(a, bb, D, s) : launch_d<float, false>(a, bb, D, s));
 }

@@ -1,11 +1,12 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, hd 32 / 64 / 96 / 128:
+// Flash-attention forward for Hopper (sm_90a), bf16 and fp16 (the element
+// type T, hopper_types.cuh), hd 32 / 64 / 96 / 128:
 // TMA loads into an mbarrier ring, wgmma products, warp specialisation.
 //
 // Replaces: deepspeed_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (:284,
 // pallas_call at :426, driven by `_flash_fwd` :361; bias mode `_flash_b`
 // :787). Same function as flash_fwd.cu (which now serves fp32 only): o =
 // softmax(scale * q k^T + bias + mask) v per (batch, head), the running max,
-// sum and accumulator in fp32, p rounded to bf16 before the P V product,
+// sum and accumulator in fp32, p rounded to T before the P V product,
 // lse = m + log(l) per row. Masks: causal with q_offset, a static causal
 // window, kv length. A row that sees no key gets o = 0 and lse = -1e30 +
 // log 1. The bias mode keeps the softmax in natural units (flash_common.cuh),
@@ -34,7 +35,7 @@
 //   S = Q K^T as D / 16 wgmma m64n128k16 with both operands in shared memory;
 //   mask (only on tiles that cross the diagonal, the window edge or a tail),
 //   scale, bias and online softmax on the accumulator in registers (one FFMA
-//   and one ex2 per score without a bias); P packed to bf16 in registers is
+//   and one ex2 per score without a bias); P packed to T in registers is
 //   the A operand of O += P V, BKV / 16 wgmma m64nDk16 with V read as the
 //   transposed B operand. P never goes through shared memory.
 // - the two consumers take turns on the tensor cores (named barriers): one
@@ -60,6 +61,7 @@
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
+#include "hopper_types.cuh"
 
 namespace dstt_flash {
 
@@ -92,7 +94,8 @@ int g_plant = 0;
 // The bias of a tile no mask touches, at this thread's 64 scores: rows
 // roff[0], roff[1] (element offsets of the thread's two rows), columns c0 +
 // 8 nt + {0, 1}. vec: kv stride 1 and even offsets, so each pair is one
-// 8-byte (fp32) or 4-byte (bf16) load.
+// 8-byte (fp32) or 4-byte (16-bit, of T) load.
+template <typename T>
 __device__ __forceinline__ void bias_tile(float (&bv)[64], const Bias& bb,
                                           const long long (&roff)[2], int c0, bool vec) {
   if (vec && bb.f32) {
@@ -105,11 +108,10 @@ __device__ __forceinline__ void bias_tile(float (&bv)[64], const Bias& bb,
       bv[i + 1] = x.y;
     }
   } else if (vec) {
-    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(bb.ptr);
+    const T* p = static_cast<const T*>(bb.ptr);
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          p + roff[(i >> 1) & 1] + c0 + 8 * (i >> 2)));
+      const float2 x = Elem<T>::load2(p + roff[(i >> 1) & 1] + c0 + 8 * (i >> 2));
       bv[i] = x.x;
       bv[i + 1] = x.y;
     }
@@ -119,7 +121,7 @@ __device__ __forceinline__ void bias_tile(float (&bv)[64], const Bias& bb,
       const long long at =
           roff[(i >> 1) & 1] + (long long)(c0 + 8 * (i >> 2) + (i & 1)) * bb.sk;
       bv[i] = bb.f32 ? __ldg(static_cast<const float*>(bb.ptr) + at)
-                     : __bfloat162float(static_cast<const __nv_bfloat16*>(bb.ptr)[at]);
+                     : Elem<T>::load1(static_cast<const T*>(bb.ptr) + at);
     }
   }
 }
@@ -136,7 +138,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // scale, bias and the online softmax: s becomes p, m / l move on, alpha is
 // the factor the accumulator must take. A masked tile reads the bias only at
 // visible scores (bias_at); an unmasked one takes bv, its bias_tile.
-template <bool BIAS, bool MASK>
+template <typename T, bool BIAS, bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], const float (&bv)[64],
                                              const Args& a, const Bias& bb, int b, int h, int t,
@@ -174,7 +176,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     if (MASK && !visible(a, row, col)) {
       x = -INFINITY;
     } else if constexpr (BIAS) {
-      x = s[i] * a.scale + (MASK ? bias_at(bb, b, h, row, col) : bv[i]);
+      x = s[i] * a.scale + (MASK ? bias_at_t<T>(bb, b, h, row, col) : bv[i]);
     } else {
       x = s[i] * sl2;
     }
@@ -286,9 +288,9 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, const CUtensorMap* tm
   }
 }
 
-// O += P V for one kv tile: P (this warpgroup's 64 rows x BKV, bf16) in
+// O += P V for one kv tile: P (this warpgroup's 64 rows x BKV, of T) in
 // registers, V at sv read as the transposed B operand.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[Cfg<D>::DT / 2],
                                          const uint32_t (&pa)[BKV / 4], uint32_t sv) {
   using C = Cfg<D>;
@@ -296,11 +298,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[Cfg<D>::DT / 2],
   for (int kt = 0; kt < BKV / 16; ++kt) {
     const uint64_t dv = smem_desc(sv + kt * 16 * C::RB, BKV * C::RB, C::SBO, C::SWZ);
     if constexpr (C::DT == 128)
-      wgmma_rs_n128(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
+      Elem<T>::rs_n128(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
     else if constexpr (C::DT == 64)
-      wgmma_rs_n64(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
+      Elem<T>::rs_n64(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
     else
-      wgmma_rs_n32(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
+      Elem<T>::rs_n32(o, pa[4 * kt], pa[4 * kt + 1], pa[4 * kt + 2], pa[4 * kt + 3], dv, 1);
   }
 }
 
@@ -313,7 +315,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[Cfg<D>::DT / 2],
 // barriers 1 and 2), and a stage is released once P V has read its V. Q is
 // released after an item's last S, so the producer loads the next item's Q
 // and first tiles while this one's last P V and epilogue run.
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const Bias& bb,
                                         bool bias_vec, int cw, int plant) {
   using C = Cfg<D>;
@@ -337,7 +339,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       roff[r] = (long long)b * bb.sb + (long long)h * bb.sh + (long long)(r0 + 8 * r) * bb.sq;
-    uint32_t pa[BKV / 4];   // P(i-1) as bf16, the A operand: k16 step kt in pa[4 kt .. +3]
+    uint32_t pa[BKV / 4];   // P(i-1) as T, the A operand: k16 step kt in pa[4 kt .. +3]
     int prev = 0, prev_read = 0;   // the previous tile's stage, and the one its V is read from
 
     // Every wgmma is issued on a condition that is the same for all threads
@@ -355,7 +357,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
         mask = mask || j0 + BKV - 1 > rlo + a.q_offset ||
                (a.window > 0 && rlo + WG_ROWS - 1 + a.q_offset - j0 >= a.window);
       float bv[64];   // the bias of an unmasked tile, loaded while K and S are on their way
-      if (BIAS && kEarlyBias && !mask) bias_tile(bv, bb, roff, j0 + 2 * (t & 3), bias_vec);
+      if (BIAS && kEarlyBias && !mask) bias_tile<T>(bv, bb, roff, j0 + 2 * (t & 3), bias_vec);
       mbar_wait(sm.full(s), (it / C::STAGES) & 1);
 
       float sacc[64];
@@ -364,12 +366,12 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int cb = kk * 16 / C::CB, in_row = (kk * 16 % C::CB) * 2;
-        wgmma_ss_n128(sacc, smem_desc(sQw + cb * BQ * C::RB + in_row, 16, C::SBO, C::SWZ),
+        Elem<T>::ss_n128(sacc, smem_desc(sQw + cb * BQ * C::RB + in_row, 16, C::SBO, C::SWZ),
                       smem_desc(sm.k(sr) + cb * BKV * C::RB + in_row, 16, C::SBO, C::SWZ),
                       kk > 0);
       }
       wgmma_commit();
-      if (i > 0) issue_pv<D>(o, pa, sm.v(prev_read));
+      if (i > 0) issue_pv<T, D>(o, pa, sm.v(prev_read));
       wgmma_commit();
       named_bar_arrive(kTurn + 1 - cw, 256);
 
@@ -377,10 +379,10 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
       wgmma_wait<1>();   // S(i) is done; P(i-1) V(i-1) may still run
       fence_regs(sacc);
       if (mask) {
-        softmax_tile<BIAS, true>(sacc, m, l, alpha, bv, a, bb, b, h, t, rlo, j0);
+        softmax_tile<T, BIAS, true>(sacc, m, l, alpha, bv, a, bb, b, h, t, rlo, j0);
       } else {
-        if (BIAS && !kEarlyBias) bias_tile(bv, bb, roff, j0 + 2 * (t & 3), bias_vec);
-        softmax_tile<BIAS, false>(sacc, m, l, alpha, bv, a, bb, b, h, t, rlo, j0);
+        if (BIAS && !kEarlyBias) bias_tile<T>(bv, bb, roff, j0 + 2 * (t & 3), bias_vec);
+        softmax_tile<T, BIAS, false>(sacc, m, l, alpha, bv, a, bb, b, h, t, rlo, j0);
       }
       wgmma_wait<0>();
       fence_regs(o);
@@ -390,7 +392,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
 #pragma unroll
       for (int j = 0; j < C::DT / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 #pragma unroll
-      for (int j = 0; j < BKV / 4; ++j) pa[j] = pack_bf16(sacc[2 * j], sacc[2 * j + 1]);
+      for (int j = 0; j < BKV / 4; ++j) pa[j] = Elem<T>::pack(sacc[2 * j], sacc[2 * j + 1]);
       prev = s;
       prev_read = sr;
     }
@@ -402,7 +404,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
     if (lane == 0) mbar_arrive(sm.q_empty);   // every S of this item has read Q
     if (item.n_tiles > 0) {
       wgmma_fence();
-      issue_pv<D>(o, pa, sm.v(prev_read));
+      issue_pv<T, D>(o, pa, sm.v(prev_read));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -411,7 +413,7 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
     }
 
     // epilogue: o / l from registers, rows at or past Sq not written
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+    T* out = static_cast<T*>(a.o);
     const size_t qstride = (size_t)a.H * D;
     const int bh = b * a.H + h;
 #pragma unroll
@@ -423,18 +425,17 @@ __device__ __forceinline__ void consume(const Smem<D>& sm, const Args& a, const 
       if ((t & 3) == 0)
         a.lse_out[(size_t)bh * a.Sq + row] =
             (m[r] == -INFINITY ? kNegInf : (BIAS ? m[r] : m[r] * kLn2)) + logf(l_safe);
-      __nv_bfloat16* orow = out + ((size_t)b * a.Sq + row) * qstride + (size_t)h * D;
+      T* orow = out + ((size_t)b * a.Sq + row) * qstride + (size_t)h * D;
 #pragma unroll
       for (int i = 2 * r; i < D / 2; i += 4)   // registers i, i + 1 of this row
-        *reinterpret_cast<__nv_bfloat162*>(orow + acc_col(t, i)) =
-            __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+        Elem<T>::store2(orow + acc_col(t, i), o[i] * inv, o[i + 1] * inv);
     }
   }
 }
 
 // A persistent kernel: one block per SM (at most one per item) walks the
 // items; see produce / consume.
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 __global__ void __launch_bounds__(kThreads90, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -460,21 +461,21 @@ __global__ void __launch_bounds__(kThreads90, 1)
     // the same across each warp: branches on it are then not divergent, and
     // ptxas keeps the wgmma after them asynchronous
     const int cw = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0) - 1;
-    consume<D, BIAS>(sm, a, bb, bias_vec != 0, cw, plant);
+    consume<T, D, BIAS>(sm, a, bb, bias_vec != 0, cw, plant);
   } else {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) produce<D>(sm, &tm_q, &tm_k, &tm_v, a, plant);
   }
 }
 
-template <int D, bool BIAS>
+template <typename T, int D, bool BIAS>
 cudaError_t launch_sm90(const Args& a, const Bias& bb, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = bhsd_map(&tq, a.q, a.B, a.Sq, a.H, D, BQ, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BKV, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = bhsd_map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BKV, C::CB, C::SWZ);
-  if (err == cudaSuccess) err = allow_smem(flash_fwd_sm90_kernel<D, BIAS>, C::SMEM);
+  cudaError_t err = Elem<T>::map(&tq, a.q, a.B, a.Sq, a.H, D, BQ, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tk, a.k, a.B, a.Skv, a.Hkv, D, BKV, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = Elem<T>::map(&tv, a.v, a.B, a.Skv, a.Hkv, D, BKV, C::CB, C::SWZ);
+  if (err == cudaSuccess) err = allow_smem(flash_fwd_sm90_kernel<T, D, BIAS>, C::SMEM);
   if (err != cudaSuccess) return err;
   // bias pairs as one load: kv stride 1, even offsets, an aligned base
   const int bias_vec = bb.sk == 1 && bb.sb % 2 == 0 && bb.sh % 2 == 0 && bb.sq % 2 == 0 &&
@@ -485,29 +486,36 @@ cudaError_t launch_sm90(const Args& a, const Bias& bb, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const long long items = (long long)((a.Sq + BQ - 1) / BQ) * a.B * a.H;
   const int grid = (int)(items < sms ? items : sms);
-  flash_fwd_sm90_kernel<D, BIAS><<<grid, kThreads90, C::SMEM, stream>>>(tq, tk, tv, a, bb,
-                                                                         bias_vec, g_plant);
+  flash_fwd_sm90_kernel<T, D, BIAS><<<grid, kThreads90, C::SMEM, stream>>>(tq, tk, tv, a, bb,
+                                                                            bias_vec, g_plant);
   return cudaGetLastError();
 }
 
-template <bool BIAS>
+template <typename T, bool BIAS>
 cudaError_t launch_sm90_d(const Args& a, const Bias& bb, int D, cudaStream_t s) {
-  if (D == 128) return launch_sm90<128, BIAS>(a, bb, s);
-  if (D == 96) return launch_sm90<96, BIAS>(a, bb, s);
-  if (D == 64) return launch_sm90<64, BIAS>(a, bb, s);
-  if (D == 32) return launch_sm90<32, BIAS>(a, bb, s);
+  if (D == 128) return launch_sm90<T, 128, BIAS>(a, bb, s);
+  if (D == 96) return launch_sm90<T, 96, BIAS>(a, bb, s);
+  if (D == 64) return launch_sm90<T, 64, BIAS>(a, bb, s);
+  if (D == 32) return launch_sm90<T, 32, BIAS>(a, bb, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_sm90_t(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+  return bb.ptr ? launch_sm90_d<T, true>(a, bb, D, s) : launch_sm90_d<T, false>(a, bb, D, s);
 }
 
 }  // namespace
 
-// The bf16 forward (flash_fwd.cu's dstt_flash_fwd routes here). TMA needs
-// 16-byte aligned q, k, v; the wrapper checks it first and raises.
-cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, cudaStream_t s) {
+// The bf16 (dtype 0) and fp16 (dtype 2) forwards (flash_fwd.cu's
+// dstt_flash_fwd routes here). TMA needs 16-byte aligned q, k, v; the
+// wrapper checks it first and raises.
+cudaError_t flash_fwd_sm90(const Args& a, const Bias& bb, int D, int dtype, cudaStream_t s) {
   if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
        reinterpret_cast<uintptr_t>(a.v)) % 16)
     return cudaErrorMisalignedAddress;
-  return bb.ptr ? launch_sm90_d<true>(a, bb, D, s) : launch_sm90_d<false>(a, bb, D, s);
+  return dtype == 2 ? launch_sm90_t<__half>(a, bb, D, s)
+                    : launch_sm90_t<__nv_bfloat16>(a, bb, D, s);
 }
 
 }  // namespace dstt_flash

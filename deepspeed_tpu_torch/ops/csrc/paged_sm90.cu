@@ -1,6 +1,8 @@
 // Paged attention over the block-table KV pools for Hopper (sm_90a): one-token
-// decode and fused speculative verification, bf16 pools or int8 code pools
-// with fp32 scales.
+// decode and fused speculative verification, bf16 or fp16 pools (of q's
+// type) or int8 code pools with fp32 scales. The element type T of q and
+// out, bf16 or fp16, is a template parameter: it picks the mma.sync type and
+// the rounding of P (and, at ng > 1, of code x scale); nothing else moves.
 //
 // Replaces, in deepspeed_tpu/ops/pallas/paged_attention.py:
 // - `_decode_kernel` (:74; pallas_call :230, op `paged_decode_attention`) in
@@ -13,15 +15,15 @@
 // table (with a window w only those > ctx+ti-w). An inactive slot (ctx 0,
 // trash block 0) attends position 0; a row that sees nothing writes 0.
 //
-//   q            [B, t, nh, hd]              bf16 (decode: t = 1)
-//   k/v pool     [num_blocks, nkv, bs, hd]   bf16, or int8 codes (ng > 0)
+//   q            [B, t, nh, hd]              bf16 or fp16 (decode: t = 1)
+//   k/v pool     [num_blocks, nkv, bs, hd]   q's type, or int8 codes (ng > 0)
 //   k/v scale    [num_blocks, nkv, bs, ng]   fp32: element d of a row is
 //                code * scale[d / (hd / ng)]
 //   block_tables [B, max_blocks]             int32
 //   context_lens [B]                         int32
 //   window       none, a static int >= 1, or a 0-d int32 device tensor
 //                (clamped to >= 1)
-//   out          like q                      bf16
+//   out          like q
 //
 // Bound on an H100 SXM: memory. The least traffic is the K and V rows (and
 // scale rows) of the positions some row can see, read once, plus q and out:
@@ -51,18 +53,18 @@
 //   two subtiles ahead into registers. No barrier beyond the warp's own sits
 //   between loads, scores, softmax and P.V.
 // - Products on tensor cores: S = Q K^T and O += P V by
-//   `mma.sync.m16n8k16` bf16 -> fp32. The Q fragments stay in registers
-//   for the whole item; bf16 K comes through `ldmatrix`, V through
+//   `mma.sync.m16n8k16` T -> fp32. The Q fragments stay in registers
+//   for the whole item; 16-bit K comes through `ldmatrix`, V through
 //   `ldmatrix.trans`. int8 codes stay int8 in shared memory (half the bytes)
-//   and become bf16 on the way into the fragments (exact, |code| <= 127):
+//   and become T on the way into the fragments (exact, |code| <= 127):
 //   K through `ldmatrix` of int8 pairs (4 codes of one position; the
 //   product's k order within 16 dims is permuted, Q's fragments with it),
 //   V through `ldmatrix.trans` of int8 pairs (two positions x two dims; the
 //   output dims of each 16 are dealt even / odd to two n8 tiles). At ng = 1
 //   the K scale multiplies its position's score and the V scale its
-//   probability; at ng > 1 code x scale is rounded to bf16 before the
+//   probability; at ng > 1 code x scale is rounded to T before the
 //   product, as `_dequant_tile` does.
-// - fp32 online softmax (in base 2); P is rounded to bf16 before P.V, as the
+// - fp32 online softmax (in base 2); P is rounded to T before P.V, as the
 //   TPU kernel's `p.astype(v.dtype)`; l sums the unrounded p. The
 //   accumulator stays in registers.
 // - A sequence of one split writes its rows. Otherwise each split writes
@@ -74,6 +76,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -100,6 +103,8 @@ constexpr size_t kMaxSmem = 232448;
 // ng = 1. 0: none.
 int g_plant = 0;
 
+// q and out hold 16-bit elements of the kernel's T (bf16 or fp16); the
+// kernel reads and writes them as raw 32- and 64-bit words.
 struct Args {
   const __nv_bfloat16* q;
   const char* k_pool;
@@ -179,6 +184,32 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The element type T of q, out and 16-bit pools (bf16 or fp16): its
+// m16n8k16 product (fp32 accumulator) and its packing of two fp32 values
+// (lo in the low half, rounded to nearest; fp16 past 65504: inf). The bf16
+// members are mma and pack above.
+template <typename T> struct Elem;
+template <> struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+    ::mma(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return ::pack(lo, hi); }
+};
+template <> struct Elem<__half> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                             uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
 // byte k of a word of int8 codes, the word's sign bits flipped first
 // (x = w ^ 0x80808080), as an exact float: 2^23 + (code + 128) - (2^23 + 128)
 __device__ __forceinline__ float code_at(uint32_t x, int k) {
@@ -210,7 +241,7 @@ __device__ __forceinline__ int splits_of(int len) {
   return max(1, (nsub + sps - 1) / sps);
 }
 
-template <int HD, bool QUANT>
+template <typename T, int HD, bool QUANT>
 __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, const int plant) {
   using C = Cfg<HD, QUANT>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -375,8 +406,8 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
         for (int ks = 0; ks < HD / 16; ++ks) {
           uint32_t r[4];   // positions 0-7 / 8-15 (mi / 2), dims 0-7 / 8-15 (mi % 2)
           ldsm_x4(st + ((mi >> 1) * 8 + r8) * C::ROWB + ks * 32 + (mi & 1) * 16, r);
-          mma((ks & 1) ? sc2[0] : sc[0], qa[ks], r[0], r[1]);
-          mma((ks & 1) ? sc2[1] : sc[1], qa[ks], r[2], r[3]);
+          Elem<T>::mma((ks & 1) ? sc2[0] : sc[0], qa[ks], r[0], r[1]);
+          Elem<T>::mma((ks & 1) ? sc2[1] : sc[1], qa[ks], r[2], r[3]);
         }
       } else {
         const bool grouped = a.ng > 1;
@@ -393,7 +424,8 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
               const float sk = ksc[(nt * 8 + g4) * C::NGMAX + kstep * 16 * a.ng / HD];
               f0 *= sk; f1 *= sk; f2 *= sk; f3 *= sk;
             }
-            mma((kstep & 1) ? sc2[nt] : sc[nt], qa[kstep], pack(f0, f1), pack(f2, f3));
+            Elem<T>::mma((kstep & 1) ? sc2[nt] : sc[nt], qa[kstep], Elem<T>::pack(f0, f1),
+                         Elem<T>::pack(f2, f3));
           }
         }
       }
@@ -402,7 +434,7 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[nt][e] += sc2[nt][e];
     };
-    // O += P V over a subtile (stage sidx), P the bf16 A fragment
+    // O += P V over a subtile (stage sidx), P the A fragment of T
     auto pv = [&](int sidx, const uint32_t (&pa)[4]) {
       const uint32_t st = ring + sidx * C::STAGE;
       const float* vsc = reinterpret_cast<const float*>(wreg + sidx * C::STAGE + 2 * C::KV) + C::SC / 4;
@@ -411,8 +443,8 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
         for (int dd = 0; dd < HD / 16; ++dd) {
           uint32_t r[4];   // positions 0-7 / 8-15 (mi % 2), dims dd*16 + 0-7 / 8-15 (mi / 2)
           ldsm_x4_t(st + C::KV + ((mi & 1) * 8 + r8) * C::ROWB + dd * 32 + (mi >> 1) * 16, r);
-          mma(acc[2 * dd], pa, r[0], r[1]);
-          mma(acc[2 * dd + 1], pa, r[2], r[3]);
+          Elem<T>::mma(acc[2 * dd], pa, r[0], r[1]);
+          Elem<T>::mma(acc[2 * dd + 1], pa, r[2], r[3]);
         }
       } else {
         const bool grouped = a.ng > 1;
@@ -434,11 +466,11 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
                 const float s0 = vsc[pp * C::NGMAX + grp], s1 = vsc[(pp + 1) * C::NGMAX + grp];
                 f0 *= s0; f1 *= s0; f2 *= s1; f3 *= s1;
               }
-              be[kh] = pack(f0, f2);
-              bo[kh] = pack(f1, f3);
+              be[kh] = Elem<T>::pack(f0, f2);
+              bo[kh] = Elem<T>::pack(f1, f3);
             }
-            mma(acc[2 * gq], pa, be[0], be[1]);
-            mma(acc[2 * gq + 1], pa, bo[0], bo[1]);
+            Elem<T>::mma(acc[2 * gq], pa, be[0], be[1]);
+            Elem<T>::mma(acc[2 * gq + 1], pa, bo[0], bo[1]);
           }
         }
       }
@@ -511,11 +543,11 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
           acc[i][2 * e2 + 1] *= alpha;
         }
       }
-      // P (bf16) as the A fragment of P V: k = positions 0-15
-      pa[0] = pack(prob[0][0], prob[0][1]);
-      pa[1] = pack(prob[0][2], prob[0][3]);
-      pa[2] = pack(prob[1][0], prob[1][1]);
-      pa[3] = pack(prob[1][2], prob[1][3]);
+      // P (of T) as the A fragment of P V: k = positions 0-15
+      pa[0] = Elem<T>::pack(prob[0][0], prob[0][1]);
+      pa[1] = Elem<T>::pack(prob[0][2], prob[0][3]);
+      pa[2] = Elem<T>::pack(prob[1][0], prob[1][1]);
+      pa[3] = Elem<T>::pack(prob[1][2], prob[1][3]);
       prev = sidx;
     }
     if (cnt > 0) pv(prev, pa);
@@ -551,14 +583,14 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
             const float* x1 = acc[2 * q + 1];
             if constexpr (QUANT) {   // dims 16q + 4*c4 + 0..3: even tile, odd tile
               uint2 u;
-              u.x = pack(x0[2 * e2] * inv, x1[2 * e2] * inv);
-              u.y = pack(x0[2 * e2 + 1] * inv, x1[2 * e2 + 1] * inv);
+              u.x = Elem<T>::pack(x0[2 * e2] * inv, x1[2 * e2] * inv);
+              u.y = Elem<T>::pack(x0[2 * e2 + 1] * inv, x1[2 * e2 + 1] * inv);
               *reinterpret_cast<uint2*>(dst + 16 * q + 4 * c4) = u;
             } else {                 // dims 16q + 2*c4 + 0..1 and + 8
               *reinterpret_cast<uint32_t*>(dst + 16 * q + 2 * c4) =
-                  pack(x0[2 * e2] * inv, x0[2 * e2 + 1] * inv);
+                  Elem<T>::pack(x0[2 * e2] * inv, x0[2 * e2 + 1] * inv);
               *reinterpret_cast<uint32_t*>(dst + 16 * q + 8 + 2 * c4) =
-                  pack(x1[2 * e2] * inv, x1[2 * e2 + 1] * inv);
+                  Elem<T>::pack(x1[2 * e2] * inv, x1[2 * e2 + 1] * inv);
             }
           }
         }
@@ -691,19 +723,19 @@ __global__ void __launch_bounds__(kThreads) paged_sm90_kernel(const Args a, cons
       const int i = lane + 32 * k;
       if (i < n_it) {
         uint2 u;
-        u.x = pack(o[k].x, o[k].y);
-        u.y = pack(o[k].z, o[k].w);
+        u.x = Elem<T>::pack(o[k].x, o[k].y);
+        u.y = Elem<T>::pack(o[k].z, o[k].w);
         *reinterpret_cast<uint2*>(out_row(i / D4) + 4 * (i % D4)) = u;
       }
     }
   }
 }
 
-template <int HD, bool QUANT>
+template <typename T, int HD, bool QUANT>
 cudaError_t launch_hd(const Args& a, cudaStream_t stream) {
   using C = Cfg<HD, QUANT>;
   static_assert(C::SMEM <= kMaxSmem, "shared memory");
-  auto kernel = paged_sm90_kernel<HD, QUANT>;
+  auto kernel = paged_sm90_kernel<T, HD, QUANT>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -732,36 +764,43 @@ cudaError_t launch_hd(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool QUANT>
+template <typename T, bool QUANT>
 cudaError_t launch(const Args& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hd<64, QUANT>(a, stream);
-    case 128: return launch_hd<128, QUANT>(a, stream);
-    case 256: return launch_hd<256, QUANT>(a, stream);
+    case 64: return launch_hd<T, 64, QUANT>(a, stream);
+    case 128: return launch_hd<T, 128, QUANT>(a, stream);
+    case 256: return launch_hd<T, 256, QUANT>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t launch_t(const Args& a, int hd, cudaStream_t stream) {
+  return a.ng > 0 ? launch<T, true>(a, hd, stream) : launch<T, false>(a, hd, stream);
+}
+
 }  // namespace
 
-// q, k_pool, v_pool, k_scale, v_scale (null in bf16 mode), tables, ctx,
+// q, k_pool, v_pool, k_scale, v_scale (null with 16-bit pools), tables, ctx,
 // window_ptr (null: none), window_static (0: none), out, counters (int32,
 // zero, >= B * nkv * row tiles), partials (fp32, >= B * nsplit * nkv * R *
 // (hd + 2) where nsplit > 1), B, t, nh, nkv, hd, bs, num_blocks, max_blocks,
-// ng (0: bf16 pools), nsplit (the most splits any sequence can have: see
-// splits_of), scale, stream.
+// ng (0: 16-bit pools), nsplit (the most splits any sequence can have: see
+// splits_of), dtype of q, out and 16-bit pools (0 bf16, 2 fp16), scale,
+// stream.
 extern "C" int dstt_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                     const void* k_scale, const void* v_scale,
                                     const void* tables, const void* ctx, const void* window_ptr,
                                     int window_static, void* out, void* counters,
                                     void* partials, int B, int t, int nh, int nkv, int hd,
                                     int bs, int num_blocks, int max_blocks, int ng, int nsplit,
-                                    float scale, void* stream) {
+                                    int dtype, float scale, void* stream) {
   if (B == 0) return 0;
   if (nkv <= 0 || nh % nkv != 0 || t < 1 || bs < 1 || max_blocks < 1 || num_blocks < 1 ||
       nsplit < 1)
     return (int)cudaErrorInvalidValue;
-  if (ng < 0 || (ng > 0 && hd % (16 * ng) != 0)) return (int)cudaErrorInvalidValue;
+  if (ng < 0 || (ng > 0 && hd % (16 * ng) != 0) || (dtype != 0 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
   Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const char*>(k_pool),
          static_cast<const char*>(v_pool), static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale), static_cast<const int*>(tables),
@@ -770,7 +809,7 @@ extern "C" int dstt_paged_attention(const void* q, const void* k_pool, const voi
          static_cast<float*>(partials), B, t, nh, nkv, bs, num_blocks, max_blocks, ng, nsplit,
          scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(ng > 0 ? launch<true>(a, hd, s) : launch<false>(a, hd, s));
+  return (int)(dtype == 2 ? launch_t<__half>(a, hd, s) : launch_t<__nv_bfloat16>(a, hd, s));
 }
 
 // Planted fault of the next launches (tests): 0 none, 1-3 as at g_plant.

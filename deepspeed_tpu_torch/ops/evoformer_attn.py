@@ -12,8 +12,9 @@ folds the MSA rows into the batch, sums the biases in fp32 as the JAX
 package does (one bias stays a broadcast view, read in place), and runs the
 flash kernels' bias mode non-causally (``ops/flash_attention.py``
 :class:`FlashAttentionBias`); the pair bias's gradient comes from the dQ
-kernel's dbias. It needs CUDA tensors and raises ``RuntimeError`` on others.
-``use_kernel=False`` is the einsum path of the JAX signature, on any device.
+kernel's dbias. It needs CUDA tensors and raises ``RuntimeError`` on others,
+and ``ValueError`` on fp16 (ROADMAP queue B.2). ``use_kernel=False`` is the
+einsum path of the JAX signature, on any device.
 A residue row whose every key is masked averages v uniformly on both paths,
 as in the JAX package.
 """
@@ -27,6 +28,8 @@ import torch
 from .flash_attention import flash_attention
 
 NEG_INF = -1e30
+FP16_REFUSAL = ("evoformer_attention's kernel path takes no fp16 yet (ROADMAP queue B.2): "
+                "run it in bf16 or fp32, or pass use_kernel=False")
 
 
 def _kernel_path(q, k, v, biases, scale):
@@ -61,6 +64,8 @@ def evoformer_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise RuntimeError("evoformer_attention's kernel path runs on a CUDA GPU and "
                                f"got {q.device} tensors; pass use_kernel=False for the "
                                "einsum path")
+        if q.dtype == torch.float16:
+            raise ValueError(FP16_REFUSAL)
         return _kernel_path(q, k, v, biases, scale)
     logits = torch.einsum("...sqhd,...skhd->...shqk", q.float(), k.float()) * scale
     for b in (biases or ()):

@@ -4,21 +4,29 @@
 
 Three hand-written kernels replace the three TPU kernels:
 
-- the forward (``_fwd_kernel`` :284): ``(o, lse)``; bf16 runs
-  ``ops/csrc/flash_fwd_sm90.cu`` (TMA loads, wgmma products), fp32
-  ``ops/csrc/flash_fwd.cu`` (FMA products), one entry point routing by
-  dtype. TMA reads q, k and v through tensor maps, whose base and strides
-  must be multiples of 16 bytes: :func:`tma_refusal` says why a tensor
-  cannot be read so, and the bf16 wrapper raises on it;
+- the forward (``_fwd_kernel`` :284): ``(o, lse)``; bf16 and fp16 run
+  ``ops/csrc/flash_fwd_sm90.cu`` (TMA loads, wgmma products; the element
+  type a template parameter), fp32 ``ops/csrc/flash_fwd.cu`` (FMA
+  products), one entry point routing by dtype. TMA reads q, k and v
+  through tensor maps, whose base and strides must be multiples of 16
+  bytes: :func:`tma_refusal` says why a tensor cannot be read so, and the
+  16-bit wrapper raises on it;
 - ``dq`` (``_bwd_dq_kernel`` :448) and ``dkv`` (``_bwd_dkv_kernel`` :523),
-  which writes NARROW dK/dV under GQA (no widen-then-sum): bf16, with or
-  without a bias, runs ``ops/csrc/flash_bwd_sm90.cu`` (TMA loads, wgmma
-  products, the forward's Hopper design), fp32 ``ops/csrc/flash_bwd.cu``
-  (FMA products), as :func:`bwd_source` routes them; the bf16 kernels' q,
-  k, v and dO pass :func:`tma_check` first.
+  which writes NARROW dK/dV under GQA (no widen-then-sum): bf16 and fp16,
+  with or without a bias, run ``ops/csrc/flash_bwd_sm90.cu`` (TMA loads,
+  wgmma products, the forward's Hopper design), fp32
+  ``ops/csrc/flash_bwd.cu`` (FMA products), as :func:`bwd_source` routes
+  them; the 16-bit kernels' q, k, v and dO pass :func:`tma_check` first.
+
+fp16 computes what the Pallas kernels compute in fp16: fp32 scores and
+softmax, P rounded to fp16 before P V and dV, dS rounded to fp16 before dQ
+and dK, every rounding to nearest with no saturation, so a value past 65504
+becomes inf as ``astype(float16)`` makes it (an overflow under a large loss
+scale reaches the engine's overflow check).
 
 Each has a bias mode (``has_bias``, driven by ``_flash_b`` :787): an
-additive bf16/fp32 logits bias broadcastable to ``[B, H, Sq, Skv]``, added
+additive logits bias (fp32, or 16-bit of q's dtype; bf16 with fp32 q)
+broadcastable to ``[B, H, Sq, Skv]``, added
 after the scale and before the masks, read in place through its strides
 (ALiBi's ``[H, 1, Skv]`` is never copied to ``[B * H, Sq, Skv]`` as the
 TPU needs it); the dQ kernel also writes ``dbias = p * (dp - delta)``.
@@ -65,7 +73,8 @@ from . import _build
 from .attention import NEG_INF, attention_torch, widen_kv
 from .registry import register
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+SM90_DTYPES = (torch.bfloat16, torch.float16)   # the TMA + wgmma kernels' element types
 HEAD_DIMS = (32, 64, 96, 128)   # 96 (GPT-NeoX-20B) runs the 128-column tiles
 
 
@@ -190,7 +199,7 @@ def _kernel_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name} takes bf16 or fp32 inputs, got {q.dtype}")
+        raise ValueError(f"{name} takes bf16, fp16 or fp32 inputs, got {q.dtype}")
     for t in (k, v, *rest):
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
@@ -212,13 +221,13 @@ def _kernel_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def tma_refusal(t: torch.Tensor) -> Optional[str]:
-    """Why the bf16 forward's TMA tensor maps cannot read ``t`` as a dense
-    ``[B, S, H, D]`` tensor, or None when they can: bf16, head dim in
+    """Why the 16-bit kernels' TMA tensor maps cannot read ``t`` as a dense
+    ``[B, S, H, D]`` tensor, or None when they can: bf16 or fp16, head dim in
     ``HEAD_DIMS``, dense row-major strides (a slice of a fused qkv tensor is
     not), a 16-byte aligned base pointer and every stride a multiple of 16
     bytes."""
-    if t.dtype != torch.bfloat16:
-        return f"dtype {t.dtype}, not bf16"
+    if t.dtype not in SM90_DTYPES:
+        return f"dtype {t.dtype}, not bf16 or fp16"
     if t.dim() != 4 or t.shape[-1] not in HEAD_DIMS:
         return f"shape {tuple(t.shape)} is not [B, S, H, D] with D in {HEAD_DIMS}"
     if not t.is_contiguous():
@@ -249,34 +258,43 @@ BWD_SM90, BWD_MMA = "flash_bwd_sm90.cu", "flash_bwd.cu"
 
 def bwd_source(dtype: torch.dtype, d: int) -> str:
     """The source under ``ops/csrc/`` whose dQ and dK/dV kernels serve the
-    backward at this dtype and head dim, with or without a bias: bf16 runs
-    the Hopper kernels of ``flash_bwd_sm90.cu`` (TMA + wgmma), fp32 (whose
-    wgmma would be TF32) the kernels of ``flash_bwd.cu``. Raises on what
-    neither takes."""
+    backward at this dtype and head dim, with or without a bias: bf16 and
+    fp16 run the Hopper kernels of ``flash_bwd_sm90.cu`` (TMA + wgmma), fp32
+    (whose wgmma would be TF32) the kernels of ``flash_bwd.cu``. Raises on
+    what neither takes."""
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"the flash backward takes bf16 or fp32, not {dtype}")
+        raise ValueError(f"the flash backward takes bf16, fp16 or fp32, not {dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash backward takes head dim in {HEAD_DIMS}, not {d}")
-    return BWD_SM90 if dtype == torch.bfloat16 else BWD_MMA
+    return BWD_SM90 if dtype in SM90_DTYPES else BWD_MMA
+
+
+def bias_dtypes(q_dtype: torch.dtype) -> Tuple[torch.dtype, ...]:
+    """The bias dtypes the kernels take beside q of ``q_dtype``: fp32, and
+    the 16-bit type of the element type's kernel (q's own for bf16 and
+    fp16; bf16 for the fp32 kernels)."""
+    return (torch.float32, q_dtype if q_dtype in SM90_DTYPES else torch.bfloat16)
 
 
 def _bias_args(bias: Optional[torch.Tensor], name: str, b: int, h: int, sq: int,
-               skv: int, dev) -> tuple:
+               skv: int, dev, q_dtype: torch.dtype = torch.bfloat16) -> tuple:
     """``(pointer, sb, sh, sq, sk, is_fp32)`` of a bias broadcastable to
     ``[B, H, Sq, Skv]``, read in place: a broadcast dimension gets stride 0,
-    nothing is copied."""
+    nothing is copied. Its dtype is one of :func:`bias_dtypes`."""
     if bias is None:
         return _NO_BIAS
     if bias.device != dev:
         raise ValueError(f"{name}: bias on {bias.device}, q on {dev}")
-    if bias.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name} takes a bf16 or fp32 bias, got {bias.dtype}")
+    if bias.dtype not in bias_dtypes(q_dtype):
+        names = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
+        raise ValueError(f"{name} takes a {names[bias_dtypes(q_dtype)[1]]} or fp32 bias with "
+                         f"{names.get(q_dtype, q_dtype)} inputs, got {bias.dtype}")
     try:
         bias4 = bias.expand(b, h, sq, skv)
     except RuntimeError:
         raise ValueError(f"{name}: bias {tuple(bias.shape)} does not broadcast to "
                          f"[B, H, Sq, Skv] = {(b, h, sq, skv)}") from None
-    return (bias4.data_ptr(), *bias4.stride(), _DTYPE_CODE[bias.dtype])   # 1: fp32
+    return (bias4.data_ptr(), *bias4.stride(), int(bias.dtype == torch.float32))
 
 
 def _no_window(name: str, window: Optional[int]) -> None:
@@ -301,9 +319,9 @@ def _stream(dev) -> int:
 def _fwd_launch(q, k, v, bias, name, causal, scale, q_offset, window):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, sq, h, d, skv, hkv = _kernel_shapes(name, q, k, v)
-    if q.dtype == torch.bfloat16:
+    if q.dtype in SM90_DTYPES:
         tma_check(name, q=q, k=k, v=v)
-    ba = _bias_args(bias, name, b, h, sq, skv, q.device)
+    ba = _bias_args(bias, name, b, h, sq, skv, q.device, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty(b * h, sq, dtype=torch.float32, device=q.device)
     err = _build.load().dstt_flash_fwd(
@@ -318,8 +336,9 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, scale: Optional[float] = None,
                    q_offset: int = 0, window: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel (bf16: ``ops/csrc/flash_fwd_sm90.cu``,
-    fp32: ``ops/csrc/flash_fwd.cu``): ``(o, lse)``."""
+    """Launch the forward kernel (bf16 and fp16:
+    ``ops/csrc/flash_fwd_sm90.cu``, fp32: ``ops/csrc/flash_fwd.cu``):
+    ``(o, lse)``."""
     out = _fwd_launch(q, k, v, None, "flash_fwd_cuda", causal, scale, q_offset, window)
     flash_fwd_cuda.launches += 1
     return out
@@ -349,7 +368,8 @@ def _bwd_inputs(name, q, k, v, do, lse, delta, bias):
     shapes = _kernel_shapes(name, q, k, v, do)
     b, sq, h, _, skv, _ = shapes
     lse, delta = _lse_delta(lse, delta, b, h, sq)
-    return q, k, v, do, lse, delta, shapes, _bias_args(bias, name, b, h, sq, skv, q.device)
+    return q, k, v, do, lse, delta, shapes, _bias_args(bias, name, b, h, sq, skv, q.device,
+                                                       q.dtype)
 
 
 def _sm90(name, q, k, v, do, bias) -> bool:
@@ -377,9 +397,9 @@ def _dq_launch(q, k, v, do, lse, delta, bias, need_dbias, name, causal, scale,
     if not _sm90(name, q, k, v, do, bias):
         err = lib.dstt_flash_bwd_dq(*ptrs, *common, *ba, dbias_ptr, _stream(q.device))
     elif bias is None:
-        err = lib.dstt_flash_bwd_dq_sm90(*ptrs, *common[:-1], _stream(q.device))
+        err = lib.dstt_flash_bwd_dq_sm90(*ptrs, *common, _stream(q.device))
     else:
-        err = lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, *common[:-1], *ba, dbias_ptr,
+        err = lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, *common, *ba, dbias_ptr,
                                               _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dq, dbias
@@ -390,8 +410,8 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, scale: Optional[float] = None,
                       q_offset: int = 0, window: Optional[int] = None
                       ) -> torch.Tensor:
-    """Launch the dQ kernel (bf16: ``ops/csrc/flash_bwd_sm90.cu``, fp32:
-    ``ops/csrc/flash_bwd.cu``; :func:`bwd_source`)."""
+    """Launch the dQ kernel (bf16 and fp16: ``ops/csrc/flash_bwd_sm90.cu``,
+    fp32: ``ops/csrc/flash_bwd.cu``; :func:`bwd_source`)."""
     dq, _ = _dq_launch(q, k, v, do, lse, delta, None, False, "flash_bwd_dq_cuda",
                        causal, scale, q_offset, window)
     flash_bwd_dq_cuda.launches += 1
@@ -404,7 +424,7 @@ def flash_bwd_dq_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool = True, scale: Optional[float] = None,
                            q_offset: int = 0, window: Optional[int] = None
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the dQ kernel in its bias mode (bf16:
+    """Launch the dQ kernel in its bias mode (bf16 and fp16:
     ``ops/csrc/flash_bwd_sm90.cu``, fp32: ``ops/csrc/flash_bwd.cu``):
     ``(dq, dbias)``, dbias fp32 ``[B, H, Sq, Skv]`` when ``need_dbias``,
     else None (not computed)."""
@@ -426,9 +446,9 @@ def _dkv_launch(q, k, v, do, lse, delta, bias, name, causal, scale, q_offset, wi
     if not _sm90(name, q, k, v, do, bias):
         err = lib.dstt_flash_bwd_dkv(*ptrs, *common, *ba, _stream(q.device))
     elif bias is None:
-        err = lib.dstt_flash_bwd_dkv_sm90(*ptrs, *common[:-1], _stream(q.device))
+        err = lib.dstt_flash_bwd_dkv_sm90(*ptrs, *common, _stream(q.device))
     else:
-        err = lib.dstt_flash_bwd_dkv_bias_sm90(*ptrs, *common[:-1], *ba, _stream(q.device))
+        err = lib.dstt_flash_bwd_dkv_bias_sm90(*ptrs, *common, *ba, _stream(q.device))
     _build.check(err, f"{name} kernel")
     return dk, dv
 
@@ -438,9 +458,9 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True, scale: Optional[float] = None,
                        q_offset: int = 0, window: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel (bf16: ``ops/csrc/flash_bwd_sm90.cu``, fp32:
-    ``ops/csrc/flash_bwd.cu``; :func:`bwd_source`): narrow ``(dk, dv)``
-    shaped like k and v."""
+    """Launch the dK/dV kernel (bf16 and fp16:
+    ``ops/csrc/flash_bwd_sm90.cu``, fp32: ``ops/csrc/flash_bwd.cu``;
+    :func:`bwd_source`): narrow ``(dk, dv)`` shaped like k and v."""
     out = _dkv_launch(q, k, v, do, lse, delta, None, "flash_bwd_dkv_cuda", causal,
                       scale, q_offset, window)
     flash_bwd_dkv_cuda.launches += 1
@@ -453,7 +473,7 @@ def flash_bwd_dkv_bias_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: Optional[float] = None, q_offset: int = 0,
                             window: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel in its bias mode (bf16:
+    """Launch the dK/dV kernel in its bias mode (bf16 and fp16:
     ``ops/csrc/flash_bwd_sm90.cu``, fp32: ``ops/csrc/flash_bwd.cu``): narrow
     ``(dk, dv)``."""
     _no_window("flash_bwd_dkv_bias_cuda", window)
@@ -469,8 +489,9 @@ _PLANTS = {"fwd": "dstt_flash_fwd_sm90_plant", "bwd": "dstt_flash_bwd_sm90_plant
 @contextlib.contextmanager
 def sm90_planted_fault(fault: int, kernels: str = "fwd"):
     """For the tests that show a check can fail: the launches inside the
-    block of the bf16 forward (``kernels="fwd"``) or of both bf16 backward
-    kernels, with or without a bias (``"bwd"``), carry a planted fault. 1:
+    block of the 16-bit forward (``kernels="fwd"``) or of both 16-bit
+    backward kernels, with or without a bias (``"bwd"``), carry a planted
+    fault (in bf16 and fp16 alike). 1:
     each tile after an item's first is read from the ring stage one step
     late; 2: the last tile of each item's band (kv tiles in the forward and
     dQ, q tiles in dK/dV) is dropped; 3 (dK/dV): the last query head of

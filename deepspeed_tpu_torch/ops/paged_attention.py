@@ -1,8 +1,9 @@
 """Paged (blocked-KV) attention — counterpart of
 ``deepspeed_tpu/ops/pallas/paged_attention.py``: one-token decode (op
 ``paged_decode_attention``) and fused speculative verification (op
-``paged_spec_verify_attention``), each over bf16 pools or over int8 code
-pools with fp32 per-position scales (``inference.kv_quant``).
+``paged_spec_verify_attention``), each over 16-bit pools (bf16 or fp16, q's
+dtype) or over int8 code pools with fp32 per-position scales
+(``inference.kv_quant``), with bf16 or fp16 q.
 
 Each op has two implementations, chosen by the input's device
 (``ops/registry.py``):
@@ -18,8 +19,9 @@ Each op has two implementations, chosen by the input's device
   multi-token prefill read in ``models/_paged.py``). They serve CPU tensors
   and are the oracles the kernels are held against.
 - the wrappers of the hand-written kernel ``ops/csrc/paged_sm90.cu`` (one
-  source for both ops and both pool types; decode is its t = 1 case):
-  :func:`paged_decode_attention_cuda` (bf16 pools, replacing
+  source for both ops, both pool types and both element types; decode is
+  its t = 1 case): :func:`paged_decode_attention_cuda` (16-bit pools,
+  replacing
   ``_decode_kernel`` :74), :func:`paged_decode_attention_int8_cuda` (int8
   pools, the same kernel's ``quant=True`` mode) and
   :func:`paged_spec_verify_attention_cuda` (both modes, replacing
@@ -32,8 +34,8 @@ Each op has two implementations, chosen by the input's device
 Layout (as in the JAX package):
   q            [B, nh, hd] (decode) or [B, t, nh, hd] (verify: row ti sits at
                position ctx + ti)
-  k/v pool     [num_blocks, nkv, bs, hd]   (block 0 = trash block), bf16 or
-               int8 codes
+  k/v pool     [num_blocks, nkv, bs, hd]   (block 0 = trash block), q's
+               dtype (bf16 or fp16) or int8 codes
   k/v scale    [num_blocks, nkv, bs, ng]   fp32, int8 mode only (both or
                neither)
   block_tables [B, max_blocks] int32
@@ -174,6 +176,9 @@ ROW_TILE = 16
 SPLIT_SUBTILES = (4, 32)
 SPLIT_TARGET = 8
 KERNEL_HD = (64, 128, 256)
+# q's dtype -> the kernel's element type code (0 bf16, 2 fp16): P, and code x
+# scale at ng > 1, are rounded to q's dtype, as the Pallas kernel rounds them
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 2}
 
 
 def split_positions(live: int) -> int:
@@ -193,12 +198,15 @@ def splits_of(live: int) -> int:
 def paged_refusal(*, q_dtype, pool_dtype, hd: int, nh: int, nkv: int,
                   ng: int = 0) -> Optional[str]:
     """Why ``paged_sm90.cu`` does not take these types and shapes (``ng``:
-    scale groups per vector of int8 pools, 0 for bf16 pools), or None. Any
-    number of query rows per kv head runs: shared memory does not grow with
-    them."""
-    want = torch.int8 if ng else torch.bfloat16
-    if q_dtype != torch.bfloat16 or pool_dtype != want:
-        return (f"takes bf16 q and {'int8' if ng else 'bf16'} pools, got {q_dtype}, "
+    scale groups per vector of int8 pools, 0 for 16-bit pools), or None: q
+    bf16 or fp16, with pools of q's dtype or int8 (fp32 pools have no kernel
+    yet: ROADMAP queue B.2). Any number of query rows per kv head runs:
+    shared memory does not grow with them."""
+    if q_dtype not in KERNEL_DTYPES:
+        return f"takes bf16 or fp16 q, got {q_dtype}"
+    want = torch.int8 if ng else q_dtype
+    if pool_dtype != want:
+        return (f"takes {'int8' if ng else 'q-dtype'} pools with {q_dtype} q, got "
                 f"{pool_dtype}")
     if hd not in KERNEL_HD:
         return f"unsupported head dim {hd} (the kernel takes 64, 128 or 256)"
@@ -290,9 +298,9 @@ def _check_args(name: str, q, k_pool, v_pool, block_tables, context_lens,
         if x is not None and x.device != dev:
             raise ValueError(f"{arg} on {x.device}, q on {dev}")
     quant = _check_scales(k_scale, v_scale)
-    want = torch.int8 if quant else torch.bfloat16
-    if q.dtype != torch.bfloat16 or k_pool.dtype != want or v_pool.dtype != want:
-        raise ValueError(f"{name} takes bf16 q and {'int8' if quant else 'bf16'} "
+    want = torch.int8 if quant else q.dtype
+    if q.dtype not in KERNEL_DTYPES or k_pool.dtype != want or v_pool.dtype != want:
+        raise ValueError(f"{name} takes bf16 or fp16 q and {'int8' if quant else 'q-dtype'} "
                          f"pools, got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise ValueError("block_tables and context_lens must be int32")
@@ -353,7 +361,7 @@ def _launch(q4, k_pool, v_pool, block_tables, context_lens, k_scale, v_scale, wi
         k_scale.data_ptr() if ng else None, v_scale.data_ptr() if ng else None,
         tables.data_ptr(), ctx.data_ptr(), window_ptr, window_static, out.data_ptr(),
         counters.data_ptr(), partials.data_ptr(), B, t, nh, nkv, hd, bs, num_blocks,
-        tables.shape[1], ng, plan["splits"], float(scale), stream)
+        tables.shape[1], ng, plan["splits"], KERNEL_DTYPES[q4.dtype], float(scale), stream)
     _build.check(err, "paged attention kernel (paged_sm90.cu)")
     return out
 
@@ -368,9 +376,9 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 k_scale: Optional[torch.Tensor] = None,
                                 v_scale: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
-    """Launch ``ops/csrc/paged_sm90.cu`` at t = 1 on bf16 pools. Returns
-    [B, nh, hd] bf16. With ``k_scale``/``v_scale`` (int8 pools) the int8
-    mode runs (:func:`paged_decode_attention_int8_cuda`)."""
+    """Launch ``ops/csrc/paged_sm90.cu`` at t = 1 on pools of q's dtype (bf16
+    or fp16). Returns [B, nh, hd] in q's dtype. With ``k_scale``/``v_scale``
+    (int8 pools) the int8 mode runs (:func:`paged_decode_attention_int8_cuda`)."""
     if _check_scales(k_scale, v_scale):
         return paged_decode_attention_int8_cuda(
             q, k_pool, v_pool, block_tables, context_lens, scale=scale,
@@ -398,7 +406,8 @@ def paged_decode_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                      scale: Optional[float] = None,
                                      window: Window = None) -> torch.Tensor:
     """Launch the int8 mode of ``ops/csrc/paged_sm90.cu`` at t = 1 (int8
-    code pools, fp32 scales applied in registers). Returns [B, nh, hd] bf16."""
+    code pools, fp32 scales applied in registers). Returns [B, nh, hd] in q's
+    dtype (bf16 or fp16)."""
     if k_scale is None or v_scale is None:
         raise ValueError("k_scale and v_scale must be given together")
     if q.dim() != 3:
@@ -463,8 +472,9 @@ def paged_spec_verify_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                      k_scale: Optional[torch.Tensor] = None,
                                      v_scale: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
-    """Launch ``ops/csrc/paged_sm90.cu`` (bf16 pools, or int8 pools with
-    ``k_scale``/``v_scale``). Returns [B, t, nh, hd] bf16."""
+    """Launch ``ops/csrc/paged_sm90.cu`` (pools of q's dtype, bf16 or fp16, or
+    int8 pools with ``k_scale``/``v_scale``). Returns [B, t, nh, hd] in q's
+    dtype."""
     _check_scales(k_scale, v_scale)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, t, nh, hd], got {tuple(q.shape)}")

@@ -47,7 +47,7 @@ import torch
 
 from . import _build
 from .attention import attention_torch
-from .flash_attention import _DTYPE_CODE, _bwd_plain_f32, _fwd_plain, tma_check
+from .flash_attention import _bwd_plain_f32, _fwd_plain, tma_check
 from .paged_attention import _workspace
 
 # head dims of the block-sparse kernels (the flash kernels also take 96: ROADMAP B.1)
@@ -58,6 +58,11 @@ SM90_BLOCK = 128     # the layout block of sparse_sm90.cu: one work item's q or 
 SPLIT_FACTOR = 2     # a work item takes at most this many times the median column's pairs
 PLAN_INTS = 8        # int32 fields of a plan entry (PLAN_FIELDS, then padding)
 PLAN_FIELDS = ("kv_block", "pair_lo", "pairs", "chunk", "chunks", "slot0", "counter")
+# the element types of the block-sparse kernels (0 bf16, 1 fp32): fp16 has
+# no block-sparse kernel yet (ROADMAP queue B.2)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+FP16_REFUSAL = ("block-sparse attention has no fp16 CUDA kernel yet (ROADMAP queue B.2): "
+                "run it in bf16 or fp32")
 # q rows a forward / dQ work item of sparse_attention.cu holds at most (8 warps
 # of 16 rows in bf16; 4 in fp32, whose tiles take twice the shared memory)
 MMA_ITEM_ROWS = {torch.bfloat16: 128, torch.float32: 64}
@@ -195,6 +200,8 @@ def sparse_source(dtype: torch.dtype, block: int, d: int) -> str:
     fp32 (whose wgmma would be TF32) the ``mma.sync`` / FMA kernels of
     ``sparse_attention.cu``. Raises on what neither takes. A dispatch by
     shape, not a fallback."""
+    if dtype == torch.float16:
+        raise ValueError(FP16_REFUSAL)
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"block-sparse attention takes bf16 or fp32, not {dtype}")
     if d not in SPARSE_HEAD_DIMS:
@@ -399,6 +406,8 @@ def _kernel_args(name: str, q, k, v, layout, block_size, causal, scale, *rest):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if q.dtype == torch.float16:
+        raise ValueError(f"{name}: {FP16_REFUSAL}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name} takes bf16 or fp32 inputs, got {q.dtype}")
     for t in (k, v, *rest):

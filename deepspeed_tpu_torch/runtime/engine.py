@@ -766,17 +766,21 @@ def _count_batch_tokens(batch) -> int:
     return 0
 
 
+CARD_COMPUTE_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
 def check_compute_dtype(compute_dtype: Optional[torch.dtype],
                         device: torch.device) -> None:
     """Raise ``NotImplementedError`` for a compute dtype that the card path
-    cannot run: fp16 on a CUDA device, where the flash-attention kernels
-    take bf16 and fp32 only (ROADMAP queue B.2; RMSNorm, LayerNorm and the
-    int8 quantize and dequantize kernels take fp16 already). On the CPU,
-    fp16 runs the plain versions."""
-    if compute_dtype == torch.float16 and torch.device(device).type == "cuda":
+    cannot run: on a CUDA device the kernels of the training path (flash
+    attention, RMSNorm, LayerNorm) take bf16, fp16 and fp32
+    (``CARD_COMPUTE_DTYPES``), so fp64 is refused there. On the CPU every
+    dtype runs the plain versions."""
+    if compute_dtype is not None and compute_dtype not in CARD_COMPUTE_DTYPES \
+            and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            "an fp16 compute dtype has no CUDA kernel yet on the flash-attention "
-            "path (ROADMAP queue B.2): compute in bf16, or pass device='cpu'")
+            f"compute dtype {compute_dtype} has no CUDA kernel: the card path computes "
+            "in bfloat16, float16 or float32, or pass device='cpu'")
 
 
 def check_head_dim(model_cfg: Any, device: torch.device) -> None:
@@ -824,7 +828,8 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
     the reference's 4-tuple. Runs on the GPU unless ``device="cpu"``; raises
     ``RuntimeError`` when no GPU is present, and ``NotImplementedError``
     for config blocks the port does not implement yet or a model that
-    computes in fp16 on the GPU (:func:`check_compute_dtype`) or whose head
+    computes in a dtype no kernel takes on the GPU (:func:`check_compute_dtype`:
+    bf16, fp16 and fp32 run) or whose head
     dim no flash kernel takes there (:func:`check_head_dim`). Over a
     process group (``comm.init_distributed``) the engine is data parallel
     over every rank; its mesh is ``mesh_mgr`` or a ``data`` mesh over the

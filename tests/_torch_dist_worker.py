@@ -106,19 +106,20 @@ def _state_bytes(eng) -> int:
 def scenario_train(job, rank, world):
     """Train each of ``job["runs"]`` from the same weights and batches;
     record losses, grad norms, aux, state bytes, the collectives of a step
-    and the final masters gathered whole."""
+    and the final masters gathered whole. A run's own ``cfg`` (fields of
+    the family's config) replaces the job's."""
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.comm import comm
 
     family, cfg_type = _family(job["family"])
-    cfg = cfg_type(**job["cfg"])
     data = np.load(job["npz"])
     params = {k[len("param/"):]: torch.from_numpy(data[k]) for k in data if k.startswith("param/")}
     out = {}
     for run in job["runs"]:
         name, conf = run["name"], run["config"]
+        cfg = cfg_type(**run.get("cfg", job["cfg"]))
         # the run's batches: "<data>/<step>/<key>" arrays
         pre = run.get("data", "batch")
         batches = [{k.split("/", 2)[2]: data[k] for k in data if k.startswith(f"{pre}/{i}/")}

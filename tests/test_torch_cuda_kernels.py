@@ -872,7 +872,7 @@ def test_old_backward_entry_points_refuse_bf16_without_bias(cuda_device):
                                  stream) == 1   # cudaErrorInvalidValue
     assert lib.dstt_flash_bwd_dkv(*ptrs, out.data_ptr(), out.data_ptr(), *common, 0, None, 0, 0,
                                   0, 0, 0, stream) == 1
-    assert lib.dstt_flash_bwd_dq_sm90(*ptrs, out.data_ptr(), *common, stream) == 0
+    assert lib.dstt_flash_bwd_dq_sm90(*ptrs, out.data_ptr(), *common, 0, stream) == 0
     torch.cuda.synchronize()
 
 
@@ -1070,10 +1070,10 @@ def test_old_backward_entry_points_refuse_bf16_with_bias(cuda_device):
                                  stream) == 1   # cudaErrorInvalidValue
     assert lib.dstt_flash_bwd_dkv(*ptrs, out.data_ptr(), out.data_ptr(), *common, 0, *ba,
                                   stream) == 1
-    assert lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, out.data_ptr(), *common, *ba,
+    assert lib.dstt_flash_bwd_dq_bias_sm90(*ptrs, out.data_ptr(), *common, 0, *ba,
                                            dbias.data_ptr(), stream) == 0
     assert lib.dstt_flash_bwd_dkv_bias_sm90(*ptrs, out.data_ptr(), out.data_ptr(), *common,
-                                            *ba, stream) == 0
+                                            0, *ba, stream) == 0
     torch.cuda.synchronize()
 
 
@@ -2395,3 +2395,228 @@ def test_sparse_mma_check_fails_a_planted_fault(cuda_device, bs, dtype, fault, w
     dq, dq_ref, _ = _mma_dq(args, o, lse, lay, bs, True)
     assert_flash_close(o, o_ref, FLASH_TOL[dtype])
     assert_flash_close(dq, dq_ref, FLASH_TOL[dtype])
+
+
+# --------------------------------------------------------------------------- #
+# fp16 on the 16-bit kernels: flash_fwd_sm90.cu, flash_bwd_sm90.cu and
+# paged_sm90.cu take the element type as a template parameter
+# --------------------------------------------------------------------------- #
+# fp16 carries 3 more mantissa bits than bf16: its rounding step is an eighth
+# of bf16's, so a sound kernel reads ~0.05 / 8 here; 0.02 keeps a margin
+# while every planted fault reads O(1)
+FLASH_TOL_FP16 = 0.02
+
+
+def _fp16(*ts):
+    return [t.to(torch.float16) for t in ts]
+
+
+def _fp16_backward(q, k, v, do, kw, bias=None, need_dbias=False):
+    """The fp16 forward, then dQ and dK/dV on its o and lse, through the
+    wrappers of the mode (one launch each); ``(o, lse, grads)``."""
+    fwd, dq_fn, dkv_fn = ((flash_fwd_cuda, flash_bwd_dq_cuda, flash_bwd_dkv_cuda) if bias is None
+                          else (flash_fwd_bias_cuda, flash_bwd_dq_bias_cuda,
+                                flash_bwd_dkv_bias_cuda))
+    extra = () if bias is None else (bias,)
+    before = (fwd.launches, dq_fn.launches, dkv_fn.launches)
+    o, lse = fwd(q, k, v, *extra, **kw)
+    b, sq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, sq)
+    if bias is None:
+        grads = (dq_fn(q, k, v, do, lse, delta, **kw), *dkv_fn(q, k, v, do, lse, delta, **kw))
+    else:
+        dq, dbias = dq_fn(q, k, v, do, lse, delta, bias, need_dbias=need_dbias, **kw)
+        grads = (dq, *dkv_fn(q, k, v, do, lse, delta, bias, **kw)) + (
+            (dbias,) if need_dbias else ())
+    torch.cuda.synchronize()
+    assert (fwd.launches, dq_fn.launches, dkv_fn.launches) == tuple(n + 1 for n in before)
+    return o, lse, grads
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_fp16_flash_kernels_match_plain(cuda_device, case):
+    """fp16 through the Hopper forward, dQ and dK/dV in every mask mode
+    (causal, window, q_offset, GQA, tails, hd 64 / 96 / 128) against the
+    plain pieces, which round p and ds to fp16 where the kernels do."""
+    q, k, v, do = _fp16(*flash_inputs(case, torch.float32, cuda_device, seed=11))
+    kw = dict(causal=case[6], q_offset=case[7], window=case[8])
+    o, lse, grads = _fp16_backward(q, k, v, do, kw)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+    assert o.dtype == torch.float16
+    assert_flash_close(o, o_ref, FLASH_TOL_FP16)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    one_key = case[8] == 1
+    for i, (got, ref) in enumerate(zip(grads, refs)):
+        assert got.dtype == torch.float16 and got.shape == ref.shape
+        if i < 2 and one_key:
+            assert float(got.float().abs().max()) <= ONE_KEY_DS
+        else:
+            assert_flash_close(got, ref, FLASH_TOL_FP16)
+
+
+@pytest.mark.parametrize("form", ["alibi", "full", "pair"])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("d", [32, 128])
+def test_fp16_flash_bias_mode_matches_plain(cuda_device, form, bias_dtype, d):
+    """The bias mode in fp16, with an fp32 or an fp16 bias read in place:
+    o, dq, dk, dv and dbias against the plain pieces."""
+    b, h, sq, skv = 2, 4, 200, 264
+    rs = np.random.RandomState(d)
+    bias = torch.from_numpy(rs.randn(*BIAS_FORMS[form](b, h, sq, skv)).astype(np.float32))
+    bias = bias.to(cuda_device, bias_dtype)
+    q, k, v, do = _fp16(*flash_inputs((b, sq, skv, h, 2, d), torch.float32, cuda_device,
+                                      seed=d))
+    kw = dict(causal=True, q_offset=skv - sq)
+    o, lse, grads = _fp16_backward(q, k, v, do, kw, bias=bias, need_dbias=True)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, bias=bias, **kw)
+    assert_flash_close(o, o_ref, FLASH_TOL_FP16)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, need_dbias=True, **kw)
+    for got, ref in zip(grads, refs):
+        assert_flash_close(got, ref, FLASH_TOL_FP16)
+
+
+def test_fp16_flash_bias_refuses_a_bf16_bias(cuda_device):
+    """With fp16 inputs the 16-bit bias must be fp16 (or fp32): the kernel
+    reads it as fp16, so a bf16 bias is refused before any launch."""
+    q, k, v, _ = _fp16(*flash_inputs((1, 64, 64, 2, 2, 64), torch.float32, cuda_device))
+    bias = torch.zeros(2, 1, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = flash_fwd_bias_cuda.launches
+    with pytest.raises(ValueError, match="bias"):
+        flash_fwd_bias_cuda(q, k, v, bias)
+    assert flash_fwd_bias_cuda.launches == before
+
+
+@pytest.mark.parametrize("kernels,fault", [("fwd", 1), ("fwd", 2), ("bwd", 1), ("bwd", 2),
+                                           ("bwd", 3), ("bwd", 4)])
+def test_fp16_flash_check_fails_a_planted_fault(cuda_device, kernels, fault):
+    """Each planted fault of the 16-bit kernels fails the fp16 check the
+    sound kernels pass (fault 4, the bias read one kv tile off, in the bias
+    mode at an ALiBi shape)."""
+    case = (1, 512, 512, 8, 2, 128, True, 0, None)
+    q, k, v, do = _fp16(*flash_inputs(case, torch.float32, cuda_device, seed=fault))
+    bias = (_alibi_bias(8, 512).to(cuda_device, torch.float32) if fault == 4 else None)
+    kw = dict(causal=True)
+    o, lse, grads = _fp16_backward(q, k, v, do, kw, bias=bias)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, bias=bias, **kw)
+    o_ref, _ = flash_fwd_torch(q, k, v, bias=bias, **kw)
+    sound = (o, *grads)
+    for got, ref in zip(sound, (o_ref, *refs)):
+        assert_flash_close(got, ref, FLASH_TOL_FP16)
+    with sm90_planted_fault(fault, kernels):
+        o_bad, _, bad = _fp16_backward(q, k, v, do, kw, bias=bias)
+    outs = (o_bad,) if kernels == "fwd" else bad
+    want = (o_ref,) if kernels == "fwd" else refs
+    failed = 0
+    for got, ref in zip(outs, want):
+        try:
+            assert_flash_close(got, ref, FLASH_TOL_FP16)
+        except AssertionError:
+            failed += 1
+    assert failed, f"planted fault {fault} ({kernels}) passed the fp16 check"
+
+
+def overflow_inputs(case, device, seed=0):
+    """fp16 q, k, v, dO whose dS = p (dp - delta) scale passes 65504 on the
+    rows that see few keys: tiny q and k make p flat (1 / the keys a row
+    sees), v x 300 and dO x 3e3 make dp - delta ~1e7; every finite output
+    stays far below 65504 (dq, dk < ~1200, dv < ~32000), so which elements
+    overflow is decided by dS alone, not by a sum's rounding near the
+    threshold (as ``tests/test_torch_fp16_flash.py``'s ``OVERFLOW``)."""
+    q, k, v, do = flash_inputs(case, torch.float32, device, seed=seed)
+    return _fp16(q * 1e-3, k * 1e-3, v * 300, do * 3e3)
+
+
+def assert_same_overflow(got, ref, tol):
+    """inf / nan exactly where the plain version has them (some, not all),
+    and the finite rows within ``tol`` of their RMS."""
+    bad_got, bad_ref = ~torch.isfinite(got.float()), ~torch.isfinite(ref.float())
+    assert bad_ref.any() and not bad_ref.all(), "the inputs did not overflow in part"
+    assert torch.equal(bad_got, bad_ref), \
+        f"{int((bad_got != bad_ref).sum())} elements overflow on one side only"
+    rows = ~bad_ref.any(-1)
+    assert rows.any()
+    assert_flash_close(got[rows], ref[rows], tol)
+
+
+def test_fp16_flash_overflow_gives_inf_where_plain_does(cuda_device):
+    """Under a large loss scale dS passes 65504: rounded to fp16 it is inf in
+    the kernels as in the plain version (cvt.rn, no saturation), so dq and
+    dk hold inf / nan in the same elements and the engine's overflow check
+    sees it; dv = p^T dO stays finite and close."""
+    case = (1, 512, 512, 8, 2, 128, True, 0, None)
+    q, k, v, do = overflow_inputs(case, cuda_device)
+    kw = dict(causal=True)
+    o, lse, grads = _fp16_backward(q, k, v, do, kw)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    assert_same_overflow(grads[0], refs[0], FLASH_TOL_FP16)
+    assert_same_overflow(grads[1], refs[1], FLASH_TOL_FP16)
+    assert torch.isfinite(refs[2]).all()
+    assert_flash_close(grads[2], refs[2], FLASH_TOL_FP16)
+
+
+def _rows_case_fp16(device, *args, **kw):
+    (q, kp, vp, tables, ctx), sc = _rows_case(device, *args, **kw)
+    q, kp, vp = _fp16(q, kp, vp) if sc["k_scale"] is None else (*_fp16(q), kp, vp)
+    return (q, kp, vp, tables, ctx), sc
+
+
+@pytest.mark.parametrize("ng", [0, 1, 2, 4])
+@pytest.mark.parametrize("t", [1, 5])
+@pytest.mark.parametrize("window", [None, 509])
+def test_fp16_paged_kernel_matches_plain(cuda_device, ng, t, window):
+    """fp16 q over fp16 pools (ng 0) and over int8 pools (ng 1, and ng > 1
+    where code x scale is rounded to fp16), decode and verify, at split
+    edges: against the plain versions in fp16."""
+    mb, bs = 260, 16
+    ctx = _split_edge_ctx(t, mb * bs)
+    args, sc = _rows_case_fp16(cuda_device, len(ctx), t, 32, 8, 128, bs, 300, mb, ng,
+                               seed=5 * t + ng, ctx=ctx)
+    got, ref = _paged_call(args, sc, t, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and got.shape == ref.shape
+    assert_rows_close(got, ref)
+    again = _paged_call(args, sc, t, window)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("fault,ng", [(1, 0), (2, 0), (2, 2), (3, 1)])
+def test_fp16_paged_check_fails_a_planted_fault(cuda_device, fault, ng):
+    """The paged kernel's planted faults fail the fp16 check too."""
+    mb, bs = 40, 16
+    ctx = np.array([70, 300, 513, mb * bs - 1], np.int32)
+    args, sc = _rows_case_fp16(cuda_device, len(ctx), 1, 32, 8, 128, bs, 64, mb, ng,
+                               seed=fault + ng, ctx=ctx)
+    got, ref = _paged_call(args, sc, 1)
+    assert_rows_close(got, ref)
+    with paged_planted_fault(fault):
+        bad = _paged_call(args, sc, 1)[0]
+        torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        assert_rows_close(bad, ref)
+
+
+def test_fp16_paged_refuses_mixed_pools(cuda_device):
+    """fp16 q with bf16 pools (or bf16 q with fp16 pools) is refused before
+    any launch: the kernel reads pools as q's type."""
+    args, sc = _rows_case(cuda_device, 4, 1, 32, 8, 128, 16, 24, 5, 0, seed=3)
+    q, kp, vp, tables, ctx = args
+    before = paged_decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="pools"):
+        paged_decode_attention_cuda(q[:, 0].half(), kp, vp, tables, ctx)
+    with pytest.raises(ValueError, match="pools"):
+        paged_decode_attention_cuda(q[:, 0], kp.half(), vp.half(), tables, ctx)
+    assert paged_decode_attention_cuda.launches == before
+
+
+def test_fp16_blocksparse_and_evoformer_still_refuse(cuda_device):
+    """fp16 has no block-sparse kernel yet (ROADMAP queue B.2): both entry
+    points raise with that message on the card."""
+    q = torch.zeros(1, 256, 2, 64, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(ValueError, match="B.2"):
+        blocksparse_attention(q, q, q, np.ones((2, 2), bool), 128)
+    x = torch.zeros(1, 4, 16, 2, 32, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(ValueError, match="B.2"):
+        evoformer_attention(x, x, x)

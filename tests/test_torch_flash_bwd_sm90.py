@@ -46,9 +46,9 @@ def test_an_unsupported_head_dim_raises(d, has_bias):
         _sm90("flash_bwd_dq_cuda", q, k, v, do, bias)
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int8])
 def test_an_unsupported_dtype_raises(dtype):
-    with pytest.raises(ValueError, match="bf16 or fp32"):
+    with pytest.raises(ValueError, match="bf16, fp16 or fp32"):
         bwd_source(dtype, 64)
 
 
@@ -58,21 +58,23 @@ def test_both_sources_are_built_and_bound():
     names = [p.name for p in _build.sources()]
     assert BWD_SM90 in names and BWD_MMA in names
     vp, i, f = _build._VP, _build._I, _build._F
-    assert _build.SIGNATURES["dstt_flash_bwd_dq_sm90"] == [vp] * 7 + [i] * 9 + [f, vp]
-    assert _build.SIGNATURES["dstt_flash_bwd_dkv_sm90"] == [vp] * 8 + [i] * 9 + [f, vp]
+    # ..., scale, dtype (0 bf16, 2 fp16), stream
+    assert _build.SIGNATURES["dstt_flash_bwd_dq_sm90"] == [vp] * 7 + [i] * 9 + [f, i, vp]
+    assert _build.SIGNATURES["dstt_flash_bwd_dkv_sm90"] == [vp] * 8 + [i] * 9 + [f, i, vp]
     assert _build.SIGNATURES["dstt_flash_bwd_sm90_plant"] == [i]
 
 
 def test_the_bias_entry_points_are_bound():
-    """The bias mode of the bf16 backward has entry points of its own, each
-    the no-bias one's arguments, then the bias (pointer, four 64-bit
-    strides, is-fp32) and, for dQ, the dbias pointer."""
+    """The bias mode of the 16-bit backward has entry points of its own,
+    each the no-bias one's arguments up to its dtype, then the bias
+    (pointer, four 64-bit strides, is-fp32) and, for dQ, the dbias
+    pointer."""
     vp, i, f, ll = _build._VP, _build._I, _build._F, _build._LL
     bias = [vp, ll, ll, ll, ll, i]
     assert _build.SIGNATURES["dstt_flash_bwd_dq_bias_sm90"] == \
-        [vp] * 7 + [i] * 9 + [f] + bias + [vp, vp]
+        [vp] * 7 + [i] * 9 + [f, i] + bias + [vp, vp]
     assert _build.SIGNATURES["dstt_flash_bwd_dkv_bias_sm90"] == \
-        [vp] * 8 + [i] * 9 + [f] + bias + [vp]
+        [vp] * 8 + [i] * 9 + [f, i] + bias + [vp]
 
 
 def _dense(b=2, s=16, h=4, d=64):

@@ -55,10 +55,11 @@ def test_a_slice_of_fused_qkv_is_refused_until_made_dense(layout):
     assert tma_refusal(q.contiguous()) is None
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_other_dtypes_are_refused(dtype):
-    """Only bf16 goes to the TMA kernel (fp32 stays on the FMA kernel)."""
-    assert "bf16" in tma_refusal(torch.zeros(1, 8, 2, 64, dtype=dtype))
+    """Only bf16 and fp16 go to the TMA kernels (fp32 stays on the FMA
+    kernel; nothing takes fp64)."""
+    assert "bf16 or fp16" in tma_refusal(torch.zeros(1, 8, 2, 64, dtype=dtype))
 
 
 @pytest.mark.parametrize("d", [16, 48, 256])

@@ -153,7 +153,7 @@ def test_new_modules_are_covered_by_the_import_checks():
     assert norm(torch.ones(2, 8), torch.ones(8), torch.zeros(8)).abs().max() == 0
 
 
-@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("dtype", ["float32", "fp32"])
 def test_card_path_refuses_dtypes_without_a_kernel(dtype, monkeypatch):
     # the CUDA device check passes; the dtype check must refuse before any
     # weight or pool lands on the card
@@ -321,23 +321,27 @@ def test_init_inference_defaults_to_the_gpu_and_refuses_what_is_not_ported():
                         config={"dtype": "float32", "quant": {"enabled": True}})
 
 
-def test_v1_refuses_fp16_on_the_card_at_build(monkeypatch):
-    """v1's no-cache forward reaches the flash kernels, which take bf16 and
-    fp32: an fp16 ``dtype`` on CUDA raises ``NotImplementedError`` when the
-    engine is built (as ``initialize`` and v2 refuse it), before any weight
-    lands on the card; fp16 on the CPU keeps working."""
+def test_v1_takes_fp16_and_refuses_tensor_parallel_on_the_card_at_build(monkeypatch):
+    """v1's no-cache forward reaches the flash kernels, which take bf16,
+    fp16 and fp32: an fp16 ``dtype`` passes the build checks on CUDA (as
+    ``initialize`` and v2 pass it), while tensor parallelism still raises
+    ``NotImplementedError`` there before any weight lands on the card; fp16
+    on the CPU keeps working."""
     from deepspeed_tpu_torch import init_inference
     from deepspeed_tpu_torch.models import exaone4
 
     cfg, params = _tiny_params()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    with pytest.raises(NotImplementedError, match="float16"):
-        init_inference(llama, model_cfg=cfg, params=params, config={"dtype": "float16"},
-                       device="cuda")
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        init_inference(llama, model_cfg=cfg, params=params, device="cuda",
+                       config={"dtype": "float16", "tensor_parallel": {"tp_size": 2}})
     monkeypatch.undo()
     eng = init_inference(llama, model_cfg=cfg, params=params, config={"dtype": "float16"},
                          device="cpu")
+    eng.device = torch.device("cuda")
+    eng._check()   # the dtype is no reason to refuse the card
+    eng.device = torch.device("cpu")
     out = eng.generate(np.ones((1, 4), np.int32), max_new_tokens=2)
     assert out.shape == (1, 2)
     assert eng.params["embed"].dtype == torch.float16
@@ -353,3 +357,30 @@ def test_v1_refuses_fp16_on_the_card_at_build(monkeypatch):
             exaone4.init_paged_cache(ecfg, 4, 8)
         with pytest.raises(RuntimeError, match="CUDA"):
             deepspeed_tpu_torch.initialize(model=exaone4.model_spec(ecfg), config={})
+
+
+FP16_TEST_FILES = ("test_torch_fp16_flash.py", "test_torch_fp16_paged.py",
+                   "test_torch_fp16_engines.py", "test_torch_fp16_limits.py")
+
+
+def test_the_fp16_files_are_named_and_the_card_side_imports_no_jax():
+    """fp16 on the card: the CPU parity files exist (they import JAX, as the
+    parity tests do), while the files that run where JAX is absent — the
+    GPU tests, the fp16 limits' simulation, the smoke — import none of it;
+    both 16-bit Hopper sources include the element-type header."""
+    tests = REPO / "tests"
+    for name in FP16_TEST_FILES:
+        assert (tests / name).is_file(), name
+    for path in (tests / "test_torch_cuda_kernels.py", tests / "test_torch_fp16_limits.py",
+                 tests / "_torch_threads.py", REPO / "chip_smoke.py"):
+        bad = set(_imported_roots(path)) & set(FORBIDDEN)
+        assert not bad, f"{path.name} imports {sorted(bad)}"
+    csrc = PKG / "ops" / "csrc"
+    for src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu"):
+        assert '#include "hopper_types.cuh"' in (csrc / src).read_text(), src
+    mods = _port_modules()
+    for name in ("deepspeed_tpu_torch.ops.flash_attention",
+                 "deepspeed_tpu_torch.ops.paged_attention",
+                 "deepspeed_tpu_torch.ops.sparse_attention",
+                 "deepspeed_tpu_torch.ops.evoformer_attn"):
+        assert name in mods

@@ -21,8 +21,8 @@ simulated in numpy and held to the plain version at 1e-5 (fp32; 1e-4 at a
 mean of 100, as the GPU test holds the kernel there), and lane 31's share
 left out of the centred sum (the warp kernel's planted fault) reads above
 ``chip_smoke.py``'s ``RMS_TOL`` of a row's RMS at the smoke's shape.
-Training with an fp16 compute dtype: refused on a CUDA device (ROADMAP
-queue B.2, ``check_compute_dtype``), run on the CPU.
+Training with an fp16 compute dtype: taken on a CUDA device and run on the
+CPU; fp64 is refused on a CUDA device (``check_compute_dtype``).
 """
 
 import jax
@@ -253,16 +253,17 @@ def test_model_specs_state_their_compute_dtype():
             torch.float16
 
 
-def test_fp16_compute_is_refused_on_cuda_and_trains_on_the_cpu():
-    """No flash kernel takes fp16 yet (queue B.2): a CUDA device
-    refuses it at ``initialize`` (the decision is ``check_compute_dtype``,
-    called here with a CUDA device and no card); bf16 and fp32 pass, and on
-    the CPU an fp16 OPT-style model trains with the fp16 loss scaler."""
-    with pytest.raises(NotImplementedError, match="flash-attention path .*B.2"):
-        check_compute_dtype(torch.float16, torch.device("cuda"))
-    for ok in (torch.bfloat16, torch.float32, None):
+def test_fp64_compute_is_refused_on_cuda_and_fp16_trains_on_the_cpu():
+    """The kernels of the training path take bf16, fp16 and fp32: a CUDA
+    device refuses fp64 at ``initialize`` (the decision is
+    ``check_compute_dtype``, called here with a CUDA device and no card);
+    bf16, fp16 and fp32 pass, and on the CPU an fp16 OPT-style model trains
+    with the fp16 loss scaler."""
+    with pytest.raises(NotImplementedError, match="float64 has no CUDA kernel"):
+        check_compute_dtype(torch.float64, torch.device("cuda"))
+    for ok in (torch.bfloat16, torch.float16, torch.float32, None):
         check_compute_dtype(ok, torch.device("cuda"))
-    check_compute_dtype(torch.float16, torch.device("cpu"))
+    check_compute_dtype(torch.float64, torch.device("cpu"))
     cfg = tgpt.GPTConfig.tiny(activation="relu")
     eng, *_ = deepspeed_tpu_torch.initialize(
         model=tgpt.model_spec(cfg, compute_dtype=torch.float16),

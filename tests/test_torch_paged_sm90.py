@@ -44,9 +44,9 @@ def test_refusal_takes_the_kernels_shapes(nh, nkv, hd, ng):
 @pytest.mark.parametrize("kw,why", [
     ({"hd": 96}, "head dim 96"),
     ({"hd": 32}, "head dim 32"),
-    ({"q_dtype": torch.float16}, "bf16 q"),
-    ({"q_dtype": torch.float32}, "bf16 q"),
-    ({"pool_dtype": torch.float16}, "bf16 pools"),
+    ({"q_dtype": torch.float16, "pool_dtype": torch.float32}, "q-dtype pools"),
+    ({"q_dtype": torch.float32}, "bf16 or fp16 q"),
+    ({"pool_dtype": torch.float16}, "q-dtype pools"),
     ({"ng": 8}, "16 lanes"),                     # groups of 8 lanes at hd 64
     ({"ng": 2, "pool_dtype": torch.bfloat16}, "int8 pools"),
     ({"nh": 30}, "multiple of nkv")])

@@ -311,11 +311,16 @@ def _zero_job(tmp, cfg, runs, steps=4):
 
 def test_zero3_with_remat_equals_stage0_and_regathers(tmp_path):
     remat = dict(LLAMA, remat=True, remat_policy="full")
-    (tmp_path / "remat").mkdir()
-    (tmp_path / "plain").mkdir()
-    got = spawn(_zero_job(tmp_path / "remat", remat, [("s0", 0), ("s3", 3)]), 2,
-                tmp_path / "remat")
-    plain = spawn(_zero_job(tmp_path / "plain", LLAMA, [("s3", 3)]), 2, tmp_path / "plain")
+    # one spawn of two ranks runs all three jobs (remat at stages 0 and 3,
+    # plain stage 3 under its own cfg): each spawn pays its ranks' start and
+    # the group's set-up, and two spawns under a loaded lane met the spawn
+    # deadline
+    job = _zero_job(tmp_path, remat, [("s0", 0), ("s3", 3)])
+    job["runs"].append({"name": "plain_s3", "config": _zero_config(3),
+                        "steps": job["runs"][0]["steps"], "cfg": LLAMA})
+    got = spawn(job, 2, tmp_path)
+    plain = [{k[len("plain_"):]: v for k, v in g.items() if k.startswith("plain_")}
+             for g in got]
     for r in range(2):
         np.testing.assert_allclose(got[r]["s3/losses"], got[r]["s0/losses"], rtol=2e-4,
                                    atol=2e-4)
