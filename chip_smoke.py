@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py   # Llama-3-8B, OPT-1.3B, BLOOM-7b1, EXAONE-4.0-32B, Mixtral-8x7B,
-                            # Falcon-7B, GPT-NeoX-20B, GPT-J-6B, MSA shapes
+                            # Falcon-7B, GPT-NeoX-20B, GPT-J-6B, BERT-base, CLIP ViT-B/32,
+                            # MSA shapes; an HF directory read without transformers
 
 Phases (any failure raises and the script exits nonzero; nothing is caught):
 
@@ -285,7 +286,9 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
 19. Training checkpoints (``phase_checkpoint``): first the machine under
    ``build/`` (free disk, an fsync'd write and a warm read of 2 GiB, free
    host RAM; too little disk for the phase's three tags fails it), then
-   phase 18's configuration at ``CKPT_LAYERS`` layer(s) at ZeRO-3 over a
+   phase 18's widths at ``CKPT_LAYERS`` layer(s) with the head tied to the
+   embedding (``CKPT_TIED``: one 128256 x 4096 table, as Llama-3.2's
+   checkpoints tie it; a tag of 8.92 GB instead of 15.23) at ZeRO-3 over a
    real NCCL group of world size 1. (a) ``CKPT_STEPS`` steps, a regular
    (``default`` engine) and a universal tag, ``CKPT_STEPS`` more steps: the
    uninterrupted run. (b) An engine drawn from another seed loads the
@@ -477,6 +480,42 @@ Phases (any failure raises and the script exits nonzero; nothing is caught):
    or more with every parting a near-tie; at 2 layers every token of v1 and
    the three v2 engines within ``V1_NOISE_RATIO`` x the fp16 forward's own
    error from fp32, a late cache write planted and failing.
+27. The HF importer, BERT and CLIP (``phase_hf``). The flash forward, dQ
+   and dK/dV at BERT-base's attention (8 x 512, 12 heads of 64,
+   non-causal) and CLIP ViT-B/32's (32 x 50, 12 heads, non-causal; 32 x 77,
+   8 heads, causal), bf16 and fp16, against their plain pieces, the
+   forward's last kv tile dropped and the backward's faults 2 and 3
+   failing; timed at BERT-base's shape beside the bound, the plain pieces
+   and SDPA. LayerNorm at 512 and 768 wide (CLIP's text rows, BERT-base's
+   [4096 x 768] timed beside ``F.layer_norm``; a left-out bias failing) and
+   at 64 rows (the warp kernel's planted fault failing). (a) The smoke
+   writes a local HF directory itself (``write_hf_llama_dir``: no
+   ``transformers`` on the card; ``config.json``, two safetensors shards
+   and their index) of Llama-3-8B's widths at ``HF_LAYERS`` (2) layers,
+   random bf16 weights from the seed; ``build_hf_engine`` reads it
+   (``models/hf_import.py``, no ``transformers``) into v2 engines, graph
+   decode plain and with speculative fused verify (launches held to the
+   engine's step counts), and ``init_inference(checkpoint=)`` into v1,
+   whose weights must equal the ones written; every token of the three
+   within ``V1_NOISE_RATIO`` x the bf16 forward's own error from fp32, a
+   late cache write planted and failing. (b) ``initialize(model=...)`` on
+   the reader's stand-in of a ``transformers`` model (``HFCheckpoint``:
+   ``config`` and ``state_dict()``): ``P27_STEPS`` (4) steps of 2 x 4096
+   tokens, launches held to the path's; one step on the card against the
+   CPU (S ``HF_CHECK_SEQ``), dV of kv head 0 zeroed failing. (c) BERT-base
+   (``BertConfig()``, all 12 layers) MLM training, 8 x 512 without a mask
+   (flash non-causal, LayerNorm at 768, the embedding LayerNorm in fp32),
+   4 steps; masked forwards running plain attention (no flash launch; the
+   tokens behind the mask leave the unmasked rows bit for bit; logits
+   within ``V1_NOISE_RATIO`` x the unmasked forward's error from fp32); a
+   step at 2 layers card against CPU, dV zeroed and LayerNorm's db zeroed
+   failing. (d) CLIP ViT-B/32 (``CLIPConfig()``) contrastive training at
+   32 pairs, 4 steps (the vision tower non-causal at S 50, the text tower
+   causal at S 77); a step at 2 layers a tower card against CPU, in fp32 on
+   both sides (the fp32 flash and LayerNorm kernels; a bf16 InfoNCE head
+   rounds the leaves beside it by ~20%) within ``FP32_LOSS_RTOL`` /
+   ``FP32_GRAD_RTOL``, the K biases (zero in exact arithmetic) against their
+   Q biases' norms, the same two faults failing.
 
 The last three lines: ``{"profile_sessions": {...}}`` (the sessions each
 checked profiler window of phases 16 and 17 took), ``{"kernels": [...]}``
@@ -1461,7 +1500,7 @@ INT8 = {"kv_quant": {"enabled": True, "group_size": 128}}
 
 def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, cfg=None,
                        norm: str = "rms_norm", engines=None, params=None,
-                       norms_per_layer: int = 2, base_conf=None, warm=None):
+                       norms_per_layer: int = 2, base_conf=None, warm=None, build=None):
     """A model at full width and depth through ``generate`` in several
     engines in turn, each ``(name, extra config, prompts)``; launch counts
     held to the engine's own step counts. By default Llama-3-8B with
@@ -1472,7 +1511,8 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
     ``params``: the bf16 weights (drawn from the seed when None, and then
     freed at the end); ``base_conf``: the engines' config before each one's
     extra; ``warm``: the warm-up and profiled prompts (by default the
-    first, second and fifth)."""
+    first, second and fifth); ``build``: the engine from its config (by
+    default ``build_engine_v2`` over ``params``)."""
     import torch
 
     from deepspeed_tpu_torch.inference import build_engine_v2
@@ -1484,7 +1524,7 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
 
     family = family or llama
     cfg = cfg or llama.LlamaConfig.llama3_8b()
-    own = params is None
+    own = params is None and build is None
     if own:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = family.init(cfg, gen, dtype=torch.bfloat16, device="cuda")
@@ -1506,7 +1546,8 @@ def phase_spec_serving(seed: int, max_new_tokens: int, card: str, family=None, c
     for name, extra, prompts in engines:
         lengths = [len(p) for p in prompts]
         t0 = time.perf_counter()
-        eng = build_engine_v2(family, cfg, params, config=dict(base_conf, **extra))
+        conf = dict(base_conf, **extra)
+        eng = build(conf) if build else build_engine_v2(family, cfg, params, config=conf)
         torch.cuda.synchronize()
         pool_bytes = sum(x.numel() * x.element_size() for x in eng.cache.values())
         log(f"  {name}: pools {sorted(eng.cache)} {pool_bytes/1e9:.3f} GB, "
@@ -1834,21 +1875,22 @@ def _time_flash(q, k, v, do, kw, work) -> dict:
              "bwd": measure(lambda: flash_bwd_torch(q, k, v, o, lse, do, **kw), 3)}
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     dot = do.transpose(1, 2)
+    causal = kw.get("causal", True)
     gqa, gqa_form = {}, None
     if kt.shape[1] != qt.shape[1]:
         try:     # the yardstick's own GQA option (PyTorch >= 2.5); else widened K/V
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
             gqa, gqa_form = {"enable_gqa": True}, "enable_gqa"
         except TypeError:
             kt, vt = (x.repeat_interleave(qt.shape[1] // kt.shape[1], dim=1) for x in (kt, vt))
             gqa_form = "repeat_interleave"
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa)
 
     def sdpa_fwd_bwd():
         leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-        F.scaled_dot_product_attention(*leaves, is_causal=True, **gqa).backward(dot)
+        F.scaled_dot_product_attention(*leaves, is_causal=causal, **gqa).backward(dot)
 
     lib_fwd = measure(sdpa, 10)["ms"]
     lib_bwd = measure(sdpa_fwd_bwd, 10)["ms"] - lib_fwd
@@ -2318,6 +2360,8 @@ def phase_zero(seed: int, card: str) -> dict:
 
 
 CKPT_LAYERS = 1            # Llama-3-8B width at 1 layer (PERF.md section 4: the depth and why)
+CKPT_TIED = True           # the head tied to the embedding: the tag's bytes, and the phase's
+                           # seconds, cut by 41% (to pay for phase 27; PERF.md section 6, PR 25)
 CKPT_STEPS = 3             # steps before the save, and after each resume
 CKPT_TIMED = 4             # more steps timed after each resume (steady ms: the median)
 CKPT_STEP_TOL = 0.03       # a resumed step's ms against the step before the save
@@ -2410,7 +2454,8 @@ def phase_checkpoint(seed: int, card: str, layers: int = CKPT_LAYERS) -> dict:
     from deepspeed_tpu_torch.testing import faults
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=layers)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=layers,
+                              tie_embeddings=CKPT_TIED)
     io = machine_io(CKPT_DIR)
     state_bytes = cfg.num_params * 12            # fp32 masters, mu, nu
     need = 3 * state_bytes + (8 << 30)           # regular, universal, async tags
@@ -2641,7 +2686,8 @@ def fault_zero_alibi():
 def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-width",
                       fault=fault_zero_dv_head, grad_tol=TRAIN_GRAD_RTOL,
                       against: dict = None, leaf_tol: dict = None, layers: int = 1,
-                      seq: int = 256, fp16=None, loss_tol: float = TRAIN_LOSS_RTOL):
+                      seq: int = 256, fp16=None, loss_tol: float = TRAIN_LOSS_RTOL,
+                      batch: dict = None, model_of=None, card_bf16: bool = True):
     """``layers`` layer(s) at full width (Llama-3-8B by default), S = ``seq``: one step's
     loss and every leaf's gradient, card (kernels, bf16) against CPU (plain,
     fp32), each leaf's error over its reference norm within ``grad_tol``
@@ -2651,28 +2697,40 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     (one context manager, or a tuple of them) must fail the same check.
     ``fp16``: the card computes in fp16 under this DeepSpeed ``fp16`` block,
     its grads unscaled by the loss scale before the compare; ``loss_tol``
-    the loss's limit."""
+    the loss's limit. ``layers`` None keeps ``cfg``'s depth; ``batch`` (by
+    default ``seq + 1`` random tokens) is what each step trains on;
+    ``model_of(device)``: what ``initialize`` takes (by default a
+    ``ModelSpec`` over masters drawn from the seed), its compute dtype the
+    config's. A leaf the loss does not reach has a zero gradient.
+    ``card_bf16`` False: the card computes in fp32 too (its fp32 kernels)."""
     import torch
 
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import llama
 
     family = family or llama
-    cfg = dataclasses.replace(cfg or llama.LlamaConfig.llama3_8b(), num_layers=layers)
-    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
-    masters = family.init(cfg, gen)          # fp32, on the card
-    rs = np.random.RandomState(seed + 2)
-    batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)}
+    cfg = cfg or llama.LlamaConfig.llama3_8b()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    masters = None
+    if model_of is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        masters = family.init(cfg, gen)          # fp32, on the card
+    if batch is None:
+        rs = np.random.RandomState(seed + 2)
+        batch = {"tokens": rs.randint(0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)}
 
     low = torch.float16 if fp16 else torch.bfloat16
-    low_name = "fp16" if fp16 else "bf16"
+    low_name = ("fp16" if fp16 else "bf16") if card_bf16 else "fp32"
 
     def step(device, bf16):
-        params = {k: v.to(device) for k, v in masters.items()}
+        params = {} if masters is None else {k: v.to(device) for k, v in masters.items()}
+        model = model_of(device) if model_of is not None else dst.ModelSpec(
+            params=params, loss_fn=lambda p, b: family.loss_fn(
+                cfg, p, b, compute_dtype=low if bf16 else torch.float32))
         eng, *_ = dst.initialize(
-            model=dst.ModelSpec(params=params, loss_fn=lambda p, b: family.loss_fn(
-                cfg, p, b, compute_dtype=low if bf16 else torch.float32)),
-            config=_train_config(seed, 1, bf16, fp16=fp16 if bf16 else None), device=device)
+            model=model, config=_train_config(seed, 1, bf16, fp16=fp16 if bf16 else None),
+            device=device)
         # the engine copied the leaves: drop the given ones (host memory at
         # EXAONE-4's width)
         params.clear()
@@ -2681,13 +2739,14 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
         inv = 1.0 / eng.loss_scale
         # the grads stay where the step ran (compare holds the card's to the
         # CPU's on the card), unscaled where a loss scale ran
-        grads = {k: p.grad.float() if inv == 1.0 else p.grad.float() * inv
+        grads = {k: torch.zeros_like(p) if p.grad is None else
+                 p.grad.float() if inv == 1.0 else p.grad.float() * inv
                  for k, p in eng.state.params.items()}
         del eng, params
         return loss, grads
 
     t0 = time.perf_counter()
-    loss_gpu, g_gpu = step("cuda", True)
+    loss_gpu, g_gpu = step("cuda", card_bf16)
     gpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     loss_cpu, g_cpu = step("cpu", False)
@@ -2722,7 +2781,8 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     worst = worst_of(rel)
     ok = loss_rel <= loss_tol and rel[worst] <= tol[worst] and \
         all(np.isfinite(list(rel.values())))
-    log(f"  {layers}-layer {label} step, card ({low_name}, kernels) vs CPU (fp32, plain): loss "
+    log(f"  {label} step ({'' if layers is None else f'{layers} layer(s), '}card ({low_name}, "
+        f"kernels) vs CPU (fp32, plain)): loss "
         f"{loss_gpu:.5f} vs {loss_cpu:.5f} (rel {loss_rel:.2e}, tol {loss_tol:g}); "
         f"worst leaf grad rel Frobenius {rel[worst]:.4f} ({worst}, tol {tol[worst]:g}) "
         f"{'ok' if ok else 'FAIL'}; card {gpu_s:.1f} s, cpu {cpu_s:.1f} s [{card}]")
@@ -2736,7 +2796,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
     faults = []
     for fault_cm in (fault if isinstance(fault, tuple) else (fault,)):
         with fault_cm() as what:
-            _, g_bad = step("cuda", True)
+            _, g_bad = step("cuda", card_bf16)
         rel_bad = compare(g_bad)
         del g_bad
         torch.cuda.empty_cache()
@@ -2748,6 +2808,7 @@ def phase_train_whole(seed: int, card: str, family=None, cfg=None, label="8B-wid
                                  "too loose")
         faults.append({"what": what, "leaf": worst_bad, "grad_rel": rel_bad[worst_bad]})
     del masters
+    gc.collect()
     torch.cuda.empty_cache()
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
             "grad_rel": rel, "loss_tol": loss_tol, "grad_tol": grad_tol,
@@ -8350,6 +8411,500 @@ def phase_fp16(seed: int, card: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 27: the HF importer; BERT and CLIP
+# --------------------------------------------------------------------------- #
+HF_LAYERS = 2                  # Llama-3-8B widths in the smoke's HF directory (~3.9 GB bf16)
+HF_SHARDS = 2
+HF_DIR = REPO / "build" / "hf_llama3_8b"
+HF_CHECK_SEQ = 64              # tokens of the stand-in's card-vs-CPU step
+P27_STEPS = 4                  # training steps of each model
+BERT_BATCH, BERT_SEQ = 8, 512  # BERT-base MLM micro-batch (no mask: the flash kernels)
+BERT_CHECK_LAYERS = 2          # the card-vs-CPU steps (BERT-base and CLIP widths)
+BERT_CHECK_SEQ = 128
+CLIP_BATCH = 32                # CLIP ViT-B/32 image-text pairs a step
+CLIP_CHECK_BATCH = 4
+# CLIP's card-vs-CPU step in fp32 on both sides: the CPU parity tests'
+# limits (loss 1e-5, each leaf's grad 1e-4); PR 25 run 2 read 0 and 4.4e-6
+FP32_LOSS_RTOL, FP32_GRAD_RTOL = 1e-5, 1e-4
+HF_NAMES = {"attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm",
+            "wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+            "wo": "self_attn.o_proj", "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+            "w_down": "mlp.down_proj"}
+_ST_DTYPE = {"bfloat16": "BF16", "float16": "F16", "float32": "F32"}
+
+
+def hf_llama_names(params) -> dict:
+    """The port's Llama ``state_dict`` under ``LlamaForCausalLM``'s keys:
+    the port keeps each matrix ``[out, in]``, as ``nn.Linear`` does."""
+    top = {"embed": "model.embed_tokens.weight", "final_norm": "model.norm.weight",
+           "lm_head": "lm_head.weight"}
+    out = {}
+    for name, t in params.items():
+        if name in top:
+            out[top[name]] = t
+        else:
+            _, layer, leaf = name.split(".", 2)
+            out[f"model.layers.{layer}.{HF_NAMES[leaf]}.weight"] = t
+    return out
+
+
+def write_safetensors(path, tensors: dict) -> int:
+    """``tensors`` (name -> CPU tensor) as one ``.safetensors`` file: the
+    8-byte little-endian header length, the JSON header (8-byte aligned),
+    the raw data in header order. Returns the data's bytes."""
+    import torch
+
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().data)
+    return off
+
+
+def write_hf_llama_dir(path, cfg, params, shards: int = HF_SHARDS) -> dict:
+    """A local HF checkpoint of the port's Llama ``params`` (any device,
+    written in their dtype) without ``transformers``: ``config.json`` as
+    ``LlamaForCausalLM.save_pretrained`` writes it, the weights in
+    ``shards`` safetensors files of about equal bytes and their index. No
+    fsync: the reads that follow come from the page cache."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    named = hf_llama_names(params)
+    dtype = str(next(iter(named.values())).dtype).split(".")[-1]
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_size,
+              "max_position_embeddings": cfg.max_seq_len, "rope_theta": cfg.rope_theta,
+              "rms_norm_eps": cfg.rms_norm_eps, "tie_word_embeddings": cfg.tie_embeddings,
+              "attention_bias": False, "hidden_act": "silu", "torch_dtype": dtype}
+    (path / "config.json").write_text(json.dumps(config, indent=2))
+    sizes = {k: t.numel() * t.element_size() for k, t in named.items()}
+    total, per = sum(sizes.values()), -(-sum(sizes.values()) // shards)
+    groups, acc = [[]], 0
+    for k in named:
+        if acc >= per * len(groups):
+            groups.append([])
+        groups[-1].append(k)
+        acc += sizes[k]
+    weight_map = {}
+    for i, keys in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        write_safetensors(path / fname, {k: named[k].cpu() for k in keys})
+        weight_map.update({k: fname for k in keys})
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    return {"bytes": total, "files": len(groups), "config": config}
+
+
+def p27_counters() -> dict:
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                                         flash_fwd_cuda)
+    from deepspeed_tpu_torch.ops.norms import layer_norm_cuda, rms_norm_cuda
+
+    return {"flash_fwd": flash_fwd_cuda, "flash_bwd_dq": flash_bwd_dq_cuda,
+            "flash_bwd_dkv": flash_bwd_dkv_cuda, "rms_norm": rms_norm_cuda,
+            "layer_norm": layer_norm_cuda}
+
+
+def p27_train(label: str, model, batch: dict, gas: int, micro: int, want: dict,
+              card: str) -> dict:
+    """``initialize(model=model)`` on the card (bf16) and ``P27_STEPS``
+    steps of ``train_batch`` on ``batch``; the kernels' launches held to
+    ``want`` (a step's), the loss finite and falling."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    t0 = time.perf_counter()
+    eng, *_ = dst.initialize(model=model, config=_train_config(SEED, gas, True, micro))
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eng.state.params.values())
+    counters = p27_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, step_s = [], []
+    for _ in range(P27_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(batch).loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = {k: c.launches for k, c in counters.items()}
+    expect = {k: want.get(k, 0) * P27_STEPS for k in counters}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    log(f"  {label}: {n_params / 1e6:.1f} M params, set-up {setup_s:.1f} s; losses "
+        f"{['%.4f' % x for x in losses]}; step {step_ms:.1f} ms (steps 2-{P27_STEPS}), peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}, expected {expect} [{card}]")
+    if launches != expect:
+        raise AssertionError(f"{label}: kernel launches {launches} != expected {expect}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: training loss not finite and falling: {losses}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_s": step_s, "step_ms": step_ms, "launches": launches,
+            "n_params": n_params, "peak_mem_bytes": peak, "setup_s": setup_s}
+
+
+def p27_flash(gen, card: str) -> dict:
+    """The flash forward, dQ and dK/dV at BERT-base's attention (8 x 512,
+    12 heads of 64, non-causal) and CLIP ViT-B/32's (32 images x 50
+    positions, 12 heads, non-causal; 32 texts x 77 tokens, 8 heads, causal),
+    bf16 and fp16, against their plain pieces, each with the forward's and
+    the backward's planted faults failing; times at BERT-base's shape beside
+    the bound, the plain pieces and SDPA. LayerNorm at CLIP's text width
+    (32 x 77 rows of 512) and at 768 ([4096 x 768], BERT-base's rows; timed
+    beside ``F.layer_norm``) with a left-out bias failing, and at 64 rows of
+    each width (the warp kernel) with its planted fault failing."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_torch, flash_fwd_cuda,
+                                                         flash_fwd_torch, sm90_planted_fault)
+    from deepspeed_tpu_torch.ops.norms import (layer_norm_cuda, layer_norm_planted_fault,
+                                               layer_norm_torch)
+
+    out = {"cases": {}, "planted_faults": {}, "tol": FLASH_TOL, "floor": FLASH_FLOOR}
+    cases = (("BERT-base 8x512, 12 heads, non-causal", 8, 512, 12, False),
+             ("CLIP vision 32x50, 12 heads, non-causal", 32, 50, 12, False),
+             ("CLIP text 32x77, 8 heads, causal", 32, 77, 8, True))
+    for label, b, s, h, causal in cases:
+        for dtype in (torch.bfloat16, torch.float16):
+            name = f"{label} {str(dtype)[6:]}"
+            q, k, v, do = (torch.randn(b, s, h, 64, generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            kw = {"causal": causal}
+            o, lse = flash_fwd_cuda(q, k, v, **kw)
+            o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+            errs = {"o": check_close(f"flash fwd {name} o", o, o_ref, FLASH_TOL["o"],
+                                     floor=FLASH_FLOOR["o"])}
+            if not bool(((lse - lse_ref).abs() <= LSE_ATOL + LSE_RTOL * lse_ref.abs()).all()):
+                raise AssertionError(f"flash fwd {name}: lse disagrees with the plain version")
+            ref = dict(zip(("dq", "dk", "dv"), flash_bwd_torch(q, k, v, o, lse, do, **kw)))
+            errs.update(_check_pieces(f"flash bwd pieces {name}",
+                                      _bwd_pieces(q, k, v, do, o, lse, kw), ref,
+                                      ("dq", "dk", "dv")))
+            out["cases"][name] = _pieces_result(errs)
+            faults = {}
+            with sm90_planted_fault(2):
+                o_bad, _ = flash_fwd_cuda(q, k, v, **kw)
+                torch.cuda.synchronize()
+            faults["fwd: last kv tile dropped"] = _fault_must_fail(
+                f"{name}, forward's last kv tile dropped", o_bad, o_ref, "o")
+            for fault, what, keys in BWD_FAULTS[1:]:     # each bites at any length
+                with sm90_planted_fault(fault, "bwd"):
+                    bad = _bwd_pieces(q, k, v, do, o, lse, kw)
+                faults[what] = [_fault_must_fail(f"{name}, {what}, {key}", bad[key], ref[key],
+                                                 key) for key in keys]
+            out["planted_faults"][name] = faults
+            if dtype == torch.bfloat16 and label.startswith("BERT"):
+                work = flash_work(s, s, h, False, 0, None, b=b, hd=64, h=h)
+                out["timing"] = _time_flash(q, k, v, do, kw, work)
+                out["pairs"] = work["pairs"]
+                _log_times(label, out["timing"], card)
+            del q, k, v, do, o, lse, o_ref, ref
+            torch.cuda.empty_cache()
+    out["layer_norm"] = {}
+    for rows, d in ((32 * 77, 512), (4096, 768), (64, 512), (64, 768)):
+        for dtype in (torch.bfloat16, torch.float16):
+            x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dtype)
+            w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+            bias = (0.2 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+            tol = RMS_TOL if dtype == torch.bfloat16 else FP16_TOL
+            ref = layer_norm_torch(x, w, bias, 1e-5)
+            err = check_close(f"layer_norm [{rows} x {d}] {str(dtype)[6:]}",
+                              layer_norm_cuda(x, w, bias, 1e-5), ref, tol)
+            # the warp kernel (a few rows an SM) carries the planted fault;
+            # the block kernel's check must fail a left-out bias
+            if rows <= 64:
+                what = "lane 31's share left out"
+                with layer_norm_planted_fault(1):
+                    bad = layer_norm_cuda(x, w, bias, 1e-5)
+                    torch.cuda.synchronize()
+            else:
+                what, bad = "bias left out", layer_norm_cuda(x, w, None, 1e-5)
+            bad_rel = row_err(bad, ref)[1]
+            log(f"  planted fault ({what}) at [{rows} x {d}]: row err/RMS {bad_rel:.4f} "
+                f"(must exceed {tol:g})")
+            if bad_rel <= tol:
+                raise AssertionError(f"the layer_norm check passes a planted fault ({what}) "
+                                     f"at [{rows} x {d}]")
+            r = {"max_abs_err": err[0], "row_err_over_rms": err[1],
+                 "planted_fault": {"what": what, "row_err_over_rms": bad_rel}}
+            if dtype == torch.bfloat16 and rows > 64:
+                nbytes = 2 * x.numel() * 2 + 2 * d * 2
+                r.update(ms=measure(lambda: layer_norm_cuda(x, w, bias, 1e-5), 20)["ms"],
+                         plain_ms=measure(lambda: layer_norm_torch(x, w, bias, 1e-5), 20)["ms"],
+                         library_ms=measure(lambda: F.layer_norm(x, (d,), w, bias, 1e-5),
+                                            20)["ms"],
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                         bytes=nbytes)
+                log(f"  layer_norm [{rows} x {d}] bf16: device kernel {r['ms'] * 1e3:.2f} us, "
+                    f"bound {r['bound_ms'] * 1e3:.2f} us (bytes), plain "
+                    f"{r['plain_ms'] * 1e3:.2f} us, F.layer_norm {r['library_ms'] * 1e3:.2f} "
+                    f"us [{card}]")
+            out["layer_norm"][f"{rows}x{d} {str(dtype)[6:]}"] = r
+            del x, w, bias
+    return out
+
+
+def p27_hf_llama(seed: int, card: str) -> dict:
+    """(a) the smoke's own HF directory of Llama-3-8B widths at ``HF_LAYERS``
+    layers, served through ``build_hf_engine`` (graph decode, plain and
+    speculative with fused verify) and ``init_inference(checkpoint=)``,
+    every token held to the fp32 forward; (b) ``initialize(model=...)`` on
+    the reader's stand-in of a ``transformers`` model: ``P27_STEPS`` steps,
+    and one step on the card against the CPU's."""
+    import shutil
+
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.engine_v2 import build_hf_engine
+    from deepspeed_tpu_torch.models import hf_import, llama
+    from deepspeed_tpu_torch.ops.norms import rms_norm_cuda
+
+    res = {}
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=HF_LAYERS)
+    t0 = time.perf_counter()
+    params = llama.init(cfg, torch.Generator(device="cuda").manual_seed(seed + 27),
+                        dtype=torch.bfloat16, device="cuda")
+    shutil.rmtree(HF_DIR, ignore_errors=True)
+    written = write_hf_llama_dir(HF_DIR, cfg, params)
+    res["write"] = {"bytes": written["bytes"], "files": written["files"],
+                    "s": time.perf_counter() - t0}
+    log(f"  wrote {HF_DIR.name}: {written['files']} safetensors shards + index, "
+        f"{written['bytes'] / 1e9:.2f} GB bf16 in {res['write']['s']:.1f} s")
+    prompts, _ = spec_prompts(seed, cfg.vocab_size)
+    base = {"dtype": "bfloat16", "prefill_bucket": 64,
+            "ragged": {"max_tracked_sequences": 8, "max_ragged_batch_size": 8,
+                       "memory_config_blocks": 64, "block_size": 128}}
+    loads = []
+
+    def build(conf):
+        t = time.perf_counter()
+        eng = build_hf_engine(str(HF_DIR), config=conf)
+        loads.append(time.perf_counter() - t)
+        return eng
+
+    serve = phase_spec_serving(seed, MAX_NEW_TOKENS, card, family=llama, cfg=cfg,
+                               engines=(("bf16", {}, prompts), ("spec_bf16", SPEC, prompts)),
+                               base_conf=base, build=build)
+    log(f"  build_hf_engine: read, imported and on the card in {['%.1f' % x for x in loads]} s")
+    res["serving"] = serve
+    res["build_hf_engine_s"] = loads
+
+    # v1 from the directory; the bf16 weights it holds are the fp32 check's
+    t0 = time.perf_counter()
+    v1 = dst.init_inference(checkpoint=str(HF_DIR),
+                            config={"dtype": "bfloat16", "prefill_bucket": 64})
+    v1_load = time.perf_counter() - t0
+    same = all(torch.equal(v1.params[k], params[k]) for k in params)
+    log(f"  init_inference(checkpoint=): {v1_load:.1f} s; its bf16 weights equal the ones "
+        f"written: {same}")
+    if not same or set(v1.params) != set(params):
+        raise AssertionError("init_inference(checkpoint=) read other weights than the ones "
+                             "written")
+    _v1_generate(v1, prompts[:2], 2)                                     # warm-up
+    torch.cuda.synchronize()
+    rms_norm_cuda.launches = 0
+    t0 = time.perf_counter()
+    v1_outs = _v1_generate(v1, prompts, MAX_NEW_TOKENS)[0]
+    torch.cuda.synchronize()
+    v1_s = time.perf_counter() - t0
+    v1_rms = rms_norm_cuda.launches
+    check_launches("HF Llama v1 generate", {"rms_norm": v1_rms},
+                   {"rms_norm": (2 * cfg.num_layers + 1) * MAX_NEW_TOKENS})
+    with fault_cache_write_late() as what:
+        bad = _v1_generate(v1, prompts[:3], 8)[0]
+    outs = {"v2 bf16": serve["bf16"]["outs"], "v2 spec + fused verify": serve["spec_bf16"]["outs"],
+            "v1": v1_outs}
+    res["check"] = fp32_stream_check(f"HF Llama-3-8B widths at {HF_LAYERS} layers", llama, cfg,
+                                     params, prompts, outs, (what, bad, prompts[:3]))
+    res["v1"] = {"load_s": v1_load, "generate_s": v1_s, "launches": {"rms_norm": v1_rms}}
+    del v1, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) initialize(model=<stand-in>): the reader's config and fp32 weights
+    # behind a transformers model's two attributes
+    t0 = time.perf_counter()
+    stand_in = hf_import.read_hf_dir(str(HF_DIR))
+    read_s = time.perf_counter() - t0
+    if not hf_import.is_hf_model(stand_in):
+        raise AssertionError("the reader's stand-in is not taken for a transformers model")
+    rs = np.random.RandomState(seed + 27)
+    gas, seq = 2, 4096
+    batch = {"tokens": rs.randint(0, cfg.vocab_size, (gas, seq + 1)).astype(np.int32)}
+    per = {"flash_fwd": cfg.num_layers * gas, "flash_bwd_dq": cfg.num_layers * gas,
+           "flash_bwd_dkv": cfg.num_layers * gas, "rms_norm": (2 * cfg.num_layers + 1) * gas}
+    res["train"] = p27_train(f"initialize(model=<HF stand-in>), {HF_LAYERS} layers, "
+                             f"{gas} x {seq} tokens", stand_in, batch, gas, 1, per, card)
+    res["train"]["read_s"] = read_s
+    res["train_whole_path"] = phase_train_whole(
+        seed, card, family=llama, cfg=cfg, label=f"HF Llama-3-8B widths ({HF_LAYERS} layers)",
+        layers=None, seq=HF_CHECK_SEQ, model_of=lambda device: stand_in)
+    del stand_in
+    shutil.rmtree(HF_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def clip_against() -> dict:
+    """CLIP's K biases: zero gradients in exact arithmetic (softmax drops a
+    shift of every key), each held against its layer's Q bias's norm."""
+    return {f"{t}.layers.{l}.bk": f"{t}.layers.{l}.bq"
+            for t in ("text", "vision") for l in range(BERT_CHECK_LAYERS)}
+
+
+def phase_hf(seed: int, card: str) -> dict:
+    """The HF importer, BERT-base and CLIP ViT-B/32 (module docstring,
+    phase 27)."""
+    import torch
+
+    from deepspeed_tpu_torch.models import bert, clip
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    res = {"kernels": p27_flash(gen, card)}
+    res["hf"] = p27_hf_llama(seed, card)
+
+    # (c) BERT-base MLM: 8 x 512 without a mask (flash, non-causal), fp32
+    # embedding LayerNorm then bf16 blocks
+    bcfg = bert.BertConfig()
+    rs = np.random.RandomState(seed + 28)
+
+    def mlm_batch(b, s, vocab):
+        tokens = rs.randint(0, vocab, (b, s)).astype(np.int32)
+        labels = np.where(rs.rand(b, s) < 0.15, tokens, -100).astype(np.int32)
+        return {"tokens": tokens, "labels": labels}
+
+    L = bcfg.num_layers
+    per = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "layer_norm": 2 * L + 1}
+    res["bert"] = {"train": p27_train(
+        f"BERT-base MLM, {BERT_BATCH} x {BERT_SEQ}", bert.model_spec(bcfg),
+        mlm_batch(BERT_BATCH, BERT_SEQ, bcfg.vocab_size), 1, BERT_BATCH, per, card)}
+    res["bert"]["masked"] = p27_bert_masked(seed, bcfg, card)
+    small = dataclasses.replace(bcfg, num_layers=BERT_CHECK_LAYERS)
+    res["bert"]["train_whole_path"] = phase_train_whole(
+        seed, card, family=bert, cfg=small, label="BERT-base width",
+        fault=(fault_zero_dv_head, fault_zero_ln_db), layers=None,
+        batch=mlm_batch(1, BERT_CHECK_SEQ, bcfg.vocab_size))
+
+    # (d) CLIP ViT-B/32 contrastive: the vision tower non-causal at S 50, the
+    # text tower causal at S 77
+    ccfg = clip.CLIPConfig()
+
+    def clip_batch(b):
+        tokens = rs.randint(0, ccfg.eos_token_id - 1, (b, ccfg.max_seq_len)).astype(np.int32)
+        tokens[np.arange(b), rs.randint(8, ccfg.max_seq_len, b)] = ccfg.eos_token_id
+        images = rs.randn(b, 3, ccfg.image_size, ccfg.image_size).astype(np.float32)
+        return {"tokens": tokens, "images": images}
+
+    Lt, Lv = ccfg.text.num_layers, ccfg.vision.num_layers
+    per = {"flash_fwd": Lt + Lv, "flash_bwd_dq": Lt + Lv, "flash_bwd_dkv": Lt + Lv,
+           "layer_norm": 2 * Lt + 1 + 2 * Lv + 2}
+    res["clip"] = {"train": p27_train(
+        f"CLIP ViT-B/32 contrastive, {CLIP_BATCH} pairs",
+        clip.model_spec(ccfg, compute_dtype=torch.bfloat16), clip_batch(CLIP_BATCH), 1,
+        CLIP_BATCH, per, card)}
+    towers = {t: dataclasses.replace(getattr(ccfg, t), num_layers=BERT_CHECK_LAYERS)
+              for t in ("text", "vision")}
+    # in fp32 on both sides: the InfoNCE head in bf16 rounds p - onehot to
+    # ~20% on the leaves beside it (PERF.md section 6, PR 25), so a limit
+    # sound bf16 steps pass would pass the planted faults too
+    res["clip"]["train_whole_path"] = phase_train_whole(
+        seed, card, family=clip, cfg=dataclasses.replace(ccfg, **towers),
+        label="CLIP ViT-B/32 width", fault=(fault_zero_dv_head, fault_zero_ln_db),
+        layers=None, against=clip_against(), batch=clip_batch(CLIP_CHECK_BATCH),
+        card_bf16=False, loss_tol=FP32_LOSS_RTOL, grad_tol=FP32_GRAD_RTOL)
+
+    hl = res["hf"]
+    serve = hl["serving"]
+    bt, ct = res["bert"]["train"]["launches"], res["clip"]["train"]["launches"]
+    res["launches"] = {
+        "rms_norm": {"hf llama serving": serve["bf16"]["launches"]["rms_norm"]
+                     + serve["spec_bf16"]["launches"]["rms_norm"],
+                     "hf llama v1": hl["v1"]["launches"]["rms_norm"],
+                     "hf llama training": hl["train"]["launches"]["rms_norm"]},
+        "paged_decode_attention": {
+            "hf llama serving": serve["bf16"]["launches"]["paged_decode_attention"]
+            + serve["spec_bf16"]["launches"]["paged_decode_attention"]},
+        "paged_spec_verify_attention": {
+            "hf llama serving": serve["spec_bf16"]["launches"]["paged_spec_verify_attention"]},
+        **{k: {"hf llama training": hl["train"]["launches"][k], "bert training": bt[k],
+               "clip training": ct[k]} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+        "layer_norm": {"bert training": bt["layer_norm"], "clip training": ct["layer_norm"]}}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {res['launches']}")
+    log(f"  phase 27: {res['phase_s']:.1f} s")
+    return res
+
+
+def p27_bert_masked(seed: int, cfg, card: str) -> dict:
+    """BERT-base forwards with an ``attention_mask`` (bf16, the card):
+    attention runs plain, as in the JAX package (no flash launch); changing
+    the tokens behind the mask leaves every unmasked row's hidden state bit
+    for bit; the masked forward's MLM logits stay within ``V1_NOISE_RATIO``
+    x the unmasked (flash) bf16 forward's own distance from fp32."""
+    import torch
+
+    from deepspeed_tpu_torch.models import bert
+
+    params = bert.init(cfg, torch.Generator(device="cuda").manual_seed(seed + 29))
+    rs = np.random.RandomState(seed + 29)
+    b, s = 4, 256
+    tokens = torch.as_tensor(rs.randint(0, cfg.vocab_size, (b, s)), device="cuda")
+    mask = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    lens = [256, 200, 77, 129]
+    for i, n in enumerate(lens):
+        mask[i, n:] = 0
+    other = tokens.clone()
+    other[mask == 0] = (other[mask == 0] + 1) % cfg.vocab_size
+    counters = p27_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.inference_mode():
+        out = bert.apply(cfg, params, tokens, attention_mask=mask)
+        out2 = bert.apply(cfg, params, other, attention_mask=mask)
+        ref = bert.apply(cfg, params, tokens, attention_mask=mask, compute_dtype=torch.float32)
+        launches = {k: c.launches for k, c in counters.items()}
+        full = bert.apply(cfg, params, tokens)
+        full32 = bert.apply(cfg, params, tokens, compute_dtype=torch.float32)
+    keep = mask.bool()
+    same = bool(torch.equal(out["hidden"][keep], out2["hidden"][keep]))
+    err = row_err(out["mlm_logits"][keep], ref["mlm_logits"][keep])[1]
+    noise = row_err(full["mlm_logits"], full32["mlm_logits"])[1]
+    tol = V1_NOISE_RATIO * noise
+    want = {k: 3 * (2 * cfg.num_layers + 1) if k == "layer_norm" else 0 for k in counters}
+    log(f"  BERT-base masked forward ({b} x {s}, lengths {lens}): launches {launches} (expected "
+        f"{want}); unmasked rows unchanged by the masked tokens: {same}; MLM logits against "
+        f"fp32 {err:.4f} of a row's RMS (limit {tol:.4f}: {V1_NOISE_RATIO} x the unmasked "
+        f"flash forward's {noise:.4f}) [{card}]")
+    if launches != want or not same or not err <= tol:
+        raise AssertionError("BERT's masked forward: a flash launch, a masked token reaching "
+                             "an unmasked row, or logits away from fp32")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "unmasked_rows_unchanged": same, "logits_vs_fp32": err,
+            "flash_noise": noise, "tol": tol}
+
+
 def fp16_subentries(kernels: list, f16: dict) -> None:
     """Each 16-bit kernel's fp16 instantiation (phase 26) as the ``fp16``
     sub-entry of its row of the ``kernels`` line: its launches on the fp16
@@ -8375,6 +8930,38 @@ def fp16_subentries(kernels: list, f16: dict) -> None:
             k["fp16"] = {"launches": sum(by_path.values()), "launches_by_path": by_path,
                          "max_abs_err": e, **{x: t[x] for x in ("ms", "plain_ms", "bound_ms",
                                                                  "bound_by", "library_ms")}}
+
+
+def hf_subentries(kernels: list, p27: dict) -> None:
+    """Phase 27's paths as the ``hf``, ``bert`` and ``clip`` sub-entries of
+    rows 1-7 of the ``kernels`` line: each path's launches and, where phase
+    27 checked and timed the kernel at its shapes, its largest error and
+    its times (the flash kernels at BERT-base's attention, LayerNorm at
+    BERT-base's [4096 x 768] and CLIP's text rows of 512)."""
+    fl, ln = p27["kernels"], p27["kernels"]["layer_norm"]
+    groups = {"hf": "hf llama", "bert": "bert", "clip": "clip"}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        by_path = p27["launches"].get(k["name"])
+        if by_path is None:
+            continue
+        for sub, prefix in groups.items():
+            mine = {p: n for p, n in by_path.items() if p.startswith(prefix)}
+            if not mine:
+                continue
+            entry = {"launches": sum(mine.values()), "launches_by_path": mine}
+            key = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}.get(k["name"])
+            if key and sub in ("bert", "clip"):
+                errs = [c["max_abs_err"] for name, c in fl["cases"].items()
+                        if name.startswith(sub.upper())]
+                err_keys = ("o",) if key == "fwd" else ("dq",) if key == "dq" else ("dk", "dv")
+                entry["max_abs_err"] = max(e[x] for e in errs for x in err_keys)
+                if sub == "bert":
+                    entry.update({x: fl["timing"][key][x] for x in keys})
+            if k["name"] == "layer_norm":
+                r = ln["4096x768 bfloat16" if sub == "bert" else f"{32 * 77}x512 bfloat16"]
+                entry.update({"max_abs_err": r["max_abs_err"], **{x: r[x] for x in keys}})
+            k[sub] = entry
 
 
 def profile_sessions(detail, path: str = "") -> dict:
@@ -8611,6 +9198,12 @@ def main() -> int:
               "v1)")
     f16 = phase_fp16(SEED, card)
 
+    log_phase("== phase 27: the HF importer (a local HF directory of Llama-3-8B widths through "
+              "build_hf_engine, init_inference and initialize), BERT-base MLM and CLIP "
+              "ViT-B/32 contrastive training")
+    p27 = phase_hf(SEED, card)
+    p27_l = p27["launches"]
+
     rms = kern["rms_norm"]["rows"][64]        # decode: 64 slots x d = 4096
     # the serving paths decode through their graphs: each path's launches are
     # its wrappers' (eager forwards) plus the graph's kernel nodes x replays
@@ -8627,7 +9220,7 @@ def main() -> int:
                     "exaone4 training": exa_l["rms_norm_training"],
                     "exaone4 serving": exa_l["rms_norm_serving"],
                     "mixtral training": mix_l["rms_norm_training"],
-                    "mixtral serving": mix_l["rms_norm_serving"]}
+                    "mixtral serving": mix_l["rms_norm_serving"], **p27_l["rms_norm"]}
     opt_l = {name: opt_serve[name]["launches"] for name in ("bf16", "spec_int8")}
     decode_launches = {"llama serving": main_res["launches"]["paged_decode_attention"],
                        "opt serving": opt_l["bf16"]["paged_decode_attention"],
@@ -8635,7 +9228,8 @@ def main() -> int:
                        "serving fleet": fleet_l["paged_decode_attention"],
                        "exaone4 serving": exa_l["paged_decode_attention"],
                        "mixtral serving": mix_l["paged_decode_attention"],
-                       "falcon serving": p25_l["paged_decode_attention"]}
+                       "falcon serving": p25_l["paged_decode_attention"],
+                       **p27_l["paged_decode_attention"]}
     flash = kern["flash"]
     flash_err = {k: max([c["max_abs_err"][k] for c in flash["cases"].values()]
                         + [p["max_abs_err"][k] for p in (flash["pieces"], flash["opt"])
@@ -8677,7 +9271,8 @@ def main() -> int:
             "launches": (train["launches"][name] + opt_train["launches"][name]
                          + zero["launches"][name] + ckpt["launches"][name]
                          + remat["launches"][name] + optim["launches"][name]
-                         + mix_l[name] + sum(p25_l[name].values())),
+                         + mix_l[name] + sum(p25_l[name].values())
+                         + sum(p27_l[name].values())),
             "launches_by_path": {"llama training": train["launches"][name],
                                  "opt training": opt_train["launches"][name],
                                  "zero training (stages 0-3)": zero["launches"][name],
@@ -8686,7 +9281,8 @@ def main() -> int:
                                  "optimizer training": optim["launches"][name],
                                  # hybrid attention is masked: plain, as in JAX
                                  "exaone4 training": exa["train"]["launches"][name],
-                                 "mixtral training": mix_l[name], **p25_l[name]},
+                                 "mixtral training": mix_l[name], **p25_l[name],
+                                 **p27_l[name]},
             "max_abs_err": err,
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -8717,11 +9313,13 @@ def main() -> int:
     ver_launches["exaone4 serving"] = exa_l["paged_spec_verify_attention"]
     ver_launches["mixtral serving"] = mix_l["paged_spec_verify_attention"]
     ver_launches["falcon serving"] = p25_l["paged_spec_verify_attention"]
+    ver_launches.update(p27_l["paged_spec_verify_attention"])
     ln = kern["layer_norm"]["rows"][64]       # decode: 64 slots x d = 2048
     ln_launches = {"opt serving": opt_l["bf16"]["layer_norm"],
                    "opt spec_int8": opt_l["spec_int8"]["layer_norm"],
                    "opt training": opt_train["launches"]["layer_norm"],
-                   "module system": mods["launches"]["layer_norm"], **p25_l["layer_norm"]}
+                   "module system": mods["launches"]["layer_norm"], **p25_l["layer_norm"],
+                   **p27_l["layer_norm"]}
     qt = kern["quantize"]["timing"]
 
     def quant_entry(key):
@@ -8778,6 +9376,7 @@ def main() -> int:
     ]
     kernels += bias_sparse_entries(kern, bloom_train, entry)
     fp16_subentries(kernels, f16)
+    hf_subentries(kernels, p27)
     detail = {"card": card, "kind": kind, "build_s": build_s, "kernels": kern,
               "bloom_train": bloom_train, "bloom_train_whole_path": bloom_whole,
               "entry_points": entry,
@@ -8788,7 +9387,7 @@ def main() -> int:
               "train_whole_path": train_whole, "serving_core": core, "serving_fleet": fleet,
               "zero": zero, "checkpoint": ckpt, "remat": remat, "init_inference": v1,
               "bloom_v1_peak": bloom_peak, "optimizers": optim, "exaone4": exa,
-              "mixtral": mix, "falcon_neox": p25, "fp16": f16,
+              "mixtral": mix, "falcon_neox": p25, "fp16": f16, "hf_bert_clip": p27,
               "phase_start_s": marks, "total_s": time.perf_counter() - t_all}
     if args.details:
         path = Path(args.details)

@@ -50,7 +50,12 @@ Ported so far:
 - the optimizer set and param groups, and the EXAONE-4 family;
 - Mixtral and the MoE layer (``models/mixtral.py``, ``moe/``) through
   training, v1 and engine v2, with expert parallelism over the ``expert``
-  mesh axis (``moe.expert_parallel_size``).
+  mesh axis (``moe.expert_parallel_size``);
+- the HF importer (``models/hf_import.py``): a ``transformers`` model or a
+  local HF directory, read without ``transformers``, into every family
+  (:func:`initialize`, :func:`init_inference`,
+  ``inference.engine_v2.build_hf_engine``), with the BERT / DistilBERT and
+  CLIP families (``models/bert.py``, ``models/clip.py``).
 
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
 CUDA counterpart: eighteen kernel entries and eight planted-fault hooks in

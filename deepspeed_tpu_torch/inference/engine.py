@@ -318,12 +318,6 @@ class InferenceEngine:
 # --------------------------------------------------------------------------- #
 # init_inference
 # --------------------------------------------------------------------------- #
-def _hf_refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"init_inference from {what} needs the HF importer (models/hf_import), "
-        "which is not ported to deepspeed_tpu_torch yet")
-
-
 def _checkpoint_params(checkpoint: str, model_cfg) -> Dict[str, torch.Tensor]:
     """The params of a tag the training engine wrote: a universal tag (the
     port's or the JAX engine's fragments) or a regular port tag."""
@@ -352,31 +346,56 @@ def init_inference(model=None, config=None, *, family: Optional[ModelFamily] = N
         engine = init_inference(llama, model_cfg=cfg, params=params,
                                 config={"quant": {"enabled": True, "bits": 4}})
 
-    ``checkpoint`` reads the weights from a training checkpoint instead: a
-    directory with ``latest`` or a tag directory, of a regular port tag or a
-    universal one (the port's or the JAX engine's fragments). A
-    ``transformers`` model or a local HF directory raises
-    ``NotImplementedError`` (the HF importer is not ported). Runs on the GPU
+    ``checkpoint`` reads the weights from disk instead: a training
+    checkpoint (a directory with ``latest`` or a tag directory, of a regular
+    port tag or a universal one, the port's or the JAX engine's fragments;
+    pass the model module and ``model_cfg=`` too), or a local HF checkpoint
+    directory, whose family, config and weights its files give
+    (``models/hf_import.py``, no ``transformers`` needed). A ``transformers``
+    model as ``model`` imports its weights into its family. Runs on the GPU
     unless ``device="cpu"``."""
-    if family is None and model is not None and model_cfg is None and params is None \
-            and hasattr(model, "config") and not hasattr(model, "apply_cached"):
-        raise _hf_refusal("a transformers model")
     cfg = family.cfg if family is not None else model_cfg
     if params is None and checkpoint is not None:
-        if not (os.path.exists(os.path.join(checkpoint, "latest"))
+        if (os.path.exists(os.path.join(checkpoint, "latest"))
                 or os.path.exists(os.path.join(checkpoint, "meta.json"))
                 or os.path.isdir(os.path.join(checkpoint, "state"))
                 or os.path.isdir(os.path.join(checkpoint, "param"))):
-            raise _hf_refusal(f"the directory {checkpoint!r} (not a training-engine tag)")
-        if cfg is None:
-            raise ValueError("checkpoint= needs the model module and model_cfg= "
-                             "(or family=)")
-        params = _checkpoint_params(checkpoint, cfg)
+            if cfg is None:
+                raise ValueError("checkpoint= needs the model module and model_cfg= "
+                                 "(or family=)")
+            params = _checkpoint_params(checkpoint, cfg)
+        else:
+            # a local HF checkpoint directory: one read resolves the family,
+            # its config and its weights
+            from ..models.convert import from_jax_params
+            from ..models.hf_import import load_checkpoint_dir_module
+
+            fam, model, model_cfg, tree = load_checkpoint_dir_module(checkpoint)
+            if not hasattr(model, "apply_cached"):
+                raise ValueError(
+                    f"family '{fam}' is not generative (no KV-cached "
+                    f"decode path) — use its module API directly "
+                    f"(e.g. models/{fam}.encode_*) instead of "
+                    f"init_inference")
+            params = from_jax_params(model_cfg, tree)
     if isinstance(config, dict) or config is None:
         config = InferenceConfig.from_dict({**(config or {}), **kwargs})
+    if family is None and model is not None and model_cfg is None and params is None:
+        # init_inference(<transformers model>): import its weights once and
+        # route to the family's implementation
+        from ..models.convert import from_jax_params
+        from ..models.hf_import import from_hf, is_hf_model, resolve_module
+
+        if is_hf_model(model):
+            fam_name = model.config.model_type
+            module = resolve_module(fam_name)
+            model_cfg, tree = from_hf(model, fam_name)
+            params = from_jax_params(model_cfg, tree)
+            model = module
     if family is None:
         if model is None or model_cfg is None:
-            raise ValueError("pass family= or (model module, model_cfg=)")
+            raise ValueError("pass family= or (model module, model_cfg=) "
+                             "or a transformers model")
         family = ModelFamily.from_module(model, model_cfg)
     if params is None:
         raise ValueError("params (or checkpoint=) is required")

@@ -1429,3 +1429,24 @@ def build_engine_v2(model, model_cfg, params: Mapping[str, Any], config=None,
         config = InferenceConfig.from_dict({**(config or {}), **kwargs})
     family = ModelFamily.from_module(model, model_cfg)
     return InferenceEngineV2(family, params, config, device=device)
+
+
+def build_hf_engine(checkpoint: str, config=None, device="cuda",
+                    **kwargs) -> InferenceEngineV2:
+    """One call from a local HF checkpoint directory to a continuous-batching
+    engine (the JAX ``build_hf_engine``, the reference's
+    ``engine_factory.build_hf_engine``): resolve the family, import the
+    weights (``models/hf_import.py``, no ``transformers`` needed), build the
+    v2 engine. A family without a paged path raises ``ValueError``. Runs on
+    the GPU unless ``device="cpu"``."""
+    from ..models.convert import from_jax_params
+    from ..models.hf_import import load_checkpoint_dir_module
+
+    fam, model, model_cfg, tree = load_checkpoint_dir_module(checkpoint)
+    if not hasattr(model, "apply_paged"):
+        # the engine runs the paged block-table path only
+        raise ValueError(
+            f"family '{fam}' has no paged decode path (apply_paged) — use "
+            f"init_inference (v1 KV-cache engine) for this model")
+    return build_engine_v2(model, model_cfg, from_jax_params(model_cfg, tree),
+                           config=config, device=device, **kwargs)

@@ -1,1 +1,2 @@
-from . import llama  # noqa: F401
+from . import (bert, bloom, clip, exaone4, falcon,  # noqa: F401
+               gpt, gptneox, llama, mixtral)

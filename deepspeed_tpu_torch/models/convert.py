@@ -66,6 +66,18 @@ GPT-NeoX / GPT-J: ``layers/wq``, ``wk``, ``wv``, ``wo``, ``w_up``,
 and biases, ``bq`` / ``bk`` / ``bv`` / ``bo`` / ``b_up`` / ``b_down`` and
 ``lm_head_bias`` go across as they are.
 
+BERT: ``layers/wqkv``, ``wo``, ``w_up`` and ``w_down`` are transposed;
+``embed`` (also the tied MLM head), ``pos_embed``, ``type_embed``, the
+LayerNorm scales and biases, the block biases and the pooler (``pooler_w``
+kept ``x @ W``) go across as they are.
+
+CLIP nests two towers: ``text/layers/wq`` ``[L_t, h, h]`` is
+``text.layers.<i>.wq`` (each tower's own layer count), its ``wq``, ``wk``,
+``wv``, ``wo``, ``w_up`` and ``w_down`` transposed; ``text/embed``,
+``vision/patch_embed`` ``[c*p*p, h]``, ``text_projection``,
+``visual_projection``, ``logit_scale`` (0-d) and the rest go across as they
+are, a nested key joined by dots (``vision.class_embed``).
+
 :func:`jax_leaf` is the table the optimizers' layout seam reads
 (``ops/optimizers.py`` :class:`Layout`): where each port leaf lives in the
 JAX tree, for every family.
@@ -73,12 +85,13 @@ JAX tree, for every family.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import bloom, exaone4, falcon, gpt, gptneox, llama, mixtral
+from . import bert, bloom, clip, exaone4, falcon, gpt, gptneox, llama, mixtral
 
 # matrices the JAX trees keep as ``x @ W`` and the port as ``nn.Linear``
 # (every family's names: no other leaf of any shares one outside a MoE
@@ -102,10 +115,19 @@ def _param_shapes(cfg: Any):
                              (exaone4, exaone4.Exaone4Config),
                              (mixtral, mixtral.MixtralConfig),
                              (falcon, falcon.FalconConfig),
-                             (gptneox, gptneox.GPTNeoXConfig)):
+                             (gptneox, gptneox.GPTNeoXConfig),
+                             (bert, bert.BertConfig), (clip, clip.CLIPConfig)):
         if isinstance(cfg, cfg_type):
             return family.param_shapes(cfg)
     raise TypeError(f"no model family of the port takes a {type(cfg).__name__}")
+
+
+def _layer_at(parts) -> Optional[int]:
+    """Index of the ``layers`` part followed by a layer number, or None."""
+    for i in range(len(parts) - 1):
+        if parts[i] == "layers" and parts[i + 1].isdigit():
+            return i
+    return None
 
 
 def jax_leaf(name: str) -> Tuple[str, Optional[int], bool]:
@@ -113,12 +135,14 @@ def jax_leaf(name: str) -> Tuple[str, Optional[int], bool]:
     '/'-joined as JAX ``utils/tree.py`` joins it, ``layers/wq``; the index
     along its stacked layer dim, None when not stacked; whether the port
     keeps it transposed). The same rule for every family of the port; a
-    nested leaf (``layers.<i>.moe.w_gate``) is ``layers/moe/w_gate``."""
+    nested leaf (``layers.<i>.moe.w_gate``, ``text.layers.<i>.wq``) is
+    ``layers/moe/w_gate``, ``text/layers/wq``."""
     transposed = is_transposed(name)
-    if name.startswith("layers."):
-        _, layer, leaf = name.split(".", 2)
-        return "layers/" + leaf.replace(".", "/"), int(layer), transposed
-    return name, None, transposed
+    parts = name.split(".")
+    i = _layer_at(parts)
+    if i is not None:
+        return "/".join(parts[:i + 1] + parts[i + 2:]), int(parts[i + 1]), transposed
+    return "/".join(parts), None, transposed
 
 
 def jax_leaves(cfg: Any) -> Dict[str, Tuple[str, Optional[int], bool]]:
@@ -127,41 +151,58 @@ def jax_leaves(cfg: Any) -> Dict[str, Tuple[str, Optional[int], bool]]:
 
 
 def _to_torch(a: Any) -> torch.Tensor:
+    """A view of ``a`` (numpy, or anything ``np.asarray`` takes) as a tensor,
+    its memory shared where it can be: callers copy what they keep."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact round trip via fp32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(np.array(a))    # a copy: JAX buffers are read-only
+    with warnings.catch_warnings():  # JAX buffers are read-only: never written here
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
+
+
+def _own(t: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """A contiguous copy of ``t`` (of its transpose), in one pass on all the
+    host's cores."""
+    return (t.t() if transpose else t).clone(memory_format=torch.contiguous_format)
+
+
+def _flat_tree(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    """(path parts, leaf) of every leaf of a nested dict tree."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat_tree(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def from_jax_params(cfg: Any,
                     params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``llama``, ``gpt``, ``bloom``, ``exaone4``, ``mixtral``, ``falcon`` or
-    ``gptneox`` params
-    (numpy leaves, a MoE layer's nested ``moe`` dict too) → the port's
-    ``state_dict``. Raises if the tree does not hold exactly the config's
-    parameters."""
+    """A JAX family's params (numpy leaves; nested dicts such as a MoE
+    layer's ``moe`` or CLIP's towers too) → the port's ``state_dict``: each
+    ``layers`` leaf unstacked along its leading dim. Raises if the tree does
+    not hold exactly the config's parameters."""
     want = _param_shapes(cfg)
     out: Dict[str, torch.Tensor] = {}
-    layers = params_np["layers"]
-    for name, leaf in params_np.items():
-        if name == "layers":
-            continue
+    for parts, leaf in _flat_tree(params_np):
         t = _to_torch(leaf)
-        out[name] = t.t().contiguous() if name in TRANSPOSED else t
-    flat = {}
-    for name, leaf in layers.items():
-        if isinstance(leaf, Mapping):
-            flat.update({f"{name}.{k}": v for k, v in leaf.items()})
-        else:
-            flat[name] = leaf
-    for name, stacked in flat.items():
-        stacked = _to_torch(stacked)
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"layers/{name} stacks {stacked.shape[0]} layers, "
-                             f"config has {cfg.num_layers}")
-        for l in range(cfg.num_layers):
-            t = stacked[l]
-            out[f"layers.{l}.{name}"] = (t.t() if is_transposed(name) else t).contiguous()
+        if "layers" not in parts:
+            name = ".".join(parts)
+            out[name] = _own(t, is_transposed(name))
+            continue
+        i = parts.index("layers")
+        head, rest = ".".join(parts[:i + 1]), ".".join(parts[i + 1:])
+        n_layers = len({k.split(".")[i + 1] for k in want
+                        if k.startswith(head + ".") and _layer_at(k.split(".")) == i})
+        if t.shape[0] != n_layers:
+            raise ValueError(f"{'/'.join(parts)} stacks {t.shape[0]} layers, "
+                             f"config has {n_layers}")
+        for l in range(n_layers):
+            name = f"{head}.{l}.{rest}"
+            out[name] = _own(t[l], is_transposed(name))
+    # the leaves outside the layers first, then the layers' a leaf name at a
+    # time (the order the engine has always been handed them in)
+    out = dict(sorted(out.items(), key=lambda kv: _layer_at(kv[0].split(".")) is not None))
     if set(out) != set(want):
         raise ValueError(f"param tree does not match the config: missing "
                          f"{sorted(set(want) - set(out))}, unexpected "
@@ -193,20 +234,18 @@ def to_jax_params(cfg: Any,
         return t.contiguous().numpy()
 
     out: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
+    by_path: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     for name in want:
-        if name.startswith("layers."):
-            _, l, leaf = name.split(".", 2)
-            per_layer.setdefault(leaf, [None] * cfg.num_layers)[int(l)] = \
-                np_leaf(name, state[name])
+        path, layer, _ = jax_leaf(name)
+        leaf = np_leaf(name, state[name])
+        if layer is None:
+            by_path[tuple(path.split("/"))] = {None: leaf}
         else:
-            out[name] = np_leaf(name, state[name])
-    layers: Dict[str, Any] = {}
-    for leaf, ls in per_layer.items():
-        *outer, last = leaf.split(".")
-        d = layers
-        for k in outer:
+            by_path.setdefault(tuple(path.split("/")), {})[layer] = leaf
+    for parts, leaves in by_path.items():
+        d = out
+        for k in parts[:-1]:
             d = d.setdefault(k, {})
-        d[last] = np.stack(ls)
-    out["layers"] = layers
+        d[parts[-1]] = leaves[None] if None in leaves else \
+            np.stack([leaves[l] for l in sorted(leaves)])
     return out

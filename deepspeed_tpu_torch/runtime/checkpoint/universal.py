@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 from ...comm import comm
-from ...models.convert import _param_shapes, is_transposed
+from ...models.convert import _param_shapes, is_transposed, jax_leaf
 from ...utils.logging import log_dist, logger
 from .engines import Part, _host_array, _safe
 from .manifest import (_fsync_path, _sha256_many, fsync_tree, multihost_barrier,
@@ -115,16 +115,18 @@ def fragment_map(shapes: Dict[str, Tuple[int, ...]],
         raise ValueError(f"the engine's leaves are not {type(model_config).__name__}'s "
                          f"parameters: missing {sorted(set(want) - set(shapes))[:8]}, "
                          f"unexpected {sorted(set(shapes) - set(want))[:8]}")
-    n_layers = model_config.num_layers
+    places = {name: jax_leaf(name) for name in want}
+    n_layers: Dict[str, int] = {}
+    for path, layer, _ in places.values():
+        if layer is not None:
+            n_layers[path] = n_layers.get(path, 0) + 1
     out = {}
     for name, shape in want.items():
         t = is_transposed(name) and len(shape) == 2
         fshape = tuple(reversed(shape)) if t else shape
-        if name.startswith("layers."):
-            _, layer, leaf = name.split(".", 2)
-            out[name] = LeafMap(f"layers.{leaf}", (n_layers,) + fshape, int(layer), t)
-        else:
-            out[name] = LeafMap(name, fshape, None, t)
+        path, layer, _ = places[name]
+        stacked = (n_layers[path],) if layer is not None else ()
+        out[name] = LeafMap(path.replace("/", "."), stacked + fshape, layer, t)
     return out
 
 
@@ -682,11 +684,13 @@ def model_config_to_json(cfg: Any) -> Optional[Dict[str, Any]]:
 def model_config_from_json(doc: Optional[Dict[str, Any]]) -> Any:
     if not doc:
         return None
-    from ...models import bloom, exaone4, falcon, gpt, gptneox, llama, mixtral
+    from ...models import bert, bloom, clip, exaone4, falcon, gpt, gptneox, llama, mixtral
 
     types = {c.__name__: c for c in (llama.LlamaConfig, gpt.GPTConfig, bloom.BloomConfig,
                                      exaone4.Exaone4Config, mixtral.MixtralConfig,
-                                     falcon.FalconConfig, gptneox.GPTNeoXConfig)}
+                                     falcon.FalconConfig, gptneox.GPTNeoXConfig,
+                                     bert.BertConfig, clip.CLIPConfig)}
+    # CLIPConfig turns its towers' dicts back into CLIPTowerConfig
     return types[doc["type"]](**doc["fields"])
 
 

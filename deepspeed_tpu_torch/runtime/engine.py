@@ -825,7 +825,10 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
                generator: Optional[torch.Generator] = None,
                mesh_mgr: Optional[MeshManager] = None, **kwargs):
     """Returns ``(engine, optimizer, training_dataloader, lr_scheduler)`` —
-    the reference's 4-tuple. Runs on the GPU unless ``device="cpu"``; raises
+    the reference's 4-tuple. ``model`` is a :class:`ModelSpec` or a
+    ``transformers`` model (``models/hf_import.py`` ``is_hf_model``; its
+    weights imported into its family's spec, computing in the config's
+    bf16 / fp16 / fp32). Runs on the GPU unless ``device="cpu"``; raises
     ``RuntimeError`` when no GPU is present, and ``NotImplementedError``
     for config blocks the port does not implement yet or a model that
     computes in a dtype no kernel takes on the GPU (:func:`check_compute_dtype`:
@@ -838,14 +841,30 @@ def initialize(args=None, model: Optional[ModelSpec] = None, optimizer=None,
         config = config_params
     if config is None and args is not None:
         config = getattr(args, "deepspeed_config", None)
+    if model is None:
+        raise ValueError("model (ModelSpec) is required")
+    hf_model = None
     if not isinstance(model, ModelSpec):
-        raise TypeError(f"model must be a ModelSpec, got {type(model)}")
+        # initialize(model=<transformers model>): the weights are imported
+        # once the config is parsed, so the family computes in its precision
+        from ..models.hf_import import is_hf_model
+
+        if not is_hf_model(model):
+            raise TypeError(f"model must be a ModelSpec or a transformers "
+                            f"model, got {type(model)}")
+        hf_model = model
     device = resolve_device(device)
     world = comm.get_world_size()
     if dist.is_initialized() and dist.get_backend() == "nccl" and device.type != "cuda":
         raise ValueError("an NCCL process group needs device='cuda'")
     cfg = parse_config(config, world_size=world)
     check_ported(cfg, world_size=world)
+    if hf_model is not None:
+        from ..models.hf_import import spec_from_hf
+
+        model = spec_from_hf(hf_model, compute_dtype=(
+            torch.bfloat16 if cfg.bf16.enabled else
+            torch.float16 if cfg.fp16.enabled else torch.float32))
     check_compute_dtype(model.compute_dtype, device)
     check_head_dim(model.config, device)
     engine = DeepSpeedTPUEngine(model=model, config=cfg, device=device,

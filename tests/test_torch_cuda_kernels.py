@@ -2620,3 +2620,84 @@ def test_fp16_blocksparse_and_evoformer_still_refuse(cuda_device):
     x = torch.zeros(1, 4, 16, 2, 32, dtype=torch.float16, device=cuda_device)
     with pytest.raises(ValueError, match="B.2"):
         evoformer_attention(x, x, x)
+
+
+# --------------------------------------------------------------------------- #
+# BERT-base's and CLIP ViT-B/32's attention and LayerNorm widths (the HF
+# importer's encoder families)
+# --------------------------------------------------------------------------- #
+HF_ENCODER_CASES = [   # (B, Sq, Skv, H, Hkv, D, causal, q_offset, window)
+    (8, 512, 512, 12, 12, 64, False, 0, None),    # BERT-base, no attention mask
+    (32, 50, 50, 12, 12, 64, False, 0, None),     # CLIP vision: the class token + 49 patches
+    (32, 77, 77, 8, 8, 64, True, 0, None),        # CLIP text
+]
+HF_ENCODER_FAULTS = [("fwd", 2), ("bwd", 2), ("bwd", 3)]   # each bites at any length
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", HF_ENCODER_CASES)
+def test_flash_at_bert_and_clip_shapes(cuda_device, case, dtype):
+    """The forward, dQ and dK/dV at BERT-base's and CLIP's shapes (S 512
+    and 50 non-causal, S 77 causal, hd 64; tails of both tiles at 50 and
+    77) against the plain pieces, in bf16 and fp16; each planted fault of
+    the Hopper kernels (the last kv tile dropped, the last tile of each
+    band dropped, a group's last query head skipped: one head a group, so
+    all of it) fails the same check."""
+    tol = FLASH_TOL[torch.bfloat16] if dtype == torch.bfloat16 else FLASH_TOL_FP16
+    q, k, v, do = (t.to(dtype) for t in flash_inputs(case, torch.float32, cuda_device,
+                                                      seed=case[1]))
+    kw = dict(causal=case[6])
+    o, lse, grads = _fp16_backward(q, k, v, do, kw)
+    o_ref, lse_ref = flash_fwd_torch(q, k, v, **kw)
+    assert o.dtype == dtype
+    assert_flash_close(o, o_ref, tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    refs = flash_bwd_torch(q, k, v, o, lse, do, **kw)
+    for got, ref in zip(grads, refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert_flash_close(got, ref, tol)
+    for kernels, fault in HF_ENCODER_FAULTS:
+        with sm90_planted_fault(fault, kernels):
+            o_bad, _, bad = _fp16_backward(q, k, v, do, kw)
+        outs, want = ((o_bad,), (o_ref,)) if kernels == "fwd" else (bad, refs)
+        failed = 0
+        for got, ref in zip(outs, want):
+            try:
+                assert_flash_close(got, ref, tol)
+            except AssertionError:
+                failed += 1
+        assert failed, f"planted fault {fault} ({kernels}) passed at {case}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows,d", [(32 * 77, 512), (32 * 50, 768), (4096, 768), (64, 512),
+                                    (64, 768)])
+def test_layer_norm_at_bert_and_clip_widths(cuda_device, rows, d, dtype):
+    """LayerNorm at CLIP's text width (512) and BERT-base's / CLIP's vision
+    width (768), at their training rows (the block kernel) and at 64 rows
+    (the warp kernel): forward and backward against the plain versions; a
+    left-out bias fails the block kernel's check, the planted fault the
+    warp kernel's."""
+    x, w, b = _ln_inputs(rows, d, dtype, cuda_device)
+    tol = RMS_TOL[dtype] if dtype != torch.float32 else 1e-4
+    ref = layer_norm_torch(x, w, b, 1e-5).float()
+    before = layer_norm_cuda.launches
+    got = layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert layer_norm_cuda.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+    dy = torch.randn(rows, d, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(d)).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    layer_norm(*leaves, 1e-5).backward(dy)
+    gtol = tol if dtype == torch.float32 else 2e-2
+    for leaf, want in zip(leaves, layer_norm_bwd(x, w, dy, 1e-5)):
+        torch.testing.assert_close(leaf.grad.float(), want.float(), rtol=gtol, atol=gtol)
+    if rows > 64:
+        bad = layer_norm_cuda(x, w, None, 1e-5)
+    else:
+        with layer_norm_planted_fault(1):
+            bad = layer_norm_cuda(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(bad.float(), ref, rtol=tol, atol=tol)

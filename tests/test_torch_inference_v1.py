@@ -16,9 +16,11 @@ KV cache, weight-only int8 / packed int4 / fp8) against the JAX package's
   identical rows against the filtered softmax of the prefill logits, within
   5 standard deviations a token.
 - Quantized weights and ``init_inference(checkpoint=)``: in
-  ``test_torch_inference_v1_quant.py``. A ``transformers``-style model and
-  a directory that is no training tag raise ``NotImplementedError`` naming
-  ``models/hf_import``.
+  ``test_torch_inference_v1_quant.py``; from a ``transformers`` model or a
+  local HF directory: in ``test_torch_hf_entry_points.py``. The HF inputs
+  the JAX package refuses raise its ``ValueError``: an object without
+  ``state_dict``, a ``config.json`` without ``model_type``, a
+  ``rope_scaling`` checkpoint.
 - The port's v2 engine against its v1 (Llama, GPT): greedy streams equal (as
   JAX ``tests/test_inference.py:435`` holds its v2 to its v1).
 """
@@ -171,15 +173,31 @@ def test_sampling_follows_the_filtered_distribution():
 # quantized weights
 # --------------------------------------------------------------------------- #
 def test_hf_inputs_raise(tmp_path):
+    """The HF inputs that ``init_inference`` still refuses, as the JAX
+    package refuses them: an object without ``state_dict`` (no transformers
+    model), a ``config.json`` without ``model_type``, and a ``rope_scaling``
+    checkpoint (JAX's words)."""
+    transformers = pytest.importorskip("transformers")
+    from deepspeed_tpu.models.hf_import import llama_config_from_hf
+
     class FakeHF:
         config = type("Config", (), {"model_type": "llama"})()
 
-    with pytest.raises(NotImplementedError, match="models/hf_import"):
+    with pytest.raises(ValueError, match="transformers model"):
         init_inference(FakeHF(), device="cpu")
     (tmp_path / "hf").mkdir()
     (tmp_path / "hf" / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="models/hf_import"):
+    with pytest.raises(ValueError, match="model_type"):
         init_inference(checkpoint=str(tmp_path / "hf"), device="cpu")
+    hf_cfg = transformers.LlamaConfig(
+        vocab_size=64, hidden_size=32, intermediate_size=48, num_hidden_layers=1,
+        num_attention_heads=2, rope_scaling={"rope_type": "linear", "factor": 2.0})
+    transformers.LlamaForCausalLM(hf_cfg).save_pretrained(tmp_path / "scaled")
+    with pytest.raises(ValueError) as jax_err:
+        llama_config_from_hf(hf_cfg)
+    with pytest.raises(ValueError, match="rope_scaling") as err:
+        init_inference(checkpoint=str(tmp_path / "scaled"), device="cpu")
+    assert str(err.value) == str(jax_err.value)
 
 
 @pytest.mark.parametrize("family", ["llama", "gpt"])

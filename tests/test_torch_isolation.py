@@ -384,3 +384,52 @@ def test_the_fp16_files_are_named_and_the_card_side_imports_no_jax():
                  "deepspeed_tpu_torch.ops.sparse_attention",
                  "deepspeed_tpu_torch.ops.evoformer_attn"):
         assert name in mods
+
+
+def test_hf_importer_stands_alone_and_its_entry_points_default_to_the_gpu(tmp_path):
+    """``models/hf_import.py`` imports neither ``transformers`` nor
+    ``safetensors`` (the card's machine has neither): not in its source, and
+    not in ``sys.modules`` after reading a directory in a fresh process.
+    ``build_hf_engine``, ``init_inference(checkpoint=)`` and ``initialize``
+    on an HF model run on the card unless the CPU is asked for."""
+    transformers = pytest.importorskip("transformers")
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference.engine_v2 import build_hf_engine
+
+    mods = _port_modules()
+    for name in ("deepspeed_tpu_torch.models.hf_import", "deepspeed_tpu_torch.models.bert",
+                 "deepspeed_tpu_torch.models.clip"):
+        assert name in mods
+    src = PKG / "models" / "hf_import.py"
+    assert not set(_imported_roots(src)) & {"transformers", "safetensors"}
+    hf_cfg = transformers.LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=48,
+                                      num_hidden_layers=1, num_attention_heads=2,
+                                      max_position_embeddings=64)
+    model = transformers.LlamaForCausalLM(hf_cfg)
+    model.save_pretrained(tmp_path / "hf")
+    code = ("import sys\n"
+            "from deepspeed_tpu_torch.models import hf_import\n"
+            f"fam, mod, cfg, tree = hf_import.load_checkpoint_dir_module({str(tmp_path / 'hf')!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('transformers', 'safetensors', 'jax', 'deepspeed_tpu')]\n"
+            "assert fam == 'llama' and not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]
+    if torch.cuda.is_available():
+        pytest.skip("the default-device half is for a machine without a GPU")
+    path = str(tmp_path / "hf")
+    conf = {"dtype": "float32"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_hf_engine(path, config=conf)
+    assert build_hf_engine(path, config=conf, device="cpu").model.embed.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_inference(checkpoint=path, config=conf)
+    assert init_inference(checkpoint=path, config=conf, device="cpu").device.type == "cpu"
+    train = {"train_batch_size": 1, "steps_per_print": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=model, config=train)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=train, device="cpu")
+    assert {p.device.type for p in eng.state.params.values()} == {"cpu"}
